@@ -1,7 +1,8 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and hold
-every kernel on it against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and hold
+every kernel on them against its plain PyTorch version.
 
-    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py                 # all phases, one card
+    python3 chip_smoke.py --kernels-only  # build + phase 1 only
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
@@ -9,11 +10,18 @@ prints no result line:
 0. build    every CUDA kernel from ``paddle_tpu_torch/ops/cuda/csrc``,
             one nvcc per source, all started together (ptxas report
             included);
-1. kernels  each kernel against its plain version on the card at the
-            full-width shapes (ragged lengths, -1 table tails, one small
-            odd shape): paged attention within atol/rtol 1e-4 (sum
-            order), sampling bit for bit; kernel, plain and library
-            times and the least time the card could take (bound);
+1. kernels  each kernel against its plain version on the card at its
+            main path's shapes: paged attention within atol/rtol 1e-4
+            (sum order), sampling bit for bit (decode slice); flash
+            attention forward and backward at BERT-base's
+            128 x 128 x 12 x 64 in bf16 (atol 2e-2 + rtol 1e-2, one bf16
+            ulp) and f32 (atol 1e-4), one f32 case at L = 512 and one
+            causal case, dropout 0.1 with the keep mask read back bit for
+            bit; the fused vocabulary cross-entropy forward and backward
+            at 16384 x 768 x 30592 f32 with ~15% ignored rows (largest
+            error within 1e-4 of the largest value); fused AdamW over
+            BERT-base's parameter list, bit for bit. Kernel, plain and
+            library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -26,11 +34,22 @@ prints no result line:
             printed as such); the f32 attention kernel launched;
 4. sample   int8 pool, temperature 0.8, top_k 8, sample_seed 7, run
             twice: identical tokens, the sampling kernel launched;
-5. the ``kernels`` line (launches counted over phases 2-4), then the
+5. bert_parity  a tiny BERT (2 layers, hidden 128, seq 128, batch 8, no
+            dropout, f32) trained one AdamW step through ``TrainStep``
+            with the kernels and again with the plain versions, on the
+            card: loss, every gradient and every updated parameter agree;
+6. bert     BERT-base pretraining (vocab 30592, 12 layers, 12 x 64
+            heads, ffn 3072), batch 128 x seq 128, AMP O1 bf16, dropout
+            0.1, AdamW lr 1e-4, the same batch every step (as
+            ``bench.py`` ``bench_bert``): 3 warm-up and 10 timed steps;
+            tokens/s, step ms, MFU, the loss (finite, falling), exact
+            kernel launches per step, and a profiled step by family;
+7. the ``kernels`` line (launches counted over phases 2-4 for the
+   decode kernels and over phase 6 for the training kernels), then the
    card's name and power limit, then the result line.
 
-Weights are random, made on the card from a seed. Depth is the
-configuration's own (24 layers).
+Weights are random, made on the card from a seed. Depth and width are
+the configurations' own.
 """
 from __future__ import annotations
 
@@ -45,6 +64,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 ATOL = RTOL = 1e-4            # paged attention: the sum order differs
 
 FULL = dict(vocab_size=32000, n_layers=24, n_heads=16, head_dim=128,
@@ -454,6 +474,483 @@ def phase_sample(torch, dec, counters, params, cfg, rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, training kernels: flash attention, fused xent, fused Adam
+# ---------------------------------------------------------------------------
+def rates(flops_per_s, kind):
+    """The rates a row's bounds are taken at."""
+    return {"bytes_per_s": HBM_BYTES_PER_S, "ops_per_s": flops_per_s,
+            "ops_type": kind}
+
+
+def bound_of(bytes_, flops, rate):
+    """(least ms, what bounds it) for ``bytes_`` moved once and
+    ``flops`` at ``rate``."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def max_err(a, b):
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def check_flash(torch, fa, timing):
+    """K1a/K1b against the plain version: BERT-base's shapes in bf16 and
+    f32 with dropout 0.1, f32 at L = 512, f32 causal; the dropout mask
+    read back bit for bit."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [("bf16", 128, 128, 12, 64, torch.bfloat16, False, 0.1),
+             ("f32", 128, 128, 12, 64, torch.float32, False, 0.1),
+             ("f32_L512", 8, 512, 12, 64, torch.float32, False, 0.0),
+             ("f32_causal", 8, 256, 12, 64, torch.float32, True, 0.1)]
+    seed = 0x5EED1234ABCD
+    row = {"cases": {}}
+    main = None
+    for name, B, L, H, D, dt, causal, p in cases:
+        q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(4)]
+        out, lse = fa._cuda_fwd(q, k, v, causal, p, seed)
+        rout, rlse = fa._plain_fwd(q, k, v, causal, p, seed)
+        grads = fa._cuda_bwd(q, k, v, out, lse, do, causal, p, seed)
+        rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, seed)
+        torch.cuda.synchronize()
+        atol, rtol = (2e-2, 1e-2) if dt == torch.bfloat16 else (1e-4, 0.0)
+        errs = {"out": max_err(out, rout), "lse": max_err(lse, rlse)}
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, rgrads):
+            errs[gname] = max_err(got, want)
+            expect(bool(torch.isfinite(got.float()).all()),
+                   f"flash {name}: non-finite {gname}")
+            expect(torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=rtol),
+                   f"flash {name}: {gname} disagrees, max abs err "
+                   f"{errs[gname]}")
+        expect(torch.allclose(out.float(), rout.float(), atol=atol,
+                              rtol=rtol),
+               f"flash {name}: out disagrees, max abs err {errs['out']}")
+        expect(errs["lse"] <= 1e-4, f"flash {name}: lse err {errs['lse']}")
+        row["cases"][name] = errs
+        if name == "bf16":
+            main = (q, k, v, do, out, lse, p)
+    # the dropout mask, bit for bit: q = k = 0 gives P = 1/L, v = I reads
+    # keep / (L (1 - p)) back out of the kernel's output
+    L, p = 64, 0.1
+    z = torch.zeros((4, L, 3, 64), device=dev)
+    eye = torch.eye(L, device=dev).reshape(1, L, 1, 64).expand(4, L, 3, 64)
+    out, _ = fa._cuda_fwd(z, z, eye.contiguous(), False, p, seed)
+    keep = fa.philox_keep_mask(seed, 12, L, L, p, dev)
+    got = (out > 0).permute(0, 2, 1, 3).reshape(12, L, L)
+    expect(torch.equal(got, keep), "flash dropout mask differs from the "
+                                   "plain Philox mask")
+    row["mask_bitwise"] = True
+    row["keep_rate"] = float(keep.float().mean())
+    row["fwd_max_abs_err"] = max(c["out"] for c in row["cases"].values())
+    row["bwd_max_abs_err"] = max(max(c["dq"], c["dk"], c["dv"])
+                                 for c in row["cases"].values())
+    if timing:
+        q, k, v, do, out, lse, p = main
+        B, L, H, D = q.shape
+        el = B * L * H * D * 2                      # one bf16 tensor
+        # forward: q, k, v in, out and lse out; QK^T and PV at bf16 rate
+        fb, fby = bound_of(4 * el + B * H * L * 4, 4 * B * H * L * L * D,
+                           BF16_FLOPS_PER_S)
+        # backward: q, k, v, out, dout, lse in; dq, dk, dv out; S, dP,
+        # dV, dQ, dK products
+        bb, bby = bound_of(8 * el + B * H * L * 4, 10 * B * H * L * L * D,
+                           BF16_FLOPS_PER_S)
+        F = torch.nn.functional
+        qh, kh, vh, doh = (x.permute(0, 2, 1, 3).contiguous()
+                           for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, dropout_p=p)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
+            return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qg, kg, vg), doh,
+                                       retain_graph=True)
+
+        row.update({
+            "fwd_ms": time_ms(torch, lambda: fa._cuda_fwd(
+                q, k, v, False, p, seed)),
+            "fwd_plain_ms": time_ms(torch, lambda: fa._plain_fwd(
+                q, k, v, False, p, seed), iters=5),
+            "fwd_library_ms": time_ms(torch, lib_fwd),
+            "fwd_bound_ms": fb, "fwd_bound_by": fby,
+            "bwd_ms": time_ms(torch, lambda: fa._cuda_bwd(
+                q, k, v, out, lse, do, False, p, seed)),
+            "bwd_plain_ms": time_ms(torch, lambda: fa._plain_bwd(
+                q, k, v, out, lse, do, False, p, seed), iters=5),
+            "fwd_bwd_library_ms": time_ms(torch, lib_fwd_bwd),
+            "bwd_library_ms": time_ms(torch, lib_bwd),
+            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+            "bound_rates": rates(BF16_FLOPS_PER_S, "bf16 tensor-core")})
+    return row
+
+
+def check_xent(torch, fx, timing):
+    """K2a/K2b against the plain version at BERT-base's MLM head."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    N, H, V = 16384, 768, 30592
+    h = torch.randn((N, H), generator=gen, device=dev)
+    w = torch.randn((V, H), generator=gen, device=dev) * 0.02
+    b = torch.randn((V,), generator=gen, device=dev) * 0.02
+    lab = torch.randint(0, V, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ignored = torch.rand((N,), generator=gen, device=dev) < 0.15
+    lab = torch.where(ignored, torch.full_like(lab, -1), lab)
+    valid = lab >= 0
+    g = valid.float() / valid.sum().float()        # d(mean)/d(row loss)
+    lse, ll = fx._cuda_fwd(h, w, b, lab)
+    rlse, rll = fx._plain_fwd(h, w, b, lab)
+    dh, dw, db = fx._cuda_bwd(h, w, b, lab, lse, g)
+    rdh, rdw, rdb = fx._plain_bwd(h, w, b, lab, rlse, g)
+    torch.cuda.synchronize()
+    row = {"ignored_rows": int(ignored.sum())}
+    for name, got, want in (("lse", lse, rlse), ("ll", ll, rll),
+                            ("dh", dh, rdh), ("dw", dw, rdw),
+                            ("db", db, rdb)):
+        err = max_err(got, want)
+        scale = float(want.abs().max())
+        row[name + "_max_abs_err"] = err
+        row[name + "_max_abs"] = scale
+        expect(bool(torch.isfinite(got).all()), f"xent: non-finite {name}")
+        expect(err <= 1e-4 * scale, f"xent: {name} disagrees, max abs err "
+                                    f"{err} against max |value| {scale}")
+    row["fwd_max_abs_err"] = max(row["lse_max_abs_err"],
+                                 row["ll_max_abs_err"])
+    row["bwd_max_abs_err"] = max(row["dh_max_abs_err"],
+                                 row["dw_max_abs_err"],
+                                 row["db_max_abs_err"])
+    if timing:
+        io = (N * H + V * H + V + N) * 4
+        fb, fby = bound_of(io + 2 * N * 4, 2 * N * H * V, F32_FLOPS_PER_S)
+        # backward: the logits once more (from lse), dh and dW
+        bb, bby = bound_of(io + 2 * N * 4 + (N * H + V * H + V) * 4,
+                           6 * N * H * V, F32_FLOPS_PER_S)
+        F = torch.nn.functional
+        lab64 = lab.long()
+        hg, wg, bg = (x.clone().requires_grad_() for x in (h, w, b))
+
+        def lib_fwd():
+            return F.cross_entropy(torch.matmul(h, w.t()) + b, lab64,
+                                   ignore_index=-1)
+
+        def lib_fwd_bwd():
+            loss = F.cross_entropy(torch.matmul(hg, wg.t()) + bg, lab64,
+                                   ignore_index=-1)
+            return torch.autograd.grad(loss, (hg, wg, bg))
+
+        lib_loss = F.cross_entropy(torch.matmul(hg, wg.t()) + bg, lab64,
+                                   ignore_index=-1)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_loss, (hg, wg, bg),
+                                       retain_graph=True)
+
+        row.update({
+            "fwd_ms": time_ms(torch, lambda: fx._cuda_fwd(h, w, b, lab),
+                              iters=5, warmup=1),
+            "fwd_plain_ms": time_ms(torch, lambda: fx._plain_fwd(
+                h, w, b, lab), iters=5, warmup=1),
+            "fwd_library_ms": time_ms(torch, lib_fwd, iters=5, warmup=1),
+            "fwd_bound_ms": fb, "fwd_bound_by": fby,
+            "bwd_ms": time_ms(torch, lambda: fx._cuda_bwd(
+                h, w, b, lab, lse, g), iters=5, warmup=1),
+            "bwd_plain_ms": time_ms(torch, lambda: fx._plain_bwd(
+                h, w, b, lab, lse, g), iters=5, warmup=1),
+            "fwd_bwd_library_ms": time_ms(torch, lib_fwd_bwd, iters=5,
+                                          warmup=1),
+            "bwd_library_ms": time_ms(torch, lib_bwd, iters=5, warmup=1),
+            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+        del lib_loss
+    return row
+
+
+def check_adam(torch, fo, shapes, timing):
+    """K3 over BERT-base's parameter list, bit for bit."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def make(scale, positive=False):
+        out = []
+        for s in shapes:
+            x = torch.randn(s, generator=gen, device=dev) * scale
+            out.append(x.abs() if positive else x)
+        return out
+
+    ps, gs, ms, vs = make(0.02), make(1e-3), make(1e-4), make(1e-6, True)
+    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, step=3,
+              weight_decay=0.01)
+    cache = {}
+    fo.fused_adam_(kp, gs, km, kv, cache=cache, **hp)
+    lr, c1, c2, lrwd = fo.adam_scalars(1e-4, 0.9, 0.999, 3, 0.01)
+    fo._plain_adam_(ps, gs, ms, vs, lr, 0.9, 0.999, 1e-8, c1, c2, lrwd,
+                    False)
+    torch.cuda.synchronize()
+    differ = sum(int(not torch.equal(a, b))
+                 for a, b in zip(kp + km + kv, ps + ms + vs))
+    expect(differ == 0, f"fused Adam differs bitwise in {differ} tensors")
+    n = sum(p.numel() for p in ps)
+    row = {"params": len(shapes), "elements": n, "max_abs_err": 0.0,
+           "bitwise": True}
+    if timing:
+        t_b, by = bound_of(28 * n, 16 * n, F32_FLOPS_PER_S)
+        lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
+        for p, gr in zip(lib_p, gs):
+            p.grad = gr.clone()
+        lib = torch.optim.AdamW(lib_p, lr=1e-4, weight_decay=0.01,
+                                fused=True)
+        row.update({
+            "ms": time_ms(torch, lambda: fo.fused_adam_(
+                kp, gs, km, kv, cache=cache, **hp)),
+            "plain_ms": time_ms(torch, lambda: fo._plain_adam_(
+                ps, gs, ms, vs, lr, 0.9, 0.999, 1e-8, c1, c2, lrwd, False),
+                iters=5),
+            "library_ms": time_ms(torch, lib.step),
+            "bound_ms": t_b, "bound_by": by,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: the BERT pretraining step
+# ---------------------------------------------------------------------------
+BERT_BATCH, BERT_SEQ = 128, 128
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                 "fused_xent_fwd", "fused_xent_bwd", "fused_adam")
+
+
+class plain_kernels:
+    """Route the training kernels' wrappers to their plain versions on
+    the card, for the parity run (the port itself has no such switch:
+    a CUDA tensor always launches the kernel)."""
+
+    def __init__(self, fa, fx, fo, optmod):
+        def plain_adam(params, grads, m1, m2, *, lr, beta1, beta2, eps,
+                       step, weight_decay=0.0, skip=False, cache=None):
+            lr32, c1, c2, lrwd = fo.adam_scalars(lr, beta1, beta2, step,
+                                                 weight_decay)
+            fo._plain_adam_(params, grads, m1, m2, lr32, beta1, beta2, eps,
+                            c1, c2, lrwd, skip)
+
+        self.swaps = [(fa, "flash_attention_fwd", fa._plain_fwd),
+                      (fa, "flash_attention_bwd", fa._plain_bwd),
+                      (fx, "fused_xent_fwd", fx._plain_fwd),
+                      (fx, "fused_xent_bwd", fx._plain_bwd),
+                      (optmod, "fused_adam_", plain_adam)]
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.swaps]
+        for m, n, f in self.swaps:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+        return False
+
+
+def bert_batch(torch, rng, B, S, vocab):
+    ids = rng.randint(0, vocab, (B, S)).astype(np.int32)
+    tt = np.zeros((B, S), np.int32)
+    mlm = rng.randint(0, vocab, (B, S)).astype(np.int32)
+    nsp = rng.randint(0, 2, (B,)).astype(np.int32)
+    return [torch.tensor(x, device="cuda") for x in (ids, tt, mlm, nsp)]
+
+
+def phase_bert_parity(torch, counters, fa, fx, fo):
+    """One TrainStep of a tiny BERT with the kernels and with the plain
+    versions, from the same weights, on the card (f32, no dropout)."""
+    import copy
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = BertForPretraining(cfg, generator=gen)
+    batch = bert_batch(torch, np.random.RandomState(4), 8, 128,
+                       cfg.vocab_size)
+    batch[2][:, ::3] = -100                        # some ignored positions
+    lr = 1e-4
+    runs = {}
+    for name in ("kernel", "plain"):
+        model = copy.deepcopy(base)
+        step = TrainStep(model, lambda m, *a: m.loss(*a),
+                         AdamW(learning_rate=lr,
+                               parameters=model.parameters()))
+        counters.reset()
+        if name == "plain":
+            with plain_kernels(fa, fx, fo, optmod):
+                loss = step(*batch)
+        else:
+            loss = step(*batch)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), model, counters.snapshot())
+    (lk, mk, ck), (lp, mp, cp) = runs["kernel"], runs["plain"]
+    expect(all(ck.get(n, 0) > 0 for n in TRAIN_KERNELS),
+           f"bert_parity: a training kernel did not launch: {ck}")
+    expect(not any(cp.get(n, 0) for n in TRAIN_KERNELS),
+           f"bert_parity: the plain run launched kernels: {cp}")
+    expect(abs(lk - lp) <= 1e-5 * abs(lp),
+           f"bert_parity: loss {lk} (kernels) against {lp} (plain)")
+    worst_g, worst_p = {"err": 0.0}, 0.0
+    pp = dict(mp.named_parameters())
+    for n, p in mk.named_parameters():
+        q = pp[n]
+        gerr = max_err(p.grad, q.grad)
+        gscale = float(q.grad.abs().max())
+        # largest error within 1e-4 of the largest |g|, or 1e-7 where
+        # the true gradient is zero (the key projection's bias)
+        expect(gerr <= 1e-4 * gscale + 1e-7,
+               f"bert_parity: grad of {n} differs by {gerr} (max |g| "
+               f"{gscale})")
+        if gerr > worst_g["err"]:
+            worst_g = {"err": gerr, "max_abs": gscale, "param": n}
+        # step 1 of Adam moves each element by lr * g / (|g| + eps), so
+        # gradients equal to 1e-4 of their scale give updates within
+        # 2 lr of each other, and equal wherever |g| >> eps
+        perr = max_err(p, q)
+        expect(perr <= 2 * lr, f"bert_parity: updated {n} differs by "
+                               f"{perr}")
+        worst_p = max(worst_p, perr)
+    return {"phase": "bert_parity", "config": "tiny (2 x 128, 2 heads, "
+            "ffn 256, vocab 1024), batch 8 x 128, f32, no dropout",
+            "loss_kernel": lk, "loss_plain": lp,
+            "max_grad_err": worst_g, "max_param_err": worst_p,
+            "launches": ck}
+
+
+def profile_step(torch, step, batch):
+    """Device time by family over one training step under torch.profiler
+    and the device's busy share of that step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams = dict.fromkeys(("flash_fwd", "flash_bwd", "xent_fwd", "xent_bwd",
+                          "adam", "gemm", "other"), 0.0)
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        name = e.name.lower()
+        if "flash_fwd_kernel" in name:
+            fam = "flash_fwd"
+        elif "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+            fam = "flash_bwd"
+        elif "xent_fwd_kernel" in name:
+            fam = "xent_fwd"
+        elif "xent_dh_kernel" in name or "xent_dw_kernel" in name:
+            fam = "xent_bwd"
+        elif "adam_kernel" in name:
+            fam = "adam"
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
+                                     "nvjet")):
+            fam = "gemm"
+        else:
+            fam = "other"
+        fams[fam] += us / 1e3
+    busy = sum(fams.values())
+    if busy <= 0:
+        return {"device_ms": "not measured", "wall_ms": wall_ms}
+    return {"wall_ms": wall_ms, "device_ms": fams,
+            "device_busy_share": busy / wall_ms}
+
+
+def phase_bert(torch, counters):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig.base()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = BertForPretraining(cfg, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+
+    def loss_fn(m, ids, tt, mlm, nsp):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(ids, tt, mlm, nsp)
+
+    step = TrainStep(model, loss_fn, opt)
+    B, S = BERT_BATCH, BERT_SEQ
+    batch = bert_batch(torch, np.random.RandomState(0), B, S,
+                       cfg.vocab_size)
+    warm, timed_n = 3, 10
+    counters.reset()
+    losses, step_ms = [], []
+    for i in range(warm + timed_n):
+        t0 = time.perf_counter()
+        loss = float(step(*batch))
+        torch.cuda.synchronize()
+        if i >= warm:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = counters.snapshot()
+    n_steps = warm + timed_n
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+            "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_adam": 1}
+    per_step = {k: launches.get(k, 0) / n_steps for k in want}
+    expect(all(np.isfinite(losses)), f"bert: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"bert: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"bert: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+    expect(all(p.grad is not None for p in model.parameters()),
+           "bert: a parameter got no gradient, so Adam skipped it")
+    expect(len(opt._kernel_cache["key"]) == 5 * len(list(
+        model.parameters())), "bert: the Adam launch did not cover every "
+                              "parameter")
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    fwd_per_token = L * (8 * H * H + 4 * H * I + 4 * S * H) \
+        + 2 * H * H + 2 * H * V
+    flops_per_step = 3 * fwd_per_token * B * S
+    med = float(np.median(step_ms))
+    breakdown = profile_step(torch, step, batch)
+    return {"phase": "bert", "config": "BERT-base (vocab 30592, 12 x 768, "
+            "12 x 64 heads, ffn 3072), batch 128 x seq 128, AMP O1 bf16, "
+            "dropout 0.1, AdamW lr 1e-4 wd 0.01",
+            "params": n_params, "warmup_steps": warm, "timed_steps": timed_n,
+            "tokens_per_s": B * S * timed_n / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms,
+            "flops_per_step": flops_per_step,
+            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "launches": launches,
+            "launches_per_step": per_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "breakdown": breakdown}, launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -467,7 +964,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.inference import decode as dec
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.ops.cuda import _build, counters
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+    from paddle_tpu_torch.ops.cuda import fused_xent as fx
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import sampling as samp
 
@@ -486,6 +987,15 @@ def main() -> int:
         k5 = check_sampling(torch, samp, rng, timing)
         emit({"phase": "kernels_vs_plain", "paged_attention": k4a,
               "paged_attention_quant": k4b, "fused_sample": k5})
+        k1 = check_flash(torch, fa, timing)
+        emit({"phase": "kernels_vs_plain", "flash_attention": k1})
+        k2 = check_xent(torch, fx, timing)
+        emit({"phase": "kernels_vs_plain", "fused_xent": k2})
+        shapes = [tuple(p.shape) for p in BertForPretraining(
+            BertConfig.base()).parameters()]
+        k3 = check_adam(torch, fo, shapes, timing)
+        emit({"phase": "kernels_vs_plain", "fused_adam": k3})
+        torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
 
@@ -502,6 +1012,24 @@ def main() -> int:
             emit(row)
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
+        del params
+        torch.cuda.empty_cache()
+
+        emit(phase_bert_parity(torch, counters, fa, fx, fo))
+        torch.cuda.empty_cache()
+        row, launches = phase_bert(torch, counters)
+        emit(row)
+        total.update(launches)
+
+        def split(k, part):
+            """the forward (a) or backward (b) half of a K1/K2 row; the
+            library time is the same half (the backward one replays a
+            retained autograd graph)"""
+            lib = k[part + "_library_ms"]
+            return {"max_abs_err": k[part + "_max_abs_err"],
+                    "ms": k[part + "_ms"], "plain_ms": k[part + "_plain_ms"],
+                    "bound_ms": k[part + "_bound_ms"],
+                    "bound_by": k[part + "_bound_by"], "library_ms": lib}
 
         src = "paddle_tpu_torch/ops/cuda/csrc/"
         kernels = []
@@ -511,7 +1039,19 @@ def main() -> int:
                 ("paged_attention_quant", k4b, src + "paged_attention.cu",
                  "paddle_tpu/ops/pallas/paged_attention.py:241"),
                 ("fused_sample", k5, src + "sampling.cu",
-                 "paddle_tpu/ops/pallas/sampling.py:85")):
+                 "paddle_tpu/ops/pallas/sampling.py:85"),
+                ("flash_attention_fwd", split(k1, "fwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:284"),
+                ("flash_attention_bwd", split(k1, "bwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:339"),
+                ("fused_xent_fwd", split(k2, "fwd"), src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:185"),
+                ("fused_xent_bwd", split(k2, "bwd"), src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:216"),
+                ("fused_adam", k3, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total.get(name, 0),

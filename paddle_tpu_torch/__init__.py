@@ -2,12 +2,17 @@
 H100 (Hopper, sm_90a).
 
 The port is a package beside ``paddle_tpu`` and never imports it or
-JAX. It grows slice by slice; the first slice is paged-KV decode
-serving (``inference.decode``) with hand-written CUDA kernels for paged
-attention (f32 and int8 pools) and fused sampling (``ops.cuda``).
-Entry points run on the card unless the caller passes
+JAX. It grows slice by slice: paged-KV decode serving
+(``inference.decode``) with CUDA kernels for paged attention and fused
+sampling, then the BERT pretraining step (``models.bert``, ``nn``,
+``amp``, ``optimizer``, ``jit.TrainStep``) with CUDA kernels for flash
+attention, the fused vocabulary cross-entropy and the fused Adam update
+(``ops.cuda``). Entry points run on the card unless the caller passes
 ``device="cpu"``; without a GPU and without a device they raise.
 """
-from . import inference, ops, profiler
+from . import (amp, framework, inference, jit, models, nn, ops, optimizer,
+               profiler)
+from .framework.random import seed
 
-__all__ = ["inference", "ops", "profiler"]
+__all__ = ["amp", "framework", "inference", "jit", "models", "nn", "ops",
+           "optimizer", "profiler", "seed"]

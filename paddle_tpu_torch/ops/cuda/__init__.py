@@ -1,4 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by
 ``_build`` at first use), each beside its plain PyTorch version and a
-launch count (``counters``): ``paged_attention`` (f32 and int8 pools)
-and ``sampling`` (fused top-k + Gumbel-max draw)."""
+launch count (``counters``): ``paged_attention`` (f32 and int8 pools),
+``sampling`` (fused top-k + Gumbel-max draw), ``flash_attention``
+(forward and backward with in-kernel Philox dropout), ``fused_xent``
+(linear + vocabulary cross-entropy, forward and backward) and
+``fused_optimizer`` (multi-tensor Adam/AdamW)."""

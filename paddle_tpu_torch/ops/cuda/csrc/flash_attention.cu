@@ -1,0 +1,604 @@
+// Flash attention for Hopper (sm_90a): forward, and a backward of one
+// dq pass and one dk/dv pass, with dropout generated in the kernels.
+//
+// Replaces the TPU kernels in paddle_tpu/ops/pallas/flash_attention.py:
+// _fwd_call (_flash_fwd_kernel) and _bwd_call (_flash_bwd_dq_kernel,
+// _flash_bwd_dkv_kernel), including the in-kernel dropout of
+// _keep_mask.
+//
+// Bound: at BERT's shapes (L = 128, D = 64) the work is about
+// 4*L*L*D flops per (batch, head) forward and 10*L*L*D backward against
+// 4*L*D elements in and out, well above the card's balance point, so
+// the bound is operations. These kernels use f32 FMA from shared
+// memory (no tensor cores yet), so their ceiling is the f32 rate.
+//
+// Design: q, k, v, out and their gradients keep the JAX package's
+// (B, L, H, D) layout and the kernels index it directly, so no head
+// merge is ever materialised. Tiles are 64 query rows by 64 key rows;
+// 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, ... of every tile it
+// computes, so a row's values sit in one half-warp and row max/sum are
+// four shuffles. Operands live in shared memory as f32 (bf16 inputs are
+// widened on load); the "A" operand is read as float4 along the
+// reduction axis (a broadcast within the half-warp), the "B" operand as
+// scalars that are consecutive or odd-strided across threads, so loads
+// are free of bank conflicts.
+// - Forward: one block per (q-tile, b*H + h) loops over kv-tiles with
+//   an online softmax: m and l per row in registers, the 64 x D output
+//   accumulator spread over the block's registers. Writes out (input
+//   type) and lse = m + log(l) (f32).
+// - Backward: the dq kernel (one block per q-tile) computes delta =
+//   rowsum(dO * O) for its rows, writes it for the dk/dv kernel, and
+//   loops over kv-tiles; the dk/dv kernel (one block per kv-tile) loops
+//   over q-tiles. Both recompute P = exp(S - lse). No atomics: each
+//   output element has one writer, so results are deterministic.
+// - Dropout: Philox4x32-10 keyed by the 64-bit seed, counter
+//   (g, query row, b*H + h, 0) with g = (col / 64) * 16 + col % 16 and
+//   word (col / 16) % 4. A thread's four columns tx + 16 j of one tile
+//   row are exactly one Philox call. The mask is a function of element
+//   coordinates only, so all three kernels (and the plain version)
+//   agree on it. l sums the undropped probabilities; the value sum,
+//   dV and dP see the mask scaled by 1/(1-p), as in the TPU kernel.
+// Ragged lengths are masked in the kernels (rows past L load as zeros
+// and are not written; columns past L score -inf).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kT = 256;      // threads a block
+constexpr int kTile = 64;    // q rows / kv rows a tile
+constexpr int kPad = 68;     // row stride of the transposed P/dS tile
+constexpr float kNegInit = -1e30f;
+
+struct Args {
+  int B, Lq, Lk, H;
+  int causal;
+  float scale;
+  uint32_t thr;  // keep where bits >= thr
+  float inv;     // 1 / (1 - p); 1 means no dropout
+  uint32_t seed_lo, seed_hi;
+};
+
+__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// keep bits of one tile row's four columns kv0 + tx + 16 j (kv0 % 64 == 0)
+__device__ __forceinline__ void keep4(const Args& a, int bh, int row, int kv0,
+                                      int tx, bool (&keep)[4]) {
+  const uint4 w = philox(
+      make_uint4((uint32_t)((kv0 / 64) * 16 + tx), (uint32_t)row,
+                 (uint32_t)bh, 0u),
+      a.seed_lo, a.seed_hi);
+  keep[0] = w.x >= a.thr;
+  keep[1] = w.y >= a.thr;
+  keep[2] = w.z >= a.thr;
+  keep[3] = w.w >= a.thr;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += sum_k A[(r0 + i) * lda + k] * B[k * bks + (c0 + 16 j) * bcs]
+template <int R, int C, int K>
+__device__ __forceinline__ void mm(float (&acc)[R][C],
+                                   const float* __restrict__ A, int lda,
+                                   int r0, const float* __restrict__ B,
+                                   int bks, int bcs, int c0) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 av[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = ld4(A + (r0 + i) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) b[j] = B[(k + kk) * bks + (c0 + 16 * j) * bcs];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float x = comp(av[i], kk);
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[i][j] = fmaf(x, b[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+  __device__ static float one(const float* p) { return *p; }
+  __device__ static float put(float x) { return x; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static __nv_bfloat16 put(float x) { return __float2bfloat16(x); }
+};
+
+// 64 rows of one head, starting at sequence row l0, into dst[r * ld + d]
+// as f32 times ``mul``; rows at or past L load as zeros.
+template <typename T, int D>
+__device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
+                          const Args& a, int b, int h, int l0, int L,
+                          float mul) {
+  constexpr int V = Vec<T>::N;
+  constexpr int NV = D / V;
+  for (int idx = threadIdx.x; idx < kTile * NV; idx += kT) {
+    const int r = idx / NV, c = (idx % NV) * V;
+    float v[V];
+    if (l0 + r < L) {
+      const int64_t off = (((int64_t)b * L + l0 + r) * a.H + h) * D + c;
+      Vec<T>::load(src + off, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[r * ld + c + e] = v[e] * mul;
+  }
+}
+
+template <typename T, int D>
+__device__ void store_rows(T* __restrict__ dst, const float (&acc)[4][D / 16],
+                           const Args& a, int b, int h, int l0, int L,
+                           float mul) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = l0 + ty * 4 + i;
+    if (l >= L) continue;
+    const int64_t off = (((int64_t)b * L + l) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      dst[off + tx + 16 * j] = Vec<T>::put(acc[i][j] * mul);
+  }
+}
+
+// S tile masking: column past Lk, or above the diagonal when causal
+__device__ __forceinline__ bool dead(const Args& a, int row, int col) {
+  return col >= a.Lk || (a.causal && col > row);
+}
+
+__device__ __forceinline__ int kv_tiles_for(const Args& a, int q0) {
+  const int n = (a.Lk + kTile - 1) / kTile;
+  if (!a.causal) return n;
+  const int last = (q0 + kTile - 1) / kTile + 1;
+  return last < n ? last : n;
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ out,
+           float* __restrict__ lse, Args a) {
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [64][D]
+  float* Ks = Qs + kTile * D;                     // [64][D+1]
+  float* Vs = Ks + kTile * (D + 1);               // [64][D]
+  float* Ps = Vs + kTile * D;                     // [64][64]
+  constexpr int C = D / 16;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kTile;
+  const bool drop = a.inv != 1.0f;
+
+  load_tile<T, D>(Qs, D, q, a, b, h, q0, a.Lq, a.scale);
+  float m[4], l[4], acc[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInit;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.0f;
+  }
+  const int nkv = kv_tiles_for(a, q0);
+  for (int t = 0; t < nkv; ++t) {
+    const int kv0 = t * kTile;
+    load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
+    load_tile<T, D>(Vs, D, v, a, b, h, kv0, a.Lk, 1.0f);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (dead(a, row, kv0 + tx + 16 * j)) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+      l[i] = alpha * l[i] + half_warp_sum(sum);
+      m[i] = m_new;
+      if (drop) {
+        bool keep[4];
+        keep4(a, bh, row, kv0, tx, keep);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = keep[j] ? s[i][j] * a.inv : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * kTile + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();
+    mm<4, C, kTile>(acc, Ps, kTile, ty * 4, Vs, D, 1, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lc = fmaxf(l[i], 1e-30f);
+    const int row = q0 + ty * 4 + i;
+    if (tx == 0 && row < a.Lq) lse[(int64_t)bh * a.Lq + row] = m[i] + logf(lc);
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = acc[i][j] / lc;
+  }
+  store_rows<T, D>(out, acc, a, b, h, q0, a.Lq, 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq (+ delta)
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kT)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ o,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              float* __restrict__ delta, T* __restrict__ dq, Args a) {
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [64][D], scaled
+  float* dOs = Qs + kTile * D;                    // [64][D]
+  float* Ks = dOs + kTile * D;                    // [64][D+1]
+  float* Vs = Ks + kTile * (D + 1);               // [64][D+1]
+  float* dSs = Vs + kTile * (D + 1);              // [64][64]
+  float* lse_s = dSs + kTile * kTile;             // [64]
+  float* delta_s = lse_s + kTile;                 // [64]
+  constexpr int C = D / 16;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kTile;
+  const bool drop = a.inv != 1.0f;
+
+  load_tile<T, D>(Qs, D, q, a, b, h, q0, a.Lq, a.scale);
+  load_tile<T, D>(dOs, D, dout, a, b, h, q0, a.Lq, 1.0f);
+  __syncthreads();
+  {  // delta = rowsum(dO * O): four threads a row
+    const int r = tid >> 2, part = tid & 3;
+    float d = 0.0f;
+    if (q0 + r < a.Lq) {
+      const int64_t off = (((int64_t)b * a.Lq + q0 + r) * a.H + h) * D;
+      for (int c = part; c < D; c += 4)
+        d = fmaf(dOs[r * D + c], Vec<T>::one(o + off + c), d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (part == 0) {
+      const bool live = q0 + r < a.Lq;
+      delta_s[r] = live ? d : 0.0f;
+      lse_s[r] = live ? lse[(int64_t)bh * a.Lq + q0 + r] : INFINITY;
+      if (live) delta[(int64_t)bh * a.Lq + q0 + r] = d;
+    }
+  }
+  float acc[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.0f;
+  const int nkv = kv_tiles_for(a, q0);
+  for (int t = 0; t < nkv; ++t) {
+    const int kv0 = t * kTile;
+    load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
+    load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+    mm<4, 4, D>(dp, dOs, D, ty * 4, Vs, 1, D + 1, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      bool keep[4] = {true, true, true, true};
+      if (drop) keep4(a, bh, row, kv0, tx, keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = dead(a, row, kv0 + tx + 16 * j)
+                            ? 0.0f : expf(s[i][j] - lse_s[r]);
+        const float dpv = drop ? (keep[j] ? dp[i][j] * a.inv : 0.0f)
+                               : dp[i][j];
+        dSs[r * kTile + tx + 16 * j] = p * (dpv - delta_s[r]);
+      }
+    }
+    __syncthreads();
+    mm<4, C, kTile>(acc, dSs, kTile, ty * 4, Ks, D + 1, 1, tx);
+    __syncthreads();
+  }
+  store_rows<T, D>(dq, acc, a, b, h, q0, a.Lq, a.scale);
+}
+
+// ---------------------------------------------------------------------------
+// backward: dk, dv
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kT)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, Args a) {
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);   // [64][D+1]
+  float* Vs = Ks + kTile * (D + 1);               // [64][D+1]
+  float* Qs = Vs + kTile * (D + 1);               // [64][D], scaled
+  float* dOs = Qs + kTile * D;                    // [64][D]
+  float* Ts = dOs + kTile * D;                    // [64 kv][kPad]: P or dS
+  float* lse_s = Ts + kTile * kPad;               // [64]
+  float* delta_s = lse_s + kTile;                 // [64]
+  constexpr int C = D / 16;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int kv0 = blockIdx.x * kTile;
+  const bool drop = a.inv != 1.0f;
+
+  load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
+  load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+  float dk_acc[4][C], dv_acc[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
+  const int nq = (a.Lq + kTile - 1) / kTile;
+  const int first = a.causal ? kv0 / kTile : 0;
+  for (int t = first; t < nq; ++t) {
+    const int q0 = t * kTile;
+    load_tile<T, D>(Qs, D, q, a, b, h, q0, a.Lq, a.scale);
+    load_tile<T, D>(dOs, D, dout, a, b, h, q0, a.Lq, 1.0f);
+    if (tid < kTile) {
+      const bool live = q0 + tid < a.Lq;
+      lse_s[tid] = live ? lse[(int64_t)bh * a.Lq + q0 + tid] : INFINITY;
+      delta_s[tid] = live ? delta[(int64_t)bh * a.Lq + q0 + tid] : 0.0f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+    mm<4, 4, D>(dp, dOs, D, ty * 4, Vs, 1, D + 1, tx);
+    // s -> P, dp -> dropped dP; T <- dropped P (transposed: [kv][q])
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, row = q0 + r;
+      bool keep[4] = {true, true, true, true};
+      if (drop) keep4(a, bh, row, kv0, tx, keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float p = dead(a, row, kv0 + c) ? 0.0f : expf(s[i][j] - lse_s[r]);
+        s[i][j] = p;
+        float pd = p;
+        if (drop) {
+          pd = keep[j] ? p * a.inv : 0.0f;
+          dp[i][j] = keep[j] ? dp[i][j] * a.inv : 0.0f;
+        }
+        Ts[c * kPad + r] = pd;
+      }
+    }
+    __syncthreads();
+    mm<4, C, kTile>(dv_acc, Ts, kPad, ty * 4, dOs, D, 1, tx);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Ts[(tx + 16 * j) * kPad + r] = s[i][j] * (dp[i][j] - delta_s[r]);
+    }
+    __syncthreads();
+    mm<4, C, kTile>(dk_acc, Ts, kPad, ty * 4, Qs, D, 1, tx);
+    __syncthreads();
+  }
+  store_rows<T, D>(dk, dk_acc, a, b, h, kv0, a.Lk, 1.0f);
+  store_rows<T, D>(dv, dv_acc, a, b, h, kv0, a.Lk, 1.0f);
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (kTile * D * 2 + kTile * (D + 1) + kTile * kTile);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) *
+         (kTile * D * 2 + kTile * (D + 1) * 2 + kTile * kTile + 2 * kTile);
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(float) *
+         (kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad + 2 * kTile);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, const Args& a, cudaStream_t st) {
+  auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t e = allow_smem(kern, fwd_smem<D>());
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.Lq + kTile - 1) / kTile, a.B * a.H);
+  kern<<<grid, kT, fwd_smem<D>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, const Args& a, cudaStream_t st) {
+  auto kdq = flash_dq_kernel<T, D>;
+  auto kdkv = flash_dkv_kernel<T, D>;
+  cudaError_t e = allow_smem(kdq, dq_smem<D>());
+  if (e == cudaSuccess) e = allow_smem(kdkv, dkv_smem<D>());
+  if (e != cudaSuccess) return (int)e;
+  dim3 gq((a.Lq + kTile - 1) / kTile, a.B * a.H);
+  kdq<<<gq, kT, dq_smem<D>(), st>>>((const T*)q, (const T*)k, (const T*)v,
+                                    (const T*)o, (const T*)dout, lse, delta,
+                                    (T*)dq, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 gk((a.Lk + kTile - 1) / kTile, a.B * a.H);
+  kdkv<<<gk, kT, dkv_smem<D>(), st>>>((const T*)q, (const T*)k, (const T*)v,
+                                      (const T*)dout, lse, delta, (T*)dk,
+                                      (T*)dv, a);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
+               unsigned thr, float inv, unsigned lo, unsigned hi) {
+  Args a;
+  a.B = B;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.H = H;
+  a.causal = causal;
+  a.scale = scale;
+  a.thr = thr;
+  a.inv = inv;
+  a.seed_lo = lo;
+  a.seed_hi = hi;
+  return a;
+}
+
+bool bad_shape(int B, int Lq, int Lk, int H, int D, int dtype) {
+  return B < 1 || Lq < 1 || Lk < 1 || H < 1 || (D != 64 && D != 128) ||
+         (dtype != 0 && dtype != 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = f32, 1 = bf16
+int flash_attention_fwd(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int B, int Lq, int Lk, int H,
+                        int D, int causal, int dtype, float scale,
+                        unsigned thr, float inv, unsigned seed_lo,
+                        unsigned seed_hi, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
+                           seed_hi);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return D == 64 ? launch_fwd<float, 64>(q, k, v, out, lse, a, st)
+                   : launch_fwd<float, 128>(q, k, v, out, lse, a, st);
+  return D == 64 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, out, lse, a, st)
+                 : launch_fwd<__nv_bfloat16, 128>(q, k, v, out, lse, a, st);
+}
+
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv, int B,
+                        int Lq, int Lk, int H, int D, int causal, int dtype,
+                        float scale, unsigned thr, float inv,
+                        unsigned seed_lo, unsigned seed_hi, void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
+                           seed_hi);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return D == 64
+               ? launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, a, st)
+               : launch_bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, a, st);
+  return D == 64 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta,
+                                                 dq, dk, dv, a, st)
+                 : launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse,
+                                                  delta, dq, dk, dv, a, st);
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,307 @@
+"""Flash attention with in-kernel dropout: the plain PyTorch versions,
+the CUDA kernel wrappers, and the autograd function behind
+:func:`flash_attention`.
+
+Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd_call``
+with ``_flash_fwd_kernel``, ``_bwd_call`` with the dq and dk/dv
+kernels). Layout is the JAX package's: q, k, v and out are (B, L, H, D);
+the kernels index that layout directly (no head merge). Scores use the
+scaled query ``q * (1/sqrt(D))``; the forward also returns the per-row
+log-sum-exp ``lse`` (B*H, Lq) in f32, which the backward uses to
+recompute the probabilities (delta = rowsum(dO * O) is computed in the
+dq pass). Inputs are bf16 or f32; arithmetic is f32 (f64 in the plain
+version when given f64, for gradient checks).
+
+Dropout (rate p) is generated inside the kernels by Philox4x32-10 keyed
+by the 64-bit ``seed`` and counted by element coordinates: counter
+``(g, row, b*H + h, 0)`` with ``g = (col // 64) * 16 + col % 16``, word
+``(col // 16) % 4`` (one kernel thread's four columns ``c, c+16, c+32,
+c+48`` share one call). An element is kept
+where its 32 bits are ``>= uint32(p * 2**32)``, as ``_keep_mask`` keeps
+them. The mask is therefore a function of (seed, b*H + h, row, col)
+only, not of tile sizes, so the forward and both backward kernels
+regenerate the same mask, and :func:`philox_keep_mask` (int64 tensor
+arithmetic) gives the same bits on any device. As in the TPU kernel,
+the normaliser l sums the undropped probabilities and only the value
+accumulation sees the mask, scaled by 1/(1-p). The bits differ from the
+TPU PRNG's (see ``framework/random.py``).
+
+Routing is by device, with no fallback: CUDA tensors launch the kernels
+(counting ``flash_attention_fwd`` per forward and
+``flash_attention_bwd`` per backward pair of launches) or raise; CPU
+tensors take the plain version. The JAX package's dispatch floors (seq
+>= 256, autotuned short-sequence forms) were TPU tuning: on CUDA,
+attention always launches the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build, counters
+
+__all__ = ["flash_attention", "philox_keep_mask", "keep_threshold"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 in int64 tensor arithmetic (values held in [0, 2**32))
+# ---------------------------------------------------------------------------
+def _mulhilo(a: int, b):
+    """(hi, lo) 32-bit halves of a * b for a constant a < 2**32 and a
+    tensor b in [0, 2**32), without overflowing int64."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def _philox4x32_10(c0, c1, c2, c3, seed: int):
+    k0, k1 = seed & _U32, (seed >> 32) & _U32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_threshold(p: float) -> int:
+    """uint32 threshold of ``_keep_mask``: keep where bits >= it."""
+    return min(int(p * (1 << 32)), (1 << 32) - 1)
+
+
+def philox_keep_mask(seed: int, bh: int, lq: int, lk: int, p: float,
+                     device="cpu"):
+    """Keep mask (bh, lq, lk) bool of dropout rate ``p``: the kernels'
+    bits, from int64 tensor ops."""
+    ng = (lk + 63) // 64 * 16
+    c0 = torch.arange(ng, dtype=torch.int64, device=device).view(1, 1, ng)
+    c1 = torch.arange(lq, dtype=torch.int64, device=device).view(1, lq, 1)
+    c2 = torch.arange(bh, dtype=torch.int64, device=device).view(bh, 1, 1)
+    shape = (bh, lq, ng)
+    c0, c1, c2 = c0.expand(shape), c1.expand(shape), c2.expand(shape)
+    c3 = torch.zeros(shape, dtype=torch.int64, device=device)
+    words = torch.stack(_philox4x32_10(c0, c1, c2, c3, int(seed)), dim=-1)
+    col = torch.arange(lk, device=device)
+    bits = words[:, :, (col // 64) * 16 + col % 16, (col // 16) % 4]
+    return bits >= keep_threshold(p)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _compute_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _heads(x, ct):
+    """(B, L, H, D) -> (B*H, L, D) in the compute type."""
+    B, L, H, D = x.shape
+    return x.to(ct).permute(0, 2, 1, 3).reshape(B * H, L, D)
+
+
+def _scores(qm, km, scale, causal):
+    s = torch.matmul(qm * scale, km.transpose(1, 2))
+    if causal:
+        lq, lk = s.shape[1], s.shape[2]
+        row = torch.arange(lq, device=s.device).view(lq, 1)
+        col = torch.arange(lk, device=s.device).view(1, lk)
+        s = s.masked_fill(col > row, float("-inf"))
+    return s
+
+
+def _plain_fwd(q, k, v, causal, dropout_p, seed):
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    ct = _compute_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
+    s = _scores(qm, km, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l)).squeeze(-1)
+    prob = e / l
+    if dropout_p > 0.0:
+        keep = philox_keep_mask(seed, B * H, Lq, Lk, dropout_p, q.device)
+        prob = torch.where(keep, prob * (1.0 / (1.0 - dropout_p)),
+                           torch.zeros_like(prob))
+    out = torch.matmul(prob, vm)
+    out = out.reshape(B, H, Lq, D).permute(0, 2, 1, 3).to(q.dtype)
+    return out.contiguous(), lse.to(torch.float32)
+
+
+def _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    ct = _compute_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
+    om, dom = _heads(out, ct), _heads(dout, ct)
+    s = _scores(qm, km, scale, causal)
+    prob = torch.exp(s - lse.to(ct).unsqueeze(-1))
+    delta = (dom * om).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(dom, vm.transpose(1, 2))
+    if dropout_p > 0.0:
+        keep = philox_keep_mask(seed, B * H, Lq, Lk, dropout_p, q.device)
+        inv = 1.0 / (1.0 - dropout_p)
+        zero = torch.zeros_like(dp)
+        dp = torch.where(keep, dp * inv, zero)
+        pd = torch.where(keep, prob * inv, zero)
+    else:
+        pd = prob
+    dv = torch.matmul(pd.transpose(1, 2), dom)
+    ds = prob * (dp - delta)
+    dq = torch.matmul(ds, km) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qm * scale)
+
+    def back(x, L, like):
+        return x.reshape(B, H, L, D).permute(0, 2, 1, 3).to(like.dtype) \
+            .contiguous()
+
+    return back(dq, Lq, q), back(dk, Lk, k), back(dv, Lk, v)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+def _check(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention wants q (B, Lq, H, D) and k, v "
+                         f"(B, Lk, H, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Lq, H, D = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {D}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash attention kernel takes f32 or bf16 "
+                        f"q/k/v of one type, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
+    if causal and k.shape[1] != Lq:
+        raise ValueError("causal flash attention needs Lq == Lk")
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("flash_attention inputs must be contiguous, "
+                             "16-byte aligned and on one device")
+    return B, Lq, k.shape[1], H, D
+
+
+def _seed_words(seed):
+    seed = int(seed) & ((1 << 64) - 1)
+    return seed & _U32, seed >> 32
+
+
+def _cuda_fwd(q, k, v, causal, dropout_p, seed):
+    B, Lq, Lk, H, D = _check(q, k, v, causal)
+    fn = _build.entry("flash_attention", "flash_attention_fwd",
+                      [_P] * 5 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
+    lo, hi = _seed_words(seed)
+    thr = keep_threshold(dropout_p) if dropout_p > 0.0 else 0
+    inv = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), B, Lq, Lk, H, D, int(bool(causal)),
+             _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention", err, "flash_attention_fwd")
+    counters.bump("flash_attention_fwd")
+    return out, lse
+
+
+def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+    B, Lq, Lk, H, D = _check(q, k, v, causal)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash attention backward: {name} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)}")
+    if lse.shape != (B * H, Lq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 ({B * H}, {Lq})")
+    fn = _build.entry("flash_attention", "flash_attention_bwd",
+                      [_P] * 10 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    delta = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
+    lo, hi = _seed_words(seed)
+    thr = keep_threshold(dropout_p) if dropout_p > 0.0 else 0
+    inv = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, Lq, Lk, H, D, int(bool(causal)), _DTYPES[q.dtype],
+             1.0 / math.sqrt(D), thr, inv, lo, hi,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention", err, "flash_attention_bwd")
+    counters.bump("flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _route(t):
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{t.device}")
+    return False
+
+
+def flash_attention_fwd(q, k, v, causal=False, dropout_p=0.0, seed=0):
+    """(out (B, Lq, H, D), lse (B*H, Lq) f32): the kernel on CUDA, the
+    plain version on the CPU."""
+    if _route(q):
+        return _cuda_fwd(q, k, v, causal, dropout_p, seed)
+    return _plain_fwd(q, k, v, causal, dropout_p, seed)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
+                        dropout_p=0.0, seed=0):
+    """(dq, dk, dv) from the saved forward and an external ``lse``."""
+    if _route(q):
+        return _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
+    return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, dropout_p, seed):
+        out, lse = flash_attention_fwd(q, k, v, causal, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, dropout_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, dropout_p=0.0, seed=0):
+    """softmax(q k^T / sqrt(D)) v over (B, L, H, D) tensors, with
+    optional causal masking and in-kernel dropout keyed by ``seed``;
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal),
+                                 float(dropout_p), int(seed))

@@ -1,0 +1,151 @@
+"""Fused Adam update over a list of parameters: the plain PyTorch
+version, the CUDA kernel wrapper, and :func:`fused_adam_`.
+
+Port of the dygraph Adam body of ``paddle_tpu/ops/pallas/
+fused_optimizer.py`` (``_adam_kernel`` with ``dygraph=True``, reached
+from ``fused_try_rule``) followed by AdamW's decoupled decay
+(``paddle_tpu/optimizer/optimizer.py:133-134``). Per element, in f32,
+in this order::
+
+    m2 = b1*m + (1-b1)*g
+    v2 = b2*v + ((1-b2)*g)*g
+    p2 = p - (lr * (m2/c1)) / (sqrt(v2/c2) + eps)   c1 = 1-b1^t, c2 = 1-b2^t
+    p3 = p2 - (lr*wd) * p                           the OLD p; wd = 0: p3 = p2
+
+``skip`` (the FoundInfinite flag) leaves p, m and v as they were.
+Unlike the functional JAX update, p, m and v are updated IN PLACE.
+
+The scalars c1, c2 and lr*wd are rounded to f32 once on the host and
+handed to both versions; the plain version divides by 0-dim tensors on
+the parameters' device (PyTorch's CUDA division by a Python scalar is a
+reciprocal multiply) and the kernel uses round-to-nearest intrinsics
+without contraction, so the two agree bit for bit on the card.
+
+Routing is by device, with no fallback: CUDA tensors launch ONE kernel
+over every parameter (a device table of pointers, cached while the
+pointers stay the same) and count one ``fused_adam`` launch, or raise;
+CPU tensors take the plain version. There is no size or dtype floor
+(the JAX gate's n >= 1024 and f32-only rules were TPU tuning): every
+f32 parameter goes through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build, counters
+
+__all__ = ["adam_scalars", "fused_adam_"]
+
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+
+
+def adam_scalars(lr, beta1, beta2, step, weight_decay=0.0):
+    """(lr, c1, c2, lr*wd) as f32, the way the JAX update rounds them:
+    ``c = 1 - b**t`` with b and t in f32, ``lr*wd`` an f32 product."""
+    t = np.float32(step)
+    lr32 = np.float32(lr)
+    c1 = np.float32(1.0) - np.power(np.float32(beta1), t, dtype=np.float32)
+    c2 = np.float32(1.0) - np.power(np.float32(beta2), t, dtype=np.float32)
+    return lr32, np.float32(c1), np.float32(c2), \
+        np.float32(lr32 * np.float32(weight_decay))
+
+
+def _plain_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
+                 lrwd, skip):
+    if skip:
+        return
+    for p, g, m, v in zip(params, grads, m1s, m2s):
+        def s(x):
+            return torch.tensor(float(x), dtype=torch.float32,
+                                device=p.device)
+        m_new = m * s(beta1) + g * s(1.0 - beta1)
+        v_new = v * s(beta2) + (g * s(1.0 - beta2)) * g
+        upd = (m_new / s(c1)) * s(lr) / (torch.sqrt(v_new / s(c2)) + s(eps))
+        p_new = p - upd
+        if lrwd != 0.0:
+            p_new = p_new - s(lrwd) * p
+        p.copy_(p_new)
+        m.copy_(m_new)
+        v.copy_(v_new)
+
+
+def _table(tensors_by_role, cache):
+    """Device table of pointers ((4, n) int64: p, g, m, v) and the
+    (n + 1,) element offsets, cached by the pointers themselves."""
+    params = tensors_by_role[0]
+    key = tuple(t.data_ptr() for role in tensors_by_role for t in role) \
+        + tuple(p.numel() for p in params)
+    hit = cache.get("key") == key
+    if not hit:
+        ptrs = torch.tensor([[t.data_ptr() for t in role]
+                             for role in tensors_by_role], dtype=torch.int64)
+        offs = torch.tensor(np.concatenate(
+            [[0], np.cumsum([p.numel() for p in params])]),
+            dtype=torch.int64)
+        dev = params[0].device
+        # pinned + non-blocking: no stream sync; the caching host
+        # allocator keeps the staging block until the copy has run
+        cache["key"] = key
+        cache["ptrs"] = ptrs.pin_memory().to(dev, non_blocking=True)
+        cache["offs"] = offs.pin_memory().to(dev, non_blocking=True)
+        cache["total"] = int(offs[-1])
+    return cache["ptrs"], cache["offs"], cache["total"]
+
+
+def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
+                lrwd, skip, cache):
+    dev = params[0].device
+    for role, ts in (("param", params), ("grad", grads), ("moment1", m1s),
+                     ("moment2", m2s)):
+        for t in ts:
+            if t.dtype != torch.float32 or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"fused_adam_ takes contiguous f32 "
+                                 f"tensors on {dev}; a {role} is "
+                                 f"{t.dtype} on {t.device}")
+    for p, g, m, v in zip(params, grads, m1s, m2s):
+        if not (p.shape == g.shape == m.shape == v.shape):
+            raise ValueError(f"fused_adam_: shapes differ: {tuple(p.shape)}"
+                             f" {tuple(g.shape)} {tuple(m.shape)} "
+                             f"{tuple(v.shape)}")
+    ptrs, offs, total = _table((params, grads, m1s, m2s), cache)
+    fn = _build.entry("fused_optimizer", "fused_adam_f32",
+                      [_P, _P, ctypes.c_int, ctypes.c_longlong]
+                      + [_F] * 9 + [ctypes.c_int, _P])
+    err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
+             float(lr), float(np.float32(beta1)),
+             float(np.float32(1.0 - beta1)), float(np.float32(beta2)),
+             float(np.float32(1.0 - beta2)), float(np.float32(eps)),
+             float(c1), float(c2), float(lrwd), int(bool(skip)),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("fused_optimizer", err, "fused_adam_f32")
+    if not skip:   # a skipped step launches nothing
+        counters.bump("fused_adam")
+
+
+def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
+                step, weight_decay=0.0, skip=False, cache=None):
+    """One Adam(W) step over lists of parameters, gradients and moments,
+    IN PLACE. ``step`` is the 1-based step t; ``weight_decay`` is the
+    decoupled (AdamW) coefficient. ``cache`` (a dict the caller owns)
+    keeps the kernel's pointer table between calls."""
+    params, grads = list(params), list(grads)
+    moment1, moment2 = list(moment1), list(moment2)
+    if not (len(params) == len(grads) == len(moment1) == len(moment2)):
+        raise ValueError("fused_adam_: lists of different lengths")
+    if not params:
+        return
+    lr32, c1, c2, lrwd = adam_scalars(lr, beta1, beta2, step, weight_decay)
+    dev = params[0].device
+    if dev.type == "cuda":
+        _cuda_adam_(params, grads, moment1, moment2, lr32, beta1, beta2,
+                    eps, c1, c2, lrwd, skip, {} if cache is None else cache)
+        return
+    if dev.type != "cpu":
+        raise ValueError(f"fused_adam_ runs on cuda or cpu, got {dev}")
+    _plain_adam_(params, grads, moment1, moment2, lr32, beta1, beta2, eps,
+                 c1, c2, lrwd, skip)

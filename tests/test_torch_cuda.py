@@ -115,3 +115,112 @@ def test_cuda_tensors_the_kernels_do_not_take_raise(dev):
         sm.fused_sample(torch.zeros((4, 64), device=dev).t(),
                         torch.zeros((64, 4), device=dev), 1.0, 2)
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# the training slice: flash attention, fused xent, fused Adam
+# ---------------------------------------------------------------------------
+from paddle_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.cuda import fused_optimizer as fo  # noqa: E402
+from paddle_tpu_torch.ops.cuda import fused_xent as fx  # noqa: E402
+
+
+def _qkvo(dev, seed, B, L, H, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, L, H, D), generator=g, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H,D,causal,p", [
+    (2, 128, 12, 64, False, 0.0),
+    (2, 128, 12, 64, False, 0.1),
+    (1, 200, 3, 64, True, 0.1),
+    (1, 96, 2, 128, False, 0.0),
+], ids=["bert", "bert-dropout", "ragged-causal", "D128"])
+def test_flash_kernels_match_plain(dev, dtype, atol, B, L, H, D, causal, p):
+    q, k, v, do = _qkvo(dev, 11, B, L, H, D, dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, p, 1234)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, p, 1234)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, p, 1234)
+    rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, 1234)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), rout.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    for got, want in zip(grads, rgrads):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=atol)
+    assert counters.get("flash_attention_fwd") == 1
+    assert counters.get("flash_attention_bwd") == 1
+
+
+def test_flash_kernel_dropout_mask_is_bitwise_the_plain_mask(dev):
+    L, p = 64, 0.1
+    z = torch.zeros((3, L, 2, 64), device=dev)
+    v = torch.eye(L, device=dev).reshape(1, L, 1, 64).expand(3, L, 2, 64)
+    out = fa.flash_attention(z, z, v.contiguous(), dropout_p=p, seed=77)
+    keep = fa.philox_keep_mask(77, 6, L, L, p, dev)
+    got = (out > 0).permute(0, 2, 1, 3).reshape(6, L, L)
+    assert torch.equal(got, keep)
+
+
+def test_fused_xent_kernels_match_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    N, H, V = 300, 128, 1000
+    h = torch.randn((N, H), generator=g, device=dev) * 0.2
+    w = torch.randn((V, H), generator=g, device=dev) * 0.2
+    b = torch.randn((V,), generator=g, device=dev) * 0.1
+    lab = torch.randint(0, V, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    lab[::7] = -1
+    gr = torch.rand((N,), generator=g, device=dev) * (lab >= 0)
+    lse, ll = fx.fused_xent_fwd(h, w, b, lab)
+    rlse, rll = fx._plain_fwd(h, w, b, lab)
+    got = fx.fused_xent_bwd(h, w, b, lab, lse, gr)
+    want = fx._plain_bwd(h, w, b, lab, rlse, gr)
+    torch.cuda.synchronize()
+    for x, y in zip((lse, ll) + tuple(got), (rlse, rll) + tuple(want)):
+        assert (x - y).abs().max() <= 1e-4 * y.abs().max()
+    assert counters.get("fused_xent_fwd") == 1
+    assert counters.get("fused_xent_bwd") == 1
+
+
+def test_fused_adam_kernel_is_bitwise_the_plain_version(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(30592, 64), (768,), (3,), (0,), (1000, 7)]
+    ps = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+    ms = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+    vs = [torch.rand(s, generator=g, device=dev) * 1e-4 for s in shapes]
+    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    kw = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, step=3,
+              weight_decay=0.01)
+    fo.fused_adam_(kp, gs, km, kv, **kw)
+    lr, c1, c2, lrwd = fo.adam_scalars(1e-4, 0.9, 0.999, 3, 0.01)
+    fo._plain_adam_(ps, gs, ms, vs, lr, 0.9, 0.999, 1e-8, c1, c2, lrwd,
+                    False)
+    torch.cuda.synchronize()
+    for a, b in zip(kp + km + kv, ps + ms + vs):
+        assert torch.equal(a, b)
+    assert counters.get("fused_adam") == 1
+
+
+def test_training_kernels_raise_on_what_they_do_not_take(dev):
+    q = torch.zeros((1, 64, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)
+    h = torch.zeros((4, 100), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fx.fused_xent_fwd(h, torch.zeros((8, 100), device=dev),
+                          torch.zeros(8, device=dev),
+                          torch.zeros(4, dtype=torch.int32, device=dev))
+    p = torch.zeros(8, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="f32"):
+        fo.fused_adam_([p], [p], [p], [p], lr=1e-3, beta1=0.9, beta2=0.999,
+                       eps=1e-8, step=1)
+    assert counters.snapshot() == {}
