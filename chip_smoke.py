@@ -20,8 +20,10 @@ prints no result line:
             bit; the fused vocabulary cross-entropy forward and backward
             at 16384 x 768 x 30592 f32 with ~15% ignored rows (largest
             error within 1e-4 of the largest value); fused AdamW over
-            BERT-base's parameter list, bit for bit. Kernel, plain and
-            library times and the least time the card could take (bound);
+            BERT-base's parameter list, bit for bit; fused Momentum over
+            ResNet-50's 161 parameters, with and without Nesterov, bit
+            for bit. Kernel, plain and library times and the least time
+            the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -44,9 +46,21 @@ prints no result line:
             ``bench.py`` ``bench_bert``): 3 warm-up and 10 timed steps;
             tokens/s, step ms, MFU, the loss (finite, falling), exact
             kernel launches per step, and a profiled step by family;
-7. the ``kernels`` line (launches counted over phases 2-4 for the
-   decode kernels and over phase 6 for the training kernels), then the
-   card's name and power limit, then the result line.
+7. resnet_parity  a small ResNet (BottleneckBlock [1, 1, 1, 1], 64 x 64,
+            batch 4, f32) trained two Momentum steps through
+            ``TrainStep`` with the kernel and again with the plain version,
+            on the card with cuDNN deterministic: losses, parameters,
+            velocities and running statistics bit for bit;
+8. resnet50 ResNet-50, batch 128 x 3 x 224 x 224, 1000 classes, AMP O1
+            bf16, Momentum lr 0.1 mu 0.9, the same batch every step (as
+            ``bench.py`` ``bench_resnet``; cuDNN's default algorithm
+            choice, ``cudnn.benchmark`` off): 3 warm-up and 10 timed
+            steps; imgs/s, step ms, MFU, peak memory, the loss (finite),
+            one Momentum launch a step, and a profiled step by family;
+9. the ``kernels`` line (launches counted over phases 2-4 for the
+   decode kernels, over phase 6 for BERT's and over phase 8 for
+   Momentum), then the card's name and power limit, then the result
+   line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -54,6 +68,7 @@ the configurations' own.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -88,15 +103,24 @@ def expect(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing on the card
 # ---------------------------------------------------------------------------
+HOST_AHEAD_CYCLES = 4_000_000  # ~2 ms of spinning at the H100's clocks
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, L2 flushed before each (the
-    decode step reads each layer's pages cold)."""
+    decode step reads each layer's pages cold). A spin kernel queued
+    before the start event keeps the device busy while the host runs
+    the call's Python (argument checks, pointer tables), so a call that
+    launches one kernel is timed by that kernel alone; a call whose
+    host work outlasts the spin (the plain versions) still counts its
+    gaps."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -723,6 +747,55 @@ def check_adam(torch, fo, shapes, timing):
     return row
 
 
+def check_momentum(torch, fo, shapes, timing):
+    """K3-momentum over ResNet-50's parameter list, bit for bit, without
+    and with Nesterov, from a non-zero velocity."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def make(scale):
+        return [torch.randn(s, generator=gen, device=dev) * scale
+                for s in shapes]
+
+    ps, gs, vs = make(0.05), make(1e-3), make(1e-3)
+    lr, mu = 0.1, 0.9
+    cache = {}
+    for nesterov in (False, True):
+        kp, kv = [x.clone() for x in ps], [x.clone() for x in vs]
+        pp, pv = [x.clone() for x in ps], [x.clone() for x in vs]
+        fo.fused_momentum_(kp, gs, kv, lr=lr, momentum=mu,
+                           nesterov=nesterov, cache=cache)
+        fo._plain_momentum_(pp, gs, pv, np.float32(lr), np.float32(mu),
+                            nesterov, False)
+        torch.cuda.synchronize()
+        differ = sum(int(not torch.equal(a, b))
+                     for a, b in zip(kp + kv, pp + pv))
+        expect(differ == 0, f"fused Momentum (nesterov={nesterov}) differs "
+                            f"bitwise in {differ} tensors")
+    n = sum(p.numel() for p in ps)
+    row = {"params": len(shapes), "elements": n, "max_abs_err": 0.0,
+           "bitwise": True, "nesterov_bitwise": True}
+    if timing:
+        # p, g, v read once, p and v written once; 3 flops an element
+        t_b, by = bound_of(20 * n, 3 * n, F32_FLOPS_PER_S)
+        lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
+        for p, gr in zip(lib_p, gs):
+            p.grad = gr.clone()
+        lib = torch.optim.SGD(lib_p, lr=lr, momentum=mu, fused=True)
+        kp, kv = [x.clone() for x in ps], [x.clone() for x in vs]
+        row.update({
+            "ms": time_ms(torch, lambda: fo.fused_momentum_(
+                kp, gs, kv, lr=lr, momentum=mu, nesterov=False,
+                cache=cache)),
+            "plain_ms": time_ms(torch, lambda: fo._plain_momentum_(
+                ps, gs, vs, np.float32(lr), np.float32(mu), False, False),
+                iters=5),
+            "library_ms": time_ms(torch, lib.step),
+            "bound_ms": t_b, "bound_by": by,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 5-6: the BERT pretraining step
 # ---------------------------------------------------------------------------
@@ -731,24 +804,14 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
                  "fused_xent_fwd", "fused_xent_bwd", "fused_adam")
 
 
-class plain_kernels:
-    """Route the training kernels' wrappers to their plain versions on
-    the card, for the parity run (the port itself has no such switch:
-    a CUDA tensor always launches the kernel)."""
+class swapped:
+    """Point each ``module.name`` of ``swaps`` ([(module, name, fn)]) at
+    ``fn`` inside the block: the parity runs route the kernels' wrappers
+    to their plain versions on the card (the port itself has no such
+    switch: a CUDA tensor always launches the kernel)."""
 
-    def __init__(self, fa, fx, fo, optmod):
-        def plain_adam(params, grads, m1, m2, *, lr, beta1, beta2, eps,
-                       step, weight_decay=0.0, skip=False, cache=None):
-            lr32, c1, c2, lrwd = fo.adam_scalars(lr, beta1, beta2, step,
-                                                 weight_decay)
-            fo._plain_adam_(params, grads, m1, m2, lr32, beta1, beta2, eps,
-                            c1, c2, lrwd, skip)
-
-        self.swaps = [(fa, "flash_attention_fwd", fa._plain_fwd),
-                      (fa, "flash_attention_bwd", fa._plain_bwd),
-                      (fx, "fused_xent_fwd", fx._plain_fwd),
-                      (fx, "fused_xent_bwd", fx._plain_bwd),
-                      (optmod, "fused_adam_", plain_adam)]
+    def __init__(self, swaps):
+        self.swaps = swaps
 
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.swaps]
@@ -759,6 +822,21 @@ class plain_kernels:
         for m, n, f in self.saved:
             setattr(m, n, f)
         return False
+
+
+def bert_plain_swaps(fa, fx, fo, optmod):
+    def plain_adam(params, grads, m1, m2, *, lr, beta1, beta2, eps,
+                   step, weight_decay=0.0, skip=False, cache=None):
+        lr32, c1, c2, lrwd = fo.adam_scalars(lr, beta1, beta2, step,
+                                             weight_decay)
+        fo._plain_adam_(params, grads, m1, m2, lr32, beta1, beta2, eps,
+                        c1, c2, lrwd, skip)
+
+    return [(fa, "flash_attention_fwd", fa._plain_fwd),
+            (fa, "flash_attention_bwd", fa._plain_bwd),
+            (fx, "fused_xent_fwd", fx._plain_fwd),
+            (fx, "fused_xent_bwd", fx._plain_bwd),
+            (optmod, "fused_adam_", plain_adam)]
 
 
 def bert_batch(torch, rng, B, S, vocab):
@@ -795,7 +873,7 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
                                parameters=model.parameters()))
         counters.reset()
         if name == "plain":
-            with plain_kernels(fa, fx, fo, optmod):
+            with swapped(bert_plain_swaps(fa, fx, fo, optmod)):
                 loss = step(*batch)
         else:
             loss = step(*batch)
@@ -835,9 +913,55 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
             "launches": ck}
 
 
-def profile_step(torch, step, batch):
-    """Device time by family over one training step under torch.profiler
-    and the device's busy share of that step's wall time."""
+def bert_family(name):
+    if "flash_fwd_kernel" in name:
+        return "flash_fwd"
+    if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+        return "flash_bwd"
+    if "xent_fwd_kernel" in name:
+        return "xent_fwd"
+    if "xent_dh_kernel" in name or "xent_dw_kernel" in name:
+        return "xent_bwd"
+    if "adamrule" in name:
+        return "adam"
+    if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "gemm"
+    return "other"
+
+
+BERT_FAMILIES = ("flash_fwd", "flash_bwd", "xent_fwd", "xent_bwd", "adam",
+                 "gemm", "other")
+
+
+def resnet_family(name):
+    """cuDNN names its convolution kernels by pass: fprop (forward),
+    dgrad (input gradient), wgrad (weight gradient); the layout
+    transposes around them are their own family."""
+    if "momentumrule" in name:
+        return "momentum"
+    if any(t in name for t in ("dgrad", "wgrad", "bwd_data", "bwd_filter",
+                               "backward_data", "backward_filter")):
+        return "conv_bwd"
+    if "nchwtonhwc" in name or "nhwctonchw" in name:
+        return "conv_layout"
+    if any(t in name for t in ("fprop", "convolve", "winograd",
+                               "implicit_gemm", "conv2d")):
+        return "conv_fwd"
+    if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "gemm"
+    return "bn_elementwise"
+
+
+RESNET_FAMILIES = ("conv_fwd", "conv_bwd", "conv_layout", "bn_elementwise",
+                   "gemm", "momentum")
+
+
+def profile_step(torch, step, batch, family, families, step_ms):
+    """Device time by family (``family(lowercase kernel name)``) over one
+    training step under torch.profiler, the ten longest kernels (and
+    the three longest of each family), the number of kernels, and the
+    device's busy share of that step's wall time and of ``step_ms`` (the
+    median unprofiled step: the profiler slows the host's launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -847,36 +971,30 @@ def profile_step(torch, step, batch):
         step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fams = dict.fromkeys(("flash_fwd", "flash_bwd", "xent_fwd", "xent_bwd",
-                          "adam", "gemm", "other"), 0.0)
+    fams = dict.fromkeys(families, 0.0)
+    by_name, kernels = {}, 0
     for e in prof.events():
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
-        name = e.name.lower()
-        if "flash_fwd_kernel" in name:
-            fam = "flash_fwd"
-        elif "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
-            fam = "flash_bwd"
-        elif "xent_fwd_kernel" in name:
-            fam = "xent_fwd"
-        elif "xent_dh_kernel" in name or "xent_dw_kernel" in name:
-            fam = "xent_bwd"
-        elif "adam_kernel" in name:
-            fam = "adam"
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
-                                     "nvjet")):
-            fam = "gemm"
-        else:
-            fam = "other"
+        fam = family(e.name.lower())
         fams[fam] += us / 1e3
+        key = (fam, e.name[:120])
+        by_name[key] = by_name.get(key, 0.0) + us / 1e3
+        kernels += 1
     busy = sum(fams.values())
     if busy <= 0:
         return {"device_ms": "not measured", "wall_ms": wall_ms}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = {f: dict([(name, ms) for (g, name), ms in ranked if g == f][:3])
+           for f in families}
     return {"wall_ms": wall_ms, "device_ms": fams,
-            "device_busy_share": busy / wall_ms}
+            "device_busy_share": busy / wall_ms,
+            "device_share_of_median_step": busy / step_ms, "kernels": kernels,
+            "top_kernels_ms": {name: ms for (_, name), ms in ranked[:10]},
+            "top_by_family_ms": top}
 
 
 def phase_bert(torch, counters):
@@ -933,7 +1051,8 @@ def phase_bert(torch, counters):
         + 2 * H * H + 2 * H * V
     flops_per_step = 3 * fwd_per_token * B * S
     med = float(np.median(step_ms))
-    breakdown = profile_step(torch, step, batch)
+    breakdown = profile_step(torch, step, batch, bert_family, BERT_FAMILIES,
+                             med)
     return {"phase": "bert", "config": "BERT-base (vocab 30592, 12 x 768, "
             "12 x 64 heads, ffn 3072), batch 128 x seq 128, AMP O1 bf16, "
             "dropout 0.1, AdamW lr 1e-4 wd 0.01",
@@ -947,6 +1066,167 @@ def phase_bert(torch, counters):
             "losses": losses, "launches": launches,
             "launches_per_step": per_step,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "breakdown": breakdown}, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: ResNet training
+# ---------------------------------------------------------------------------
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+
+
+def phase_resnet_parity(torch, counters, fo):
+    """Two Momentum TrainSteps of a small ResNet (BottleneckBlock
+    [1, 1, 1, 1], 10 classes, batch 4 x 64 x 64, f32) with the kernel and
+    again with the plain version, from the same weights, on the card,
+    with cuDNN deterministic so that both runs get the same gradients:
+    losses, parameters, velocities and running statistics bit for bit."""
+    import copy
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+    from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
+
+    def plain_momentum(params, grads, velocities, *, lr, momentum,
+                       nesterov, skip=False, cache=None):
+        fo._plain_momentum_(params, grads, velocities, np.float32(lr),
+                            np.float32(momentum), nesterov, skip)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    base = ResNet(BottleneckBlock, [1, 1, 1, 1], num_classes=10,
+                  generator=gen)
+    rng = np.random.RandomState(6)
+    x = torch.tensor(rng.randn(4, 3, 64, 64).astype(np.float32),
+                     device="cuda")
+    y = torch.tensor(rng.randint(0, 10, (4,)), device="cuda")
+    ce = nn.CrossEntropyLoss()
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("kernel", "plain"):
+            model = copy.deepcopy(base)
+            opt = Momentum(learning_rate=0.1, momentum=0.9,
+                           parameters=model.parameters())
+            step = TrainStep(model, lambda m, a, b: ce(m(a), b), opt)
+            counters.reset()
+            if name == "plain":
+                swap = [(optmod, "fused_momentum_", plain_momentum)]
+                with swapped(swap):
+                    losses = [float(step(x, y)) for _ in range(2)]
+            else:
+                losses = [float(step(x, y)) for _ in range(2)]
+            torch.cuda.synchronize()
+            runs[name] = (losses, model, opt, counters.snapshot())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (lk, mk, ok, ck), (lp, mp, op, cp) = runs["kernel"], runs["plain"]
+    expect(ck.get("fused_momentum", 0) == 2,
+           f"resnet_parity: the Momentum kernel launched {ck} times, want 2")
+    expect(not cp.get("fused_momentum", 0),
+           f"resnet_parity: the plain run launched the kernel: {cp}")
+    expect(lk == lp, f"resnet_parity: losses {lk} (kernel) against {lp} "
+                     f"(plain)")
+    expect(all(np.isfinite(lk)), f"resnet_parity: non-finite loss {lk}")
+    pp = dict(mp.named_parameters())
+    pb = dict(mp.named_buffers())
+    errs = {"param": 0.0, "velocity": 0.0, "grad": 0.0, "buffer": 0.0}
+    for n, p in mk.named_parameters():
+        q = pp[n]
+        errs["grad"] = max(errs["grad"], max_err(p.grad, q.grad))
+        errs["param"] = max(errs["param"], max_err(p, q))
+        errs["velocity"] = max(errs["velocity"], max_err(
+            ok._slots[id(p)]["velocity"], op._slots[id(q)]["velocity"]))
+    for n, b in mk.named_buffers():
+        errs["buffer"] = max(errs["buffer"], max_err(b, pb[n]))
+    expect(not any(errs.values()),
+           f"resnet_parity: kernel and plain runs differ: {errs}")
+    expect(bool((mk.layer4[0].bn2._variance != 1.0).any()),
+           "resnet_parity: the running variance was not updated")
+    return {"phase": "resnet_parity", "config": "ResNet BottleneckBlock "
+            "[1, 1, 1, 1], 10 classes, batch 4 x 3 x 64 x 64, f32, "
+            "Momentum lr 0.1 mu 0.9, two steps, cudnn.deterministic",
+            "losses": lk, "max_abs_err": errs, "bitwise": True,
+            "launches": ck}
+
+
+def phase_resnet50(torch, counters):
+    """``bench_resnet``'s configuration at full width and depth."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()                  # earlier phases' garbage off the card
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = resnet50(num_classes=RESNET_CLASSES, generator=gen)
+    params = list(model.parameters())
+    opt = Momentum(learning_rate=0.1, momentum=0.9, parameters=params)
+    ce = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return ce(m(x), y)
+
+    step = TrainStep(model, loss_fn, opt)
+    B, S = RESNET_BATCH, RESNET_SIZE
+    rng = np.random.RandomState(0)
+    batch = (torch.tensor(rng.randn(B, 3, S, S).astype(np.float32),
+                          device="cuda"),
+             torch.tensor(rng.randint(0, RESNET_CLASSES, (B,)).astype(
+                 np.int64), device="cuda"))
+    warm, timed_n = 3, 10
+    counters.reset()
+    losses, step_ms = [], []
+    for i in range(warm + timed_n):
+        t0 = time.perf_counter()
+        loss = float(step(*batch))
+        torch.cuda.synchronize()
+        if i >= warm:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = counters.snapshot()
+    n_steps = warm + timed_n
+    expect(all(np.isfinite(losses)), f"resnet50: non-finite loss {losses}")
+    expect(launches.get("fused_momentum", 0) == n_steps,
+           f"resnet50: fused_momentum launched "
+           f"{launches.get('fused_momentum', 0)} times over {n_steps} steps, "
+           f"want one a step")
+    expect(all(p.grad is not None for p in params),
+           "resnet50: a parameter got no gradient, so Momentum skipped it")
+    expect(len(opt._kernel_cache["key"]) == 4 * len(params),
+           "resnet50: the Momentum launch did not cover every parameter")
+    bufs = [b for _, b in model.named_buffers()]
+    expect(len(bufs) == 2 * 53 and all(bool(torch.isfinite(b).all())
+                                       for b in bufs),
+           "resnet50: a running statistic is missing or not finite")
+    expect(bool((model.bn1._variance != 1.0).any()),
+           "resnet50: the running statistics were not updated")
+    med = float(np.median(step_ms))
+    flops_per_step = 3 * 8.2e9 * B     # bench.py:1622-1623's closed form
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile_step(torch, step, batch, resnet_family,
+                             RESNET_FAMILIES, med)
+    return {"phase": "resnet50", "config": "ResNet-50 (BottleneckBlock "
+            "[3, 4, 6, 3], 1000 classes), batch 128 x 3 x 224 x 224, AMP O1 "
+            "bf16, Momentum lr 0.1 mu 0.9, the same batch every step",
+            "cudnn_benchmark": bool(torch.backends.cudnn.benchmark),
+            "params": int(sum(p.numel() for p in params)),
+            "param_tensors": len(params), "warmup_steps": warm,
+            "timed_steps": timed_n,
+            "imgs_per_s": B * timed_n / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "flops_per_step": flops_per_step,
+            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "launches": launches,
+            "launches_per_step": launches.get("fused_momentum", 0) / n_steps,
+            "mem_at_start_gb": mem_start, "peak_mem_gb": peak,
             "breakdown": breakdown}, launches
 
 
@@ -971,6 +1251,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_xent as fx
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import sampling as samp
+    from paddle_tpu_torch.vision.models import resnet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -995,6 +1276,9 @@ def main() -> int:
             BertConfig.base()).parameters()]
         k3 = check_adam(torch, fo, shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_adam": k3})
+        shapes = [tuple(p.shape) for p in resnet50().parameters()]
+        k3m = check_momentum(torch, fo, shapes, timing)
+        emit({"phase": "kernels_vs_plain", "fused_momentum": k3m})
         torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
@@ -1018,6 +1302,13 @@ def main() -> int:
         emit(phase_bert_parity(torch, counters, fa, fx, fo))
         torch.cuda.empty_cache()
         row, launches = phase_bert(torch, counters)
+        emit(row)
+        total.update(launches)
+        torch.cuda.empty_cache()
+
+        emit(phase_resnet_parity(torch, counters, fo))
+        torch.cuda.empty_cache()
+        row, launches = phase_resnet50(torch, counters)
         emit(row)
         total.update(launches)
 
@@ -1051,6 +1342,8 @@ def main() -> int:
                 ("fused_xent_bwd", split(k2, "bwd"), src + "fused_xent.cu",
                  "paddle_tpu/ops/pallas/fused_xent.py:216"),
                 ("fused_adam", k3, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("fused_momentum", k3m, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,

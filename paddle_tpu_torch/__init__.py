@@ -7,12 +7,14 @@ JAX. It grows slice by slice: paged-KV decode serving
 sampling, then the BERT pretraining step (``models.bert``, ``nn``,
 ``amp``, ``optimizer``, ``jit.TrainStep``) with CUDA kernels for flash
 attention, the fused vocabulary cross-entropy and the fused Adam update
-(``ops.cuda``). Entry points run on the card unless the caller passes
+(``ops.cuda``), then ResNet training (``vision.models``: convolution,
+batch norm, pooling; ``optimizer.Momentum``) with a CUDA kernel for the
+fused Momentum update. Entry points run on the card unless the caller passes
 ``device="cpu"``; without a GPU and without a device they raise.
 """
 from . import (amp, framework, inference, jit, models, nn, ops, optimizer,
-               profiler)
+               profiler, vision)
 from .framework.random import seed
 
 __all__ = ["amp", "framework", "inference", "jit", "models", "nn", "ops",
-           "optimizer", "profiler", "seed"]
+           "optimizer", "profiler", "seed", "vision"]

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from .. import nn
 from .._device import resolve_device
 from ..nn import functional as F
+from ..nn.layer import load_numpy_state
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel", "BertForPretraining",
            "load_numpy_state"]
@@ -134,25 +134,3 @@ class BertForPretraining(nn.Layer):
             mlm_labels, ignore_index=ignore_index)
         nsp = F.cross_entropy(self.nsp(pooled), nsp_labels)
         return mlm + nsp
-
-
-def load_numpy_state(model: torch.nn.Module, state) -> None:
-    """Copy ``{name: np.ndarray}`` (e.g. the JAX model's ``state_dict()``
-    as numpy) into ``model`` by name. Raises on a missing key, an extra
-    key or a shape mismatch; values are cast to each tensor's dtype."""
-    own = model.state_dict()
-    missing = sorted(set(own) - set(state))
-    extra = sorted(set(state) - set(own))
-    if missing or extra:
-        raise KeyError(f"load_numpy_state: missing {missing[:8]}, extra "
-                       f"{extra[:8]} ({len(missing)} missing, {len(extra)} "
-                       f"extra)")
-    for name, t in own.items():
-        arr = np.asarray(state[name])
-        if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"load_numpy_state: {name} has shape "
-                             f"{tuple(arr.shape)}, the model wants "
-                             f"{tuple(t.shape)}")
-    with torch.no_grad():
-        for name, t in own.items():
-            t.copy_(torch.from_numpy(np.array(state[name])))

@@ -1,12 +1,13 @@
-"""Common layers BERT uses: ``Linear``, ``Embedding``, ``Dropout``,
-``Tanh`` (port of ``paddle_tpu/nn/common.py``)."""
+"""Common layers: ``Linear``, ``Embedding``, ``Dropout``, ``Tanh`` and
+``ReLU`` (port of ``paddle_tpu/nn/common.py`` and the ``ReLU`` layer
+``paddle_tpu/nn/__init__.py`` exports)."""
 from __future__ import annotations
 
 from . import functional as F
 from . import initializer as I
 from .layer import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout", "Tanh"]
+__all__ = ["Linear", "Embedding", "Dropout", "Tanh", "ReLU"]
 
 
 class Linear(Layer):
@@ -57,3 +58,8 @@ class Dropout(Layer):
 class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return F.relu(x)

@@ -1,13 +1,27 @@
-"""The functional ops BERT reaches.
+"""The functional ops BERT and the vision models (LeNet, ResNet) reach.
 
-Port of the matching part of ``paddle_tpu/nn/functional.py``. Layouts
-follow the JAX package, not PyTorch's habits: ``linear``'s W is
-(in, out) and ``y = x @ W + b`` (the reference fc/mul op); attention
-takes (B, L, H, D); ``fused_linear_cross_entropy``'s W is (V, H), the
-embedding layout. Each op passes its inputs through
-``amp.maybe_cast_inputs`` under the JAX op name, so ``auto_cast`` casts
-the same ops as in the JAX package (``linear``/``matmul`` down,
-``layer_norm``/``softmax_with_cross_entropy`` up, the rest untouched).
+Port of the matching part of ``paddle_tpu/nn/functional.py`` (and
+``flatten`` from ``paddle_tpu/ops/manipulation.py``). Layouts follow
+the JAX package, not PyTorch's habits: ``linear``'s W is (in, out) and
+``y = x @ W + b`` (the reference fc/mul op); attention takes
+(B, L, H, D); ``fused_linear_cross_entropy``'s W is (V, H), the
+embedding layout; convolution and pooling take NCHW and a conv weight
+(C_out, C_in/groups, kh, kw), which is PyTorch's layout too. Each op
+passes its inputs through ``amp.maybe_cast_inputs`` under the JAX op
+name, so ``auto_cast`` casts the same ops as in the JAX package
+(``linear``/``matmul``/``conv2d`` down, ``layer_norm``/
+``softmax_with_cross_entropy`` up, the rest untouched).
+
+Batch norm computes its statistics as the JAX package does: the mean
+and the BIASED variance (``jnp.var``), taken in f32 for a bf16/f16
+input and rounded back to its type, and running statistics updated as
+``momentum*running + (1-momentum)*batch`` with Paddle's momentum (0.9:
+the weight of the OLD value, the opposite of PyTorch's convention).
+Under O1 its input is the bf16 output of a convolution, so it
+normalises in bf16 and its f32 scale makes its output f32, as in JAX;
+``torch.nn.functional.batch_norm`` would use the unbiased variance for
+the running update and keep bf16. Python scalars in bf16 arithmetic are
+rounded to bf16 first, as JAX's weak types are.
 
 Attention and the MLM head's loss are the kernels' entry points
 (``ops/cuda/flash_attention.py``, ``ops/cuda/fused_xent.py``): on CUDA
@@ -26,8 +40,12 @@ from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import fused_xent as _fx
 
 __all__ = ["linear", "matmul", "embedding", "dropout", "gelu", "tanh",
-           "layer_norm", "cross_entropy", "scaled_dot_product_attention",
-           "fused_linear_cross_entropy"]
+           "relu", "layer_norm", "cross_entropy",
+           "scaled_dot_product_attention", "fused_linear_cross_entropy",
+           "conv2d", "max_pool2d", "adaptive_avg_pool2d", "batch_norm",
+           "flatten"]
+
+_LOW = (torch.bfloat16, torch.float16)
 
 
 def linear(x, weight, bias=None):
@@ -84,6 +102,11 @@ def tanh(x):
     return torch.tanh(x)
 
 
+def relu(x):
+    (x,) = maybe_cast_inputs("relu", [x])
+    return torch.relu(x)
+
+
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
@@ -132,3 +155,204 @@ def fused_linear_cross_entropy(h, weight, bias, label, ignore_index=-100):
                                         [h, weight, bias])
     return _fx.fused_linear_cross_entropy(h, weight, bias, label,
                                           ignore_index=ignore_index)
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling, batch norm (the vision models)
+# ---------------------------------------------------------------------------
+def _tuple_n(v, n):
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(x) for x in v)
+
+
+def _pads(padding, n):
+    """[(low, high)] per spatial dim from an int, n ints, 2n ints or n
+    pairs (JAX's ``_conv_padding``)."""
+    if isinstance(padding, str):
+        raise NotImplementedError(f"padding {padding!r}: SAME/VALID are a "
+                                  f"later port slice; pass ints")
+    if isinstance(padding, int):
+        return [(padding, padding)] * n
+    padding = list(padding)
+    if len(padding) == n:
+        if isinstance(padding[0], (list, tuple)):
+            return [tuple(int(v) for v in p) for p in padding]
+        return [(int(p), int(p)) for p in padding]
+    if len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    raise ValueError(f"Bad padding {padding}")
+
+
+def _pad_spatial(x, pads, value):
+    """Pad the two trailing (H, W) dims of an NCHW tensor."""
+    (ht, hb), (wl, wr) = pads
+    return torch.nn.functional.pad(x, (wl, wr, ht, hb), value=value)
+
+
+def _nchw_only(op, data_format):
+    if data_format != "NCHW":
+        raise NotImplementedError(f"{op}: data_format {data_format!r} is a "
+                                  f"later port slice; NCHW is ported")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """NCHW convolution, weight (C_out, C_in/groups, kh, kw); the bias is
+    added after the product, as the JAX package does."""
+    _nchw_only("conv2d", data_format)
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"conv2d: expected rank-4 input and weight, got "
+                         f"input {tuple(x.shape)} and weight "
+                         f"{tuple(weight.shape)}")
+    if x.shape[1] != weight.shape[1] * groups:
+        raise ValueError(
+            f"conv2d: input {tuple(x.shape)} (C_in={x.shape[1]}) is "
+            f"incompatible with weight {tuple(weight.shape)}: the weight "
+            f"layout is (C_out, C_in/groups, kh, kw) and needs C_in == "
+            f"{weight.shape[1]} * groups({groups})")
+    x, weight, bias = maybe_cast_inputs("conv2d", [x, weight, bias])
+    stride, dilation = _tuple_n(stride, 2), _tuple_n(dilation, 2)
+    pads = _pads(padding, 2)
+    if all(lo == hi for lo, hi in pads):
+        out = torch.nn.functional.conv2d(x, weight, None, stride,
+                                         [lo for lo, _ in pads], dilation,
+                                         groups)
+    else:
+        out = torch.nn.functional.conv2d(_pad_spatial(x, pads, 0.0), weight,
+                                         None, stride, 0, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW"):
+    """Max over windows of an NCHW tensor padded with -inf; ``ceil_mode``
+    widens the high padding so that a partial last window counts."""
+    _nchw_only("max_pool2d", data_format)
+    if return_mask:
+        raise NotImplementedError("max_pool2d return_mask is a later port "
+                                  "slice")
+    (x,) = maybe_cast_inputs("max_pool2d", [x])
+    kernel = _tuple_n(kernel_size, 2)
+    stride = _tuple_n(stride if stride is not None else kernel_size, 2)
+    pads = _pads(padding, 2)
+    if ceil_mode:
+        for i in range(2):
+            size = x.shape[2 + i] + pads[i][0] + pads[i][1]
+            rem = (size - kernel[i]) % stride[i]
+            if rem:
+                pads[i] = (pads[i][0], pads[i][1] + stride[i] - rem)
+    if any(p for pair in pads for p in pair):
+        x = _pad_spatial(x, pads, float("-inf"))
+    return torch.nn.functional.max_pool2d(x, kernel, stride)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    """Mean over H, then over W, into ``output_size`` bins: a reshape
+    where the size divides, variable windows elsewhere (as JAX)."""
+    _nchw_only("adaptive_avg_pool2d", data_format)
+    (x,) = maybe_cast_inputs("adaptive_avg_pool2d", [x])
+    sizes = (output_size,) * 2 if isinstance(output_size, int) \
+        else tuple(output_size)
+    for dim, o in zip((2, 3), sizes):
+        n = x.shape[dim]
+        o = n if o is None else int(o)
+        if n % o == 0:
+            x = x.reshape(x.shape[:dim] + (o, n // o) + x.shape[dim + 1:])
+            x = x.mean(dim=dim + 1)
+        else:
+            segs = []
+            for i in range(o):
+                lo, hi = (i * n) // o, ((i + 1) * n + o - 1) // o
+                segs.append(x.narrow(dim, lo, hi - lo).mean(dim=dim,
+                                                            keepdim=True))
+            x = torch.cat(segs, dim=dim)
+    return x
+
+
+def _weak(value, like):
+    """A Python scalar as JAX's weak type meets an array: rounded to its
+    dtype. Returned as a Python float (PyTorch then computes in f32 and
+    rounds once, as XLA does for bf16), not as a tensor on the device:
+    making a CUDA tensor from host data synchronises the stream."""
+    return torch.tensor(value, dtype=like.dtype).item()
+
+
+def _bn_shape(x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return shape
+
+
+def _batch_norm_train(x, weight, bias, epsilon, axis):
+    axes = [i for i in range(x.dim()) if i != axis]
+    shape = _bn_shape(x, axis)
+    if x.dtype in _LOW:
+        # jnp.mean and jnp.var compute in f32 and round to x's type
+        x32 = x.float()
+        mean32 = x32.mean(dim=axes)
+        var = (x32 - mean32.reshape(shape)).square().mean(dim=axes)
+        mean, var = mean32.to(x.dtype), var.to(x.dtype)
+        centered = x - mean.reshape(shape)
+    else:
+        mean = x.mean(dim=axes)
+        centered = x - mean.reshape(shape)
+        var = centered.square().mean(dim=axes)
+    out = centered * torch.rsqrt(var.reshape(shape) + _weak(epsilon, var))
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out, mean, var
+
+
+def _batch_norm_infer(x, mean, var, weight, bias, epsilon, axis):
+    shape = _bn_shape(x, axis)
+    var = var.reshape(shape)
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var + _weak(epsilon, var))
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Batch norm over every axis but the channel axis (1 for NC...,
+    the last otherwise). Training uses the batch's mean and biased
+    variance and updates ``running_mean``/``running_var`` IN PLACE (no
+    gradient) as ``momentum*running + (1-momentum)*batch``; otherwise
+    (or with ``use_global_stats``) it normalises with the running
+    statistics."""
+    axis = 1 if data_format in ("NCHW", "NCL", "NCDHW", "NC") \
+        else x.dim() - 1
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    if use_stats:
+        x, running_mean, running_var, weight, bias = maybe_cast_inputs(
+            "batch_norm_infer", [x, running_mean, running_var, weight, bias])
+        return _batch_norm_infer(x, running_mean, running_var, weight, bias,
+                                 epsilon, axis)
+    x, weight, bias = maybe_cast_inputs("batch_norm_train", [x, weight, bias])
+    out, mean, var = _batch_norm_train(x, weight, bias, epsilon, axis)
+    if running_mean is not None:
+        with torch.no_grad():
+            for run, new in ((running_mean, mean), (running_var, var)):
+                run.copy_(run * _weak(momentum, run)
+                          + new * _weak(1 - momentum, new))
+    return out
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    """Merge the axes start_axis..stop_axis into one."""
+    nd = x.dim()
+    if nd == 0:
+        return x.reshape(1)
+    start, stop = start_axis % nd, stop_axis % nd
+    return x.reshape(tuple(x.shape[:start]) + (-1,)
+                     + tuple(x.shape[stop + 1:]))

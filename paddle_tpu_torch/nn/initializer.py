@@ -1,8 +1,9 @@
-"""Parameter initializers BERT's layers default to.
+"""Parameter initializers the port's layers default to.
 
 Port of the part of ``paddle_tpu/nn/initializer.py`` that
-``Layer.create_parameter`` reaches for BERT: ``Constant`` (biases, norm
-scales) and ``XavierUniform`` (linear and embedding weights). Each is a
+``Layer.create_parameter`` reaches: ``Constant`` (biases, norm scales),
+``XavierUniform`` (linear and embedding weights), ``KaimingUniform``
+(convolution weights) and ``Uniform`` (convolution biases). Each is a
 callable ``init(shape, device, generator) -> Tensor`` that draws from
 an explicit :class:`torch.Generator`; the values differ from the JAX
 package's (another generator), so parity tests copy weights across
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-__all__ = ["Constant", "XavierUniform", "fans"]
+__all__ = ["Constant", "Uniform", "XavierUniform", "KaimingUniform", "fans"]
 
 
 def fans(shape):
@@ -40,6 +41,17 @@ class Constant:
                           device=device)
 
 
+class Uniform:
+    """U(low, high)."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, shape, device, generator=None):
+        out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+        return out.uniform_(self.low, self.high, generator=generator)
+
+
 class XavierUniform:
     """U(-limit, limit), limit = gain * sqrt(6 / (fan_in + fan_out))."""
 
@@ -53,3 +65,17 @@ class XavierUniform:
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
         out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
         return out.uniform_(-limit, limit, generator=generator)
+
+
+class KaimingUniform:
+    """U(-limit, limit), limit = gain * sqrt(3 / fan_in) with the leaky
+    ReLU gain sqrt(2 / (1 + negative_slope**2))."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+
+    def __call__(self, shape, device, generator=None):
+        fi = self.fan_in or fans(shape)[0]
+        gain = math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+        limit = gain * math.sqrt(3.0 / fi)
+        return Uniform(-limit, limit)(shape, device, generator)

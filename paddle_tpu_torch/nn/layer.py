@@ -1,5 +1,7 @@
 """``Layer``: the port's module base, a :class:`torch.nn.Module` with the
-JAX package's ``create_parameter``.
+JAX package's ``create_parameter``; and :func:`load_numpy_state`, which
+carries a JAX model's ``state_dict()`` (parameters and buffers) into a
+port model by name.
 
 Port of the part of ``paddle_tpu/nn/layer.py`` BERT needs. Attribute
 names follow the JAX layers, so ``state_dict()`` keys match the JAX
@@ -11,13 +13,14 @@ generator of that device, ``framework.random.seed``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..framework.random import default_generator
 from . import initializer as I
 
-__all__ = ["Layer"]
+__all__ = ["Layer", "load_numpy_state"]
 
 
 class Layer(torch.nn.Module):
@@ -38,3 +41,26 @@ class Layer(torch.nn.Module):
         gen = generator if generator is not None \
             else default_generator(device)
         return torch.nn.Parameter(init(shape, device, gen))
+
+
+def load_numpy_state(model: torch.nn.Module, state) -> None:
+    """Copy ``{name: np.ndarray}`` (e.g. the JAX model's ``state_dict()``
+    as numpy, parameters and buffers) into ``model`` by name. Raises on
+    a missing key, an extra key or a shape mismatch; values are cast to
+    each tensor's dtype."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"load_numpy_state: missing {missing[:8]}, extra "
+                       f"{extra[:8]} ({len(missing)} missing, {len(extra)} "
+                       f"extra)")
+    for name, t in own.items():
+        arr = np.asarray(state[name])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"load_numpy_state: {name} has shape "
+                             f"{tuple(arr.shape)}, the model wants "
+                             f"{tuple(t.shape)}")
+    with torch.no_grad():
+        for name, t in own.items():
+            t.copy_(torch.from_numpy(np.array(state[name])))

@@ -1,7 +1,8 @@
-"""Fused Adam update over a list of parameters: the plain PyTorch
-version, the CUDA kernel wrapper, and :func:`fused_adam_`.
+"""Fused optimizer updates over a list of parameters: the plain PyTorch
+versions, the CUDA kernel wrappers, :func:`fused_adam_` and
+:func:`fused_momentum_`.
 
-Port of the dygraph Adam body of ``paddle_tpu/ops/pallas/
+Adam ports the dygraph Adam body of ``paddle_tpu/ops/pallas/
 fused_optimizer.py`` (``_adam_kernel`` with ``dygraph=True``, reached
 from ``fused_try_rule``) followed by AdamW's decoupled decay
 (``paddle_tpu/optimizer/optimizer.py:133-134``). Per element, in f32,
@@ -12,21 +13,29 @@ in this order::
     p2 = p - (lr * (m2/c1)) / (sqrt(v2/c2) + eps)   c1 = 1-b1^t, c2 = 1-b2^t
     p3 = p2 - (lr*wd) * p                           the OLD p; wd = 0: p3 = p2
 
-``skip`` (the FoundInfinite flag) leaves p, m and v as they were.
-Unlike the functional JAX update, p, m and v are updated IN PLACE.
+Momentum ports ``_momentum_kernel`` (the dygraph ``Momentum`` update
+reached from ``fused_try_rule``)::
 
-The scalars c1, c2 and lr*wd are rounded to f32 once on the host and
-handed to both versions; the plain version divides by 0-dim tensors on
-the parameters' device (PyTorch's CUDA division by a Python scalar is a
-reciprocal multiply) and the kernel uses round-to-nearest intrinsics
-without contraction, so the two agree bit for bit on the card.
+    v2 = mu*v + g
+    p2 = p - lr*v2                  Nesterov: p2 = p - (g + mu*v2)*lr
+
+``skip`` (the FoundInfinite flag) leaves every tensor as it was. Unlike
+the functional JAX update, parameters and state are updated IN PLACE.
+
+The scalars (c1, c2, lr*wd, lr, mu) are rounded to f32 once on the host
+and handed to both versions; the plain versions multiply and divide by
+0-dim tensors on the parameters' device (PyTorch's CUDA division by a
+Python scalar is a reciprocal multiply) and the kernels use
+round-to-nearest intrinsics without contraction, so each kernel agrees
+with its plain version bit for bit on the card.
 
 Routing is by device, with no fallback: CUDA tensors launch ONE kernel
 over every parameter (a device table of pointers, cached while the
-pointers stay the same) and count one ``fused_adam`` launch, or raise;
-CPU tensors take the plain version. There is no size or dtype floor
-(the JAX gate's n >= 1024 and f32-only rules were TPU tuning): every
-f32 parameter goes through the kernel.
+pointers stay the same) and count one ``fused_adam`` or
+``fused_momentum`` launch, or raise; CPU tensors take the plain
+version. There is no size or dtype floor (the JAX gate's n >= 1024 and
+f32-only rules were TPU tuning): every f32 parameter goes through the
+kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import torch
 
 from . import _build, counters
 
-__all__ = ["adam_scalars", "fused_adam_"]
+__all__ = ["adam_scalars", "fused_adam_", "fused_momentum_"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -73,9 +82,26 @@ def _plain_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
         v.copy_(v_new)
 
 
+def _plain_momentum_(params, grads, velocities, lr, mu, nesterov, skip):
+    if skip:
+        return
+    for p, g, v in zip(params, grads, velocities):
+        def s(x):
+            return torch.tensor(float(x), dtype=torch.float32,
+                                device=p.device)
+        v_new = v * s(mu) + g
+        if nesterov:
+            p_new = p - (g + v_new * s(mu)) * s(lr)
+        else:
+            p_new = p - v_new * s(lr)
+        p.copy_(p_new)
+        v.copy_(v_new)
+
+
 def _table(tensors_by_role, cache):
-    """Device table of pointers ((4, n) int64: p, g, m, v) and the
-    (n + 1,) element offsets, cached by the pointers themselves."""
+    """Device table of pointers ((roles, n) int64: p, g, then the rule's
+    state) and the (n + 1,) element offsets, cached by the pointers
+    themselves."""
     params = tensors_by_role[0]
     key = tuple(t.data_ptr() for role in tensors_by_role for t in role) \
         + tuple(p.numel() for p in params)
@@ -96,22 +122,29 @@ def _table(tensors_by_role, cache):
     return cache["ptrs"], cache["offs"], cache["total"]
 
 
-def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
-                lrwd, skip, cache):
-    dev = params[0].device
-    for role, ts in (("param", params), ("grad", grads), ("moment1", m1s),
-                     ("moment2", m2s)):
+def _check_cuda(op, roles):
+    """Raise unless every tensor of ``roles`` ({role: [tensor, ...]}) is
+    a contiguous f32 tensor on the first parameter's device, and the
+    tensors of each parameter share its shape."""
+    dev = roles["param"][0].device
+    for role, ts in roles.items():
         for t in ts:
             if t.dtype != torch.float32 or t.device != dev \
                     or not t.is_contiguous():
-                raise ValueError(f"fused_adam_ takes contiguous f32 "
-                                 f"tensors on {dev}; a {role} is "
-                                 f"{t.dtype} on {t.device}")
-    for p, g, m, v in zip(params, grads, m1s, m2s):
-        if not (p.shape == g.shape == m.shape == v.shape):
-            raise ValueError(f"fused_adam_: shapes differ: {tuple(p.shape)}"
-                             f" {tuple(g.shape)} {tuple(m.shape)} "
-                             f"{tuple(v.shape)}")
+                raise ValueError(f"{op} takes contiguous f32 tensors on "
+                                 f"{dev}; a {role} is {t.dtype} on "
+                                 f"{t.device}")
+    for group in zip(*roles.values()):
+        if len({tuple(t.shape) for t in group}) != 1:
+            raise ValueError(f"{op}: shapes differ: "
+                             f"{[tuple(t.shape) for t in group]}")
+
+
+def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
+                lrwd, skip, cache):
+    dev = params[0].device
+    _check_cuda("fused_adam_", {"param": params, "grad": grads,
+                                "moment1": m1s, "moment2": m2s})
     ptrs, offs, total = _table((params, grads, m1s, m2s), cache)
     fn = _build.entry("fused_optimizer", "fused_adam_f32",
                       [_P, _P, ctypes.c_int, ctypes.c_longlong]
@@ -125,6 +158,23 @@ def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
     _build.check("fused_optimizer", err, "fused_adam_f32")
     if not skip:   # a skipped step launches nothing
         counters.bump("fused_adam")
+
+
+def _cuda_momentum_(params, grads, velocities, lr, mu, nesterov, skip,
+                    cache):
+    dev = params[0].device
+    _check_cuda("fused_momentum_", {"param": params, "grad": grads,
+                                    "velocity": velocities})
+    ptrs, offs, total = _table((params, grads, velocities), cache)
+    fn = _build.entry("fused_optimizer", "fused_momentum_f32",
+                      [_P, _P, ctypes.c_int, ctypes.c_longlong, _F, _F,
+                       ctypes.c_int, ctypes.c_int, _P])
+    err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
+             float(lr), float(mu), int(bool(nesterov)), int(bool(skip)),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("fused_optimizer", err, "fused_momentum_f32")
+    if not skip:   # a skipped step launches nothing
+        counters.bump("fused_momentum")
 
 
 def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
@@ -149,3 +199,25 @@ def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
         raise ValueError(f"fused_adam_ runs on cuda or cpu, got {dev}")
     _plain_adam_(params, grads, moment1, moment2, lr32, beta1, beta2, eps,
                  c1, c2, lrwd, skip)
+
+
+def fused_momentum_(params, grads, velocities, *, lr, momentum, nesterov,
+                    skip=False, cache=None):
+    """One Momentum step over lists of parameters, gradients and
+    velocities, IN PLACE. ``cache`` (a dict the caller owns) keeps the
+    kernel's pointer table between calls."""
+    params, grads = list(params), list(grads)
+    velocities = list(velocities)
+    if not (len(params) == len(grads) == len(velocities)):
+        raise ValueError("fused_momentum_: lists of different lengths")
+    if not params:
+        return
+    lr32, mu32 = np.float32(lr), np.float32(momentum)
+    dev = params[0].device
+    if dev.type == "cuda":
+        _cuda_momentum_(params, grads, velocities, lr32, mu32, nesterov,
+                        skip, {} if cache is None else cache)
+        return
+    if dev.type != "cpu":
+        raise ValueError(f"fused_momentum_ runs on cuda or cpu, got {dev}")
+    _plain_momentum_(params, grads, velocities, lr32, mu32, nesterov, skip)

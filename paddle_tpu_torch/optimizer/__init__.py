@@ -1,5 +1,6 @@
-"""Optimizers of the port: ``Adam`` and ``AdamW`` over the fused Adam
-kernel (``optimizer.optimizer``)."""
-from .optimizer import Adam, AdamW, Optimizer
+"""Optimizers of the port: ``Momentum`` over the fused Momentum kernel,
+``Adam`` and ``AdamW`` over the fused Adam kernel
+(``optimizer.optimizer``)."""
+from .optimizer import Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

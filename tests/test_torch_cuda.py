@@ -118,7 +118,8 @@ def test_cuda_tensors_the_kernels_do_not_take_raise(dev):
 
 
 # ---------------------------------------------------------------------------
-# the training slice: flash attention, fused xent, fused Adam
+# the training slices: flash attention, fused xent, fused Adam and
+# Momentum
 # ---------------------------------------------------------------------------
 from paddle_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import fused_optimizer as fo  # noqa: E402
@@ -207,6 +208,28 @@ def test_fused_adam_kernel_is_bitwise_the_plain_version(dev):
     assert counters.get("fused_adam") == 1
 
 
+@pytest.mark.parametrize("nesterov", [False, True], ids=["plain", "nesterov"])
+def test_fused_momentum_kernel_is_bitwise_the_plain_version(dev, nesterov):
+    g = torch.Generator(device=dev).manual_seed(6)
+    shapes = [(2048, 512, 1, 1), (64,), (3,), (0,), (1000, 7)]
+    ps = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    vs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+    kp, kv = [x.clone() for x in ps], [x.clone() for x in vs]
+    cache = {}
+    for step in range(3):
+        gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+        fo.fused_momentum_(kp, gs, kv, lr=0.1, momentum=0.9,
+                           nesterov=nesterov, cache=cache)
+        fo._plain_momentum_(ps, gs, vs, np.float32(0.1), np.float32(0.9),
+                            nesterov, False)
+    fo.fused_momentum_(kp, gs, kv, lr=0.1, momentum=0.9, nesterov=nesterov,
+                       skip=True, cache=cache)
+    torch.cuda.synchronize()
+    for a, b in zip(kp + kv, ps + vs):
+        assert torch.equal(a, b)
+    assert counters.get("fused_momentum") == 3
+
+
 def test_training_kernels_raise_on_what_they_do_not_take(dev):
     q = torch.zeros((1, 64, 2, 96), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -223,4 +246,14 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="f32"):
         fo.fused_adam_([p], [p], [p], [p], lr=1e-3, beta1=0.9, beta2=0.999,
                        eps=1e-8, step=1)
+    with pytest.raises(ValueError, match="f32"):
+        fo.fused_momentum_([p], [p], [p], lr=0.1, momentum=0.9,
+                           nesterov=False)
+    w = torch.zeros((8, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fo.fused_momentum_([w.t()], [w.t()], [w.t()], lr=0.1, momentum=0.9,
+                           nesterov=False)
+    with pytest.raises(ValueError, match="shapes differ"):
+        fo.fused_momentum_([w], [torch.zeros(32, device=dev)], [w], lr=0.1,
+                           momentum=0.9, nesterov=False)
     assert counters.snapshot() == {}

@@ -15,6 +15,10 @@ kernels are held against those plain versions on the card
 - K3 Adam: p, m, v against ``_run_grid(_adam_kernel, dygraph=True)``
   and the decoupled AdamW decay, rtol 1e-6; and a whole AdamW step
   against the JAX optimizer with ``PADDLE_FUSED_OPT_INTERPRET=1``.
+- K3 Momentum: p and v over several steps against
+  ``_run_grid(_momentum_kernel)``, with and without Nesterov, the skip
+  flag included; and a whole Momentum step against the JAX optimizer
+  with ``PADDLE_FUSED_OPT_INTERPRET=1``.
 - The plain Philox dropout: its keep rate, its dependence on the seed,
   and a float64 gradient check of the plain K1 with dropout on (the
   backward regenerates the forward's mask).
@@ -264,6 +268,89 @@ def test_adamw_step_matches_the_jax_optimizer(monkeypatch):
         for got, want in ((tps[k].detach(), jp[k]),
                           (slots["moment1"], state["slots"][k]["moment1"]),
                           (slots["moment2"], state["slots"][k]["moment2"])):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# K3: fused Momentum
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nesterov", [False, True], ids=["plain", "nesterov"])
+def test_fused_momentum_matches_pallas_momentum_kernel(nesterov):
+    """Four steps, the third one skipped (the FoundInfinite flag), from
+    a non-zero velocity; p and v after each step against the Pallas
+    kernel. rtol 1e-6 with a floor of 1e-6 of the largest value: XLA's
+    CPU backend may fuse ``mu*v + g`` into one FMA where the port rounds
+    the product."""
+    n, lr, mu = 3000, 0.1, 0.9
+    rng = np.random.RandomState(11)
+    p = rng.randn(n).astype(np.float32)
+    v = rng.randn(n).astype(np.float32) * 0.01
+    kern = functools.partial(jfo._momentum_kernel, mu=mu, nesterov=nesterov)
+    jp, jv = jnp.asarray(p), jnp.asarray(v)
+    tp, tv = _t(p), _t(v)
+    for step in range(4):
+        g = rng.randn(n).astype(np.float32) * 0.1
+        skip = step == 2
+        jp, jv = jfo._run_grid(kern, [jfo._scal(lr), jfo._scal(float(skip))],
+                               [jp, jnp.asarray(g), jv], 2, n, True)
+        before = (tp.clone(), tv.clone())
+        tfo.fused_momentum_([tp], [_t(g)], [tv], lr=lr, momentum=mu,
+                            nesterov=nesterov, skip=skip)
+        if skip:
+            assert torch.equal(tp, before[0]) and torch.equal(tv, before[1])
+        for got, want in ((tp, jp), (tv, jv)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max())
+    assert counters.snapshot() == {}                  # the CPU runs plain
+
+
+def test_fused_momentum_first_step_is_exact():
+    """From a zero velocity, v after one step is g itself and p is
+    ``p - lr*g`` rounded once, bit for bit."""
+    rng = np.random.RandomState(12)
+    p, g = (rng.randn(500).astype(np.float32) for _ in range(2))
+    tp, tv = _t(p), torch.zeros(500)
+    tfo.fused_momentum_([tp], [_t(g)], [tv], lr=0.1, momentum=0.9,
+                        nesterov=False)
+    assert torch.equal(tv, _t(g))
+    assert np.array_equal(tp.numpy(), p - np.float32(0.1) * g)
+
+
+def test_momentum_step_matches_the_jax_optimizer(monkeypatch):
+    """A whole Momentum step over a mixed list (one param above the JAX
+    kernel's 1024-element gate, one below it) against
+    ``apply_gradients_fn`` with the Pallas kernel in interpret mode."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.ops.pallas import counters as jcounters
+    from paddle_tpu_torch.optimizer import Momentum
+
+    monkeypatch.setenv("PADDLE_FUSED_OPT_INTERPRET", "1")
+    rng = np.random.RandomState(13)
+    ps = {"w": rng.randn(64, 3, 3, 3).astype(np.float32),
+          "b": rng.randn(64).astype(np.float32)}
+    gs = {k: rng.randn(*x.shape).astype(np.float32) * 0.1
+          for k, x in ps.items()}
+    jo = jopt.Momentum(learning_rate=0.1, momentum=0.9, parameters=[])
+    state = jo.init_state({k: jnp.asarray(x) for k, x in ps.items()})
+    before = jcounters.snapshot()
+    jp, state = jo.apply_gradients_fn({k: jnp.asarray(x)
+                                       for k, x in gs.items()},
+                                      {k: jnp.asarray(x)
+                                       for k, x in ps.items()}, state, 0.1)
+    assert jcounters.delta(before).get("fused_opt.pallas", 0) >= 1
+    tps = {k: torch.nn.Parameter(_t(x)) for k, x in ps.items()}
+    for k, t in tps.items():
+        t.grad = _t(gs[k])
+    to = Momentum(learning_rate=0.1, momentum=0.9,
+                  parameters=list(tps.values()))
+    to.step()
+    for k in ps:
+        for got, want in ((tps[k].detach(), jp[k]),
+                          (to._slots[id(tps[k])]["velocity"],
+                           state["slots"][k]["velocity"])):
             want = np.asarray(want)
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
                                        atol=1e-6 * np.abs(want).max())
