@@ -22,8 +22,16 @@ prints no result line:
             error within 1e-4 of the largest value); fused AdamW over
             BERT-base's parameter list, bit for bit; fused Momentum over
             ResNet-50's 161 parameters, with and without Nesterov, bit
-            for bit. Kernel, plain and library times and the least time
-            the card could take (bound);
+            for bit; the short-sequence flash kernels at BERT phase 2's
+            32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 +
+            rtol 1e-2), at L = 128 in f32 (atol 1e-4), a causal and a
+            D = 128 case, each against the plain version and against the
+            streaming kernel, the dropout mask bit for bit, and their
+            times beside the streaming kernel's and SDPA's at L 128 and
+            512; fused SGD over LeNet's and BERT-base's parameter lists
+            and fused Lamb (phase 1 and apply) over BERT-base's, bit for
+            bit. Kernel, plain and library times and the least time the
+            card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -57,10 +65,27 @@ prints no result line:
             choice, ``cudnn.benchmark`` off): 3 warm-up and 10 timed
             steps; imgs/s, step ms, MFU, peak memory, the loss (finite),
             one Momentum launch a step, and a profiled step by family;
-9. the ``kernels`` line (launches counted over phases 2-4 for the
-   decode kernels, over phase 6 for BERT's and over phase 8 for
-   Momentum), then the card's name and power limit, then the result
-   line.
+9. bert_lamb_parity  a tiny BERT (2 layers, hidden 128, seq 128, batch
+            8, f32, dropout 0.1, ``flash_short_seq`` on) trained two Lamb
+            steps with global-norm clipping through ``TrainStep`` with
+            the kernels and again with the plain versions, on the card:
+            losses, gradients, parameters and moments agree;
+10. bert512_lamb  BERT-base phase 2, batch 32 x seq 512 (``bench_bert
+            (seq=512)``), AMP O1 bf16, dropout 0.1, ``flash_short_seq``
+            on, Lamb on a linear warm-up into a polynomial decay,
+            ``ClipGradByGlobalNorm(1.0)``: 3 warm-up and 10 timed steps;
+            tokens/s, step ms, MFU, peak memory, the loss (finite,
+            falling), exact launches a step (12 + 12 short flash, no
+            streaming flash, 1 + 1 xent, 1 + 1 Lamb, no Adam) and a
+            profiled step by family;
+11. lenet_sgd  LeNet at batch 128 x 1 x 28 x 28, SGD lr 0.01 with L2
+            1e-4: 3 warm-up and 10 timed steps; steps/s, the loss
+            (finite, falling), one SGD launch a step;
+12. the ``kernels`` line (launches summed over the phases that drive
+    each kernel's path: 2-4 for the decode kernels, 6 and 10 for the
+    fused xent, 6 for the streaming flash kernels and Adam, 8 for
+    Momentum, 10 for the short flash kernels and Lamb, 11 for SGD),
+    then the card's name and power limit, then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -796,6 +821,241 @@ def check_momentum(torch, fo, shapes, timing):
     return row
 
 
+def check_flash_short(torch, fa, timing):
+    """K1c/K1d (the short-sequence kernels) against the plain version
+    and against the streaming K1 on the same inputs and seed: BERT-base
+    phase 2's 32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 +
+    rtol 1e-2), 128-long f32 without dropout (atol 1e-4), a causal f32
+    case with dropout and a D = 128 bf16 case; the dropout mask read
+    back bit for bit. Times the short kernels, the streaming K1 and
+    ``F.scaled_dot_product_attention`` at L 128 and L 512."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = [("bf16_L512", 32, 512, 12, 64, torch.bfloat16, False, 0.1),
+             ("f32_L128", 8, 128, 12, 64, torch.float32, False, 0.0),
+             ("f32_causal_L256", 4, 256, 4, 64, torch.float32, True, 0.1),
+             ("bf16_D128_L384", 2, 384, 4, 128, torch.bfloat16, False, 0.1)]
+    seed = 0x5EED5678
+    row = {"cases": {}}
+    for name, B, L, H, D, dt, causal, p in cases:
+        q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(4)]
+        out, lse = fa._cuda_short_fwd(q, k, v, causal, p, seed)
+        rout, rlse = fa._plain_fwd(q, k, v, causal, p, seed)
+        sout, slse = fa._cuda_fwd(q, k, v, causal, p, seed)
+        grads = fa._cuda_short_bwd(q, k, v, out, lse, do, causal, p, seed)
+        rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, seed)
+        sgrads = fa._cuda_bwd(q, k, v, sout, slse, do, causal, p, seed)
+        torch.cuda.synchronize()
+        atol, rtol = (2e-2, 1e-2) if dt == torch.bfloat16 else (1e-4, 0.0)
+        errs = {"lse": max_err(lse, rlse), "stream_lse": max_err(lse, slse)}
+        for gname, got, want, stream in zip(
+                ("out", "dq", "dk", "dv"), (out,) + grads, (rout,) + rgrads,
+                (sout,) + sgrads):
+            errs[gname] = max_err(got, want)
+            errs["stream_" + gname] = max_err(got, stream)
+            expect(bool(torch.isfinite(got.float()).all()),
+                   f"flash short {name}: non-finite {gname}")
+            expect(torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=rtol),
+                   f"flash short {name}: {gname} disagrees with the plain "
+                   f"version, max abs err {errs[gname]}")
+            expect(torch.allclose(got.float(), stream.float(), atol=atol,
+                                  rtol=rtol),
+                   f"flash short {name}: {gname} disagrees with the "
+                   f"streaming kernel, max abs err {errs['stream_' + gname]}")
+        expect(errs["lse"] <= 1e-4 and errs["stream_lse"] <= 1e-4,
+               f"flash short {name}: lse errs {errs['lse']}, "
+               f"{errs['stream_lse']}")
+        row["cases"][name] = errs
+        del q, k, v, do, out, rout, sout, grads, rgrads, sgrads
+    # the dropout mask, bit for bit: q = k = 0 gives P = 1/L, v = I (D = L
+    # = 128) reads keep / (L (1 - p)) back out of the kernel's output
+    L, p = 128, 0.1
+    z = torch.zeros((2, L, 3, L), device=dev)
+    eye = torch.eye(L, device=dev).reshape(1, L, 1, L).expand(2, L, 3, L)
+    out, _ = fa._cuda_short_fwd(z, z, eye.contiguous(), False, p, seed)
+    keep = fa.philox_keep_mask(seed, 6, L, L, p, dev)
+    got = (out > 0).permute(0, 2, 1, 3).reshape(6, L, L)
+    expect(torch.equal(got, keep), "flash short dropout mask differs from "
+                                   "the plain Philox mask")
+    row["mask_bitwise"] = True
+    main = row["cases"]["bf16_L512"]
+    row["fwd_max_abs_err"] = max(c["out"] for c in row["cases"].values())
+    row["bwd_max_abs_err"] = max(max(c["dq"], c["dk"], c["dv"])
+                                 for c in row["cases"].values())
+    row["main_shape_errs"] = main
+    if timing:
+        row["times"] = {f"L{L}": time_short_vs_stream(torch, fa, gen, B, L)
+                        for B, L in ((128, 128), (32, 512))}
+        t = row["times"]["L512"]
+        for part in ("fwd", "bwd"):
+            row.update({f"{part}_ms": t[f"short_{part}_ms"],
+                        f"{part}_plain_ms": t[f"plain_{part}_ms"],
+                        f"{part}_library_ms": t[f"library_{part}_ms"],
+                        f"{part}_bound_ms": t[f"{part}_bound_ms"],
+                        f"{part}_bound_by": t[f"{part}_bound_by"]})
+        row["bound_rates"] = rates(BF16_FLOPS_PER_S, "bf16 tensor-core")
+    return row
+
+
+def time_short_vs_stream(torch, fa, gen, B, L, H=12, D=64, p=0.1):
+    """Device ms of the short kernels, the streaming K1, the plain
+    version and ``F.scaled_dot_product_attention`` (forward, backward
+    alone by replaying a retained graph, forward + backward) on one bf16
+    input with dropout ``p``, and the bound of the forward and of the
+    backward."""
+    dev, seed = "cuda", 99
+    q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4)]
+    out, lse = fa._cuda_short_fwd(q, k, v, False, p, seed)
+    sout, slse = fa._cuda_fwd(q, k, v, False, p, seed)
+    el = B * L * H * D * 2
+    fb, fby = bound_of(4 * el + B * H * L * 4, 4 * B * H * L * L * D,
+                       BF16_FLOPS_PER_S)
+    bb, bby = bound_of(8 * el + B * H * L * 4, 10 * B * H * L * L * D,
+                       BF16_FLOPS_PER_S)
+    F = torch.nn.functional
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).contiguous()
+                       for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p)
+        return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+    plain_iters = 3 if L >= 512 else 5
+    t = {"batch": B, "seq": L,
+         "short_fwd_ms": time_ms(torch, lambda: fa._cuda_short_fwd(
+             q, k, v, False, p, seed)),
+         "short_bwd_ms": time_ms(torch, lambda: fa._cuda_short_bwd(
+             q, k, v, out, lse, do, False, p, seed)),
+         "stream_fwd_ms": time_ms(torch, lambda: fa._cuda_fwd(
+             q, k, v, False, p, seed)),
+         "stream_bwd_ms": time_ms(torch, lambda: fa._cuda_bwd(
+             q, k, v, sout, slse, do, False, p, seed)),
+         "plain_fwd_ms": time_ms(torch, lambda: fa._plain_fwd(
+             q, k, v, False, p, seed), iters=plain_iters, warmup=1),
+         "plain_bwd_ms": time_ms(torch, lambda: fa._plain_bwd(
+             q, k, v, out, lse, do, False, p, seed), iters=plain_iters,
+             warmup=1),
+         "library_fwd_ms": time_ms(
+             torch, lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, dropout_p=p)),
+         "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+             lib_out, (qg, kg, vg), doh, retain_graph=True)),
+         "library_fwd_bwd_ms": time_ms(torch, lib_fwd_bwd),
+         "fwd_bound_ms": fb, "fwd_bound_by": fby,
+         "bwd_bound_ms": bb, "bwd_bound_by": bby}
+    t["short_fwd_bwd_ms"] = t["short_fwd_ms"] + t["short_bwd_ms"]
+    t["stream_fwd_bwd_ms"] = t["stream_fwd_ms"] + t["stream_bwd_ms"]
+    return t
+
+
+def check_sgd(torch, fo, shape_lists, timing):
+    """K3-sgd over LeNet's and BERT-base's parameter lists, bit for bit
+    against the plain version, a skipped step included; timed over
+    LeNet's list (the main path's) and BERT-base's."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(8)
+    row = {"max_abs_err": 0.0, "bitwise": True}
+    for label, shapes in shape_lists.items():
+        ps = [torch.randn(s, generator=gen, device=dev) * 0.05
+              for s in shapes]
+        gs = [torch.randn(s, generator=gen, device=dev) * 1e-2
+              for s in shapes]
+        kp = [x.clone() for x in ps]
+        cache = {}
+        fo.fused_sgd_(kp, gs, lr=0.01, cache=cache)
+        fo._plain_sgd_(ps, gs, np.float32(0.01), False)
+        fo.fused_sgd_(kp, gs, lr=0.01, skip=True, cache=cache)
+        torch.cuda.synchronize()
+        differ = sum(int(not torch.equal(a, b)) for a, b in zip(kp, ps))
+        expect(differ == 0, f"fused SGD ({label}) differs bitwise in "
+                            f"{differ} tensors")
+        n = sum(p.numel() for p in ps)
+        row[label] = {"params": len(shapes), "elements": n}
+        if timing:
+            # p, g read once, p written once; 2 flops an element
+            t_b, by = bound_of(12 * n, 2 * n, F32_FLOPS_PER_S)
+            lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
+            for p, gr in zip(lib_p, gs):
+                p.grad = gr.clone()
+            lib = torch.optim.SGD(lib_p, lr=0.01, fused=True)
+            row[label].update({
+                "ms": time_ms(torch, lambda: fo.fused_sgd_(
+                    kp, gs, lr=0.01, cache=cache)),
+                "plain_ms": time_ms(torch, lambda: fo._plain_sgd_(
+                    ps, gs, np.float32(0.01), False), iters=5),
+                "library_ms": time_ms(torch, lib.step),
+                "bound_ms": t_b, "bound_by": by})
+    if timing:
+        row.update({k: row["lenet"][k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms",
+                                                 "bound_by")})
+        row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
+    return row
+
+
+def check_lamb(torch, fo, shapes, timing):
+    """K3-lamb (phase 1 and apply) over BERT-base's parameter list, bit
+    for bit against the plain version: m, v, the trust-ratio numerator
+    r and p, from non-zero moments, with every bias-like tensor (1-D)
+    at zero, as at initialisation (trust 1 there)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def make(scale, positive=False, zero_1d=False):
+        out = []
+        for s in shapes:
+            x = torch.randn(s, generator=gen, device=dev) * scale
+            if zero_1d and len(s) == 1:
+                x.zero_()
+            out.append(x.abs() if positive else x)
+        return out
+
+    ps, gs = make(0.02, zero_1d=True), make(1e-3)
+    ms, vs = make(1e-4), make(1e-6, positive=True)
+    rs = [torch.empty_like(p) for p in ps]
+    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    kr = [torch.empty_like(p) for p in ps]
+    hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+              step=3)
+    cache = {}
+    fo.fused_lamb_(kp, gs, km, kv, kr, cache=cache, **hp)
+    lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, 3)
+    plain_args = (ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1, c2,
+                  False)
+    fo._plain_lamb_(*plain_args)
+    torch.cuda.synchronize()
+    differ = {name: sum(int(not torch.equal(a, b)) for a, b in zip(x, y))
+              for name, x, y in (("p", kp, ps), ("m", km, ms), ("v", kv, vs),
+                                 ("r", kr, rs))}
+    expect(not any(differ.values()),
+           f"fused Lamb differs bitwise in {differ} tensors")
+    zero = [i for i, s in enumerate(shapes) if len(s) == 1]
+    expect(all(bool(torch.isfinite(kp[i]).all()) for i in zero),
+           "fused Lamb: a zero parameter became non-finite")
+    n = sum(p.numel() for p in ps)
+    row = {"params": len(shapes), "elements": n, "zero_params": len(zero),
+           "max_abs_err": 0.0, "bitwise": True}
+    if timing:
+        # the function reads p, g, m, v once and writes p, m, v once (r
+        # is the kernels' own scratch); ~20 flops an element
+        t_b, by = bound_of(28 * n, 20 * n, F32_FLOPS_PER_S)
+        row.update({
+            "ms": time_ms(torch, lambda: fo.fused_lamb_(
+                kp, gs, km, kv, kr, cache=cache, **hp)),
+            "plain_ms": time_ms(torch, lambda: fo._plain_lamb_(*plain_args),
+                                iters=5),
+            "library_ms": None,
+            "bound_ms": t_b, "bound_by": by,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 5-6: the BERT pretraining step
 # ---------------------------------------------------------------------------
@@ -997,6 +1257,39 @@ def profile_step(torch, step, batch, family, families, step_ms):
             "top_by_family_ms": top}
 
 
+WARM_STEPS, TIMED_STEPS = 3, 10
+
+
+def train_steps(torch, counters, step, batch, after=None):
+    """WARM_STEPS + TIMED_STEPS training steps, each ending in a device
+    synchronise, with the launch counts set to 0 just before: (losses,
+    wall ms of each timed step, the launches). ``after`` runs after each
+    step (a scheduler's ``step``)."""
+    counters.reset()
+    losses, step_ms = [], []
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = float(step(*batch))
+        torch.cuda.synchronize()
+        if i >= WARM_STEPS:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if after is not None:
+            after()
+    return losses, step_ms, counters.snapshot()
+
+
+def bert_flops_per_step(cfg, B, S):
+    """``bench.py:1473-1477``'s closed form: 3 x the forward's matmul
+    flops (attention projections 8H^2, ffn 4HI and scores and values
+    4SH a layer; the MLM transform 2H^2 and vocabulary 2HV)."""
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    fwd_per_token = cfg.num_hidden_layers * (8 * H * H + 4 * H * I
+                                             + 4 * S * H) \
+        + 2 * H * H + 2 * H * V
+    return 3 * fwd_per_token * B * S
+
+
 def phase_bert(torch, counters):
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
@@ -1018,18 +1311,8 @@ def phase_bert(torch, counters):
     B, S = BERT_BATCH, BERT_SEQ
     batch = bert_batch(torch, np.random.RandomState(0), B, S,
                        cfg.vocab_size)
-    warm, timed_n = 3, 10
-    counters.reset()
-    losses, step_ms = [], []
-    for i in range(warm + timed_n):
-        t0 = time.perf_counter()
-        loss = float(step(*batch))
-        torch.cuda.synchronize()
-        if i >= warm:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-    launches = counters.snapshot()
-    n_steps = warm + timed_n
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
     L = cfg.num_hidden_layers
     want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
             "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_adam": 1}
@@ -1046,18 +1329,16 @@ def phase_bert(torch, counters):
     expect(len(opt._kernel_cache["key"]) == 5 * len(list(
         model.parameters())), "bert: the Adam launch did not cover every "
                               "parameter")
-    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    fwd_per_token = L * (8 * H * H + 4 * H * I + 4 * S * H) \
-        + 2 * H * H + 2 * H * V
-    flops_per_step = 3 * fwd_per_token * B * S
+    flops_per_step = bert_flops_per_step(cfg, B, S)
     med = float(np.median(step_ms))
     breakdown = profile_step(torch, step, batch, bert_family, BERT_FAMILIES,
                              med)
     return {"phase": "bert", "config": "BERT-base (vocab 30592, 12 x 768, "
             "12 x 64 heads, ffn 3072), batch 128 x seq 128, AMP O1 bf16, "
             "dropout 0.1, AdamW lr 1e-4 wd 0.01",
-            "params": n_params, "warmup_steps": warm, "timed_steps": timed_n,
-            "tokens_per_s": B * S * timed_n / (sum(step_ms) / 1e3),
+            "params": n_params, "warmup_steps": WARM_STEPS,
+            "timed_steps": TIMED_STEPS,
+            "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
             "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
             "step_ms": step_ms,
             "flops_per_step": flops_per_step,
@@ -1180,18 +1461,8 @@ def phase_resnet50(torch, counters):
                           device="cuda"),
              torch.tensor(rng.randint(0, RESNET_CLASSES, (B,)).astype(
                  np.int64), device="cuda"))
-    warm, timed_n = 3, 10
-    counters.reset()
-    losses, step_ms = [], []
-    for i in range(warm + timed_n):
-        t0 = time.perf_counter()
-        loss = float(step(*batch))
-        torch.cuda.synchronize()
-        if i >= warm:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-    launches = counters.snapshot()
-    n_steps = warm + timed_n
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
     expect(all(np.isfinite(losses)), f"resnet50: non-finite loss {losses}")
     expect(launches.get("fused_momentum", 0) == n_steps,
            f"resnet50: fused_momentum launched "
@@ -1217,9 +1488,9 @@ def phase_resnet50(torch, counters):
             "bf16, Momentum lr 0.1 mu 0.9, the same batch every step",
             "cudnn_benchmark": bool(torch.backends.cudnn.benchmark),
             "params": int(sum(p.numel() for p in params)),
-            "param_tensors": len(params), "warmup_steps": warm,
-            "timed_steps": timed_n,
-            "imgs_per_s": B * timed_n / (sum(step_ms) / 1e3),
+            "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+            "timed_steps": TIMED_STEPS,
+            "imgs_per_s": B * TIMED_STEPS / (sum(step_ms) / 1e3),
             "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
             "step_ms": step_ms, "flops_per_step": flops_per_step,
             "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
@@ -1228,6 +1499,270 @@ def phase_resnet50(torch, counters):
             "launches_per_step": launches.get("fused_momentum", 0) / n_steps,
             "mem_at_start_gb": mem_start, "peak_mem_gb": peak,
             "breakdown": breakdown}, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: BERT phase 2 (seq 512) with Lamb, LeNet with SGD
+# ---------------------------------------------------------------------------
+BERT512_BATCH, BERT512_SEQ = 32, 512
+LAMB_KERNELS = ("flash_attention_short_fwd", "flash_attention_short_bwd",
+                "fused_xent_fwd", "fused_xent_bwd", "fused_lamb_phase1",
+                "fused_lamb_apply")
+
+
+class short_seq_on:
+    """``FLAGS_flash_short_seq`` on inside the block."""
+
+    def __enter__(self):
+        from paddle_tpu_torch import get_flags, set_flags
+
+        self.prev = get_flags("flash_short_seq")
+        set_flags({"flash_short_seq": True})
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch import set_flags
+
+        set_flags(self.prev)
+        return False
+
+
+def lamb_plain_swaps(fa, fx, fo, optmod):
+    def plain_lamb(params, grads, m1, m2, rs, *, lr, beta1, beta2, eps,
+                   weight_decay, step, skip=False, cache=None):
+        lr32, c1, c2, _ = fo.adam_scalars(lr, beta1, beta2, step)
+        fo._plain_lamb_(params, grads, m1, m2, rs, lr32, beta1, beta2, eps,
+                        weight_decay, c1, c2, skip)
+
+    return [(fa, "flash_attention_short_fwd", fa._plain_fwd),
+            (fa, "flash_attention_short_bwd", fa._plain_bwd),
+            (fx, "fused_xent_fwd", fx._plain_fwd),
+            (fx, "fused_xent_bwd", fx._plain_bwd),
+            (optmod, "fused_lamb_", plain_lamb)]
+
+
+def phase_bert_lamb_parity(torch, counters, fa, fx, fo):
+    """Two Lamb TrainSteps of a tiny BERT (f32, dropout 0.1, the short
+    flash kernels on, global-norm clipping) with the kernels and with the
+    plain versions, from the same weights, on the card. The plain
+    dropout mask is the kernels' mask, so dropout stays on."""
+    import contextlib
+    import copy
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    cfg = BertConfig.tiny()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = BertForPretraining(cfg, generator=gen)
+    batch = bert_batch(torch, np.random.RandomState(4), 8, 128,
+                       cfg.vocab_size)
+    batch[2][:, ::3] = -100                        # some ignored positions
+    lr, n_steps = 1e-3, 2
+    runs = {}
+    with short_seq_on():
+        for name in ("kernel", "plain"):
+            model = copy.deepcopy(base)
+            opt = Lamb(learning_rate=lr, lamb_weight_decay=0.01,
+                       epsilon=1e-6, parameters=model.parameters(),
+                       grad_clip=ClipGradByGlobalNorm(1.0))
+            step = TrainStep(model, lambda m, *a: m.loss(*a), opt)
+            counters.reset()
+            ctx = swapped(lamb_plain_swaps(fa, fx, fo, optmod)) \
+                if name == "plain" else contextlib.nullcontext()
+            with ctx:
+                losses = [float(step(*batch)) for _ in range(n_steps)]
+            torch.cuda.synchronize()
+            runs[name] = (losses, model, opt, counters.snapshot())
+    (lk, mk, ok, ck), (lp, mp, op, cp) = runs["kernel"], runs["plain"]
+    expect(all(ck.get(n, 0) > 0 for n in LAMB_KERNELS),
+           f"bert_lamb_parity: a kernel did not launch: {ck}")
+    expect(not ck.get("flash_attention_fwd", 0),
+           f"bert_lamb_parity: the streaming flash kernel ran: {ck}")
+    expect(not any(cp.get(n, 0) for n in LAMB_KERNELS),
+           f"bert_lamb_parity: the plain run launched kernels: {cp}")
+    expect(all(np.isfinite(lk)), f"bert_lamb_parity: non-finite loss {lk}")
+    for a, b in zip(lk, lp):
+        expect(abs(a - b) <= 1e-5 * abs(b),
+               f"bert_lamb_parity: losses {lk} (kernels) against {lp} "
+               f"(plain)")
+    worst = {"grad": 0.0, "param": 0.0, "moment1": 0.0, "moment2": 0.0}
+    pp = dict(mp.named_parameters())
+    for n, p in mk.named_parameters():
+        q = pp[n]
+        # gradients and first moments: the bert_parity bound (1e-4 of the
+        # largest value, 1e-7 where the true gradient is zero); second
+        # moments square the gradient, so twice that relative bound
+        for key, got, want, rel, floor in (
+                ("grad", p.grad, q.grad, 1e-4, 1e-7),
+                ("moment1", ok._slots[id(p)]["moment1"],
+                 op._slots[id(q)]["moment1"], 1e-4, 1e-7),
+                ("moment2", ok._slots[id(p)]["moment2"],
+                 op._slots[id(q)]["moment2"], 2e-4, 1e-14)):
+            err = max_err(got, want)
+            scale = float(want.abs().max())
+            expect(err <= rel * scale + floor,
+                   f"bert_lamb_parity: {key} of {n} differs by {err} "
+                   f"(max |value| {scale})")
+            worst[key] = max(worst[key], err)
+        # each Lamb step moves an element by lr * trust * r with
+        # |r| ~ 1 and trust <= ~1 here: the bert_parity bound a step
+        perr = max_err(p, q)
+        expect(perr <= 2 * lr * n_steps,
+               f"bert_lamb_parity: updated {n} differs by {perr}")
+        worst["param"] = max(worst["param"], perr)
+    return {"phase": "bert_lamb_parity", "config": "tiny (2 x 128, 2 "
+            "heads, ffn 256, vocab 1024), batch 8 x 128, f32, dropout 0.1, "
+            "flash_short_seq on, Lamb lr 1e-3 wd 0.01, ClipGradByGlobalNorm"
+            "(1.0), two steps",
+            "losses_kernel": lk, "losses_plain": lp, "max_abs_err": worst,
+            "launches": ck}
+
+
+def bert_short_family(name):
+    if "short_fwd_kernel" in name:
+        return "flash_short_fwd"
+    if "short_bwd_kernel" in name:
+        return "flash_short_bwd"
+    if "lambphase1rule" in name or "lambapplyrule" in name:
+        return "lamb"
+    if "norm" in name and "layer" not in name and "multi_tensor" in name:
+        return "lamb_norms"
+    fam = bert_family(name)
+    return fam if fam in BERT512_FAMILIES else "other"
+
+
+BERT512_FAMILIES = ("flash_short_fwd", "flash_short_bwd", "xent_fwd",
+                    "xent_bwd", "lamb", "lamb_norms", "gemm", "other")
+
+
+def phase_bert512_lamb(torch, counters):
+    """BERT-base phase-2 pretraining, ``bench_bert(seq=512)``'s batch 32,
+    AMP O1 bf16, dropout 0.1, the short flash kernels on, Lamb with a
+    linear warm-up into a polynomial decay and global-norm clipping."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.optimizer import lr as lrs
+
+    gc.collect()                  # earlier phases' garbage off the card
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cfg = BertConfig.base()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = BertForPretraining(cfg, generator=gen)
+    params = list(model.parameters())
+    sched = lrs.LinearWarmup(
+        lrs.PolynomialDecay(1e-3, decay_steps=1000, end_lr=0.0),
+        warmup_steps=3, start_lr=0.0, end_lr=1e-3)
+    opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01, epsilon=1e-6,
+               parameters=params, grad_clip=ClipGradByGlobalNorm(1.0))
+
+    def loss_fn(m, ids, tt, mlm, nsp):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(ids, tt, mlm, nsp)
+
+    step = TrainStep(model, loss_fn, opt)
+    B, S = BERT512_BATCH, BERT512_SEQ
+    batch = bert_batch(torch, np.random.RandomState(0), B, S,
+                       cfg.vocab_size)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    lrs_used = [opt.get_lr()]
+
+    def next_lr():
+        sched.step()
+        lrs_used.append(opt.get_lr())
+
+    with short_seq_on():
+        losses, step_ms, launches = train_steps(torch, counters, step, batch,
+                                                after=next_lr)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = float(np.median(step_ms))
+        breakdown = profile_step(torch, step, batch, bert_short_family,
+                                 BERT512_FAMILIES, med)
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_short_fwd": L, "flash_attention_short_bwd": L,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_lamb_phase1": 1,
+            "fused_lamb_apply": 1, "fused_adam": 0}
+    per_step = {k: launches.get(k, 0) / n_steps for k in want}
+    expect(all(np.isfinite(losses)), f"bert512: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"bert512: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"bert512: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+    expect(all(p.grad is not None for p in params),
+           "bert512: a parameter got no gradient, so Lamb skipped it")
+    expect(len(opt._kernel_cache["phase1"]["key"]) == 6 * len(params),
+           "bert512: the Lamb launch did not cover every parameter")
+    flops_per_step = bert_flops_per_step(cfg, B, S)
+    return {"phase": "bert512_lamb", "config": "BERT-base (vocab 30592, 12 "
+            "x 768, 12 x 64 heads, ffn 3072), batch 32 x seq 512, AMP O1 "
+            "bf16, dropout 0.1, flash_short_seq on, Lamb wd 0.01 eps 1e-6, "
+            "LinearWarmup(3 steps, 0 -> 1e-3) into PolynomialDecay(1e-3, "
+            "1000 steps, end 0), ClipGradByGlobalNorm(1.0)",
+            "params": int(sum(p.numel() for p in params)),
+            "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+            "timed_steps": TIMED_STEPS,
+            "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "flops_per_step": flops_per_step,
+            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "lr": lrs_used[:n_steps], "launches": launches,
+            "launches_per_step": per_step, "mem_at_start_gb": mem_start,
+            "peak_mem_gb": peak, "breakdown": breakdown}, launches
+
+
+def phase_lenet_sgd(torch, counters):
+    """LeNet at ``bench_mnist``'s batch 128 x 1 x 28 x 28, f32, SGD lr
+    0.01 with coupled L2 1e-4, the same batch every step."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.vision.models import LeNet
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = LeNet(num_classes=10, generator=gen)
+    params = list(model.parameters())
+    opt = SGD(learning_rate=0.01, weight_decay=1e-4, parameters=params)
+    ce = nn.CrossEntropyLoss()
+    step = TrainStep(model, lambda m, x, y: ce(m(x), y), opt)
+    B = 128
+    rng = np.random.RandomState(0)
+    batch = (torch.tensor(rng.randn(B, 1, 28, 28).astype(np.float32),
+                          device="cuda"),
+             torch.tensor(rng.randint(0, 10, (B,)).astype(np.int64),
+                          device="cuda"))
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    expect(all(np.isfinite(losses)), f"lenet_sgd: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"lenet_sgd: loss did not fall ({losses[0]} -> {losses[-1]})")
+    expect(launches.get("fused_sgd", 0) == n_steps,
+           f"lenet_sgd: fused_sgd launched {launches.get('fused_sgd', 0)} "
+           f"times over {n_steps} steps, want one a step")
+    expect(len(opt._kernel_cache["key"]) == 3 * len(params),
+           "lenet_sgd: the SGD launch did not cover every parameter")
+    return {"phase": "lenet_sgd", "config": "LeNet, batch 128 x 1 x 28 x "
+            "28, f32, SGD lr 0.01, coupled L2 1e-4, the same batch every "
+            "step", "params": int(sum(p.numel() for p in params)),
+            "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+            "timed_steps": TIMED_STEPS,
+            "steps_per_s": TIMED_STEPS / (sum(step_ms) / 1e3),
+            "step_ms_median": float(np.median(step_ms)),
+            "step_ms_max": float(np.max(step_ms)),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "launches": launches,
+            "launches_per_step": launches.get("fused_sgd", 0) / n_steps}, \
+        launches
 
 
 # ---------------------------------------------------------------------------
@@ -1251,7 +1786,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_xent as fx
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import sampling as samp
-    from paddle_tpu_torch.vision.models import resnet50
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1272,13 +1807,22 @@ def main() -> int:
         emit({"phase": "kernels_vs_plain", "flash_attention": k1})
         k2 = check_xent(torch, fx, timing)
         emit({"phase": "kernels_vs_plain", "fused_xent": k2})
-        shapes = [tuple(p.shape) for p in BertForPretraining(
+        k1s = check_flash_short(torch, fa, timing)
+        emit({"phase": "kernels_vs_plain", "flash_attention_short": k1s})
+        torch.cuda.empty_cache()
+        bert_shapes = [tuple(p.shape) for p in BertForPretraining(
             BertConfig.base()).parameters()]
-        k3 = check_adam(torch, fo, shapes, timing)
+        k3 = check_adam(torch, fo, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_adam": k3})
         shapes = [tuple(p.shape) for p in resnet50().parameters()]
         k3m = check_momentum(torch, fo, shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_momentum": k3m})
+        lenet_shapes = [tuple(p.shape) for p in LeNet().parameters()]
+        k3s = check_sgd(torch, fo, {"lenet": lenet_shapes,
+                                    "bert_base": bert_shapes}, timing)
+        emit({"phase": "kernels_vs_plain", "fused_sgd": k3s})
+        k3l = check_lamb(torch, fo, bert_shapes, timing)
+        emit({"phase": "kernels_vs_plain", "fused_lamb": k3l})
         torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
@@ -1299,18 +1843,37 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
+        def add(launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
         emit(phase_bert_parity(torch, counters, fa, fx, fo))
         torch.cuda.empty_cache()
         row, launches = phase_bert(torch, counters)
         emit(row)
-        total.update(launches)
+        add(launches)
         torch.cuda.empty_cache()
 
         emit(phase_resnet_parity(torch, counters, fo))
         torch.cuda.empty_cache()
         row, launches = phase_resnet50(torch, counters)
         emit(row)
-        total.update(launches)
+        add(launches)
+        del row, launches
+        torch.cuda.empty_cache()
+
+        emit(phase_bert_lamb_parity(torch, counters, fa, fx, fo))
+        torch.cuda.empty_cache()
+        row, launches = phase_bert512_lamb(torch, counters)
+        emit(row)
+        add(launches)
+        del row, launches
+        torch.cuda.empty_cache()
+        row, launches = phase_lenet_sgd(torch, counters)
+        emit(row)
+        add(launches)
+        total["fused_lamb"] = total.get("fused_lamb_phase1", 0) \
+            + total.get("fused_lamb_apply", 0)
 
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
@@ -1344,6 +1907,16 @@ def main() -> int:
                 ("fused_adam", k3, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
                 ("fused_momentum", k3m, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("flash_attention_short_fwd", split(k1s, "fwd"),
+                 src + "flash_short.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:611"),
+                ("flash_attention_short_bwd", split(k1s, "bwd"),
+                 src + "flash_short.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:638"),
+                ("fused_sgd", k3s, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("fused_lamb", k3l, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,

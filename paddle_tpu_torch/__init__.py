@@ -9,12 +9,18 @@ sampling, then the BERT pretraining step (``models.bert``, ``nn``,
 attention, the fused vocabulary cross-entropy and the fused Adam update
 (``ops.cuda``), then ResNet training (``vision.models``: convolution,
 batch norm, pooling; ``optimizer.Momentum``) with a CUDA kernel for the
-fused Momentum update. Entry points run on the card unless the caller passes
-``device="cpu"``; without a GPU and without a device they raise.
+fused Momentum update, then BERT phase-2 pretraining at seq 512 with
+``optimizer.Lamb`` (``optimizer.lr`` schedulers, ``nn.clip``) through
+the short-sequence flash kernels (``FLAGS_flash_short_seq``), and
+``optimizer.SGD``, with CUDA kernels for both updates. Entry points
+run on the card unless the caller passes ``device="cpu"``; without a
+GPU and without a device they raise.
 """
 from . import (amp, framework, inference, jit, models, nn, ops, optimizer,
                profiler, vision)
+from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 
 __all__ = ["amp", "framework", "inference", "jit", "models", "nn", "ops",
-           "optimizer", "profiler", "seed", "vision"]
+           "optimizer", "profiler", "seed", "vision", "get_flags",
+           "set_flags"]

@@ -1,6 +1,7 @@
-"""Framework core of the port; so far the random state
-(``framework.random``)."""
-from . import random
+"""Framework core of the port: the random state (``framework.random``)
+and the flag registry (``framework.flags``)."""
+from . import flags, random
+from .flags import get_flags, set_flags
 from .random import seed
 
-__all__ = ["random", "seed"]
+__all__ = ["flags", "random", "seed", "get_flags", "set_flags"]

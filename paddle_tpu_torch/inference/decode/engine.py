@@ -268,7 +268,10 @@ class DecodeEngine:
             req = self.sched.pop_for_prefill()
             if req is None:
                 break
-            work += self._prefill_one(req)
+            try:
+                work += self._prefill_one(req)
+            finally:
+                self.sched.prefill_done()
         active = self.sched.active()
         if active:
             work += self._decode_once(active)

@@ -193,6 +193,9 @@ class DecodeScheduler:
         self.queue: deque = deque()
         self.parked: deque = deque()   # ParkedSeq, FIFO resume order
         self.slots: Dict[int, RunningSeq] = {}
+        # requests popped for prefill and not yet placed, requeued or
+        # resolved: neither queued nor in a slot, but still pending
+        self.prefilling = 0
         self.accepting = True
         self._next_seq_id = 0
         self._placements = 0
@@ -312,7 +315,14 @@ class DecodeScheduler:
             ctx = len(head.prompt) + len(head.generated)
             if not self.pool.can_fit(ctx):
                 return None
+            self.prefilling += 1
             return self.queue.popleft()
+
+    def prefill_done(self) -> None:
+        """The request from :meth:`pop_for_prefill` is placed, requeued
+        or resolved."""
+        with self.lock:
+            self.prefilling -= 1
 
     def place(self, req: DecodeRequest, seq_id: int, length: int,
               next_token: int) -> int:
@@ -449,4 +459,5 @@ class DecodeScheduler:
 
     def pending(self) -> bool:
         with self.lock:
-            return bool(self.queue or self.slots or self.parked)
+            return bool(self.queue or self.slots or self.parked
+                        or self.prefilling)

@@ -1,6 +1,10 @@
-"""The ``nn`` layers and functional ops of BERT and the vision models
-(port of the matching part of ``paddle_tpu/nn``)."""
-from . import functional, initializer
+"""The ``nn`` layers and functional ops of BERT and the vision models,
+and gradient clipping (port of the matching part of
+``paddle_tpu/nn``)."""
+from . import clip, functional, initializer
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   GradientClipByGlobalNorm, GradientClipByNorm,
+                   GradientClipByValue, clip_grad_norm_)
 from .common import Dropout, Embedding, Linear, ReLU, Tanh
 from .container import LayerList, Sequential
 from .conv import Conv2D
@@ -11,7 +15,10 @@ from .pooling import AdaptiveAvgPool2D, MaxPool2D
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "Layer", "Linear", "Embedding",
+__all__ = ["clip", "functional", "initializer", "ClipGradByValue",
+           "ClipGradByNorm", "ClipGradByGlobalNorm", "GradientClipByValue",
+           "GradientClipByNorm", "GradientClipByGlobalNorm",
+           "clip_grad_norm_", "Layer", "Linear", "Embedding",
            "Dropout", "Tanh", "ReLU", "LayerNorm", "BatchNorm",
            "BatchNorm2D", "Conv2D", "MaxPool2D", "AdaptiveAvgPool2D",
            "CrossEntropyLoss", "LayerList", "Sequential",

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..amp import maybe_cast_inputs
+from ..framework.flags import get_flag
 from ..framework.random import current_rng
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import fused_xent as _fx
@@ -135,8 +136,13 @@ def cross_entropy(input, label, ignore_index=-100):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
-    """Attention over (B, L, H, D) tensors through the flash kernel,
-    with dropout inside the kernel while training."""
+    """Attention over (B, L, H, D) tensors through a flash kernel, with
+    dropout inside the kernel while training. With
+    ``FLAGS_flash_short_seq`` on and a shape the short-sequence kernels
+    take (``flash_attention.short_ok``: Lq == Lk, 128 <= L <= 512,
+    L % 128 == 0) it runs them, as the JAX package's ``_short_choice``
+    does without its TPU autotune; otherwise the streaming kernel. Both
+    branches launch a kernel: this is dispatch by shape."""
     if attn_mask is not None:
         raise NotImplementedError(
             "attention masks are a later port slice: the flash kernel's "
@@ -144,8 +150,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     query, key, value = maybe_cast_inputs("sdpa", [query, key, value])
     p = float(dropout_p) if training else 0.0
     seed = current_rng(query.device).next_seed() if p > 0.0 else 0
-    return _fa.flash_attention(query, key, value, causal=is_causal,
-                               dropout_p=p, seed=seed)
+    attend = _fa.flash_attention_short \
+        if get_flag("flash_short_seq") and _fa.short_ok(query, key) \
+        else _fa.flash_attention
+    return attend(query, key, value, causal=is_causal, dropout_p=p,
+                  seed=seed)
 
 
 def fused_linear_cross_entropy(h, weight, bias, label, ignore_index=-100):

@@ -2,6 +2,7 @@
 ``_build`` at first use), each beside its plain PyTorch version and a
 launch count (``counters``): ``paged_attention`` (f32 and int8 pools),
 ``sampling`` (fused top-k + Gumbel-max draw), ``flash_attention``
-(forward and backward with in-kernel Philox dropout), ``fused_xent``
+(streaming forward and backward with in-kernel Philox dropout, and the
+short-sequence forms of ``csrc/flash_short.cu``), ``fused_xent``
 (linear + vocabulary cross-entropy, forward and backward) and
-``fused_optimizer`` (multi-tensor Adam/AdamW)."""
+``fused_optimizer`` (multi-tensor SGD, Momentum, Adam/AdamW and Lamb)."""

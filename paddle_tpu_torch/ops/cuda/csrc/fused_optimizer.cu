@@ -1,5 +1,5 @@
 // Fused optimizer updates for Hopper (sm_90a): every parameter of the
-// model in one launch. Two rules share one multi-tensor walker:
+// model in one launch. Five rules share one multi-tensor walker:
 //
 // - Adam(W): replaces the Adam body of the TPU kernel in
 //   paddle_tpu/ops/pallas/fused_optimizer.py (_run_grid with
@@ -8,12 +8,22 @@
 //   133-134), which the JAX package runs as a separate XLA op.
 // - Momentum: replaces _run_grid with _momentum_kernel, the dygraph
 //   Momentum update reached from fused_try_rule.
+// - SGD: replaces _run_grid with _sgd_kernel (p - lr*g).
+// - Lamb, two rules: phase 1 replaces _run_grid with
+//   _lamb_phase1_kernel(dygraph=True) (m, v and the trust-ratio
+//   numerator r in one read of p, g, m, v); apply is the elementwise
+//   p - (lr*trust)*r that the JAX package runs in XLA after its
+//   per-tensor norms (fused_optimizer.py:608-613). The norms themselves
+//   are torch._foreach_norm between the two launches; the apply rule
+//   reads them from a device array, so nothing waits for the host.
 //
 // Bound: device-memory bytes. Adam reads p, g, m, v (16 bytes an
 // element) and writes p, m, v (12 bytes) for about 15 flops; BERT-base's
 // 110 M f32 parameters move about 3.1 GB a step. Momentum reads p, g, v
 // and writes p, v (20 bytes) for 3 flops (5 with Nesterov); ResNet-50's
-// 25.6 M parameters move 511 MB a step.
+// 25.6 M parameters move 511 MB a step. SGD reads p, g and writes p
+// (12 bytes, 2 flops). Lamb's phase 1 reads p, g, m, v and writes m, v,
+// r (28 bytes); apply reads p, r and writes p (12 bytes).
 //
 // Design: multi-tensor. A device table holds the pointers of every
 // parameter's tensors ((roles, n) int64: p, g, then the rule's state)
@@ -65,7 +75,7 @@ multi_tensor_kernel(const int64_t* __restrict__ ptrs,
     while (t < n - 1 && offs[t + 1] <= start) ++t;
     const int64_t t0 = offs[t];
     const int64_t seg_end = offs[t + 1] < end ? offs[t + 1] : end;
-    const typename Rule::Ptrs q = Rule::bind(ptrs, n, t);
+    const typename Rule::Ptrs q = rule.bind(ptrs, n, t);
     for (int64_t e = start + threadIdx.x; e < seg_end; e += kThreads)
       rule(q, e - t0);
     start = seg_end;
@@ -129,6 +139,82 @@ struct MomentumRule {
   }
 };
 
+// _sgd_kernel: p2 = p - lr*g.
+struct SgdRule {
+  float lr;
+  struct Ptrs {
+    float* p;
+    const float* g;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t])};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(lr, q.g[i]));
+  }
+};
+
+// _lamb_phase1_kernel (dygraph form): m2 = b1*m + (1-b1)*g,
+// v2 = b2*v + ((1-b2)*g)*g, r = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p.
+// Roles p, g, m, v, r; m, v and r are written, p is only read.
+struct LambPhase1Rule {
+  float b1, omb1, b2, omb2, eps, wd, c1, c2;
+  struct Ptrs {
+    const float* p;
+    const float* g;
+    float* m;
+    float* v;
+    float* r;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<const float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[2 * n + t]),
+            reinterpret_cast<float*>(ptrs[3 * n + t]),
+            reinterpret_cast<float*>(ptrs[4 * n + t])};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    const float gi = q.g[i];
+    const float m2 = __fadd_rn(__fmul_rn(q.m[i], b1), __fmul_rn(gi, omb1));
+    const float v2 = __fadd_rn(__fmul_rn(q.v[i], b2),
+                               __fmul_rn(__fmul_rn(gi, omb2), gi));
+    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, c2)), eps);
+    q.r[i] = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, c1), den),
+                       __fmul_rn(q.p[i], wd));
+    q.m[i] = m2;
+    q.v[i] = v2;
+  }
+};
+
+// Lamb's update: trust = |p| / |r| where both are > 0, else 1 (a zero
+// parameter, such as a bias at initialisation, or a zero r never
+// divides); p2 = p - (lr*trust)*r. norms[t] is |p_t|, norms[n + t] is
+// |r_t|; the per-tensor factor lr*trust is formed once when the walker
+// binds tensor t. Roles p, r.
+struct LambApplyRule {
+  const float* norms;
+  float lr;
+  struct Ptrs {
+    float* p;
+    const float* r;
+    float s;
+  };
+  __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
+    const float w = norms[t], q = norms[n + t];
+    const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            __fmul_rn(trust, lr)};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.s, q.r[i]));
+  }
+};
+
 template <class Rule>
 int launch(const int64_t* ptrs, const int64_t* offs, int n,
            long long total, int skip, void* stream, const Rule& rule) {
@@ -158,6 +244,25 @@ int fused_momentum_f32(const int64_t* ptrs, const int64_t* offs, int n,
                        int skip, void* stream) {
   return launch(ptrs, offs, n, total, skip, stream,
                 MomentumRule{lr, mu, nesterov});
+}
+
+int fused_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                  long long total, float lr, int skip, void* stream) {
+  return launch(ptrs, offs, n, total, skip, stream, SgdRule{lr});
+}
+
+int fused_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                          long long total, float b1, float omb1, float b2,
+                          float omb2, float eps, float wd, float c1, float c2,
+                          void* stream) {
+  return launch(ptrs, offs, n, total, 0, stream,
+                LambPhase1Rule{b1, omb1, b2, omb2, eps, wd, c1, c2});
+}
+
+int fused_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                         long long total, const float* norms, float lr,
+                         void* stream) {
+  return launch(ptrs, offs, n, total, 0, stream, LambApplyRule{norms, lr});
 }
 
 const char* kernel_error_string(int err) {

@@ -1,10 +1,17 @@
 """Flash attention with in-kernel dropout: the plain PyTorch versions,
 the CUDA kernel wrappers, and the autograd function behind
-:func:`flash_attention`.
+:func:`flash_attention` and :func:`flash_attention_short`.
 
-Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd_call``
-with ``_flash_fwd_kernel``, ``_bwd_call`` with the dq and dk/dv
-kernels). Layout is the JAX package's: q, k, v and out are (B, L, H, D);
+Port of ``paddle_tpu/ops/pallas/flash_attention.py``: the streaming
+kernels (``_fwd_call`` with ``_flash_fwd_kernel``, ``_bwd_call`` with
+the dq and dk/dv kernels; ``csrc/flash_attention.cu``) and the
+short-sequence kernels (``_flash_attention_core_short_fwd`` and
+``_flash_attention_core_short_bwd``; ``csrc/flash_short.cu``), which
+give one block a whole (batch, head), take a direct softmax over the
+row and compute dq, dk and dv in one backward launch. The short forms
+take Lq == Lk, 128 <= L <= 512, L % 128 == 0 (:func:`short_ok`); they
+compute the same function as the streaming ones, so both share one
+plain version. Layout is the JAX package's: q, k, v and out are (B, L, H, D);
 the kernels index that layout directly (no head merge). Scores use the
 scaled query ``q * (1/sqrt(D))``; the forward also returns the per-row
 log-sum-exp ``lse`` (B*H, Lq) in f32, which the backward uses to
@@ -28,10 +35,13 @@ TPU PRNG's (see ``framework/random.py``).
 
 Routing is by device, with no fallback: CUDA tensors launch the kernels
 (counting ``flash_attention_fwd`` per forward and
-``flash_attention_bwd`` per backward pair of launches) or raise; CPU
-tensors take the plain version. The JAX package's dispatch floors (seq
->= 256, autotuned short-sequence forms) were TPU tuning: on CUDA,
-attention always launches the kernel.
+``flash_attention_bwd`` per backward pair of launches, and
+``flash_attention_short_fwd`` / ``flash_attention_short_bwd`` per
+launch of the short forms) or raise; CPU tensors take the plain
+version. The JAX package's dispatch floors (seq >= 256, the TPU
+autotune of the short forms) were TPU tuning: on CUDA, attention always
+launches a kernel, and ``nn.functional`` picks the short or the
+streaming one by ``FLAGS_flash_short_seq`` and :func:`short_ok`.
 """
 from __future__ import annotations
 
@@ -42,13 +52,15 @@ import torch
 
 from . import _build, counters
 
-__all__ = ["flash_attention", "philox_keep_mask", "keep_threshold"]
+__all__ = ["flash_attention", "flash_attention_short", "short_ok",
+           "philox_keep_mask", "keep_threshold"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _HEAD_DIMS = (64, 128)
+_SHORT_MIN, _SHORT_MAX = 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -205,9 +217,14 @@ def _check(q, k, v, causal):
     return B, Lq, k.shape[1], H, D
 
 
-def _seed_words(seed):
+def _dropout_args(dropout_p, seed):
+    """(keep threshold, 1/(1-p), seed's low and high words) as the
+    kernels take them; p = 0 is threshold 0 and scale 1 (no dropout)."""
     seed = int(seed) & ((1 << 64) - 1)
-    return seed & _U32, seed >> 32
+    lo, hi = seed & _U32, seed >> 32
+    if dropout_p > 0.0:
+        return keep_threshold(dropout_p), 1.0 / (1.0 - dropout_p), lo, hi
+    return 0, 1.0, lo, hi
 
 
 def _cuda_fwd(q, k, v, causal, dropout_p, seed):
@@ -216,9 +233,7 @@ def _cuda_fwd(q, k, v, causal, dropout_p, seed):
                       [_P] * 5 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
-    lo, hi = _seed_words(seed)
-    thr = keep_threshold(dropout_p) if dropout_p > 0.0 else 0
-    inv = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Lq, Lk, H, D, int(bool(causal)),
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
@@ -228,8 +243,8 @@ def _cuda_fwd(q, k, v, causal, dropout_p, seed):
     return out, lse
 
 
-def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
-    B, Lq, Lk, H, D = _check(q, k, v, causal)
+def _check_saved(q, out, lse, dout):
+    B, Lq, H, _ = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
@@ -238,14 +253,17 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
     if lse.shape != (B * H, Lq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 ({B * H}, {Lq})")
+
+
+def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+    B, Lq, Lk, H, D = _check(q, k, v, causal)
+    _check_saved(q, out, lse, dout)
     fn = _build.entry("flash_attention", "flash_attention_bwd",
                       [_P] * 10 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     delta = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
-    lo, hi = _seed_words(seed)
-    thr = keep_threshold(dropout_p) if dropout_p > 0.0 else 0
-    inv = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -254,6 +272,66 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_bwd")
     counters.bump("flash_attention_bwd")
+    return dq, dk, dv
+
+
+def short_ok(q, k, causal=False):
+    """Whether the short-sequence kernels take this shape: Lq == Lk,
+    128 <= L <= 512, L % 128 == 0 and head_dim 64 or 128. This is the
+    JAX ``_short_ok`` rule without its ``b*h < 2**15`` bound, which
+    guards the TPU's packing of a dropout seed into one int32 word; the
+    port's Philox counter holds the full (b*H + h, row, column)
+    coordinates, so it has no such limit. ``causal`` is taken either
+    way."""
+    if q.dim() != 4 or k.dim() != 4:
+        return False
+    L, D = q.shape[1], q.shape[3]
+    return (k.shape[1] == L and _SHORT_MIN <= L <= _SHORT_MAX
+            and L % 128 == 0 and D in _HEAD_DIMS)
+
+
+def _check_short(q, k, v, causal):
+    dims = _check(q, k, v, causal)
+    if not short_ok(q, k, causal):
+        raise ValueError(f"the short flash kernels take Lq == Lk, "
+                         f"{_SHORT_MIN} <= L <= {_SHORT_MAX}, L % 128 == 0; "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return dims
+
+
+def _cuda_short_fwd(q, k, v, causal, dropout_p, seed):
+    B, L, _, H, D = _check_short(q, k, v, causal)
+    fn = _build.entry("flash_short", "flash_short_fwd",
+                      [_P] * 5 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
+    thr, inv, lo, hi = _dropout_args(dropout_p, seed)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), B, L, H, D, int(bool(causal)),
+             _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_short", err, "flash_short_fwd")
+    counters.bump("flash_attention_short_fwd")
+    return out, lse
+
+
+def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+    B, L, _, H, D = _check_short(q, k, v, causal)
+    _check_saved(q, out, lse, dout)
+    fn = _build.entry("flash_short", "flash_short_bwd",
+                      [_P] * 10 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    dq_acc = torch.empty((B * H, L, D), dtype=torch.float32,
+                         device=q.device)
+    thr, inv, lo, hi = _dropout_args(dropout_p, seed)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), dq_acc.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, D,
+             int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr,
+             inv, lo, hi, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_short", err, "flash_short_bwd")
+    counters.bump("flash_attention_short_bwd")
     return dq, dk, dv
 
 
@@ -282,20 +360,42 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
     return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
 
 
+def flash_attention_short_fwd(q, k, v, causal=False, dropout_p=0.0,
+                              seed=0):
+    """The short-sequence forward: (out, lse) as
+    :func:`flash_attention_fwd`, for shapes :func:`short_ok` takes."""
+    if _route(q):
+        return _cuda_short_fwd(q, k, v, causal, dropout_p, seed)
+    _check_short(q, k, v, causal)
+    return _plain_fwd(q, k, v, causal, dropout_p, seed)
+
+
+def flash_attention_short_bwd(q, k, v, out, lse, dout, causal=False,
+                              dropout_p=0.0, seed=0):
+    """The short-sequence backward: (dq, dk, dv) in one launch."""
+    if _route(q):
+        return _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p,
+                               seed)
+    _check_short(q, k, v, causal)
+    return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, dropout_p, seed):
-        out, lse = flash_attention_fwd(q, k, v, causal, dropout_p, seed)
+    def forward(ctx, q, k, v, causal, dropout_p, seed, short):
+        fwd = flash_attention_short_fwd if short else flash_attention_fwd
+        out, lse = fwd(q, k, v, causal, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, dropout_p, seed)
+        ctx.short = short
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None
+        bwd = flash_attention_short_bwd if ctx.short else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=False, dropout_p=0.0, seed=0):
@@ -304,4 +404,14 @@ def flash_attention(q, k, v, causal=False, dropout_p=0.0, seed=0):
     differentiable in q, k and v."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bool(causal),
-                                 float(dropout_p), int(seed))
+                                 float(dropout_p), int(seed), False)
+
+
+def flash_attention_short(q, k, v, causal=False, dropout_p=0.0, seed=0):
+    """:func:`flash_attention` through the short-sequence kernels (one
+    block a head, one backward launch); raises for a shape
+    :func:`short_ok` refuses. Same mask as the streaming kernels for the
+    same seed."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal),
+                                 float(dropout_p), int(seed), True)

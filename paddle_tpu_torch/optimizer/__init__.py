@@ -1,6 +1,15 @@
-"""Optimizers of the port: ``Momentum`` over the fused Momentum kernel,
-``Adam`` and ``AdamW`` over the fused Adam kernel
-(``optimizer.optimizer``)."""
-from .optimizer import Adam, AdamW, Momentum, Optimizer
+"""Optimizers of the port (``optimizer.optimizer``): ``SGD``,
+``Momentum``, ``Adam``, ``AdamW`` and ``Lamb``, each over its fused
+kernel, and the learning-rate schedulers (``optimizer.lr``)."""
+from . import lr
+from .optimizer import SGD, Adam, AdamW, Lamb, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+# reference-API aliases (paddle_tpu/optimizer/__init__.py)
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
+AdamOptimizer = Adam
+LambOptimizer = Lamb
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Lamb", "lr",
+           "SGDOptimizer", "MomentumOptimizer", "AdamOptimizer",
+           "LambOptimizer"]

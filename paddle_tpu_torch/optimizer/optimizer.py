@@ -1,4 +1,5 @@
-"""Optimizers: ``Optimizer``, ``Momentum``, ``Adam`` and ``AdamW``.
+"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``
+and ``Lamb``.
 
 Port of the dygraph path of ``paddle_tpu/optimizer/optimizer.py``
 (``apply_gradients_fn`` with ``_fused_or_rule``): the step t starts at
@@ -10,15 +11,28 @@ Momentum (``optimizer.py:286-304``) keeps a ``velocity`` that starts
 at zero: ``v2 = mu*v + g``, ``p2 = p - lr*v2``, or with Nesterov
 ``p - lr*(g + mu*v2)``. A float ``weight_decay`` on ``Momentum`` or
 plain ``Adam`` is the coupled L2 term ``g + wd*p``, as the JAX package's
-``L2Decay`` folds it.
+``L2Decay`` folds it. SGD (``optimizer.py:281``) is ``p - lr*g``.
+Lamb (``optimizer.py:463-487``, the dygraph form of
+``fused_try_rule``) keeps moment1/moment2 from zero and updates
+``p - (lr*trust)*r`` with ``r = m_hat/(sqrt(v_hat) + eps) + wd*p`` and
+``trust = |p|/|r|`` (1 where either norm is 0). Like the JAX rule, Lamb
+decays EVERY parameter: ``exclude_from_weight_decay_fn`` is stored and
+not applied.
+
+``learning_rate`` is a float or an ``lr.LRScheduler``; ``get_lr()``
+reads the scheduler's value, which the caller advances with
+``scheduler.step()``. The value reaches the kernel as a host f32
+argument each step (no host-to-device copy). ``grad_clip`` (an
+``nn.clip`` object) clips the gradients first, then the coupled L2 term
+is added, in the order of ``apply_gradients_fn`` (``:102-104``).
 
 The whole update is one ``ops.cuda.fused_optimizer`` call
-(``fused_adam_`` or ``fused_momentum_``) over every parameter that has a
-gradient: one kernel launch on CUDA, the plain version on the CPU.
-Parameters and optimizer state are updated IN PLACE (the JAX update is
-functional). Gradient clipping, regularizer objects,
-``multi_precision`` master weights and the ``lr.py`` schedulers are
-later slices.
+(``fused_sgd_``, ``fused_momentum_``, ``fused_adam_`` or
+``fused_lamb_``) over every parameter that has a gradient: one kernel
+launch on CUDA (Lamb: two, with its per-tensor norms between them), the
+plain version on the CPU. Parameters and optimizer state are updated IN
+PLACE (the JAX update is functional). Regularizer objects and
+``multi_precision`` master weights are later slices.
 """
 from __future__ import annotations
 
@@ -26,9 +40,12 @@ from typing import Dict
 
 import torch
 
-from ..ops.cuda.fused_optimizer import fused_adam_, fused_momentum_
+from ..nn.clip import ClipGradBase
+from ..ops.cuda.fused_optimizer import (fused_adam_, fused_lamb_,
+                                        fused_momentum_, fused_sgd_)
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Lamb"]
 
 
 class Optimizer:
@@ -37,18 +54,24 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None):
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip is a later port slice")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers (lr.py) are a later port slice; "
-                "pass a float")
+        if grad_clip is not None and not isinstance(grad_clip,
+                                                    ClipGradBase):
+            raise TypeError(f"grad_clip must be an nn.clip object "
+                            f"(ClipGradByGlobalNorm, ...), got "
+                            f"{type(grad_clip).__name__}")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"lr.LRScheduler, got "
+                            f"{type(learning_rate).__name__}")
         if weight_decay is not None and \
                 not isinstance(weight_decay, (int, float)):
             raise NotImplementedError(
                 "regularizer objects are a later port slice; pass a float "
                 "weight_decay")
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
+        self._grad_clip = grad_clip
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
         self._l2_coeff = float(weight_decay or 0.0)
@@ -63,6 +86,8 @@ class Optimizer:
         return [p for p in self._parameter_list if p.requires_grad]
 
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
         return self._learning_rate
 
     def clear_grad(self) -> None:
@@ -85,14 +110,23 @@ class Optimizer:
                                       for k in self.SLOTS}
         return s
 
-    def _coupled_grads(self, params, grads):
-        """``g + wd*p`` for a float ``weight_decay`` (coupled L2)."""
+    def _grads(self, params, grads):
+        """The gradients the rule sees: clipped by ``grad_clip``, then
+        ``g + wd*p`` for a float ``weight_decay`` (coupled L2)."""
+        if self._grad_clip is not None:
+            grads = self._grad_clip.apply_pytree(grads)
         if self._l2_coeff and not self.DECOUPLED_WD:
             return [g + self._l2_coeff * p for g, p in zip(grads, params)]
         return grads
 
     def _apply(self, params, grads, t):
         raise NotImplementedError
+
+
+class SGD(Optimizer):
+    def _apply(self, params, grads, t):
+        fused_sgd_([p.detach() for p in params], self._grads(params, grads),
+                   lr=self.get_lr(), cache=self._kernel_cache)
 
 
 class Momentum(Optimizer):
@@ -107,7 +141,7 @@ class Momentum(Optimizer):
     def _apply(self, params, grads, t):
         slots = [self._slot(p) for p in params]
         fused_momentum_([p.detach() for p in params],
-                        self._coupled_grads(params, grads),
+                        self._grads(params, grads),
                         [s["velocity"] for s in slots], lr=self.get_lr(),
                         momentum=self._momentum, nesterov=self._nesterov,
                         cache=self._kernel_cache)
@@ -125,7 +159,7 @@ class Adam(Optimizer):
     def _apply(self, params, grads, t):
         slots = [self._slot(p) for p in params]
         fused_adam_([p.detach() for p in params],
-                    self._coupled_grads(params, grads),
+                    self._grads(params, grads),
                     [s["moment1"] for s in slots],
                     [s["moment2"] for s in slots],
                     lr=self.get_lr(), beta1=self._beta1, beta2=self._beta2,
@@ -142,3 +176,37 @@ class AdamW(Adam):
                  grad_clip=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip)
+
+
+class Lamb(Optimizer):
+    SLOTS = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        # stored and not applied, as in the JAX rule (optimizer.py:471,
+        # :483 decays every parameter)
+        self._exclude_fn = exclude_from_weight_decay_fn
+        # the trust-ratio numerator r of each parameter: f32 scratch the
+        # kernels overwrite every step (not optimizer state)
+        self._trust_r: Dict[int, torch.Tensor] = {}
+
+    def _scratch(self, p):
+        r = self._trust_r.get(id(p))
+        if r is None:
+            r = self._trust_r[id(p)] = torch.empty_like(p)
+        return r
+
+    def _apply(self, params, grads, t):
+        slots = [self._slot(p) for p in params]
+        fused_lamb_([p.detach() for p in params], self._grads(params, grads),
+                    [s["moment1"] for s in slots],
+                    [s["moment2"] for s in slots],
+                    [self._scratch(p) for p in params], lr=self.get_lr(),
+                    beta1=self._beta1, beta2=self._beta2, eps=self._eps,
+                    weight_decay=self._lamb_wd, step=t,
+                    cache=self._kernel_cache)

@@ -257,3 +257,108 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
         fo.fused_momentum_([w], [torch.zeros(32, device=dev)], [w], lr=0.1,
                            momentum=0.9, nesterov=False)
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# the short-sequence flash kernels, SGD and Lamb
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,atol,B,L,H,D,causal,p", [
+    (torch.bfloat16, 2e-2, 2, 512, 12, 64, False, 0.1),
+    (torch.float32, 1e-4, 2, 128, 12, 64, False, 0.0),
+    (torch.float32, 1e-4, 1, 256, 3, 64, True, 0.1),
+    (torch.bfloat16, 2e-2, 1, 384, 2, 128, False, 0.1),
+], ids=["bert512", "L128", "causal", "D128"])
+def test_flash_short_kernels_match_plain_and_streaming(dev, dtype, atol, B,
+                                                       L, H, D, causal, p):
+    q, k, v, do = _qkvo(dev, 12, B, L, H, D, dtype)
+    out, lse = fa.flash_attention_short_fwd(q, k, v, causal, p, 4321)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, p, 4321)
+    sout, slse = fa.flash_attention_fwd(q, k, v, causal, p, 4321)
+    grads = fa.flash_attention_short_bwd(q, k, v, out, lse, do, causal, p,
+                                         4321)
+    rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, 4321)
+    sgrads = fa.flash_attention_bwd(q, k, v, sout, slse, do, causal, p, 4321)
+    torch.cuda.synchronize()
+    for ref_out, ref_lse, ref_grads in ((rout, rlse, rgrads),
+                                        (sout, slse, sgrads)):
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                                   rtol=atol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        for got, want in zip(grads, ref_grads):
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=atol)
+    assert counters.get("flash_attention_short_fwd") == 1
+    assert counters.get("flash_attention_short_bwd") == 1
+
+
+def test_flash_short_dropout_mask_is_bitwise_the_plain_mask(dev):
+    L, p = 128, 0.1
+    z = torch.zeros((2, L, 2, L), device=dev)
+    v = torch.eye(L, device=dev).reshape(1, L, 1, L).expand(2, L, 2, L)
+    out = fa.flash_attention_short(z, z, v.contiguous(), dropout_p=p,
+                                   seed=78)
+    keep = fa.philox_keep_mask(78, 4, L, L, p, dev)
+    got = (out > 0).permute(0, 2, 1, 3).reshape(4, L, L)
+    assert torch.equal(got, keep)
+
+
+def test_fused_sgd_kernel_is_bitwise_the_plain_version(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(6, 1, 3, 3), (6,), (3,), (0,), (1000, 7)]
+    ps = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    kp = [x.clone() for x in ps]
+    cache = {}
+    for _ in range(3):
+        gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+        fo.fused_sgd_(kp, gs, lr=0.01, cache=cache)
+        fo._plain_sgd_(ps, gs, np.float32(0.01), False)
+    fo.fused_sgd_(kp, gs, lr=0.01, skip=True, cache=cache)
+    torch.cuda.synchronize()
+    for a, b in zip(kp, ps):
+        assert torch.equal(a, b)
+    assert counters.get("fused_sgd") == 3
+
+
+def test_fused_lamb_kernels_are_bitwise_the_plain_version(dev):
+    """Two steps from zero moments; a zero bias (trust 1) and an empty
+    tensor included: p, m, v and r bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    shapes = [(30592, 64), (768,), (3,), (0,), (1000, 7)]
+    ps = [torch.randn(s, generator=g, device=dev) * 0.02 for s in shapes]
+    ps[1].zero_()
+    ms = [torch.zeros(s, device=dev) for s in shapes]
+    vs = [torch.zeros(s, device=dev) for s in shapes]
+    rs = [torch.empty(s, device=dev) for s in shapes]
+    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    kr = [torch.empty(s, device=dev) for s in shapes]
+    cache = {}
+    for step in (1, 2):
+        gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+        fo.fused_lamb_(kp, gs, km, kv, kr, lr=1e-3, beta1=0.9, beta2=0.999,
+                       eps=1e-6, weight_decay=0.01, step=step, cache=cache)
+        lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, step)
+        fo._plain_lamb_(ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1,
+                        c2, False)
+    torch.cuda.synchronize()
+    for a, b in zip(kp + km + kv + kr, ps + ms + vs + rs):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(kp[1]).all()) and bool(kp[1].any())
+    assert counters.get("fused_lamb_phase1") == 2
+    assert counters.get("fused_lamb_apply") == 2
+
+
+def test_slice_kernels_raise_on_what_they_do_not_take(dev):
+    q = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="short flash"):
+        fa.flash_attention_short(q, q, q)
+    q = torch.zeros((1, 128, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="short flash"):
+        fa.flash_attention_short(q, torch.zeros((1, 256, 2, 64), device=dev),
+                                 torch.zeros((1, 256, 2, 64), device=dev))
+    p = torch.zeros(8, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="f32"):
+        fo.fused_sgd_([p], [p], lr=0.1)
+    with pytest.raises(ValueError, match="f32"):
+        fo.fused_lamb_([p], [p], [p], [p], [p], lr=1e-3, beta1=0.9,
+                       beta2=0.999, eps=1e-6, weight_decay=0.01, step=1)
+    assert counters.snapshot() == {}

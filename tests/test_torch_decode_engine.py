@@ -5,6 +5,9 @@ arrival, preemption under pool pressure and a prefix-cache hit; the
 JAX engine itself for the int8 pool and for seeded sampling. Plus the
 typed admission errors, the later-slice options that must raise, and
 the no-silent-CPU rule of the entry points."""
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -177,6 +180,29 @@ def test_threaded_start_generate_drain(np_params, jparams):
     with pytest.raises(EngineStopped):
         eng.submit([1], 2)
     assert not eng.ready
+
+
+def test_drain_waits_for_a_request_in_prefill(np_params, jparams):
+    """A request popped for prefill is neither queued nor in a slot
+    until its prefill ends, yet it is pending: drain waits for it and
+    serves it. A slow prefill makes the window certain here; under a
+    loaded machine it opens by itself."""
+    eng = _engine(np_params)
+    real = eng._prefill_one
+    entered = threading.Event()
+
+    def slow(req):
+        entered.set()
+        time.sleep(0.3)
+        return real(req)
+
+    eng._prefill_one = slow
+    eng.start()
+    h = eng.submit([5, 5], max_new_tokens=4)
+    assert entered.wait(30)
+    assert eng.sched.pending()
+    assert eng.drain(timeout=30)
+    assert h.result(timeout=5) == jax_ref(JCFG, jparams, [5, 5], 4)
 
 
 def test_decode_step_failure_fails_typed_and_recovers(np_params, jparams):
