@@ -30,8 +30,11 @@ prints no result line:
             times beside the streaming kernel's and SDPA's at L 128 and
             512; fused SGD over LeNet's and BERT-base's parameter lists
             and fused Lamb (phase 1 and apply) over BERT-base's, bit for
-            bit. Kernel, plain and library times and the least time the
-            card could take (bound);
+            bit; K3's static forms (sgd, momentum, adam, lamb), one
+            launch a tensor over the static example's 25 tensors and
+            BERT-base's 206, FoundInfinite absent, false and true, bit
+            for bit with the beta-pow outputs. Kernel, plain and library
+            times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -81,11 +84,26 @@ prints no result line:
 11. lenet_sgd  LeNet at batch 128 x 1 x 28 x 28, SGD lr 0.01 with L2
             1e-4: 3 warm-up and 10 timed steps; steps/s, the loss
             (finite, falling), one SGD launch a step;
-12. the ``kernels`` line (launches summed over the phases that drive
+12. static_parity  the static example's network at batch 8, two steps
+            through the static Executor with each static optimizer, with
+            the kernels and again with the plain versions, cuDNN
+            deterministic: losses and every persistable bit for bit;
+13. static_resnet  ``examples/train_resnet_static.py`` as written
+            (Momentum lr 0.05 mu 0.9, batch 64 x 3 x 32 x 32, its loop of
+            3 epochs x 8 batches over the synthetic CIFAR-10 sample):
+            steps/s, step ms, peak memory, a profiled step, the loss
+            (finite, falling), exactly 25 static Momentum launches a step
+            and no other kernel; then the inference model saved, loaded
+            and its logits equal to the test-mode program's;
+14-16. static_resnet_adam, _lamb, _sgd  the same network, 13 steps with
+            Adam 2e-3, Lamb 1e-3 (25 + 25 launches a step) and SGD 0.05 +
+            L2Decay(1e-4);
+17. the ``kernels`` line (launches summed over the phases that drive
     each kernel's path: 2-4 for the decode kernels, 6 and 10 for the
     fused xent, 6 for the streaming flash kernels and Adam, 8 for
-    Momentum, 10 for the short flash kernels and Lamb, 11 for SGD),
-    then the card's name and power limit, then the result line.
+    Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
+    13-16 for the static forms), then the card's name and power limit,
+    then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -131,21 +149,22 @@ def expect(cond: bool, msg: str) -> None:
 HOST_AHEAD_CYCLES = 4_000_000  # ~2 ms of spinning at the H100's clocks
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            spin: int = HOST_AHEAD_CYCLES) -> float:
     """Median device time of one call, L2 flushed before each (the
     decode step reads each layer's pages cold). A spin kernel queued
     before the start event keeps the device busy while the host runs
     the call's Python (argument checks, pointer tables), so a call that
     launches one kernel is timed by that kernel alone; a call whose
     host work outlasts the spin (the plain versions) still counts its
-    gaps."""
+    gaps. ``spin`` (cycles) sets how much host work is hidden."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(HOST_AHEAD_CYCLES)
+        torch.cuda._sleep(spin)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1766,6 +1785,493 @@ def phase_lenet_sgd(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, K3's static forms; phases 12-16: the static graph
+# ---------------------------------------------------------------------------
+STATIC_FORMS = ("sgd", "momentum", "adam", "lamb")
+# bytes an element each form must move (p, g and the state read once,
+# p and the state written once) and its f32 operations an element
+STATIC_BYTES = {"sgd": 12, "momentum": 20, "adam": 28, "lamb": 28}
+STATIC_FLOPS = {"sgd": 2, "momentum": 3, "adam": 12, "lamb": 16}
+# the static forms' timed calls dispatch one launch a tensor (25 or 206
+# of them, Lamb with a norm between two): a ~50 ms spin ahead of the
+# start event hides that host work, so their times are device time
+STATIC_SPIN_CYCLES = 100_000_000
+STATIC_COUNTERS = {"sgd": ("static_sgd",), "momentum": ("static_momentum",),
+                   "adam": ("static_adam",),
+                   "lamb": ("static_lamb_phase1", "static_lamb_apply")}
+
+
+def static_state(torch, form, shapes, found, gen):
+    """One parameter's inputs a shape, on the card: non-zero state, the
+    (1,) lr and beta-pows, the FoundInfinite flag (None: absent)."""
+    out = []
+    for s in shapes:
+        t = {"p": torch.randn(s, generator=gen, device="cuda") * 0.05,
+             "g": torch.randn(s, generator=gen, device="cuda") * 1e-2,
+             "lr": torch.tensor([0.05], device="cuda")}
+        if form == "momentum":
+            t["v"] = torch.randn(s, generator=gen, device="cuda") * 1e-2
+        if form in ("adam", "lamb"):
+            t["m"] = torch.randn(s, generator=gen, device="cuda") * 1e-3
+            t["v"] = (torch.randn(s, generator=gen, device="cuda")
+                      * 1e-4).abs()
+            t["b1p"] = torch.tensor([0.9 ** 3], device="cuda")
+            t["b2p"] = torch.tensor([0.999 ** 3], device="cuda")
+        t["found"] = None if found is None else torch.tensor(
+            [found], device="cuda")
+        out.append(t)
+    return out
+
+
+def static_update(fo, form, t, plain):
+    """The static form on one parameter's inputs ``t`` (in place):
+    its beta-pow outputs (Adam, Lamb) or ()."""
+    p, g, lr, found = t["p"], t["g"], t["lr"], t["found"]
+    if form == "sgd":
+        (fo._plain_static_sgd_ if plain else fo.static_sgd_)(p, g, lr, found)
+        return ()
+    if form == "momentum":
+        if plain:
+            fo._plain_static_momentum_(p, g, t["v"], lr, 0.9, False, found)
+        else:
+            fo.static_momentum_(p, g, t["v"], lr, mu=0.9, found=found)
+        return ()
+    args = (p, g, t["m"], t["v"], t["b1p"], t["b2p"], lr)
+    if form == "adam":
+        if plain:
+            return fo._plain_static_adam_(*args, 0.9, 0.999, 1e-8, found)
+        return fo.static_adam_(*args, beta1=0.9, beta2=0.999, eps=1e-8,
+                               found=found)
+    if plain:
+        return fo._plain_static_lamb_(*args, 0.9, 0.999, 1e-6, 0.01, found)
+    return fo.static_lamb_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
+                           weight_decay=0.01, found=found)
+
+
+def static_library(torch, form, state):
+    """The one PyTorch call computing the same update over the list
+    (timed only): SGD/Adam with ``fused=True``; Lamb has none."""
+    if form == "lamb":
+        return None
+    params = [torch.nn.Parameter(t["p"].clone()) for t in state]
+    for p, t in zip(params, state):
+        p.grad = t["g"].clone()
+    if form == "adam":
+        return torch.optim.Adam(params, lr=0.05, fused=True).step
+    mu = 0.9 if form == "momentum" else 0.0
+    return torch.optim.SGD(params, lr=0.05, momentum=mu, fused=True).step
+
+
+def host_dispatch_ms(torch, fn, iters: int = 20) -> float:
+    """Median host time to issue ``fn``'s launches (no synchronise
+    inside the timed span; one before each)."""
+    times = []
+    for _ in range(iters + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times[3:]))
+
+
+def check_static_optim(torch, fo, counters, shape_lists, timing):
+    """K3's static forms against their plain versions, bit for bit, one
+    launch a tensor over the static example's 25 trainable tensors and
+    BERT-base's 206, with FoundInfinite absent, false and true: p, the
+    moments or velocity and the beta-pow outputs; the flag keeps all of
+    them; the pows advance without it. Timed over each list (the
+    example's is the main path's: one step's updates), device time
+    behind a long spin, and the host time to dispatch the list."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = {}
+    for form in STATIC_FORMS:
+        row = {"max_abs_err": 0.0, "bitwise": True, "launches_checked": 0}
+        for label, shapes in shape_lists.items():
+            for found in (None, False, True):
+                kern = static_state(torch, form, shapes, found, gen)
+                plain = [{k: None if x is None else x.clone()
+                          for k, x in t.items()} for t in kern]
+                before = [{k: None if x is None else x.clone()
+                           for k, x in t.items()} for t in kern]
+                c0 = sum(counters.get(c) for c in STATIC_COUNTERS[form])
+                kp = [static_update(fo, form, t, False) for t in kern]
+                pp = [static_update(fo, form, t, True) for t in plain]
+                torch.cuda.synchronize()
+                n_launch = sum(counters.get(c)
+                               for c in STATIC_COUNTERS[form]) - c0
+                expect(n_launch == len(shapes) * len(STATIC_COUNTERS[form]),
+                       f"static {form}: {n_launch} launches for "
+                       f"{len(shapes)} tensors")
+                row["launches_checked"] += n_launch
+                for t, u, b, ko, po in zip(kern, plain, before, kp, pp):
+                    for k, x in t.items():
+                        if x is None or k in ("g", "lr", "found"):
+                            continue
+                        expect(torch.equal(x, u[k]),
+                               f"static {form} ({label}, found={found}): "
+                               f"{k} differs from the plain version by "
+                               f"{max_err(x, u[k])}")
+                        if found:
+                            expect(torch.equal(x, b[k]),
+                                   f"static {form}: the set flag changed "
+                                   f"{k}")
+                    for a, c, old, beta in zip(ko, po, (b.get("b1p"),
+                                                        b.get("b2p")),
+                                               (0.9, 0.999)):
+                        expect(a.shape == (1,) and torch.equal(a, c),
+                               f"static {form}: beta-pow output differs")
+                        want = old if found else old * beta
+                        expect(torch.equal(a, want),
+                               f"static {form} (found={found}): beta-pow "
+                               f"{float(a)} against {float(want)}")
+            n = sum(int(np.prod(s)) for s in shapes)
+            sub = {"params": len(shapes), "elements": n}
+            if timing:
+                state = static_state(torch, form, shapes, None, gen)
+                pstate = [dict(t) for t in state]
+                t_b, by = bound_of(STATIC_BYTES[form] * n,
+                                   STATIC_FLOPS[form] * n, F32_FLOPS_PER_S)
+                lib = static_library(torch, form, state)
+                spin = STATIC_SPIN_CYCLES
+                sub.update({
+                    "ms": time_ms(torch, lambda: [static_update(
+                        fo, form, t, False) for t in state], spin=spin),
+                    "plain_ms": time_ms(torch, lambda: [static_update(
+                        fo, form, t, True) for t in pstate], iters=5,
+                        spin=spin),
+                    "library_ms": None if lib is None else time_ms(
+                        torch, lib, spin=spin),
+                    "host_dispatch_ms": host_dispatch_ms(
+                        torch, lambda: [static_update(fo, form, t, False)
+                                        for t in state]),
+                    "bound_ms": t_b, "bound_by": by})
+            row[label] = sub
+        if timing:
+            row.update({k: row["static_resnet"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "host_dispatch_ms")})
+            row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
+        rows[form] = row
+    return rows
+
+
+STATIC_STEPS = 24   # the example's loop: 3 epochs of 8 batches of 64
+
+
+def static_param_shapes():
+    """The shapes of the static example's 25 trainable tensors."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main = static_network(static, static.SGD(0.1))[0]
+    return [tuple(v.shape) for v in main.global_block.vars.values()
+            if getattr(v, "trainable", False)]
+
+
+def static_network(static, opt):
+    """``examples/train_resnet_static.py``'s program, as written there,
+    with the optimizer ``opt`` (a static optimizer instance):
+    (main, startup, loss, acc, logits)."""
+    def conv_bn(x, ch, stride=1, act="relu"):
+        h = static.nn.conv2d(x, ch, 3, stride=stride, padding=1,
+                             bias_attr=False)
+        return static.nn.batch_norm(h, act=act)
+
+    def basic_block(x, ch, stride=1):
+        h = conv_bn(x, ch, stride)
+        h = conv_bn(h, ch, act=None)
+        short = x if stride == 1 and x.shape[1] == ch else \
+            static.nn.conv2d(x, ch, 1, stride=stride, bias_attr=False)
+        return static.relu(static.elementwise_add(h, short))
+
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        img = static.data("img", [-1, 3, 32, 32])
+        label = static.data("label", [-1, 1], dtype="int64")
+        h = conv_bn(img, 16)
+        h = basic_block(h, 16)
+        h = basic_block(h, 32, stride=2)
+        h = basic_block(h, 64, stride=2)
+        h = static.nn.pool2d(h, 8, pool_type="avg")
+        logits = static.nn.fc(h, 10)
+        loss = static.mean(static.softmax_with_cross_entropy(logits, label))
+        acc = static.accuracy(static.softmax(logits), label)
+        opt.minimize(loss)
+    return main, startup, loss, acc, logits
+
+
+STATIC_OPT_DESC = {"momentum": "Momentum lr 0.05 mu 0.9",
+                   "adam": "Adam lr 2e-3", "lamb": "Lamb lr 1e-3",
+                   "sgd": "SGD lr 0.05 with L2Decay 1e-4"}
+
+
+def static_optimizer(static, form):
+    """The optimizer of each static phase: the example's Momentum,
+    ``test_book.py``'s Adam, Lamb, and SGD with L2 decay."""
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    return {"momentum": lambda: static.Momentum(learning_rate=0.05,
+                                                momentum=0.9),
+            "adam": lambda: static.Adam(2e-3),
+            "lamb": lambda: static.Lamb(1e-3),
+            "sgd": lambda: static.SGD(0.05, regularization=L2Decay(1e-4))
+            }[form]()
+
+
+def cifar_synthetic(n=512):
+    """``paddle_tpu.vision.datasets.Cifar10(mode="train",
+    synthetic_size=1024)``'s first ``n`` samples, made the same way (a
+    class pattern from RandomState(7) plus noise from RandomState(0)),
+    as the example loads them: (images (n, 3, 32, 32) f32 in [0, 1],
+    labels (n, 1) int64)."""
+    base = np.random.RandomState(7).rand(10, 3072).astype(np.float32)
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, 10, 1024).astype(np.int64)
+    noise = rng.rand(1024, 3072).astype(np.float32) * 0.4
+    data = (base[labels % 10] * 255 * 0.6 + noise * 255).astype(np.uint8)
+    imgs = data[:n].reshape(n, 3, 32, 32).astype(np.float32) / 255.0
+    return imgs, labels[:n].reshape(-1, 1)
+
+
+def example_batches(imgs, labels, steps):
+    """The example's loop: 3 epochs, a RandomState(epoch) permutation
+    each, batches of 64 at ``range(0, len - 63, 64)``; the first
+    ``steps``."""
+    out = []
+    for epoch in range(3):
+        perm = np.random.RandomState(epoch).permutation(len(imgs))
+        for i in range(0, len(imgs) - 63, 64):
+            sl = perm[i:i + 64]
+            out.append((imgs[sl], labels[sl]))
+    return out[:steps]
+
+
+def static_family(name):
+    """The static update kernels, Lamb's norms, else ResNet's families."""
+    if "static" in name and "rule" in name:
+        return "static_update"
+    if "norm" in name and "batch" not in name and "foreach" in name:
+        return "lamb_norms"
+    return resnet_family(name)
+
+
+STATIC_FAMILIES = RESNET_FAMILIES + ("static_update", "lamb_norms")
+
+
+def host_profile(torch, step, batch):
+    """Host time of one static step by part, under cProfile (which
+    inflates Python-heavy parts): cumulative ms of the executor's run,
+    the backward op (autograd), the update ops, the feeds, the batch
+    norms and convolutions of the forward."""
+    import cProfile
+    import pstats
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    step(*batch)
+    torch.cuda.synchronize()
+    prof.disable()
+    parts = {"run": ("executor.py", "run"),
+             "backward_op": ("backward.py", "run_backward_op"),
+             "updates": ("kernels.py", "_momentum"),
+             "feeds": ("executor.py", "_feed_tensor"),
+             "batch_norm_fwd": ("kernels.py", "_batch_norm"),
+             "conv2d_fwd": ("kernels.py", "_conv2d")}
+    out = dict.fromkeys(parts, 0.0)
+    for (path, _, func), (_, _, _, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        for part, (base, name) in parts.items():
+            if func == name and os.path.basename(path) == base:
+                out[part] += cum * 1e3
+    return out
+
+
+def phase_static_parity(torch, counters, fo):
+    """The example's network at batch 8, two steps with each static
+    optimizer, with the kernels and again with their plain versions
+    swapped in, from the same weights, cuDNN deterministic: losses and
+    every persistable bit for bit."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.utils import unique_name
+
+    swaps = [
+        (fo, "static_sgd_", lambda p, g, lr, found=None:
+         fo._plain_static_sgd_(p, g, lr, found)),
+        (fo, "static_momentum_",
+         lambda p, g, v, lr, *, mu, nesterov=False, found=None:
+         fo._plain_static_momentum_(p, g, v, lr, mu, nesterov, found)),
+        (fo, "static_adam_",
+         lambda p, g, m, v, b1, b2, lr, *, beta1, beta2, eps, found=None:
+         fo._plain_static_adam_(p, g, m, v, b1, b2, lr, beta1, beta2, eps,
+                                found)),
+        (fo, "static_lamb_",
+         lambda p, g, m, v, b1, b2, lr, *, beta1, beta2, eps, weight_decay,
+         found=None: fo._plain_static_lamb_(p, g, m, v, b1, b2, lr, beta1,
+                                            beta2, eps, weight_decay,
+                                            found))]
+    imgs, labels = cifar_synthetic()
+    x, y = imgs[:8], labels[:8]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for form in STATIC_FORMS:
+            with unique_name.guard():
+                main, startup, loss, acc, _ = static_network(
+                    static, static_optimizer(static, form))
+            startup.random_seed = 11
+            exe = static.Executor()
+            init = static.Scope()
+            with static.scope_guard(init):
+                exe.run(startup)
+            runs = {}
+            for name in ("kernel", "plain"):
+                scope = static.Scope()
+                for k, v in init.items():
+                    scope.set(k, v.clone())
+                counters.reset()
+                with static.scope_guard(scope):
+                    if name == "plain":
+                        with swapped(swaps):
+                            ls = [exe.run(main, feed={"img": x, "label": y},
+                                          fetch_list=[loss])[0]
+                                  for _ in range(2)]
+                    else:
+                        ls = [exe.run(main, feed={"img": x, "label": y},
+                                      fetch_list=[loss])[0]
+                              for _ in range(2)]
+                torch.cuda.synchronize()
+                runs[name] = ([float(v) for v in ls], dict(scope.items()),
+                              counters.snapshot())
+            (lk, sk, ck), (lp, sp, cp) = runs["kernel"], runs["plain"]
+            want = {c: 2 * 25 for c in STATIC_COUNTERS[form]}
+            expect({c: ck.get(c, 0) for c in want} == want,
+                   f"static_parity {form}: kernel launches {ck}, want {want}")
+            expect(not any(k.startswith("static_") for k in cp),
+                   f"static_parity {form}: the plain run launched {cp}")
+            expect(lk == lp, f"static_parity {form}: losses {lk} (kernel) "
+                             f"against {lp} (plain)")
+            expect(all(np.isfinite(lk)), f"static_parity {form}: {lk}")
+            differ = sorted(k for k in sk if not torch.equal(sk[k], sp[k]))
+            expect(set(sk) == set(sp) and not differ,
+                   f"static_parity {form}: persistables differ: {differ[:5]}")
+            moved = sum(int(not torch.equal(sk[k], init.find_var(k)))
+                        for k in sk)
+            expect(moved > 25, f"static_parity {form}: only {moved} "
+                               "persistables changed in two steps")
+            out[form] = {"losses": lk, "persistables": len(sk),
+                         "changed": moved, "launches": ck}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return {"phase": "static_parity", "config": "examples/train_resnet_"
+            "static.py's network, batch 8 x 3 x 32 x 32, two steps each with "
+            "Momentum(0.05, 0.9), Adam(2e-3), Lamb(1e-3), SGD(0.05) + "
+            "L2Decay(1e-4), cudnn.deterministic", "bitwise": True,
+            "forms": out}
+
+
+def phase_static_resnet(torch, counters, form, steps, inference=False):
+    """``examples/train_resnet_static.py`` through the port's static
+    graph on the card: its program, batch 64, the example's batches of
+    the synthetic CIFAR sample; with ``inference`` the saved and loaded
+    inference model's logits against the test-mode clone's."""
+    import tempfile
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.utils import unique_name
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with unique_name.guard():
+        main, startup, loss, acc, logits = static_network(
+            static, static_optimizer(static, form))
+    startup.random_seed = 1
+    imgs, labels = cifar_synthetic()
+    batches = example_batches(imgs, labels, steps)
+    exe = static.Executor()
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+        counters.reset()
+        losses, accs, step_ms = [], [], []
+        for x, y in batches:
+            t0 = time.perf_counter()
+            lo, ac = exe.run(main, feed={"img": x, "label": y},
+                             fetch_list=[loss, acc])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lo))
+            accs.append(float(ac))
+        launches = counters.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = float(np.median(step_ms))
+        breakdown = profile_step(
+            torch, lambda a, b: exe.run(main, feed={"img": a, "label": b},
+                                        fetch_list=[loss, acc]),
+            batches[0], static_family, STATIC_FAMILIES, med)
+        host = host_profile(torch, lambda a, b: exe.run(
+            main, feed={"img": a, "label": b}, fetch_list=[loss, acc]),
+            batches[0]) if form == "momentum" else None
+        infer = None
+        if inference:
+            prev = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                x = batches[0][0]
+                want = exe.run(main.clone(for_test=True),
+                               feed={"img": x, "label": batches[0][1]},
+                               fetch_list=[logits])[0]
+                with tempfile.TemporaryDirectory() as d:
+                    static.save_inference_model(d, ["img"], [logits], exe,
+                                                main)
+                    with static.scope_guard(static.Scope()):
+                        prog, feeds, fetches = static.load_inference_model(
+                            d, exe)
+                        got = exe.run(prog, feed={"img": x},
+                                      fetch_list=fetches)[0]
+            finally:
+                torch.backends.cudnn.deterministic = prev
+            expect(feeds == ["img"] and got.shape == (64, 10),
+                   f"static_resnet: loaded model feeds {feeds}, logits "
+                   f"{got.shape}")
+            expect(np.array_equal(got, want),
+                   "static_resnet: the loaded inference model's logits "
+                   f"differ from the test-mode clone's by "
+                   f"{float(np.abs(got - want).max())}")
+            infer = {"ops": len(prog.global_block.ops), "logits_equal": True,
+                     "logits_shape": list(got.shape)}
+    n = len(batches)
+    per_step = {c: launches.get(c, 0) / n for c in launches}
+    expect(all(np.isfinite(losses)), f"static {form}: non-finite {losses}")
+    expect(losses[-1] < losses[0],
+           f"static {form}: loss did not fall ({losses[0]} -> {losses[-1]})")
+    want = {c: 25 * n for c in STATIC_COUNTERS[form]}
+    expect({c: launches.get(c, 0) for c in want} == want,
+           f"static {form}: launches {launches}, want {want}")
+    others = {k: v for k, v in launches.items() if k not in want}
+    expect(not others, f"static {form}: other kernels launched: {others}")
+    params = [v for v in main.global_block.vars.values()
+              if getattr(v, "trainable", False)]
+    name = "static_resnet" if form == "momentum" else f"static_resnet_{form}"
+    return {"phase": name, "config": "examples/train_resnet_static.py's "
+            "network (3 basic blocks 16/32/64, batch norm, avg pool, fc 10), "
+            f"batch 64 x 3 x 32 x 32 f32, {STATIC_OPT_DESC[form]}, the "
+            "example's batches of the synthetic CIFAR-10 sample",
+            "param_tensors": len(params),
+            "params": int(sum(int(np.prod(v.shape)) for v in params)),
+            "steps": n, "steps_per_s": n / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses, "accs": accs,
+            "launches": launches, "launches_per_step": per_step,
+            "peak_mem_gb": peak, "breakdown": breakdown,
+            "host_profile_ms": host, "inference": infer}, launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1824,6 +2330,12 @@ def main() -> int:
         k3l = check_lamb(torch, fo, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_lamb": k3l})
         torch.cuda.empty_cache()
+        static_shapes = static_param_shapes()
+        k3st = check_static_optim(torch, fo, counters,
+                                  {"static_resnet": static_shapes,
+                                   "bert_base": bert_shapes}, timing)
+        emit({"phase": "kernels_vs_plain", "static_optim": k3st})
+        torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
 
@@ -1874,6 +2386,17 @@ def main() -> int:
         add(launches)
         total["fused_lamb"] = total.get("fused_lamb_phase1", 0) \
             + total.get("fused_lamb_apply", 0)
+        torch.cuda.empty_cache()
+
+        emit(phase_static_parity(torch, counters, fo))
+        for form, steps in (("momentum", STATIC_STEPS), ("adam", 13),
+                            ("lamb", 13), ("sgd", 13)):
+            row, launches = phase_static_resnet(
+                torch, counters, form, steps, inference=form == "momentum")
+            emit(row)
+            add(launches)
+        total["static_lamb"] = total.get("static_lamb_phase1", 0) \
+            + total.get("static_lamb_apply", 0)
 
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
@@ -1917,7 +2440,16 @@ def main() -> int:
                 ("fused_sgd", k3s, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
                 ("fused_lamb", k3l, src + "fused_optimizer.cu",
-                 "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("static_sgd", k3st["sgd"], src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:175"),
+                ("static_momentum", k3st["momentum"],
+                 src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:182"),
+                ("static_adam", k3st["adam"], src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:196"),
+                ("static_lamb", k3st["lamb"], src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:217")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total.get(name, 0),

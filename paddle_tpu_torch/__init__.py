@@ -12,15 +12,17 @@ batch norm, pooling; ``optimizer.Momentum``) with a CUDA kernel for the
 fused Momentum update, then BERT phase-2 pretraining at seq 512 with
 ``optimizer.Lamb`` (``optimizer.lr`` schedulers, ``nn.clip``) through
 the short-sequence flash kernels (``FLAGS_flash_short_seq``), and
-``optimizer.SGD``, with CUDA kernels for both updates. Entry points
+``optimizer.SGD``, with CUDA kernels for both updates, then the static
+graph (``static``: Program, Executor, ``append_backward``, the static
+optimizers) with CUDA kernels for K3's static update forms. Entry points
 run on the card unless the caller passes ``device="cpu"``; without a
 GPU and without a device they raise.
 """
-from . import (amp, framework, inference, jit, models, nn, ops, optimizer,
-               profiler, vision)
+from . import (amp, framework, inference, io, jit, models, nn, ops,
+               optimizer, profiler, regularizer, static, utils, vision)
 from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 
-__all__ = ["amp", "framework", "inference", "jit", "models", "nn", "ops",
-           "optimizer", "profiler", "seed", "vision", "get_flags",
-           "set_flags"]
+__all__ = ["amp", "framework", "inference", "io", "jit", "models", "nn",
+           "ops", "optimizer", "profiler", "regularizer", "seed", "static",
+           "utils", "vision", "get_flags", "set_flags"]

@@ -24,8 +24,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "default_generator", "fold_in", "StepRNG", "rng_scope",
-           "current_rng"]
+__all__ = ["seed", "initial_seed", "default_generator", "fold_in", "StepRNG",
+           "rng_scope", "current_rng"]
 
 _MASK64 = (1 << 64) - 1
 _state = threading.local()
@@ -39,6 +39,12 @@ def seed(n: int) -> None:
     with _LOCK:
         _GLOBAL["seed"] = int(n)
         _GLOBAL["gens"] = {}
+
+
+def initial_seed() -> int:
+    """The seed of the last :func:`seed` call (0 before any)."""
+    with _LOCK:
+        return _GLOBAL["seed"]
 
 
 def default_generator(device) -> torch.Generator:

@@ -1,5 +1,7 @@
-// Fused optimizer updates for Hopper (sm_90a): every parameter of the
-// model in one launch. Five rules share one multi-tensor walker:
+// Fused optimizer updates for Hopper (sm_90a). The dygraph forms update
+// every parameter of the model in one launch; the static forms one
+// parameter a launch (one update op of a static program). All rules
+// share one multi-tensor walker:
 //
 // - Adam(W): replaces the Adam body of the TPU kernel in
 //   paddle_tpu/ops/pallas/fused_optimizer.py (_run_grid with
@@ -16,6 +18,15 @@
 //   per-tensor norms (fused_optimizer.py:608-613). The norms themselves
 //   are torch._foreach_norm between the two launches; the apply rule
 //   reads them from a device array, so nothing waits for the host.
+// - The static forms of all four (StaticSgdRule, StaticMomentumRule,
+//   StaticAdamRule, StaticLambPhase1Rule + StaticLambApplyRule): the
+//   same _run_grid bodies with dygraph=False, reached from
+//   fused_op_update (fused_optimizer.py:418) by the update ops of a
+//   static program, one op (and one launch) per parameter. lr, the
+//   beta-pows and FoundInfinite are device scalars read by the kernel;
+//   static Adam uses lr_t = lr*sqrt(1-c2)/(1-c1) with eps outside the
+//   sqrt, static Lamb divides by 1-c1 where the dygraph form divides by
+//   c1. See the block above the static rules.
 //
 // Bound: device-memory bytes. Adam reads p, g, m, v (16 bytes an
 // element) and writes p, m, v (12 bytes) for about 15 flops; BERT-base's
@@ -23,7 +34,10 @@
 // and writes p, v (20 bytes) for 3 flops (5 with Nesterov); ResNet-50's
 // 25.6 M parameters move 511 MB a step. SGD reads p, g and writes p
 // (12 bytes, 2 flops). Lamb's phase 1 reads p, g, m, v and writes m, v,
-// r (28 bytes); apply reads p, r and writes p (12 bytes).
+// r (28 bytes); apply reads p, r and writes p (12 bytes). The static
+// forms move the same bytes an element, but the static example's 25
+// tensors hold 77,850 elements (0.3-2 MB a step in all): each launch is
+// bound by its latency, not by the bytes.
 //
 // Design: multi-tensor. A device table holds the pointers of every
 // parameter's tensors ((roles, n) int64: p, g, then the rule's state)
@@ -33,8 +47,9 @@
 // over the offsets, and walks the parameters its chunk spans. Each
 // thread handles consecutive elements strided by the block size, so
 // warps read coalesced runs of every tensor. One pass, no second read
-// of the old state; the FoundInfinite skip flag is an entry-point
-// argument, as in the TPU kernel (a skipped step launches nothing).
+// of the old state; in the dygraph forms the FoundInfinite skip flag is
+// an entry-point argument (a skipped step launches nothing), in the
+// static forms a device flag the kernel reads.
 //
 // Bit-for-bit agreement with the plain PyTorch versions rests on doing
 // the same f32 operations in the same order, each rounded on its own:
@@ -64,10 +79,9 @@ __device__ __forceinline__ int find_tensor(const int64_t* offs, int n,
 // touches, binds the rule's pointers once (Rule::bind) and applies the
 // rule to each of its elements in the chunk.
 template <class Rule>
-__global__ void __launch_bounds__(kThreads)
-multi_tensor_kernel(const int64_t* __restrict__ ptrs,
-                    const int64_t* __restrict__ offs, int n, int64_t total,
-                    Rule rule) {
+__device__ __forceinline__ void walk(const int64_t* __restrict__ ptrs,
+                                     const int64_t* __restrict__ offs,
+                                     int n, int64_t total, const Rule& rule) {
   int64_t start = (int64_t)blockIdx.x * kChunk;
   const int64_t end = start + kChunk < total ? start + kChunk : total;
   int t = find_tensor(offs, n, start);
@@ -80,6 +94,34 @@ multi_tensor_kernel(const int64_t* __restrict__ ptrs,
       rule(q, e - t0);
     start = seg_end;
   }
+}
+
+// The dygraph forms: the table lives in device memory (built once and
+// cached by the optimizer while the pointers stay the same).
+template <class Rule>
+__global__ void __launch_bounds__(kThreads)
+multi_tensor_kernel(const int64_t* __restrict__ ptrs,
+                    const int64_t* __restrict__ offs, int n, int64_t total,
+                    Rule rule) {
+  walk(ptrs, offs, n, total, rule);
+}
+
+// The static forms: one launch per update op of the program, whose
+// gradient and beta-pow buffers change every step, so the table travels
+// by value in the kernel's parameter space (no host-to-device copy) with
+// the same (roles, n) layout; up to kMaxArgTensors tensors a launch.
+constexpr int kMaxArgTensors = 8;
+constexpr int kMaxArgRoles = 10;
+struct ArgTable {
+  int64_t ptrs[kMaxArgRoles * kMaxArgTensors];
+  int64_t offs[kMaxArgTensors + 1];
+};
+
+template <class Rule>
+__global__ void __launch_bounds__(kThreads)
+multi_tensor_arg_kernel(const __grid_constant__ ArgTable tab, int n,
+                        int64_t total, Rule rule) {
+  walk(tab.ptrs, tab.offs, n, total, rule);
 }
 
 struct AdamRule {
@@ -215,6 +257,219 @@ struct LambApplyRule {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The static (program) forms: _run_grid with the dygraph=False bodies,
+// reached from fused_op_update (paddle_tpu/ops/pallas/fused_optimizer.py
+// :418) by the sgd, momentum, adam and lamb ops of a static program. lr,
+// the beta-pows and the optional FoundInfinite flag are (1,) device
+// tensors: their pointers ride in the table beside the tensor's, bind()
+// reads them once per block and tensor, and a null flag pointer means
+// no gate. Nothing is read on the host. A set flag leaves p and the
+// moments or the velocity as they were (_gate_update); the beta-pow
+// outputs then keep the old pows (_gate_scalars).
+//
+// Beta-pow outputs go to SEPARATE one-element buffers: the program
+// writes Beta1PowOut to the variable Beta1Pow itself, and every block of
+// the launch reads Beta1Pow, so writing it in place would race with the
+// blocks still reading it. The thread that owns element 0 of tensor t
+// writes t's advanced pows (b1p*b1, b2p*b2, as JAX computes them outside
+// _run_grid, fused_optimizer.py:370-371).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool skip_flag(int64_t ptr) {
+  return ptr != 0 && *reinterpret_cast<const uint8_t*>(ptr) != 0;
+}
+
+__device__ __forceinline__ float scalar_at(int64_t ptr) {
+  return *reinterpret_cast<const float*>(ptr);
+}
+
+// _sgd_kernel: p2 = p - lr*g. Roles p, g, lr, found.
+struct StaticSgdRule {
+  static constexpr int kRoles = 4;
+  struct Ptrs {
+    float* p;
+    const float* g;
+    float lr;
+    bool skip;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            scalar_at(ptrs[2 * n + t]), skip_flag(ptrs[3 * n + t])};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    if (q.skip) return;
+    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.lr, q.g[i]));
+  }
+};
+
+// _momentum_kernel: v2 = mu*v + g; p2 = p - lr*v2, or with Nesterov
+// p2 = p - (g + mu*v2)*lr. Roles p, g, v, lr, found.
+struct StaticMomentumRule {
+  static constexpr int kRoles = 5;
+  float mu;
+  int nesterov;
+  struct Ptrs {
+    float* p;
+    const float* g;
+    float* v;
+    float lr;
+    bool skip;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[2 * n + t]),
+            scalar_at(ptrs[3 * n + t]), skip_flag(ptrs[4 * n + t])};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    if (q.skip) return;
+    const float gi = q.g[i];
+    const float v2 = __fadd_rn(__fmul_rn(mu, q.v[i]), gi);
+    const float step = nesterov
+        ? __fmul_rn(__fadd_rn(gi, __fmul_rn(mu, v2)), q.lr)
+        : __fmul_rn(q.lr, v2);
+    q.p[i] = __fsub_rn(q.p[i], step);
+    q.v[i] = v2;
+  }
+};
+
+// The beta-pow half shared by Adam and Lamb: the advanced pows c1 =
+// b1p*b1, c2 = b2p*b2 and the flag, bound from roles 5-9 of the table
+// (b1p, b2p, found, b1p_out, b2p_out).
+struct Pows {
+  float b1p, b2p, c1, c2;
+  float* b1p_out;
+  float* b2p_out;
+  bool skip;
+  __device__ __forceinline__ void write(int64_t i) const {
+    if (i != 0) return;
+    *b1p_out = skip ? b1p : c1;
+    *b2p_out = skip ? b2p : c2;
+  }
+};
+
+__device__ __forceinline__ Pows bind_pows(const int64_t* ptrs, int n, int t,
+                                          float b1, float b2) {
+  const float b1p = scalar_at(ptrs[5 * n + t]);
+  const float b2p = scalar_at(ptrs[6 * n + t]);
+  return {b1p, b2p, __fmul_rn(b1p, b1), __fmul_rn(b2p, b2),
+          reinterpret_cast<float*>(ptrs[8 * n + t]),
+          reinterpret_cast<float*>(ptrs[9 * n + t]),
+          skip_flag(ptrs[7 * n + t])};
+}
+
+// _adam_kernel(dygraph=False): m2 = b1*m + (1-b1)*g,
+// v2 = b2*v + ((1-b2)*g)*g, lr_t = lr*sqrt(1-c2)/(1-c1) (once a tensor),
+// p2 = p - (lr_t*m2) / (sqrt(v2) + eps). Roles p, g, m, v, lr, b1p, b2p,
+// found, b1p_out, b2p_out.
+struct StaticAdamRule {
+  static constexpr int kRoles = 10;
+  float b1, omb1, b2, omb2, eps;
+  struct Ptrs {
+    float* p;
+    const float* g;
+    float* m;
+    float* v;
+    float lr_t;
+    Pows pows;
+  };
+  __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
+    const Pows w = bind_pows(ptrs, n, t, b1, b2);
+    const float lr = scalar_at(ptrs[4 * n + t]);
+    const float lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.0f,
+                                                                  w.c2))),
+                                 __fsub_rn(1.0f, w.c1));
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[2 * n + t]),
+            reinterpret_cast<float*>(ptrs[3 * n + t]), lr_t, w};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    q.pows.write(i);
+    if (q.pows.skip) return;
+    const float gi = q.g[i];
+    const float m2 = __fadd_rn(__fmul_rn(b1, q.m[i]), __fmul_rn(omb1, gi));
+    const float v2 = __fadd_rn(__fmul_rn(b2, q.v[i]),
+                               __fmul_rn(__fmul_rn(omb2, gi), gi));
+    const float den = __fadd_rn(__fsqrt_rn(v2), eps);
+    q.p[i] = __fsub_rn(q.p[i], __fdiv_rn(__fmul_rn(q.lr_t, m2), den));
+    q.m[i] = m2;
+    q.v[i] = v2;
+  }
+};
+
+// _lamb_phase1_kernel(dygraph=False): m2, v2 as Adam's,
+// r = (m2/(1-c1)) / (sqrt(v2/(1-c2)) + eps) + wd*p into the scratch r.
+// Roles p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out; p is only read.
+struct StaticLambPhase1Rule {
+  static constexpr int kRoles = 10;
+  float b1, omb1, b2, omb2, eps, wd;
+  struct Ptrs {
+    const float* p;
+    const float* g;
+    float* m;
+    float* v;
+    float* r;
+    float omc1, omc2;
+    Pows pows;
+  };
+  __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
+    const Pows w = bind_pows(ptrs, n, t, b1, b2);
+    return {reinterpret_cast<const float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[2 * n + t]),
+            reinterpret_cast<float*>(ptrs[3 * n + t]),
+            reinterpret_cast<float*>(ptrs[4 * n + t]),
+            __fsub_rn(1.0f, w.c1), __fsub_rn(1.0f, w.c2), w};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    q.pows.write(i);
+    if (q.pows.skip) return;
+    const float gi = q.g[i];
+    const float m2 = __fadd_rn(__fmul_rn(b1, q.m[i]), __fmul_rn(omb1, gi));
+    const float v2 = __fadd_rn(__fmul_rn(b2, q.v[i]),
+                               __fmul_rn(__fmul_rn(omb2, gi), gi));
+    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, q.omc2)), eps);
+    q.r[i] = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, q.omc1), den),
+                       __fmul_rn(wd, q.p[i]));
+    q.m[i] = m2;
+    q.v[i] = v2;
+  }
+};
+
+// Static Lamb's update after the norms: trust = |p|/|r| where both are
+// > 0, else 1 (_xla_lamb, fused_optimizer.py:155-157); p2 = p -
+// (lr*trust)*r. Roles p, r, lr, |p|, |r|, found: the norms are 0-dim
+// device tensors, read when the walker binds the tensor.
+struct StaticLambApplyRule {
+  static constexpr int kRoles = 6;
+  struct Ptrs {
+    float* p;
+    const float* r;
+    float s;
+    bool skip;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    const float w = scalar_at(ptrs[3 * n + t]);
+    const float q = scalar_at(ptrs[4 * n + t]);
+    const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
+    return {reinterpret_cast<float*>(ptrs[t]),
+            reinterpret_cast<const float*>(ptrs[n + t]),
+            __fmul_rn(scalar_at(ptrs[2 * n + t]), trust),
+            skip_flag(ptrs[5 * n + t])};
+  }
+  __device__ __forceinline__ void operator()(const Ptrs& q,
+                                             int64_t i) const {
+    if (q.skip) return;
+    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.s, q.r[i]));
+  }
+};
+
 template <class Rule>
 int launch(const int64_t* ptrs, const int64_t* offs, int n,
            long long total, int skip, void* stream, const Rule& rule) {
@@ -224,6 +479,25 @@ int launch(const int64_t* ptrs, const int64_t* offs, int n,
   multi_tensor_kernel<Rule><<<(unsigned)blocks, kThreads, 0,
                               (cudaStream_t)stream>>>(
       ptrs, offs, n, (int64_t)total, rule);
+  return (int)cudaGetLastError();
+}
+
+
+// Copies the host table ((Rule::kRoles, n) pointers and the (n + 1,)
+// offsets) into the launch's parameters.
+template <class Rule>
+int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
+                long long total, void* stream, const Rule& rule) {
+  if (n < 1 || n > kMaxArgTensors || total < 0)
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaSuccess;
+  ArgTable tab;
+  for (int i = 0; i < Rule::kRoles * n; ++i) tab.ptrs[i] = ptrs[i];
+  for (int i = 0; i <= n; ++i) tab.offs[i] = offs[i];
+  const int64_t blocks = (total + kChunk - 1) / kChunk;
+  multi_tensor_arg_kernel<Rule><<<(unsigned)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      tab, n, (int64_t)total, rule);
   return (int)cudaGetLastError();
 }
 
@@ -263,6 +537,37 @@ int fused_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
                          long long total, const float* norms, float lr,
                          void* stream) {
   return launch(ptrs, offs, n, total, 0, stream, LambApplyRule{norms, lr});
+}
+
+int static_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                   long long total, void* stream) {
+  return launch_args(ptrs, offs, n, total, stream, StaticSgdRule{});
+}
+
+int static_momentum_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                        long long total, float mu, int nesterov,
+                        void* stream) {
+  return launch_args(ptrs, offs, n, total, stream,
+                     StaticMomentumRule{mu, nesterov});
+}
+
+int static_adam_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                    long long total, float b1, float omb1, float b2,
+                    float omb2, float eps, void* stream) {
+  return launch_args(ptrs, offs, n, total, stream,
+                     StaticAdamRule{b1, omb1, b2, omb2, eps});
+}
+
+int static_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                           long long total, float b1, float omb1, float b2,
+                           float omb2, float eps, float wd, void* stream) {
+  return launch_args(ptrs, offs, n, total, stream,
+                     StaticLambPhase1Rule{b1, omb1, b2, omb2, eps, wd});
+}
+
+int static_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
+                          long long total, void* stream) {
+  return launch_args(ptrs, offs, n, total, stream, StaticLambApplyRule{});
 }
 
 const char* kernel_error_string(int err) {

@@ -69,7 +69,8 @@ import torch
 from . import _build, counters
 
 __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
-           "fused_lamb_"]
+           "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
+           "static_lamb_"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -378,3 +379,231 @@ def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
         _cuda_lamb_(*args, {} if cache is None else cache)
         return
     _plain_lamb_(*args)
+
+
+# ---------------------------------------------------------------------------
+# The static (program) forms: one parameter a call, scalars on the device
+# ---------------------------------------------------------------------------
+# The update ops of a static program (``static/kernels.py`` sgd, momentum,
+# adam, lamb) port ``fused_op_update`` (``paddle_tpu/ops/pallas/
+# fused_optimizer.py:418``): ``_run_grid`` with ``_sgd_kernel``,
+# ``_momentum_kernel``, ``_adam_kernel`` and ``_lamb_phase1_kernel`` with
+# ``dygraph=False``, one op (one launch) per parameter. Their scalars are
+# the program's persistable (1,) variables: ``lr`` (LearningRate), the
+# beta-pows ``b1p``/``b2p`` (Beta1Pow/Beta2Pow, one pair per parameter)
+# and the optional bool ``found`` (FoundInfinite); the kernels read them
+# from the device and the plain versions compute with them as tensors, so
+# neither reads them on the host. Per element, in f32, JAX's order::
+#
+#     sgd:       p2 = p - lr*g
+#     momentum:  v2 = mu*v + g;  p2 = p - lr*v2   (Nesterov: p - (g + mu*v2)*lr)
+#     adam:      c1 = b1p*b1, c2 = b2p*b2            (the advanced pows)
+#                m2 = b1*m + (1-b1)*g;  v2 = b2*v + ((1-b2)*g)*g
+#                lr_t = lr*sqrt(1-c2)/(1-c1)
+#                p2 = p - (lr_t*m2)/(sqrt(v2) + eps)
+#     lamb:      m2, v2 as adam;  r = (m2/(1-c1))/(sqrt(v2/(1-c2)) + eps) + wd*p
+#                w = |p|, q = |r|  (torch._foreach_norm, between two launches)
+#                p2 = p - (lr*trust)*r,  trust = w/q where both > 0, else 1
+#
+# A set ``found`` keeps p and the moments or the velocity; Adam and Lamb
+# return their pows' outputs (c1, c2, or the old pows under the flag) as
+# NEW one-element tensors: the program writes Beta1PowOut to the variable
+# Beta1Pow itself, and the kernel's blocks all read Beta1Pow, so it is
+# never written in place. p, m, v and the velocity are updated IN PLACE.
+#
+# Routing is by device only: CUDA f32 tensors launch the kernel (counted
+# ``static_sgd``, ``static_momentum``, ``static_adam``,
+# ``static_lamb_phase1`` + ``static_lamb_apply``) or raise; CPU tensors
+# take the plain version. There is no size floor (JAX's n < 1024 XLA
+# route was a TPU tiling limit). Bound: latency at the static example's
+# sizes (77,850 trainable parameters in 25 tensors, one launch each);
+# device bytes for large tensors (sgd 12, momentum 20, adam 28 bytes an
+# element).
+
+
+def _gate(found, old, new):
+    """``new``, or ``old`` where the FoundInfinite flag is set."""
+    return new if found is None else torch.where(found, old, new)
+
+
+def _plain_static_sgd_(p, g, lr, found):
+    p.copy_(_gate(found, p, p - lr * g))
+
+
+def _plain_static_momentum_(p, g, v, lr, mu, nesterov, found):
+    v_new = mu * v + g
+    if nesterov:
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    p.copy_(_gate(found, p, p_new))
+    v.copy_(_gate(found, v, v_new))
+
+
+def _static_moments(g, m, v, beta1, beta2):
+    return (beta1 * m + (1 - beta1) * g,
+            beta2 * v + (1 - beta2) * g * g)
+
+
+def _plain_static_adam_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, found):
+    c1, c2 = b1p * beta1, b2p * beta2
+    m_new, v_new = _static_moments(g, m, v, beta1, beta2)
+    lr_t = lr * torch.sqrt(1 - c2) / (1 - c1)
+    p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
+    p.copy_(_gate(found, p, p_new))
+    m.copy_(_gate(found, m, m_new))
+    v.copy_(_gate(found, v, v_new))
+    return _gate(found, b1p, c1), _gate(found, b2p, c2)
+
+
+def _static_lamb_norms(p, r):
+    """(|p|, |r|) as 0-dim f32 tensors on p's device, one foreach call."""
+    return torch._foreach_norm([p, r])
+
+
+def _plain_static_lamb_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, wd,
+                        found):
+    c1, c2 = b1p * beta1, b2p * beta2
+    m_new, v_new = _static_moments(g, m, v, beta1, beta2)
+    r = (m_new / (1 - c1)) / (torch.sqrt(v_new / (1 - c2)) + eps) + wd * p
+    w, q = _static_lamb_norms(p, r)
+    trust = torch.where((w > 0) & (q > 0), w / q, torch.ones_like(w))
+    p_new = p - lr * trust * r
+    p.copy_(_gate(found, p, p_new))
+    m.copy_(_gate(found, m, m_new))
+    v.copy_(_gate(found, v, v_new))
+    return _gate(found, b1p, c1), _gate(found, b2p, c2)
+
+
+def _check_static(op, tensors, scalars, found):
+    """Raise unless the tensors ({role: t}) are contiguous f32 of one
+    shape with at least one element, the scalars ({role: t}) one-element
+    f32, and ``found`` None or a one-element bool, all on p's device."""
+    dev = tensors["param"].device
+    shape = tuple(tensors["param"].shape)
+    for role, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{op} takes contiguous f32 tensors of the "
+                             f"parameter's shape {shape} on {dev}; the "
+                             f"{role} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if tensors["param"].numel() == 0:
+        raise ValueError(f"{op}: the parameter has no elements")
+    for role, t in scalars.items():
+        if t.dtype != torch.float32 or t.device != dev or t.numel() != 1:
+            raise ValueError(f"{op}: {role} must be a one-element f32 "
+                             f"tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if found is not None and (found.dtype != torch.bool
+                              or found.device != dev or found.numel() != 1):
+        raise ValueError(f"{op}: FoundInfinite must be a one-element bool "
+                         f"tensor on {dev}, got {found.dtype} "
+                         f"{tuple(found.shape)} on {found.device}")
+
+
+def _launch_static(fn_name, roles, numel, extra_types, extra, counter):
+    """One launch of a static rule over one tensor: ``roles`` are the
+    table's entries (tensors, or None for a null pointer), passed by
+    value with the (0, numel) offsets."""
+    ptrs = (ctypes.c_int64 * len(roles))(
+        *[0 if t is None else t.data_ptr() for t in roles])
+    offs = (ctypes.c_int64 * 2)(0, numel)
+    fn = _build.entry("fused_optimizer", fn_name,
+                      [_P, _P, ctypes.c_int, ctypes.c_longlong]
+                      + list(extra_types) + [_P])
+    dev = roles[0].device
+    err = fn(ptrs, offs, 1, numel, *extra,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("fused_optimizer", err, fn_name)
+    counters.bump(counter)
+
+
+def _on_cuda(op, p):
+    return _device_of(op, [p]).type == "cuda"
+
+
+def static_sgd_(param, grad, lr, found=None):
+    """The static ``sgd`` op, IN PLACE: ``param -= lr*grad`` unless
+    ``found`` is set. ``lr``: the (1,) LearningRate tensor."""
+    _check_static("static_sgd_", {"param": param, "grad": grad},
+                  {"lr": lr}, found)
+    if not _on_cuda("static_sgd_", param):
+        _plain_static_sgd_(param, grad, lr, found)
+        return
+    _launch_static("static_sgd_f32", [param, grad, lr, found],
+                   param.numel(), (), (), "static_sgd")
+
+
+def static_momentum_(param, grad, velocity, lr, *, mu, nesterov=False,
+                     found=None):
+    """The static ``momentum`` op, IN PLACE on ``param`` and
+    ``velocity``."""
+    _check_static("static_momentum_", {"param": param, "grad": grad,
+                                       "velocity": velocity},
+                  {"lr": lr}, found)
+    if not _on_cuda("static_momentum_", param):
+        _plain_static_momentum_(param, grad, velocity, lr, mu, nesterov,
+                                found)
+        return
+    _launch_static("static_momentum_f32",
+                   [param, grad, velocity, lr, found], param.numel(),
+                   (_F, ctypes.c_int), (float(np.float32(mu)),
+                                        int(bool(nesterov))),
+                   "static_momentum")
+
+
+def _beta_consts(beta1, beta2, eps):
+    """b1, 1-b1, b2, 1-b2, eps rounded to f32 once, as JAX rounds its
+    Python constants."""
+    return (float(np.float32(beta1)), float(np.float32(1.0 - beta1)),
+            float(np.float32(beta2)), float(np.float32(1.0 - beta2)),
+            float(np.float32(eps)))
+
+
+def static_adam_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
+                 beta1, beta2, eps, found=None):
+    """The static ``adam`` op, IN PLACE on ``param`` and the moments;
+    returns the (1,) Beta1PowOut and Beta2PowOut as new tensors."""
+    _check_static("static_adam_", {"param": param, "grad": grad,
+                                   "moment1": moment1, "moment2": moment2},
+                  {"lr": lr, "beta1_pow": beta1_pow,
+                   "beta2_pow": beta2_pow}, found)
+    if not _on_cuda("static_adam_", param):
+        return _plain_static_adam_(param, grad, moment1, moment2, beta1_pow,
+                                   beta2_pow, lr, beta1, beta2, eps, found)
+    pows = torch.empty(2, dtype=torch.float32, device=param.device)
+    _launch_static("static_adam_f32",
+                   [param, grad, moment1, moment2, lr, beta1_pow, beta2_pow,
+                    found, pows[0:1], pows[1:2]], param.numel(),
+                   [_F] * 5, _beta_consts(beta1, beta2, eps), "static_adam")
+    return pows[0:1], pows[1:2]
+
+
+def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
+                 beta1, beta2, eps, weight_decay, found=None):
+    """The static ``lamb`` op, IN PLACE on ``param`` and the moments;
+    returns the (1,) Beta1PowOut and Beta2PowOut as new tensors. Two
+    launches (phase 1 into a scratch r, then the update) around one
+    ``torch._foreach_norm``."""
+    _check_static("static_lamb_", {"param": param, "grad": grad,
+                                   "moment1": moment1, "moment2": moment2},
+                  {"lr": lr, "beta1_pow": beta1_pow,
+                   "beta2_pow": beta2_pow}, found)
+    if not _on_cuda("static_lamb_", param):
+        return _plain_static_lamb_(param, grad, moment1, moment2, beta1_pow,
+                                   beta2_pow, lr, beta1, beta2, eps,
+                                   weight_decay, found)
+    n = param.numel()
+    r = torch.empty_like(param)
+    pows = torch.empty(2, dtype=torch.float32, device=param.device)
+    _launch_static("static_lamb_phase1_f32",
+                   [param, grad, moment1, moment2, r, beta1_pow, beta2_pow,
+                    found, pows[0:1], pows[1:2]], n, [_F] * 6,
+                   _beta_consts(beta1, beta2, eps)
+                   + (float(np.float32(weight_decay)),),
+                   "static_lamb_phase1")
+    w, q = _static_lamb_norms(param, r)
+    _launch_static("static_lamb_apply_f32", [param, r, lr, w, q, found], n,
+                   (), (), "static_lamb_apply")
+    return pows[0:1], pows[1:2]

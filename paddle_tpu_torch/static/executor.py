@@ -1,0 +1,272 @@
+"""Static-graph Executor + Scope.
+
+Port of ``paddle_tpu/static/executor.py``'s ``Scope``, ``global_scope``,
+``scope_guard``, ``run_block`` and ``Executor`` (``run``,
+``run_startup``). The JAX package lowers a whole block to one jitted
+XLA program. The port interprets the block op by op on the card, as the
+reference's C++ executor does: ``run_block`` walks the ops over an env
+dict of tensors, each op's kernel (``kernels.py``) running eagerly.
+
+- Before a ``backward`` op, each parameter it names is bound as a fresh
+  autograd leaf (``detach().requires_grad_()``) and the forward ops run
+  with grad recording on; the backward op pulls every gradient with one
+  ``torch.autograd.grad`` (``backward.run_backward_op``); the ops after
+  it (the updates) run under ``torch.no_grad()`` and may update a
+  parameter in place.
+- A run executes the ops its fetches and the persistables need
+  (``live_ops``, the JAX package's dead-code rule, computed once per
+  program version and fetch list).
+- Persistable state lives in the Scope as tensors on the executor's
+  device; feeds go to the device once a step; fetches come back as numpy
+  (``return_numpy``) or tensors.
+
+There is no pass pipeline, no ``CompiledProgram`` strategy, no sharding,
+gradient merge, pipeline or ZeRO, and no compile cache: each raises or
+is absent in this slice (a later port slice adds them).
+"""
+from __future__ import annotations
+
+import contextlib
+import weakref
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..framework import dtype as dtype_mod
+from ..framework import random as random_mod
+from ..framework.place import place_device
+from .backward import run_backward_op
+from .ir import Block, Program, Variable
+from .kernels import KERNELS, ExecContext
+
+__all__ = ["Scope", "global_scope", "scope_guard", "live_ops", "run_block",
+           "Executor", "load_numpy_state"]
+
+
+class Scope:
+    """name -> tensor store (the reference's framework/scope.cc, flat)."""
+
+    def __init__(self):
+        self._vars: Dict[str, Any] = {}
+
+    def find_var(self, name):
+        return self._vars.get(name)
+
+    def var(self, name):
+        return self._vars.setdefault(name, None)
+
+    def set(self, name, value):
+        self._vars[name] = value
+
+    def keys(self):
+        return self._vars.keys()
+
+    def items(self):
+        return self._vars.items()
+
+    def drop(self, name):
+        self._vars.pop(name, None)
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    """Make ``scope`` the global scope inside the ``with`` block."""
+    global _global_scope
+    saved = _global_scope
+    _global_scope = scope
+    try:
+        yield scope
+    finally:
+        _global_scope = saved
+
+
+# ---------------------------------------------------------------------------
+# the interpreter
+# ---------------------------------------------------------------------------
+def _run_ops(steps, env: Dict[str, Any], ctx: ExecContext) -> None:
+    """Run ``steps`` ([(op index, op)]) over ``env``."""
+    for i, op in steps:
+        if op.type in ("feed", "fetch"):
+            continue
+        fn = KERNELS.get(op.type)
+        if fn is None:
+            raise NotImplementedError(
+                f"static op {op.type!r} is not in this port slice; a later "
+                "port slice adds it")
+        ctx.op_index = i
+        ins = {slot: [env[n] for n in names]
+               for slot, names in op.inputs.items()
+               if all(n in env for n in names)}
+        outs = fn(ins, op.attrs, ctx)
+        for slot, names in op.outputs.items():
+            for name, t in zip(names, outs.get(slot) or ()):
+                env[name] = t
+
+
+def live_ops(block: Block, fetch_names: Sequence[str]):
+    """[(op index, op)] of the ops a run needs: those whose outputs are
+    fetched or persistable, and their producers (the JAX package's
+    dead-code-elimination rule). A test-mode clone keeps a training
+    program's weight-decay ops but not the backward op whose gradients
+    they read; this drops them, as the JAX executor's passes do."""
+    live = set(fetch_names) | {n for n, v in block.vars.items()
+                               if v.persistable}
+    keep = []
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        if set(op.output_names()) & live:
+            keep.append((i, op))
+            live |= set(op.input_names())
+    keep.reverse()
+    return keep
+
+
+def run_block(block: Block, env: Dict[str, Any], ctx: ExecContext,
+              steps=None) -> Dict[str, Any]:
+    """Interpret the ops of ``block`` (or ``steps``, [(op index, op)]
+    from :func:`live_ops`) over ``env`` (name -> tensor), writing each
+    op's outputs into it; returns ``env``."""
+    if steps is None:
+        steps = list(enumerate(block.ops))
+    if any(op.attrs.get("sub_block") is not None
+           or op.attrs.get("sub_block_t") is not None for _, op in steps):
+        raise NotImplementedError(
+            "control flow is not in this port slice; a later port slice "
+            "adds it")
+    bwd = [k for k, (_, op) in enumerate(steps) if op.type == "backward"]
+    if len(bwd) > 1:
+        raise NotImplementedError(
+            "more than one backward op in a block (calc_gradient) is not "
+            "in this port slice; a later port slice adds it")
+    if not bwd:
+        with torch.no_grad():
+            _run_ops(steps, env, ctx)
+        return env
+    b = bwd[0]
+    op = steps[b][1]
+    params = op.inputs["Params"]
+    produced = {n for _, o in steps[:b] for n in o.output_names()}
+    if produced & set(params):
+        raise NotImplementedError(
+            "gradients with respect to a variable an op writes before the "
+            "backward op are not in this port slice")
+    state = {p: env[p] for p in params}
+    for p in params:
+        env[p] = state[p].detach().requires_grad_()
+    with torch.enable_grad():
+        _run_ops(steps[:b], env, ctx)
+    run_backward_op(op, env)
+    env.update(state)      # the updates write the scope's own tensors
+    with torch.no_grad():
+        _run_ops(steps[b + 1:], env, ctx)
+    return env
+
+
+class Executor:
+    """``exe = Executor(place); exe.run(program, feed=..., fetch_list=...)``.
+
+    ``place``: a ``CPUPlace``/``CUDAPlace``, a device string, or None for
+    CUDA (which raises on a machine without a GPU; the CPU is reached
+    only by asking for it)."""
+
+    def __init__(self, place=None):
+        self.place = place
+        self.device = place_device(place)
+        self._step = 0
+        # program -> {(program version, fetch names): live_ops}
+        self._plans = weakref.WeakKeyDictionary()
+
+    def _seed(self, program: Program) -> int:
+        return program.random_seed or random_mod.initial_seed()
+
+    def run(self, program: Optional[Program] = None,
+            feed: Optional[Dict[str, Any]] = None,
+            fetch_list: Optional[Sequence] = None,
+            scope: Optional[Scope] = None,
+            return_numpy: bool = True,
+            use_program_cache: bool = True):
+        """One step: the feeds to the device, the live ops of the global
+        block, the persistables written back to ``scope``, the fetches
+        returned. ``use_program_cache`` is taken for the JAX signature:
+        nothing is compiled, so there is no cache."""
+        from .ir import default_main_program
+
+        if program is None:
+            program = default_main_program()
+        if not isinstance(program, Program):
+            raise NotImplementedError(
+                f"running a {type(program).__name__} (CompiledProgram and "
+                "its strategies) is not in this port slice; a later port "
+                "slice adds it")
+        scope = scope or global_scope()
+        if not feed and not fetch_list:
+            return self.run_startup(program, scope)
+        block = program.global_block
+        env = {n: scope.find_var(n) for n, v in block.vars.items()
+               if v.persistable and scope.find_var(n) is not None}
+        for name, value in (feed or {}).items():
+            env[name] = self._feed_tensor(block, name, value)
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        ctx = ExecContext(device=self.device,
+                          seed=random_mod.fold_in(self._seed(program),
+                                                  self._step))
+        self._step += 1
+        plans = self._plans.setdefault(program, {})
+        key = (program._version, tuple(fetch_names))
+        if key not in plans:
+            plans[key] = live_ops(block, fetch_names)
+        run_block(block, env, ctx, plans[key])
+        for name, desc in block.vars.items():
+            if desc.persistable and name in env:
+                scope.set(name, env[name].detach())
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch targets {missing} were not computed by "
+                           "the program")
+        fetches = [env[n].detach() for n in fetch_names]
+        if return_numpy:
+            return [f.cpu().numpy() for f in fetches]
+        return fetches
+
+    def _feed_tensor(self, block, name, value):
+        """``value`` on the device, in the feed variable's dtype."""
+        desc = block.vars.get(name)
+        dt = dtype_mod.to_torch(desc.dtype) if desc is not None else None
+        if isinstance(value, torch.Tensor):
+            return value.to(device=self.device, dtype=dt)
+        return torch.as_tensor(np.asarray(value), dtype=dt,
+                               device=self.device)
+
+    def run_startup(self, program: Program, scope: Optional[Scope] = None):
+        """Run the initializer ops, writing the persistables to
+        ``scope``. (``run`` on a program without feeds or fetches
+        delegates here.)"""
+        scope = scope or global_scope()
+        ctx = ExecContext(device=self.device, seed=self._seed(program))
+        block = program.global_block
+        env = {n: scope.find_var(n) for n in block.vars
+               if scope.find_var(n) is not None}
+        run_block(block, env, ctx)
+        for name, desc in block.vars.items():
+            if desc.persistable and env.get(name) is not None:
+                scope.set(name, env[name])
+        return []
+
+
+def load_numpy_state(scope: Scope, state: Dict[str, Any],
+                     place=None) -> None:
+    """Copy ``{name: ndarray}`` (e.g. the JAX package's scope after its
+    startup program, as numpy) into ``scope`` as tensors on ``place``'s
+    device (None: CUDA), each in its own dtype."""
+    dev = place_device(place)
+    for name, value in state.items():
+        scope.set(name, torch.as_tensor(np.array(value), device=dev))

@@ -362,3 +362,109 @@ def test_slice_kernels_raise_on_what_they_do_not_take(dev):
         fo.fused_lamb_([p], [p], [p], [p], [p], lr=1e-3, beta1=0.9,
                        beta2=0.999, eps=1e-6, weight_decay=0.01, step=1)
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# K3's static forms: one parameter a launch, scalars on the device
+# ---------------------------------------------------------------------------
+_STATIC_SHAPES = [(16, 3, 3, 3), (16,), (64, 10), (1,), (3000, 7)]
+
+
+def _static_case(dev, op, shape, found, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(scale, positive=False):
+        x = torch.randn(shape, generator=g, device=dev) * scale
+        return x.abs() if positive else x
+    ins = {"p": rnd(0.5), "g": rnd(0.1),
+           "lr": torch.tensor([0.05], device=dev)}
+    if op in ("momentum", "nesterov"):
+        ins["v"] = rnd(0.05)
+    if op in ("adam", "lamb"):
+        ins.update(m=rnd(0.01), v=rnd(1e-3, positive=True),
+                   b1p=torch.tensor([0.9 ** 3], device=dev),
+                   b2p=torch.tensor([0.999 ** 3], device=dev))
+    ins["found"] = None if found is None else torch.tensor([found],
+                                                           device=dev)
+    return ins
+
+
+def _static_apply(op, t, plain):
+    """Run the static op on ``t`` (in place); the pows' outputs."""
+    p, g, lr, found = t["p"], t["g"], t["lr"], t["found"]
+    if op == "sgd":
+        (fo._plain_static_sgd_ if plain else fo.static_sgd_)(p, g, lr, found)
+        return ()
+    if op in ("momentum", "nesterov"):
+        nest = op == "nesterov"
+        if plain:
+            fo._plain_static_momentum_(p, g, t["v"], lr, 0.9, nest, found)
+        else:
+            fo.static_momentum_(p, g, t["v"], lr, mu=0.9, nesterov=nest,
+                                found=found)
+        return ()
+    args = (p, g, t["m"], t["v"], t["b1p"], t["b2p"], lr)
+    if op == "adam":
+        if plain:
+            return fo._plain_static_adam_(*args, 0.9, 0.999, 1e-8, found)
+        return fo.static_adam_(*args, beta1=0.9, beta2=0.999, eps=1e-8,
+                               found=found)
+    if plain:
+        return fo._plain_static_lamb_(*args, 0.9, 0.999, 1e-6, 0.01, found)
+    return fo.static_lamb_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
+                           weight_decay=0.01, found=found)
+
+
+_STATIC_COUNTERS = {"sgd": ("static_sgd",), "momentum": ("static_momentum",),
+                    "nesterov": ("static_momentum",), "adam": ("static_adam",),
+                    "lamb": ("static_lamb_phase1", "static_lamb_apply")}
+
+
+@pytest.mark.parametrize("found", [None, False, True],
+                         ids=["absent", "false", "true"])
+@pytest.mark.parametrize("op", list(_STATIC_COUNTERS))
+def test_static_update_kernels_are_bitwise_the_plain_version(dev, op, found):
+    """Every tensor of the static example's kinds, one launch each:
+    p, the moments or velocity and the beta-pow outputs bit for bit; a
+    set flag keeps all of them, the pows included."""
+    for k, shape in enumerate(_STATIC_SHAPES):
+        kern = _static_case(dev, op, shape, found, seed=k)
+        plain = {n: (None if x is None else x.clone())
+                 for n, x in kern.items()}
+        before = {n: (None if x is None else x.clone())
+                  for n, x in kern.items()}
+        kpows = _static_apply(op, kern, plain=False)
+        ppows = _static_apply(op, plain, plain=True)
+        torch.cuda.synchronize()
+        for n in kern:
+            if kern[n] is not None:
+                assert torch.equal(kern[n], plain[n]), (op, shape, n)
+        for a, b in zip(kpows, ppows):
+            assert a.shape == (1,) and torch.equal(a, b), (op, shape)
+        if found:
+            for n in kern:
+                if kern[n] is not None:
+                    assert torch.equal(kern[n], before[n]), (op, shape, n)
+            for a, old in zip(kpows, (before.get("b1p"), before.get("b2p"))):
+                assert torch.equal(a, old)
+        else:
+            assert not torch.equal(kern["p"], before["p"])
+    for name in _STATIC_COUNTERS[op]:
+        assert counters.get(name) == len(_STATIC_SHAPES)
+    assert counters.get("fused_momentum") == 0
+
+
+def test_static_update_kernels_raise_on_what_they_do_not_take(dev):
+    p = torch.zeros(8, device=dev)
+    lr = torch.ones(1, device=dev)
+    with pytest.raises(ValueError, match="f32"):
+        fo.static_sgd_(p.double(), p.double(), lr)
+    with pytest.raises(ValueError, match="lr"):
+        fo.static_sgd_(p, p, lr.cpu())
+    with pytest.raises(ValueError, match="FoundInfinite"):
+        fo.static_sgd_(p, p, lr, found=torch.zeros(1, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        fo.static_momentum_(torch.zeros(4, 4, device=dev).t(),
+                            torch.zeros(4, 4, device=dev),
+                            torch.zeros(4, 4, device=dev), lr, mu=0.9)
+    assert counters.snapshot() == {}
