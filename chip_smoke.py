@@ -33,8 +33,16 @@ prints no result line:
             bit; K3's static forms (sgd, momentum, adam, lamb), one
             launch a tensor over the static example's 25 tensors and
             BERT-base's 206, FoundInfinite absent, false and true, bit
-            for bit with the beta-pow outputs. Kernel, plain and library
-            times and the least time the card could take (bound);
+            for bit with the beta-pow outputs; the embedding bag (K6) at
+            ``tools/op_bench.py:163``'s table 100000 x 256 and ids 4096 x
+            64, sum, mean and sqrtn over an f32 and a bf16 table with
+            all-padding bags and ids >= V (f32 atol 1e-5 + rtol 1e-5,
+            bf16 one ulp); K1a/K1b's masked form at phase 2's padded 32 x
+            512 x 12 x 64 bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
+            128 x 128 f32, causal, fully masked rows (the mean of V) and
+            a masked first kv tile (atol 1e-4), the dropout mask through
+            a key mask bit for bit. Kernel, plain and library times and
+            the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -98,12 +106,33 @@ prints no result line:
 14-16. static_resnet_adam, _lamb, _sgd  the same network, 13 steps with
             Adam 2e-3, Lamb 1e-3 (25 + 25 launches a step) and SGD 0.05 +
             L2Decay(1e-4);
-17. the ``kernels`` line (launches summed over the phases that drive
+17. bag_parity  the bag model below at table 1000 x 64, ids 64 x 16,
+            two SGD steps with the K6 kernel and again with its plain
+            version: losses, gradients and parameters agree;
+18. embedding_bag  ids 4096 x 64 (~20% padding_idx 0) through
+            ``incubate.layers.fused_embedding_seq_pool(size=(100000,
+            256), padding_idx=0)`` (it creates the table), ``nn.Linear(
+            256, 2)``, cross-entropy, SGD lr 0.01: 3 warm-up and 10
+            timed steps; steps/s, step ms, peak memory, the loss
+            (finite, falling), one K6 and one SGD launch a step, a
+            profiled step;
+19. bert_masked_parity  phase 5 on a padded batch (lengths 16-127, a
+            (B, 1, 1, 128) bool key-padding mask, no MLM labels at
+            padding) through the masked flash kernels;
+20. bert512_masked  phase 10's configuration on a padded batch
+            (lengths from ``RandomState(0)`` in 128-512, row 0 full):
+            exactly 12 + 12 masked flash launches a step and no short or
+            unmasked ones, tokens/s over valid and over all tokens, step
+            ms, MFU (an upper figure: the closed form at full length),
+            a profiled step; then one eval forward at dropout 0 with the
+            kernels and with the plain version (atol 2e-2 + rtol 1e-2);
+21. the ``kernels`` line (launches summed over the phases that drive
     each kernel's path: 2-4 for the decode kernels, 6 and 10 for the
     fused xent, 6 for the streaming flash kernels and Adam, 8 for
     Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
-    13-16 for the static forms), then the card's name and power limit,
-    then the result line.
+    13-16 for the static forms, 18 for K6, 20 for the masked flash
+    kernels), then the card's name and power limit, then the result
+    line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -1126,9 +1155,22 @@ def bert_batch(torch, rng, B, S, vocab):
     return [torch.tensor(x, device="cuda") for x in (ids, tt, mlm, nsp)]
 
 
-def phase_bert_parity(torch, counters, fa, fx, fo):
+def key_padding_mask(torch, lens, L):
+    """(B, 1, 1, L) bool key-padding mask: True at positions < lens[b]."""
+    lens = torch.tensor(np.asarray(lens), device="cuda")
+    return (torch.arange(L, device="cuda") < lens[:, None])[:, None, None, :]
+
+
+MASKED_KERNELS = ("flash_attention_masked_fwd", "flash_attention_masked_bwd",
+                  "fused_xent_fwd", "fused_xent_bwd", "fused_adam")
+
+
+def phase_bert_parity(torch, counters, fa, fx, fo, masked=False):
     """One TrainStep of a tiny BERT with the kernels and with the plain
-    versions, from the same weights, on the card (f32, no dropout)."""
+    versions, from the same weights, on the card (f32, no dropout);
+    ``masked``: a padded batch (lengths below 128, a (B, 1, 1, 128) bool
+    key-padding mask, no MLM labels at padding) through the masked flash
+    kernels."""
     import copy
 
     from paddle_tpu_torch.jit import TrainStep
@@ -1143,6 +1185,13 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
     batch = bert_batch(torch, np.random.RandomState(4), 8, 128,
                        cfg.vocab_size)
     batch[2][:, ::3] = -100                        # some ignored positions
+    want_kernels, name_ = TRAIN_KERNELS, "bert_parity"
+    if masked:
+        lens = np.random.RandomState(5).randint(16, 128, 8)
+        mask = key_padding_mask(torch, lens, 128)
+        batch[2][~mask[:, 0, 0, :]] = -100         # no loss at padding
+        batch.append(mask)
+        want_kernels, name_ = MASKED_KERNELS, "bert_masked_parity"
     lr = 1e-4
     runs = {}
     for name in ("kernel", "plain"):
@@ -1159,12 +1208,16 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
         torch.cuda.synchronize()
         runs[name] = (float(loss), model, counters.snapshot())
     (lk, mk, ck), (lp, mp, cp) = runs["kernel"], runs["plain"]
-    expect(all(ck.get(n, 0) > 0 for n in TRAIN_KERNELS),
-           f"bert_parity: a training kernel did not launch: {ck}")
-    expect(not any(cp.get(n, 0) for n in TRAIN_KERNELS),
-           f"bert_parity: the plain run launched kernels: {cp}")
+    expect(all(ck.get(n, 0) > 0 for n in want_kernels),
+           f"{name_}: a training kernel did not launch: {ck}")
+    expect(not any(cp.get(n, 0) for n in want_kernels),
+           f"{name_}: the plain run launched kernels: {cp}")
+    if masked:
+        expect(not ck.get("flash_attention_fwd", 0)
+               and not ck.get("flash_attention_bwd", 0),
+               f"{name_}: the unmasked flash kernels ran: {ck}")
     expect(abs(lk - lp) <= 1e-5 * abs(lp),
-           f"bert_parity: loss {lk} (kernels) against {lp} (plain)")
+           f"{name_}: loss {lk} (kernels) against {lp} (plain)")
     worst_g, worst_p = {"err": 0.0}, 0.0
     pp = dict(mp.named_parameters())
     for n, p in mk.named_parameters():
@@ -1174,7 +1227,7 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
         # largest error within 1e-4 of the largest |g|, or 1e-7 where
         # the true gradient is zero (the key projection's bias)
         expect(gerr <= 1e-4 * gscale + 1e-7,
-               f"bert_parity: grad of {n} differs by {gerr} (max |g| "
+               f"{name_}: grad of {n} differs by {gerr} (max |g| "
                f"{gscale})")
         if gerr > worst_g["err"]:
             worst_g = {"err": gerr, "max_abs": gscale, "param": n}
@@ -1182,11 +1235,11 @@ def phase_bert_parity(torch, counters, fa, fx, fo):
         # gradients equal to 1e-4 of their scale give updates within
         # 2 lr of each other, and equal wherever |g| >> eps
         perr = max_err(p, q)
-        expect(perr <= 2 * lr, f"bert_parity: updated {n} differs by "
-                               f"{perr}")
+        expect(perr <= 2 * lr, f"{name_}: updated {n} differs by {perr}")
         worst_p = max(worst_p, perr)
-    return {"phase": "bert_parity", "config": "tiny (2 x 128, 2 heads, "
-            "ffn 256, vocab 1024), batch 8 x 128, f32, no dropout",
+    return {"phase": name_, "config": "tiny (2 x 128, 2 heads, ffn 256, "
+            "vocab 1024), batch 8 x 128, f32, no dropout"
+            + (", key-padding mask, lengths 16-127" if masked else ""),
             "loss_kernel": lk, "loss_plain": lp,
             "max_grad_err": worst_g, "max_param_err": worst_p,
             "launches": ck}
@@ -1657,10 +1710,27 @@ BERT512_FAMILIES = ("flash_short_fwd", "flash_short_bwd", "xent_fwd",
                     "xent_bwd", "lamb", "lamb_norms", "gemm", "other")
 
 
-def phase_bert512_lamb(torch, counters):
+def bert512_family(name):
+    if "flash_fwd_kernel" in name:
+        return "flash_masked_fwd"
+    if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+        return "flash_masked_bwd"
+    return bert_short_family(name)
+
+
+BERT512_MASKED_FAMILIES = ("flash_masked_fwd", "flash_masked_bwd") \
+    + BERT512_FAMILIES
+
+
+def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     """BERT-base phase-2 pretraining, ``bench_bert(seq=512)``'s batch 32,
     AMP O1 bf16, dropout 0.1, the short flash kernels on, Lamb with a
-    linear warm-up into a polynomial decay and global-norm clipping."""
+    linear warm-up into a polynomial decay and global-norm clipping.
+    ``masked``: the same step on a padded batch (lengths from
+    ``RandomState(0)`` uniform in 128-512, row 0 full; a (B, 1, 1, 512)
+    bool key-padding mask; no MLM labels at padding), so attention runs
+    the masked streaming kernels; then one eval forward at dropout 0
+    with the kernels and again with the plain versions."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
@@ -1682,14 +1752,23 @@ def phase_bert512_lamb(torch, counters):
     opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01, epsilon=1e-6,
                parameters=params, grad_clip=ClipGradByGlobalNorm(1.0))
 
-    def loss_fn(m, ids, tt, mlm, nsp):
+    def loss_fn(m, ids, tt, mlm, nsp, mask=None):
         with amp.auto_cast(level="O1", dtype="bfloat16"):
-            return m.loss(ids, tt, mlm, nsp)
+            return m.loss(ids, tt, mlm, nsp, mask)
 
     step = TrainStep(model, loss_fn, opt)
     B, S = BERT512_BATCH, BERT512_SEQ
     batch = bert_batch(torch, np.random.RandomState(0), B, S,
                        cfg.vocab_size)
+    name_, family, families = "bert512_lamb", bert_short_family, \
+        BERT512_FAMILIES
+    if masked:
+        lens = masked_lens(B, S)
+        mask = key_padding_mask(torch, lens, S)
+        batch[2][~mask[:, 0, 0, :]] = -100         # no loss at padding
+        batch.append(mask)
+        name_, family, families = "bert512_masked", bert512_family, \
+            BERT512_MASKED_FAMILIES
     n_steps = WARM_STEPS + TIMED_STEPS
     lrs_used = [opt.get_lr()]
 
@@ -1702,42 +1781,101 @@ def phase_bert512_lamb(torch, counters):
                                                 after=next_lr)
         peak = torch.cuda.max_memory_allocated() / 1e9
         med = float(np.median(step_ms))
-        breakdown = profile_step(torch, step, batch, bert_short_family,
-                                 BERT512_FAMILIES, med)
+        breakdown = profile_step(torch, step, batch, family, families, med)
     L = cfg.num_hidden_layers
     want = {"flash_attention_short_fwd": L, "flash_attention_short_bwd": L,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_masked_fwd": 0, "flash_attention_masked_bwd": 0,
             "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_lamb_phase1": 1,
             "fused_lamb_apply": 1, "fused_adam": 0}
+    if masked:
+        want.update({"flash_attention_short_fwd": 0,
+                     "flash_attention_short_bwd": 0,
+                     "flash_attention_masked_fwd": L,
+                     "flash_attention_masked_bwd": L})
     per_step = {k: launches.get(k, 0) / n_steps for k in want}
-    expect(all(np.isfinite(losses)), f"bert512: non-finite loss {losses}")
-    expect(losses[-1] < losses[0],
-           f"bert512: loss did not fall ({losses[0]} -> {losses[-1]})")
+    expect(all(np.isfinite(losses)), f"{name_}: non-finite loss {losses}")
+    if not masked:
+        expect(losses[-1] < losses[0],
+               f"{name_}: loss did not fall ({losses[0]} -> {losses[-1]})")
     for k, n in want.items():
         expect(launches.get(k, 0) == n * n_steps,
-               f"bert512: {k} launched {launches.get(k, 0)} times over "
+               f"{name_}: {k} launched {launches.get(k, 0)} times over "
                f"{n_steps} steps, want {n} a step")
     expect(all(p.grad is not None for p in params),
-           "bert512: a parameter got no gradient, so Lamb skipped it")
+           f"{name_}: a parameter got no gradient, so Lamb skipped it")
     expect(len(opt._kernel_cache["phase1"]["key"]) == 6 * len(params),
-           "bert512: the Lamb launch did not cover every parameter")
+           f"{name_}: the Lamb launch did not cover every parameter")
     flops_per_step = bert_flops_per_step(cfg, B, S)
-    return {"phase": "bert512_lamb", "config": "BERT-base (vocab 30592, 12 "
-            "x 768, 12 x 64 heads, ffn 3072), batch 32 x seq 512, AMP O1 "
-            "bf16, dropout 0.1, flash_short_seq on, Lamb wd 0.01 eps 1e-6, "
-            "LinearWarmup(3 steps, 0 -> 1e-3) into PolynomialDecay(1e-3, "
-            "1000 steps, end 0), ClipGradByGlobalNorm(1.0)",
-            "params": int(sum(p.numel() for p in params)),
-            "param_tensors": len(params), "warmup_steps": WARM_STEPS,
-            "timed_steps": TIMED_STEPS,
-            "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
-            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
-            "step_ms": step_ms, "flops_per_step": flops_per_step,
-            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
-            "loss_first": losses[0], "loss_last": losses[-1],
-            "losses": losses, "lr": lrs_used[:n_steps], "launches": launches,
-            "launches_per_step": per_step, "mem_at_start_gb": mem_start,
-            "peak_mem_gb": peak, "breakdown": breakdown}, launches
+    row = {"phase": name_, "config": "BERT-base (vocab 30592, 12 "
+           "x 768, 12 x 64 heads, ffn 3072), batch 32 x seq 512, AMP O1 "
+           "bf16, dropout 0.1, flash_short_seq on, Lamb wd 0.01 eps 1e-6, "
+           "LinearWarmup(3 steps, 0 -> 1e-3) into PolynomialDecay(1e-3, "
+           "1000 steps, end 0), ClipGradByGlobalNorm(1.0)"
+           + (", key-padding mask (lengths 128-512)" if masked else ""),
+           "params": int(sum(p.numel() for p in params)),
+           "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS,
+           "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "step_ms": step_ms, "flops_per_step": flops_per_step,
+           "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "lr": lrs_used[:n_steps], "launches": launches,
+           "launches_per_step": per_step, "mem_at_start_gb": mem_start,
+           "peak_mem_gb": peak, "breakdown": breakdown}
+    if masked:
+        valid = int(lens.sum())
+        row.update({
+            "lengths": lens.tolist(), "valid_tokens_per_step": valid,
+            "valid_tokens_per_s": valid * TIMED_STEPS / (sum(step_ms) / 1e3),
+            "mfu_upper": row.pop("mfu"),
+            "mfu_note": "bench.py's closed form at full length 512: an "
+                        "upper figure, the padded keys' attention work "
+                        "included",
+            "eval_vs_plain": bert512_eval_check(torch, fa, model, batch)})
+    return row, launches
+
+
+def masked_lens(B, L, seed=0):
+    """Phase-2 lengths: ``RandomState(seed)`` uniform in [L/4, L], row 0
+    full, so partial and fully masked kv tiles both occur."""
+    lens = np.random.RandomState(seed).randint(L // 4, L + 1, B)
+    lens[0] = L
+    return lens
+
+
+def bert512_eval_check(torch, fa, model, batch):
+    """One eval forward (dropout 0: the route the JAX package sends to its
+    masked Pallas kernel) of the padded batch with the masked kernels and
+    again with their plain version; sequence and pooled outputs at the
+    valid positions within atol 2e-2 + rtol 1e-2 (bf16)."""
+    from paddle_tpu_torch import amp
+
+    ids, tt, _, _, mask = batch
+    model.eval()
+    outs = {}
+    try:
+        for name in ("kernel", "plain"):
+            swaps = [(fa, "flash_attention_fwd", fa._plain_fwd)] \
+                if name == "plain" else []
+            with torch.no_grad(), swapped(swaps), \
+                    amp.auto_cast(level="O1", dtype="bfloat16"):
+                seq, pooled = model.bert(ids, tt, mask)
+            torch.cuda.synchronize()
+            outs[name] = (seq.float(), pooled.float())
+    finally:
+        model.train()
+    valid = mask[:, 0, 0, :]
+    (sk, pk), (sp, pp) = outs["kernel"], outs["plain"]
+    errs = {"seq": max_err(sk[valid], sp[valid]), "pooled": max_err(pk, pp)}
+    for name, a, b in (("seq", sk[valid], sp[valid]), ("pooled", pk, pp)):
+        expect(bool(torch.isfinite(a).all()),
+               f"bert512_masked eval: non-finite {name}")
+        expect(torch.allclose(a, b, atol=2e-2, rtol=1e-2),
+               f"bert512_masked eval: {name} differs from the plain "
+               f"version by {errs[name]}")
+    return errs
 
 
 def phase_lenet_sgd(torch, counters):
@@ -2272,6 +2410,377 @@ def phase_static_resnet(torch, counters, form, steps, inference=False):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 1's K6 and masked-K1 rows; phases 17-20: the embedding bag and
+# padded BERT batches
+# ---------------------------------------------------------------------------
+BAG_V, BAG_D, BAG_B, BAG_S = 100000, 256, 4096, 64   # tools/op_bench.py:163
+BAG_PAD = 0.2                 # share of ids equal to padding_idx 0
+
+
+def bag_ids(rng, B, S, V):
+    """(B, S) int64 ids in [0, V) with about BAG_PAD of them set to the
+    padding index 0."""
+    ids = rng.randint(0, V, (B, S)).astype(np.int64)
+    ids[rng.rand(B, S) < BAG_PAD] = 0
+    return ids
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element's magnitude (8 significant bits)."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.full_like(x, 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def check_embedding_bag(torch, fe, timing):
+    """K6 against the plain version at ``tools/op_bench.py:163``'s shapes
+    (table 100000 x 256, ids 4096 x 64 int64, ~20% padding given to the
+    kernel as incubate's fused path gives it, -V - 1): sum, mean and
+    sqrtn over an f32 and a bf16 table, with two bags that are all
+    padding, one of only ids >= V and some ids >= V elsewhere (read as
+    row V - 1). f32 within atol 1e-5 + rtol 1e-5 (sum order), bf16
+    within one bf16 ulp; all-padding bags exactly 0. Times the sum over
+    the f32 table (the main path's call) against its bound, the plain
+    version and ``F.embedding_bag`` (sum and mean, padding_idx 0)."""
+    dev = "cuda"
+    V, D, B, S = BAG_V, BAG_D, BAG_B, BAG_S
+    gen = torch.Generator(device=dev).manual_seed(11)
+    table = torch.randn((V, D), generator=gen, device=dev)
+    raw = bag_ids(np.random.RandomState(11), B, S, V)
+    ids = torch.tensor(np.where(raw == 0, -V - 1, raw), device=dev)
+    edge = ids.clone()
+    edge[5] = -1
+    edge[77] = -V - 1
+    edge[3, :5] = torch.arange(V, V + 5, device=dev)
+    edge[9] = V + 3
+    row = {"cases": {}}
+    for tname, t in (("f32", table), ("bf16", table.to(torch.bfloat16))):
+        for combiner in ("sum", "mean", "sqrtn"):
+            got = fe._cuda_bag(t, edge, combiner)
+            want = fe._plain_bag(t, edge, combiner)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            expect(bool(torch.isfinite(got.float()).all()),
+                   f"embedding bag {tname} {combiner}: non-finite output")
+            expect(bool((got[[5, 77]] == 0).all()),
+                   f"embedding bag {tname} {combiner}: a padding-only bag "
+                   f"is not 0")
+            if tname == "f32":
+                ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+            else:
+                ok = bool(((got.float() - want.float()).abs()
+                           <= bf16_ulp(torch, want.float())).all())
+            expect(ok, f"embedding bag {tname} {combiner}: disagrees with "
+                       f"the plain version, max abs err {err}")
+            row["cases"][f"{tname}_{combiner}"] = err
+    row["max_abs_err"] = max(row["cases"].values())
+    if timing:
+        F = torch.nn.functional
+        raw_t = torch.tensor(raw, device=dev)
+        distinct = int(torch.unique(ids[ids >= 0]).numel())
+        table16 = table.to(torch.bfloat16)
+        bytes_ = distinct * D * 4 + ids.numel() * 8 + B * D * 4
+        bound, by = bound_of(bytes_, B * S * D, F32_FLOPS_PER_S)
+        row.update({
+            "ms": time_ms(torch, lambda: fe._cuda_bag(table, ids, "sum")),
+            "mean_ms": time_ms(torch, lambda: fe._cuda_bag(table, ids,
+                                                           "mean")),
+            "bf16_ms": time_ms(torch, lambda: fe._cuda_bag(
+                table16, ids, "sum")),
+            "plain_ms": time_ms(torch, lambda: fe._plain_bag(
+                table, ids, "sum"), iters=5),
+            "library_ms": time_ms(torch, lambda: F.embedding_bag(
+                raw_t, table, mode="sum", padding_idx=0)),
+            "library_mean_ms": time_ms(torch, lambda: F.embedding_bag(
+                raw_t, table, mode="mean", padding_idx=0)),
+            "bound_ms": bound, "bound_by": by,
+            "bound_bytes": bytes_, "distinct_rows": distinct,
+            "op_bench_bound_ms": B * S * D * 4 / HBM_BYTES_PER_S * 1e3,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+    return row
+
+
+def len_mask(torch, lens, L):
+    """(B, L) bool key mask: True at positions < lens[b]."""
+    return key_padding_mask(torch, lens, L)[:, 0, 0, :].contiguous()
+
+
+def check_flash_masked(torch, fa, timing):
+    """K1a/K1b's masked form against the plain version: phase 2's padded
+    32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
+    BERT phase 1's 128 x 128 in f32 with dropout (atol 1e-4), an f32
+    causal case, a batch with fully masked rows (the mean of V) and one
+    whose first kv tile is all masked; the dropout keep mask read back
+    bit for bit through a mask. Times the bf16 case against its bound,
+    the plain version and SDPA with the float bias as ``attn_mask``."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf, f32 = torch.bfloat16, torch.float32
+    first_tile = torch.arange(256, device=dev).expand(4, 256) >= 64
+    cases = [("bf16_L512", 32, 512, 12, 64, bf, False, 0.1,
+              masked_lens(32, 512)),
+             ("f32_L128", 128, 128, 12, 64, f32, False, 0.1,
+              masked_lens(128, 128, seed=1)),
+             ("f32_causal", 8, 256, 12, 64, f32, True, 0.1,
+              masked_lens(8, 256, seed=2)),
+             ("f32_all_masked", 4, 256, 4, 64, f32, False, 0.0,
+              np.array([256, 0, 100, 0])),
+             ("f32_first_tile", 4, 256, 4, 64, f32, False, 0.1, first_tile)]
+    seed = 0x5EED9ABC
+    row = {"cases": {}}
+    main = None
+    for name, B, L, H, D, dt, causal, p, lens in cases:
+        keys = lens if torch.is_tensor(lens) else len_mask(torch, lens, L)
+        bias = fa.kv_mask_bias(keys, B, L)
+        q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(4)]
+        out, lse = fa._cuda_fwd(q, k, v, causal, p, seed, bias)
+        rout, rlse = fa._plain_fwd(q, k, v, causal, p, seed, bias)
+        grads = fa._cuda_bwd(q, k, v, out, lse, do, causal, p, seed, bias)
+        rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, seed,
+                               bias)
+        torch.cuda.synchronize()
+        atol, rtol = (2e-2, 1e-2) if dt == bf else (1e-4, 0.0)
+        errs = {"out": max_err(out, rout), "lse": max_err(lse, rlse)}
+        for gname, got, want in zip(("out", "dq", "dk", "dv"),
+                                    (out,) + grads, (rout,) + rgrads):
+            errs[gname] = max_err(got, want)
+            expect(bool(torch.isfinite(got.float()).all()),
+                   f"flash masked {name}: non-finite {gname}")
+            expect(torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=rtol),
+                   f"flash masked {name}: {gname} disagrees, max abs err "
+                   f"{errs[gname]}")
+        expect(errs["lse"] <= 1e-4, f"flash masked {name}: lse err "
+                                    f"{errs['lse']}")
+        if name == "f32_all_masked":
+            for b in (1, 3):
+                mean_v = v[b].mean(0, keepdim=True).expand(L, H, D)
+                errs[f"mean_v_{b}"] = max_err(out[b], mean_v)
+                expect(errs[f"mean_v_{b}"] <= 1e-5,
+                       f"flash masked: a fully masked row is not the mean "
+                       f"of V ({errs[f'mean_v_{b}']})")
+        row["cases"][name] = errs
+        if name == "bf16_L512":
+            main = (q, k, v, do, out, lse, p, bias, lens)
+        else:
+            del q, k, v, do, out, rout, grads, rgrads
+    # the dropout mask through a key mask, bit for bit: q = k = 0 gives
+    # P = 1/n at the n live keys, v = I reads keep & live back out
+    L, p, lens = 64, 0.1, np.array([64, 40, 1])
+    z = torch.zeros((3, L, 2, 64), device=dev)
+    eye = torch.eye(L, device=dev).reshape(1, L, 1, 64).expand(3, L, 2, 64)
+    live = len_mask(torch, lens, L)
+    out, _ = fa._cuda_fwd(z, z, eye.contiguous(), False, p, seed,
+                          fa.kv_mask_bias(live, 3, L))
+    keep = fa.philox_keep_mask(seed, 6, L, L, p, dev).view(3, 2, L, L)
+    got = (out > 0).permute(0, 2, 1, 3)
+    expect(torch.equal(got, keep & live[:, None, None, :]),
+           "flash masked dropout mask differs from the plain Philox mask")
+    row["mask_bitwise"] = True
+    row["fwd_max_abs_err"] = max(c["out"] for c in row["cases"].values())
+    row["bwd_max_abs_err"] = max(max(c["dq"], c["dk"], c["dv"])
+                                 for c in row["cases"].values())
+    if timing:
+        q, k, v, do, out, lse, p, bias, lens = main
+        B, L, H, D = q.shape
+        el = B * L * H * D * 2                      # one bf16 tensor
+        keys = int(lens.sum())                      # live keys over the batch
+        # forward: q, k, v, the bias in; out and lse out; QK^T and PV over
+        # the live keys at bf16 rate
+        fb, fby = bound_of(4 * el + B * H * L * 4 + B * L * 4,
+                           4 * H * L * D * keys, BF16_FLOPS_PER_S)
+        # backward: q, k, v, out, dout, lse, bias in; dq, dk, dv out
+        bb, bby = bound_of(8 * el + B * H * L * 4 + B * L * 4,
+                           10 * H * L * D * keys, BF16_FLOPS_PER_S)
+        F = torch.nn.functional
+        qh, kh, vh, doh = (x.permute(0, 2, 1, 3).contiguous()
+                           for x in (q, k, v, do))
+        amask = bias.to(q.dtype)[:, None, None, :]
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask,
+                                                 dropout_p=p)
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask,
+                                               dropout_p=p)
+            return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+        row.update({
+            "fwd_ms": time_ms(torch, lambda: fa._cuda_fwd(
+                q, k, v, False, p, seed, bias)),
+            "fwd_plain_ms": time_ms(torch, lambda: fa._plain_fwd(
+                q, k, v, False, p, seed, bias), iters=3, warmup=1),
+            "fwd_library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=amask, dropout_p=p)),
+            "fwd_bound_ms": fb, "fwd_bound_by": fby,
+            "bwd_ms": time_ms(torch, lambda: fa._cuda_bwd(
+                q, k, v, out, lse, do, False, p, seed, bias)),
+            "bwd_plain_ms": time_ms(torch, lambda: fa._plain_bwd(
+                q, k, v, out, lse, do, False, p, seed, bias), iters=3,
+                warmup=1),
+            "bwd_library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), doh, retain_graph=True)),
+            "fwd_bwd_library_ms": time_ms(torch, lib_fwd_bwd),
+            "bwd_bound_ms": bb, "bwd_bound_by": bby,
+            "unmasked_fwd_ms": time_ms(torch, lambda: fa._cuda_fwd(
+                q, k, v, False, p, seed)),
+            "unmasked_bwd_ms": time_ms(torch, lambda: fa._cuda_bwd(
+                q, k, v, out, lse, do, False, p, seed)),
+            "live_keys": keys,
+            "bound_rates": rates(BF16_FLOPS_PER_S, "bf16 tensor-core")})
+    return row
+
+
+def bag_model(torch, ids, V, D, gen):
+    """The bag path as a user builds it: ``incubate.layers.
+    fused_embedding_seq_pool(ids, size=(V, D), padding_idx=0)`` creates
+    the table, then ``nn.Linear(D, 2)``."""
+    from paddle_tpu_torch import incubate, nn
+
+    class BagModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            _, self.table = incubate.layers.fused_embedding_seq_pool(
+                ids, size=(V, D), padding_idx=0, generator=gen)
+            self.fc = nn.Linear(D, 2, generator=gen)
+
+        def forward(self, x):
+            return self.fc(incubate.layers.fused_embedding_seq_pool(
+                x, size=(V, D), padding_idx=0, weight=self.table))
+
+    return BagModel()
+
+
+def bag_batch(torch, rng, B, S, V):
+    return (torch.tensor(bag_ids(rng, B, S, V), device="cuda"),
+            torch.tensor(rng.randint(0, 2, (B,)).astype(np.int64),
+                         device="cuda"))
+
+
+def bag_step(torch, model, lr):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+
+    opt = SGD(learning_rate=lr, parameters=model.parameters())
+    return TrainStep(model, lambda m, x, y: F.cross_entropy(m(x), y), opt)
+
+
+def phase_bag_parity(torch, counters, fe):
+    """Two SGD TrainSteps of the bag model at a small size (table 1000 x
+    64, ids 64 x 16) with the K6 kernel and again with its plain
+    version, from the same weights, on the card: losses, the table's and
+    the Linear's gradients and the updated parameters agree."""
+    import copy
+
+    V, D, B, S, lr = 1000, 64, 64, 16, 0.5
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = bag_batch(torch, np.random.RandomState(12), B, S, V)
+    base = bag_model(torch, batch[0], V, D, gen)
+    runs = {}
+    for name in ("kernel", "plain"):
+        model = copy.deepcopy(base)
+        step = bag_step(torch, model, lr)
+        counters.reset()
+        swaps = [(fe, "bag_forward", fe._plain_bag)] if name == "plain" \
+            else []
+        with swapped(swaps):
+            losses = [float(step(*batch)) for _ in range(2)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, model, counters.snapshot())
+    (lk, mk, ck), (lp, mp, cp) = runs["kernel"], runs["plain"]
+    expect(ck.get("fused_embedding_bag", 0) == 2,
+           f"bag_parity: the bag kernel did not launch once a step: {ck}")
+    expect(not cp.get("fused_embedding_bag", 0),
+           f"bag_parity: the plain run launched the bag kernel: {cp}")
+    for a, b in zip(lk, lp):
+        expect(abs(a - b) <= 1e-5 * abs(b),
+               f"bag_parity: losses {lk} (kernel) against {lp} (plain)")
+    worst = {"grad": 0.0, "param": 0.0}
+    pp = dict(mp.named_parameters())
+    for n, p in mk.named_parameters():
+        q = pp[n]
+        for key, got, want in (("grad", p.grad, q.grad), ("param", p, q)):
+            err = max_err(got, want)
+            scale = float(want.detach().abs().max())
+            expect(err <= 1e-5 * scale + 1e-7,
+                   f"bag_parity: {key} of {n} differs by {err} (max "
+                   f"|value| {scale})")
+            worst[key] = max(worst[key], err)
+    return {"phase": "bag_parity", "config": "table 1000 x 64 (created by "
+            "incubate.layers.fused_embedding_seq_pool, padding_idx 0), ids "
+            "64 x 16, Linear(64, 2), cross-entropy, SGD lr 0.5, two steps",
+            "losses_kernel": lk, "losses_plain": lp, "max_abs_err": worst,
+            "launches": ck}
+
+
+def bag_family(name):
+    if "bag_kernel" in name:
+        return "bag_fwd"
+    if "index" in name and ("add" in name or "func" in name):
+        return "bag_bwd_index_add"
+    if "sgdrule" in name:
+        return "sgd"
+    if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "gemm"
+    return "other"
+
+
+BAG_FAMILIES = ("bag_fwd", "bag_bwd_index_add", "sgd", "gemm", "other")
+
+
+def phase_embedding_bag(torch, counters):
+    """The bag path at ``tools/op_bench.py:163``'s K6 configuration: ids
+    4096 x 64 from ``RandomState`` (~20% equal to padding_idx 0) into
+    ``incubate.layers.fused_embedding_seq_pool(ids, size=(100000, 256),
+    padding_idx=0)``, which creates the table, then ``nn.Linear(256,
+    2)`` and ``F.cross_entropy`` under ``optimizer.SGD`` (lr 0.01), the
+    same batch every step: 3 warm-up and 10 timed steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    V, D, B, S = BAG_V, BAG_D, BAG_B, BAG_S
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = bag_batch(torch, np.random.RandomState(0), B, S, V)
+    model = bag_model(torch, batch[0], V, D, gen)
+    params = list(model.parameters())
+    step = bag_step(torch, model, 0.01)
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(step_ms))
+    breakdown = profile_step(torch, step, batch, bag_family, BAG_FAMILIES,
+                             med)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    expect(all(np.isfinite(losses)), f"embedding_bag: non-finite loss "
+                                     f"{losses}")
+    expect(losses[-1] < losses[0],
+           f"embedding_bag: loss did not fall ({losses[0]} -> "
+           f"{losses[-1]})")
+    for k in ("fused_embedding_bag", "fused_sgd"):
+        expect(launches.get(k, 0) == n_steps,
+               f"embedding_bag: {k} launched {launches.get(k, 0)} times "
+               f"over {n_steps} steps, want one a step")
+    return {"phase": "embedding_bag", "config": "ids 4096 x 64 (~20% "
+            "padding_idx 0) -> incubate.layers.fused_embedding_seq_pool("
+            "size=(100000, 256), padding_idx=0, f32, created) -> Linear(256,"
+            " 2) -> cross-entropy, SGD lr 0.01, the same batch every step",
+            "params": int(sum(p.numel() for p in params)),
+            "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+            "timed_steps": TIMED_STEPS,
+            "steps_per_s": TIMED_STEPS / (sum(step_ms) / 1e3),
+            "bags_per_s": B * TIMED_STEPS / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses, "launches": launches,
+            "launches_per_step": {k: launches.get(k, 0) / n_steps
+                                  for k in ("fused_embedding_bag",
+                                            "fused_sgd")},
+            "peak_mem_gb": peak, "breakdown": breakdown}, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2288,6 +2797,7 @@ def main() -> int:
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.ops.cuda import _build, counters
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_embedding as fe
     from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
     from paddle_tpu_torch.ops.cuda import fused_xent as fx
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
@@ -2335,6 +2845,12 @@ def main() -> int:
                                   {"static_resnet": static_shapes,
                                    "bert_base": bert_shapes}, timing)
         emit({"phase": "kernels_vs_plain", "static_optim": k3st})
+        torch.cuda.empty_cache()
+        k6 = check_embedding_bag(torch, fe, timing)
+        emit({"phase": "kernels_vs_plain", "fused_embedding_bag": k6})
+        torch.cuda.empty_cache()
+        k1m = check_flash_masked(torch, fa, timing)
+        emit({"phase": "kernels_vs_plain", "flash_attention_masked": k1m})
         torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
@@ -2397,6 +2913,20 @@ def main() -> int:
             add(launches)
         total["static_lamb"] = total.get("static_lamb_phase1", 0) \
             + total.get("static_lamb_apply", 0)
+        torch.cuda.empty_cache()
+
+        emit(phase_bag_parity(torch, counters, fe))
+        row, launches = phase_embedding_bag(torch, counters)
+        emit(row)
+        total["fused_embedding_bag"] = launches.get("fused_embedding_bag", 0)
+        del row, launches
+        emit(phase_bert_parity(torch, counters, fa, fx, fo, masked=True))
+        row, launches = phase_bert512_lamb(torch, counters, fa, masked=True)
+        emit(row)
+        for k in ("flash_attention_masked_fwd", "flash_attention_masked_bwd"):
+            total[k] = launches.get(k, 0)
+        del row, launches
+        torch.cuda.empty_cache()
 
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
@@ -2449,7 +2979,15 @@ def main() -> int:
                 ("static_adam", k3st["adam"], src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:196"),
                 ("static_lamb", k3st["lamb"], src + "fused_optimizer.cu",
-                 "paddle_tpu/ops/pallas/fused_optimizer.py:217")):
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:217"),
+                ("fused_embedding_bag", k6, src + "fused_embedding.cu",
+                 "paddle_tpu/ops/pallas/fused_embedding.py:86"),
+                ("flash_attention_masked_fwd", split(k1m, "fwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:284"),
+                ("flash_attention_masked_bwd", split(k1m, "bwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:339")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total.get(name, 0),

@@ -14,15 +14,18 @@ fused Momentum update, then BERT phase-2 pretraining at seq 512 with
 the short-sequence flash kernels (``FLAGS_flash_short_seq``), and
 ``optimizer.SGD``, with CUDA kernels for both updates, then the static
 graph (``static``: Program, Executor, ``append_backward``, the static
-optimizers) with CUDA kernels for K3's static update forms. Entry points
+optimizers) with CUDA kernels for K3's static update forms, then the
+fused embedding bag (``nn.functional.fused_embedding_seq_pool``,
+``incubate.layers.fused_embedding_seq_pool``) and key-padding masks
+through the flash kernels, each with its CUDA kernel. Entry points
 run on the card unless the caller passes ``device="cpu"``; without a
 GPU and without a device they raise.
 """
-from . import (amp, framework, inference, io, jit, models, nn, ops,
-               optimizer, profiler, regularizer, static, utils, vision)
+from . import (amp, framework, incubate, inference, io, jit, models, nn,
+               ops, optimizer, profiler, regularizer, static, utils, vision)
 from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 
-__all__ = ["amp", "framework", "inference", "io", "jit", "models", "nn",
-           "ops", "optimizer", "profiler", "regularizer", "seed", "static",
-           "utils", "vision", "get_flags", "set_flags"]
+__all__ = ["amp", "framework", "incubate", "inference", "io", "jit",
+           "models", "nn", "ops", "optimizer", "profiler", "regularizer",
+           "seed", "static", "utils", "vision", "get_flags", "set_flags"]

@@ -5,8 +5,11 @@
 :func:`load_numpy_state` carries weights across by name. Attention runs
 through the flash kernel; the MLM loss through the fused vocabulary
 cross-entropy with the tied decoder (``word_embeddings.weight``, (V, H)),
-so that table gets gradient from both the lookup and the loss. The
-pooler reads ``seq[:, 0]`` and ``mlm_bias`` starts at zero. Only the
+so that table gets gradient from both the lookup and the loss.
+``attention_mask`` (a (B, 1, 1, L) or (B, L) key-padding mask, True =
+attend) reaches every layer's attention, which runs the flash kernels'
+masked form. The pooler reads ``seq[:, 0]`` and ``mlm_bias`` starts at
+zero. Only the
 fused loss path is ported (``FLAGS_fused_vocab_xent``'s materialised
 arm is a later slice); ``forward`` still returns materialised logits.
 """

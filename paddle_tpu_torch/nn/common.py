@@ -3,6 +3,8 @@
 ``paddle_tpu/nn/__init__.py`` exports)."""
 from __future__ import annotations
 
+import torch
+
 from . import functional as F
 from . import initializer as I
 from .layer import Layer
@@ -34,16 +36,27 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    def __init__(self, num_embeddings, embedding_dim, device=None,
-                 generator=None):
+    """Rows of a (num_embeddings, embedding_dim) table gathered by id
+    (reference lookup_table_v2_op). ``padding_idx`` (a negative one
+    counts from num_embeddings) names a row that starts at zero and
+    whose lookups give zero and pass no gradient."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 device=None, generator=None):
         super().__init__()
+        self._padding_idx = None if padding_idx is None else (
+            padding_idx if padding_idx >= 0
+            else num_embeddings + padding_idx)
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim],
             default_initializer=I.XavierUniform(), device=device,
             generator=generator)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
 class Dropout(Layer):

@@ -23,8 +23,9 @@ normalises in bf16 and its f32 scale makes its output f32, as in JAX;
 the running update and keep bf16. Python scalars in bf16 arithmetic are
 rounded to bf16 first, as JAX's weak types are.
 
-Attention and the MLM head's loss are the kernels' entry points
-(``ops/cuda/flash_attention.py``, ``ops/cuda/fused_xent.py``): on CUDA
+Attention, the MLM head's loss and the pooled embedding bag are the
+kernels' entry points (``ops/cuda/flash_attention.py``,
+``ops/cuda/fused_xent.py``, ``ops/cuda/fused_embedding.py``): on CUDA
 tensors they launch the hand-written kernels, on CPU tensors the plain
 versions. Dropout draws its mask from the active step's device
 generator (``framework.random``); attention dropout hands the kernel a
@@ -38,10 +39,11 @@ from ..amp import maybe_cast_inputs
 from ..framework.flags import get_flag
 from ..framework.random import current_rng
 from ..ops.cuda import flash_attention as _fa
+from ..ops.cuda import fused_embedding as _fe
 from ..ops.cuda import fused_xent as _fx
 
-__all__ = ["linear", "matmul", "embedding", "dropout", "gelu", "tanh",
-           "relu", "layer_norm", "cross_entropy",
+__all__ = ["linear", "matmul", "embedding", "fused_embedding_seq_pool",
+           "dropout", "gelu", "tanh", "relu", "layer_norm", "cross_entropy",
            "scaled_dot_product_attention", "fused_linear_cross_entropy",
            "conv2d", "max_pool2d", "adaptive_avg_pool2d", "batch_norm",
            "flatten"]
@@ -72,12 +74,34 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return torch.matmul(x, y)
 
 
-def embedding(x, weight):
+def embedding(x, weight, padding_idx=None):
+    """Rows of ``weight`` gathered by ``x`` (``jnp.take``: a negative id
+    counts from the end); rows whose id equals ``padding_idx`` give 0
+    and pass no gradient."""
     if x.is_floating_point():
         raise ValueError(f"embedding: ids must be an integer tensor, got "
                          f"{x.dtype}")
     (weight,) = maybe_cast_inputs("embedding_fn", [weight])
-    return torch.nn.functional.embedding(x.long(), weight)
+    ids = x.long()
+    ids = torch.where(ids < 0, ids + weight.shape[0], ids)
+    out = torch.nn.functional.embedding(ids, weight)
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx).unsqueeze(-1), 0.0, out)
+    return out
+
+
+def fused_embedding_seq_pool(table, ids, combiner="sum", padding_idx=None):
+    """Pooled bag-of-ids embedding (``fused_embedding_seq_pool_op``):
+    table (V, D), ids (B, S) -> (B, D) through the embedding bag kernel.
+    Ids equal to ``padding_idx`` (when >= 0) or negative contribute
+    nothing; ``combiner`` is sum, mean or sqrtn, and mean/sqrtn divide by
+    the count of VALID ids. An id >= V reads row V - 1."""
+    if combiner not in _fe.COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}")
+    (table,) = maybe_cast_inputs("fused_embedding_seq_pool", [table])
+    if padding_idx is not None and padding_idx >= 0:
+        ids = torch.where(ids == padding_idx, -1, ids)
+    return _fe.fused_embedding_bag(table, ids, combiner)
 
 
 def dropout(x, p=0.5, training=True):
@@ -133,6 +157,30 @@ def cross_entropy(input, label, ignore_index=-100):
     return loss.sum() / valid.sum().to(loss.dtype).clamp(min=1.0)
 
 
+def _key_mask_bias(mask, batch, kv_len):
+    """The (B, Lk) f32 key bias of an attention mask: a boolean
+    key-padding mask through ``kv_mask_bias`` (0 or -1e30), a float one
+    of a key-padding shape as given (``_xla_attention`` adds it to the
+    f32 scores). Per-query masks and masks that require grad raise."""
+    bias = _fa.kv_mask_bias(mask, batch, kv_len)
+    if bias is not None:
+        return bias
+    if mask.dtype != torch.bool:
+        if mask.requires_grad:
+            raise NotImplementedError(
+                "a float attention mask that requires grad is a later port "
+                "slice (slice 10, the decoder): the flash kernels give the "
+                "key mask no gradient")
+        m = _fa.key_padding_view(mask, batch, kv_len)
+        if m is not None:
+            return m.to(torch.float32).contiguous()
+    raise NotImplementedError(
+        f"attention mask {tuple(mask.shape)} for batch {batch} and "
+        f"{kv_len} keys: only key-padding masks ((B, Lk), (B, 1, Lk), "
+        f"(B, 1, 1, Lk)) ride the flash kernels; per-query masks are a "
+        f"later port slice (slice 10, the decoder)")
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
@@ -142,19 +190,25 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     take (``flash_attention.short_ok``: Lq == Lk, 128 <= L <= 512,
     L % 128 == 0) it runs them, as the JAX package's ``_short_choice``
     does without its TPU autotune; otherwise the streaming kernel. Both
-    branches launch a kernel: this is dispatch by shape."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "attention masks are a later port slice: the flash kernel's "
-            "key-padding bias is not ported yet")
+    branches launch a kernel: this is dispatch by shape.
+
+    ``attn_mask`` may be a key-padding mask, boolean (True = attend) or
+    float (added to the scores), of shape (B, Lk), (B, 1, Lk) or
+    (B, 1, 1, Lk): it rides the streaming kernels as a (B, Lk) f32 bias,
+    with dropout and causal masking too, and with the short-sequence
+    flag on (the JAX short route needs no mask). Per-query masks and
+    float masks that require grad raise ``NotImplementedError``."""
     query, key, value = maybe_cast_inputs("sdpa", [query, key, value])
+    bias = None if attn_mask is None else \
+        _key_mask_bias(attn_mask, query.shape[0], key.shape[1])
     p = float(dropout_p) if training else 0.0
     seed = current_rng(query.device).next_seed() if p > 0.0 else 0
-    attend = _fa.flash_attention_short \
-        if get_flag("flash_short_seq") and _fa.short_ok(query, key) \
-        else _fa.flash_attention
-    return attend(query, key, value, causal=is_causal, dropout_p=p,
-                  seed=seed)
+    if bias is None and get_flag("flash_short_seq") \
+            and _fa.short_ok(query, key):
+        return _fa.flash_attention_short(query, key, value, causal=is_causal,
+                                         dropout_p=p, seed=seed)
+    return _fa.flash_attention(query, key, value, causal=is_causal,
+                               dropout_p=p, seed=seed, bias=bias)
 
 
 def fused_linear_cross_entropy(h, weight, bias, label, ignore_index=-100):

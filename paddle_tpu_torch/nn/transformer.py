@@ -3,12 +3,15 @@
 ``TransformerEncoderLayer``, ``TransformerEncoder``.
 
 Attention runs through ``functional.scaled_dot_product_attention``
-(the flash kernel) on (B, L, H, D). As in the JAX package, the encoder
-layers' norms are ``LayerNorm(d_model)`` with the default epsilon 1e-5,
-and ``TransformerEncoder`` deep-copies its first layer, so every layer
-starts from the same weights. Post-norm layers only (BERT's); the
-pre-norm option, cross-attention key/value widths, causal self-attention,
-the decoder, the key/value cache and attention masks are later slices.
+(the flash kernel) on (B, L, H, D); ``attn_mask``/``src_mask`` pass
+through unchanged, and a key-padding mask ((B, Lk), (B, 1, Lk) or
+(B, 1, 1, Lk), boolean or float) rides the kernel as a key bias. As in
+the JAX package, the encoder layers' norms are ``LayerNorm(d_model)``
+with the default epsilon 1e-5, and ``TransformerEncoder`` deep-copies
+its first layer, so every layer starts from the same weights. Post-norm
+layers only (BERT's); the pre-norm option, cross-attention key/value
+widths, causal self-attention, the decoder, the key/value cache and
+per-query masks are later slices.
 """
 from __future__ import annotations
 

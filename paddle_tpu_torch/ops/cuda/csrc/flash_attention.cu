@@ -4,7 +4,8 @@
 // Replaces the TPU kernels in paddle_tpu/ops/pallas/flash_attention.py:
 // _fwd_call (_flash_fwd_kernel) and _bwd_call (_flash_bwd_dq_kernel,
 // _flash_bwd_dkv_kernel), including the in-kernel dropout of
-// _keep_mask.
+// _keep_mask and the masked form (masked=True: mask_bias, a (B, Lk)
+// additive key bias).
 //
 // Bound: at BERT's shapes (L = 128, D = 64) the work is about
 // 4*L*L*D flops per (batch, head) forward and 10*L*L*D backward against
@@ -33,8 +34,19 @@
 //   coordinates only, so all three kernels (and the plain version)
 //   agree on it. l sums the undropped probabilities; the value sum,
 //   dV and dP see the mask scaled by 1/(1-p), as in the TPU kernel.
+// - Key mask (the masked form of _flash_fwd_kernel and both backward
+//   kernels, mask_ref): an optional (B, Lk) f32 additive bias, staged in
+//   shared memory a kv tile at a time next to K, added to the f32 score
+//   before the online softmax and again before P = exp(S - lse). The
+//   caller's key-padding bias is the finite -1e30 of _kv_mask_bias, so a
+//   row whose every key is masked scores -1e30 everywhere and comes out
+//   as the mean of V (never NaN); a fully masked first tile leaves m at
+//   -1e30 and the next live tile rescales it away (alpha = 0). The bias
+//   rides with dropout and causal too. A null pointer is the unmasked
+//   path, whose arithmetic is unchanged.
 // Ragged lengths are masked in the kernels (rows past L load as zeros
-// and are not written; columns past L score -inf).
+// and are not written; columns past L, and above the diagonal when
+// causal, score -inf).
 #include "flash_common.cuh"
 
 namespace {
@@ -52,6 +64,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Qs + kTile * D;                     // [64][D+1]
   float* Vs = Ks + kTile * (D + 1);               // [64][D]
   float* Ps = Vs + kTile * D;                     // [64][64]
+  float* Bs = Ps + kTile * kTile;                 // [64] key mask
   constexpr int C = D / 16;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
@@ -72,6 +85,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kv0 = t * kTile;
     load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
     load_tile<T, D>(Vs, D, v, a, b, h, kv0, a.Lk, 1.0f);
+    if (a.bias) load_bias(Bs, a, b, kv0);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -85,7 +99,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (dead(a, row, kv0 + tx + 16 * j)) s[i][j] = -INFINITY;
+        if (dead(a, row, kv0 + tx + 16 * j))
+          s[i][j] = -INFINITY;
+        else if (a.bias)
+          s[i][j] += Bs[tx + 16 * j];
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -141,6 +158,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSs = Vs + kTile * (D + 1);              // [64][64]
   float* lse_s = dSs + kTile * kTile;             // [64]
   float* delta_s = lse_s + kTile;                 // [64]
+  float* Bs = delta_s + kTile;                    // [64] key mask
   constexpr int C = D / 16;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
@@ -177,6 +195,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kv0 = t * kTile;
     load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
     load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+    if (a.bias) load_bias(Bs, a, b, kv0);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -192,8 +211,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (drop) keep4(a, bh, row, kv0, tx, keep);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        const float sv = a.bias ? s[i][j] + Bs[tx + 16 * j] : s[i][j];
         const float p = dead(a, row, kv0 + tx + 16 * j)
-                            ? 0.0f : expf(s[i][j] - lse_s[r]);
+                            ? 0.0f : expf(sv - lse_s[r]);
         const float dpv = drop ? (keep[j] ? dp[i][j] * a.inv : 0.0f)
                                : dp[i][j];
         dSs[r * kTile + tx + 16 * j] = p * (dpv - delta_s[r]);
@@ -224,6 +244,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ts = dOs + kTile * D;                    // [64 kv][kPad]: P or dS
   float* lse_s = Ts + kTile * kPad;               // [64]
   float* delta_s = lse_s + kTile;                 // [64]
+  float* Bs = delta_s + kTile;                    // [64] key mask
   constexpr int C = D / 16;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
@@ -232,6 +253,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
   load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+  if (a.bias) load_bias(Bs, a, b, kv0);
   float dk_acc[4][C], dv_acc[4][C];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -265,7 +287,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = dead(a, row, kv0 + c) ? 0.0f : expf(s[i][j] - lse_s[r]);
+        const float sv = a.bias ? s[i][j] + Bs[c] : s[i][j];
+        const float p = dead(a, row, kv0 + c) ? 0.0f : expf(sv - lse_s[r]);
         s[i][j] = p;
         float pd = p;
         if (drop) {
@@ -295,17 +318,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (kTile * D * 2 + kTile * (D + 1) + kTile * kTile);
+  return sizeof(float) *
+         (kTile * D * 2 + kTile * (D + 1) + kTile * kTile + kTile);
 }
 template <int D>
 constexpr size_t dq_smem() {
   return sizeof(float) *
-         (kTile * D * 2 + kTile * (D + 1) * 2 + kTile * kTile + 2 * kTile);
+         (kTile * D * 2 + kTile * (D + 1) * 2 + kTile * kTile + 3 * kTile);
 }
 template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(float) *
-         (kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad + 2 * kTile);
+         (kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad + 3 * kTile);
 }
 
 template <typename T, int D>
@@ -352,14 +376,15 @@ bool bad_shape(int B, int Lq, int Lk, int H, int D, int dtype) {
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16
+// bias: (B, Lk) f32 additive key mask, or null for none
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, float* lse, int B, int Lq, int Lk, int H,
-                        int D, int causal, int dtype, float scale,
-                        unsigned thr, float inv, unsigned seed_lo,
-                        unsigned seed_hi, void* stream) {
+                        void* out, float* lse, const float* bias, int B,
+                        int Lq, int Lk, int H, int D, int causal, int dtype,
+                        float scale, unsigned thr, float inv,
+                        unsigned seed_lo, unsigned seed_hi, void* stream) {
   if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
-                           seed_hi);
+                           seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return D == 64 ? launch_fwd<float, 64>(q, k, v, out, lse, a, st)
@@ -370,13 +395,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
-                        float* delta, void* dq, void* dk, void* dv, int B,
-                        int Lq, int Lk, int H, int D, int causal, int dtype,
-                        float scale, unsigned thr, float inv,
-                        unsigned seed_lo, unsigned seed_hi, void* stream) {
+                        float* delta, void* dq, void* dk, void* dv,
+                        const float* bias, int B, int Lq, int Lk, int H,
+                        int D, int causal, int dtype, float scale,
+                        unsigned thr, float inv, unsigned seed_lo,
+                        unsigned seed_hi, void* stream) {
   if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
-                           seed_hi);
+                           seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return D == 64

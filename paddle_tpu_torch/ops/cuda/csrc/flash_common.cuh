@@ -32,6 +32,7 @@ struct Args {
   uint32_t thr;  // keep where bits >= thr
   float inv;     // 1 / (1 - p); 1 means no dropout
   uint32_t seed_lo, seed_hi;
+  const float* bias;  // (B, Lk) additive key mask, or null (no mask)
 };
 
 __device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
@@ -183,6 +184,15 @@ __device__ void store_rows(T* __restrict__ dst, const float (&acc)[4][D / 16],
   }
 }
 
+// the key mask's values for kv columns kv0 .. kv0 + 63 of batch b (0 past
+// Lk, where dead() masks the column anyway); threads 0..63 load one each
+__device__ __forceinline__ void load_bias(float* dst, const Args& a, int b,
+                                          int kv0) {
+  const int c = kv0 + (int)threadIdx.x;
+  if (threadIdx.x < kTile)
+    dst[threadIdx.x] = c < a.Lk ? a.bias[(int64_t)b * a.Lk + c] : 0.0f;
+}
+
 // S tile masking: column past Lk, or above the diagonal when causal
 __device__ __forceinline__ bool dead(const Args& a, int row, int col) {
   return col >= a.Lk || (a.causal && col > row);
@@ -203,7 +213,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
-               unsigned thr, float inv, unsigned lo, unsigned hi) {
+               unsigned thr, float inv, unsigned lo, unsigned hi,
+               const float* bias = nullptr) {
   Args a;
   a.B = B;
   a.Lq = Lq;
@@ -215,6 +226,7 @@ Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
   a.inv = inv;
   a.seed_lo = lo;
   a.seed_hi = hi;
+  a.bias = bias;
   return a;
 }
 

@@ -33,15 +33,29 @@ the normaliser l sums the undropped probabilities and only the value
 accumulation sees the mask, scaled by 1/(1-p). The bits differ from the
 TPU PRNG's (see ``framework/random.py``).
 
+Key masks (the masked form of the streaming kernels, ``masked=True``
+in the JAX package): an optional ``bias`` (B, Lk) f32 is added to the
+f32 scores before the softmax and again when the backward recomputes
+the probabilities. :func:`kv_mask_bias` makes it from a boolean
+key-padding mask with the finite -1e30 of ``_kv_mask_bias``, so a row
+whose every key is masked gives the mean of V, as the JAX paths do. The
+bias rides with dropout and causal masking (the JAX package sends a
+mask with dropout to XLA; the math is the same) and gets no gradient.
+Columns past Lk and above the diagonal score -inf, so a causal row
+whose every allowed key is masked averages V over its allowed keys.
+The short kernels take no bias.
+
 Routing is by device, with no fallback: CUDA tensors launch the kernels
 (counting ``flash_attention_fwd`` per forward and
-``flash_attention_bwd`` per backward pair of launches, and
-``flash_attention_short_fwd`` / ``flash_attention_short_bwd`` per
-launch of the short forms) or raise; CPU tensors take the plain
-version. The JAX package's dispatch floors (seq >= 256, the TPU
-autotune of the short forms) were TPU tuning: on CUDA, attention always
-launches a kernel, and ``nn.functional`` picks the short or the
-streaming one by ``FLAGS_flash_short_seq`` and :func:`short_ok`.
+``flash_attention_bwd`` per backward pair of launches,
+``flash_attention_masked_fwd`` / ``flash_attention_masked_bwd`` for
+the same launches with a bias, and ``flash_attention_short_fwd`` /
+``flash_attention_short_bwd`` per launch of the short forms) or raise;
+CPU tensors take the plain version. The JAX package's dispatch floors
+(seq >= 256, the TPU autotune of the short forms) were TPU tuning: on
+CUDA, attention always launches a kernel, and ``nn.functional`` picks
+the short or the streaming one by ``FLAGS_flash_short_seq``,
+:func:`short_ok` and the mask.
 """
 from __future__ import annotations
 
@@ -53,7 +67,8 @@ import torch
 from . import _build, counters
 
 __all__ = ["flash_attention", "flash_attention_short", "short_ok",
-           "philox_keep_mask", "keep_threshold"]
+           "key_padding_view", "kv_mask_bias", "philox_keep_mask",
+           "keep_threshold"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +77,7 @@ _F = ctypes.c_float
 _HEAD_DIMS = (64, 128)
 _SHORT_MIN, _SHORT_MAX = 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30             # the JAX package's finite mask value
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -113,6 +129,30 @@ def philox_keep_mask(seed: int, bh: int, lq: int, lk: int, p: float,
     return bits >= keep_threshold(p)
 
 
+def key_padding_view(mask, batch, kv_len):
+    """The (B, Lk) view of a mask of shape (B, Lk), (B, 1, Lk) or
+    (B, 1, 1, Lk) (the unit axes dropped as ``_kv_mask_bias`` drops
+    them), or None for any other shape (a per-query mask)."""
+    m = mask
+    while m.dim() > 2 and m.shape[1] == 1:
+        m = m[:, 0]
+    if m.dim() != 2 or tuple(m.shape) != (batch, kv_len):
+        return None
+    return m
+
+
+def kv_mask_bias(mask, batch, kv_len):
+    """``_kv_mask_bias``: a boolean key-padding mask (True = attend) of
+    a :func:`key_padding_view` shape as an additive (B, Lk) f32 bias, 0
+    or -1e30; None for any other mask (a float mask, a per-query one)."""
+    m = key_padding_view(mask, batch, kv_len) \
+        if mask.dtype == torch.bool else None
+    if m is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=m.device)
+    return torch.where(m, zero, torch.full_like(zero, _NEG_INF))
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -126,8 +166,12 @@ def _heads(x, ct):
     return x.to(ct).permute(0, 2, 1, 3).reshape(B * H, L, D)
 
 
-def _scores(qm, km, scale, causal):
+def _scores(qm, km, scale, causal, bias=None):
     s = torch.matmul(qm * scale, km.transpose(1, 2))
+    if bias is not None:
+        bh, lq, lk = s.shape
+        s = (s.view(bias.shape[0], bh // bias.shape[0], lq, lk)
+             + bias.to(s.dtype)[:, None, None, :]).view(bh, lq, lk)
     if causal:
         lq, lk = s.shape[1], s.shape[2]
         row = torch.arange(lq, device=s.device).view(lq, 1)
@@ -136,13 +180,13 @@ def _scores(qm, km, scale, causal):
     return s
 
 
-def _plain_fwd(q, k, v, causal, dropout_p, seed):
+def _plain_fwd(q, k, v, causal, dropout_p, seed, bias=None):
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     ct = _compute_dtype(q)
     scale = 1.0 / math.sqrt(D)
     qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
-    s = _scores(qm, km, scale, causal)
+    s = _scores(qm, km, scale, causal, bias)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
@@ -157,14 +201,14 @@ def _plain_fwd(q, k, v, causal, dropout_p, seed):
     return out.contiguous(), lse.to(torch.float32)
 
 
-def _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+def _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     ct = _compute_dtype(q)
     scale = 1.0 / math.sqrt(D)
     qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
     om, dom = _heads(out, ct), _heads(dout, ct)
-    s = _scores(qm, km, scale, causal)
+    s = _scores(qm, km, scale, causal, bias)
     prob = torch.exp(s - lse.to(ct).unsqueeze(-1))
     delta = (dom * om).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dom, vm.transpose(1, 2))
@@ -217,6 +261,19 @@ def _check(q, k, v, causal):
     return B, Lq, k.shape[1], H, D
 
 
+def _check_bias(bias, q, B, Lk):
+    """The kernels' key-mask pointer: 0 (none) or a contiguous f32
+    (B, Lk) on q's device."""
+    if bias is None:
+        return 0
+    if bias.shape != (B, Lk) or bias.dtype != torch.float32 \
+            or bias.device != q.device or not bias.is_contiguous():
+        raise ValueError(f"flash attention's key mask must be a contiguous "
+                         f"f32 ({B}, {Lk}) on {q.device}, got "
+                         f"{bias.dtype} {tuple(bias.shape)} on {bias.device}")
+    return bias.data_ptr()
+
+
 def _dropout_args(dropout_p, seed):
     """(keep threshold, 1/(1-p), seed's low and high words) as the
     kernels take them; p = 0 is threshold 0 and scale 1 (no dropout)."""
@@ -227,19 +284,21 @@ def _dropout_args(dropout_p, seed):
     return 0, 1.0, lo, hi
 
 
-def _cuda_fwd(q, k, v, causal, dropout_p, seed):
+def _cuda_fwd(q, k, v, causal, dropout_p, seed, bias=None):
     B, Lq, Lk, H, D = _check(q, k, v, causal)
+    bias_ptr = _check_bias(bias, q, B, Lk)
     fn = _build.entry("flash_attention", "flash_attention_fwd",
-                      [_P] * 5 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
+                      [_P] * 6 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
     thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, Lq, Lk, H, D, int(bool(causal)),
+             lse.data_ptr(), bias_ptr, B, Lq, Lk, H, D, int(bool(causal)),
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_fwd")
-    counters.bump("flash_attention_fwd")
+    counters.bump("flash_attention_fwd" if bias is None
+                  else "flash_attention_masked_fwd")
     return out, lse
 
 
@@ -255,23 +314,25 @@ def _check_saved(q, out, lse, dout):
         raise ValueError(f"lse must be contiguous f32 ({B * H}, {Lq})")
 
 
-def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
+def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
     B, Lq, Lk, H, D = _check(q, k, v, causal)
     _check_saved(q, out, lse, dout)
+    bias_ptr = _check_bias(bias, q, B, Lk)
     fn = _build.entry("flash_attention", "flash_attention_bwd",
-                      [_P] * 10 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
+                      [_P] * 11 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     delta = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
     thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bias_ptr,
              B, Lq, Lk, H, D, int(bool(causal)), _DTYPES[q.dtype],
              1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_bwd")
-    counters.bump("flash_attention_bwd")
+    counters.bump("flash_attention_bwd" if bias is None
+                  else "flash_attention_masked_bwd")
     return dq, dk, dv
 
 
@@ -288,6 +349,12 @@ def short_ok(q, k, causal=False):
     L, D = q.shape[1], q.shape[3]
     return (k.shape[1] == L and _SHORT_MIN <= L <= _SHORT_MAX
             and L % 128 == 0 and D in _HEAD_DIMS)
+
+
+def _no_bias(bias):
+    if bias is not None:
+        raise ValueError("the short flash kernels take no key mask: masked "
+                         "attention runs the streaming kernels")
 
 
 def _check_short(q, k, v, causal):
@@ -344,26 +411,32 @@ def _route(t):
     return False
 
 
-def flash_attention_fwd(q, k, v, causal=False, dropout_p=0.0, seed=0):
+def flash_attention_fwd(q, k, v, causal=False, dropout_p=0.0, seed=0,
+                        bias=None):
     """(out (B, Lq, H, D), lse (B*H, Lq) f32): the kernel on CUDA, the
-    plain version on the CPU."""
+    plain version on the CPU; ``bias`` is an optional (B, Lk) f32 key
+    mask."""
     if _route(q):
-        return _cuda_fwd(q, k, v, causal, dropout_p, seed)
-    return _plain_fwd(q, k, v, causal, dropout_p, seed)
+        return _cuda_fwd(q, k, v, causal, dropout_p, seed, bias)
+    return _plain_fwd(q, k, v, causal, dropout_p, seed, bias)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
-                        dropout_p=0.0, seed=0):
+                        dropout_p=0.0, seed=0, bias=None):
     """(dq, dk, dv) from the saved forward and an external ``lse``."""
     if _route(q):
-        return _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
-    return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
+        return _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed,
+                         bias)
+    return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed,
+                      bias)
 
 
 def flash_attention_short_fwd(q, k, v, causal=False, dropout_p=0.0,
-                              seed=0):
+                              seed=0, bias=None):
     """The short-sequence forward: (out, lse) as
-    :func:`flash_attention_fwd`, for shapes :func:`short_ok` takes."""
+    :func:`flash_attention_fwd`, for shapes :func:`short_ok` takes and
+    no key mask (``bias`` must be None)."""
+    _no_bias(bias)
     if _route(q):
         return _cuda_short_fwd(q, k, v, causal, dropout_p, seed)
     _check_short(q, k, v, causal)
@@ -371,8 +444,9 @@ def flash_attention_short_fwd(q, k, v, causal=False, dropout_p=0.0,
 
 
 def flash_attention_short_bwd(q, k, v, out, lse, dout, causal=False,
-                              dropout_p=0.0, seed=0):
+                              dropout_p=0.0, seed=0, bias=None):
     """The short-sequence backward: (dq, dk, dv) in one launch."""
+    _no_bias(bias)
     if _route(q):
         return _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p,
                                seed)
@@ -382,36 +456,46 @@ def flash_attention_short_bwd(q, k, v, out, lse, dout, causal=False,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, dropout_p, seed, short):
+    def forward(ctx, q, k, v, bias, causal, dropout_p, seed, short):
         fwd = flash_attention_short_fwd if short else flash_attention_fwd
-        out, lse = fwd(q, k, v, causal, dropout_p, seed)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse = fwd(q, k, v, causal, dropout_p, seed, bias)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.args = (causal, dropout_p, seed)
         ctx.short = short
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, bias = ctx.saved_tensors
         bwd = flash_attention_short_bwd if ctx.short else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), *ctx.args,
+                         bias)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=False, dropout_p=0.0, seed=0):
-    """softmax(q k^T / sqrt(D)) v over (B, L, H, D) tensors, with
-    optional causal masking and in-kernel dropout keyed by ``seed``;
-    differentiable in q, k and v."""
+def _contiguous_bias(bias):
+    return None if bias is None else bias.detach().contiguous()
+
+
+def flash_attention(q, k, v, causal=False, dropout_p=0.0, seed=0,
+                    bias=None):
+    """softmax(q k^T / sqrt(D) + bias) v over (B, L, H, D) tensors, with
+    an optional (B, Lk) f32 key mask ``bias`` (see :func:`kv_mask_bias`),
+    causal masking and in-kernel dropout keyed by ``seed``;
+    differentiable in q, k and v (the bias gets no gradient)."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), bool(causal),
-                                 float(dropout_p), int(seed), False)
+                                 v.contiguous(), _contiguous_bias(bias),
+                                 bool(causal), float(dropout_p), int(seed),
+                                 False)
 
 
-def flash_attention_short(q, k, v, causal=False, dropout_p=0.0, seed=0):
+def flash_attention_short(q, k, v, causal=False, dropout_p=0.0, seed=0,
+                          bias=None):
     """:func:`flash_attention` through the short-sequence kernels (one
     block a head, one backward launch); raises for a shape
-    :func:`short_ok` refuses. Same mask as the streaming kernels for the
-    same seed."""
+    :func:`short_ok` refuses or a key mask. Same dropout mask as the
+    streaming kernels for the same seed."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), bool(causal),
-                                 float(dropout_p), int(seed), True)
+                                 v.contiguous(), _contiguous_bias(bias),
+                                 bool(causal), float(dropout_p), int(seed),
+                                 True)

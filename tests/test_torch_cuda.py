@@ -468,3 +468,151 @@ def test_static_update_kernels_raise_on_what_they_do_not_take(dev):
                             torch.zeros(4, 4, device=dev),
                             torch.zeros(4, 4, device=dev), lr, mu=0.9)
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the embedding bag and the masked flash kernels
+# ---------------------------------------------------------------------------
+from paddle_tpu_torch.ops.cuda import fused_embedding as fe  # noqa: E402
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (8 significant bits)."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.full_like(x, 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("V,D,B,S,id_dtype,offset", [
+    (1000, 256, 64, 64, torch.int64, 0),
+    (50, 20, 7, 3, torch.int32, 0),
+    (300, 1200, 5, 1500, torch.int64, 0),
+    (40, 64, 9, 17, torch.int32, 1),
+], ids=["ctr", "D20-int32", "two-chunks", "unaligned"])
+def test_embedding_bag_kernel_matches_plain(dev, combiner, dtype, V, D, B,
+                                            S, id_dtype, offset):
+    """Ids in [-V/4, 5V/4): negatives are padding, ids >= V read row V - 1;
+    bag 0 is all padding. D = 20 and an unaligned table run the scalar
+    form; S = 1500 takes two id chunks and D = 1200 two column chunks.
+    f32: the kernel and the plain version sum in other orders, so each
+    element agrees within 1e-5 plus the worst-case error of a recursive
+    f32 sum, S * 2**-24 times its bag's sum of |rows| (a 1500-id bag
+    whose ids >= V all read one row drifts by ~3e-3); bf16: within one
+    ulp."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    flat = torch.randn(V * D + offset, generator=g, device=dev).to(dtype)
+    table = flat[offset:].view(V, D)
+    ids = torch.randint(-(V // 4), V + V // 4, (B, S), generator=g,
+                        device=dev, dtype=id_dtype)
+    ids[0] = -1
+    out = fe.bag_forward(table, ids, combiner)
+    ref = fe._plain_bag(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, D)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    if dtype == torch.float32:
+        mag = fe._plain_bag(table.abs(), ids, combiner)
+        err = (out - ref).abs()
+        assert bool((err <= 1e-5 + S * 2.0 ** -24 * mag).all()), \
+            float(err.max())
+    else:
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= _bf16_ulp(ref.float())).all()), float(err.max())
+    assert counters.get("fused_embedding_bag") == 1
+
+
+def test_embedding_bag_gradient_on_the_card_matches_the_cpu(dev):
+    g = torch.Generator().manual_seed(22)
+    table = torch.randn((500, 128), generator=g)
+    ids = torch.randint(-50, 550, (32, 40), generator=g)
+    for combiner in ("sum", "mean", "sqrtn"):
+        grads = []
+        for d in ("cpu", dev):
+            t = table.clone().to(d).requires_grad_()
+            out = fe.fused_embedding_bag(t, ids.to(d), combiner)
+            (out * out).sum().backward()
+            grads.append(t.grad.cpu())
+        torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=1e-5)
+    assert counters.get("fused_embedding_bag") == 3
+
+
+def _key_mask(dev, B, L, kind, lens):
+    col = torch.arange(L, device=dev)
+    if kind == "first_tile":
+        return (col >= 64).expand(B, L).contiguous()
+    return col < torch.tensor(lens, device=dev).view(B, 1)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H,D,causal,p,kind,lens", [
+    (2, 128, 12, 64, False, 0.0, "lens", (128, 77)),
+    (2, 256, 4, 64, False, 0.1, "lens", (256, 0)),
+    (3, 200, 3, 64, True, 0.1, "lens", (200, 65, 130)),
+    (2, 192, 2, 128, False, 0.0, "lens", (192, 100)),
+    (2, 256, 2, 64, False, 0.1, "first_tile", None),
+], ids=["bert", "all-masked-dropout", "ragged-causal", "D128",
+        "first-tile-masked"])
+def test_masked_flash_kernels_match_plain(dev, dtype, atol, B, L, H, D,
+                                          causal, p, kind, lens):
+    q, k, v, do = _qkvo(dev, 13, B, L, H, D, dtype)
+    bias = fa.kv_mask_bias(_key_mask(dev, B, L, kind, lens), B, L)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, p, 99, bias)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, p, 99, bias)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, p, 99,
+                                   bias)
+    rgrads = fa._plain_bwd(q, k, v, rout, rlse, do, causal, p, 99, bias)
+    torch.cuda.synchronize()
+    for t in (out,) + tuple(grads):
+        assert bool(torch.isfinite(t.float()).all())
+    torch.testing.assert_close(out.float(), rout.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    for got, want in zip(grads, rgrads):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=atol)
+    if lens is not None and 0 in lens and p == 0.0:
+        b = lens.index(0)
+        torch.testing.assert_close(
+            out[b].float(), v[b].float().mean(0, keepdim=True).expand(
+                L, H, D), atol=atol, rtol=0)
+    assert counters.get("flash_attention_masked_fwd") == 1
+    assert counters.get("flash_attention_masked_bwd") == 1
+    assert counters.get("flash_attention_fwd") == 0
+    assert counters.get("flash_attention_bwd") == 0
+
+
+def test_masked_flash_all_masked_batch_is_the_mean_of_v(dev):
+    q, k, v, _ = _qkvo(dev, 14, 2, 256, 2, 64, torch.float32)
+    bias = fa.kv_mask_bias(_key_mask(dev, 2, 256, "lens", (256, 0)), 2, 256)
+    out = fa.flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[1], v[1].mean(0, keepdim=True).expand(
+        256, 2, 64), atol=1e-5, rtol=0)
+
+
+def test_slice7_kernels_raise_on_what_they_do_not_take(dev):
+    q = torch.zeros((2, 128, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention(q, q, q, bias=torch.zeros((2, 128), device=dev,
+                                                     dtype=torch.float64))
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention(q, q, q, bias=torch.zeros((2, 127), device=dev))
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention(q, q, q, bias=torch.zeros((2, 128)))
+    with pytest.raises(ValueError, match="no key mask"):
+        fa.flash_attention_short(q, q, q,
+                                 bias=torch.zeros((2, 128), device=dev))
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        fe.fused_embedding_bag(torch.zeros((4, 8), device=dev,
+                                           dtype=torch.float64), ids)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        fe.fused_embedding_bag(torch.zeros((4, 8), device=dev),
+                               ids.to(torch.int16))
+    with pytest.raises(ValueError, match="one device"):
+        fe.fused_embedding_bag(torch.zeros((4, 8), device=dev), ids.cpu())
+    assert counters.snapshot() == {}
