@@ -41,8 +41,13 @@ prints no result line:
             512 x 12 x 64 bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
             128 x 128 f32, causal, fully masked rows (the mean of V) and
             a masked first kv tile (atol 1e-4), the dropout mask through
-            a key mask bit for bit. Kernel, plain and library times and
-            the least time the card could take (bound);
+            a key mask bit for bit; K1b's external-lse form (``flash_ring``)
+            through the ring's arithmetic in one process at GPT-2 small's
+            8 x 1024 x 12 x 64 bf16, kv in 2 and 4 chunks, causal, full and
+            key-padded, against the one-launch K1a/K1b and the plain
+            versions (bf16 atol 2e-2 + rtol 1e-2, one f32 case at 1e-4),
+            and alone at the SP block 8 x 512 x 12 x 64. Kernel, plain and
+            library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
             8192, page 128, 16 pages a sequence, batch 8, 512 pages,
@@ -126,13 +131,36 @@ prints no result line:
             ms, MFU (an upper figure: the closed form at full length),
             a profiled step; then one eval forward at dropout 0 with the
             kernels and with the plain version (atol 2e-2 + rtol 1e-2);
-21. the ``kernels`` line (launches summed over the phases that drive
+21. gpt_sp_parity  a small GPT (2 layers, hidden 128, 2 x 64 heads,
+            vocab 1024, batch 4 x 256, f32, no dropout), two AdamW lr
+            1e-3 steps through ``TrainStep(mesh, data_spec=(None, "sp"),
+            sequence_parallel="sp")`` as two processes on the card over
+            gloo, and again in one process: losses, all-reduced
+            gradients and parameters agree (atol 1e-4 + rtol 1e-4); the
+            ranks launch K1a and the external-lse K1b per live block and
+            no saved-form K1b;
+22. gpt      GPT-2 small (vocab 50257, 12 layers, 12 x 64 heads, ffn
+            3072), batch 8 x 1024, AMP O1 bf16, attention dropout 0,
+            hidden dropout 0.1, AdamW lr 1e-4 wd 0.01, the same batch
+            every step: 3 warm-up and 10 timed steps; tokens/s, step
+            ms, MFU, peak memory, the loss (finite, falling), exactly
+            12 + 12 flash launches and one Adam launch a step, a
+            profiled step;
+23. gpt_sp   the same model and global batch over ``{"sp": 2}``, two
+            processes on the card over gloo (the ring exchange staged
+            through pinned host buffers), rank 0 reporting: tokens/s over
+            the global 8192 tokens, step ms, peak memory and staged bytes
+            a rank, the loss (finite, falling), exact launches a step
+            (rank 0: 12 K1a + 12 external-lse K1b; rank 1: 24 + 24; no
+            saved-form K1b), a profiled step with the time in the
+            collectives;
+24. the ``kernels`` line (launches summed over the phases that drive
     each kernel's path: 2-4 for the decode kernels, 6 and 10 for the
     fused xent, 6 for the streaming flash kernels and Adam, 8 for
     Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
     13-16 for the static forms, 18 for K6, 20 for the masked flash
-    kernels), then the card's name and power limit, then the result
-    line.
+    kernels, 23 for the external-lse K1b, both ranks), then the card's
+    name and power limit, then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -424,8 +452,9 @@ def device_breakdown(torch, eng, prompts):
     fams = {"paged_attention": 0.0, "fused_sample": 0.0, "gemm": 0.0,
             "other": 0.0}
     for e in prof.events():
-        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA" \
+                or getattr(e, "is_user_annotation", False):
+            continue        # a record_function range is not device work
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
@@ -1288,12 +1317,14 @@ RESNET_FAMILIES = ("conv_fwd", "conv_bwd", "conv_layout", "bn_elementwise",
                    "gemm", "momentum")
 
 
-def profile_step(torch, step, batch, family, families, step_ms):
+def profile_step(torch, step, batch, family, families, step_ms, spans=()):
     """Device time by family (``family(lowercase kernel name)``) over one
     training step under torch.profiler, the ten longest kernels (and
     the three longest of each family), the number of kernels, and the
     device's busy share of that step's wall time and of ``step_ms`` (the
-    median unprofiled step: the profiler slows the host's launches)."""
+    median unprofiled step: the profiler slows the host's launches);
+    with ``spans``, the host ms and count of each named
+    ``record_function`` range (the collectives' ``collectives.<op>``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1306,8 +1337,9 @@ def profile_step(torch, step, batch, family, families, step_ms):
     fams = dict.fromkeys(families, 0.0)
     by_name, kernels = {}, 0
     for e in prof.events():
-        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA" \
+                or getattr(e, "is_user_annotation", False):
+            continue        # a record_function range is not device work
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
@@ -1322,7 +1354,16 @@ def profile_step(torch, step, batch, family, families, step_ms):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     top = {f: dict([(name, ms) for (g, name), ms in ranked if g == f][:3])
            for f in families}
-    return {"wall_ms": wall_ms, "device_ms": fams,
+    host = {}
+    for e in prof.events():
+        if e.name in spans and str(getattr(e, "device_type", "")) \
+                .split(".")[-1] == "CPU":
+            ms, n = host.get(e.name, (0.0, 0))
+            host[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
+    extra = {"host_spans_ms": {k: v[0] for k, v in host.items()},
+             "host_spans_count": {k: v[1] for k, v in host.items()}} \
+        if spans else {}
+    return {**extra, "wall_ms": wall_ms, "device_ms": fams,
             "device_busy_share": busy / wall_ms,
             "device_share_of_median_step": busy / step_ms, "kernels": kernels,
             "top_kernels_ms": {name: ms for (_, name), ms in ranked[:10]},
@@ -2781,6 +2822,439 @@ def phase_embedding_bag(torch, counters):
             "peak_mem_gb": peak, "breakdown": breakdown}, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 1's external-lse K1b row; phases 21-23: GPT-2 small, one process
+# and sequence parallel over two ranks on the card
+# ---------------------------------------------------------------------------
+GPT_BATCH, GPT_SEQ, SP = 8, 1024, 2
+GPT_FAMILIES = ("flash_fwd", "flash_bwd", "adam", "gemm", "copy", "other")
+SP_SPANS = ("collectives.ppermute", "collectives.all_reduce",
+            "collectives.all_gather")
+
+
+def gpt_family(name):
+    """``bert_family``, with the host-staging copies of the SP exchange
+    (pinned memory to and from the card) as their own family."""
+    return "copy" if name.startswith("memcpy") else bert_family(name)
+
+
+def check_flash_ring(torch, fa, ring, timing):
+    """K1's external-lse form through the ring's arithmetic in one
+    process (``ring_attention_chunks``: per-chunk K1a, the logsumexp
+    merge, one external-lse K1b per live block with the global lse and
+    delta) at GPT-2 small's attention shape, 8 x 1024 x 12 x 64 bf16,
+    kv in 2 and in 4 chunks: causal, full and key-padded (lengths
+    128-699, so the last of 4 chunks is dead on every row and skipped);
+    held against the one-launch K1a/K1b over the whole sequence and
+    against the plain versions (bf16 atol 2e-2 + rtol 1e-2; one f32 case
+    at atol 1e-4). Then the kernel alone against its plain version at
+    the SP path's block, 8 x 512 x 12 x 64 bf16 (a full block and the
+    causal diagonal), and its time there."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf, f32 = torch.bfloat16, torch.float32
+    B, L, H, D = GPT_BATCH, GPT_SEQ, 12, 64
+    lens = np.random.RandomState(5).randint(128, 700, B)
+    cases = [("bf16_causal_2", bf, True, 2, None),
+             ("bf16_causal_4", bf, True, 4, None),
+             ("bf16_full_2", bf, False, 2, None),
+             ("bf16_full_4", bf, False, 4, None),
+             ("bf16_padded_causal_4", bf, True, 4, lens),
+             ("f32_causal_2", f32, True, 2, None)]
+    row = {"cases": {}}
+    for name, dt, causal, n, ln in cases:
+        q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(4)]
+        bias = None if ln is None else fa.kv_mask_bias(
+            len_mask(torch, ln, L), B, L)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = ring.ring_attention_chunks(qg, kg, vg, n, causal, bias=bias)
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        one, lse1 = fa._cuda_fwd(q, k, v, causal, 0.0, 0, bias)
+        g1 = fa._cuda_bwd(q, k, v, one, lse1, do, causal, 0.0, 0, bias)
+        ref, lse2 = fa._plain_fwd(q, k, v, causal, 0.0, 0, bias)
+        g2 = fa._plain_bwd(q, k, v, ref, lse2, do, causal, 0.0, 0, bias)
+        torch.cuda.synchronize()
+        atol, rtol = (2e-2, 1e-2) if dt == bf else (1e-4, 0.0)
+        errs = {}
+        for what, got, kern, plain in zip(("out", "dq", "dk", "dv"),
+                                          (out,) + grads, (one,) + g1,
+                                          (ref,) + g2):
+            expect(bool(torch.isfinite(got.float()).all()),
+                   f"flash ring {name}: non-finite {what}")
+            for vs, want in (("one_launch", kern), ("plain", plain)):
+                errs[f"{what}_vs_{vs}"] = max_err(got, want)
+                expect(torch.allclose(got.float(), want.float(), atol=atol,
+                                      rtol=rtol),
+                       f"flash ring {name}: {what} disagrees with the "
+                       f"{vs} version, max abs err {errs[f'{what}_vs_{vs}']}")
+        row["cases"][name] = errs
+        del q, k, v, do, out, grads, one, g1, ref, g2, qg, kg, vg
+    # the kernel alone at the SP path's block: lse and delta of the whole
+    # (two-block) sequence, the second block as k/v
+    Lb = L // SP
+    q, k, v, do, k0, v0 = [torch.randn((B, Lb, H, D), generator=gen,
+                                       device=dev).to(bf) for _ in range(6)]
+    out, lse = fa._plain_fwd(q, torch.cat([k0, k], 1),
+                             torch.cat([v0, v], 1), False, 0.0, 0)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(B * H, Lb).contiguous()
+    errs = {}
+    for part, causal in (("full", False), ("diagonal", True)):
+        got = fa._cuda_bwd_ext(q, k, v, do, lse, delta, causal)
+        want = fa._plain_bwd_ext(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs[f"{part}_{gname}"] = max_err(a, b)
+            expect(torch.allclose(a.float(), b.float(), atol=2e-2,
+                                  rtol=1e-2),
+                   f"flash ext bwd {part}: {gname} disagrees, max abs err "
+                   f"{errs[f'{part}_{gname}']}")
+    row["block_errs"] = errs
+    # the same block in f32 (atol 1e-4): the kernel's f32 arithmetic
+    # against the plain version's, without bf16's rounding of the outputs
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    delta32 = (do32 * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(B * H, Lb).contiguous()
+    for gname, a, b in zip(("dq", "dk", "dv"), fa._cuda_bwd_ext(
+            q32, k32, v32, do32, lse, delta32, False), fa._plain_bwd_ext(
+            q32, k32, v32, do32, lse, delta32, False)):
+        errs[f"f32_full_{gname}"] = max_err(a, b)
+        expect(errs[f"f32_full_{gname}"] <= 1e-4,
+               f"flash ext bwd f32: {gname} err {errs[f'f32_full_{gname}']}")
+    row["max_abs_err"] = max(errs.values())
+    library = flash_ring_library(torch, q, k, v, do, out, lse)
+    # the library call computes the same function: its grads agree
+    lib_errs = row["library_errs"] = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), library(), fa._cuda_bwd_ext(
+            q, k, v, do, lse, delta, False)):
+        lib_errs[gname] = max_err(a.transpose(1, 2), b)
+        expect(torch.allclose(a.transpose(1, 2).float(), b.float(),
+                              atol=2e-2, rtol=1e-2),
+               f"flash ext bwd: the library call's {gname} disagrees, max "
+               f"abs err {lib_errs[gname]}")
+    if timing:
+        el = B * Lb * H * D * 2                    # one bf16 block tensor
+        # q, k, v, dout, lse, delta in; dq, dk, dv out; S, dP, dV, dQ, dK
+        # products over the block (half of them on the diagonal)
+        nbytes = 7 * el + 2 * B * H * Lb * 4
+        bound, by = bound_of(nbytes, 10 * B * H * Lb * Lb * D,
+                             BF16_FLOPS_PER_S)
+        dbound, dby = bound_of(nbytes, 5 * B * H * Lb * Lb * D,
+                               BF16_FLOPS_PER_S)
+        row.update({
+            "ms": time_ms(torch, lambda: fa._cuda_bwd_ext(
+                q, k, v, do, lse, delta, False)),
+            "plain_ms": time_ms(torch, lambda: fa._plain_bwd_ext(
+                q, k, v, do, lse, delta, False), iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(torch, library),
+            "diagonal_ms": time_ms(torch, lambda: fa._cuda_bwd_ext(
+                q, k, v, do, lse, delta, True)),
+            "diagonal_bound_ms": dbound, "diagonal_bound_by": dby,
+            "saved_form_ms": time_ms(torch, lambda: fa._cuda_bwd(
+                q, k, v, out, lse, do, False, 0.0, 0)),
+            "shape": [B, Lb, H, D], "dtype": "bf16",
+            "bound_rates": rates(BF16_FLOPS_PER_S, "bf16 tensor-core")})
+    return row
+
+
+def flash_ring_library(torch, q, k, v, do, out, lse):
+    """The one PyTorch call that computes the external-lse backward of a
+    full (non-causal) block: aten's flash-attention backward, given this
+    block's q and dO, the kv block, the merged output of the whole
+    sequence and its lse (it computes delta = rowsum(dO * O) itself).
+    The auxiliary arguments (cumulative lengths, rng state) are those
+    its forward returns for the same block. Timed only; the port never
+    calls it. Returns a callable giving (dq, dk, dv) as (B, H, L, D)."""
+    aten = torch.ops.aten
+    B, Lb, H, _ = q.shape
+    qt, kt, vt, dot, ot = (x.transpose(1, 2) for x in (q, k, v, do, out))
+    lse_t = lse.view(B, H, Lb).contiguous()
+    fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False)
+    _, _, cum_q, cum_k, max_q, max_k, seed, offset, _ = fwd
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, ot, lse_t, cum_q, cum_k, max_q, max_k, 0.0, False,
+        seed, offset)[:3]
+
+
+def gpt_config(small):
+    """GPT-2 small (``GPTConfig.base()``) with attention dropout 0 (the
+    ring runs at dropout 0) and hidden dropout 0.1; or the parity
+    phases' small GPT, f32 without dropout."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    if small:
+        return GPTConfig(vocab_size=1024, hidden_size=128,
+                         num_hidden_layers=2, num_attention_heads=2,
+                         max_position_embeddings=256, hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    return GPTConfig(attention_probs_dropout_prob=0.0)
+
+
+def gpt_ids(B, L, vocab):
+    return np.random.RandomState(0).randint(0, vocab, (B, L)).astype(np.int64)
+
+
+def gpt_step(torch, small, lr, mesh=None):
+    """(model, TrainStep) of a GPT from seed 0 on the card: AdamW wd 0.01;
+    full width under AMP O1 bf16. With a mesh: ``data_spec=(None,
+    "sp")``, ``sequence_parallel="sp"``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import PartitionSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(gpt_config(small), generator=gen)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01)
+
+    def loss_fn(m, ids):
+        if small:
+            return m.loss(ids)
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(ids)
+
+    kw = {} if mesh is None else dict(
+        mesh=mesh, data_spec=PartitionSpec(None, "sp"),
+        sequence_parallel="sp")
+    return model, TrainStep(model, loss_fn, opt, **kw)
+
+
+def sp_rank_setup():
+    """A rank of the SP phases: the card, gloo, the ``{"sp": 2}`` mesh;
+    the kernels are loaded from the parent's build."""
+    import torch
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_parallel_env("gloo")
+    return torch, create_mesh({"sp": SP})
+
+
+def gpt_parity_rank(steps, lr):
+    """A rank of ``gpt_sp_parity``: ``steps`` steps of the small GPT over
+    the ``{"sp": 2}`` mesh; losses, the step-1 all-reduced gradients,
+    the parameters after the steps and the launches."""
+    torch, mesh = sp_rank_setup()
+    from paddle_tpu_torch.ops.cuda import counters
+
+    cfg = gpt_config(True)
+    model, step = gpt_step(torch, True, lr, mesh)
+    batch = torch.tensor(gpt_ids(4, 256, cfg.vocab_size), device="cuda")
+    counters.reset()
+    losses, grads = [], None
+    for i in range(steps):
+        losses.append(float(step(batch)))
+        if i == 0:
+            grads = {n: p.grad.cpu().numpy()
+                     for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "launches": counters.snapshot(),
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in model.named_parameters()}}
+
+
+def phase_gpt_sp_parity(torch, counters):
+    """The small GPT (2 layers, hidden 128, 2 x 64 heads, vocab 1024,
+    batch 4 x 256, f32, no dropout) two AdamW lr 1e-3 steps through
+    ``TrainStep`` over ``{"sp": 2}`` (two ranks on the card over gloo)
+    and in one process without a mesh: losses, the all-reduced step-1
+    gradients and the parameters agree within atol 1e-4 + rtol 1e-4 (the
+    key bias, whose true gradient is 0, within its bound 2 lr: Adam turns
+    its last-bit noise into steps of up to lr); the SP ranks launch one
+    K1a and one external-lse K1b per live block (rank 0 the diagonal,
+    rank 1 its full block and the diagonal) and no saved-form K1b."""
+    from paddle_tpu_torch.distributed import spawn
+
+    steps, lr = 2, 1e-3
+    t0 = time.perf_counter()
+    ranks = spawn(gpt_parity_rank, args=(steps, lr), nprocs=SP, timeout=300)
+    sp_s = time.perf_counter() - t0
+    model, step = gpt_step(torch, True, lr)
+    cfg = gpt_config(True)
+    batch = torch.tensor(gpt_ids(4, 256, cfg.vocab_size), device="cuda")
+    counters.reset()
+    losses, grads = [], None
+    for i in range(steps):
+        losses.append(float(step(batch)))
+        if i == 0:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+    single = counters.snapshot()
+    n_layers = cfg.num_hidden_layers
+    errs = {"loss": 0.0, "grad": 0.0, "param": 0.0, "key_bias": 0.0}
+
+    def close(a, b):
+        return bool(torch.allclose(a, b, atol=ATOL, rtol=RTOL))
+
+    for r, got in enumerate(ranks):
+        for a, b in zip(got["losses"], losses):
+            errs["loss"] = max(errs["loss"], abs(a - b))
+            expect(abs(a - b) <= ATOL + RTOL * abs(b),
+                   f"gpt_sp_parity: rank {r} loss {a} vs {b}")
+        for n, p in model.named_parameters():
+            g = torch.from_numpy(got["grads"][n]).cuda()
+            errs["grad"] = max(errs["grad"], max_err(g, grads[n]))
+            expect(close(g, grads[n]), f"gpt_sp_parity: rank {r} gradient "
+                                       f"{n} err {max_err(g, grads[n])}")
+            w = torch.from_numpy(got["params"][n]).cuda()
+            if n.endswith("k_proj.bias"):
+                errs["key_bias"] = max(errs["key_bias"], max_err(w, p))
+                expect(max_err(w, p) <= steps * lr,
+                       f"gpt_sp_parity: rank {r} {n} err {max_err(w, p)}")
+            else:
+                errs["param"] = max(errs["param"], max_err(w, p))
+                expect(close(w, p.detach()), f"gpt_sp_parity: rank {r} "
+                                             f"parameter {n} err "
+                                             f"{max_err(w, p)}")
+        want = {"flash_attention_fwd": (r + 1) * n_layers * steps,
+                "flash_attention_ext_bwd": (r + 1) * n_layers * steps,
+                "flash_attention_bwd": 0}
+        for k, n in want.items():
+            expect(got["launches"].get(k, 0) == n,
+                   f"gpt_sp_parity: rank {r} launched {k} "
+                   f"{got['launches'].get(k, 0)} times, want {n}")
+    expect(single.get("flash_attention_ext_bwd", 0) == 0
+           and single.get("flash_attention_bwd", 0) == n_layers * steps,
+           f"gpt_sp_parity: the one-process run launched {single}")
+    return {"phase": "gpt_sp_parity", "steps": steps, "losses": losses,
+            "sp_losses": [r["losses"] for r in ranks],
+            "max_abs_err": errs, "sp_launches": [r["launches"]
+                                                 for r in ranks],
+            "single_launches": single, "sp_seconds": sp_s}
+
+
+def gpt_flops_per_step(cfg, B, S):
+    """``bert_flops_per_step``'s closed form for the GPT: 3 x the
+    forward's matmul flops (8H^2 + 4HI + 4SH a layer and token, the
+    tied vocabulary 2HV)."""
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    return 3 * B * S * (cfg.num_hidden_layers * (8 * H * H + 4 * H * I
+                                                 + 4 * S * H) + 2 * H * V)
+
+
+def gpt_row(torch, cfg, losses, step_ms, launches, tokens):
+    med = float(np.median(step_ms))
+    flops = gpt_flops_per_step(cfg, GPT_BATCH, GPT_SEQ)
+    return {"warmup_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
+            "tokens_per_s": tokens * TIMED_STEPS / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "flops_per_step": flops,
+            "mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_gpt_losses(name, losses):
+    expect(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+
+
+GPT_CONFIG_DESC = ("GPT-2 small (vocab 50257, 12 x 768, 12 x 64 heads, ffn "
+                   "3072, 1024 positions), batch 8 x 1024, AMP O1 bf16, "
+                   "attention dropout 0, hidden dropout 0.1, AdamW lr 1e-4 "
+                   "wd 0.01, the same batch every step")
+
+
+def phase_gpt(torch, counters):
+    """GPT-2 small in one process: 3 warm-up and 10 timed steps, exactly
+    12 K1a + 12 K1b and one Adam launch a step, a profiled step."""
+    cfg = gpt_config(False)
+    torch.cuda.reset_peak_memory_stats()
+    model, step = gpt_step(torch, False, 1e-4)
+    batch = [torch.tensor(gpt_ids(GPT_BATCH, GPT_SEQ, cfg.vocab_size),
+                          device="cuda")]
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    check_gpt_losses("gpt", losses)
+    n_steps, L = WARM_STEPS + TIMED_STEPS, cfg.num_hidden_layers
+    want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+            "fused_adam": 1, "flash_attention_ext_bwd": 0}
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"gpt: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+    row = gpt_row(torch, cfg, losses, step_ms, launches,
+                  GPT_BATCH * GPT_SEQ)
+    row["breakdown"] = profile_step(torch, step, batch, gpt_family,
+                                    GPT_FAMILIES, row["step_ms_median"])
+    return {"phase": "gpt", "config": GPT_CONFIG_DESC,
+            "params": sum(p.numel() for p in model.parameters()),
+            **row}, launches
+
+
+def gpt_sp_rank():
+    """A rank of ``gpt_sp``: GPT-2 small over ``{"sp": 2}``, each rank
+    its half of every sequence; 3 warm-up and 10 timed steps, then one
+    profiled step (rank 0 records it, rank 1 runs its half)."""
+    torch, mesh = sp_rank_setup()
+    from paddle_tpu_torch.ops.cuda import counters
+    from paddle_tpu_torch.parallel.collectives import STAGED_BYTES
+
+    cfg = gpt_config(False)
+    torch.cuda.reset_peak_memory_stats()
+    model, step = gpt_step(torch, False, 1e-4, mesh)
+    batch = [torch.tensor(gpt_ids(GPT_BATCH, GPT_SEQ, cfg.vocab_size),
+                          device="cuda")]
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    row = gpt_row(torch, cfg, losses, step_ms, launches,
+                  GPT_BATCH * GPT_SEQ)
+    row["staged_bytes_per_step"] = launches.get(STAGED_BYTES, 0) / (
+        WARM_STEPS + TIMED_STEPS)
+    if mesh.rank == 0:
+        row["breakdown"] = profile_step(torch, step, batch, gpt_family,
+                                        GPT_FAMILIES, row["step_ms_median"],
+                                        spans=SP_SPANS)
+    else:
+        step(*batch)
+        torch.cuda.synchronize()
+    return row
+
+
+def phase_gpt_sp(torch, counters):
+    """GPT-2 small and the same global batch over ``{"sp": 2}``: two
+    processes on the card over gloo, rank 0 reporting; exact launches a
+    step (rank 0: 12 K1a and 12 external-lse K1b, the diagonal; rank 1:
+    24 and 24, its full block and the diagonal; no saved-form K1b)."""
+    from paddle_tpu_torch.distributed import spawn
+
+    cfg = gpt_config(False)
+    t0 = time.perf_counter()
+    ranks = spawn(gpt_sp_rank, nprocs=SP, timeout=600)
+    seconds = time.perf_counter() - t0
+    n_steps, L = WARM_STEPS + TIMED_STEPS, cfg.num_hidden_layers
+    total = {}
+    for r, row in enumerate(ranks):
+        check_gpt_losses(f"gpt_sp rank {r}", row["losses"])
+        want = {"flash_attention_fwd": (r + 1) * L,
+                "flash_attention_ext_bwd": (r + 1) * L,
+                "flash_attention_bwd": 0, "fused_adam": 1}
+        for k, n in want.items():
+            got = row["launches"].get(k, 0)
+            expect(got == n * n_steps,
+                   f"gpt_sp: rank {r} launched {k} {got} times over "
+                   f"{n_steps} steps, want {n} a step")
+        for k, n in row["launches"].items():
+            total[k] = total.get(k, 0) + n
+    expect(ranks[0]["losses"] == ranks[1]["losses"],
+           "gpt_sp: the ranks report different global losses")
+    return {"phase": "gpt_sp", "config": GPT_CONFIG_DESC + ", sequence "
+            "parallel over {'sp': 2}: two processes on one card over gloo, "
+            "ring exchange staged through pinned host buffers",
+            "seconds": seconds, **ranks[0],
+            "rank1": {k: ranks[1][k] for k in (
+                "step_ms_median", "peak_mem_gb", "staged_bytes_per_step",
+                "launches")}}, total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2802,6 +3276,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_xent as fx
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import sampling as samp
+    from paddle_tpu_torch.parallel import ring
     from paddle_tpu_torch.vision.models import LeNet, resnet50
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2851,6 +3326,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         k1m = check_flash_masked(torch, fa, timing)
         emit({"phase": "kernels_vs_plain", "flash_attention_masked": k1m})
+        torch.cuda.empty_cache()
+        k1r = check_flash_ring(torch, fa, ring, timing)
+        emit({"phase": "kernels_vs_plain", "flash_ring": k1r})
         torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
@@ -2928,6 +3406,18 @@ def main() -> int:
         del row, launches
         torch.cuda.empty_cache()
 
+        emit(phase_gpt_sp_parity(torch, counters))
+        torch.cuda.empty_cache()
+        row, launches = phase_gpt(torch, counters)
+        emit(row)
+        del row, launches
+        torch.cuda.empty_cache()
+        row, launches = phase_gpt_sp(torch, counters)
+        emit(row)
+        total["flash_attention_ext_bwd"] = launches.get(
+            "flash_attention_ext_bwd", 0)
+        del row, launches
+
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
             library time is the same half (the backward one replays a
@@ -2987,6 +3477,8 @@ def main() -> int:
                  "paddle_tpu/ops/pallas/flash_attention.py:284"),
                 ("flash_attention_masked_bwd", split(k1m, "bwd"),
                  src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:339"),
+                ("flash_attention_ext_bwd", k1r, src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,

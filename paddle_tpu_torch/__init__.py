@@ -17,15 +17,21 @@ graph (``static``: Program, Executor, ``append_backward``, the static
 optimizers) with CUDA kernels for K3's static update forms, then the
 fused embedding bag (``nn.functional.fused_embedding_seq_pool``,
 ``incubate.layers.fused_embedding_seq_pool``) and key-padding masks
-through the flash kernels, each with its CUDA kernel. Entry points
+through the flash kernels, each with its CUDA kernel, then
+sequence-parallel GPT-2 training over ranks (``models.gpt``,
+``distributed``, ``parallel``: a mesh of ranks, collectives, ring
+attention) with a CUDA entry for the flash backward's external-lse
+form. Entry points
 run on the card unless the caller passes ``device="cpu"``; without a
 GPU and without a device they raise.
 """
-from . import (amp, framework, incubate, inference, io, jit, models, nn,
-               ops, optimizer, profiler, regularizer, static, utils, vision)
+from . import (amp, distributed, framework, incubate, inference, io, jit,
+               models, nn, ops, optimizer, parallel, profiler, regularizer,
+               static, utils, vision)
 from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 
-__all__ = ["amp", "framework", "incubate", "inference", "io", "jit",
-           "models", "nn", "ops", "optimizer", "profiler", "regularizer",
-           "seed", "static", "utils", "vision", "get_flags", "set_flags"]
+__all__ = ["amp", "distributed", "framework", "incubate", "inference",
+           "io", "jit", "models", "nn", "ops", "optimizer", "parallel",
+           "profiler", "regularizer", "seed", "static", "utils", "vision",
+           "get_flags", "set_flags"]

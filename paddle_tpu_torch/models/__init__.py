@@ -1,4 +1,5 @@
-"""Models of the port; so far BERT pretraining (``models.bert``)."""
-from . import bert
+"""Models of the port: BERT pretraining (``models.bert``) and the GPT
+causal LM (``models.gpt``)."""
+from . import bert, gpt
 
-__all__ = ["bert"]
+__all__ = ["bert", "gpt"]

@@ -41,6 +41,7 @@ from ..framework.random import current_rng
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import fused_embedding as _fe
 from ..ops.cuda import fused_xent as _fx
+from ..parallel import ring as _ring
 
 __all__ = ["linear", "matmul", "embedding", "fused_embedding_seq_pool",
            "dropout", "gelu", "tanh", "relu", "layer_norm", "cross_entropy",
@@ -197,11 +198,29 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     (B, 1, 1, Lk): it rides the streaming kernels as a (B, Lk) f32 bias,
     with dropout and causal masking too, and with the short-sequence
     flag on (the JAX short route needs no mask). Per-query masks and
-    float masks that require grad raise ``NotImplementedError``."""
+    float masks that require grad raise ``NotImplementedError``.
+
+    Inside an active ``parallel.sequence_parallel`` scope q, k and v are
+    this rank's sequence shards and attention is ring attention over the
+    scope's axis (``parallel.ring``), with a key-padding mask riding the
+    ring beside its k/v block (``flash_attention.py:898-945``). The ring
+    runs at dropout 0 only: attention dropout under sequence parallelism
+    raises ``NotImplementedError`` (JAX computes it replicated, outside
+    the ring; the port does not copy that)."""
     query, key, value = maybe_cast_inputs("sdpa", [query, key, value])
     bias = None if attn_mask is None else \
         _key_mask_bias(attn_mask, query.shape[0], key.shape[1])
     p = float(dropout_p) if training else 0.0
+    sp = _ring.active_sequence_parallel()
+    if sp is not None:
+        if p > 0.0:
+            raise NotImplementedError(
+                f"attention dropout ({p}) under sequence parallelism: ring "
+                f"attention runs at dropout 0; set the attention dropout "
+                f"to 0 (hidden dropout is unaffected)")
+        axis, _, _, mesh = sp
+        return _ring._ring_local(query, key, value, axis, is_causal, bias,
+                                 mesh, key=attn_mask)
     seed = current_rng(query.device).next_seed() if p > 0.0 else 0
     if bias is None and get_flag("flash_short_seq") \
             and _fa.short_ok(query, key):

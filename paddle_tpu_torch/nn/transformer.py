@@ -10,14 +10,24 @@ the JAX package, the encoder layers' norms are ``LayerNorm(d_model)``
 with the default epsilon 1e-5, and ``TransformerEncoder`` deep-copies
 its first layer, so every layer starts from the same weights. Post-norm
 layers only (BERT's); the pre-norm option, cross-attention key/value
-widths, causal self-attention, the decoder, the key/value cache and
-per-query masks are later slices.
+widths, the decoder, the key/value cache and per-query masks are later
+slices.
+
+``MultiHeadAttention(is_causal=True)`` (GPT's blocks) follows the JAX
+rule (``nn/transformer.py:60-75``): without a mask, causal attention
+(which rides the ring under sequence parallelism); with one, the causal
+constraint is folded into the mask, bottom-right aligned. For a
+key-padding mask at Lq == Lk the fold is the kernel's own causal
+masking beside the key bias, so the two ride the kernel as they are;
+any other fold is a per-query mask, which raises ``NotImplementedError``
+until slice 10.
 """
 from __future__ import annotations
 
 import copy
 
 from . import functional as F
+from ..ops.cuda.flash_attention import key_padding_view
 from .common import Dropout, Linear
 from .container import LayerList
 from .layer import Layer
@@ -30,11 +40,12 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
 class MultiHeadAttention(Layer):
     """q/k/v projections + scaled dot-product attention (B, L, H, D)."""
 
-    def __init__(self, embed_dim, num_heads, dropout=0.0, device=None,
-                 generator=None):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, is_causal=False,
+                 device=None, generator=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.is_causal = is_causal
         self.head_dim = embed_dim // num_heads
         if self.head_dim * num_heads != embed_dim:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -54,9 +65,15 @@ class MultiHeadAttention(Layer):
         q = self.q_proj(query).reshape(b, lq, self.num_heads, self.head_dim)
         k = self.k_proj(key).reshape(b, lk, self.num_heads, self.head_dim)
         v = self.v_proj(value).reshape(b, lk, self.num_heads, self.head_dim)
+        if self.is_causal and attn_mask is not None and not (
+                lq == lk and key_padding_view(attn_mask, b, lk) is not None):
+            raise NotImplementedError(
+                f"causal attention with a {tuple(attn_mask.shape)} mask at "
+                f"Lq {lq}, Lk {lk} folds into a per-query mask, a later "
+                f"port slice (slice 10, the decoder)")
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training)
+            is_causal=self.is_causal, training=self.training)
         return self.out_proj(out.reshape(b, lq, self.embed_dim))
 
 

@@ -27,6 +27,14 @@
 //   loops over kv-tiles; the dk/dv kernel (one block per kv-tile) loops
 //   over q-tiles. Both recompute P = exp(S - lse). No atomics: each
 //   output element has one writer, so results are deterministic.
+// - External-lse backward (_bwd_call as parallel/ring.py's
+//   _ring_flash_bwd calls it, once per kv block of the ring): the caller
+//   hands in lse and delta of the WHOLE sequence, so P = exp(S - lse) is
+//   the true probability of this block's keys and each block's dq, dk, dv
+//   is an exact share of the full gradient. The same two kernels run;
+//   the dq kernel's EXT instantiation reads delta instead of computing
+//   it from O (there is no O of the block), and the entry takes no
+//   dropout (the ring runs at dropout 0).
 // - Dropout: Philox4x32-10 keyed by the 64-bit seed, counter
 //   (g, query row, b*H + h, 0) with g = (col / 64) * 16 + col % 16 and
 //   word (col / 16) % 4. A thread's four columns tx + 16 j of one tile
@@ -144,7 +152,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward: dq (+ delta)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool EXT>
 __global__ void __launch_bounds__(kT)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
@@ -167,8 +175,15 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Qs, D, q, a, b, h, q0, a.Lq, a.scale);
   load_tile<T, D>(dOs, D, dout, a, b, h, q0, a.Lq, 1.0f);
-  __syncthreads();
-  {  // delta = rowsum(dO * O): four threads a row
+  if constexpr (EXT) {  // the caller's delta and lse (o is unused)
+    if (tid < kTile) {
+      const bool live = q0 + tid < a.Lq;
+      delta_s[tid] = live ? delta[(int64_t)bh * a.Lq + q0 + tid] : 0.0f;
+      lse_s[tid] = live ? lse[(int64_t)bh * a.Lq + q0 + tid] : INFINITY;
+    }
+  } else {
+    __syncthreads();
+    // delta = rowsum(dO * O): four threads a row
     const int r = tid >> 2, part = tid & 3;
     float d = 0.0f;
     if (q0 + r < a.Lq) {
@@ -344,11 +359,13 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+// EXT: delta comes from the caller (o may be null), else the dq kernel
+// computes it from o and writes it
+template <typename T, int D, bool EXT = false>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, const Args& a, cudaStream_t st) {
-  auto kdq = flash_dq_kernel<T, D>;
+  auto kdq = flash_dq_kernel<T, D, EXT>;
   auto kdkv = flash_dkv_kernel<T, D>;
   cudaError_t e = allow_smem(kdq, dq_smem<D>());
   if (e == cudaSuccess) e = allow_smem(kdkv, dkv_smem<D>());
@@ -414,6 +431,30 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                                                  dq, dk, dv, a, st)
                  : launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse,
                                                   delta, dq, dk, dv, a, st);
+}
+
+// the external-lse backward: lse and delta (B*H, Lq) f32 from the
+// caller; no dropout
+int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, void* dk, void* dv,
+                            const float* bias, int B, int Lq, int Lk, int H,
+                            int D, int causal, int dtype, float scale,
+                            void* stream) {
+  if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, causal, scale, 0u, 1.0f, 0u, 0u,
+                           bias);
+  cudaStream_t st = (cudaStream_t)stream;
+  float* dl = const_cast<float*>(delta);  // read only when EXT
+  if (dtype == 0)
+    return D == 64 ? launch_bwd<float, 64, true>(q, k, v, nullptr, dout, lse,
+                                                 dl, dq, dk, dv, a, st)
+                   : launch_bwd<float, 128, true>(q, k, v, nullptr, dout, lse,
+                                                  dl, dq, dk, dv, a, st);
+  return D == 64 ? launch_bwd<__nv_bfloat16, 64, true>(
+                       q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st)
+                 : launch_bwd<__nv_bfloat16, 128, true>(
+                       q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st);
 }
 
 const char* kernel_error_string(int err) {

@@ -45,6 +45,13 @@ Columns past Lk and above the diagonal score -inf, so a causal row
 whose every allowed key is masked averages V over its allowed keys.
 The short kernels take no bias.
 
+The external-lse backward (:func:`flash_attention_bwd_ext`, the form
+``_bwd_call`` takes in ``parallel/ring.py``'s ``_ring_flash_bwd``):
+(dq, dk, dv) of one kv block from the caller's ``lse`` and ``delta``
+(B*H, Lq) f32 of the whole sequence, with no saved output and no
+dropout; it launches the same two kernels with the dq pass reading
+delta instead of computing it, and counts ``flash_attention_ext_bwd``.
+
 Routing is by device, with no fallback: CUDA tensors launch the kernels
 (counting ``flash_attention_fwd`` per forward and
 ``flash_attention_bwd`` per backward pair of launches,
@@ -67,8 +74,8 @@ import torch
 from . import _build, counters
 
 __all__ = ["flash_attention", "flash_attention_short", "short_ok",
-           "key_padding_view", "kv_mask_bias", "philox_keep_mask",
-           "keep_threshold"]
+           "flash_attention_bwd_ext", "key_padding_view", "kv_mask_bias",
+           "philox_keep_mask", "keep_threshold"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -202,15 +209,37 @@ def _plain_fwd(q, k, v, causal, dropout_p, seed, bias=None):
 
 
 def _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     ct = _compute_dtype(q)
+    D = q.shape[3]
     scale = 1.0 / math.sqrt(D)
     qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
     om, dom = _heads(out, ct), _heads(dout, ct)
+    delta = (dom * om).sum(dim=-1, keepdim=True)
+    return _plain_grads(q, k, v, qm, km, vm, dom, lse, delta, scale, causal,
+                        dropout_p, seed, bias)
+
+
+def _plain_bwd_ext(q, k, v, dout, lse, delta, causal, bias=None):
+    """The external-lse backward: (dq, dk, dv) of this kv block from the
+    caller's lse and delta (B*H, Lq) of the whole sequence."""
+    ct = _compute_dtype(q)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    qm, km, vm = _heads(q, ct), _heads(k, ct), _heads(v, ct)
+    dom = _heads(dout, ct)
+    return _plain_grads(q, k, v, qm, km, vm, dom, lse,
+                        delta.to(ct).unsqueeze(-1), scale, causal, 0.0, 0,
+                        bias)
+
+
+def _plain_grads(q, k, v, qm, km, vm, dom, lse, delta, scale, causal,
+                 dropout_p, seed, bias):
+    """dq, dk, dv from the recomputed P = exp(S - lse) and delta
+    (B*H, Lq, 1), both backward forms' arithmetic."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    ct = qm.dtype
     s = _scores(qm, km, scale, causal, bias)
     prob = torch.exp(s - lse.to(ct).unsqueeze(-1))
-    delta = (dom * om).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dom, vm.transpose(1, 2))
     if dropout_p > 0.0:
         keep = philox_keep_mask(seed, B * H, Lq, Lk, dropout_p, q.device)
@@ -336,6 +365,37 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
     return dq, dk, dv
 
 
+def _check_ext(q, dout, lse, delta):
+    B, Lq, H, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device or not dout.is_contiguous():
+        raise ValueError(f"flash attention backward: dout must be a "
+                         f"contiguous {q.dtype} {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, Lq) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 "
+                             f"({B * H}, {Lq}) on {q.device}")
+
+
+def _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias=None):
+    B, Lq, Lk, H, D = _check(q, k, v, causal)
+    _check_ext(q, dout, lse, delta)
+    bias_ptr = _check_bias(bias, q, B, Lk)
+    fn = _build.entry("flash_attention", "flash_attention_bwd_ext",
+                      [_P] * 10 + [_I] * 7 + [_F, _P])
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), bias_ptr, B, Lq, Lk, H, D, int(bool(causal)),
+             _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention", err, "flash_attention_bwd_ext")
+    counters.bump("flash_attention_ext_bwd")
+    return dq, dk, dv
+
+
 def short_ok(q, k, causal=False):
     """Whether the short-sequence kernels take this shape: Lq == Lk,
     128 <= L <= 512, L % 128 == 0 and head_dim 64 or 128. This is the
@@ -429,6 +489,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
                          bias)
     return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed,
                       bias)
+
+
+def flash_attention_bwd_ext(q, k, v, dout, lse, delta, causal=False,
+                            bias=None):
+    """(dq, dk, dv) of one kv block ``k``, ``v`` from the caller's
+    ``lse`` and ``delta`` = rowsum(dO * O) ((B*H, Lq) f32) of the whole
+    sequence, with an optional (B, Lk) f32 key mask ``bias``; no
+    dropout. The kernel on CUDA, the plain version on the CPU."""
+    if _route(q):
+        return _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias)
+    return _plain_bwd_ext(q, k, v, dout, lse, delta, causal, bias)
 
 
 def flash_attention_short_fwd(q, k, v, causal=False, dropout_p=0.0,

@@ -616,3 +616,147 @@ def test_slice7_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="one device"):
         fe.fused_embedding_bag(torch.zeros((4, 8), device=dev), ids.cpu())
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# slice 11a: K1's external-lse backward and a sequence-parallel step
+# ---------------------------------------------------------------------------
+def _global_stats(q, k, v, do, k0, v0, bias):
+    """lse and delta of q over the keys (k0, k) from the plain forward:
+    the whole sequence's statistics, k/v being its second block."""
+    B, L, H, _ = q.shape
+    bias0 = None if bias is None else torch.cat([torch.zeros_like(bias),
+                                                 bias], 1)
+    out, lse = fa._plain_fwd(q, torch.cat([k0, k], 1), torch.cat([v0, v], 1),
+                             False, 0.0, 0, bias0)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    return lse, delta.reshape(B * H, L).contiguous()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H,D,causal,masked", [
+    (2, 128, 12, 64, False, False),
+    (2, 200, 3, 64, True, False),
+    (2, 192, 2, 128, False, True),
+    (3, 256, 2, 64, True, True),
+], ids=["full", "ragged-causal", "D128-masked", "causal-masked"])
+def test_ext_backward_kernel_matches_plain(dev, dtype, atol, B, L, H, D,
+                                           causal, masked):
+    q, k, v, do = _qkvo(dev, 21, B, L, H, D, dtype)
+    _, k0, v0, _ = _qkvo(dev, 22, B, L, H, D, dtype)
+    bias = fa.kv_mask_bias(_key_mask(dev, B, L, "lens", [L] + [L // 3]
+                                     * (B - 1)), B, L) if masked else None
+    lse, delta = _global_stats(q, k, v, do, k0, v0, bias)
+    got = fa.flash_attention_bwd_ext(q, k, v, do, lse, delta, causal, bias)
+    want = fa._plain_bwd_ext(q, k, v, do, lse, delta, causal, bias)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=atol)
+    assert counters.snapshot() == {"flash_attention_ext_bwd": 1}
+
+
+def test_ext_backward_kernel_raises_on_what_it_does_not_take(dev):
+    q = torch.zeros((2, 128, 2, 64), device=dev)
+    lse = torch.zeros((4, 128), device=dev)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_ext(q, q, q, q, lse[:, :64], lse)
+    with pytest.raises(ValueError, match="delta must be"):
+        fa.flash_attention_bwd_ext(q, q, q, q, lse, lse.double())
+    with pytest.raises(ValueError, match="delta must be"):
+        fa.flash_attention_bwd_ext(q, q, q, q, lse, lse.cpu())
+    with pytest.raises(ValueError, match="dout"):
+        fa.flash_attention_bwd_ext(q, q, q, q.bfloat16(), lse, lse)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention_bwd_ext(q, q[:, :64].contiguous(),
+                                   q[:, :64].contiguous(), q, lse, lse, True)
+    assert counters.snapshot() == {}
+
+
+def test_sp_step_two_ranks_on_one_card_matches_one_process(dev, tmp_path):
+    """Two gloo ranks on cuda:0 over {"sp": 2}, two AdamW steps of a small
+    GPT (head_dim 64), against the same steps in this process: losses
+    and step-1 gradients (atol 1e-4 + rtol 1e-4); the ranks launch one K1a
+    and one external-lse K1b per live block and no saved-form K1b."""
+    import _torch_sp_ranks as ranks
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, max_position_embeddings=128,
+                    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    gen = torch.Generator().manual_seed(0)
+    state = {k: v.numpy() for k, v in GPTForCausalLM(
+        cfg, device="cpu", generator=gen).state_dict().items()}
+    ids = np.random.RandomState(0).randint(0, 256, (2, 128)).astype(np.int64)
+    sp = spawn(ranks.gpt_sp_rank,
+               args=({"sp": 2}, cfg, state, ids, 2, 1e-3, "cuda"), nprocs=2,
+               init_method=f"file://{tmp_path / 'rendezvous'}", timeout=300)
+    model = ranks._gpt(cfg, state, "cuda")
+    step = TrainStep(model, lambda m, x: m.loss(x),
+                     AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                           weight_decay=0.01))
+    batch = torch.tensor(ids, device=dev)
+    losses = [float(step(batch))]
+    grads = {n: p.grad.float().cpu().numpy()
+             for n, p in model.named_parameters()}
+    losses.append(float(step(batch)))
+    for r, got in enumerate(sp):
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-4,
+                                   atol=1e-4)
+        for n, g in grads.items():
+            np.testing.assert_allclose(got["grads"][n], g, rtol=1e-4,
+                                       atol=1e-4, err_msg=f"rank {r} {n}")
+        want = {"flash_attention_fwd": 2 * 2 * (r + 1),
+                "flash_attention_ext_bwd": 2 * 2 * (r + 1),
+                "fused_adam": 2}
+        assert {k: got["launches"].get(k, 0) for k in want} == want
+        assert "flash_attention_bwd" not in got["launches"]
+        assert got["launches"]["gloo_staged_bytes"] > 0
+        assert got["dropout_raises"]
+
+
+def test_masked_ring_two_ranks_on_one_card_matches_the_kernel(dev, tmp_path):
+    """``ring_attention`` over two gloo ranks on cuda:0, causal with a key
+    mask whose second block is dead on every row (skipped by both
+    ranks), and full: output and gradients against the one-launch
+    kernels in this process, f32 atol 1e-4 (the merge and the per-block
+    sums run in another order)."""
+    import _torch_sp_ranks as ranks
+    from paddle_tpu_torch.distributed import spawn
+
+    rng = np.random.RandomState(5)
+    B, L, H, D = 2, 256, 2, 64
+    cases = [(name, *(rng.randn(B, L, H, D).astype(np.float32)
+                      for _ in range(4)), causal, lens)
+             for name, causal, lens in (("padded_causal", True, [100, 60]),
+                                        ("full", False, None))]
+    got = spawn(ranks.ring_rank, args=(2, cases, "cuda"), nprocs=2,
+                init_method=f"file://{tmp_path / 'rendezvous'}",
+                timeout=300)
+    for name, q, k, v, w, causal, lens in cases:
+        q, k, v = (torch.tensor(x, device=dev, requires_grad=True)
+                   for x in (q, k, v))
+        bias = None if lens is None else fa.kv_mask_bias(
+            _key_mask(dev, B, L, "lens", lens), B, L)
+        out = fa.flash_attention(q, k, v, causal=causal, bias=bias)
+        (out * torch.tensor(w, device=dev)).sum().backward()
+        for r in range(2):
+            for a, b in zip(got[r][name], (out, q.grad, k.grad, v.grad)):
+                np.testing.assert_allclose(a, b.detach().cpu().numpy(),
+                                           atol=1e-4, rtol=0)
+    for r in range(2):
+        # padded_causal: rank 0 its diagonal, rank 1 block 0 (its own block
+        # is dead); full: both blocks on each rank
+        launches = got[r]["launches"]
+        assert {k: launches.get(k, 0) for k in (
+            "flash_attention_masked_fwd", "flash_attention_fwd",
+            "flash_attention_ext_bwd", "flash_attention_bwd")} == {
+            "flash_attention_masked_fwd": 1, "flash_attention_fwd": 2,
+            "flash_attention_ext_bwd": 3, "flash_attention_bwd": 0}
+        assert launches["gloo_staged_bytes"] > 0
