@@ -46,7 +46,13 @@ prints no result line:
             8 x 1024 x 12 x 64 bf16, kv in 2 and 4 chunks, causal, full and
             key-padded, against the one-launch K1a/K1b and the plain
             versions (bf16 atol 2e-2 + rtol 1e-2, one f32 case at 1e-4),
-            and alone at the SP block 8 x 512 x 12 x 64. Kernel, plain and
+            and alone at the SP block 8 x 512 x 12 x 64; K3's ZeRO chunk
+            entry (``chunk_lamb``) at the book net's chunk over {"dp": 2}
+            (9,216 elements, both ranks' positions), BERT-base's
+            word-embedding chunk (11,720,704) and a 524,288-element chunk
+            over 64 segments, FoundInfinite absent, false and true: m, v
+            and the beta-pows bit for bit, p within 1e-6 of its largest
+            value, two runs bit for bit. Kernel, plain and
             library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
@@ -154,13 +160,30 @@ prints no result line:
             (rank 0: 12 K1a + 12 external-lse K1b; rank 1: 24 + 24; no
             saved-form K1b), a profiled step with the time in the
             collectives;
-24. the ``kernels`` line (launches summed over the phases that drive
+24. static_zero_parity  the book's recognize_digits conv net
+            (``tests/test_book.py:62-81``) over ``{"dp": 2}``, two
+            processes on the card over gloo, global batch 64, 2 steps a
+            leg through ``CompiledProgram``, cuDNN deterministic:
+            comm(f32) -> zero2(f32) -> comm(f32) equal to comm(f32) bit
+            for bit (Momentum, through the absorb and the flip-back),
+            zero3(f32) too; zero2 Lamb within rtol 1e-5 + atol 1e-6 of
+            comm Lamb; zero2(int8) Adam within 1e-2 of comm(int8) Adam;
+            the replicated dp step within 1e-5 of the one-rank Program;
+            every step's launches exact; zero.zero counted, zero.xla not;
+25. static_zero  the same net, ``zero_stage=2``, ``comm_quant="int8"``,
+            Lamb lr 1e-3, the same batch every step: 3 warm-up and 10
+            timed steps; step ms, steps/s, staged bytes a step, the ZeRO
+            counters, the loss (finite, falling), one chunk_lamb_phase1
+            and one chunk_lamb_apply a step on each rank and no static
+            Lamb, rank 0's profiled step with the host ms in the
+            ``collectives.*`` spans;
+26. the ``kernels`` line (launches summed over the phases that drive
     each kernel's path: 2-4 for the decode kernels, 6 and 10 for the
     fused xent, 6 for the streaming flash kernels and Adam, 8 for
     Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
     13-16 for the static forms, 18 for K6, 20 for the masked flash
-    kernels, 23 for the external-lse K1b, both ranks), then the card's
-    name and power limit, then the result line.
+    kernels, 23 for the external-lse K1b, 25 for the chunk Lamb, both
+    ranks), then the card's name and power limit, then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -3254,6 +3277,488 @@ def phase_gpt_sp(torch, counters):
                 "step_ms_median", "peak_mem_gb", "staged_bytes_per_step",
                 "launches")}}, total
 
+# ---------------------------------------------------------------------------
+# phase 1's chunk_lamb row; phases 24-25: the data-parallel static step
+# (CompiledProgram over {"dp": 2}, ZeRO) on the book's conv net
+# ---------------------------------------------------------------------------
+ZERO_G = 2
+BOOK_BATCH = 64
+CHUNK_BYTES, CHUNK_FLOPS = 28, 20   # an element: p, g, m, v read; p, m, v
+                                    # written; phase 1 and the update
+ZERO_OPTS = {"momentum": lambda s: s.Momentum(0.05, momentum=0.9),
+             "adam": lambda s: s.Adam(2e-3),
+             "lamb": lambda s: s.Lamb(1e-3)}
+ZERO_SPANS = ("collectives.ring_reduce_scatter",
+              "collectives.ring_all_gather", "collectives.ppermute",
+              "collectives.all_reduce", "collectives.all_gather")
+ZERO_FAMILIES = ("conv_fwd", "conv_bwd", "conv_layout", "gemm",
+                 "chunk_lamb", "static_update", "copy", "other")
+
+
+def book_network(static, opt):
+    """The PaddlePaddle book's recognize_digits conv network
+    (``tests/test_book.py:62-81``): conv 5x5x16 + relu, pool 2, conv
+    5x5x32 + relu, pool 2, fc 10; softmax cross-entropy, mean, accuracy;
+    18,378 f32 parameters. (main, startup, loss, acc)."""
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        img = static.data("img", [-1, 1, 28, 28])
+        label = static.data("label", [-1, 1], dtype="int64")
+        h = static.nn.conv2d(img, 16, 5, act="relu")
+        h = static.nn.pool2d(h, 2, pool_stride=2)
+        h = static.nn.conv2d(h, 32, 5, act="relu")
+        h = static.nn.pool2d(h, 2, pool_stride=2)
+        logits = static.nn.fc(h, 10)
+        loss = static.mean(static.softmax_with_cross_entropy(logits, label))
+        acc = static.accuracy(static.softmax(logits), label)
+        opt.minimize(loss)
+    return main, startup, loss, acc
+
+
+def book_bucket_layout():
+    """The book net's one gradient bucket over ``{"dp": 2}``: its
+    parameters' sizes in bucket order and the rank chunk's length."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.parallel.collectives import padded_len
+    from paddle_tpu_torch.static.passes import comm_bucket_plan
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main = book_network(static, static.Lamb(1e-3))[0]
+    (b,) = comm_bucket_plan(main.global_block, ("int8", 4 << 20, False),
+                            ZERO_G)
+    sizes = tuple(int(np.prod(main.global_block.vars[g].shape))
+                  for g in b["grads"])
+    return sizes, padded_len(b["elems"], ZERO_G) // ZERO_G
+
+
+def book_batch(n=BOOK_BATCH, seed=0):
+    """A fixed MNIST-shaped batch from a seed: images in [0, 1), labels
+    0-9, each class with its own mean image (so the loss can fall)."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, (n, 1)).astype(np.int64)
+    base = np.random.RandomState(7).rand(10, 1, 28, 28).astype(np.float32)
+    imgs = 0.6 * base[labels[:, 0]] + 0.4 * rng.rand(n, 1, 28, 28).astype(
+        np.float32)
+    return imgs.astype(np.float32), labels
+
+
+def chunk_state(torch, elems, c, pos, found, gen):
+    """One chunk's Lamb inputs on the card, the bucket's padding tail
+    zero in p, g, m and v as the ZeRO step's concatenation makes it."""
+    t = {"p": torch.randn(c, generator=gen, device="cuda") * 0.05,
+         "g": torch.randn(c, generator=gen, device="cuda") * 1e-2,
+         "m": torch.randn(c, generator=gen, device="cuda") * 1e-3,
+         "v": (torch.randn(c, generator=gen, device="cuda") * 1e-4).abs()}
+    tail = min(c, max(0, pos + c - sum(elems)))
+    if tail:
+        for x in t.values():
+            x[c - tail:] = 0.0
+    t["b1p"] = torch.tensor([0.9 ** 3], device="cuda")
+    t["b2p"] = torch.tensor([0.999 ** 3], device="cuda")
+    t["lr"] = torch.tensor([1e-3], device="cuda")
+    t["found"] = None if found is None else torch.tensor([found],
+                                                          device="cuda")
+    return t
+
+
+def chunk_call(fo, t, elems, pos, plain, seg=None, cache=None):
+    """The chunk Lamb on ``t`` (in place, no cross-rank sum): the
+    beta-pow outputs."""
+    args = (t["p"], t["g"], t["m"], t["v"], t["b1p"], t["b2p"], t["lr"])
+    if plain:
+        return fo._plain_chunk_lamb_(*args, 0.9, 0.999, 1e-6, 0.01,
+                                     t["found"], seg, len(elems) + 1,
+                                     lambda s: None)
+    return fo.chunk_lamb_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
+                          weight_decay=0.01, param_elems=elems, position=pos,
+                          found=t["found"], cache=cache)
+
+
+def check_chunk_lamb(torch, fo, counters, timing):
+    """K3's ZeRO chunk entry (chunk Lamb) against its plain version on
+    the card, ``axis=None``: the book net's chunk over {"dp": 2} at both
+    ranks' positions (the main path's: 6 segments and the padding), the
+    chunk of BERT-base's largest bucket (the word embedding 30522 x 768
+    alone at g = 2: 11,720,704 elements, one segment plus the padding)
+    and a 524,288-element chunk over 64 segments; FoundInfinite absent,
+    false and true. m, v and the beta-pow outputs bit for bit, p within
+    1e-6 of the chunk's largest |p| (the norms sum by pieces, the plain
+    version by index_add_), two kernel runs bit for bit, a set flag
+    keeps everything; one launch of each kernel a call."""
+    book_elems, book_c = book_bucket_layout()
+    cases = {"book_rank0": (book_elems, book_c, book_c),
+             "book_rank1": (book_elems, book_c, 0),
+             "bert_word_emb": ((30522 * 768,), 11720704, 11720704),
+             "segments64": ((8192,) * 64, 524288, 0)}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    row = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bitwise_m_v": True}
+    for name, (elems, c, pos) in cases.items():
+        seg = torch.from_numpy(fo.chunk_segments(elems, pos, c)).cuda()
+        sub = {"elements": c, "segments": len(elems) + 1, "position": pos,
+               "pieces": int(fo.chunk_pieces(elems, pos, c)[0].shape[0])}
+        for found in (None, False, True):
+            kern = chunk_state(torch, elems, c, pos, found, gen)
+            again = {k: None if x is None else x.clone()
+                     for k, x in kern.items()}
+            plain = {k: None if x is None else x.clone()
+                     for k, x in kern.items()}
+            before = {k: None if x is None else x.clone()
+                      for k, x in kern.items()}
+            n0 = counters.get("chunk_lamb_phase1"), counters.get(
+                "chunk_lamb_apply")
+            kp = chunk_call(fo, kern, elems, pos, False)
+            chunk_call(fo, again, elems, pos, False)
+            pp = chunk_call(fo, plain, elems, pos, True, seg=seg)
+            torch.cuda.synchronize()
+            n1 = counters.get("chunk_lamb_phase1"), counters.get(
+                "chunk_lamb_apply")
+            expect(n1 == (n0[0] + 2, n0[1] + 2),
+                   f"chunk_lamb {name}: launches {n0} -> {n1}")
+            for k in ("m", "v"):
+                expect(torch.equal(kern[k], plain[k]),
+                       f"chunk_lamb {name} (found={found}): {k} differs "
+                       f"from the plain version by "
+                       f"{max_err(kern[k], plain[k])}")
+            expect(torch.equal(kern["p"], again["p"]),
+                   f"chunk_lamb {name}: two runs differ")
+            for a, b in zip(kp, pp):
+                expect(a.shape == (1,) and torch.equal(a, b.reshape(1)),
+                       f"chunk_lamb {name}: beta-pow output differs")
+            err = max_err(kern["p"], plain["p"])
+            rel = err / max(float(plain["p"].abs().max()), 1e-30)
+            expect(rel <= 1e-6, f"chunk_lamb {name} (found={found}): p "
+                                f"err {err} ({rel} of max |p|)")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["max_rel_err"] = max(row["max_rel_err"], rel)
+            if found:
+                for k in ("p", "m", "v"):
+                    expect(torch.equal(kern[k], before[k]),
+                           f"chunk_lamb {name}: the set flag changed {k}")
+        if timing:
+            t = chunk_state(torch, elems, c, pos, None, gen)
+            tp = {k: None if x is None else x.clone() for k, x in t.items()}
+            cache = {}
+            t_b, by = bound_of(CHUNK_BYTES * c, CHUNK_FLOPS * c,
+                               F32_FLOPS_PER_S)
+            sub.update({
+                "ms": time_ms(torch, lambda: chunk_call(
+                    fo, t, elems, pos, False, cache=cache)),
+                "plain_ms": time_ms(torch, lambda: chunk_call(
+                    fo, tp, elems, pos, True, seg=seg), iters=5),
+                "library_ms": None, "bound_ms": t_b, "bound_by": by})
+        row[name] = sub
+    if timing:
+        row.update({k: row["book_rank0"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
+    return row
+
+
+def zero_family(name):
+    if "chunk_lamb" in name or "chunk_segment" in name:
+        return "chunk_lamb"
+    if "static" in name and "rule" in name:
+        return "static_update"
+    if "memcpy" in name or "memset" in name:
+        return "copy"
+    fam = resnet_family(name)
+    return fam if fam in ZERO_FAMILIES else "other"
+
+
+def zero_rank_setup(deterministic):
+    """A rank of the data-parallel phases: the card, gloo, the
+    ``{"dp": 2}`` mesh; the kernels are loaded from the parent's build."""
+    import torch
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic
+    init_parallel_env("gloo")
+    return torch, create_mesh({"dp": ZERO_G})
+
+
+def zero_strategy(static, leg):
+    bs = static.BuildStrategy()
+    bs.mesh_shape = {"dp": ZERO_G}
+    for k, v in leg.items():
+        setattr(bs, k, v)
+    return bs
+
+
+def book_program(static, opt, init):
+    """The book net with ``opt`` in a fresh scope holding ``init``:
+    (main, loss, acc, scope)."""
+    from paddle_tpu_torch.utils import unique_name
+
+    with unique_name.guard():
+        main, _startup, loss, acc = book_network(static, ZERO_OPTS[opt](
+            static))
+    scope = static.Scope()
+    static.load_numpy_state(scope, init)
+    return main, loss, acc, scope
+
+
+KERNEL_PREFIXES = ("static_", "chunk_lamb_")
+
+
+def zero_parity_rank(cases, inits, feed):
+    """A rank of ``static_zero_parity``: each case's legs, 2 steps a leg:
+    losses, accuracies, each step's kernel launches, the plan verdicts
+    and the executor's counters."""
+    torch, mesh = zero_rank_setup(True)
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.cuda import counters
+
+    out = {"coords": mesh.coords}
+    for name, (opt, legs) in cases.items():
+        main, loss, acc, scope = book_program(static, opt, inits[opt])
+        exe = static.Executor()
+        counters.reset()
+        losses, accs, steps = [], [], []
+        for leg in legs:
+            target = static.CompiledProgram(
+                main, build_strategy=zero_strategy(static, leg))
+            for _ in range(2):
+                c0 = counters.snapshot()
+                lo, ac = exe.run(target, feed=feed, fetch_list=[loss, acc],
+                                 scope=scope)
+                torch.cuda.synchronize()
+                c1 = counters.snapshot()
+                steps.append({k: v - c0.get(k, 0) for k, v in c1.items()
+                              if k.startswith(KERNEL_PREFIXES)
+                              and v != c0.get(k, 0)})
+                losses.append(float(np.ravel(lo)[0]))
+                accs.append(float(np.ravel(ac)[0]))
+        snap = counters.snapshot()
+        out[name] = {"losses": losses, "accs": accs, "steps": steps,
+                     "verdicts": {k: v for k, v in snap.items()
+                                  if k.startswith(("zero.",
+                                                   "quant_allreduce."))},
+                     "counters": dict(exe.counters)}
+    return out
+
+
+def zero_step_launches(opt, leg):
+    """The kernel launches one step of ``leg`` makes on a rank: one
+    static form a parameter (6 tensors), or one chunk update for the
+    one bucket under ZeRO."""
+    zero = bool(leg.get("zero_stage")) and bool(leg.get("comm_quant"))
+    n = 1 if zero else 6
+    if opt == "lamb":
+        return ({"chunk_lamb_phase1": 1, "chunk_lamb_apply": 1} if zero
+                else {"static_lamb_phase1": 6, "static_lamb_apply": 6})
+    return {f"static_{opt}": n}
+
+
+def book_inits(torch, opts):
+    """The book net's startup state for each optimizer, made once on the
+    card from a seed, as numpy."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.utils import unique_name
+
+    out = {}
+    for opt in opts:
+        with unique_name.guard():
+            _main, startup, _l, _a = book_network(static, ZERO_OPTS[opt](
+                static))
+        startup.random_seed = 1
+        scope = static.Scope()
+        with static.scope_guard(scope):
+            static.Executor().run(startup)
+        out[opt] = {k: v.cpu().numpy() for k, v in scope.items()}
+    return out
+
+
+def phase_static_zero_parity(torch, counters):
+    """The book net over ``{"dp": 2}``, two ranks on the card over gloo,
+    global batch 64, 2 steps a leg, cuDNN deterministic: comm(f32) x 2
+    -> zero2(f32) x 2 -> comm(f32) x 2 equals six comm(f32) steps bit for
+    bit (Momentum, through the absorb and the flip-back); zero3(f32) is
+    comm(f32) bit for bit; zero2(f32) Lamb within rtol 1e-5 + atol 1e-6 of
+    comm(f32) Lamb; zero2(int8) Adam within 1e-2 of comm(int8) Adam; the
+    replicated dp step within 1e-5 of the one-rank Program on the same
+    global batch in this process; both ranks the same values; each
+    step's launches exact (a static form per tensor, or one chunk update
+    per bucket); zero.zero counted and zero.xla not on the ZeRO cases."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import spawn
+
+    f32, z2 = {"comm_quant": "f32"}, {"comm_quant": "f32", "zero_stage": 2}
+    z3 = {"comm_quant": "f32", "zero_stage": 3}
+    i8, z2i8 = {"comm_quant": "int8"}, {"comm_quant": "int8",
+                                         "zero_stage": 2}
+    cases = {"momentum_comm": ("momentum", [f32] * 3),
+             "momentum_mix": ("momentum", [f32, z2, f32]),
+             "momentum_zero3": ("momentum", [z3] * 3),
+             "momentum_dp": ("momentum", [{}] * 3),
+             "lamb_comm": ("lamb", [f32] * 3),
+             "lamb_zero2": ("lamb", [z2] * 3),
+             "adam_comm_int8": ("adam", [i8] * 3),
+             "adam_zero2_int8": ("adam", [z2i8] * 3)}
+    inits = book_inits(torch, ("momentum", "lamb", "adam"))
+    imgs, labels = book_batch()
+    feed = {"img": imgs, "label": labels}
+    t0 = time.perf_counter()
+    ranks = spawn(zero_parity_rank, args=(cases, inits, feed),
+                  nprocs=ZERO_G, timeout=300)
+    seconds = time.perf_counter() - t0
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        main, loss, acc, scope = book_program(static, "momentum",
+                                              inits["momentum"])
+        exe = static.Executor()
+        one = [float(np.ravel(exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope)[0])[0])
+               for _ in range(6)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    expect([r["coords"] for r in ranks] == [{"dp": 0}, {"dp": 1}],
+           f"static_zero_parity: coords {[r['coords'] for r in ranks]}")
+    errs = {}
+    for r, got in enumerate(ranks):
+        expect(got["momentum_mix"]["losses"]
+               == got["momentum_comm"]["losses"],
+               f"static_zero_parity: rank {r} comm/zero2/comm f32 "
+               f"{got['momentum_mix']['losses']} vs comm f32 "
+               f"{got['momentum_comm']['losses']}")
+        expect(got["momentum_zero3"]["losses"]
+               == got["momentum_comm"]["losses"],
+               f"static_zero_parity: rank {r} zero3 f32 differs from comm")
+        a = np.asarray(got["lamb_zero2"]["losses"])
+        b = np.asarray(got["lamb_comm"]["losses"])
+        expect(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+               f"static_zero_parity: rank {r} Lamb zero2 {a} vs comm {b}")
+        errs["lamb_zero2_vs_comm"] = float(np.abs(a - b).max())
+        a = np.asarray(got["adam_zero2_int8"]["losses"])
+        b = np.asarray(got["adam_comm_int8"]["losses"])
+        expect(np.abs(a - b).max() <= 1e-2,
+               f"static_zero_parity: rank {r} Adam int8 zero2 {a} vs {b}")
+        errs["adam_int8_zero2_vs_comm"] = float(np.abs(a - b).max())
+        a = np.asarray(got["momentum_dp"]["losses"])
+        expect(np.abs(a - np.asarray(one)).max() <= 1e-5,
+               f"static_zero_parity: rank {r} dp {a} vs one rank {one}")
+        errs["dp_vs_one_rank"] = float(np.abs(a - np.asarray(one)).max())
+        for name, (opt, legs) in cases.items():
+            want = [zero_step_launches(opt, leg) for leg in legs
+                    for _ in range(2)]
+            expect(got[name]["steps"] == want,
+                   f"static_zero_parity: rank {r} {name} launches "
+                   f"{got[name]['steps']}, want {want}")
+            v = got[name]["verdicts"]
+            if any(leg.get("zero_stage") for leg in legs) and name != \
+                    "momentum_dp":
+                expect(v.get("zero.zero", 0) >= 1 and not v.get("zero.xla"),
+                       f"static_zero_parity: {name} verdicts {v}")
+            expect(all(np.isfinite(got[name]["losses"])),
+                   f"static_zero_parity: {name} non-finite")
+        for name in cases:
+            expect(got[name]["losses"] == ranks[0][name]["losses"],
+                   f"static_zero_parity: ranks differ in {name}")
+    return {"phase": "static_zero_parity", "config": "the book's "
+            "recognize_digits conv net, batch 64 x 1 x 28 x 28 over "
+            "{'dp': 2}: two processes on one card over gloo",
+            "seconds": seconds, "one_rank_losses": one,
+            "losses": {n: ranks[0][n]["losses"] for n in cases},
+            "counters": {n: ranks[0][n]["counters"] for n in cases},
+            "max_abs_err": errs}
+
+
+def zero_train_rank(init, imgs, labels):
+    """A rank of ``static_zero``: the book net, ZeRO-2, int8 ring, Lamb
+    lr 1e-3 over ``{"dp": 2}``; 3 warm-up and 10 timed steps, then one
+    profiled step (rank 0 records it, rank 1 runs its half)."""
+    torch, mesh = zero_rank_setup(False)
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.cuda import counters
+    from paddle_tpu_torch.parallel.collectives import STAGED_BYTES
+
+    torch.cuda.reset_peak_memory_stats()
+    main, loss, acc, scope = book_program(static, "lamb", init)
+    target = static.CompiledProgram(main, build_strategy=zero_strategy(
+        static, {"comm_quant": "int8", "zero_stage": 2}))
+    exe = static.Executor()
+
+    def step(x, y):
+        lo, _ac = exe.run(target, feed={"img": x, "label": y},
+                          fetch_list=[loss, acc], scope=scope)
+        return float(np.ravel(lo)[0])
+
+    batch = (imgs, labels)
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n = WARM_STEPS + TIMED_STEPS
+    med = float(np.median(step_ms))
+    row = {"losses": losses, "loss_first": losses[0],
+           "loss_last": losses[-1], "step_ms": step_ms,
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "steps_per_s": len(step_ms) / (sum(step_ms) / 1e3),
+           "launches": launches,
+           "staged_bytes_per_step": launches.get(STAGED_BYTES, 0) / n,
+           "counters": dict(exe.counters),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if mesh.rank == 0:
+        row["breakdown"] = profile_step(torch, step, batch, zero_family,
+                                        ZERO_FAMILIES, med, spans=ZERO_SPANS)
+    else:
+        step(*batch)
+        torch.cuda.synchronize()
+    return row
+
+
+def phase_static_zero(torch, counters):
+    """The book net, ``zero_stage=2``, ``comm_quant="int8"``, Lamb lr
+    1e-3 over ``{"dp": 2}`` (two processes on the card over gloo, global
+    batch 64, the same batch every step): step ms, steps/s, the busy
+    share and the host ms in the ``collectives.*`` spans of rank 0's
+    profiled step, staged bytes a step, the ZeRO counters, the loss
+    (finite, falling); exactly one chunk_lamb_phase1 and one
+    chunk_lamb_apply a step on each rank, no static Lamb launch,
+    zero.zero counted and zero.xla not."""
+    from paddle_tpu_torch.distributed import spawn
+
+    init = book_inits(torch, ("lamb",))["lamb"]
+    imgs, labels = book_batch()
+    t0 = time.perf_counter()
+    ranks = spawn(zero_train_rank, args=(init, imgs, labels), nprocs=ZERO_G,
+                  timeout=300)
+    seconds = time.perf_counter() - t0
+    n = WARM_STEPS + TIMED_STEPS
+    total = {}
+    for r, row in enumerate(ranks):
+        lo = row["losses"]
+        expect(all(np.isfinite(lo)) and lo[-1] < lo[0],
+               f"static_zero: rank {r} losses {lo}")
+        la = row["launches"]
+        want = {"chunk_lamb_phase1": n, "chunk_lamb_apply": n,
+                "zero.zero": 1, "quant_allreduce.quant": 1}
+        expect({k: la.get(k, 0) for k in want} == want,
+               f"static_zero: rank {r} launches {la}, want {want}")
+        expect(not la.get("zero.xla") and not any(
+            k.startswith("static_") for k in la),
+            f"static_zero: rank {r} launched {la}")
+        for k, v in la.items():
+            total[k] = total.get(k, 0) + v
+    expect(ranks[0]["losses"] == ranks[1]["losses"],
+           "static_zero: the ranks report different losses")
+    c = ranks[0]["counters"]
+    return {"phase": "static_zero", "config": "the book's recognize_digits "
+            "conv net (18,378 f32 parameters, one bucket padded to 18,432, "
+            "a 9,216-element chunk a rank), batch 64 x 1 x 28 x 28, Lamb lr "
+            "1e-3, zero_stage 2, comm_quant int8, over {'dp': 2}: two "
+            "processes on one card over gloo, the ring staged through "
+            "pinned host buffers", "seconds": seconds,
+            **{k: v for k, v in ranks[0].items() if k != "counters"},
+            "zero_counters": {k: v for k, v in c.items()
+                              if k.startswith(("zero_", "comm_"))},
+            "rank1": {k: ranks[1][k] for k in (
+                "step_ms_median", "staged_bytes_per_step", "launches")}
+            }, total
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3329,6 +3834,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         k1r = check_flash_ring(torch, fa, ring, timing)
         emit({"phase": "kernels_vs_plain", "flash_ring": k1r})
+        torch.cuda.empty_cache()
+        k3c = check_chunk_lamb(torch, fo, counters, timing)
+        emit({"phase": "kernels_vs_plain", "chunk_lamb": k3c})
         torch.cuda.empty_cache()
         if args.kernels_only:
             return 0
@@ -3417,6 +3925,14 @@ def main() -> int:
         total["flash_attention_ext_bwd"] = launches.get(
             "flash_attention_ext_bwd", 0)
         del row, launches
+        torch.cuda.empty_cache()
+
+        emit(phase_static_zero_parity(torch, counters))
+        row, launches = phase_static_zero(torch, counters)
+        emit(row)
+        total["chunk_lamb"] = launches.get("chunk_lamb_phase1", 0) \
+            + launches.get("chunk_lamb_apply", 0)
+        del row, launches
 
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
@@ -3479,7 +3995,9 @@ def main() -> int:
                  src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339"),
                 ("flash_attention_ext_bwd", k1r, src + "flash_attention.cu",
-                 "paddle_tpu/ops/pallas/flash_attention.py:339")):
+                 "paddle_tpu/ops/pallas/flash_attention.py:339"),
+                ("chunk_lamb", k3c, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:455")):
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total.get(name, 0),

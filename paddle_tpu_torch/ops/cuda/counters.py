@@ -7,16 +7,25 @@ CUDA tensor launches the kernel or raises. The one exception with its
 own count is ``fused_sample.top_p_plain``: nucleus sampling has no
 kernel (the JAX package routes it to XLA too) and runs the plain
 sort+cumsum path on any device.
+
+Beside the launches live the data-parallel static step's plan verdicts,
+the JAX package's dispatch counters (``paddle_tpu/ops/pallas/
+counters.py``): ``quant_allreduce.quant`` / ``quant_allreduce.xla`` and
+``zero.zero`` / ``zero.xla``, one per plan built, a refusal with its
+reason (:func:`refuse`, :func:`reasons`). These are the JAX package's API
+(an ineligible ZeRO request runs the replicated step), not kernel
+fallbacks.
 """
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Dict
+from typing import Dict, List
 
-__all__ = ["bump", "get", "snapshot", "reset"]
+__all__ = ["bump", "get", "snapshot", "reset", "refuse", "reasons"]
 
 _COUNTS: collections.Counter = collections.Counter()
+_REASONS: Dict[str, List[str]] = collections.defaultdict(list)
 _LOCK = threading.Lock()
 
 
@@ -35,6 +44,21 @@ def snapshot() -> Dict[str, int]:
         return dict(_COUNTS)
 
 
+def refuse(name: str, reason: str) -> None:
+    """Count ``name`` (a ``<plan>.xla`` verdict) and keep its reason."""
+    with _LOCK:
+        _COUNTS[name] += 1
+        _REASONS[name].append(reason)
+
+
+def reasons(name: str) -> List[str]:
+    """The reasons :func:`refuse` recorded under ``name``, oldest
+    first."""
+    with _LOCK:
+        return list(_REASONS.get(name, ()))
+
+
 def reset() -> None:
     with _LOCK:
         _COUNTS.clear()
+        _REASONS.clear()

@@ -27,6 +27,11 @@
 //   static Adam uses lr_t = lr*sqrt(1-c2)/(1-c1) with eps outside the
 //   sqrt, static Lamb divides by 1-c1 where the dygraph form divides by
 //   c1. See the block above the static rules.
+// - K3's ZeRO chunk entry (fused_chunk_update, fused_optimizer.py:455):
+//   static Lamb's phase 1 over one flat chunk of a ZeRO bucket with the
+//   per-segment sums of p*p and r*r its trust ratios need, then the
+//   update once those sums are summed across ranks. See the block above
+//   chunk_lamb_phase1_kernel.
 //
 // Bound: device-memory bytes. Adam reads p, g, m, v (16 bytes an
 // element) and writes p, m, v (12 bytes) for about 15 flops; BERT-base's
@@ -501,6 +506,139 @@ int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K3's ZeRO chunk entry: Lamb on one rank's flat (c,) chunk of a ZeRO
+// bucket (fused_chunk_update, paddle_tpu/ops/pallas/fused_optimizer.py:455:
+// _lamb_phase1_kernel with dygraph=False through _run_grid, then XLA's
+// segment sums, psum and finish). The chunk holds parts of several
+// parameters: element j of parameter i is segment i, the padding tail
+// the sentinel segment n_params. The trust ratio of parameter i needs
+// |p_i| and |r_i| over the WHOLE parameter, which other ranks hold parts
+// of, so the update is two launches around a cross-rank sum:
+//
+// 1. chunk_lamb_phase1_kernel: one block per PIECE, a run of at most
+//    4096 elements inside one segment (the host cuts the chunk at segment
+//    ends and every 4096 elements, once per plan). It writes m, v and the
+//    scratch r (StaticLambPhase1Rule's arithmetic) and reduces the piece's
+//    sums of p*p and r*r by a fixed tree (per-thread running sums, warp
+//    shuffles, then warp 0 over the warp sums), so two runs give the same
+//    bits: no float atomics. chunk_segment_sum_kernel then adds each
+//    segment's pieces in order, in double, into the (n_seg, 2) f32 buffer
+//    that the wrapper sums across ranks (the psum at :522-523).
+// 2. chunk_lamb_apply_kernel: one block per piece again; trust = |p|/|r|
+//    of the piece's segment where both are > 0, else 1; p2 = p -
+//    (lr*trust)*r.
+//
+// c1 = b1p*b1 and c2 = b2p*b2 are read on the device; block 0 writes the
+// beta-pow outputs to separate buffers. A set FoundInfinite flag keeps
+// p, m, v and the pows (the piece sums are then 0). Not copied from the
+// TPU: _run_grid's (8, 128)-tile padding and the n < 1024 XLA floor.
+// Bound: device-memory bytes, 28 an element (p, g, m, v read; p, m, v
+// written); the two launches move 48 (the scratch r, and p read twice).
+// ---------------------------------------------------------------------------
+constexpr int kChunkThreads = 256;
+constexpr int kChunkWarps = kChunkThreads / 32;
+
+// Sum of x over the block by a fixed tree; the result is in thread 0.
+// scratch: kChunkWarps floats of shared memory.
+__device__ __forceinline__ float block_sum(float x, float* scratch) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  x = 0.0f;
+  if (warp == 0) {
+    x = lane < kChunkWarps ? scratch[lane] : 0.0f;
+    for (int o = 16; o > 0; o >>= 1)
+      x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kChunkThreads)
+chunk_lamb_phase1_kernel(const float* __restrict__ p,
+                         const float* __restrict__ g, float* __restrict__ m,
+                         float* __restrict__ v, float* __restrict__ r,
+                         const float* b1p_in, const float* b2p_in,
+                         const uint8_t* found, float* b1p_out,
+                         float* b2p_out, const int64_t* __restrict__ pieces,
+                         float* __restrict__ piece_sums, float b1,
+                         float omb1, float b2, float omb2, float eps,
+                         float wd) {
+  __shared__ float scratch[2][kChunkWarps];
+  const int64_t start = pieces[3 * (int64_t)blockIdx.x];
+  const int64_t end = start + pieces[3 * (int64_t)blockIdx.x + 1];
+  const bool skip = found != nullptr && *found != 0;
+  const float b1p = *b1p_in, b2p = *b2p_in;
+  const float c1 = __fmul_rn(b1p, b1), c2 = __fmul_rn(b2p, b2);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *b1p_out = skip ? b1p : c1;
+    *b2p_out = skip ? b2p : c2;
+  }
+  float sp = 0.0f, sr = 0.0f;
+  if (!skip) {
+    const float omc1 = __fsub_rn(1.0f, c1), omc2 = __fsub_rn(1.0f, c2);
+    for (int64_t i = start + threadIdx.x; i < end; i += kChunkThreads) {
+      const float pi = p[i], gi = g[i];
+      const float m2 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, gi));
+      const float v2 = __fadd_rn(__fmul_rn(b2, v[i]),
+                                 __fmul_rn(__fmul_rn(omb2, gi), gi));
+      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, omc2)), eps);
+      const float ri = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, omc1), den),
+                                 __fmul_rn(wd, pi));
+      m[i] = m2;
+      v[i] = v2;
+      r[i] = ri;
+      sp = __fadd_rn(sp, __fmul_rn(pi, pi));
+      sr = __fadd_rn(sr, __fmul_rn(ri, ri));
+    }
+  }
+  sp = block_sum(sp, scratch[0]);
+  sr = block_sum(sr, scratch[1]);
+  if (threadIdx.x == 0) {
+    piece_sums[2 * (int64_t)blockIdx.x] = sp;
+    piece_sums[2 * (int64_t)blockIdx.x + 1] = sr;
+  }
+}
+
+// Segment s's pieces are rows seg_first[s] .. seg_first[s + 1] - 1 of the
+// table (the chunk's segments are in order); one thread per segment adds
+// them in that order, in double: a segment may span thousands of pieces
+// (2,862 for BERT-base's word-embedding chunk), and an f32 running sum
+// over them would lose up to ~1e-4 of the norm.
+__global__ void chunk_segment_sum_kernel(const float* __restrict__ piece_sums,
+                                         const int64_t* __restrict__ seg_first,
+                                         int n_seg,
+                                         float* __restrict__ seg_sums) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_seg) return;
+  double a = 0.0, b = 0.0;
+  for (int64_t k = seg_first[s]; k < seg_first[s + 1]; ++k) {
+    a += (double)piece_sums[2 * k];
+    b += (double)piece_sums[2 * k + 1];
+  }
+  seg_sums[2 * s] = (float)a;
+  seg_sums[2 * s + 1] = (float)b;
+}
+
+__global__ void __launch_bounds__(kChunkThreads)
+chunk_lamb_apply_kernel(float* __restrict__ p, const float* __restrict__ r,
+                        const float* lr, const uint8_t* found,
+                        const int64_t* __restrict__ pieces,
+                        const float* __restrict__ seg_sums) {
+  if (found != nullptr && *found != 0) return;
+  const int64_t start = pieces[3 * (int64_t)blockIdx.x];
+  const int64_t end = start + pieces[3 * (int64_t)blockIdx.x + 1];
+  const int64_t seg = pieces[3 * (int64_t)blockIdx.x + 2];
+  const float w = __fsqrt_rn(seg_sums[2 * seg]);
+  const float q = __fsqrt_rn(seg_sums[2 * seg + 1]);
+  const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
+  const float s = __fmul_rn(*lr, trust);
+  for (int64_t i = start + threadIdx.x; i < end; i += kChunkThreads)
+    p[i] = __fsub_rn(p[i], __fmul_rn(s, r[i]));
+}
+
 }  // namespace
 
 extern "C" {
@@ -568,6 +706,36 @@ int static_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
 int static_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
                           long long total, void* stream) {
   return launch_args(ptrs, offs, n, total, stream, StaticLambApplyRule{});
+}
+
+int chunk_lamb_phase1_f32(const float* p, const float* g, float* m, float* v,
+                          float* r, const float* b1p, const float* b2p,
+                          const uint8_t* found, float* b1p_out,
+                          float* b2p_out, const int64_t* pieces,
+                          int n_pieces, const int64_t* seg_first, int n_seg,
+                          float* piece_sums, float* seg_sums, float b1,
+                          float omb1, float b2, float omb2, float eps,
+                          float wd, void* stream) {
+  if (n_pieces < 1 || n_seg < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  chunk_lamb_phase1_kernel<<<(unsigned)n_pieces, kChunkThreads, 0, st>>>(
+      p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out, pieces, piece_sums,
+      b1, omb1, b2, omb2, eps, wd);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  chunk_segment_sum_kernel<<<(unsigned)((n_seg + 127) / 128), 128, 0, st>>>(
+      piece_sums, seg_first, n_seg, seg_sums);
+  return (int)cudaGetLastError();
+}
+
+int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,
+                         const uint8_t* found, const int64_t* pieces,
+                         int n_pieces, const float* seg_sums, void* stream) {
+  if (n_pieces < 1) return (int)cudaErrorInvalidValue;
+  chunk_lamb_apply_kernel<<<(unsigned)n_pieces, kChunkThreads, 0,
+                            (cudaStream_t)stream>>>(p, r, lr, found, pieces,
+                                                    seg_sums);
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int err) {

@@ -70,7 +70,8 @@ from . import _build, counters
 
 __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
-           "static_lamb_"]
+           "static_lamb_", "CHUNK_PIECE", "chunk_segments", "chunk_pieces",
+           "chunk_lamb_", "chunk_update"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -607,3 +608,215 @@ def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
     _launch_static("static_lamb_apply_f32", [param, r, lr, w, q, found], n,
                    (), (), "static_lamb_apply")
     return pows[0:1], pows[1:2]
+
+
+# ---------------------------------------------------------------------------
+# K3's ZeRO chunk entry (``fused_chunk_update``, ``paddle_tpu/ops/pallas/
+# fused_optimizer.py:455``): one ZeRO bucket's update on this rank's flat
+# (c,) chunk of the bucket's padded concatenation. sgd, momentum and adam
+# are elementwise, so they are the static forms above on the chunk. Lamb's
+# trust ratio needs each parameter's global norms, of which the rank holds
+# a part, so it runs in two phases around a cross-rank sum:
+#
+#     1. kernel:  m2, v2, r as the static Lamb (r into a scratch), and the
+#                 partial sums of p*p and r*r of each PIECE of the chunk: a
+#                 run of at most CHUNK_PIECE elements inside one segment
+#                 (element j of parameter i is segment i, the padding the
+#                 sentinel segment n_params); one block a piece, a fixed
+#                 reduction tree, no float atomics; then a small kernel sums
+#                 each segment's pieces in order, in f64, into the
+#                 (n_params + 1, 2) f32 buffer (the plain version sums the
+#                 f32 squares in f64 too)
+#     2. PyTorch: that buffer summed over the dp axis (collectives.all_reduce,
+#                 JAX's psum at :522-523)
+#     3. kernel:  trust = |p|/|r| of the piece's segment where both > 0,
+#                 else 1;  p2 = p - (lr*trust)*r
+#
+# so two runs give the same bits. The piece table depends only on the
+# bucket's parameter sizes and the rank's position: it is built once on
+# the host and kept in the caller's ``cache``. A set FoundInfinite keeps p,
+# m, v and the beta-pows, which are returned as new (1,) tensors as in the
+# static forms. Counted ``chunk_lamb_phase1`` (both kernels of phase 1)
+# and ``chunk_lamb_apply``. Bound: bytes. The function reads p, g, m, v
+# and writes p, m, v: 28 bytes an element once (the kernels move 48, the
+# scratch r and a second read of p included). JAX's norms sum in another
+# order (XLA's segment_sum, and the psum across ranks re-associates them),
+# so against JAX or the unsharded Lamb the update holds to a tolerance; m
+# and v are the static form's bit for bit.
+# ---------------------------------------------------------------------------
+CHUNK_PIECE = 4096
+
+
+def chunk_segments(param_elems, position: int, c: int) -> np.ndarray:
+    """(c,) int64: the segment of each element of the chunk at flat
+    ``position`` of a bucket holding parameters of ``param_elems``
+    elements (``searchsorted(ends, position + arange(c), "right")``, as
+    ``_chunk_segments`` computes it)."""
+    ends = np.cumsum(np.asarray(param_elems, np.int64))
+    return np.searchsorted(ends, int(position) + np.arange(c, dtype=np.int64),
+                           side="right")
+
+
+def chunk_pieces(param_elems, position: int, c: int,
+                 piece: int = CHUNK_PIECE):
+    """The chunk cut at segment ends and every ``piece`` elements:
+    ``(pieces, seg_first)``, ``pieces`` (n, 3) int64 rows (start, length,
+    segment) in chunk order, ``seg_first`` (n_params + 2,) int64 with
+    segment s's pieces at rows ``seg_first[s]:seg_first[s + 1]``."""
+    ends = np.cumsum(np.asarray(param_elems, np.int64))
+    cuts = sorted({0, int(c)} | {int(e) - int(position) for e in ends
+                                 if 0 < int(e) - int(position) < c})
+    rows = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        seg = int(np.searchsorted(ends, int(position) + a, side="right"))
+        rows += [(s, min(piece, b - s), seg) for s in range(a, b, piece)]
+    pieces = np.asarray(rows, np.int64).reshape(-1, 3)
+    seg_first = np.searchsorted(pieces[:, 2], np.arange(len(ends) + 2),
+                                side="left").astype(np.int64)
+    return pieces, seg_first
+
+
+def _plain_chunk_lamb_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, wd,
+                       found, seg, n_seg, reduce):
+    """The chunk Lamb in PyTorch: ``seg`` the (c,) segment ids on p's
+    device, ``reduce`` sums the (n_seg, 2) buffer of p*p and r*r across
+    ranks in place (or does nothing)."""
+    c1, c2 = b1p * beta1, b2p * beta2
+    m_new, v_new = _static_moments(g, m, v, beta1, beta2)
+    r = (m_new / (1 - c1)) / (torch.sqrt(v_new / (1 - c2)) + eps) + wd * p
+    # f32 squares summed in f64, as the kernels sum their pieces
+    f64 = torch.float64
+    sq = torch.stack([
+        p.new_zeros(n_seg, dtype=f64).index_add_(0, seg, (p * p).to(f64)),
+        p.new_zeros(n_seg, dtype=f64).index_add_(0, seg, (r * r).to(f64))],
+        1).to(torch.float32)
+    reduce(sq)
+    w, q = torch.sqrt(sq).unbind(1)
+    trust = torch.where((w > 0) & (q > 0),
+                        w / torch.where(q > 0, q, torch.ones_like(q)),
+                        torch.ones_like(w))
+    p_new = p - (lr * trust[seg]) * r
+    p.copy_(_gate(found, p, p_new))
+    m.copy_(_gate(found, m, m_new))
+    v.copy_(_gate(found, v, v_new))
+    return _gate(found, b1p, c1), _gate(found, b2p, c2)
+
+
+def _chunk_tables(param_elems, position, c, dev, cache):
+    """The piece table and segment offsets on ``dev``, built once per
+    (parameter sizes, position, chunk) and kept in ``cache``."""
+    key = (tuple(int(e) for e in param_elems), int(position), int(c), dev)
+    if cache.get("key") != key:
+        pieces, seg_first = chunk_pieces(param_elems, position, c)
+        cache["key"] = key
+        cache["pieces"] = torch.from_numpy(pieces).pin_memory().to(
+            dev, non_blocking=True)
+        cache["seg_first"] = torch.from_numpy(seg_first).pin_memory().to(
+            dev, non_blocking=True)
+    return cache["pieces"], cache["seg_first"]
+
+
+def _cuda_chunk_lamb_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, wd,
+                      found, param_elems, position, reduce, cache):
+    dev = p.device
+    pieces, seg_first = _chunk_tables(param_elems, position, p.numel(), dev,
+                                      cache)
+    n_pieces, n_seg = pieces.shape[0], seg_first.shape[0] - 1
+    r = torch.empty_like(p)
+    piece_sums = torch.empty(n_pieces, 2, dtype=torch.float32, device=dev)
+    seg_sums = torch.empty(n_seg, 2, dtype=torch.float32, device=dev)
+    pows = torch.empty(2, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _build.entry("fused_optimizer", "chunk_lamb_phase1_f32",
+                      [_P] * 10 + [_P, ctypes.c_int, _P, ctypes.c_int, _P,
+                                   _P] + [_F] * 6 + [_P])
+    flag = 0 if found is None else found.data_ptr()
+    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+             r.data_ptr(), b1p.data_ptr(), b2p.data_ptr(), flag,
+             pows[0:1].data_ptr(), pows[1:2].data_ptr(), pieces.data_ptr(),
+             n_pieces, seg_first.data_ptr(), n_seg, piece_sums.data_ptr(),
+             seg_sums.data_ptr(), *_beta_consts(beta1, beta2, eps),
+             float(np.float32(wd)), stream)
+    _build.check("fused_optimizer", err, "chunk_lamb_phase1_f32")
+    counters.bump("chunk_lamb_phase1")
+    reduce(seg_sums)
+    fn = _build.entry("fused_optimizer", "chunk_lamb_apply_f32",
+                      [_P] * 5 + [ctypes.c_int, _P, _P])
+    err = fn(p.data_ptr(), r.data_ptr(), lr.data_ptr(), flag,
+             pieces.data_ptr(), n_pieces, seg_sums.data_ptr(), stream)
+    _build.check("fused_optimizer", err, "chunk_lamb_apply_f32")
+    counters.bump("chunk_lamb_apply")
+    return pows[0:1], pows[1:2]
+
+
+def chunk_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
+                beta1, beta2, eps, weight_decay, param_elems, position,
+                found=None, mesh=None, axis=None, cache=None):
+    """Lamb on one flat ZeRO chunk, IN PLACE on ``param`` and the
+    moments; returns the (1,) Beta1PowOut and Beta2PowOut as new
+    tensors. ``param_elems``: the bucket's parameter sizes;
+    ``position``: the chunk's flat offset in the bucket; ``axis``: the
+    mesh axis whose ranks hold the bucket's other chunks (None: this
+    chunk is the whole bucket)."""
+    _check_static("chunk_lamb_", {"param": param, "grad": grad,
+                                  "moment1": moment1, "moment2": moment2},
+                  {"lr": lr, "beta1_pow": beta1_pow,
+                   "beta2_pow": beta2_pow}, found)
+    if param.dim() != 1:
+        raise ValueError(f"chunk_lamb_ takes a flat chunk, got shape "
+                         f"{tuple(param.shape)}")
+
+    def reduce(t):
+        if axis is not None:
+            from ...parallel import collectives
+
+            collectives.all_reduce(t, [axis], mesh)
+
+    args = (param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, beta1,
+            beta2, eps, weight_decay, found)
+    if not _on_cuda("chunk_lamb_", param):
+        seg = torch.from_numpy(chunk_segments(param_elems, position,
+                                              param.numel()))
+        return _plain_chunk_lamb_(*args, seg, len(param_elems) + 1, reduce)
+    return _cuda_chunk_lamb_(*args, param_elems, position, reduce,
+                             {} if cache is None else cache)
+
+
+def chunk_update(op_type, ins, attrs, *, mesh=None, axis=None,
+                 param_elems=None, position=0, cache=None):
+    """One ZeRO bucket's update on this rank's (c,) chunk, the static
+    op's ``(ins, attrs) -> outs`` slots (``fused_chunk_update``):
+    sgd, momentum and adam are their static forms; lamb is
+    :func:`chunk_lamb_`. The chunk tensors are updated in place and
+    returned in the out slots."""
+    if op_type not in ("sgd", "momentum", "adam", "lamb"):
+        raise NotImplementedError(f"no chunk update for {op_type!r}")
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0]
+    found = ins["FoundInfinite"][0] if ins.get("FoundInfinite") else None
+    if op_type == "sgd":
+        static_sgd_(p, g, lr, found)
+        return {"ParamOut": [p]}
+    if op_type == "momentum":
+        v = ins["Velocity"][0]
+        static_momentum_(p, g, v, lr, mu=attrs.get("mu", 0.9),
+                         nesterov=attrs.get("use_nesterov", False),
+                         found=found)
+        return {"ParamOut": [p], "VelocityOut": [v]}
+    m, v = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    beta = dict(beta1=attrs.get("beta1", 0.9),
+                beta2=attrs.get("beta2", 0.999))
+    if op_type == "adam":
+        pows = static_adam_(p, g, m, v, b1p, b2p, lr,
+                            eps=attrs.get("epsilon", 1e-8), found=found,
+                            **beta)
+    else:
+        pows = chunk_lamb_(p, g, m, v, b1p, b2p, lr,
+                           eps=attrs.get("epsilon", 1e-6),
+                           weight_decay=attrs.get("weight_decay", 0.01),
+                           param_elems=param_elems, position=position,
+                           found=found, mesh=mesh, axis=axis, cache=cache,
+                           **beta)
+    return {"ParamOut": [p], "Moment1Out": [m], "Moment2Out": [v],
+            "Beta1PowOut": [pows[0]], "Beta2PowOut": [pows[1]]}

@@ -1,5 +1,14 @@
-"""Per-token-row int8 codec for KV pages (``paddle_tpu/ps/codec.py``
-``jnp_encode_kv_rows`` / ``jnp_decode_kv_rows``) on torch tensors.
+"""Wire codecs (port of part of ``paddle_tpu/ps/codec.py``): the closed
+forms of the quantized collectives' wire bytes (``QUANT_BLOCK``,
+``CODEC_IDS``, ``encoded_nbytes``, ``ring_nbytes``, copied from
+``codec.py:30-72``) and the per-token-row int8 codec for KV pages
+(``jnp_encode_kv_rows`` / ``jnp_decode_kv_rows``) on torch tensors. The
+numpy wire encoders ``np_encode`` / ``np_decode`` (the parameter
+server's data plane) are a later port slice.
+
+Layouts: ``f32`` raw float32 (id 0); ``bf16`` the round-to-nearest-even
+upper half of each float32 (id 1); ``int8`` one float32 scale (max-abs
+/ 127) per ``QUANT_BLOCK`` elements followed by the int8 payload (id 2).
 
 One symmetric f32 scale per TOKEN ROW (the blocked int8 layout with
 block = one row's ``H * D`` elements): ``scale = amax / 127``,
@@ -14,7 +23,44 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["encode_kv_rows", "decode_kv_rows"]
+__all__ = ["QUANT_BLOCK", "CODEC_IDS", "CODEC_NAMES", "encoded_nbytes",
+           "ring_nbytes", "encode_kv_rows", "decode_kv_rows"]
+
+#: elements covered by one f32 scale in the blocked int8 encoding
+QUANT_BLOCK = 512
+
+#: wire/codec ids (0 keeps a zero-filled codec byte meaning "plain f32")
+CODEC_IDS = {"f32": 0, "bf16": 1, "int8": 2}
+CODEC_NAMES = {v: k for k, v in CODEC_IDS.items()}
+
+
+def _nblocks(n: int, block: int = QUANT_BLOCK) -> int:
+    return -(-int(n) // int(block))
+
+
+def encoded_nbytes(n_elems: int, codec: str,
+                   block: int = QUANT_BLOCK) -> int:
+    """Wire bytes of ``n_elems`` f32 values under ``codec``: payload
+    plus per-block scales."""
+    n = int(n_elems)
+    if codec == "int8":
+        return n + 4 * _nblocks(n, block)
+    if codec == "bf16":
+        return 2 * n
+    if codec == "f32":
+        return 4 * n
+    raise ValueError(f"unknown codec {codec!r}")
+
+
+def ring_nbytes(n_elems: int, group: int, codec: str,
+                block: int = QUANT_BLOCK) -> int:
+    """Per-rank wire bytes of a ring all-reduce of ``n_elems`` over
+    ``group`` ranks: the reduce-scatter and the all-gather each move
+    ``(g-1)/g`` of the encoded payload."""
+    g = max(1, int(group))
+    if g <= 1:
+        return 0
+    return int(2 * (g - 1) * encoded_nbytes(n_elems, codec, block) // g)
 
 
 def encode_kv_rows(x: torch.Tensor):

@@ -24,9 +24,18 @@ programs are saved and loaded in the JAX package's files (``io.py``).
     exe.run(startup)
     out, = exe.run(main, feed={"x": ..., "label": ...},
                    fetch_list=[loss])
+
+Data-parallel over g ranks (one process each, joined by
+``distributed.init_parallel_env`` and ``parallel.create_mesh({"dp": g})``;
+every rank feeds the global batch): ``bs = static.BuildStrategy();
+bs.mesh_shape = {"dp": g}`` (+ ``comm_quant``, ``zero_stage``) and
+``exe.run(static.CompiledProgram(main, build_strategy=bs), ...)``
+(``compiler.py``, ``stepplan.py``).
 """
 from . import initializer  # noqa: F401
 from .backward import append_backward  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .executor import (Executor, Scope, global_scope,  # noqa: F401
                        load_numpy_state, scope_guard)
 from .io import (load_inference_model, load_params,  # noqa: F401

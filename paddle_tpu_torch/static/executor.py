@@ -20,9 +20,14 @@ dict of tensors, each op's kernel (``kernels.py``) running eagerly.
   device; feeds go to the device once a step; fetches come back as numpy
   (``return_numpy``) or tensors.
 
-There is no pass pipeline, no ``CompiledProgram`` strategy, no sharding,
-gradient merge, pipeline or ZeRO, and no compile cache: each raises or
-is absent in this slice (a later port slice adds them).
+``run`` also takes a ``CompiledProgram`` (``compiler.py``) whose
+``BuildStrategy.mesh_shape`` is ``{"dp": g}``: one rank of a
+data-parallel step over ``parallel.create_mesh({"dp": g})``, with the
+explicit quantized ring (``comm_quant``) and ZeRO-2/3 (``zero_stage``);
+``stepplan.py`` holds the plan kinds. ``Executor.counters`` has the JAX
+package's ZeRO and comm counters. There is no pass pipeline, no tensor,
+pipeline or gradient-merge plan and no compile cache: each raises or is
+absent in this slice (a later port slice adds them).
 """
 from __future__ import annotations
 
@@ -130,12 +135,17 @@ def live_ops(block: Block, fetch_names: Sequence[str]):
 
 
 def run_block(block: Block, env: Dict[str, Any], ctx: ExecContext,
-              steps=None) -> Dict[str, Any]:
+              steps=None, start: int = 0,
+              stop_at: Optional[int] = None) -> Dict[str, Any]:
     """Interpret the ops of ``block`` (or ``steps``, [(op index, op)]
-    from :func:`live_ops`) over ``env`` (name -> tensor), writing each
-    op's outputs into it; returns ``env``."""
+    from :func:`live_ops`) whose index is in ``[start, stop_at)`` over
+    ``env`` (name -> tensor), writing each op's outputs into it; returns
+    ``env``."""
     if steps is None:
         steps = list(enumerate(block.ops))
+    if start or stop_at is not None:
+        end = len(block.ops) if stop_at is None else stop_at
+        steps = [(i, op) for i, op in steps if start <= i < end]
     if any(op.attrs.get("sub_block") is not None
            or op.attrs.get("sub_block_t") is not None for _, op in steps):
         raise NotImplementedError(
@@ -183,6 +193,15 @@ class Executor:
         self._step = 0
         # program -> {(program version, fetch names): live_ops}
         self._plans = weakref.WeakKeyDictionary()
+        # program -> {data-parallel plan key: DataParallelStep}
+        self._dp_steps = weakref.WeakKeyDictionary()
+        self._comm_memo = self._zero_memo = None
+        #: the JAX package's comm and ZeRO counters: zero_stage_active,
+        #: zero_buckets, zero_state_bytes_{replicated,sharded,saved_pct},
+        #: comm_buckets, allreduce_overlap_frac (gauges, set when a plan
+        #: runs) and comm_quant_bytes_{sent,saved},
+        #: zero_wire_bytes_{sent,saved} (summed over steps)
+        self.counters: Dict[str, Any] = {}
 
     def _seed(self, program: Program) -> int:
         return program.random_seed or random_mod.initial_seed()
@@ -197,18 +216,27 @@ class Executor:
         block, the persistables written back to ``scope``, the fetches
         returned. ``use_program_cache`` is taken for the JAX signature:
         nothing is compiled, so there is no cache."""
+        from .compiler import CompiledProgram
         from .ir import default_main_program
 
         if program is None:
             program = default_main_program()
-        if not isinstance(program, Program):
-            raise NotImplementedError(
-                f"running a {type(program).__name__} (CompiledProgram and "
-                "its strategies) is not in this port slice; a later port "
-                "slice adds it")
         scope = scope or global_scope()
+        if isinstance(program, CompiledProgram):
+            return self._run_compiled(program, feed, fetch_list, scope,
+                                      return_numpy)
+        if not isinstance(program, Program):
+            raise TypeError(f"Executor.run takes a Program or a "
+                            f"CompiledProgram, got {type(program).__name__}")
         if not feed and not fetch_list:
             return self.run_startup(program, scope)
+        if scope.find_var("__zero_layout__") is not None:
+            # a ZeRO step ran on this scope: the per-variable state comes
+            # back first (collective: every rank runs this step)
+            from ..parallel.mesh import get_mesh
+            from .stepplan import zero_flip_back
+
+            zero_flip_back(scope, get_mesh())
         block = program.global_block
         env = {n: scope.find_var(n) for n, v in block.vars.items()
                if v.persistable and scope.find_var(n) is not None}
@@ -236,6 +264,156 @@ class Executor:
         if return_numpy:
             return [f.cpu().numpy() for f in fetches]
         return fetches
+
+    # -- the data-parallel CompiledProgram --------------------------------
+    def _run_compiled(self, compiled, feed, fetch_list, scope,
+                      return_numpy):
+        """One rank's step of a ``CompiledProgram``: resolve the
+        strategy, run the comm and ZeRO gates, materialise this rank's
+        error-feedback and ZeRO rows (or flip the ZeRO rows back when
+        ZeRO turned off), then run the plan kind (``stepplan.py``)."""
+        from . import stepplan as sp
+        from .compiler import check_strategy
+        from .passes import resolve_comm, resolve_sharding, resolve_zero
+
+        program, strategy = compiled._program, compiled._build_strategy
+        check_strategy(strategy)
+        if not feed and not fetch_list:
+            return self.run_startup(program, scope)
+        block = program.global_block
+        shard_cfg = resolve_sharding(strategy)
+        if shard_cfg is None and compiled._data_parallel:
+            shard_cfg = self._data_axis_cfg()
+        comm, zero = resolve_comm(strategy), resolve_zero(strategy)
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        feed = feed or {}
+        mesh = axis = None
+        split = {}
+        if shard_cfg is not None:
+            mesh, axis, g = self._rank_mesh(shard_cfg)
+            split = sp.split_feeds(block, feed, axis, g)
+        comm_plan = zero_plan = None
+        if comm is not None:
+            self._comm_memo = sp.comm_eligibility(
+                program, block, comm, shard_cfg, None, feed, split,
+                memo=self._comm_memo)
+            comm_plan = self._comm_memo[1]
+        if zero is not None:
+            self._zero_memo = sp.zero_eligibility(
+                program, block, zero, comm, comm_plan, shard_cfg, None,
+                None, fetch_names, memo=self._zero_memo)
+            zero_plan = self._zero_memo[1]
+        if shard_cfg is None:
+            # one rank: the plain Program step
+            return self.run(program, feed=feed, fetch_list=fetch_list,
+                            scope=scope, return_numpy=return_numpy)
+        if zero_plan is None and scope.find_var("__zero_layout__") \
+                is not None:
+            sp.zero_flip_back(scope, mesh)
+        rows = []
+        if comm_plan is not None and comm[2]:
+            rows += sp.ensure_ef_state(scope, comm_plan, self.device)
+        absorbed = set()
+        if zero_plan is not None:
+            added, absorbed = sp.ensure_zero_state(scope, zero_plan, mesh,
+                                                   self.device)
+            rows += added
+        plan = sp.build_plan(block, comm=comm, comm_plan=comm_plan,
+                             zero_plan=zero_plan)
+        split_any = any(split.values())
+        key = (program._version, tuple(fetch_names), plan.kind, comm,
+               zero, tuple(sorted(split.items())),
+               None if comm_plan is None else repr(comm_plan[2]))
+        steps = self._dp_steps.setdefault(program, {})
+        if key not in steps:
+            steps[key] = sp.DataParallelStep(
+                plan, block, live_ops(block, fetch_names), fetch_names,
+                mesh, axis, split_any, run_block)
+        step = steps[key]
+        self._plan_counters(plan)
+        env = {n: scope.find_var(n) for n, v in block.vars.items()
+               if v.persistable and scope.find_var(n) is not None}
+        env.update({n: scope.find_var(n) for n in rows})
+        idx, g = mesh.axis_index(axis), mesh.axis_size(axis)
+        for name, value in feed.items():
+            if split.get(name):
+                b = value.shape[0] // g
+                value = value[idx * b:(idx + 1) * b]
+            env[name] = self._feed_tensor(block, name, value)
+        ctx = ExecContext(device=self.device,
+                          seed=random_mod.fold_in(self._seed(program),
+                                                  self._step))
+        self._step += 1
+        fetches, new_rows = step(env, ctx)
+        for name, desc in block.vars.items():
+            if desc.persistable and name in env and name not in absorbed:
+                scope.set(name, env[name].detach())
+        for name, row in new_rows.items():
+            scope.set(name, row)
+        if return_numpy:
+            return [f.cpu().numpy() for f in fetches]
+        return fetches
+
+    def _data_axis_cfg(self):
+        """``with_data_parallel()`` without ``mesh_shape``: the global
+        mesh's data axis, or None (one rank)."""
+        from ..parallel.mesh import get_mesh
+        from .passes import DATA_AXIS_NAMES
+
+        mesh = get_mesh()
+        for a in DATA_AXIS_NAMES:
+            if mesh is not None and mesh.axis_size(a) > 1:
+                return (((a, mesh.axis_size(a)),), ())
+        return None
+
+    @staticmethod
+    def _rank_mesh(shard_cfg):
+        """The global mesh, which must be ``mesh_shape``; its one data
+        axis and size. Other meshes raise."""
+        from ..parallel.mesh import get_mesh
+        from .passes import comm_data_axis
+
+        want = dict(shard_cfg[0])
+        mesh = get_mesh()
+        if mesh is None or mesh.shape != want:
+            raise ValueError(
+                f"BuildStrategy.mesh_shape {want} needs the ranks' mesh: "
+                f"call parallel.create_mesh({want}) on every rank first "
+                f"(the global mesh is {mesh})")
+        axis = comm_data_axis(shard_cfg)
+        if axis is None:
+            raise NotImplementedError(
+                f"mesh {want}: only a pure data-parallel mesh ('dp' or "
+                "'data') is in this port slice; tensor and pipeline axes "
+                "are a later port slice")
+        return mesh, axis[0], axis[1]
+
+    def _plan_counters(self, plan):
+        """The JAX executor's plan gauges and per-step wire counters."""
+        from . import stepplan as sp
+
+        c = self.counters
+        if plan.kind == "zero":
+            zp = plan.zero_plan
+            rep, sh = zp["bytes_replicated"], zp["bytes_sharded"]
+            c["zero_stage_active"] = zp["stage"]
+            c["zero_buckets"] = len(zp["buckets"])
+            c["zero_state_bytes_replicated"] = rep
+            c["zero_state_bytes_sharded"] = sh
+            c["zero_state_bytes_saved_pct"] = \
+                round(100.0 * (1.0 - sh / rep), 2) if rep else 0.0
+        if plan.kind not in ("comm", "zero"):
+            return
+        stats = (sp.zero_entry_stats if plan.kind == "zero"
+                 else sp.comm_entry_stats)(plan.comm_plan)
+        pre = "zero_wire_bytes" if plan.kind == "zero" else \
+            "comm_quant_bytes"
+        for what in ("sent", "saved"):
+            c[f"{pre}_{what}"] = c.get(f"{pre}_{what}", 0) + \
+                stats[f"bytes_{what}"]
+        c["comm_buckets"] = stats["comm_buckets"]
+        c["allreduce_overlap_frac"] = stats["allreduce_overlap_frac"]
 
     def _feed_tensor(self, block, name, value):
         """``value`` on the device, in the feed variable's dtype."""

@@ -760,3 +760,139 @@ def test_masked_ring_two_ranks_on_one_card_matches_the_kernel(dev, tmp_path):
             "flash_attention_masked_fwd": 1, "flash_attention_fwd": 2,
             "flash_attention_ext_bwd": 3, "flash_attention_bwd": 0}
         assert launches["gloo_staged_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K3's ZeRO chunk entry (chunk Lamb)
+# ---------------------------------------------------------------------------
+_CHUNK_LAYOUTS = [((700, 1500, 300, 1000), 2048, 0),
+                  ((700, 1500, 300, 1000), 2048, 2048),
+                  ((2048, 1500), 2048, 2048),
+                  ((64,) * 40 + (9000,), 6144, 0),
+                  ((30522 * 768,), 11720704, 11720704)]
+
+
+def _chunk_case(dev, layout, found, seed):
+    elems, c, pos = layout
+    rng = np.random.RandomState(seed)
+    t = {"p": rng.randn(c).astype(np.float32) * np.float32(0.5),
+         "g": rng.randn(c).astype(np.float32) * np.float32(0.1),
+         "m": rng.randn(c).astype(np.float32) * np.float32(0.01),
+         "v": np.abs(rng.randn(c)).astype(np.float32) * np.float32(1e-3)}
+    tail = min(c, max(0, pos + c - sum(elems)))
+    if tail:
+        for x in t.values():
+            x[c - tail:] = 0.0
+    t = {k: torch.tensor(x, device=dev) for k, x in t.items()}
+    t["b1p"] = torch.tensor([0.9 ** 3], device=dev)
+    t["b2p"] = torch.tensor([0.999 ** 3], device=dev)
+    t["lr"] = torch.tensor([0.05], device=dev)
+    t["found"] = None if found is None else torch.tensor([found],
+                                                          device=dev)
+    return t
+
+
+@pytest.mark.parametrize("found", [None, False, True],
+                         ids=["absent", "false", "true"])
+@pytest.mark.parametrize("layout", range(len(_CHUNK_LAYOUTS)))
+def test_chunk_lamb_kernels_match_the_plain_version(dev, layout, found):
+    """m, v and the beta-pow outputs bit for bit, p within 1e-6 of the
+    largest |p| (the norms sum by pieces, the plain version by
+    index_add_); two launches give the same bits; one launch of each
+    kernel a call."""
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+
+    lay = _CHUNK_LAYOUTS[layout]
+    elems, c, pos = lay
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    outs = []
+    for _ in range(2):
+        t = _chunk_case(dev, lay, found, seed=layout)
+        pows = fo.chunk_lamb_(t["p"], t["g"], t["m"], t["v"], t["b1p"],
+                              t["b2p"], t["lr"], param_elems=elems,
+                              position=pos, found=t["found"], **kw)
+        outs.append((t, pows))
+    pl = _chunk_case(dev, lay, found, seed=layout)
+    seg = torch.from_numpy(fo.chunk_segments(elems, pos, c)).to(dev)
+    ppows = fo._plain_chunk_lamb_(pl["p"], pl["g"], pl["m"], pl["v"],
+                                  pl["b1p"], pl["b2p"], pl["lr"], 0.9,
+                                  0.999, 1e-6, 0.01, pl["found"], seg,
+                                  len(elems) + 1, lambda s: None)
+    torch.cuda.synchronize()
+    (t, pows), (t2, _) = outs
+    assert torch.equal(t["p"], t2["p"])
+    for k in ("m", "v"):
+        assert torch.equal(t[k], pl[k]), k
+    for a, b in zip(pows, ppows):
+        assert a.shape == (1,) and torch.equal(a, b.reshape(1))
+    scale = float(pl["p"].abs().max())
+    assert float((t["p"] - pl["p"]).abs().max()) <= 1e-6 * scale
+    if found:
+        assert torch.equal(t["p"], _chunk_case(dev, lay, found, layout)["p"])
+    assert counters.get("chunk_lamb_phase1") == 2
+    assert counters.get("chunk_lamb_apply") == 2
+
+
+def test_chunk_lamb_raises_on_what_it_does_not_take(dev):
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+
+    p = torch.zeros(1024, device=dev)
+    one = torch.ones(1, device=dev)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.0,
+              param_elems=(1024,), position=0)
+    with pytest.raises(ValueError, match="f32"):
+        fo.chunk_lamb_(p, p.half(), p, p, one, one, one, **kw)
+    with pytest.raises(ValueError, match="FoundInfinite"):
+        fo.chunk_lamb_(p, p, p, p, one, one, one,
+                       found=torch.zeros(1, device=dev), **kw)
+    with pytest.raises(ValueError, match="on cuda"):
+        fo.chunk_lamb_(p, p.cpu(), p, p, one, one, one, **kw)
+    assert counters.snapshot() == {}
+
+
+def test_zero_step_two_ranks_on_one_card(dev, tmp_path):
+    """The book conv net over {"dp": 2} on cuda:0 (gloo): comm f32 x 2,
+    ZeRO-2 f32 x 2, comm f32 x 2 bit for bit six comm f32 steps
+    (Momentum); ZeRO-2 Lamb within rtol 1e-5 + atol 1e-6 of comm Lamb;
+    one chunk_lamb_phase1 and one chunk_lamb_apply a bucket and step on
+    each rank, and no static Lamb launch in the ZeRO steps."""
+    import _torch_zero_ranks as ranks
+    import paddle_tpu_torch.static as ts
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.utils import unique_name as tun
+
+    torch.backends.cudnn.deterministic = True
+    feed = {"img": np.random.RandomState(5).rand(64, 1, 28, 28).astype(
+        np.float32),
+        "label": np.random.RandomState(6).randint(0, 10, (64, 1))}
+    cases = []
+    for opt in ("momentum", "lamb"):
+        _m, startup, _l, _e = ranks.book_net(ts, tun, opt)
+        scope = ts.Scope()
+        with ts.scope_guard(scope):
+            ts.Executor(ts.CPUPlace()).run(startup)
+        init = {k: v.numpy() for k, v in scope.items()}
+        f32, z2 = {"comm_quant": "f32"}, {"comm_quant": "f32",
+                                          "zero_stage": 2}
+        cases += [(f"{opt}_comm", "book_net", opt, init, feed, [f32] * 3, 2,
+                   False),
+                  (f"{opt}_mix", "book_net", opt, init, feed,
+                   [f32, z2, f32] if opt == "momentum" else [z2] * 3, 2,
+                   False)]
+    got = spawn(ranks.zero_rank, args=(2, cases, "cuda"), nprocs=2,
+                init_method=f"file://{tmp_path / 'rendezvous'}",
+                timeout=300)
+    for r in got:
+        for c in cases:
+            assert "error" not in r[c[0]], r[c[0]]
+        assert r["momentum_mix"]["losses"] == r["momentum_comm"]["losses"]
+        np.testing.assert_allclose(r["lamb_mix"]["losses"],
+                                   r["lamb_comm"]["losses"], rtol=1e-5,
+                                   atol=1e-6)
+        la = r["lamb_mix"]["launches"]
+        assert la.get("chunk_lamb_phase1") == 6
+        assert la.get("chunk_lamb_apply") == 6
+        assert la.get("static_lamb_phase1", 0) == 0
+        assert la.get("zero.zero") == 1 and "zero.xla" not in la
+        assert r["momentum_mix"]["launches"].get("static_momentum") \
+            == 4 * 6 + 2 * 1     # 6 tensors x 4 comm steps + 2 chunk steps
