@@ -9,15 +9,22 @@ prints no result line:
 
 0. build    every CUDA kernel from ``paddle_tpu_torch/ops/cuda/csrc``,
             one nvcc per source, all started together (ptxas report
-            included);
+            included); the HMMA/HGMMA instructions of each kernel function
+            of the flash libraries, from ``cuobjdump -sass``, and a failure
+            unless every instantiation of the tensor-core kernels
+            (``short_fwd_mma``, ``flash_dq_mma``, ``flash_dkv_mma``) has
+            some;
 1. kernels  each kernel against its plain version on the card at its
             main path's shapes: paged attention within atol/rtol 1e-4
             (sum order), sampling bit for bit (decode slice); flash
             attention forward and backward at BERT-base's
             128 x 128 x 12 x 64 in bf16 (atol 2e-2 + rtol 1e-2, one bf16
-            ulp) and f32 (atol 1e-4), one f32 case at L = 512 and one
-            causal case, dropout 0.1 with the keep mask read back bit for
-            bit; the fused vocabulary cross-entropy forward and backward
+            ulp) and f32 (atol 1e-4), one f32 case at L = 512, one f32
+            causal case and GPT-2 small's causal 8 x 1024 in bf16, dropout
+            0.1 with the keep mask read back bit for bit, two launches of
+            every bf16 flash kernel (here and in the short, masked and
+            external-lse checks below) equal bit for bit; the fused
+            vocabulary cross-entropy forward and backward
             at 16384 x 768 x 30592 f32 with ~15% ignored rows (largest
             error within 1e-4 of the largest value); fused AdamW over
             BERT-base's parameter list, bit for bit; fused Momentum over
@@ -96,10 +103,11 @@ prints no result line:
             (seq=512)``), AMP O1 bf16, dropout 0.1, ``flash_short_seq``
             on, Lamb on a linear warm-up into a polynomial decay,
             ``ClipGradByGlobalNorm(1.0)``: 3 warm-up and 10 timed steps;
-            tokens/s, step ms, MFU, peak memory, the loss (finite,
-            falling), exact launches a step (12 + 12 short flash, no
-            streaming flash, 1 + 1 xent, 1 + 1 Lamb, no Adam) and a
-            profiled step by family;
+            tokens/s, step ms, MFU, peak memory, the loss (finite; the
+            first step's equal to the plain versions' from a copy of the
+            model within rtol 1e-4), exact launches a step (12 + 12 short
+            flash, no streaming flash, 1 + 1 xent, 1 + 1 Lamb, no Adam)
+            and a profiled step by family;
 11. lenet_sgd  LeNet at batch 128 x 1 x 28 x 28, SGD lr 0.01 with L2
             1e-4: 3 warm-up and 10 timed steps; steps/s, the loss
             (finite, falling), one SGD launch a step;
@@ -253,6 +261,38 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# phase 0: the tensor-core kernels' instructions
+# ---------------------------------------------------------------------------
+TENSOR_CORE_KERNELS = ("short_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
+
+
+def tensor_core_counts(build):
+    """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in each
+    kernel function of the flash libraries, read from their SASS with the
+    toolkit's ``cuobjdump``; fails unless every instantiation of the
+    tensor-core kernels has some."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    counts = {}
+    for lib in ("flash_attention", "flash_short"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(lib))],
+                              capture_output=True, text=True, timeout=300)
+        expect(sass.returncode == 0,
+               f"cuobjdump failed on {lib}: {sass.stderr[-500:]}")
+        fn = None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and (" HMMA." in line or " HGMMA." in line):
+                counts[fn] += 1
+    for name in TENSOR_CORE_KERNELS:
+        got = [n for fn, n in counts.items() if name in fn]
+        expect(bool(got) and min(got) > 0,
+               f"{name}: no tensor-core instruction in {got}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -644,16 +684,30 @@ def max_err(a, b):
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+def same_bits(torch, first, second):
+    """Whether two launches' outputs are equal bit for bit (compared as
+    integers of their width, so -0.0 and NaN payloads count too)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return len(first) == len(second) and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(ints[a.element_size()]),
+            b.contiguous().view(ints[b.element_size()]))
+        for a, b in zip(first, second))
+
+
 def check_flash(torch, fa, timing):
     """K1a/K1b against the plain version: BERT-base's shapes in bf16 and
-    f32 with dropout 0.1, f32 at L = 512, f32 causal; the dropout mask
-    read back bit for bit."""
+    f32 with dropout 0.1, f32 at L = 512, f32 causal, GPT-2 small's
+    causal 8 x 1024 in bf16; two launches of each bf16 kernel give the
+    same bits; the dropout mask read back bit for bit."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [("bf16", 128, 128, 12, 64, torch.bfloat16, False, 0.1),
              ("f32", 128, 128, 12, 64, torch.float32, False, 0.1),
              ("f32_L512", 8, 512, 12, 64, torch.float32, False, 0.0),
-             ("f32_causal", 8, 256, 12, 64, torch.float32, True, 0.1)]
+             ("f32_causal", 8, 256, 12, 64, torch.float32, True, 0.1),
+             ("bf16_causal_L1024", 8, 1024, 12, 64, torch.bfloat16, True,
+              0.0)]
     seed = 0x5EED1234ABCD
     row = {"cases": {}}
     main = None
@@ -679,9 +733,15 @@ def check_flash(torch, fa, timing):
                               rtol=rtol),
                f"flash {name}: out disagrees, max abs err {errs['out']}")
         expect(errs["lse"] <= 1e-4, f"flash {name}: lse err {errs['lse']}")
+        if dt == torch.bfloat16:
+            expect(same_bits(torch, (out, lse) + grads, fa._cuda_fwd(
+                q, k, v, causal, p, seed) + fa._cuda_bwd(
+                q, k, v, out, lse, do, causal, p, seed)),
+                f"flash {name}: two launches give different bits")
         row["cases"][name] = errs
         if name == "bf16":
             main = (q, k, v, do, out, lse, p)
+        del q, k, v, do, rout, grads, rgrads
     # the dropout mask, bit for bit: q = k = 0 gives P = 1/L, v = I reads
     # keep / (L (1 - p)) back out of the kernel's output
     L, p = 64, 0.1
@@ -926,8 +986,9 @@ def check_flash_short(torch, fa, timing):
     and against the streaming K1 on the same inputs and seed: BERT-base
     phase 2's 32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 +
     rtol 1e-2), 128-long f32 without dropout (atol 1e-4), a causal f32
-    case with dropout and a D = 128 bf16 case; the dropout mask read
-    back bit for bit. Times the short kernels, the streaming K1 and
+    case with dropout and a D = 128 bf16 case; two launches of each bf16
+    kernel give the same bits; the dropout mask read back bit for bit.
+    Times the short kernels, the streaming K1 and
     ``F.scaled_dot_product_attention`` at L 128 and L 512."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -967,6 +1028,11 @@ def check_flash_short(torch, fa, timing):
         expect(errs["lse"] <= 1e-4 and errs["stream_lse"] <= 1e-4,
                f"flash short {name}: lse errs {errs['lse']}, "
                f"{errs['stream_lse']}")
+        if dt == torch.bfloat16:
+            expect(same_bits(torch, (out, lse) + grads, fa._cuda_short_fwd(
+                q, k, v, causal, p, seed) + fa._cuda_short_bwd(
+                q, k, v, out, lse, do, causal, p, seed)),
+                f"flash short {name}: two launches give different bits")
         row["cases"][name] = errs
         del q, k, v, do, out, rout, sout, grads, rgrads, sgrads
     # the dropout mask, bit for bit: q = k = 0 gives P = 1/L, v = I (D = L
@@ -1300,7 +1366,7 @@ def phase_bert_parity(torch, counters, fa, fx, fo, masked=False):
 def bert_family(name):
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
-    if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+    if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_bwd"
     if "xent_fwd_kernel" in name:
         return "xent_fwd"
@@ -1758,7 +1824,7 @@ def phase_bert_lamb_parity(torch, counters, fa, fx, fo):
 
 
 def bert_short_family(name):
-    if "short_fwd_kernel" in name:
+    if "short_fwd_" in name:
         return "flash_short_fwd"
     if "short_bwd_kernel" in name:
         return "flash_short_bwd"
@@ -1777,7 +1843,7 @@ BERT512_FAMILIES = ("flash_short_fwd", "flash_short_bwd", "xent_fwd",
 def bert512_family(name):
     if "flash_fwd_kernel" in name:
         return "flash_masked_fwd"
-    if "flash_dq_kernel" in name or "flash_dkv_kernel" in name:
+    if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_masked_bwd"
     return bert_short_family(name)
 
@@ -1789,7 +1855,13 @@ BERT512_MASKED_FAMILIES = ("flash_masked_fwd", "flash_masked_bwd") \
 def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     """BERT-base phase-2 pretraining, ``bench_bert(seq=512)``'s batch 32,
     AMP O1 bf16, dropout 0.1, the short flash kernels on, Lamb with a
-    linear warm-up into a polynomial decay and global-norm clipping.
+    linear warm-up into a polynomial decay and global-norm clipping. The
+    first step's loss equals the plain versions' from the same weights,
+    batch and dropout bits within rtol 1e-4 (a copy of the model trained
+    one step with the short kernels' plain versions). Over 13 steps at
+    lr 1e-3 this configuration's loss oscillates between 11.0 and 12.0
+    and ends above or below its start by chance, the plain versions'
+    run included, so the end points are reported, not compared.
     ``masked``: the same step on a padded batch (lengths from
     ``RandomState(0)`` uniform in 128-512, row 0 full; a (B, 1, 1, 512)
     bool key-padding mask; no MLM labels at padding), so attention runs
@@ -1798,9 +1870,6 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import Lamb
-    from paddle_tpu_torch.optimizer import lr as lrs
 
     gc.collect()                  # earlier phases' garbage off the card
     torch.cuda.empty_cache()
@@ -1810,11 +1879,7 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = BertForPretraining(cfg, generator=gen)
     params = list(model.parameters())
-    sched = lrs.LinearWarmup(
-        lrs.PolynomialDecay(1e-3, decay_steps=1000, end_lr=0.0),
-        warmup_steps=3, start_lr=0.0, end_lr=1e-3)
-    opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01, epsilon=1e-6,
-               parameters=params, grad_clip=ClipGradByGlobalNorm(1.0))
+    opt, sched = phase2_optimizer(params)
 
     def loss_fn(m, ids, tt, mlm, nsp, mask=None):
         with amp.auto_cast(level="O1", dtype="bfloat16"):
@@ -1835,6 +1900,9 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
             BERT512_MASKED_FAMILIES
     n_steps = WARM_STEPS + TIMED_STEPS
     lrs_used = [opt.get_lr()]
+    plain = None if masked else plain_losses(torch, model, loss_fn, batch,
+                                             n_steps)
+    torch.cuda.reset_peak_memory_stats()      # the copy's steps off the peak
 
     def next_lr():
         sched.step()
@@ -1860,8 +1928,10 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     per_step = {k: launches.get(k, 0) / n_steps for k in want}
     expect(all(np.isfinite(losses)), f"{name_}: non-finite loss {losses}")
     if not masked:
-        expect(losses[-1] < losses[0],
-               f"{name_}: loss did not fall ({losses[0]} -> {losses[-1]})")
+        expect(all(np.isfinite(plain)), f"{name_}: non-finite plain loss")
+        expect(abs(losses[0] - plain[0]) <= 1e-4 * abs(plain[0]),
+               f"{name_}: the first loss {losses[0]} is not the plain "
+               f"versions' {plain[0]}")
     for k, n in want.items():
         expect(launches.get(k, 0) == n * n_steps,
                f"{name_}: {k} launched {launches.get(k, 0)} times over "
@@ -1885,6 +1955,7 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
            "step_ms": step_ms, "flops_per_step": flops_per_step,
            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
            "loss_first": losses[0], "loss_last": losses[-1],
+           "losses_plain": plain,
            "losses": losses, "lr": lrs_used[:n_steps], "launches": launches,
            "launches_per_step": per_step, "mem_at_start_gb": mem_start,
            "peak_mem_gb": peak, "breakdown": breakdown}
@@ -1899,6 +1970,46 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
                         "included",
             "eval_vs_plain": bert512_eval_check(torch, fa, model, batch)})
     return row, launches
+
+
+def phase2_optimizer(params):
+    """Phase 2's optimizer: Lamb on a linear warm-up into a polynomial
+    decay, global-norm clipping. (optimizer, schedule)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.optimizer import lr as lrs
+
+    sched = lrs.LinearWarmup(
+        lrs.PolynomialDecay(1e-3, decay_steps=1000, end_lr=0.0),
+        warmup_steps=3, start_lr=0.0, end_lr=1e-3)
+    return Lamb(learning_rate=sched, lamb_weight_decay=0.01, epsilon=1e-6,
+                parameters=params, grad_clip=ClipGradByGlobalNorm(1.0)), \
+        sched
+
+
+def plain_losses(torch, model, loss_fn, batch, n_steps):
+    """``n_steps`` TrainStep losses of a copy of ``model`` with the short
+    flash kernels' plain versions: the same weights, batch, recipe and
+    dropout bits (TrainStep's seed) as the kernel run."""
+    import copy
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    twin = copy.deepcopy(model)
+    opt, sched = phase2_optimizer(list(twin.parameters()))
+    step = TrainStep(twin, loss_fn, opt)
+    swaps = [(fa, "flash_attention_short_fwd", fa._plain_fwd),
+             (fa, "flash_attention_short_bwd", fa._plain_bwd)]
+    losses = []
+    with short_seq_on(), swapped(swaps):
+        for _ in range(n_steps):
+            losses.append(float(step(*batch)))
+            sched.step()
+    del twin, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
 
 
 def masked_lens(B, L, seed=0):
@@ -2576,7 +2687,8 @@ def check_flash_masked(torch, fa, timing):
     BERT phase 1's 128 x 128 in f32 with dropout (atol 1e-4), an f32
     causal case, a batch with fully masked rows (the mean of V) and one
     whose first kv tile is all masked; the dropout keep mask read back
-    bit for bit through a mask. Times the bf16 case against its bound,
+    bit for bit through a mask; two launches of the bf16 kernels give
+    the same bits. Times the bf16 case against its bound,
     the plain version and SDPA with the float bias as ``attn_mask``."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -2618,6 +2730,11 @@ def check_flash_masked(torch, fa, timing):
                    f"{errs[gname]}")
         expect(errs["lse"] <= 1e-4, f"flash masked {name}: lse err "
                                     f"{errs['lse']}")
+        if dt == bf:
+            expect(same_bits(torch, (out, lse) + grads, fa._cuda_fwd(
+                q, k, v, causal, p, seed, bias) + fa._cuda_bwd(
+                q, k, v, out, lse, do, causal, p, seed, bias)),
+                f"flash masked {name}: two launches give different bits")
         if name == "f32_all_masked":
             for b in (1, 3):
                 mean_v = v[b].mean(0, keepdim=True).expand(L, H, D)
@@ -2872,7 +2989,8 @@ def check_flash_ring(torch, fa, ring, timing):
     against the plain versions (bf16 atol 2e-2 + rtol 1e-2; one f32 case
     at atol 1e-4). Then the kernel alone against its plain version at
     the SP path's block, 8 x 512 x 12 x 64 bf16 (a full block and the
-    causal diagonal), and its time there."""
+    causal diagonal; two launches give the same bits), and its time
+    there."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(23)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2927,6 +3045,9 @@ def check_flash_ring(torch, fa, ring, timing):
         got = fa._cuda_bwd_ext(q, k, v, do, lse, delta, causal)
         want = fa._plain_bwd_ext(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        expect(same_bits(torch, got, fa._cuda_bwd_ext(q, k, v, do, lse,
+                                                      delta, causal)),
+               f"flash ext bwd {part}: two launches give different bits")
         for gname, a, b in zip(("dq", "dk", "dv"), got, want):
             errs[f"{part}_{gname}"] = max_err(a, b)
             expect(torch.allclose(a.float(), b.float(), atol=2e-2,
@@ -3791,7 +3912,8 @@ def main() -> int:
         t0 = time.perf_counter()
         logs = _build.build_all(ptxas_verbose=True)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "kernels": sorted(logs), "ptxas": logs})
+              "kernels": sorted(logs), "ptxas": logs,
+              "tensor_core_instructions": tensor_core_counts(_build)})
 
         timing = not args.kernels_only
         k4a = check_attention(torch, pa, rng, False, timing)

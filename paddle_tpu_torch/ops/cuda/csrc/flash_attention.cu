@@ -7,13 +7,42 @@
 // _keep_mask and the masked form (masked=True: mask_bias, a (B, Lk)
 // additive key bias).
 //
-// Bound: at BERT's shapes (L = 128, D = 64) the work is about
-// 4*L*L*D flops per (batch, head) forward and 10*L*L*D backward against
-// 4*L*D elements in and out, well above the card's balance point, so
-// the bound is operations. These kernels use f32 FMA from shared
-// memory (no tensor cores yet), so their ceiling is the f32 rate.
+// Bound: the work is about 4*L*L*D flops per (batch, head) forward and
+// 10*L*L*D backward against 4*L*D and 8*L*D bf16 elements moved. At
+// BERT phase 1's 128 x 128 x 12 x 64 the backward's bytes bound it
+// (0.060 ms at 3.35 TB/s against 0.016 ms of operations at the 989
+// TFLOP/s bf16 tensor-core rate); at 512 keys the two meet, and past
+// them the operations bound it.
 //
-// Design: q, k, v, out and their gradients keep the JAX package's
+// The bf16 backward runs on tensor cores (flash_dq_mma, flash_dkv_mma;
+// pieces in flash_common.cuh): 4 warps a block, each warp 16 rows of a
+// 64-row tile, mma.sync m16n8k16 bf16 -> f32 from swizzled shared tiles
+// that a two-stage cp.async ring fills under the previous tile's
+// products.
+// - dq kernel, one block per 64-row q tile: delta = rowsum(dO * O) in
+//   f32 under the first copies (written for the dk/dv kernel; the EXT
+//   form reads the caller's), then over kv tiles (up to the diagonal when
+//   causal) S = Q K^T and dP = dO V^T, P = exp(S * scale + bias - lse),
+//   dS = P (dP - delta) in registers, dQ += dS K with K through
+//   ldmatrix.trans.
+// - dk/dv kernel, one block per 64-row kv tile, K and V resident, Q and
+//   dO streamed (from the diagonal when causal): S and dP in the q-row
+//   layout, so each thread's dropout words are its own (keep_frag); the
+//   dropped P and dS go to shared tiles, read back transposed as the A
+//   operands of dV += P^T dO and dK += dS^T Q.
+// - Rounding: bf16 operands, f32 accumulators; m, lse, delta, P and dS
+//   are f32 until they become operands. P enters dV as one bf16 term; dS
+//   enters dQ and dK as two, hi + lo (acc_to_a2), since a fully masked
+//   row (P = 1 across it, lse = -1e30) makes dS Lk times its usual size
+//   and one rounding of it moved dQ and dK past the bf16 tolerance. So
+//   the pair does 9 L*L*D products where the gradient needs 5 (S and dP
+//   in both kernels, dQ and dK twice). No atomics and no split of a sum
+//   across blocks: two launches give the same bits.
+// The f32 forms, and the forward (K1a, both types), use the f32 FMA
+// kernels below: the f32 forms are the parity route held to 1e-4, which
+// TF32 cannot meet.
+//
+// FMA design: q, k, v, out and their gradients keep the JAX package's
 // (B, L, H, D) layout and the kernels index it directly, so no head
 // merge is ever materialised. Tiles are 64 query rows by 64 key rows;
 // the thread layout, the shared-memory operands and the dropout keying
@@ -331,6 +360,285 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv, dv_acc, a, b, h, kv0, a.Lk, 1.0f);
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16 on tensor cores: dq (+ delta), then dk, dv
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dq_mma_smem() {   // q, dO, 2 k, 2 v; 64 delta
+  return (size_t)6 * kTile * D * sizeof(__nv_bfloat16) + kTile * 4;
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem() {  // k, v, 2 q, 2 dO; P, dS hi and lo
+  return (size_t)6 * kTile * D * sizeof(__nv_bfloat16) +
+         (size_t)3 * kTile * kTile * sizeof(__nv_bfloat16);
+}
+
+// the (B, Lk) key mask at this thread's 16 columns of a kv tile (0 past
+// Lk, where dead() masks the column anyway)
+__device__ __forceinline__ void bias_frag(float (&bv)[8][2], const Args& a,
+                                          int b, int kv0, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = kv0 + frag_col(lane, i, e);
+      bv[i][e] = a.bias && c < a.Lk ? a.bias[(int64_t)b * a.Lk + c] : 0.0f;
+    }
+}
+
+// S -> dS in place, and (WANT_P) dP -> the dropped P in place: P =
+// exp(S * scale + bias - lse), zero where dead; dP dropped and scaled by
+// 1/(1-p); dS = P (dP - delta) with the undropped P. Rows are the warp's
+// 16 q rows from row0.
+template <bool WANT_P>
+__device__ __forceinline__ void grad_scores(float (&s)[8][4],
+                                            float (&dp)[8][4], const Args& a,
+                                            int bh, int row0, int kv0,
+                                            const float (&bv)[8][2],
+                                            const float (&lse_r)[2],
+                                            const float (&dl_r)[2],
+                                            int lane) {
+  const bool drop = a.inv != 1.0f;
+  const uint32_t keep = drop ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[i][e] = exp2_ftz((s[i][e] * a.scale + bv[i][e & 1] - lse_r[e >> 1]) *
+                         kLog2e);
+  mask_tile(s, a, row0, kv0, lane, 0.0f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float p = s[i][e];
+      const bool kept = (keep >> (4 * i + e)) & 1u;
+      const float dpv = !drop ? dp[i][e] : kept ? dp[i][e] * a.inv : 0.0f;
+      s[i][e] = p * (dpv - dl_r[r]);
+      if (WANT_P) dp[i][e] = !drop ? p : kept ? p * a.inv : 0.0f;
+    }
+}
+
+// a warp's 16 x 64 accumulator tile as bf16 into a swizzled [64][64]
+// shared tile, rows 16 w ..; with lo, its rounding error (acc_to_a2)
+// into a second tile
+__device__ __forceinline__ void store_frag(unsigned char* tile,
+                                           unsigned char* lo,
+                                           const float (&s)[8][4], int w,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * w + frag_row(lane, 2 * half);
+      const uint32_t off = swz<kTile>(r, i) + 4 * (lane & 3);
+      const float x0 = s[i][2 * half], x1 = s[i][2 * half + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      *reinterpret_cast<__nv_bfloat162*>(tile + off) = h;
+      if (lo) {
+        const float2 hf = __bfloat1622float2(h);
+        *reinterpret_cast<uint32_t*>(lo + off) =
+            pack_bf16(x0 - hf.x, x1 - hf.y);
+      }
+    }
+}
+
+template <int D, bool EXT>
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 3 : 2)
+flash_dq_mma(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             const __nv_bfloat16* __restrict__ o,
+             const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, Args a) {
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  constexpr uint32_t TB = kTile * D * 2;
+  const uint32_t Qs = smem_u32(smem_mma), dOs = Qs + TB, Ks = dOs + TB,
+                 Vs = Ks + 2 * TB;
+  float* dl_s = reinterpret_cast<float*>(smem_mma + 6 * TB);   // [64]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kTile, row0 = q0 + 16 * w;
+  const int nkv = kv_tiles_for(a, q0);
+
+  tile_async<D>(Qs, q, a, b, h, q0, a.Lq);
+  tile_async<D>(dOs, dout, a, b, h, q0, a.Lq);
+  tile_async<D>(Ks, k, a, b, h, 0, a.Lk);
+  tile_async<D>(Vs, v, a, b, h, 0, a.Lk);
+  cp_commit();
+  if constexpr (!EXT) {
+    // delta = rowsum(dO * O) in f32 under the copies: two threads a row
+    const int r = tid >> 1, part = tid & 1;
+    float d = 0.0f;
+    if (q0 + r < a.Lq) {
+      const int64_t off = (((int64_t)b * a.Lq + q0 + r) * a.H + h) * D +
+                          part * (D / 2);
+      float x[8], y[8];
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        Vec<__nv_bfloat16>::load(dout + off + c, x);
+        Vec<__nv_bfloat16>::load(o + off + c, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (part == 0) {
+      dl_s[r] = d;
+      if (q0 + r < a.Lq) delta[(int64_t)bh * a.Lq + q0 + r] = d;
+    }
+    __syncthreads();
+  }
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + frag_row(lane, 2 * r);
+    const bool live = row < a.Lq;
+    lse_r[r] = live ? lse[(int64_t)bh * a.Lq + row] : INFINITY;
+    if constexpr (EXT)
+      dl_r[r] = live ? delta[(int64_t)bh * a.Lq + row] : 0.0f;
+    else
+      dl_r[r] = live ? dl_s[row - q0] : 0.0f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  for (int t = 0; t < nkv; ++t) {
+    const uint32_t Kt = Ks + (t & 1) * TB, Vt = Vs + (t & 1) * TB;
+    if (t + 1 < nkv) {
+      const uint32_t nxt = ((t + 1) & 1) * TB;
+      tile_async<D>(Ks + nxt, k, a, b, h, (t + 1) * kTile, a.Lk);
+      tile_async<D>(Vs + nxt, v, a, b, h, (t + 1) * kTile, a.Lk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int kv0 = t * kTile;
+    float bv[8][2];
+    bias_frag(bv, a, b, kv0, lane);
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+    mma_abt<D>(s, Qs, 16 * w, Kt, lane);     // S = Q K^T
+    mma_abt<D>(dp, dOs, 16 * w, Vt, lane);   // dP = dO V^T
+    grad_scores<false>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
+    mma_rb<D>(acc, s, Kt, lane);       // dQ += dS K, dS hi + lo
+    __syncthreads();
+  }
+  store_acc<D>(dq, acc, a, b, h, row0, a.Lq, a.scale, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaT)
+flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, Args a) {
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  constexpr uint32_t TB = kTile * D * 2;
+  const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
+                 dOs = Qs + 2 * TB, Ps = dOs + 2 * TB,
+                 dSs = Ps + kTile * kTile * 2, dSl = dSs + kTile * kTile * 2;
+  unsigned char* Pp = smem_mma + 6 * TB;            // [64 q][64 kv] bf16
+  unsigned char* dSp = Pp + kTile * kTile * 2;      // dS, hi
+  unsigned char* dLp = dSp + kTile * kTile * 2;     // dS, lo
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int kv0 = blockIdx.x * kTile;
+  const int nq = (a.Lq + kTile - 1) / kTile;
+  const int first = a.causal ? kv0 / kTile : 0;
+
+  tile_async<D>(Ks, k, a, b, h, kv0, a.Lk);
+  tile_async<D>(Vs, v, a, b, h, kv0, a.Lk);
+  if (first < nq) {
+    tile_async<D>(Qs, q, a, b, h, first * kTile, a.Lq);
+    tile_async<D>(dOs, dout, a, b, h, first * kTile, a.Lq);
+  }
+  cp_commit();
+  float bv[8][2];
+  bias_frag(bv, a, b, kv0, lane);
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  for (int t = first; t < nq; ++t) {
+    const uint32_t stg = ((t - first) & 1) * TB;
+    const uint32_t Qt = Qs + stg, dOt = dOs + stg;
+    if (t + 1 < nq) {
+      const uint32_t nxt = TB - stg;
+      tile_async<D>(Qs + nxt, q, a, b, h, (t + 1) * kTile, a.Lq);
+      tile_async<D>(dOs + nxt, dout, a, b, h, (t + 1) * kTile, a.Lq);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    // scores in the q-row layout (warp w: q rows 16 w ..), so that each
+    // thread's dropout words are its own (keep_frag)
+    const int q0 = t * kTile, row0 = q0 + 16 * w;
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + frag_row(lane, 2 * r);
+      const bool live = row < a.Lq;
+      lse_r[r] = live ? lse[(int64_t)bh * a.Lq + row] : INFINITY;
+      dl_r[r] = live ? delta[(int64_t)bh * a.Lq + row] : 0.0f;
+    }
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+    mma_abt<D>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
+    mma_abt<D>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+    grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
+    store_frag(Pp, nullptr, dp, w, lane);    // dropped P, bf16
+    store_frag(dSp, dLp, s, w, lane);        // dS, hi + lo
+    __syncthreads();
+    // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t fa[4], fl[4];
+      frag_at<kTile>(fa, Ps, 16 * w, 16 * kk, lane);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t fb[4];
+        frag_bt<D>(fb, dOt, 16 * n, 16 * kk, lane);
+        mma16816(dva[2 * n], fa, fb[0], fb[1]);
+        mma16816(dva[2 * n + 1], fa, fb[2], fb[3]);
+      }
+      frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
+      frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t fb[4];
+        frag_bt<D>(fb, Qt, 16 * n, 16 * kk, lane);
+        mma16816(dka[2 * n], fa, fb[0], fb[1]);
+        mma16816(dka[2 * n + 1], fa, fb[2], fb[3]);
+        mma16816(dka[2 * n], fl, fb[0], fb[1]);
+        mma16816(dka[2 * n + 1], fl, fb[2], fb[3]);
+      }
+    }
+    __syncthreads();     // P, dS and the stage are rewritten next
+  }
+  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk, a.scale, lane);
+  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk, 1.0f, lane);
+}
+
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) *
@@ -361,10 +669,12 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
 
 // EXT: delta comes from the caller (o may be null), else the dq kernel
 // computes it from o and writes it
-template <typename T, int D, bool EXT = false>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, const Args& a, cudaStream_t st) {
+template <int D, bool EXT = false>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, const Args& a,
+                   cudaStream_t st) {
+  using T = float;
   auto kdq = flash_dq_kernel<T, D, EXT>;
   auto kdkv = flash_dkv_kernel<T, D>;
   cudaError_t e = allow_smem(kdq, dq_smem<D>());
@@ -380,6 +690,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   kdkv<<<gk, kT, dkv_smem<D>(), st>>>((const T*)q, (const T*)k, (const T*)v,
                                       (const T*)dout, lse, delta, (T*)dk,
                                       (T*)dv, a);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool EXT = false>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    float* delta, void* dq, void* dk, void* dv,
+                    const Args& a, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  auto kdq = flash_dq_mma<D, EXT>;
+  auto kdkv = flash_dkv_mma<D>;
+  cudaError_t e = allow_smem(kdq, dq_mma_smem<D>());
+  if (e == cudaSuccess) e = allow_smem(kdkv, dkv_mma_smem<D>());
+  if (e != cudaSuccess) return (int)e;
+  dim3 gq((a.Lq + kTile - 1) / kTile, a.B * a.H);
+  kdq<<<gq, kMmaT, dq_mma_smem<D>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+      lse, delta, (T*)dq, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 gk((a.Lk + kTile - 1) / kTile, a.B * a.H);
+  kdkv<<<gk, kMmaT, dkv_mma_smem<D>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dk, (T*)dv, a);
   return (int)cudaGetLastError();
 }
 
@@ -422,15 +756,14 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                            seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return D == 64
-               ? launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk,
+    return D == 64 ? launch_bwd_f32<64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, a, st)
+                   : launch_bwd_f32<128>(q, k, v, o, dout, lse, delta, dq,
+                                         dk, dv, a, st);
+  return D == 64 ? launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, a, st)
-               : launch_bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk,
+                 : launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq, dk,
                                         dv, a, st);
-  return D == 64 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta,
-                                                 dq, dk, dv, a, st)
-                 : launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse,
-                                                  delta, dq, dk, dv, a, st);
 }
 
 // the external-lse backward: lse and delta (B*H, Lq) f32 from the
@@ -447,14 +780,14 @@ int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   float* dl = const_cast<float*>(delta);  // read only when EXT
   if (dtype == 0)
-    return D == 64 ? launch_bwd<float, 64, true>(q, k, v, nullptr, dout, lse,
-                                                 dl, dq, dk, dv, a, st)
-                   : launch_bwd<float, 128, true>(q, k, v, nullptr, dout, lse,
-                                                  dl, dq, dk, dv, a, st);
-  return D == 64 ? launch_bwd<__nv_bfloat16, 64, true>(
-                       q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st)
-                 : launch_bwd<__nv_bfloat16, 128, true>(
-                       q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st);
+    return D == 64 ? launch_bwd_f32<64, true>(q, k, v, nullptr, dout, lse,
+                                              dl, dq, dk, dv, a, st)
+                   : launch_bwd_f32<128, true>(q, k, v, nullptr, dout, lse,
+                                               dl, dq, dk, dv, a, st);
+  return D == 64 ? launch_bwd_bf16<64, true>(q, k, v, nullptr, dout, lse, dl,
+                                             dq, dk, dv, a, st)
+                 : launch_bwd_bf16<128, true>(q, k, v, nullptr, dout, lse,
+                                              dl, dq, dk, dv, a, st);
 }
 
 const char* kernel_error_string(int err) {

@@ -3,7 +3,10 @@
 // flash_short.cu (the short-sequence forms). Both key their dropout by
 // the same Philox counter, so for one seed they drop the same elements.
 //
-// Tiles are 64 rows; 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
+// Two kinds of kernel use them. The tensor-core kernels (the bf16 forms
+// of K1c and K1b; the last part of this file) are described there. The
+// f32 FMA kernels (every f32 form, and the bf16 forms of K1a and K1d):
+// tiles are 64 rows; 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, ... of every
 // tile it computes, so a row's values sit in one half-warp and row
 // max/sum are four shuffles. Operands live in shared memory as f32
@@ -228,6 +231,288 @@ Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
   a.seed_hi = hi;
   a.bias = bias;
   return a;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core pieces (bf16 operands, f32 accumulators)
+// ---------------------------------------------------------------------------
+// A tensor-core block is 4 warps; each warp owns 16 rows of a 64-row tile
+// and multiplies with mma.sync m16n8k16 (bf16 x bf16 -> f32). Operand
+// tiles sit in shared memory as bf16, 64 rows of W elements (W = D for
+// q/k/v/dO tiles, 64 for a P or dS tile), in 16-byte chunks whose index
+// is XORed with row % 8, so the eight rows one ldmatrix phase reads (and
+// the rows a fragment store writes) fall in eight different bank groups.
+// Global -> shared copies are cp.async (16 bytes a thread, zero-filled
+// past the sequence end), so the next tile's copy runs under this
+// tile's products.
+//
+// Fragment map of one warp's 16 x 64 f32 accumulator tile s[8][4] (the
+// m16n8 C layout, n-tile i of 8 columns, element e): row g + 8 (e / 2),
+// column 8 i + 2 t + e % 2, with g = lane / 4 and t = lane % 4. A
+// row's 64 values are spread over the 4 threads of a quad, so its max and
+// sum are two shuffles. The same registers, packed in pairs, are the A
+// operand of the next product (P V, dS K): no trip through memory.
+constexpr int kWarps = 4;
+constexpr int kMmaT = kWarps * 32;   // threads of a tensor-core block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the MUFU unit (ex2.approx, as exp2f without its subnormal
+// handling): an output below 2^-126 flushes to 0, where the f32 sums it
+// would enter (l, P V, dS) cannot see it anyway; -inf gives 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int frag_row(int lane, int e) {
+  return (lane >> 2) + 8 * (e >> 1);
+}
+
+__device__ __forceinline__ int frag_col(int lane, int i, int e) {
+  return 8 * i + 2 * (lane & 3) + (e & 1);
+}
+
+// Dropout keep bits of one warp's 16 x 64 tile, sequence rows row0 ..
+// row0 + 15 and kv columns kv0 .. kv0 + 63 (kv0 % 64 == 0), as bit
+// 4 i + e of the fragment map. Column c = 8 i + 2 t + e % 2 of the tile
+// has counter g = c % 16 = 8 (i % 2) + 2 t + e % 2 and word (c / 16) % 4
+// = i / 2, so the four words of one Philox call are n-tiles i % 2,
+// i % 2 + 2, + 4, + 6 of ONE thread: four calls a row, eight a thread,
+// one call for every four elements as in keep4.
+__device__ __forceinline__ uint32_t keep_frag(const Args& a, int bh,
+                                              int row0, int kv0, int lane) {
+  const int t = lane & 3, g = lane >> 2;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int hg = 0; hg < 2; ++hg)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint4 w = philox(
+            make_uint4((uint32_t)((kv0 / 64) * 16 + 8 * hg + 2 * t + e),
+                       (uint32_t)(row0 + g + 8 * half), (uint32_t)bh, 0u),
+            a.seed_lo, a.seed_hi);
+        const uint32_t wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (wj[j] >= a.thr) bits |= 1u << (4 * (2 * j + hg) + 2 * half + e);
+      }
+  return bits;
+}
+
+// Dead elements (dead()) of a warp's 16 x 64 tile, sequence rows row0 ..
+// and kv columns kv0 .., set to ``value``. Only a tile that reaches past
+// Lk, or above the diagonal when causal, can hold one; the test is the
+// same for the whole warp, so the full tiles between skip the per-element
+// compares.
+__device__ __forceinline__ void mask_tile(float (&s)[8][4], const Args& a,
+                                          int row0, int kv0, int lane,
+                                          float value) {
+  if (kv0 + kTile <= a.Lk && !(a.causal && kv0 + kTile - 1 > row0)) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (dead(a, row0 + frag_row(lane, e), kv0 + frag_col(lane, i, e)))
+        s[i][e] = value;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset of 16-byte chunk c of row r in a swizzled tile of W bf16
+template <int W>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * W * 2 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 64 rows of one head from the (B, L, H, D) layout, starting at row l0,
+// into a swizzled shared tile; rows at or past L are zero-filled
+template <int D>
+__device__ __forceinline__ void tile_async(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           const Args& a, int b, int h,
+                                           int l0, int L) {
+  constexpr int NC = D / 8;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kTile * NC; idx += kMmaT) {
+    const int r = idx / NC, c = idx % NC;
+    const bool live = l0 + r < L;
+    const __nv_bfloat16* p =
+        live ? src + (((int64_t)b * L + l0 + r) * a.H + h) * D + c * 8 : src;
+    cp_async16(dst + swz<D>(r, c), p, live);
+  }
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// A operand (16 x 16, rows m0.., depth k0..) of a tile stored [m][k]
+template <int W>
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], uint32_t tile,
+                                       int m0, int k0, int lane) {
+  ldsm4(r, tile + swz<W>(m0 + (lane & 15), (k0 >> 3) + (lane >> 4)));
+}
+
+// A operand of a tile stored [k][m] (the transposed product, e.g. P^T)
+template <int W>
+__device__ __forceinline__ void frag_at(uint32_t (&r)[4], uint32_t tile,
+                                        int m0, int k0, int lane) {
+  ldsm4t(r, tile + swz<W>(k0 + (lane & 7) + ((lane >> 4) << 3),
+                          (m0 >> 3) + ((lane >> 3) & 1)));
+}
+
+// B operands of n-tiles n0 and n0 + 8 (r[0..1] and r[2..3]), depth
+// k0 .. k0 + 15, of a tile stored [n][k] (K for Q K^T)
+template <int W>
+__device__ __forceinline__ void frag_b(uint32_t (&r)[4], uint32_t tile,
+                                       int n0, int k0, int lane) {
+  ldsm4(r, tile + swz<W>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                         (k0 >> 3) + ((lane >> 3) & 1)));
+}
+
+// the same of a tile stored [k][n] (V for P V, K for dS K)
+template <int W>
+__device__ __forceinline__ void frag_bt(uint32_t (&r)[4], uint32_t tile,
+                                        int n0, int k0, int lane) {
+  ldsm4t(r, tile + swz<W>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                          (n0 >> 3) + (lane >> 4)));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A operand of depth step kk (kv columns 16 kk ..) from a warp's 16 x 64
+// accumulator tile, as two bf16 terms, hi + lo: hi is the rounded value,
+// lo the rounding error rounded again, so hi + lo carries 16 bits of
+// mantissa. dS goes in this way (where every key of a row is masked the
+// saved lse is -1e30 and P is 1 across the row, the plain version's
+// arithmetic, so dS grows with Lk and one bf16 rounding of it moves dQ
+// and dK past the bf16 tolerance), and so does P into P V
+// (flash_short.cu)
+__device__ __forceinline__ void acc_to_a2(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                          const float (&s)[8][4], int kk) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float x0 = s[2 * kk + (j >> 1)][2 * (j & 1)];
+    const float x1 = s[2 * kk + (j >> 1)][2 * (j & 1) + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi[j] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+  }
+}
+
+// acc (16 x 64) += A (16 rows m0.. of tile A, [m][k], depth D) B^T with B
+// stored [n][k] (64 rows, depth D): S = Q K^T and dP = dO V^T
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t A,
+                                        int m0, uint32_t B, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t fa[4];
+    frag_a<D>(fa, A, m0, 16 * kk, lane);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t fb[4];
+      frag_b<D>(fb, B, 16 * n, 16 * kk, lane);
+      mma16816(acc[2 * n], fa, fb[0], fb[1]);
+      mma16816(acc[2 * n + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// acc (16 x D) += A (16 x 64, from registers as hi + lo) B, with B a
+// 64-row tile stored [k][n] of width D: O += P V and dQ += dS K
+template <int D>
+__device__ __forceinline__ void mma_rb(float (&acc)[D / 8][4],
+                                       const float (&s)[8][4], uint32_t B,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t fa[4], fl[4];
+    acc_to_a2(fa, fl, s, kk);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t fb[4];
+      frag_bt<D>(fb, B, 16 * n, 16 * kk, lane);
+      mma16816(acc[2 * n], fa, fb[0], fb[1]);
+      mma16816(acc[2 * n + 1], fa, fb[2], fb[3]);
+      mma16816(acc[2 * n], fl, fb[0], fb[1]);
+      mma16816(acc[2 * n + 1], fl, fb[2], fb[3]);
+    }
+  }
+}
+
+// row max / sum over the quad that holds a row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// a warp's 16 x D accumulator, times mul, as bf16 rows l0 + 16 w .. of
+// (B, L, H, D); rows at or past L are not written
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
+                                          const float (&acc)[D / 8][4],
+                                          const Args& a, int b, int h,
+                                          int row0, int L, float mul,
+                                          int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int l = row0 + frag_row(lane, 2 * half);
+    if (l >= L) continue;
+    const int64_t off = (((int64_t)b * L + l) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + off + frag_col(lane, j, 0)) =
+          pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+  }
 }
 
 }  // namespace

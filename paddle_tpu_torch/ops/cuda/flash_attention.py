@@ -16,8 +16,15 @@ the kernels index that layout directly (no head merge). Scores use the
 scaled query ``q * (1/sqrt(D))``; the forward also returns the per-row
 log-sum-exp ``lse`` (B*H, Lq) in f32, which the backward uses to
 recompute the probabilities (delta = rowsum(dO * O) is computed in the
-dq pass). Inputs are bf16 or f32; arithmetic is f32 (f64 in the plain
-version when given f64, for gradient checks).
+dq pass). Inputs are bf16 or f32 (the plain version computes in f32, or
+f64 when given f64, for gradient checks). The bf16 short forward and
+the bf16 streaming backward (all three of its forms) run on tensor
+cores: bf16 operands, f32 accumulators, m, l, lse, delta, P and dS in
+f32 until they become operands of a product, P and dS then entering as
+two bf16 terms (hi + lo) except P into dV (one). Every other kernel
+(the f32 forms, the parity route held to 1e-4, which TF32 cannot meet;
+the streaming forward and the short backward in bf16) computes in f32
+FMA.
 
 Dropout (rate p) is generated inside the kernels by Philox4x32-10 keyed
 by the 64-bit ``seed`` and counted by element coordinates: counter
@@ -335,9 +342,11 @@ def _check_saved(q, out, lse, dout):
     B, Lq, H, _ = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype \
-                or t.device != q.device or not t.is_contiguous():
+                or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"flash attention backward: {name} must be a "
-                             f"contiguous {q.dtype} {tuple(q.shape)}")
+                             f"contiguous, 16-byte aligned {q.dtype} "
+                             f"{tuple(q.shape)}")
     if lse.shape != (B * H, Lq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 ({B * H}, {Lq})")
@@ -368,9 +377,11 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
 def _check_ext(q, dout, lse, delta):
     B, Lq, H, _ = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype \
-            or dout.device != q.device or not dout.is_contiguous():
+            or dout.device != q.device or not dout.is_contiguous() \
+            or dout.data_ptr() % 16:
         raise ValueError(f"flash attention backward: dout must be a "
-                         f"contiguous {q.dtype} {tuple(q.shape)}")
+                         f"contiguous, 16-byte aligned {q.dtype} "
+                         f"{tuple(q.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B * H, Lq) or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():

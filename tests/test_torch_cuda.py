@@ -896,3 +896,122 @@ def test_zero_step_two_ranks_on_one_card(dev, tmp_path):
         assert la.get("zero.zero") == 1 and "zero.xla" not in la
         assert r["momentum_mix"]["launches"].get("static_momentum") \
             == 4 * 6 + 2 * 1     # 6 tensors x 4 comm steps + 2 chunk steps
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core forms: K1c's forward and K1b (plain, masked and
+# external-lse) in bf16 at the main paths' shapes, held to chip_smoke's
+# bf16 tolerance (atol 2e-2 + rtol 1e-2; lse within 1e-4); their
+# determinism; the f32 forms (the FMA kernels) at the parity tolerance
+# ---------------------------------------------------------------------------
+def _close_bf16(got, want, what):
+    err = (got.float() - want.float()).abs().max().item()
+    assert bool(torch.isfinite(got.float()).all()), what
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=1e-2), \
+        f"{what}: max abs err {err}"
+
+
+def _padded_bias(dev, B, L, seed=0):
+    """A key-padding bias of lengths in [L/4, L], row 0 full."""
+    lens = np.random.RandomState(seed).randint(L // 4, L + 1, B)
+    lens[0] = L
+    return fa.kv_mask_bias(_key_mask(dev, B, L, "lens", lens.tolist()), B, L)
+
+
+@pytest.mark.parametrize("B,L,H,D,causal,p", [
+    (32, 512, 12, 64, False, 0.1),
+    (4, 512, 8, 128, False, 0.1),
+    (4, 256, 12, 64, True, 0.1),
+], ids=["bert512-dropout", "D128", "causal"])
+def test_tensor_core_short_forward_matches_plain(dev, B, L, H, D, causal, p):
+    q, k, v, _ = _qkvo(dev, 31, B, L, H, D, torch.bfloat16)
+    out, lse = fa.flash_attention_short_fwd(q, k, v, causal, p, 555)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, p, 555)
+    torch.cuda.synchronize()
+    _close_bf16(out, rout, "out")
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    assert counters.snapshot() == {"flash_attention_short_fwd": 1}
+
+
+@pytest.mark.parametrize("B,L,H,D,causal,p,masked", [
+    (128, 128, 12, 64, False, 0.1, False),
+    (8, 1024, 12, 64, True, 0.0, False),
+    (32, 512, 12, 64, False, 0.1, True),
+    (2, 200, 3, 128, True, 0.1, True),
+], ids=["bert128-dropout", "gpt-causal", "padded512-dropout",
+        "ragged-causal-D128"])
+def test_tensor_core_backward_matches_plain(dev, B, L, H, D, causal, p,
+                                            masked):
+    q, k, v, do = _qkvo(dev, 32, B, L, H, D, torch.bfloat16)
+    bias = _padded_bias(dev, B, L) if masked else None
+    out, lse = fa._plain_fwd(q, k, v, causal, p, 556, bias)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, p, 556, bias)
+    want = fa._plain_bwd(q, k, v, out, lse, do, causal, p, 556, bias)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_bf16(a, b, name)
+    assert counters.snapshot() == {
+        "flash_attention_masked_bwd" if masked else "flash_attention_bwd": 1}
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "diagonal"])
+def test_tensor_core_ext_backward_matches_plain(dev, causal):
+    """The SP block, 8 x 512 x 12 x 64, with the lse and delta of the
+    whole two-block sequence."""
+    q, k, v, do = _qkvo(dev, 33, 8, 512, 12, 64, torch.bfloat16)
+    _, k0, v0, _ = _qkvo(dev, 34, 8, 512, 12, 64, torch.bfloat16)
+    lse, delta = _global_stats(q, k, v, do, k0, v0, None)
+    got = fa.flash_attention_bwd_ext(q, k, v, do, lse, delta, causal)
+    want = fa._plain_bwd_ext(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_bf16(a, b, name)
+    assert counters.snapshot() == {"flash_attention_ext_bwd": 1}
+
+
+@pytest.mark.parametrize("form", ["short_fwd", "bwd", "masked_bwd",
+                                  "ext_bwd"])
+def test_tensor_core_kernels_are_deterministic(dev, form):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    split across blocks)."""
+    q, k, v, do = _qkvo(dev, 35, 4, 512, 12, 64, torch.bfloat16)
+    bias = _padded_bias(dev, 4, 512, seed=3)
+    out, lse = fa._plain_fwd(q, k, v, False, 0.1, 557)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(4 * 12, 512).contiguous()
+    run = {"short_fwd": lambda: fa.flash_attention_short_fwd(
+               q, k, v, False, 0.1, 557),
+           "bwd": lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, do, True, 0.1, 557),
+           "masked_bwd": lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, do, False, 0.1, 557, bias),
+           "ext_bwd": lambda: fa.flash_attention_bwd_ext(
+               q, k, v, do, lse, delta, False)}[form]
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_f32_forms_keep_the_parity_tolerance(dev):
+    """The f32 instantiations stay the FMA kernels: K1c's forward, K1b
+    with a mask and dropout, and the external-lse K1b within atol 1e-4
+    of the plain versions."""
+    tol = dict(atol=1e-4, rtol=0.0)
+    q, k, v, do = _qkvo(dev, 36, 2, 256, 4, 64, torch.float32)
+    out, lse = fa.flash_attention_short_fwd(q, k, v, True, 0.1, 558)
+    rout, rlse = fa._plain_fwd(q, k, v, True, 0.1, 558)
+    torch.testing.assert_close(out, rout, **tol)
+    torch.testing.assert_close(lse, rlse, **tol)
+    bias = _padded_bias(dev, 2, 256, seed=4)
+    rout, rlse = fa._plain_fwd(q, k, v, False, 0.1, 558, bias)
+    for a, b in zip(fa.flash_attention_bwd(q, k, v, rout, rlse, do, False,
+                                           0.1, 558, bias),
+                    fa._plain_bwd(q, k, v, rout, rlse, do, False, 0.1, 558,
+                                  bias)):
+        torch.testing.assert_close(a, b, **tol)
+    _, k0, v0, _ = _qkvo(dev, 37, 2, 256, 4, 64, torch.float32)
+    lse, delta = _global_stats(q, k, v, do, k0, v0, None)
+    for a, b in zip(fa.flash_attention_bwd_ext(q, k, v, do, lse, delta, True),
+                    fa._plain_bwd_ext(q, k, v, do, lse, delta, True)):
+        torch.testing.assert_close(a, b, **tol)

@@ -1,0 +1,224 @@
+"""The rounding of the tensor-core flash kernels (the bf16 forms of K1c's
+forward and of K1b, ``csrc/flash_short.cu`` and ``csrc/flash_attention.cu``)
+modelled on the CPU and held against the JAX kernels in interpret mode,
+so that the numerical design is checked before it reaches the card.
+
+The model (test-local, in f32 torch arithmetic) rounds exactly where the
+kernels do and nowhere else:
+
+- forward: the online softmax over 64-column kv tiles, m and l in f32,
+  l summing the unrounded probabilities; P = exp(S - m) (dropped and
+  scaled by 1/(1-p)) into P V as two bf16 terms, hi + lo;
+- backward: P = exp(S - lse) and dS = P (dP - delta) in f32; the dropped
+  P rounded to bf16 into dV = P^T dO; dS into dQ = dS K and dK = dS^T Q
+  as two bf16 terms, hi + lo (one bf16 rounding of dS misses the
+  tolerance where a whole row is masked, as the last test shows);
+- inputs bf16 values, outputs rounded to bf16.
+
+References: ``_flash_attention_core_short_fwd`` and ``_bwd_call`` with
+``pl.pallas_call`` in interpret mode (f32, on the same bf16-valued
+inputs), and the port's plain versions where dropout is on (the JAX
+package's dropout bits are the TPU's, the port's Philox's). Tolerance:
+the card checks' bf16 one, atol 2e-2 + rtol 1e-2, and lse within 1e-4.
+Shapes: B 2, L 128-256, H 2, D 64 and 128.
+"""
+import functools
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+
+TOL = dict(atol=2e-2, rtol=1e-2)
+TILE = 64
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    """Run pallas_call in interpret mode so the JAX kernels run on CPU."""
+    from jax.experimental import pallas as pl
+
+    real = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(real, interpret=True))
+
+
+def bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def split(x):
+    """x as the sum of two bf16 terms (hi, the rounded value; lo, its
+    rounding error rounded)."""
+    hi = bf(x)
+    return hi + bf(x - hi)
+
+
+def _inputs(B, L, H, D, seed, n=4):
+    rng = np.random.RandomState(seed)
+    return [bf(torch.tensor(rng.randn(B, L, H, D).astype(np.float32)))
+            for _ in range(n)]
+
+
+def _heads(x):
+    B, L, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, L, D)
+
+
+def _back(x, B, H):
+    BH, L, D = x.shape
+    return x.reshape(B, H, L, D).permute(0, 2, 1, 3)
+
+
+def _dead(lq, lk, causal, c0):
+    col = torch.arange(c0, c0 + TILE).view(1, TILE)
+    row = torch.arange(lq).view(lq, 1)
+    return (col >= lk) | ((col > row) & causal)
+
+
+def model_fwd(q, k, v, causal, p=0.0, seed=0):
+    """K1c's tensor-core forward: (out in bf16 values, lse)."""
+    B, L, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm = _heads(q), _heads(k), _heads(v)
+    keep = tfa.philox_keep_mask(seed, B * H, L, L, p) if p > 0 else None
+    m = torch.full((B * H, L, 1), -1e30)
+    l = torch.zeros((B * H, L, 1))
+    o = torch.zeros((B * H, L, D))
+    for c0 in range(0, L, TILE):
+        s = (qm @ km[:, c0:c0 + TILE].transpose(1, 2)) * scale
+        s = s.masked_fill(_dead(L, L, causal, c0), float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(s - m_new)
+        l = alpha * l + pr.sum(-1, keepdim=True)
+        if keep is not None:
+            pr = torch.where(keep[:, :, c0:c0 + TILE], pr / (1 - p),
+                             torch.zeros_like(pr))
+        o = o * alpha + split(pr) @ vm[:, c0:c0 + TILE]
+        m = m_new
+    lse = (m + torch.log(l)).squeeze(-1)
+    return bf(_back(o / l, B, H)), lse
+
+
+def model_bwd(q, k, v, dout, lse, delta, causal, p=0.0, seed=0, bias=None,
+              ds_terms=2):
+    """K1b's tensor-core backward from lse and delta ((B*H, Lq) f32):
+    (dq, dk, dv) in bf16 values; ``ds_terms`` 1 rounds dS once."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm, dom = _heads(q), _heads(k), _heads(v), _heads(dout)
+    s = (qm @ km.transpose(1, 2)) * scale
+    if bias is not None:
+        s = s + bias.repeat_interleave(H, 0)[:, None, :]
+    if causal:
+        s = s.masked_fill(torch.ones(Lq, Lk, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    prob = torch.exp(s - lse.unsqueeze(-1))
+    dp = dom @ vm.transpose(1, 2)
+    pd = prob
+    if p > 0:
+        keep = tfa.philox_keep_mask(seed, B * H, Lq, Lk, p)
+        zero = torch.zeros_like(dp)
+        dp = torch.where(keep, dp / (1 - p), zero)
+        pd = torch.where(keep, prob / (1 - p), zero)
+    ds = prob * (dp - delta.unsqueeze(-1))
+    ds_op = split(ds) if ds_terms == 2 else bf(ds)
+    dq = (ds_op @ km) * scale
+    dk = (ds_op.transpose(1, 2) @ qm) * scale
+    dv = bf(pd).transpose(1, 2) @ dom
+    return tuple(bf(_back(x, B, H)) for x in (dq, dk, dv))
+
+
+def _stats(q, k, v, dout, causal, bias=None):
+    """lse and delta from the plain forward (f32)."""
+    B, L, H, _ = q.shape
+    out, lse = tfa._plain_fwd(q, k, v, causal, 0.0, 0, bias)
+    delta = (dout * out).sum(-1).permute(0, 2, 1).reshape(B * H, L)
+    return lse, delta.contiguous()
+
+
+def _jax_bwd(q, k, v, dout, lse, delta, causal, bias=None):
+    B, L, H, D = q.shape
+    j = [jnp.asarray(_heads(x).numpy()) for x in (q, k, v, dout)]
+    grads = jfa._bwd_call(
+        *j, jnp.asarray(lse.numpy())[:, None, :],
+        jnp.asarray(delta.numpy())[:, None, :], causal, 128, 128,
+        1.0 / math.sqrt(D),
+        mask_bias=None if bias is None
+        else jnp.asarray(bias.numpy())[:, None, :], heads=H)
+    return [_back(torch.tensor(np.asarray(g)), B, H) for g in grads]
+
+
+def _close(got, want, what):
+    err = float((got - want).abs().max())
+    assert torch.allclose(got, want, **TOL), f"{what}: max abs err {err}"
+
+
+@pytest.mark.parametrize("L,D,causal", [(256, 64, False), (256, 64, True),
+                                        (128, 128, False)],
+                         ids=["full", "causal", "D128"])
+def test_forward_model_meets_the_card_tolerance(L, D, causal):
+    q, k, v = _inputs(2, L, 2, D, seed=L + D + causal, n=3)
+    jout, res = jfa._flash_attention_core_short_fwd(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), None, causal, 0.0)
+    out, lse = model_fwd(q, k, v, causal)
+    _close(out, bf(torch.tensor(np.asarray(jout))), "out")
+    assert float((lse - torch.tensor(np.asarray(res[4])[:, 0])).abs().max()) \
+        <= 1e-4
+
+
+def test_forward_model_with_dropout_meets_the_card_tolerance():
+    q, k, v = _inputs(2, 256, 2, 64, seed=3, n=3)
+    out, lse = model_fwd(q, k, v, False, 0.1, 77)
+    rout, rlse = tfa._plain_fwd(q, k, v, False, 0.1, 77)
+    _close(out, bf(rout), "out")
+    assert float((lse - rlse).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
+                                           (False, True), (True, True)],
+                         ids=["full", "causal", "masked", "causal-masked"])
+def test_backward_model_meets_the_card_tolerance(causal, masked):
+    q, k, v, do = _inputs(2, 256, 2, 64, seed=11 + 2 * causal + masked)
+    bias = tfa.kv_mask_bias(torch.arange(256)[None, :]
+                            < torch.tensor([[256], [97]]), 2, 256) \
+        if masked else None
+    lse, delta = _stats(q, k, v, do, causal, bias)
+    got = model_bwd(q, k, v, do, lse, delta, causal, bias=bias)
+    want = _jax_bwd(q, k, v, do, lse, delta, causal, bias)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, bf(b), name)
+
+
+def test_backward_model_with_dropout_meets_the_card_tolerance():
+    q, k, v, do = _inputs(2, 128, 2, 64, seed=21)
+    out, lse = tfa._plain_fwd(q, k, v, False, 0.1, 78)
+    delta = (do * out).sum(-1).permute(0, 2, 1).reshape(4, 128)
+    got = model_bwd(q, k, v, do, lse, delta, False, 0.1, 78)
+    want = tfa._plain_bwd(q, k, v, out, lse, do, False, 0.1, 78)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, bf(b), name)
+
+
+def test_a_fully_masked_row_needs_ds_in_two_terms():
+    """Where every key of a batch row is masked, its saved lse is -1e30
+    and P is 1 across the row, so dS is Lk times its usual size: one bf16
+    rounding of dS moves dQ and dK past the tolerance, hi + lo does not."""
+    q, k, v, do = _inputs(2, 256, 2, 64, seed=13)
+    bias = tfa.kv_mask_bias(torch.arange(256)[None, :]
+                            < torch.tensor([[256], [0]]), 2, 256)
+    lse, delta = _stats(q, k, v, do, False, bias)
+    assert bool((lse.view(2, 2, 256)[1] == np.float32(-1e30)).all())
+    want = [bf(g) for g in _jax_bwd(q, k, v, do, lse, delta, False, bias)]
+    two = model_bwd(q, k, v, do, lse, delta, False, bias=bias)
+    one = model_bwd(q, k, v, do, lse, delta, False, bias=bias, ds_terms=1)
+    for name, a, b in zip(("dq", "dk", "dv"), two, want):
+        _close(a, b, name)
+    assert not torch.allclose(one[0], want[0], **TOL)
+    assert not torch.allclose(one[1], want[1], **TOL)

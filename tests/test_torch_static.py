@@ -99,6 +99,13 @@ def _batches():
             for _ in range(2)]
 
 
+def _counted_since(before):
+    """The counts bumped since the snapshot ``before``: this run's own,
+    whatever an earlier test left in the process-wide counters."""
+    return {k: n - before.get(k, 0) for k, n in counters.snapshot().items()
+            if n != before.get(k, 0)}
+
+
 def _train(opt):
     """Both packages from the JAX startup state: per-step (loss, acc),
     step-1 grads, the state after STEPS steps, eval logits."""
@@ -119,9 +126,11 @@ def _train(opt):
             ("port", ts, texe, tscope, tm, [tloss, tacc] + grads)):
         rec = out[side]
         with static.scope_guard(scope):
+            before = counters.snapshot()
             rec["steps"] = [exe.run(prog, feed={"img": x, "label": y},
                                     fetch_list=fetch)
                             for x, y in batches[:1] * STEPS]
+            rec["launches"] = _counted_since(before)
             rec["state"] = {k: np.asarray(v) if side == "jax"
                             else v.numpy() for k, v in scope.items()}
             x, y = batches[1]
@@ -200,7 +209,7 @@ def test_five_steps_match_jax(trained, opt):
     ja = [float(s[1]) for s in run["jax"]["steps"]]
     ta = [float(s[1]) for s in run["port"]["steps"]]
     assert ta == ja
-    assert counters.snapshot() == {}                  # the CPU runs plain
+    assert run["port"]["launches"] == {}              # the CPU runs plain
 
 
 @pytest.mark.parametrize("opt", OPTS)

@@ -366,15 +366,19 @@ def test_one_rank_compiled_program_is_the_plain_step():
     feed = _feed("dp_net")
     got = []
     counters.reset()
-    for legs in ([None] * 2, [{"comm_quant": "int8", "zero_stage": 2}] * 2):
-        scope, exe = ts.Scope(), ts.Executor(ts.CPUPlace())
-        ts.load_numpy_state(scope, init, ts.CPUPlace())
-        got.append(ranks.run_legs(ts, tun, exe, scope, "dp_net", "momentum",
-                                  feed, legs, 2, 1)[0])
-    assert got[0] == got[1]
-    assert counters.get("quant_allreduce.xla") == 1
-    assert counters.get("zero.xla") == 1
-    assert "no mesh_shape" in counters.reasons("quant_allreduce.xla")[0]
+    try:
+        for legs in ([None] * 2,
+                     [{"comm_quant": "int8", "zero_stage": 2}] * 2):
+            scope, exe = ts.Scope(), ts.Executor(ts.CPUPlace())
+            ts.load_numpy_state(scope, init, ts.CPUPlace())
+            got.append(ranks.run_legs(ts, tun, exe, scope, "dp_net",
+                                      "momentum", feed, legs, 2, 1)[0])
+        assert got[0] == got[1]
+        assert counters.get("quant_allreduce.xla") == 1
+        assert counters.get("zero.xla") == 1
+        assert "no mesh_shape" in counters.reasons("quant_allreduce.xla")[0]
+    finally:
+        counters.reset()        # leave nothing for a later test to read
 
 
 @pytest.mark.parametrize("field,value", [
