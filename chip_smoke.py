@@ -199,6 +199,7 @@ the configurations' own.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import os
@@ -266,7 +267,8 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 # ---------------------------------------------------------------------------
 # phase 0: the tensor-core kernels' instructions
 # ---------------------------------------------------------------------------
-TENSOR_CORE_KERNELS = ("short_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
+TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_dq_mma",
+                       "flash_dkv_mma")
 
 
 def tensor_core_counts(build):
@@ -981,20 +983,25 @@ def check_momentum(torch, fo, shapes, timing):
     return row
 
 
-def check_flash_short(torch, fa, timing):
+def check_flash_short(torch, fa, timing, tc_counts):
     """K1c/K1d (the short-sequence kernels) against the plain version
     and against the streaming K1 on the same inputs and seed: BERT-base
     phase 2's 32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 +
     rtol 1e-2), 128-long f32 without dropout (atol 1e-4), a causal f32
-    case with dropout and a D = 128 bf16 case; two launches of each bf16
-    kernel give the same bits; the dropout mask read back bit for bit.
-    Times the short kernels, the streaming K1 and
+    case with dropout and a D = 128 bf16 case at L 384; the bf16
+    backward (one cluster of L / 64 CTAs a head) also at L 128 and
+    causal L 256, so it runs at clusters of 2, 4, 6 and 8; two launches
+    of each bf16 kernel give the same bits; the dropout mask read back
+    bit for bit. Times the short kernels, the streaming K1 (its
+    backward is K1b's pair, ``stream_bwd_ms``) and
     ``F.scaled_dot_product_attention`` at L 128 and L 512."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(7)
     cases = [("bf16_L512", 32, 512, 12, 64, torch.bfloat16, False, 0.1),
              ("f32_L128", 8, 128, 12, 64, torch.float32, False, 0.0),
+             ("bf16_L128", 8, 128, 12, 64, torch.bfloat16, False, 0.0),
              ("f32_causal_L256", 4, 256, 4, 64, torch.float32, True, 0.1),
+             ("bf16_causal_L256", 4, 256, 4, 64, torch.bfloat16, True, 0.1),
              ("bf16_D128_L384", 2, 384, 4, 128, torch.bfloat16, False, 0.1)]
     seed = 0x5EED5678
     row = {"cases": {}}
@@ -1051,10 +1058,26 @@ def check_flash_short(torch, fa, timing):
     row["bwd_max_abs_err"] = max(max(c["dq"], c["dk"], c["dv"])
                                  for c in row["cases"].values())
     row["main_shape_errs"] = main
+    # HMMA instructions of the tensor-core backward's instantiations (the
+    # build phase fails where one has none)
+    row["short_bwd_mma_hmma"] = {"D64" if "ILi64E" in fn else "D128": n
+                                 for fn, n in tc_counts.items()
+                                 if "short_bwd_mma" in fn}
+    # clusters of the bf16 backward the card holds at once at the main
+    # shape (8 CTAs of 104 KB each, two an SM at most)
+    fn = fa._build.entry("flash_short", "flash_short_bwd_max_clusters",
+                         [ctypes.c_int, ctypes.c_int])
+    clusters = int(fn(512, 64))
+    expect(clusters > 0, f"flash short: cudaOccupancyMaxActiveClusters "
+                         f"failed ({clusters})")
+    row["bwd_resident"] = {
+        "clusters": clusters, "ctas": clusters * 8,
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count}
     if timing:
         row["times"] = {f"L{L}": time_short_vs_stream(torch, fa, gen, B, L)
                         for B, L in ((128, 128), (32, 512))}
         t = row["times"]["L512"]
+        row["stream_bwd_ms"] = t["stream_bwd_ms"]
         for part in ("fwd", "bwd"):
             row.update({f"{part}_ms": t[f"short_{part}_ms"],
                         f"{part}_plain_ms": t[f"plain_{part}_ms"],
@@ -1826,7 +1849,7 @@ def phase_bert_lamb_parity(torch, counters, fa, fx, fo):
 def bert_short_family(name):
     if "short_fwd_" in name:
         return "flash_short_fwd"
-    if "short_bwd_kernel" in name:
+    if "short_bwd_" in name:
         return "flash_short_bwd"
     if "lambphase1rule" in name or "lambapplyrule" in name:
         return "lamb"
@@ -2105,13 +2128,24 @@ STATIC_FORMS = ("sgd", "momentum", "adam", "lamb")
 # p and the state written once) and its f32 operations an element
 STATIC_BYTES = {"sgd": 12, "momentum": 20, "adam": 28, "lamb": 28}
 STATIC_FLOPS = {"sgd": 2, "momentum": 3, "adam": 12, "lamb": 16}
-# the static forms' timed calls dispatch one launch a tensor (25 or 206
-# of them, Lamb with a norm between two): a ~50 ms spin ahead of the
-# start event hides that host work, so their times are device time
+# the static forms' timed calls dispatch a run of 25 or 206 tensors (a
+# launch or a few, Lamb with a norm between two): a ~50 ms spin ahead of
+# the start event hides that host work, so their times are device time
 STATIC_SPIN_CYCLES = 100_000_000
 STATIC_COUNTERS = {"sgd": ("static_sgd",), "momentum": ("static_momentum",),
                    "adam": ("static_adam",),
                    "lamb": ("static_lamb_phase1", "static_lamb_apply")}
+# table roles of each static launch (its pointer table's rows)
+STATIC_ROLES = {"static_sgd": 4, "static_momentum": 5, "static_adam": 10,
+                "static_lamb_phase1": 10, "static_lamb_apply": 6}
+
+
+def static_launches(fo, counter, n_tensors):
+    """Launches of ``counter``'s kernel for one run of ``n_tensors``
+    update ops: one, or one per split where the run outgrows the table
+    a launch carries by value."""
+    cap = fo.static_capacity(STATIC_ROLES[counter])
+    return -(-n_tensors // cap)
 
 
 def static_state(torch, form, shapes, found, gen):
@@ -2136,29 +2170,39 @@ def static_state(torch, form, shapes, found, gen):
     return out
 
 
-def static_update(fo, form, t, plain):
-    """The static form on one parameter's inputs ``t`` (in place):
-    its beta-pow outputs (Adam, Lamb) or ()."""
-    p, g, lr, found = t["p"], t["g"], t["lr"], t["found"]
+def static_update(fo, form, ts, plain):
+    """The static form over a run of parameters' inputs ``ts`` (in
+    place), as the executor hands a run of update ops to it: the list
+    form, or the loop of per-op plain versions; each op's beta-pow
+    outputs (Adam, Lamb) or ()."""
+    def col(k):
+        return [t[k] for t in ts]
+
+    p, g, lr, found = col("p"), col("g"), col("lr"), col("found")
     if form == "sgd":
-        (fo._plain_static_sgd_ if plain else fo.static_sgd_)(p, g, lr, found)
-        return ()
+        (fo._plain_static_sgd_list_ if plain else fo.static_sgd_list_)(
+            p, g, lr, found)
+        return [()] * len(ts)
     if form == "momentum":
         if plain:
-            fo._plain_static_momentum_(p, g, t["v"], lr, 0.9, False, found)
+            fo._plain_static_momentum_list_(p, g, col("v"), lr, 0.9, False,
+                                            found)
         else:
-            fo.static_momentum_(p, g, t["v"], lr, mu=0.9, found=found)
-        return ()
-    args = (p, g, t["m"], t["v"], t["b1p"], t["b2p"], lr)
+            fo.static_momentum_list_(p, g, col("v"), lr, mu=0.9,
+                                     founds=found)
+        return [()] * len(ts)
+    args = (p, g, col("m"), col("v"), col("b1p"), col("b2p"), lr)
     if form == "adam":
         if plain:
-            return fo._plain_static_adam_(*args, 0.9, 0.999, 1e-8, found)
-        return fo.static_adam_(*args, beta1=0.9, beta2=0.999, eps=1e-8,
-                               found=found)
+            return fo._plain_static_adam_list_(*args, 0.9, 0.999, 1e-8,
+                                               found)
+        return fo.static_adam_list_(*args, beta1=0.9, beta2=0.999, eps=1e-8,
+                                    founds=found)
     if plain:
-        return fo._plain_static_lamb_(*args, 0.9, 0.999, 1e-6, 0.01, found)
-    return fo.static_lamb_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
-                           weight_decay=0.01, found=found)
+        return fo._plain_static_lamb_list_(*args, 0.9, 0.999, 1e-6, 0.01,
+                                           found)
+    return fo.static_lamb_list_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
+                                weight_decay=0.01, founds=found)
 
 
 def static_library(torch, form, state):
@@ -2189,13 +2233,16 @@ def host_dispatch_ms(torch, fn, iters: int = 20) -> float:
 
 
 def check_static_optim(torch, fo, counters, shape_lists, timing):
-    """K3's static forms against their plain versions, bit for bit, one
-    launch a tensor over the static example's 25 trainable tensors and
+    """K3's static forms against their plain versions, bit for bit, over
+    a run of the static example's 25 trainable tensors and one of
     BERT-base's 206, with FoundInfinite absent, false and true: p, the
     moments or velocity and the beta-pow outputs; the flag keeps all of
-    them; the pows advance without it. Timed over each list (the
-    example's is the main path's: one step's updates), device time
-    behind a long spin, and the host time to dispatch the list."""
+    them; the pows advance without it. A run is one launch, or one per
+    split where it outgrows the table a launch carries by value
+    (``static_capacity``, set by the build's kernel parameter space).
+    Timed over each list (the example's is the main path's: one step's
+    updates), device time behind a long spin, and the host time to
+    dispatch the list."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows = {}
     for form in STATIC_FORMS:
@@ -2208,14 +2255,16 @@ def check_static_optim(torch, fo, counters, shape_lists, timing):
                 before = [{k: None if x is None else x.clone()
                            for k, x in t.items()} for t in kern]
                 c0 = sum(counters.get(c) for c in STATIC_COUNTERS[form])
-                kp = [static_update(fo, form, t, False) for t in kern]
-                pp = [static_update(fo, form, t, True) for t in plain]
+                kp = static_update(fo, form, kern, False)
+                pp = static_update(fo, form, plain, True)
                 torch.cuda.synchronize()
                 n_launch = sum(counters.get(c)
                                for c in STATIC_COUNTERS[form]) - c0
-                expect(n_launch == len(shapes) * len(STATIC_COUNTERS[form]),
-                       f"static {form}: {n_launch} launches for "
-                       f"{len(shapes)} tensors")
+                want = sum(static_launches(fo, c, len(shapes))
+                           for c in STATIC_COUNTERS[form])
+                expect(n_launch == want,
+                       f"static {form}: {n_launch} launches for a run of "
+                       f"{len(shapes)} tensors, want {want}")
                 row["launches_checked"] += n_launch
                 for t, u, b, ko, po in zip(kern, plain, before, kp, pp):
                     for k, x in t.items():
@@ -2239,7 +2288,9 @@ def check_static_optim(torch, fo, counters, shape_lists, timing):
                                f"static {form} (found={found}): beta-pow "
                                f"{float(a)} against {float(want)}")
             n = sum(int(np.prod(s)) for s in shapes)
-            sub = {"params": len(shapes), "elements": n}
+            sub = {"params": len(shapes), "elements": n,
+                   "launches_per_run": {c: static_launches(fo, c, len(shapes))
+                                        for c in STATIC_COUNTERS[form]}}
             if timing:
                 state = static_state(torch, form, shapes, None, gen)
                 pstate = [dict(t) for t in state]
@@ -2248,16 +2299,15 @@ def check_static_optim(torch, fo, counters, shape_lists, timing):
                 lib = static_library(torch, form, state)
                 spin = STATIC_SPIN_CYCLES
                 sub.update({
-                    "ms": time_ms(torch, lambda: [static_update(
-                        fo, form, t, False) for t in state], spin=spin),
-                    "plain_ms": time_ms(torch, lambda: [static_update(
-                        fo, form, t, True) for t in pstate], iters=5,
-                        spin=spin),
+                    "ms": time_ms(torch, lambda: static_update(
+                        fo, form, state, False), spin=spin),
+                    "plain_ms": time_ms(torch, lambda: static_update(
+                        fo, form, pstate, True), iters=5, spin=spin),
                     "library_ms": None if lib is None else time_ms(
                         torch, lib, spin=spin),
                     "host_dispatch_ms": host_dispatch_ms(
-                        torch, lambda: [static_update(fo, form, t, False)
-                                        for t in state]),
+                        torch, lambda: static_update(fo, form, state,
+                                                     False)),
                     "bound_ms": t_b, "bound_by": by})
             row[label] = sub
         if timing:
@@ -2266,6 +2316,9 @@ def check_static_optim(torch, fo, counters, shape_lists, timing):
                 "host_dispatch_ms")})
             row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
         rows[form] = row
+    rows["param_bytes"] = fo.static_param_bytes()
+    rows["capacity"] = {c: fo.static_capacity(r)
+                        for c, r in STATIC_ROLES.items()}
     return rows
 
 
@@ -2410,21 +2463,25 @@ def phase_static_parity(torch, counters, fo):
     from paddle_tpu_torch import static
     from paddle_tpu_torch.utils import unique_name
 
+    def nones(founds, n):
+        return [None] * n if founds is None else founds
+
     swaps = [
-        (fo, "static_sgd_", lambda p, g, lr, found=None:
-         fo._plain_static_sgd_(p, g, lr, found)),
-        (fo, "static_momentum_",
-         lambda p, g, v, lr, *, mu, nesterov=False, found=None:
-         fo._plain_static_momentum_(p, g, v, lr, mu, nesterov, found)),
-        (fo, "static_adam_",
-         lambda p, g, m, v, b1, b2, lr, *, beta1, beta2, eps, found=None:
-         fo._plain_static_adam_(p, g, m, v, b1, b2, lr, beta1, beta2, eps,
-                                found)),
-        (fo, "static_lamb_",
+        (fo, "static_sgd_list_", lambda p, g, lr, founds=None:
+         fo._plain_static_sgd_list_(p, g, lr, nones(founds, len(p)))),
+        (fo, "static_momentum_list_",
+         lambda p, g, v, lr, *, mu, nesterov=False, founds=None:
+         fo._plain_static_momentum_list_(p, g, v, lr, mu, nesterov,
+                                         nones(founds, len(p)))),
+        (fo, "static_adam_list_",
+         lambda p, g, m, v, b1, b2, lr, *, beta1, beta2, eps, founds=None:
+         fo._plain_static_adam_list_(p, g, m, v, b1, b2, lr, beta1, beta2,
+                                     eps, nones(founds, len(p)))),
+        (fo, "static_lamb_list_",
          lambda p, g, m, v, b1, b2, lr, *, beta1, beta2, eps, weight_decay,
-         found=None: fo._plain_static_lamb_(p, g, m, v, b1, b2, lr, beta1,
-                                            beta2, eps, weight_decay,
-                                            found))]
+         founds=None: fo._plain_static_lamb_list_(
+             p, g, m, v, b1, b2, lr, beta1, beta2, eps, weight_decay,
+             nones(founds, len(p))))]
     imgs, labels = cifar_synthetic()
     x, y = imgs[:8], labels[:8]
     prev = torch.backends.cudnn.deterministic
@@ -2460,7 +2517,10 @@ def phase_static_parity(torch, counters, fo):
                 runs[name] = ([float(v) for v in ls], dict(scope.items()),
                               counters.snapshot())
             (lk, sk, ck), (lp, sp, cp) = runs["kernel"], runs["plain"]
-            want = {c: 2 * 25 for c in STATIC_COUNTERS[form]}
+            # the 25 update ops are one run: one launch a step (or one
+            # per split of the run)
+            want = {c: 2 * static_launches(fo, c, 25)
+                    for c in STATIC_COUNTERS[form]}
             expect({c: ck.get(c, 0) for c in want} == want,
                    f"static_parity {form}: kernel launches {ck}, want {want}")
             expect(not any(k.startswith("static_") for k in cp),
@@ -2561,7 +2621,10 @@ def phase_static_resnet(torch, counters, form, steps, inference=False):
     expect(all(np.isfinite(losses)), f"static {form}: non-finite {losses}")
     expect(losses[-1] < losses[0],
            f"static {form}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    want = {c: 25 * n for c in STATIC_COUNTERS[form]}
+    # the 25 update ops of a step are one run: one launch a step (or one
+    # per split of the run), not one an op
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+    want = {c: static_launches(fo, c, 25) * n for c in STATIC_COUNTERS[form]}
     expect({c: launches.get(c, 0) for c in want} == want,
            f"static {form}: launches {launches}, want {want}")
     others = {k: v for k, v in launches.items() if k not in want}
@@ -3666,14 +3729,14 @@ def zero_parity_rank(cases, inits, feed):
 
 def zero_step_launches(opt, leg):
     """The kernel launches one step of ``leg`` makes on a rank: one
-    static form a parameter (6 tensors), or one chunk update for the
-    one bucket under ZeRO."""
+    static launch for the run of the 6 parameters' update ops (6 a step
+    before the executor grouped runs), or one chunk update for the one
+    bucket under ZeRO."""
     zero = bool(leg.get("zero_stage")) and bool(leg.get("comm_quant"))
-    n = 1 if zero else 6
     if opt == "lamb":
         return ({"chunk_lamb_phase1": 1, "chunk_lamb_apply": 1} if zero
-                else {"static_lamb_phase1": 6, "static_lamb_apply": 6})
-    return {f"static_{opt}": n}
+                else {"static_lamb_phase1": 1, "static_lamb_apply": 1})
+    return {f"static_{opt}": 1}
 
 
 def book_inits(torch, opts):
@@ -3911,9 +3974,10 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         logs = _build.build_all(ptxas_verbose=True)
+        tc_counts = tensor_core_counts(_build)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": sorted(logs), "ptxas": logs,
-              "tensor_core_instructions": tensor_core_counts(_build)})
+              "tensor_core_instructions": tc_counts})
 
         timing = not args.kernels_only
         k4a = check_attention(torch, pa, rng, False, timing)
@@ -3925,7 +3989,7 @@ def main() -> int:
         emit({"phase": "kernels_vs_plain", "flash_attention": k1})
         k2 = check_xent(torch, fx, timing)
         emit({"phase": "kernels_vs_plain", "fused_xent": k2})
-        k1s = check_flash_short(torch, fa, timing)
+        k1s = check_flash_short(torch, fa, timing, tc_counts)
         emit({"phase": "kernels_vs_plain", "flash_attention_short": k1s})
         torch.cuda.empty_cache()
         bert_shapes = [tuple(p.shape) for p in BertForPretraining(

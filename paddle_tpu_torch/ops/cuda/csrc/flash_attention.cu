@@ -387,64 +387,6 @@ __device__ __forceinline__ void bias_frag(float (&bv)[8][2], const Args& a,
     }
 }
 
-// S -> dS in place, and (WANT_P) dP -> the dropped P in place: P =
-// exp(S * scale + bias - lse), zero where dead; dP dropped and scaled by
-// 1/(1-p); dS = P (dP - delta) with the undropped P. Rows are the warp's
-// 16 q rows from row0.
-template <bool WANT_P>
-__device__ __forceinline__ void grad_scores(float (&s)[8][4],
-                                            float (&dp)[8][4], const Args& a,
-                                            int bh, int row0, int kv0,
-                                            const float (&bv)[8][2],
-                                            const float (&lse_r)[2],
-                                            const float (&dl_r)[2],
-                                            int lane) {
-  const bool drop = a.inv != 1.0f;
-  const uint32_t keep = drop ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[i][e] = exp2_ftz((s[i][e] * a.scale + bv[i][e & 1] - lse_r[e >> 1]) *
-                         kLog2e);
-  mask_tile(s, a, row0, kv0, lane, 0.0f);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const float p = s[i][e];
-      const bool kept = (keep >> (4 * i + e)) & 1u;
-      const float dpv = !drop ? dp[i][e] : kept ? dp[i][e] * a.inv : 0.0f;
-      s[i][e] = p * (dpv - dl_r[r]);
-      if (WANT_P) dp[i][e] = !drop ? p : kept ? p * a.inv : 0.0f;
-    }
-}
-
-// a warp's 16 x 64 accumulator tile as bf16 into a swizzled [64][64]
-// shared tile, rows 16 w ..; with lo, its rounding error (acc_to_a2)
-// into a second tile
-__device__ __forceinline__ void store_frag(unsigned char* tile,
-                                           unsigned char* lo,
-                                           const float (&s)[8][4], int w,
-                                           int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 16 * w + frag_row(lane, 2 * half);
-      const uint32_t off = swz<kTile>(r, i) + 4 * (lane & 3);
-      const float x0 = s[i][2 * half], x1 = s[i][2 * half + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-      *reinterpret_cast<__nv_bfloat162*>(tile + off) = h;
-      if (lo) {
-        const float2 hf = __bfloat1622float2(h);
-        *reinterpret_cast<uint32_t*>(lo + off) =
-            pack_bf16(x0 - hf.x, x1 - hf.y);
-      }
-    }
-}
-
 template <int D, bool EXT>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 3 : 2)
 flash_dq_mma(const __nv_bfloat16* __restrict__ q,

@@ -32,9 +32,20 @@
 // kernel. Epilogue: out = O / l in bf16 and lse = m + log(l) in f32.
 // 40 KB of shared memory at D = 64, 80 KB at D = 128.
 //
-// f32 (short_fwd_kernel, the parity route held to 1e-4, which TF32
-// cannot meet) and the backward (short_bwd_kernel, both types) use f32
-// FMA from shared memory, one block per (b, h) for the whole sequence:
+// Backward, bf16 (short_bwd_mma, on tensor cores): one launch, one
+// thread-block cluster of L / 64 CTAs per (b, h), each CTA owning a kv
+// tile and a q tile's dQ; the partial dQ of every (kv tile, q tile) pair
+// goes to its owner through distributed shared memory and is summed
+// there in a fixed order, so no dQ scratch crosses device memory (the
+// f32 FMA form moved 64 x 32 KB of it per head at L = 512). The
+// products and the rounding are K1b's streaming pair's (flash_dq_mma +
+// flash_dkv_mma: dS as hi + lo into dQ and dK, the dropped P as one
+// bf16 term into dV), but S, dP and the dropout bits are computed once
+// per tile pair instead of twice. Details above the kernel.
+//
+// f32 (short_fwd_kernel and short_bwd_kernel, the parity route held to
+// 1e-4, which TF32 cannot meet) uses f32 FMA from shared memory, one
+// block per (b, h) for the whole sequence:
 // - Forward: the stripe's scores S = (q * scale) k^T against every
 //   kv-tile (k streamed through one [64][D+1] tile) stay in shared
 //   memory as a [64][L+4] f32 stripe (128 KB at L = 512). Then one pass
@@ -399,6 +410,296 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16 on tensor cores: one thread-block cluster per b*H + h
+// ---------------------------------------------------------------------------
+// Cluster pieces (sm_90): the address of a shared variable in another CTA
+// of the cluster, loads and stores through it, and the cluster barrier.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster4(uint32_t addr, const float (&x)[4]) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The dQ accumulator of the q tile a CTA owns, in the fragment map of its
+// warps (warp w: rows 16 w ..): registers at D = 64; at D = 128 shared
+// memory, element (j, e) of thread t at [(4 j + e) * 128 + t], since the
+// dK and dV accumulators already take 128 registers a thread there.
+template <int D, bool REG = (D == 64)>
+struct DqAcc {
+  float v[D / 8][4];
+  __device__ explicit DqAcc(float*) {}
+  __device__ __forceinline__ float& at(int j, int e) { return v[j][e]; }
+};
+
+template <int D>
+struct DqAcc<D, false> {
+  float* base;
+  __device__ explicit DqAcc(float* b) : base(b + threadIdx.x) {}
+  __device__ __forceinline__ float& at(int j, int e) {
+    return base[(4 * j + e) * kMmaT];
+  }
+};
+
+// The owner of q tile c adds step t's part, which its visitor (c - t) mod
+// n left in inbox ``box``, if that visitor had work (causal: it visits
+// only q tiles at or below the diagonal).
+template <int D>
+__device__ __forceinline__ void absorb(DqAcc<D>& acc,
+                                       const unsigned char* box, int c,
+                                       int t, int n, int causal) {
+  if (causal && (c - t + n) % n > c) return;
+  const float4* x4 = reinterpret_cast<const float4*>(box);
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const float4 x = x4[jj * kMmaT + threadIdx.x];
+    acc.at(jj, 0) += x.x;
+    acc.at(jj, 1) += x.y;
+    acc.at(jj, 2) += x.z;
+    acc.at(jj, 3) += x.w;
+  }
+}
+
+template <int D>
+constexpr size_t short_bwd_mma_smem() {
+  // k, v; 2 q, 2 dO; P, dS hi, dS lo; 2 dQ inboxes; delta; (D = 128) acc
+  return (size_t)6 * kTile * D * 2 + (size_t)3 * kTile * kTile * 2 +
+         (size_t)2 * kTile * D * 4 + kTile * 4 +
+         (D == 64 ? 0 : (size_t)kTile * D * 4);
+}
+
+// Replaces _short_bwd_kernel on tensor cores: dq, dk and dv in one launch
+// from the saved lse. A cluster of n = L / 64 CTAs per (b, h); CTA c owns
+// kv tile c (K_c, V_c resident, dK_c and dV_c in registers, warp w on kv
+// rows 16 w ..) and q tile c's dQ. At step s = 0 .. n-1 it takes q tile
+// j = (c + s) mod n, a permutation, so each q tile has one visitor a
+// step: Q_j and dO_j stream through a two-stage cp.async ring; S and dP
+// in the q-row layout (each thread's dropout words are its own), P and
+// dS in registers, then
+//   - the partial dQ_j = dS K_c (dS hi + lo from registers) goes, as f32,
+//     into owner j's inbox in distributed shared memory (double-buffered
+//     by step parity); owner j adds it to its accumulator after a cluster
+//     barrier, so each dQ element sums its n terms in one fixed order
+//     (s = 0, 1, ...): no atomics, no device-memory scratch, two
+//     launches give the same bits;
+//   - the dropped P (one bf16 term) and dS (hi + lo) go to shared tiles,
+//     read back transposed for dV_c += P^T dO_j and dK_c += dS^T Q_j.
+// delta = rowsum(dO O) of q tile c is computed by its owner before the
+// first step and read by the visitors from the owner's shared memory.
+// Causal: CTA c visits only j >= c (steps s < n - c); every CTA still
+// meets every barrier and the owner knows who visits when. The barrier
+// is split: step s arrives after its inbox store and waits (then adds
+// its inbox) in step s + 1, after that step's S, dP and dS, so a step's
+// dV/dK products and the next step's scores hide the wait; the two
+// inboxes keep a store two steps ahead of the add that empties its
+// buffer. 104 KB of shared memory at D = 64 (two CTAs an SM), 216 KB at
+// D = 128.
+template <int D>
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 2 : 1)
+short_bwd_mma(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ o,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+              __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, Args a) {
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  constexpr uint32_t TB = kTile * D * 2;           // bytes of a bf16 tile
+  constexpr uint32_t PB = kTile * kTile * 2;       // bytes of a P/dS tile
+  constexpr uint32_t IB = kTile * D * 4;           // bytes of an inbox
+  const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
+                 dOs = Qs + 2 * TB, Ps = dOs + 2 * TB, dSs = Ps + PB,
+                 dSl = dSs + PB;
+  unsigned char* Pp = smem_mma + 6 * TB;
+  unsigned char* dSp = Pp + PB;
+  unsigned char* dLp = dSp + PB;
+  unsigned char* inbox = dLp + PB;                 // [2][D/8][128] float4
+  float* dl_s = reinterpret_cast<float*>(inbox + 2 * IB);        // [64]
+  DqAcc<D> acc(dl_s + kTile);
+  const uint32_t inbox_u = smem_u32(inbox), dl_u = smem_u32(dl_s);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int L = a.Lq, n = L / kTile;
+  const int c = (int)cluster_rank(), kv0 = c * kTile;
+  const int nact = a.causal ? n - c : n;           // steps with work
+
+  tile_async<D>(Ks, k, a, b, h, kv0, L);
+  tile_async<D>(Vs, v, a, b, h, kv0, L);
+  tile_async<D>(Qs, q, a, b, h, kv0, L);           // step 0: j = c
+  tile_async<D>(dOs, dout, a, b, h, kv0, L);
+  cp_commit();
+  {
+    // delta = rowsum(dO * O) of q tile c in f32 under the copies: two
+    // threads a row
+    const int r = tid >> 1, part = tid & 1;
+    const int64_t off = (((int64_t)b * L + kv0 + r) * a.H + h) * D +
+                        part * (D / 2);
+    float d = 0.0f, x[8], y[8];
+#pragma unroll
+    for (int col = 0; col < D / 2; col += 8) {
+      Vec<__nv_bfloat16>::load(dout + off + col, x);
+      Vec<__nv_bfloat16>::load(o + off + col, y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (part == 0) dl_s[r] = d;
+  }
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  const float bv[8][2] = {};                       // the short forms: no bias
+  cluster_arrive();     // delta is written and every CTA has started
+  cluster_wait();
+
+  for (int st = 0; st < n; ++st) {
+    const int j = (c + st) % n, q0 = j * kTile, row0 = q0 + 16 * w;
+    const bool act = st < nact;
+    const uint32_t stg = (st & 1) * TB, Qt = Qs + stg, dOt = dOs + stg;
+    float s[8][4], dp[8][4];
+    if (act) {
+      if (st + 1 < nact) {
+        const int nq = ((c + st + 1) % n) * kTile;
+        tile_async<D>(Qs + TB - stg, q, a, b, h, nq, L);
+        tile_async<D>(dOs + TB - stg, dout, a, b, h, nq, L);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      float lse_r[2], dl_r[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = 16 * w + frag_row(lane, 2 * r);
+        lse_r[r] = lse[(int64_t)bh * L + q0 + rr];
+        dl_r[r] = ld_cluster(cluster_map(dl_u + 4 * rr, j));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+      mma_abt<D>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
+      mma_abt<D>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+      grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
+      store_frag(Pp, nullptr, dp, w, lane);    // dropped P, bf16
+      store_frag(dSp, dLp, s, w, lane);        // dS, hi + lo
+    }
+    if (st > 1) {
+      // the last step's barrier, then its visitor's part of q tile c
+      cluster_wait();
+      absorb<D>(acc, inbox + ((st - 1) & 1) * IB, c, st - 1, n, a.causal);
+    }
+    if (act) {
+      // partial dQ_j = dS K_c, 64 columns at a time, into owner j's inbox
+      // (this step's buffer), or straight into the accumulator at s = 0
+      const uint32_t dst = cluster_map(inbox_u + (st & 1) * IB, j);
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {
+        float part[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t fa[4], fl[4];
+          acc_to_a2(fa, fl, s, kk);
+#pragma unroll
+          for (int nn = 0; nn < 4; ++nn) {
+            uint32_t fb[4];
+            frag_bt<D>(fb, Ks, 64 * hh + 16 * nn, 16 * kk, lane);
+            mma16816(part[2 * nn], fa, fb[0], fb[1]);
+            mma16816(part[2 * nn + 1], fa, fb[2], fb[3]);
+            mma16816(part[2 * nn], fl, fb[0], fb[1]);
+            mma16816(part[2 * nn + 1], fl, fb[2], fb[3]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int jj = 8 * hh + i;
+          if (st == 0) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc.at(jj, e) = part[i][e];
+          } else {
+            st_cluster4(dst + (uint32_t)(jj * kMmaT + tid) * 16, part[i]);
+          }
+        }
+      }
+    }
+    if (st > 0) cluster_arrive();
+    if (act) {
+      __syncthreads();                          // P and dS are in place
+      // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t fa[4], fl[4];
+        frag_at<kTile>(fa, Ps, 16 * w, 16 * kk, lane);
+#pragma unroll
+        for (int nn = 0; nn < D / 16; ++nn) {
+          uint32_t fb[4];
+          frag_bt<D>(fb, dOt, 16 * nn, 16 * kk, lane);
+          mma16816(dva[2 * nn], fa, fb[0], fb[1]);
+          mma16816(dva[2 * nn + 1], fa, fb[2], fb[3]);
+        }
+        frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
+        frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
+#pragma unroll
+        for (int nn = 0; nn < D / 16; ++nn) {
+          uint32_t fb[4];
+          frag_bt<D>(fb, Qt, 16 * nn, 16 * kk, lane);
+          mma16816(dka[2 * nn], fa, fb[0], fb[1]);
+          mma16816(dka[2 * nn + 1], fa, fb[2], fb[3]);
+          mma16816(dka[2 * nn], fl, fb[0], fb[1]);
+          mma16816(dka[2 * nn + 1], fl, fb[2], fb[3]);
+        }
+      }
+    }
+    __syncthreads();     // P, dS and the stage are rewritten next
+  }
+  cluster_wait();        // the last step's barrier (n >= 2)
+  absorb<D>(acc, inbox + ((n - 1) & 1) * IB, c, n - 1, n, a.causal);
+  float out[D / 8][4];
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[jj][e] = acc.at(jj, e);
+  store_acc<D>(dq, out, a, b, h, kv0 + 16 * w, L, a.scale, lane);
+  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, L, a.scale, lane);
+  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, L, 1.0f, lane);
+}
+
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Args& a, cudaStream_t st) {
@@ -424,10 +725,12 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* dq_acc, void* dq,
-               void* dk, void* dv, const Args& a, cudaStream_t st) {
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* dq_acc,
+                   void* dq, void* dk, void* dv, const Args& a,
+                   cudaStream_t st) {
+  using T = float;
   auto kern = short_bwd_kernel<T, D>;
   const size_t smem = short_bwd_smem<D>(a.Lq);
   cudaError_t e = allow_smem(kern, short_bwd_smem<D>(kMaxL));
@@ -435,6 +738,47 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   kern<<<a.B * a.H, kT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                    (const T*)o, (const T*)dout, lse, dq_acc,
                                    (T*)dq, (T*)dk, (T*)dv, a);
+  return (int)cudaGetLastError();
+}
+
+// the launch configuration of the bf16 backward: grid (L / 64, B*H),
+// clusters of L / 64 CTAs
+template <int D>
+cudaLaunchConfig_t bwd_bf16_config(int L, int BH, size_t smem,
+                                   cudaLaunchAttribute* attr,
+                                   cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L / kTile, BH);
+  cfg.blockDim = dim3(kMmaT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L / kTile;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// one cluster of L / 64 CTAs per b*H + h (at most 8, the portable limit)
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    void* dq, void* dk, void* dv, const Args& a,
+                    cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  auto kern = short_bwd_mma<D>;
+  const size_t smem = short_bwd_mma_smem<D>();
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      bwd_bf16_config<D>(a.Lq, a.B * a.H, smem, attr, st);
+  e = cudaLaunchKernelEx(&cfg, kern, (const bf*)q, (const bf*)k,
+                         (const bf*)v, (const bf*)o, (const bf*)dout, lse,
+                         (bf*)dq, (bf*)dk, (bf*)dv, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -463,26 +807,54 @@ int flash_short_fwd(const void* q, const void* k, const void* v, void* out,
                  : launch_fwd_bf16<128>(q, k, v, out, lse, a, st);
 }
 
-// dq_acc: f32 scratch (B*H, L, D); its contents are overwritten
+// dq_acc: f32 scratch (B*H, L, D) of the f32 form, whose contents are
+// overwritten; the bf16 form takes none (null)
 int flash_short_bwd(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* dq_acc, void* dq, void* dk, void* dv, int B,
                     int L, int H, int D, int causal, int dtype, float scale,
                     unsigned thr, float inv, unsigned seed_lo,
                     unsigned seed_hi, void* stream) {
-  if (bad_shape(B, L, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, H, D, dtype) || (dtype == 0 && dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, L, L, H, causal, scale, thr, inv, seed_lo,
                            seed_hi);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return D == 64 ? launch_bwd<float, 64>(q, k, v, o, dout, lse, dq_acc, dq,
-                                           dk, dv, a, st)
-                   : launch_bwd<float, 128>(q, k, v, o, dout, lse, dq_acc,
-                                            dq, dk, dv, a, st);
-  return D == 64 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse,
-                                                 dq_acc, dq, dk, dv, a, st)
-                 : launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse,
-                                                  dq_acc, dq, dk, dv, a, st);
+    return D == 64 ? launch_bwd_f32<64>(q, k, v, o, dout, lse, dq_acc, dq,
+                                        dk, dv, a, st)
+                   : launch_bwd_f32<128>(q, k, v, o, dout, lse, dq_acc, dq,
+                                         dk, dv, a, st);
+  return D == 64 ? launch_bwd_bf16<64>(q, k, v, o, dout, lse, dq, dk, dv, a,
+                                       st)
+                 : launch_bwd_bf16<128>(q, k, v, o, dout, lse, dq, dk, dv, a,
+                                        st);
+}
+
+// How many clusters of the bf16 backward at sequence length L and head
+// dim D the card can hold at once (cudaOccupancyMaxActiveClusters), or a
+// negative cudaError_t.
+int flash_short_bwd_max_clusters(int L, int D) {
+  if (bad_shape(1, L, 1, D, 1)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  int n = 0;
+  cudaError_t e;
+  if (D == 64) {
+    auto kern = short_bwd_mma<64>;
+    e = allow_smem(kern, short_bwd_mma_smem<64>());
+    const cudaLaunchConfig_t cfg = bwd_bf16_config<64>(
+        L, 1, short_bwd_mma_smem<64>(), attr, nullptr);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
+  } else {
+    auto kern = short_bwd_mma<128>;
+    e = allow_smem(kern, short_bwd_mma_smem<128>());
+    const cudaLaunchConfig_t cfg = bwd_bf16_config<128>(
+        L, 1, short_bwd_mma_smem<128>(), attr, nullptr);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 const char* kernel_error_string(int err) {

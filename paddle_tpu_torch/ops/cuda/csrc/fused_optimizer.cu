@@ -1,7 +1,9 @@
 // Fused optimizer updates for Hopper (sm_90a). The dygraph forms update
-// every parameter of the model in one launch; the static forms one
-// parameter a launch (one update op of a static program). All rules
-// share one multi-tensor walker:
+// every parameter of the model in one launch; the static forms every
+// parameter of a run of a static program's update ops (consecutive ops
+// of one type and attrs, which the executor hands over together) in one
+// launch, or one launch per split when the run outgrows the table. All
+// rules share one multi-tensor walker:
 //
 // - Adam(W): replaces the Adam body of the TPU kernel in
 //   paddle_tpu/ops/pallas/fused_optimizer.py (_run_grid with
@@ -22,8 +24,9 @@
 //   StaticAdamRule, StaticLambPhase1Rule + StaticLambApplyRule): the
 //   same _run_grid bodies with dygraph=False, reached from
 //   fused_op_update (fused_optimizer.py:418) by the update ops of a
-//   static program, one op (and one launch) per parameter. lr, the
-//   beta-pows and FoundInfinite are device scalars read by the kernel;
+//   static program, one launch a run of ops (the TPU kernel runs one
+//   grid an op). lr, the beta-pows and FoundInfinite are device
+//   scalars read by the kernel;
 //   static Adam uses lr_t = lr*sqrt(1-c2)/(1-c1) with eps outside the
 //   sqrt, static Lamb divides by 1-c1 where the dygraph form divides by
 //   c1. See the block above the static rules.
@@ -41,17 +44,21 @@
 // (12 bytes, 2 flops). Lamb's phase 1 reads p, g, m, v and writes m, v,
 // r (28 bytes); apply reads p, r and writes p (12 bytes). The static
 // forms move the same bytes an element, but the static example's 25
-// tensors hold 77,850 elements (0.3-2 MB a step in all): each launch is
-// bound by its latency, not by the bytes.
+// tensors hold 77,850 elements (0.3-2 MB a step in all): a launch is
+// bound by its latency, not by the bytes, so the static forms launch
+// once for a run of ops instead of once an op, and size their grid to
+// the card (static_chunk) instead of 8192 elements a block.
 //
 // Design: multi-tensor. A device table holds the pointers of every
 // parameter's tensors ((roles, n) int64: p, g, then the rule's state)
 // and the element offsets of their concatenation ((n + 1,) int64).
-// Block b takes elements [b*kChunk, (b+1)*kChunk) of that
-// concatenation, finds the first parameter it touches by binary search
-// over the offsets, and walks the parameters its chunk spans. Each
-// thread handles consecutive elements strided by the block size, so
-// warps read coalesced runs of every tensor. One pass, no second read
+// Block b takes elements [b*chunk, (b+1)*chunk) of that concatenation
+// (chunk = 8192 in the dygraph forms, static_chunk in the static ones),
+// finds the first parameter it touches by binary search over the
+// offsets, and walks the parameters its chunk spans. Each thread takes
+// 4 consecutive elements (one float4 of each array) strided by 4x the
+// block size where the tensor's pointers are 16-byte aligned, else one,
+// so warps read coalesced runs of every tensor. One pass, no second read
 // of the old state; in the dygraph forms the FoundInfinite skip flag is
 // an entry-point argument (a skipped step launches nothing), in the
 // static forms a device flag the kernel reads.
@@ -67,6 +74,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+// elements a block takes in the dygraph forms, whose lists are large
 constexpr int64_t kChunk = 8192;
 
 __device__ __forceinline__ int find_tensor(const int64_t* offs, int n,
@@ -80,23 +88,70 @@ __device__ __forceinline__ int find_tensor(const int64_t* offs, int n,
   return lo;
 }
 
-// Walks this block's chunk of the concatenation; for each parameter t it
-// touches, binds the rule's pointers once (Rule::bind) and applies the
-// rule to each of its elements in the chunk.
+// N consecutive f32 values at p[i]: one 16-byte access when N == 4 (the
+// caller has checked that p + i is 16-byte aligned), else scalars
+template <int N>
+__device__ __forceinline__ void ld(const float* p, int64_t i, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = p[i + j];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st(float* p, int64_t i, const float (&x)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[i + j] = x[j];
+  }
+}
+
+// Walks this block's chunk (``chunk`` elements) of the concatenation; for
+// each tensor t it touches, binds the rule's pointers once (Rule::bind)
+// and applies the rule to its elements in the chunk. Where the tensor's
+// Rule::kArrays array pointers are all 16-byte aligned, the elements at
+// local indices that are multiples of 4 go four at a time (one float4
+// load of each array a thread, so each thread has 4 elements of every
+// array in flight), with scalar heads and tails; else one at a time.
 template <class Rule>
 __device__ __forceinline__ void walk(const int64_t* __restrict__ ptrs,
                                      const int64_t* __restrict__ offs,
-                                     int n, int64_t total, const Rule& rule) {
-  int64_t start = (int64_t)blockIdx.x * kChunk;
-  const int64_t end = start + kChunk < total ? start + kChunk : total;
+                                     int n, int64_t total, int64_t chunk,
+                                     const Rule& rule) {
+  int64_t start = (int64_t)blockIdx.x * chunk;
+  const int64_t end = start + chunk < total ? start + chunk : total;
   int t = find_tensor(offs, n, start);
   while (start < end) {
     while (t < n - 1 && offs[t + 1] <= start) ++t;
     const int64_t t0 = offs[t];
     const int64_t seg_end = offs[t + 1] < end ? offs[t + 1] : end;
     const typename Rule::Ptrs q = rule.bind(ptrs, n, t);
-    for (int64_t e = start + threadIdx.x; e < seg_end; e += kThreads)
-      rule(q, e - t0);
+    const int64_t a = start - t0, b = seg_end - t0;   // local [a, b)
+    bool vec = true;
+#pragma unroll
+    for (int r = 0; r < Rule::kArrays; ++r)
+      vec = vec && (ptrs[r * n + t] & 15) == 0;
+    int64_t a4 = b, b4 = b;
+    if (vec) {
+      a4 = (a + 3) & ~(int64_t)3;
+      if (a4 > b) a4 = b;
+      b4 = b & ~(int64_t)3;
+      if (b4 < a4) b4 = a4;
+    }
+    for (int64_t i = a + threadIdx.x; i < a4; i += kThreads)
+      rule.template apply<1>(q, i);
+    for (int64_t i = a4 + 4 * (int64_t)threadIdx.x; i < b4; i += 4 * kThreads)
+      rule.template apply<4>(q, i);
+    for (int64_t i = b4 + threadIdx.x; i < b; i += kThreads)
+      rule.template apply<1>(q, i);
     start = seg_end;
   }
 }
@@ -108,28 +163,44 @@ __global__ void __launch_bounds__(kThreads)
 multi_tensor_kernel(const int64_t* __restrict__ ptrs,
                     const int64_t* __restrict__ offs, int n, int64_t total,
                     Rule rule) {
-  walk(ptrs, offs, n, total, rule);
+  walk(ptrs, offs, n, total, kChunk, rule);
 }
 
-// The static forms: one launch per update op of the program, whose
-// gradient and beta-pow buffers change every step, so the table travels
-// by value in the kernel's parameter space (no host-to-device copy) with
-// the same (roles, n) layout; up to kMaxArgTensors tensors a launch.
-constexpr int kMaxArgTensors = 8;
-constexpr int kMaxArgRoles = 10;
+// The static forms: one launch per RUN of update ops of one type (the
+// executor groups a program's consecutive updates), whose gradient and
+// beta-pow buffers change every step, so the table travels by value in
+// the kernel's parameter space (no host-to-device copy) with the same
+// (roles, n) layout. The parameter space is 4 KB, or 32,764 bytes from
+// CUDA 12.1 on (nvcc's version decides at build time); the table takes
+// what the launch's other parameters leave, so a launch holds
+// ArgTable<R>::kCap tensors (45 of Adam's ten roles in 4 KB, 370 in 32
+// KB) and the wrapper splits a longer run into consecutive launches.
+#if defined(__CUDACC_VER_MAJOR__) && \
+    (__CUDACC_VER_MAJOR__ > 12 ||     \
+     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+constexpr int kParamBytes = 32764;
+#else
+constexpr int kParamBytes = 4096;
+#endif
+// 8-byte words left for the table beside n, total, chunk and the rule
+constexpr int kArgWords = (kParamBytes - 128) / 8;
+
+template <int R>
 struct ArgTable {
-  int64_t ptrs[kMaxArgRoles * kMaxArgTensors];
-  int64_t offs[kMaxArgTensors + 1];
+  static constexpr int kCap = (kArgWords - 1) / (R + 1);
+  int64_t ptrs[R * kCap];
+  int64_t offs[kCap + 1];
 };
 
 template <class Rule>
 __global__ void __launch_bounds__(kThreads)
-multi_tensor_arg_kernel(const __grid_constant__ ArgTable tab, int n,
-                        int64_t total, Rule rule) {
-  walk(tab.ptrs, tab.offs, n, total, rule);
+multi_tensor_arg_kernel(const __grid_constant__ ArgTable<Rule::kRoles> tab,
+                        int n, int64_t total, int64_t chunk, Rule rule) {
+  walk(tab.ptrs, tab.offs, n, total, chunk, rule);
 }
 
 struct AdamRule {
+  static constexpr int kArrays = 4;
   float lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd;
   struct Ptrs {
     float* p;
@@ -143,25 +214,35 @@ struct AdamRule {
             reinterpret_cast<float*>(ptrs[2 * n + t]),
             reinterpret_cast<float*>(ptrs[3 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
-    const float pi = q.p[i], gi = q.g[i];
-    const float m2 = __fadd_rn(__fmul_rn(q.m[i], b1), __fmul_rn(gi, omb1));
-    const float v2 = __fadd_rn(__fmul_rn(q.v[i], b2),
-                               __fmul_rn(__fmul_rn(gi, omb2), gi));
-    const float mh = __fdiv_rn(m2, c1);
-    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, c2)), eps);
-    float p2 = __fsub_rn(pi, __fdiv_rn(__fmul_rn(mh, lr), den));
-    if (lrwd != 0.0f) p2 = __fsub_rn(p2, __fmul_rn(lrwd, pi));
-    q.p[i] = p2;
-    q.m[i] = m2;
-    q.v[i] = v2;
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N], m[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float pi = p[j], gi = g[j];
+      m[j] = __fadd_rn(__fmul_rn(m[j], b1), __fmul_rn(gi, omb1));
+      v[j] = __fadd_rn(__fmul_rn(v[j], b2),
+                       __fmul_rn(__fmul_rn(gi, omb2), gi));
+      const float mh = __fdiv_rn(m[j], c1);
+      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], c2)), eps);
+      float p2 = __fsub_rn(pi, __fdiv_rn(__fmul_rn(mh, lr), den));
+      if (lrwd != 0.0f) p2 = __fsub_rn(p2, __fmul_rn(lrwd, pi));
+      p[j] = p2;
+    }
+    st(q.p, i, p);
+    st(q.m, i, m);
+    st(q.v, i, v);
   }
 };
 
 // _momentum_kernel: v2 = mu*v + g; p2 = p - lr*v2, or with Nesterov
 // p2 = p - (g + mu*v2)*lr.
 struct MomentumRule {
+  static constexpr int kArrays = 3;
   float lr, mu;
   int nesterov;
   struct Ptrs {
@@ -174,20 +255,28 @@ struct MomentumRule {
             reinterpret_cast<const float*>(ptrs[n + t]),
             reinterpret_cast<float*>(ptrs[2 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
-    const float gi = q.g[i];
-    const float v2 = __fadd_rn(__fmul_rn(mu, q.v[i]), gi);
-    const float step = nesterov
-        ? __fmul_rn(__fadd_rn(gi, __fmul_rn(mu, v2)), lr)
-        : __fmul_rn(lr, v2);
-    q.p[i] = __fsub_rn(q.p[i], step);
-    q.v[i] = v2;
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[j] = __fadd_rn(__fmul_rn(mu, v[j]), g[j]);
+      const float step = nesterov
+          ? __fmul_rn(__fadd_rn(g[j], __fmul_rn(mu, v[j])), lr)
+          : __fmul_rn(lr, v[j]);
+      p[j] = __fsub_rn(p[j], step);
+    }
+    st(q.p, i, p);
+    st(q.v, i, v);
   }
 };
 
 // _sgd_kernel: p2 = p - lr*g.
 struct SgdRule {
+  static constexpr int kArrays = 2;
   float lr;
   struct Ptrs {
     float* p;
@@ -197,9 +286,14 @@ struct SgdRule {
     return {reinterpret_cast<float*>(ptrs[t]),
             reinterpret_cast<const float*>(ptrs[n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
-    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(lr, q.g[i]));
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(lr, g[j]));
+    st(q.p, i, p);
   }
 };
 
@@ -207,6 +301,7 @@ struct SgdRule {
 // v2 = b2*v + ((1-b2)*g)*g, r = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p.
 // Roles p, g, m, v, r; m, v and r are written, p is only read.
 struct LambPhase1Rule {
+  static constexpr int kArrays = 5;
   float b1, omb1, b2, omb2, eps, wd, c1, c2;
   struct Ptrs {
     const float* p;
@@ -222,17 +317,26 @@ struct LambPhase1Rule {
             reinterpret_cast<float*>(ptrs[3 * n + t]),
             reinterpret_cast<float*>(ptrs[4 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
-    const float gi = q.g[i];
-    const float m2 = __fadd_rn(__fmul_rn(q.m[i], b1), __fmul_rn(gi, omb1));
-    const float v2 = __fadd_rn(__fmul_rn(q.v[i], b2),
-                               __fmul_rn(__fmul_rn(gi, omb2), gi));
-    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, c2)), eps);
-    q.r[i] = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, c1), den),
-                       __fmul_rn(q.p[i], wd));
-    q.m[i] = m2;
-    q.v[i] = v2;
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N], m[N], v[N], r[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float gi = g[j];
+      m[j] = __fadd_rn(__fmul_rn(m[j], b1), __fmul_rn(gi, omb1));
+      v[j] = __fadd_rn(__fmul_rn(v[j], b2),
+                       __fmul_rn(__fmul_rn(gi, omb2), gi));
+      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], c2)), eps);
+      r[j] = __fadd_rn(__fdiv_rn(__fdiv_rn(m[j], c1), den),
+                       __fmul_rn(p[j], wd));
+    }
+    st(q.r, i, r);
+    st(q.m, i, m);
+    st(q.v, i, v);
   }
 };
 
@@ -242,6 +346,7 @@ struct LambPhase1Rule {
 // |r_t|; the per-tensor factor lr*trust is formed once when the walker
 // binds tensor t. Roles p, r.
 struct LambApplyRule {
+  static constexpr int kArrays = 2;
   const float* norms;
   float lr;
   struct Ptrs {
@@ -256,9 +361,14 @@ struct LambApplyRule {
             reinterpret_cast<const float*>(ptrs[n + t]),
             __fmul_rn(trust, lr)};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
-    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.s, q.r[i]));
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], r[N];
+    ld(q.p, i, p);
+    ld(q.r, i, r);
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(q.s, r[j]));
+    st(q.p, i, p);
   }
 };
 
@@ -290,7 +400,7 @@ __device__ __forceinline__ float scalar_at(int64_t ptr) {
 
 // _sgd_kernel: p2 = p - lr*g. Roles p, g, lr, found.
 struct StaticSgdRule {
-  static constexpr int kRoles = 4;
+  static constexpr int kRoles = 4, kArrays = 2;
   struct Ptrs {
     float* p;
     const float* g;
@@ -302,17 +412,22 @@ struct StaticSgdRule {
             reinterpret_cast<const float*>(ptrs[n + t]),
             scalar_at(ptrs[2 * n + t]), skip_flag(ptrs[3 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     if (q.skip) return;
-    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.lr, q.g[i]));
+    float p[N], g[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(q.lr, g[j]));
+    st(q.p, i, p);
   }
 };
 
 // _momentum_kernel: v2 = mu*v + g; p2 = p - lr*v2, or with Nesterov
 // p2 = p - (g + mu*v2)*lr. Roles p, g, v, lr, found.
 struct StaticMomentumRule {
-  static constexpr int kRoles = 5;
+  static constexpr int kRoles = 5, kArrays = 3;
   float mu;
   int nesterov;
   struct Ptrs {
@@ -328,16 +443,23 @@ struct StaticMomentumRule {
             reinterpret_cast<float*>(ptrs[2 * n + t]),
             scalar_at(ptrs[3 * n + t]), skip_flag(ptrs[4 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     if (q.skip) return;
-    const float gi = q.g[i];
-    const float v2 = __fadd_rn(__fmul_rn(mu, q.v[i]), gi);
-    const float step = nesterov
-        ? __fmul_rn(__fadd_rn(gi, __fmul_rn(mu, v2)), q.lr)
-        : __fmul_rn(q.lr, v2);
-    q.p[i] = __fsub_rn(q.p[i], step);
-    q.v[i] = v2;
+    float p[N], g[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[j] = __fadd_rn(__fmul_rn(mu, v[j]), g[j]);
+      const float step = nesterov
+          ? __fmul_rn(__fadd_rn(g[j], __fmul_rn(mu, v[j])), q.lr)
+          : __fmul_rn(q.lr, v[j]);
+      p[j] = __fsub_rn(p[j], step);
+    }
+    st(q.p, i, p);
+    st(q.v, i, v);
   }
 };
 
@@ -350,7 +472,7 @@ struct Pows {
   float* b2p_out;
   bool skip;
   __device__ __forceinline__ void write(int64_t i) const {
-    if (i != 0) return;
+    if (i != 0) return;   // the apply call whose values start at element 0
     *b1p_out = skip ? b1p : c1;
     *b2p_out = skip ? b2p : c2;
   }
@@ -371,7 +493,7 @@ __device__ __forceinline__ Pows bind_pows(const int64_t* ptrs, int n, int t,
 // p2 = p - (lr_t*m2) / (sqrt(v2) + eps). Roles p, g, m, v, lr, b1p, b2p,
 // found, b1p_out, b2p_out.
 struct StaticAdamRule {
-  static constexpr int kRoles = 10;
+  static constexpr int kRoles = 10, kArrays = 4;
   float b1, omb1, b2, omb2, eps;
   struct Ptrs {
     float* p;
@@ -392,18 +514,27 @@ struct StaticAdamRule {
             reinterpret_cast<float*>(ptrs[2 * n + t]),
             reinterpret_cast<float*>(ptrs[3 * n + t]), lr_t, w};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     q.pows.write(i);
     if (q.pows.skip) return;
-    const float gi = q.g[i];
-    const float m2 = __fadd_rn(__fmul_rn(b1, q.m[i]), __fmul_rn(omb1, gi));
-    const float v2 = __fadd_rn(__fmul_rn(b2, q.v[i]),
-                               __fmul_rn(__fmul_rn(omb2, gi), gi));
-    const float den = __fadd_rn(__fsqrt_rn(v2), eps);
-    q.p[i] = __fsub_rn(q.p[i], __fdiv_rn(__fmul_rn(q.lr_t, m2), den));
-    q.m[i] = m2;
-    q.v[i] = v2;
+    float p[N], g[N], m[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float gi = g[j];
+      m[j] = __fadd_rn(__fmul_rn(b1, m[j]), __fmul_rn(omb1, gi));
+      v[j] = __fadd_rn(__fmul_rn(b2, v[j]),
+                       __fmul_rn(__fmul_rn(omb2, gi), gi));
+      const float den = __fadd_rn(__fsqrt_rn(v[j]), eps);
+      p[j] = __fsub_rn(p[j], __fdiv_rn(__fmul_rn(q.lr_t, m[j]), den));
+    }
+    st(q.p, i, p);
+    st(q.m, i, m);
+    st(q.v, i, v);
   }
 };
 
@@ -411,7 +542,7 @@ struct StaticAdamRule {
 // r = (m2/(1-c1)) / (sqrt(v2/(1-c2)) + eps) + wd*p into the scratch r.
 // Roles p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out; p is only read.
 struct StaticLambPhase1Rule {
-  static constexpr int kRoles = 10;
+  static constexpr int kRoles = 10, kArrays = 5;
   float b1, omb1, b2, omb2, eps, wd;
   struct Ptrs {
     const float* p;
@@ -431,19 +562,28 @@ struct StaticLambPhase1Rule {
             reinterpret_cast<float*>(ptrs[4 * n + t]),
             __fsub_rn(1.0f, w.c1), __fsub_rn(1.0f, w.c2), w};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     q.pows.write(i);
     if (q.pows.skip) return;
-    const float gi = q.g[i];
-    const float m2 = __fadd_rn(__fmul_rn(b1, q.m[i]), __fmul_rn(omb1, gi));
-    const float v2 = __fadd_rn(__fmul_rn(b2, q.v[i]),
-                               __fmul_rn(__fmul_rn(omb2, gi), gi));
-    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, q.omc2)), eps);
-    q.r[i] = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, q.omc1), den),
-                       __fmul_rn(wd, q.p[i]));
-    q.m[i] = m2;
-    q.v[i] = v2;
+    float p[N], g[N], m[N], v[N], r[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float gi = g[j];
+      m[j] = __fadd_rn(__fmul_rn(b1, m[j]), __fmul_rn(omb1, gi));
+      v[j] = __fadd_rn(__fmul_rn(b2, v[j]),
+                       __fmul_rn(__fmul_rn(omb2, gi), gi));
+      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], q.omc2)), eps);
+      r[j] = __fadd_rn(__fdiv_rn(__fdiv_rn(m[j], q.omc1), den),
+                       __fmul_rn(wd, p[j]));
+    }
+    st(q.r, i, r);
+    st(q.m, i, m);
+    st(q.v, i, v);
   }
 };
 
@@ -452,7 +592,7 @@ struct StaticLambPhase1Rule {
 // (lr*trust)*r. Roles p, r, lr, |p|, |r|, found: the norms are 0-dim
 // device tensors, read when the walker binds the tensor.
 struct StaticLambApplyRule {
-  static constexpr int kRoles = 6;
+  static constexpr int kRoles = 6, kArrays = 2;
   struct Ptrs {
     float* p;
     const float* r;
@@ -468,10 +608,15 @@ struct StaticLambApplyRule {
             __fmul_rn(scalar_at(ptrs[2 * n + t]), trust),
             skip_flag(ptrs[5 * n + t])};
   }
-  __device__ __forceinline__ void operator()(const Ptrs& q,
-                                             int64_t i) const {
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     if (q.skip) return;
-    q.p[i] = __fsub_rn(q.p[i], __fmul_rn(q.s, q.r[i]));
+    float p[N], r[N];
+    ld(q.p, i, p);
+    ld(q.r, i, r);
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(q.s, r[j]));
+    st(q.p, i, p);
   }
 };
 
@@ -488,21 +633,39 @@ int launch(const int64_t* ptrs, const int64_t* offs, int n,
 }
 
 
+// Elements a block takes in a static launch: a multiple of 512 that
+// gives at least two blocks an SM when the elements allow (the static
+// example's 77,850 elements: 153 blocks of 512), at most kChunk.
+int64_t static_chunk(int64_t total) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n < 1)
+      n = 132;
+    return n;
+  }();
+  const int64_t c = (total / (2 * (int64_t)sms)) & ~(int64_t)511;
+  return c < 512 ? 512 : c > kChunk ? kChunk : c;
+}
+
 // Copies the host table ((Rule::kRoles, n) pointers and the (n + 1,)
 // offsets) into the launch's parameters.
 template <class Rule>
 int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
                 long long total, void* stream, const Rule& rule) {
-  if (n < 1 || n > kMaxArgTensors || total < 0)
+  using Tab = ArgTable<Rule::kRoles>;
+  if (n < 1 || n > Tab::kCap || total < 0)
     return (int)cudaErrorInvalidValue;
   if (total == 0) return (int)cudaSuccess;
-  ArgTable tab;
+  Tab tab;
   for (int i = 0; i < Rule::kRoles * n; ++i) tab.ptrs[i] = ptrs[i];
   for (int i = 0; i <= n; ++i) tab.offs[i] = offs[i];
-  const int64_t blocks = (total + kChunk - 1) / kChunk;
+  const int64_t chunk = static_chunk(total);
+  const int64_t blocks = (total + chunk - 1) / chunk;
   multi_tensor_arg_kernel<Rule><<<(unsigned)blocks, kThreads, 0,
                                   (cudaStream_t)stream>>>(
-      tab, n, (int64_t)total, rule);
+      tab, n, (int64_t)total, chunk, rule);
   return (int)cudaGetLastError();
 }
 
@@ -737,6 +900,21 @@ int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,
                                                     seg_sums);
   return (int)cudaGetLastError();
 }
+
+// Tensors one static launch takes for a rule of ``roles`` table roles
+// (4: sgd, 5: momentum, 6: Lamb's apply, 10: Adam and Lamb's phase 1),
+// 0 for another count; and the parameter space the build assumed.
+int static_table_capacity(int roles) {
+  switch (roles) {
+    case 4: return ArgTable<4>::kCap;
+    case 5: return ArgTable<5>::kCap;
+    case 6: return ArgTable<6>::kCap;
+    case 10: return ArgTable<10>::kCap;
+    default: return 0;
+  }
+}
+
+int static_param_bytes() { return kParamBytes; }
 
 const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -19,12 +19,13 @@ recompute the probabilities (delta = rowsum(dO * O) is computed in the
 dq pass). Inputs are bf16 or f32 (the plain version computes in f32, or
 f64 when given f64, for gradient checks). The bf16 short forward and
 the bf16 streaming backward (all three of its forms) run on tensor
-cores: bf16 operands, f32 accumulators, m, l, lse, delta, P and dS in
+cores, and so does the bf16 short backward (one thread-block cluster a
+(batch, head), dQ summed in distributed shared memory in a fixed
+order): bf16 operands, f32 accumulators, m, l, lse, delta, P and dS in
 f32 until they become operands of a product, P and dS then entering as
 two bf16 terms (hi + lo) except P into dV (one). Every other kernel
 (the f32 forms, the parity route held to 1e-4, which TF32 cannot meet;
-the streaming forward and the short backward in bf16) computes in f32
-FMA.
+the streaming forward in bf16) computes in f32 FMA.
 
 Dropout (rate p) is generated inside the kernels by Philox4x32-10 keyed
 by the 64-bit ``seed`` and counted by element coordinates: counter
@@ -460,11 +461,14 @@ def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
                       [_P] * 10 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
+    # the f32 form's dQ scratch; the bf16 form sums dQ in its clusters'
+    # shared memory
     dq_acc = torch.empty((B * H, L, D), dtype=torch.float32,
-                         device=q.device)
+                         device=q.device) if q.dtype == torch.float32 else None
     thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), dq_acc.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(),
+             None if dq_acc is None else dq_acc.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, D,
              int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr,
              inv, lo, hi, torch.cuda.current_stream(q.device).cuda_stream)

@@ -70,7 +70,10 @@ from . import _build, counters
 
 __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
-           "static_lamb_", "CHUNK_PIECE", "chunk_segments", "chunk_pieces",
+           "static_lamb_", "static_sgd_list_", "static_momentum_list_",
+           "static_adam_list_", "static_lamb_list_", "static_capacity",
+           "static_param_bytes",
+           "CHUNK_PIECE", "chunk_segments", "chunk_pieces",
            "chunk_lamb_", "chunk_update"]
 
 _P = ctypes.c_void_p
@@ -383,13 +386,19 @@ def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
 
 
 # ---------------------------------------------------------------------------
-# The static (program) forms: one parameter a call, scalars on the device
+# The static (program) forms: a run of update ops a call, scalars on the
+# device
 # ---------------------------------------------------------------------------
 # The update ops of a static program (``static/kernels.py`` sgd, momentum,
 # adam, lamb) port ``fused_op_update`` (``paddle_tpu/ops/pallas/
 # fused_optimizer.py:418``): ``_run_grid`` with ``_sgd_kernel``,
 # ``_momentum_kernel``, ``_adam_kernel`` and ``_lamb_phase1_kernel`` with
-# ``dygraph=False``, one op (one launch) per parameter. Their scalars are
+# ``dygraph=False``, which the JAX package runs one op (one grid) per
+# parameter. The port's executor hands a RUN of consecutive update ops of
+# one type and attrs to the list forms (``static_*_list_``), which update
+# every parameter of the run in one launch (more where the run outgrows
+# the table the launch carries by value, :func:`static_capacity`); the
+# one-tensor forms are runs of one. Their scalars are
 # the program's persistable (1,) variables: ``lr`` (LearningRate), the
 # beta-pows ``b1p``/``b2p`` (Beta1Pow/Beta2Pow, one pair per parameter)
 # and the optional bool ``found`` (FoundInfinite); the kernels read them
@@ -415,11 +424,12 @@ def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
 # Routing is by device only: CUDA f32 tensors launch the kernel (counted
 # ``static_sgd``, ``static_momentum``, ``static_adam``,
 # ``static_lamb_phase1`` + ``static_lamb_apply``) or raise; CPU tensors
-# take the plain version. There is no size floor (JAX's n < 1024 XLA
-# route was a TPU tiling limit). Bound: latency at the static example's
-# sizes (77,850 trainable parameters in 25 tensors, one launch each);
-# device bytes for large tensors (sgd 12, momentum 20, adam 28 bytes an
-# element).
+# take the plain version, the loop of the per-op plain versions below, so
+# a run's kernel and its plain version agree bit for bit. There is no
+# size floor (JAX's n < 1024 XLA route was a TPU tiling limit). Bound:
+# latency at the static example's sizes (77,850 trainable parameters in
+# 25 tensors, one run); device bytes for large tensors (sgd 12, momentum
+# 20, adam 28 bytes an element).
 
 
 def _gate(found, old, new):
@@ -503,54 +513,141 @@ def _check_static(op, tensors, scalars, found):
                          f"{tuple(found.shape)} on {found.device}")
 
 
-def _launch_static(fn_name, roles, numel, extra_types, extra, counter):
-    """One launch of a static rule over one tensor: ``roles`` are the
-    table's entries (tensors, or None for a null pointer), passed by
-    value with the (0, numel) offsets."""
-    ptrs = (ctypes.c_int64 * len(roles))(
-        *[0 if t is None else t.data_ptr() for t in roles])
-    offs = (ctypes.c_int64 * 2)(0, numel)
-    fn = _build.entry("fused_optimizer", fn_name,
-                      [_P, _P, ctypes.c_int, ctypes.c_longlong]
-                      + list(extra_types) + [_P])
-    dev = roles[0].device
-    err = fn(ptrs, offs, 1, numel, *extra,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("fused_optimizer", err, fn_name)
-    counters.bump(counter)
-
-
 def _on_cuda(op, p):
     return _device_of(op, [p]).type == "cuda"
 
 
-def static_sgd_(param, grad, lr, found=None):
-    """The static ``sgd`` op, IN PLACE: ``param -= lr*grad`` unless
-    ``found`` is set. ``lr``: the (1,) LearningRate tensor."""
-    _check_static("static_sgd_", {"param": param, "grad": grad},
-                  {"lr": lr}, found)
-    if not _on_cuda("static_sgd_", param):
-        _plain_static_sgd_(param, grad, lr, found)
+def _plain_static_sgd_list_(params, grads, lrs, founds):
+    for p, g, lr, found in zip(params, grads, lrs, founds):
+        _plain_static_sgd_(p, g, lr, found)
+
+
+def _plain_static_momentum_list_(params, grads, velocities, lrs, mu,
+                                 nesterov, founds):
+    for p, g, v, lr, found in zip(params, grads, velocities, lrs, founds):
+        _plain_static_momentum_(p, g, v, lr, mu, nesterov, found)
+
+
+def _plain_static_adam_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs,
+                             beta1, beta2, eps, founds):
+    return [_plain_static_adam_(*t, beta1, beta2, eps, found)
+            for *t, found in zip(params, grads, m1s, m2s, b1ps, b2ps, lrs,
+                                 founds)]
+
+
+def _plain_static_lamb_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs,
+                             beta1, beta2, eps, wd, founds):
+    return [_plain_static_lamb_(*t, beta1, beta2, eps, wd, found)
+            for *t, found in zip(params, grads, m1s, m2s, b1ps, b2ps, lrs,
+                                 founds)]
+
+
+_CAPACITY = {}
+
+
+def static_capacity(roles: int) -> int:
+    """Tensors one static launch takes for a rule of ``roles`` table
+    roles (sgd 4, momentum 5, Lamb's apply 6, Adam and Lamb's phase 1
+    10): what the kernel parameter space of the build leaves for the
+    table (``static_table_capacity``, built on first use)."""
+    if roles not in _CAPACITY:
+        fn = _build.entry("fused_optimizer", "static_table_capacity",
+                          [ctypes.c_int])
+        _CAPACITY[roles] = int(fn(roles))
+        if _CAPACITY[roles] < 1:
+            raise ValueError(f"no static rule has {roles} table roles")
+    return _CAPACITY[roles]
+
+
+def static_param_bytes() -> int:
+    """The kernel parameter space the build assumed for the static
+    tables: 32,764 bytes when nvcc is 12.1 or newer, else 4,096."""
+    return int(_build.entry("fused_optimizer", "static_param_bytes", [])())
+
+
+def _launch_static(fn_name, roles, numels, extra_types, extra, counter):
+    """The static rule ``fn_name`` over a run of tensors: ``roles`` is a
+    list of per-role lists (tensors, or None for a null pointer), one
+    entry a tensor of ``numels``. The table goes by value, so the run is
+    cut into consecutive launches of at most ``static_capacity(len(
+    roles))`` tensors, in order; each launch counts once."""
+    fn = _build.entry("fused_optimizer", fn_name,
+                      [_P, _P, ctypes.c_int, ctypes.c_longlong]
+                      + list(extra_types) + [_P])
+    cap = static_capacity(len(roles))
+    dev = roles[0][0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for a in range(0, len(numels), cap):
+        n = min(cap, len(numels) - a)
+        ptrs = (ctypes.c_int64 * (len(roles) * n))(
+            *[0 if t is None else t.data_ptr()
+              for role in roles for t in role[a:a + n]])
+        ends = np.cumsum([0] + list(numels[a:a + n]))
+        offs = (ctypes.c_int64 * (n + 1))(*[int(e) for e in ends])
+        err = fn(ptrs, offs, n, int(ends[-1]), *extra, stream)
+        _build.check("fused_optimizer", err, fn_name)
+        counters.bump(counter)
+
+
+def _run_of(op, lists, scalars, founds):
+    """Check a run's per-op lists ({role: [tensor]}, all of one length,
+    ``param`` among them) and scalars ({role: [tensor]}) with
+    :func:`_check_static`, op by op; returns (founds as a list, whether
+    the run is on the card)."""
+    lists = {k: list(v) for k, v in lists.items()}
+    n = len(lists["param"])
+    founds = [None] * n if founds is None else list(founds)
+    if n == 0:
+        raise ValueError(f"{op}: an empty run")
+    if any(len(v) != n for v in list(lists.values()) + [founds]) or \
+            any(len(v) != n for v in scalars.values()):
+        raise ValueError(f"{op}: lists of different lengths")
+    dev = lists["param"][0].device
+    for i in range(n):
+        _check_static(op, {k: v[i] for k, v in lists.items()},
+                      {k: v[i] for k, v in scalars.items()}, founds[i])
+        if lists["param"][i].device != dev:
+            raise ValueError(f"{op}: a run spans {dev} and "
+                             f"{lists['param'][i].device}")
+    return founds, _on_cuda(op, lists["param"][0])
+
+
+def _pow_outputs(n, dev):
+    """Op i's (1,) Beta1PowOut and Beta2PowOut: elements 2i and 2i + 1 of
+    one new buffer (never the inputs, which every block reads)."""
+    pows = torch.empty(2 * n, dtype=torch.float32, device=dev)
+    return [(pows[2 * i:2 * i + 1], pows[2 * i + 1:2 * i + 2])
+            for i in range(n)]
+
+
+def static_sgd_list_(params, grads, lrs, founds=None):
+    """A run of static ``sgd`` ops, IN PLACE: ``params[i] -= lrs[i] *
+    grads[i]`` unless ``founds[i]`` is set. ``lrs``: each op's (1,)
+    LearningRate tensor; ``founds``: None, or each op's flag or None."""
+    founds, cuda = _run_of("static_sgd_", {"param": params, "grad": grads},
+                           {"lr": lrs}, founds)
+    if not cuda:
+        _plain_static_sgd_list_(params, grads, lrs, founds)
         return
-    _launch_static("static_sgd_f32", [param, grad, lr, found],
-                   param.numel(), (), (), "static_sgd")
+    _launch_static("static_sgd_f32", [params, grads, lrs, founds],
+                   [p.numel() for p in params], (), (), "static_sgd")
 
 
-def static_momentum_(param, grad, velocity, lr, *, mu, nesterov=False,
-                     found=None):
-    """The static ``momentum`` op, IN PLACE on ``param`` and
-    ``velocity``."""
-    _check_static("static_momentum_", {"param": param, "grad": grad,
-                                       "velocity": velocity},
-                  {"lr": lr}, found)
-    if not _on_cuda("static_momentum_", param):
-        _plain_static_momentum_(param, grad, velocity, lr, mu, nesterov,
-                                found)
+def static_momentum_list_(params, grads, velocities, lrs, *, mu,
+                          nesterov=False, founds=None):
+    """A run of static ``momentum`` ops, IN PLACE on the parameters and
+    velocities."""
+    founds, cuda = _run_of("static_momentum_",
+                           {"param": params, "grad": grads,
+                            "velocity": velocities}, {"lr": lrs}, founds)
+    if not cuda:
+        _plain_static_momentum_list_(params, grads, velocities, lrs, mu,
+                                     nesterov, founds)
         return
     _launch_static("static_momentum_f32",
-                   [param, grad, velocity, lr, found], param.numel(),
-                   (_F, ctypes.c_int), (float(np.float32(mu)),
-                                        int(bool(nesterov))),
+                   [params, grads, velocities, lrs, founds],
+                   [p.numel() for p in params], (_F, ctypes.c_int),
+                   (float(np.float32(mu)), int(bool(nesterov))),
                    "static_momentum")
 
 
@@ -562,23 +659,84 @@ def _beta_consts(beta1, beta2, eps):
             float(np.float32(eps)))
 
 
+def _adam_run(op, params, grads, m1s, m2s, b1ps, b2ps, lrs, founds):
+    return _run_of(op, {"param": params, "grad": grads, "moment1": m1s,
+                        "moment2": m2s},
+                   {"lr": lrs, "beta1_pow": b1ps, "beta2_pow": b2ps},
+                   founds)
+
+
+def static_adam_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs, *, beta1,
+                      beta2, eps, founds=None):
+    """A run of static ``adam`` ops, IN PLACE on the parameters and the
+    moments; returns each op's (1,) Beta1PowOut and Beta2PowOut as new
+    tensors, [(b1, b2)] in op order."""
+    founds, cuda = _adam_run("static_adam_", params, grads, m1s, m2s, b1ps,
+                             b2ps, lrs, founds)
+    if not cuda:
+        return _plain_static_adam_list_(params, grads, m1s, m2s, b1ps, b2ps,
+                                        lrs, beta1, beta2, eps, founds)
+    pows = _pow_outputs(len(params), params[0].device)
+    _launch_static("static_adam_f32",
+                   [params, grads, m1s, m2s, lrs, b1ps, b2ps, founds,
+                    [a for a, _ in pows], [b for _, b in pows]],
+                   [p.numel() for p in params], [_F] * 5,
+                   _beta_consts(beta1, beta2, eps), "static_adam")
+    return pows
+
+
+def static_lamb_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs, *, beta1,
+                      beta2, eps, weight_decay, founds=None):
+    """A run of static ``lamb`` ops, IN PLACE on the parameters and the
+    moments; returns [(Beta1PowOut, Beta2PowOut)] in op order as new
+    (1,) tensors. Phase 1 over the run into scratch r tensors, ONE
+    ``torch._foreach_norm`` over the run's parameters and r (each
+    tensor's norm on its own, as the per-op plain version takes it),
+    then the update over the run."""
+    founds, cuda = _adam_run("static_lamb_", params, grads, m1s, m2s, b1ps,
+                             b2ps, lrs, founds)
+    if not cuda:
+        return _plain_static_lamb_list_(params, grads, m1s, m2s, b1ps, b2ps,
+                                        lrs, beta1, beta2, eps, weight_decay,
+                                        founds)
+    n, numels = len(params), [p.numel() for p in params]
+    rs = [torch.empty_like(p) for p in params]
+    pows = _pow_outputs(n, params[0].device)
+    _launch_static("static_lamb_phase1_f32",
+                   [params, grads, m1s, m2s, rs, b1ps, b2ps, founds,
+                    [a for a, _ in pows], [b for _, b in pows]], numels,
+                   [_F] * 6, _beta_consts(beta1, beta2, eps)
+                   + (float(np.float32(weight_decay)),),
+                   "static_lamb_phase1")
+    norms = torch._foreach_norm(list(params) + rs)
+    _launch_static("static_lamb_apply_f32",
+                   [params, rs, lrs, norms[:n], norms[n:], founds], numels,
+                   (), (), "static_lamb_apply")
+    return pows
+
+
+def static_sgd_(param, grad, lr, found=None):
+    """The static ``sgd`` op, IN PLACE: ``param -= lr*grad`` unless
+    ``found`` is set. ``lr``: the (1,) LearningRate tensor. A run of
+    one: :func:`static_sgd_list_`."""
+    static_sgd_list_([param], [grad], [lr], [found])
+
+
+def static_momentum_(param, grad, velocity, lr, *, mu, nesterov=False,
+                     found=None):
+    """The static ``momentum`` op, IN PLACE on ``param`` and
+    ``velocity``."""
+    static_momentum_list_([param], [grad], [velocity], [lr], mu=mu,
+                          nesterov=nesterov, founds=[found])
+
+
 def static_adam_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
                  beta1, beta2, eps, found=None):
     """The static ``adam`` op, IN PLACE on ``param`` and the moments;
     returns the (1,) Beta1PowOut and Beta2PowOut as new tensors."""
-    _check_static("static_adam_", {"param": param, "grad": grad,
-                                   "moment1": moment1, "moment2": moment2},
-                  {"lr": lr, "beta1_pow": beta1_pow,
-                   "beta2_pow": beta2_pow}, found)
-    if not _on_cuda("static_adam_", param):
-        return _plain_static_adam_(param, grad, moment1, moment2, beta1_pow,
-                                   beta2_pow, lr, beta1, beta2, eps, found)
-    pows = torch.empty(2, dtype=torch.float32, device=param.device)
-    _launch_static("static_adam_f32",
-                   [param, grad, moment1, moment2, lr, beta1_pow, beta2_pow,
-                    found, pows[0:1], pows[1:2]], param.numel(),
-                   [_F] * 5, _beta_consts(beta1, beta2, eps), "static_adam")
-    return pows[0:1], pows[1:2]
+    return static_adam_list_([param], [grad], [moment1], [moment2],
+                             [beta1_pow], [beta2_pow], [lr], beta1=beta1,
+                             beta2=beta2, eps=eps, founds=[found])[0]
 
 
 def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
@@ -587,27 +745,10 @@ def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
     returns the (1,) Beta1PowOut and Beta2PowOut as new tensors. Two
     launches (phase 1 into a scratch r, then the update) around one
     ``torch._foreach_norm``."""
-    _check_static("static_lamb_", {"param": param, "grad": grad,
-                                   "moment1": moment1, "moment2": moment2},
-                  {"lr": lr, "beta1_pow": beta1_pow,
-                   "beta2_pow": beta2_pow}, found)
-    if not _on_cuda("static_lamb_", param):
-        return _plain_static_lamb_(param, grad, moment1, moment2, beta1_pow,
-                                   beta2_pow, lr, beta1, beta2, eps,
-                                   weight_decay, found)
-    n = param.numel()
-    r = torch.empty_like(param)
-    pows = torch.empty(2, dtype=torch.float32, device=param.device)
-    _launch_static("static_lamb_phase1_f32",
-                   [param, grad, moment1, moment2, r, beta1_pow, beta2_pow,
-                    found, pows[0:1], pows[1:2]], n, [_F] * 6,
-                   _beta_consts(beta1, beta2, eps)
-                   + (float(np.float32(weight_decay)),),
-                   "static_lamb_phase1")
-    w, q = _static_lamb_norms(param, r)
-    _launch_static("static_lamb_apply_f32", [param, r, lr, w, q, found], n,
-                   (), (), "static_lamb_apply")
-    return pows[0:1], pows[1:2]
+    return static_lamb_list_([param], [grad], [moment1], [moment2],
+                             [beta1_pow], [beta2_pow], [lr], beta1=beta1,
+                             beta2=beta2, eps=eps, weight_decay=weight_decay,
+                             founds=[found])[0]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ from .backward import append_backward  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .executor import (Executor, Scope, global_scope,  # noqa: F401
-                       load_numpy_state, scope_guard)
+                       load_numpy_state, op_runs, scope_guard)
 from .io import (load_inference_model, load_params,  # noqa: F401
                  load_persistables, load_program, save_inference_model,
                  save_params, save_persistables, save_program)

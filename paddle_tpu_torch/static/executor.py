@@ -5,7 +5,9 @@ Port of ``paddle_tpu/static/executor.py``'s ``Scope``, ``global_scope``,
 ``run_startup``). The JAX package lowers a whole block to one jitted
 XLA program. The port interprets the block op by op on the card, as the
 reference's C++ executor does: ``run_block`` walks the ops over an env
-dict of tensors, each op's kernel (``kernels.py``) running eagerly.
+dict of tensors, each op's kernel (``kernels.py``) running eagerly; a
+run of consecutive optimizer updates of one type (``op_runs``) goes to
+one group kernel, so a step's updates are one launch, not one an op.
 
 - Before a ``backward`` op, each parameter it names is bound as a fresh
   autograd leaf (``detach().requires_grad_()``) and the forward ops run
@@ -43,10 +45,10 @@ from ..framework import random as random_mod
 from ..framework.place import place_device
 from .backward import run_backward_op
 from .ir import Block, Program, Variable
-from .kernels import KERNELS, ExecContext
+from .kernels import GROUP_KERNELS, KERNELS, ExecContext
 
-__all__ = ["Scope", "global_scope", "scope_guard", "live_ops", "run_block",
-           "Executor", "load_numpy_state"]
+__all__ = ["Scope", "global_scope", "scope_guard", "live_ops", "op_runs",
+           "run_block", "Executor", "load_numpy_state"]
 
 
 class Scope:
@@ -96,24 +98,71 @@ def scope_guard(scope):
 # ---------------------------------------------------------------------------
 # the interpreter
 # ---------------------------------------------------------------------------
-def _run_ops(steps, env: Dict[str, Any], ctx: ExecContext) -> None:
-    """Run ``steps`` ([(op index, op)]) over ``env``."""
+def _layout(op):
+    """An op's type, attrs and slot sizes: the ops of a run share them."""
+    return (op.type, op.attrs,
+            {s: len(n) for s, n in op.inputs.items()},
+            {s: len(n) for s, n in op.outputs.items()})
+
+
+def op_runs(steps):
+    """``steps`` ([(op index, op)]) cut into runs, in order: a maximal
+    run of consecutive ops of one ``GROUP_KERNELS`` type (the optimizer
+    updates) whose attrs and slots are equal apart from the variable
+    names, and in which no op reads or writes a variable that another op
+    of the run writes (an op's own in-place state, Param in and ParamOut
+    out, is its own); every other op is a run of one. The ops of a run
+    depend on none of each other's outputs, so one launch may update
+    them all."""
+    runs, reads, writes = [], set(), set()
     for i, op in steps:
+        r, w = set(op.input_names()), set(op.output_names())
+        if runs and op.type in GROUP_KERNELS:
+            head = runs[-1][0][1]
+            if _layout(head) == _layout(op) and not r & writes \
+                    and not w & (reads | writes):
+                runs[-1].append((i, op))
+                reads |= r
+                writes |= w
+                continue
+        runs.append([(i, op)])
+        reads, writes = r, w
+    return runs
+
+
+def _ins(op, env):
+    return {slot: [env[n] for n in names]
+            for slot, names in op.inputs.items()
+            if all(n in env for n in names)}
+
+
+def _bind(op, outs, env):
+    for slot, names in op.outputs.items():
+        for name, t in zip(names, outs.get(slot) or ()):
+            env[name] = t
+
+
+def _run_ops(steps, env: Dict[str, Any], ctx: ExecContext) -> None:
+    """Run ``steps`` ([(op index, op)]) over ``env``: each run of
+    :func:`op_runs` through its group kernel (outputs bound in op
+    order), every other op through its own kernel."""
+    for run in op_runs(steps):
+        i, op = run[0]
         if op.type in ("feed", "fetch"):
+            continue
+        ctx.op_index = i
+        group = GROUP_KERNELS.get(op.type)
+        if group is not None:
+            outs = group([_ins(o, env) for _, o in run], op.attrs, ctx)
+            for (_, o), out in zip(run, outs):
+                _bind(o, out, env)
             continue
         fn = KERNELS.get(op.type)
         if fn is None:
             raise NotImplementedError(
                 f"static op {op.type!r} is not in this port slice; a later "
                 "port slice adds it")
-        ctx.op_index = i
-        ins = {slot: [env[n] for n in names]
-               for slot, names in op.inputs.items()
-               if all(n in env for n in names)}
-        outs = fn(ins, op.attrs, ctx)
-        for slot, names in op.outputs.items():
-            for name, t in zip(names, outs.get(slot) or ()):
-                env[name] = t
+        _bind(op, fn(_ins(op, env), op.attrs, ctx), env)
 
 
 def live_ops(block: Block, fetch_names: Sequence[str]):

@@ -12,7 +12,10 @@ Kernels are pure except the optimizer updates (``sgd``, ``momentum``,
 ``adam``, ``lamb``), which update the parameter and its accumulators IN
 PLACE through K3's static forms (``ops/cuda/fused_optimizer.py``) and
 return them; the executor runs them under ``torch.no_grad()``, after the
-backward op.
+backward op. The updates are also registered in ``GROUP_KERNELS`` as
+kernels of a RUN of ops, ``fn(ins_list, attrs, ctx) -> outs_list``:
+the executor hands them each maximal run of consecutive updates of one
+type and attrs (``executor.op_runs``), one launch for the run.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from ..framework.random import fold_in
 from ..ops.cuda import fused_optimizer as fo
 
 KERNELS: Dict[str, Callable] = {}
+#: op_type -> the kernel of a run of such ops (the executor's grouping)
+GROUP_KERNELS: Dict[str, Callable] = {}
 
 
 @dataclass
@@ -362,43 +367,67 @@ def _found(ins):
     return found[0] if found else None
 
 
-@kernel("sgd")
-def _sgd(ins, attrs, ctx):
-    p = ins["Param"][0]
-    fo.static_sgd_(p, ins["Grad"][0], ins["LearningRate"][0], _found(ins))
-    return {"ParamOut": [p]}
+def group_kernel(op_type):
+    """Register ``fn(ins_list, attrs, ctx) -> outs_list`` as the kernel
+    of a run of ``op_type`` ops (one ``ins`` dict an op, equal attrs),
+    and its one-op form as the op's kernel."""
+    def deco(fn):
+        GROUP_KERNELS[op_type] = fn
+        kernel(op_type)(lambda ins, attrs, ctx: fn([ins], attrs, ctx)[0])
+        return fn
+    return deco
 
 
-@kernel("momentum")
-def _momentum(ins, attrs, ctx):
-    p, v = ins["Param"][0], ins["Velocity"][0]
-    fo.static_momentum_(p, ins["Grad"][0], v, ins["LearningRate"][0],
-                        mu=attrs.get("mu", 0.9),
-                        nesterov=attrs.get("use_nesterov", False),
-                        found=_found(ins))
-    return {"ParamOut": [p], "VelocityOut": [v]}
+def _slots(ins_list, slot):
+    return [ins[slot][0] for ins in ins_list]
 
 
-def _adam_like(update, ins, attrs, **extra):
-    p, m, v = ins["Param"][0], ins["Moment1"][0], ins["Moment2"][0]
-    b1p, b2p = update(p, ins["Grad"][0], m, v, ins["Beta1Pow"][0],
-                      ins["Beta2Pow"][0], ins["LearningRate"][0],
-                      beta1=attrs.get("beta1", 0.9),
-                      beta2=attrs.get("beta2", 0.999), found=_found(ins),
-                      **extra)
-    return {"ParamOut": [p], "Moment1Out": [m], "Moment2Out": [v],
-            "Beta1PowOut": [b1p], "Beta2PowOut": [b2p]}
+def _founds(ins_list):
+    return [_found(ins) for ins in ins_list]
 
 
-@kernel("adam")
-def _adam(ins, attrs, ctx):
-    return _adam_like(fo.static_adam_, ins, attrs,
+@group_kernel("sgd")
+def _sgd(ins_list, attrs, ctx):
+    ps = _slots(ins_list, "Param")
+    fo.static_sgd_list_(ps, _slots(ins_list, "Grad"),
+                        _slots(ins_list, "LearningRate"), _founds(ins_list))
+    return [{"ParamOut": [p]} for p in ps]
+
+
+@group_kernel("momentum")
+def _momentum(ins_list, attrs, ctx):
+    ps, vs = _slots(ins_list, "Param"), _slots(ins_list, "Velocity")
+    fo.static_momentum_list_(ps, _slots(ins_list, "Grad"), vs,
+                             _slots(ins_list, "LearningRate"),
+                             mu=attrs.get("mu", 0.9),
+                             nesterov=attrs.get("use_nesterov", False),
+                             founds=_founds(ins_list))
+    return [{"ParamOut": [p], "VelocityOut": [v]} for p, v in zip(ps, vs)]
+
+
+def _adam_like(update, ins_list, attrs, **extra):
+    ps = _slots(ins_list, "Param")
+    ms, vs = _slots(ins_list, "Moment1"), _slots(ins_list, "Moment2")
+    pows = update(ps, _slots(ins_list, "Grad"), ms, vs,
+                  _slots(ins_list, "Beta1Pow"), _slots(ins_list, "Beta2Pow"),
+                  _slots(ins_list, "LearningRate"),
+                  beta1=attrs.get("beta1", 0.9),
+                  beta2=attrs.get("beta2", 0.999),
+                  founds=_founds(ins_list), **extra)
+    return [{"ParamOut": [p], "Moment1Out": [m], "Moment2Out": [v],
+             "Beta1PowOut": [b1p], "Beta2PowOut": [b2p]}
+            for p, m, v, (b1p, b2p) in zip(ps, ms, vs, pows)]
+
+
+@group_kernel("adam")
+def _adam(ins_list, attrs, ctx):
+    return _adam_like(fo.static_adam_list_, ins_list, attrs,
                       eps=attrs.get("epsilon", 1e-8))
 
 
-@kernel("lamb")
-def _lamb(ins, attrs, ctx):
-    return _adam_like(fo.static_lamb_, ins, attrs,
+@group_kernel("lamb")
+def _lamb(ins_list, attrs, ctx):
+    return _adam_like(fo.static_lamb_list_, ins_list, attrs,
                       eps=attrs.get("epsilon", 1e-6),
                       weight_decay=attrs.get("weight_decay", 0.01))
 

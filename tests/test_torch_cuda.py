@@ -454,6 +454,125 @@ def test_static_update_kernels_are_bitwise_the_plain_version(dev, op, found):
     assert counters.get("fused_momentum") == 0
 
 
+def _static_run(dev, op, shapes, founds, seed):
+    """A run's per-op inputs; every other tensor a view one element into
+    a larger buffer, so its pointers are not 16-byte aligned and the
+    kernel takes it one element at a time."""
+    run = []
+    for k, (shape, found) in enumerate(zip(shapes, founds)):
+        t = _static_case(dev, op, shape, found, seed=seed + k)
+        if k % 2:
+            for n in ("p", "g", "v", "m"):
+                if n in t:
+                    buf = torch.empty(t[n].numel() + 1, device=dev)
+                    buf[1:] = t[n].reshape(-1)
+                    t[n] = buf[1:].view(shape)
+        run.append(t)
+    return run
+
+
+def _static_run_apply(op, run, plain):
+    """The list form over ``run`` (or the loop of per-op plain
+    versions); each op's pow outputs."""
+    def col(k):
+        return [t[k] for t in run]
+    p, g, lr, found = col("p"), col("g"), col("lr"), col("found")
+    if op == "sgd":
+        (fo._plain_static_sgd_list_ if plain else fo.static_sgd_list_)(
+            p, g, lr, found)
+        return [()] * len(run)
+    if op in ("momentum", "nesterov"):
+        nest = op == "nesterov"
+        if plain:
+            fo._plain_static_momentum_list_(p, g, col("v"), lr, 0.9, nest,
+                                            found)
+        else:
+            fo.static_momentum_list_(p, g, col("v"), lr, mu=0.9,
+                                     nesterov=nest, founds=found)
+        return [()] * len(run)
+    args = (p, g, col("m"), col("v"), col("b1p"), col("b2p"), lr)
+    if op == "adam":
+        if plain:
+            return fo._plain_static_adam_list_(*args, 0.9, 0.999, 1e-8,
+                                               found)
+        return fo.static_adam_list_(*args, beta1=0.9, beta2=0.999, eps=1e-8,
+                                    founds=found)
+    if plain:
+        return fo._plain_static_lamb_list_(*args, 0.9, 0.999, 1e-6, 0.01,
+                                           found)
+    return fo.static_lamb_list_(*args, beta1=0.9, beta2=0.999, eps=1e-6,
+                                weight_decay=0.01, founds=found)
+
+
+_STATIC_ROLES = {"static_sgd": 4, "static_momentum": 5, "static_adam": 10,
+                 "static_lamb_phase1": 10, "static_lamb_apply": 6}
+
+
+@pytest.mark.parametrize("found", [None, False, True, "mixed"],
+                         ids=["absent", "false", "true", "mixed"])
+@pytest.mark.parametrize("op", list(_STATIC_COUNTERS))
+def test_static_run_is_one_launch_and_bitwise_the_plain_version(dev, op,
+                                                                found):
+    """A run of update ops of mixed sizes (lengths 1, 7, 13 and others
+    that are not multiples of 4; aligned tensors and misaligned views)
+    through the list form: one launch of each kernel for the run, and p,
+    the moments or velocity and the pow outputs bit for bit the loop of
+    per-op plain versions; a set flag keeps its op's state."""
+    shapes = _STATIC_SHAPES + [(7,), (13, 3), (1000, 5), (2,), (4099,)]
+    founds = ([None] * len(shapes) if found is None
+              else [found] * len(shapes) if found != "mixed"
+              else [bool(k % 3 == 0) for k in range(len(shapes))])
+    kern = _static_run(dev, op, shapes, founds, seed=40)
+    plain = [{n: (None if x is None else x.clone()) for n, x in t.items()}
+             for t in kern]
+    before = [{n: (None if x is None else x.clone()) for n, x in t.items()}
+              for t in kern]
+    kpows = _static_run_apply(op, kern, plain=False)
+    ppows = _static_run_apply(op, plain, plain=True)
+    torch.cuda.synchronize()
+    for t, u, b, kp, pp in zip(kern, plain, before, kpows, ppows):
+        for n in t:
+            if t[n] is not None:
+                assert torch.equal(t[n], u[n]), (op, n)
+        for a, c in zip(kp, pp):
+            assert a.shape == (1,) and torch.equal(a, c), op
+        if t["found"] is not None and bool(t["found"]):
+            assert torch.equal(t["p"], b["p"]), op
+        else:
+            assert not torch.equal(t["p"], b["p"]), op
+    for name in _STATIC_COUNTERS[op]:
+        assert counters.get(name) == 1, (name, counters.snapshot())
+
+
+@pytest.mark.parametrize("op", ["sgd", "adam", "lamb"])
+def test_static_run_splits_at_the_table_capacity(dev, op):
+    """A run of exactly ``static_capacity`` tensors is one launch (the
+    build's kernel parameter space holds its table: 32,764 bytes from
+    CUDA 12.1 on), one more tensor makes two, in op order, and both stay
+    bit for bit the plain loop."""
+    roles = {"sgd": 4, "adam": 10, "lamb": 10}[op]
+    cap = fo.static_capacity(roles)
+    assert cap == (((fo.static_param_bytes() - 128) // 8) - 1) // \
+        (roles + 1)
+    for n in (cap, cap + 1):
+        counters.reset()
+        shapes = [(3 + k % 5,) for k in range(n)]
+        kern = _static_run(dev, op, shapes, [None] * n, seed=7)
+        plain = [{k: (None if x is None else x.clone())
+                  for k, x in t.items()} for t in kern]
+        kpows = _static_run_apply(op, kern, plain=False)
+        ppows = _static_run_apply(op, plain, plain=True)
+        torch.cuda.synchronize()
+        for t, u in zip(kern, plain):
+            assert all(torch.equal(t[k], u[k]) for k in t
+                       if t[k] is not None)
+        for kp, pp in zip(kpows, ppows):
+            assert all(torch.equal(a, b) for a, b in zip(kp, pp))
+        for name in _STATIC_COUNTERS[op]:
+            want = -(-n // fo.static_capacity(_STATIC_ROLES[name]))
+            assert counters.get(name) == want, (n, name)
+
+
 def test_static_update_kernels_raise_on_what_they_do_not_take(dev):
     p = torch.zeros(8, device=dev)
     lr = torch.ones(1, device=dev)
@@ -894,8 +1013,10 @@ def test_zero_step_two_ranks_on_one_card(dev, tmp_path):
         assert la.get("chunk_lamb_apply") == 6
         assert la.get("static_lamb_phase1", 0) == 0
         assert la.get("zero.zero") == 1 and "zero.xla" not in la
+        # the 6 update ops of a comm step are one run (one launch) x 4
+        # comm steps, + 2 chunk steps
         assert r["momentum_mix"]["launches"].get("static_momentum") \
-            == 4 * 6 + 2 * 1     # 6 tensors x 4 comm steps + 2 chunk steps
+            == 4 * 1 + 2 * 1
 
 
 # ---------------------------------------------------------------------------
@@ -970,7 +1091,7 @@ def test_tensor_core_ext_backward_matches_plain(dev, causal):
 
 
 @pytest.mark.parametrize("form", ["short_fwd", "bwd", "masked_bwd",
-                                  "ext_bwd"])
+                                  "ext_bwd", "short_bwd"])
 def test_tensor_core_kernels_are_deterministic(dev, form):
     """Two launches on the same inputs give the same bits (no atomics, no
     split across blocks)."""
@@ -986,11 +1107,40 @@ def test_tensor_core_kernels_are_deterministic(dev, form):
            "masked_bwd": lambda: fa.flash_attention_bwd(
                q, k, v, out, lse, do, False, 0.1, 557, bias),
            "ext_bwd": lambda: fa.flash_attention_bwd_ext(
-               q, k, v, do, lse, delta, False)}[form]
+               q, k, v, do, lse, delta, False),
+           "short_bwd": lambda: fa.flash_attention_short_bwd(
+               q, k, v, out, lse, do, False, 0.1, 557)}[form]
     first, second = run(), run()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,L,H,D,causal,p", [
+    (32, 512, 12, 64, False, 0.1),
+    (8, 128, 12, 64, False, 0.0),
+    (4, 256, 4, 64, True, 0.1),
+    (2, 384, 4, 128, False, 0.1),
+], ids=["bert512-dropout", "L128", "causal", "D128-L384"])
+def test_tensor_core_short_backward_is_one_deterministic_launch(dev, B, L, H,
+                                                               D, causal, p):
+    """K1d on tensor cores (one cluster of L / 64 CTAs a head, dQ summed
+    through distributed shared memory): against the plain version at
+    chip_smoke's bf16 tolerance, the same bits from a second launch, one
+    ``flash_attention_short_bwd`` count a call."""
+    q, k, v, do = _qkvo(dev, 38, B, L, H, D, torch.bfloat16)
+    out, lse = fa._plain_fwd(q, k, v, causal, p, 559)
+    first = fa.flash_attention_short_bwd(q, k, v, out, lse, do, causal, p,
+                                         559)
+    assert counters.snapshot() == {"flash_attention_short_bwd": 1}
+    second = fa.flash_attention_short_bwd(q, k, v, out, lse, do, causal, p,
+                                          559)
+    want = fa._plain_bwd(q, k, v, out, lse, do, causal, p, 559)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), first, second, want):
+        _close_bf16(a, c, name)
+        assert torch.equal(a, b), name
+    assert counters.snapshot() == {"flash_attention_short_bwd": 2}
 
 
 def test_f32_forms_keep_the_parity_tolerance(dev):

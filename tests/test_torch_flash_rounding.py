@@ -1,7 +1,8 @@
 """The rounding of the tensor-core flash kernels (the bf16 forms of K1c's
-forward and of K1b, ``csrc/flash_short.cu`` and ``csrc/flash_attention.cu``)
-modelled on the CPU and held against the JAX kernels in interpret mode,
-so that the numerical design is checked before it reaches the card.
+forward, of K1d and of K1b, ``csrc/flash_short.cu`` and
+``csrc/flash_attention.cu``) modelled on the CPU and held against the JAX
+kernels in interpret mode, so that the numerical design is checked
+before it reaches the card.
 
 The model (test-local, in f32 torch arithmetic) rounds exactly where the
 kernels do and nowhere else:
@@ -13,9 +14,17 @@ kernels do and nowhere else:
   P rounded to bf16 into dV = P^T dO; dS into dQ = dS K and dK = dS^T Q
   as two bf16 terms, hi + lo (one bf16 rounding of dS misses the
   tolerance where a whole row is masked, as the last test shows);
+- K1d's backward (``short_bwd_mma``, one thread-block cluster of L / 64
+  CTAs a head): the same roundings tile pair by tile pair; CTA c keeps
+  kv tile c and visits q tile j = (c + s) mod L/64 at step s (causal:
+  j >= c only), and the owner of q tile j adds the f32 partials dS K_c
+  of its visitors in step order (s = 0, 1, ...), as the cluster sums
+  them through distributed shared memory; delta = rowsum(dO O) in f32
+  from the bf16 output;
 - inputs bf16 values, outputs rounded to bf16.
 
-References: ``_flash_attention_core_short_fwd`` and ``_bwd_call`` with
+References: ``_flash_attention_core_short_fwd``,
+``_flash_attention_core_short_bwd`` and ``_bwd_call`` with
 ``pl.pallas_call`` in interpret mode (f32, on the same bf16-valued
 inputs), and the port's plain versions where dropout is on (the JAX
 package's dropout bits are the TPU's, the port's Philox's). Tolerance:
@@ -222,3 +231,77 @@ def test_a_fully_masked_row_needs_ds_in_two_terms():
         _close(a, b, name)
     assert not torch.allclose(one[0], want[0], **TOL)
     assert not torch.allclose(one[1], want[1], **TOL)
+
+
+def model_short_bwd(q, k, v, out, dout, lse, causal, p=0.0, seed=0):
+    """K1d's tensor-core backward (one cluster a head, see the module
+    docstring): (dq, dk, dv) in bf16 values."""
+    B, L, H, D = q.shape
+    n, scale = L // TILE, 1.0 / math.sqrt(D)
+    qm, km, vm, dom, om = (_heads(x) for x in (q, k, v, dout, out))
+    delta = (dom * om).sum(-1)
+    keep = tfa.philox_keep_mask(seed, B * H, L, L, p) if p > 0 else None
+    dk, dv = torch.zeros_like(km), torch.zeros_like(vm)
+    ds_tiles = {}
+    for c in range(n):                        # CTA c: kv tile c
+        cols = slice(c * TILE, (c + 1) * TILE)
+        for st in range(n):
+            j = (c + st) % n
+            if causal and j < c:
+                continue
+            rows = slice(j * TILE, (j + 1) * TILE)
+            sc = (qm[:, rows] @ km[:, cols].transpose(1, 2)) * scale
+            prob = torch.exp(sc - lse[:, rows, None])
+            if causal:
+                dead = torch.arange(c * TILE, (c + 1) * TILE)[None, :] > \
+                    torch.arange(j * TILE, (j + 1) * TILE)[:, None]
+                prob = prob.masked_fill(dead, 0.0)
+            dp = dom[:, rows] @ vm[:, cols].transpose(1, 2)
+            pd = prob
+            if keep is not None:
+                kt = keep[:, rows, cols]
+                dp = torch.where(kt, dp / (1 - p), torch.zeros_like(dp))
+                pd = torch.where(kt, prob / (1 - p), torch.zeros_like(dp))
+            ds = split(prob * (dp - delta[:, rows, None]))
+            ds_tiles[j, c] = ds
+            dv[:, cols] += bf(pd).transpose(1, 2) @ dom[:, rows]
+            dk[:, cols] += ds.transpose(1, 2) @ qm[:, rows]
+    dq = torch.zeros_like(qm)
+    for j in range(n):                        # owner j, visitors in order
+        rows = slice(j * TILE, (j + 1) * TILE)
+        for st in range(n):
+            c = (j - st) % n
+            if (j, c) in ds_tiles:
+                dq[:, rows] += ds_tiles[j, c] @ km[:, c * TILE:(c + 1) * TILE]
+    return tuple(bf(_back(x, B, H))
+                 for x in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("L,D", [(128, 64), (256, 64), (128, 128),
+                                 (256, 128)])
+def test_short_backward_model_meets_the_card_tolerance(L, D, causal):
+    """K1d's model against ``_flash_attention_core_short_bwd`` in
+    interpret mode from the same (JAX) forward: clusters of 2 and 4."""
+    q, k, v, do = _inputs(2, L, 2, D, seed=L + D + 5 * causal)
+    jq, jk, jv, jdo = (jnp.asarray(x.numpy()) for x in (q, k, v, do))
+    jout, res = jfa._flash_attention_core_short_fwd(jq, jk, jv, None,
+                                                    causal, 0.0)
+    want = jfa._flash_attention_core_short_bwd(causal, 0.0, res, jdo)[:3]
+    out = bf(torch.tensor(np.asarray(jout)))
+    lse = torch.tensor(np.asarray(res[4])[:, 0])
+    got = model_short_bwd(q, k, v, out, do, lse, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, bf(torch.tensor(np.asarray(b))), name)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_short_backward_model_with_dropout_meets_the_card_tolerance(causal):
+    """With dropout 0.1, against the port's plain version (the JAX
+    package's dropout bits are the TPU's), at L 256: a cluster of 4."""
+    q, k, v, do = _inputs(2, 256, 2, 64, seed=31 + causal)
+    out, lse = tfa._plain_fwd(q, k, v, causal, 0.1, 79)
+    got = model_short_bwd(q, k, v, bf(out), do, lse, causal, 0.1, 79)
+    want = tfa._plain_bwd(q, k, v, out, lse, do, causal, 0.1, 79)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, bf(b), name)

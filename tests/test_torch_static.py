@@ -28,6 +28,7 @@ both packages differ from a float64 evaluation by up to 2e-3 (of 0.04),
 and from each other by as much (measured). The JAX programs run in
 their own ``static.Scope()`` without ``paddle.enable_static()``.
 """
+import contextlib
 import os
 import pickle
 
@@ -106,6 +107,26 @@ def _counted_since(before):
             if n != before.get(k, 0)}
 
 
+@contextlib.contextmanager
+def _runs_seen(opt):
+    """The sizes of the runs of ``opt``'s update ops that the port's
+    executor hands to the group kernel, in order (a list filled while
+    the block runs)."""
+    from paddle_tpu_torch.static.kernels import GROUP_KERNELS
+
+    sizes = []
+    real = GROUP_KERNELS[opt]
+
+    def spy(ins_list, attrs, ctx):
+        sizes.append(len(ins_list))
+        return real(ins_list, attrs, ctx)
+    GROUP_KERNELS[opt] = spy
+    try:
+        yield sizes
+    finally:
+        GROUP_KERNELS[opt] = real
+
+
 def _train(opt):
     """Both packages from the JAX startup state: per-step (loss, acc),
     step-1 grads, the state after STEPS steps, eval logits."""
@@ -127,9 +148,10 @@ def _train(opt):
         rec = out[side]
         with static.scope_guard(scope):
             before = counters.snapshot()
-            rec["steps"] = [exe.run(prog, feed={"img": x, "label": y},
-                                    fetch_list=fetch)
-                            for x, y in batches[:1] * STEPS]
+            with _runs_seen(opt) as rec["runs"]:
+                rec["steps"] = [exe.run(prog, feed={"img": x, "label": y},
+                                        fetch_list=fetch)
+                                for x, y in batches[:1] * STEPS]
             rec["launches"] = _counted_since(before)
             rec["state"] = {k: np.asarray(v) if side == "jax"
                             else v.numpy() for k, v in scope.items()}
@@ -210,6 +232,57 @@ def test_five_steps_match_jax(trained, opt):
     ta = [float(s[1]) for s in run["port"]["steps"]]
     assert ta == ja
     assert run["port"]["launches"] == {}              # the CPU runs plain
+
+
+@pytest.mark.parametrize("opt", OPTS)
+def test_the_update_ops_of_a_step_run_as_one_group(trained, opt):
+    """The optimizer appends the 25 updates one after another, so the
+    executor hands them to the group kernel as ONE run a step (one
+    launch on the card), and the five steps above went through it."""
+    run = trained(opt)
+    assert run["port"]["runs"] == [25] * STEPS
+    assert run["jax"]["runs"] == []
+
+
+def test_op_runs_cut_at_another_op_attrs_and_a_read_after_write():
+    """``op_runs``: consecutive updates of one type, attrs and slots
+    form a run; another op between them, other attrs, other slots, an
+    op that reads (or writes) what another op of the run writes, end
+    it; an op's own in-place state (Param in, ParamOut out) does not;
+    every other op is a run of one."""
+    prog = ts.Program()
+    blk = prog.global_block
+
+    def upd(i, kind="momentum", mu=0.9, grad=None, found=False, lr="lr"):
+        ins = {"Param": [f"p{i}"], "Grad": [grad or f"g{i}"],
+               "Velocity": [f"v{i}"], "LearningRate": [lr]}
+        if found:
+            ins["FoundInfinite"] = ["found"]
+        return blk.append_op(type=kind, inputs=ins,
+                             outputs={"ParamOut": [f"p{i}"],
+                                      "VelocityOut": [f"v{i}"]},
+                             attrs={"mu": mu, "use_nesterov": False})
+
+    upd(0)
+    upd(1)
+    upd(2)                                    # ops 0-2: one run
+    blk.append_op(type="scale", inputs={"X": ["g3"]},
+                  outputs={"Out": ["g3s"]}, attrs={"scale": 2.0})
+    upd(3, grad="g3s")                        # op 4, after another op
+    upd(4, mu=0.5)                            # op 5: other attrs
+    upd(5, mu=0.5, found=True)                # op 6: other slots
+    upd(6, mu=0.5, found=True)                # op 7 joins 6
+    upd(7, mu=0.5, found=True, grad="p6")     # op 8 reads what 7 writes
+    upd(8, mu=0.5, found=True, lr="p8")       # op 9 reads its own state
+    upd(9, mu=0.5, found=True, lr="p7")       # op 10 reads what 8 writes
+    upd(10, mu=0.5, found=True, lr="p11")     # op 11 joins 10 ...
+    upd(11, mu=0.5, found=True)               # op 12 writes what 11 read
+    upd(12, kind="sgd")                       # op 13: another update type
+    runs = [[i for i, _ in run]
+            for run in ts.op_runs(list(enumerate(blk.ops)))]
+    assert runs == [[0, 1, 2], [3], [4], [5], [6, 7], [8, 9], [10, 11],
+                    [12], [13]]
+    assert ts.op_runs([]) == []
 
 
 @pytest.mark.parametrize("opt", OPTS)

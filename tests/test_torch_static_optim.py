@@ -6,9 +6,13 @@ run their plain version on CPU tensors) against ``fused_op_update``, the
 static ops' delegate, with the Pallas kernels forced into interpret mode,
 and against the XLA references ``_XLA[op]``; at n = 100 (below one
 (8, 128) tile: JAX's XLA route) and n = 3000 (padded tiles: the Pallas
-route), with FoundInfinite absent, false and true. The CUDA kernels are
-held bit for bit against these plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+route), with FoundInfinite absent, false and true. The list forms
+(``static_*_list_``: a run of update ops, as the executor hands it over,
+one launch on the card) over a run of mixed sizes, lengths that are not
+multiples of 4 among them: against ``fused_op_update`` and ``_XLA[op]``
+called op by op, and bit for bit against the per-op plain versions. The
+CUDA kernels are held bit for bit against these plain versions on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerances: atol 1e-7 + rtol 1e-6 for sgd, momentum and adam (XLA's CPU
 backend may fuse a product and a sum into one FMA where the port rounds
@@ -195,3 +199,103 @@ def test_static_wrappers_raise_on_what_they_do_not_take():
                         found=torch.zeros(1))
     with pytest.raises(ValueError, match="no elements"):
         tfo.static_sgd_(torch.zeros(0), torch.zeros(0), torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# runs: the list forms the executor calls for consecutive update ops
+# ---------------------------------------------------------------------------
+RUN_SHAPES = [(1,), (7,), (13, 3), (100,), (50, 60), (1025,), (4099,), (2,)]
+
+
+def _run_inputs(op, found, seed):
+    """One ``_inputs`` dict an op of a run over RUN_SHAPES; ``found``
+    "mixed" sets the flag on every third op."""
+    return [_inputs(op, shape,
+                    (k % 3 == 0) if found == "mixed" else FOUND[found],
+                    seed=seed + k)
+            for k, shape in enumerate(RUN_SHAPES)]
+
+
+def _port_run(op, run, attrs):
+    """The list form over the run's ops on CPU tensors: [{out slot:
+    ndarray}] in op order."""
+    ts = [{k: torch.tensor(v) for k, v in ins.items()} for ins in run]
+
+    def col(k):
+        return [t[k] for t in ts]
+    founds = [t.get("FoundInfinite") for t in ts]
+    p, g, lr = col("Param"), col("Grad"), col("LearningRate")
+    if op == "sgd":
+        tfo.static_sgd_list_(p, g, lr, founds)
+        return [{"ParamOut": t["Param"].numpy()} for t in ts]
+    if op in ("momentum", "nesterov"):
+        tfo.static_momentum_list_(p, g, col("Velocity"), lr, mu=attrs["mu"],
+                                  nesterov=attrs["use_nesterov"],
+                                  founds=founds)
+        return [{"ParamOut": t["Param"].numpy(),
+                 "VelocityOut": t["Velocity"].numpy()} for t in ts]
+    update = tfo.static_adam_list_ if op == "adam" else tfo.static_lamb_list_
+    extra = {"weight_decay": attrs["weight_decay"]} if op == "lamb" else {}
+    pows = update(p, g, col("Moment1"), col("Moment2"), col("Beta1Pow"),
+                  col("Beta2Pow"), lr, beta1=attrs["beta1"],
+                  beta2=attrs["beta2"], eps=attrs["epsilon"], founds=founds,
+                  **extra)
+    return [{"ParamOut": t["Param"].numpy(),
+             "Moment1Out": t["Moment1"].numpy(),
+             "Moment2Out": t["Moment2"].numpy(),
+             "Beta1PowOut": b1p.numpy(), "Beta2PowOut": b2p.numpy()}
+            for t, (b1p, b2p) in zip(ts, pows)]
+
+
+@pytest.mark.parametrize("route", ["fused_op_update", "xla"])
+@pytest.mark.parametrize("found", list(FOUND) + ["mixed"])
+@pytest.mark.parametrize("op", list(OPS))
+def test_static_run_matches_jax_op_by_op(op, found, route):
+    """The run's list form against the JAX package's update of each op
+    on its own: ``fused_op_update`` (the Pallas kernel in interpret mode
+    for the ops of 1024 or more elements, its XLA route below) or the
+    XLA reference ``_XLA[op]``; each op's outputs to the tolerances of
+    the one-op tests."""
+    attrs = OPS[op]
+    jop = "momentum" if op == "nesterov" else op
+    run = _run_inputs(op, found, seed=11)
+    got = _port_run(op, run, attrs)
+    for ins, g in zip(run, got):
+        want = (jfo.fused_op_update(jop, _jax_ins(ins), attrs)
+                if route == "fused_op_update"
+                else jfo._XLA[jop](_jax_ins(ins), attrs))
+        _assert_close(g, want, op)
+    assert counters.snapshot() == {}                  # the CPU runs plain
+
+
+@pytest.mark.parametrize("found", list(FOUND) + ["mixed"])
+@pytest.mark.parametrize("op", list(OPS))
+def test_static_run_is_bitwise_the_per_op_plain_versions(op, found):
+    """The list form's plain version is the loop of the one-op forms:
+    every output bit for bit, the flagged ops' state unchanged."""
+    attrs = OPS[op]
+    run = _run_inputs(op, found, seed=23)
+    got = _port_run(op, run, attrs)
+    for ins, g in zip(run, got):
+        want = _port(op, ins, attrs)
+        assert set(g) == set(want)
+        for slot in want:
+            np.testing.assert_array_equal(g[slot], want[slot], err_msg=slot)
+        if "FoundInfinite" in ins and ins["FoundInfinite"][0]:
+            np.testing.assert_array_equal(g["ParamOut"], ins["Param"])
+
+
+def test_static_list_forms_raise_on_what_they_do_not_take():
+    p = [torch.zeros(4), torch.zeros(3)]
+    lr = [torch.ones(1), torch.ones(1)]
+    with pytest.raises(ValueError, match="different lengths"):
+        tfo.static_sgd_list_(p, p[:1], lr)
+    with pytest.raises(ValueError, match="different lengths"):
+        tfo.static_sgd_list_(p, p, lr, founds=[None])
+    with pytest.raises(ValueError, match="empty run"):
+        tfo.static_sgd_list_([], [], [])
+    with pytest.raises(ValueError, match="shape"):
+        tfo.static_sgd_list_(p, [torch.zeros(4), torch.zeros(4)], lr)
+    with pytest.raises(ValueError, match="FoundInfinite"):
+        tfo.static_momentum_list_(p, p, p, lr, mu=0.9,
+                                  founds=[None, torch.zeros(1)])
