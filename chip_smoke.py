@@ -10,10 +10,12 @@ prints no result line:
 0. build    every CUDA kernel from ``paddle_tpu_torch/ops/cuda/csrc``,
             one nvcc per source, all started together (ptxas report
             included); the HMMA/HGMMA instructions of each kernel function
-            of the flash libraries, from ``cuobjdump -sass``, and a failure
-            unless every instantiation of the tensor-core kernels
-            (``short_fwd_mma``, ``flash_dq_mma``, ``flash_dkv_mma``) has
-            some;
+            of the flash and fused xent libraries, from ``cuobjdump
+            -sass``, and a failure unless every instantiation of the
+            tensor-core kernels (``short_fwd_mma``, ``short_bwd_mma``,
+            ``flash_dq_mma``, ``flash_dkv_mma``, ``xent_fwd_mma``,
+            ``xent_bwd_mma``: every K2 kernel but its elementwise split
+            pass) has some;
 1. kernels  each kernel against its plain version on the card at its
             main path's shapes: paged attention within atol/rtol 1e-4
             (sum order), sampling bit for bit (decode slice); flash
@@ -26,7 +28,8 @@ prints no result line:
             external-lse checks below) equal bit for bit; the fused
             vocabulary cross-entropy forward and backward
             at 16384 x 768 x 30592 f32 with ~15% ignored rows (largest
-            error within 1e-4 of the largest value); fused AdamW over
+            error within 1e-4 of the largest value, two launches equal
+            bit for bit, each of its kernels' device time); fused AdamW over
             BERT-base's parameter list, bit for bit; fused Momentum over
             ResNet-50's 161 parameters, with and without Nesterov, bit
             for bit; the short-sequence flash kernels at BERT phase 2's
@@ -268,17 +271,17 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 # phase 0: the tensor-core kernels' instructions
 # ---------------------------------------------------------------------------
 TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_dq_mma",
-                       "flash_dkv_mma")
+                       "flash_dkv_mma", "xent_fwd_mma", "xent_bwd_mma")
 
 
 def tensor_core_counts(build):
     """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in each
-    kernel function of the flash libraries, read from their SASS with the
-    toolkit's ``cuobjdump``; fails unless every instantiation of the
-    tensor-core kernels has some."""
+    kernel function of the flash and fused xent libraries, read from their
+    SASS with the toolkit's ``cuobjdump``; fails unless every
+    instantiation of the tensor-core kernels has some."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     counts = {}
-    for lib in ("flash_attention", "flash_short"):
+    for lib in ("flash_attention", "flash_short", "fused_xent"):
         sass = subprocess.run([tool, "-sass", str(build._lib_path(lib))],
                               capture_output=True, text=True, timeout=300)
         expect(sass.returncode == 0,
@@ -806,8 +809,35 @@ def check_flash(torch, fa, timing):
     return row
 
 
+def kernel_device_ms(torch, fn, pattern):
+    """Device ms of each kernel one call of ``fn`` launches whose name
+    matches ``pattern`` (torch.profiler, after a warm-up call), by the
+    match; "not measured" where the profiler gives no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)   # the trace's first kernel
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        found = re.search(pattern, e.name)
+        if found is None:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        out[found.group(0)] = out.get(found.group(0), 0.0) + us / 1e3
+    return out if out and sum(out.values()) > 0 else "not measured"
+
+
 def check_xent(torch, fx, timing):
-    """K2a/K2b against the plain version at BERT-base's MLM head."""
+    """K2a/K2b against the plain version at BERT-base's MLM head, two
+    launches bit for bit."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     N, H, V = 16384, 768, 30592
@@ -836,17 +866,25 @@ def check_xent(torch, fx, timing):
         expect(bool(torch.isfinite(got).all()), f"xent: non-finite {name}")
         expect(err <= 1e-4 * scale, f"xent: {name} disagrees, max abs err "
                                     f"{err} against max |value| {scale}")
+    expect(same_bits(torch, (lse, ll, dh, dw, db), fx._cuda_fwd(
+        h, w, b, lab) + fx._cuda_bwd(h, w, b, lab, lse, g)),
+        "xent: two launches give different bits")
     row["fwd_max_abs_err"] = max(row["lse_max_abs_err"],
                                  row["ll_max_abs_err"])
     row["bwd_max_abs_err"] = max(row["dh_max_abs_err"],
                                  row["dw_max_abs_err"],
                                  row["db_max_abs_err"])
     if timing:
+        # every product as three bf16 tensor-core terms (the kernels'
+        # rate: 989 / 3 TFLOP/s); the f32 bounds beside them
+        rate3 = BF16_FLOPS_PER_S / 3
         io = (N * H + V * H + V + N) * 4
-        fb, fby = bound_of(io + 2 * N * 4, 2 * N * H * V, F32_FLOPS_PER_S)
+        fwd_io, fwd_ops = io + 2 * N * 4, 2 * N * H * V
         # backward: the logits once more (from lse), dh and dW
-        bb, bby = bound_of(io + 2 * N * 4 + (N * H + V * H + V) * 4,
-                           6 * N * H * V, F32_FLOPS_PER_S)
+        bwd_io = io + 2 * N * 4 + (N * H + V * H + V) * 4
+        bwd_ops = 6 * N * H * V
+        fb, fby = bound_of(fwd_io, 3 * fwd_ops, BF16_FLOPS_PER_S)
+        bb, bby = bound_of(bwd_io, 3 * bwd_ops, BF16_FLOPS_PER_S)
         F = torch.nn.functional
         lab64 = lab.long()
         hg, wg, bg = (x.clone().requires_grad_() for x in (h, w, b))
@@ -869,20 +907,35 @@ def check_xent(torch, fx, timing):
 
         row.update({
             "fwd_ms": time_ms(torch, lambda: fx._cuda_fwd(h, w, b, lab),
-                              iters=5, warmup=1),
+                              iters=10, warmup=1),
             "fwd_plain_ms": time_ms(torch, lambda: fx._plain_fwd(
                 h, w, b, lab), iters=5, warmup=1),
-            "fwd_library_ms": time_ms(torch, lib_fwd, iters=5, warmup=1),
+            "fwd_library_ms": time_ms(torch, lib_fwd, iters=10, warmup=1),
             "fwd_bound_ms": fb, "fwd_bound_by": fby,
             "bwd_ms": time_ms(torch, lambda: fx._cuda_bwd(
-                h, w, b, lab, lse, g), iters=5, warmup=1),
+                h, w, b, lab, lse, g), iters=10, warmup=1),
             "bwd_plain_ms": time_ms(torch, lambda: fx._plain_bwd(
                 h, w, b, lab, lse, g), iters=5, warmup=1),
             "fwd_bwd_library_ms": time_ms(torch, lib_fwd_bwd, iters=5,
                                           warmup=1),
-            "bwd_library_ms": time_ms(torch, lib_bwd, iters=5, warmup=1),
+            "bwd_library_ms": time_ms(torch, lib_bwd, iters=10, warmup=1),
             "bwd_bound_ms": bb, "bwd_bound_by": bby,
-            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
+            "bwd_bound_4_products_ms": 3 * 8 * N * H * V / BF16_FLOPS_PER_S
+            * 1e3,
+            "fwd_bound_f32_ms": bound_of(fwd_io, fwd_ops,
+                                         F32_FLOPS_PER_S)[0],
+            "bwd_bound_f32_ms": bound_of(bwd_io, bwd_ops,
+                                         F32_FLOPS_PER_S)[0],
+            "bound_rates": rates(rate3, "bf16 tensor-core, three terms a "
+                                        "product"),
+            "fwd_kernels_ms": kernel_device_ms(torch, lambda: fx._cuda_fwd(
+                h, w, b, lab), r"xent_\w+"),
+            "bwd_kernels_ms": kernel_device_ms(torch, lambda: fx._cuda_bwd(
+                h, w, b, lab, lse, g), r"xent_\w+")})
+        row["split_ms"] = {
+            k: (v if isinstance(v, str) else v.get("xent_split_" + k))
+            for k, v in (("fwd", row["fwd_kernels_ms"]),
+                         ("bwd", row["bwd_kernels_ms"]))}
         del lib_loss
     return row
 
@@ -1391,9 +1444,9 @@ def bert_family(name):
         return "flash_fwd"
     if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_bwd"
-    if "xent_fwd_kernel" in name:
+    if "xent_fwd_mma" in name or "xent_split_fwd" in name:
         return "xent_fwd"
-    if "xent_dh_kernel" in name or "xent_dw_kernel" in name:
+    if "xent_bwd_mma" in name or "xent_split_bwd" in name:
         return "xent_bwd"
     if "adamrule" in name:
         return "adam"

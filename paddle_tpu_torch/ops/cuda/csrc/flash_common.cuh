@@ -2,6 +2,8 @@
 // flash_attention.cu (the streaming forward and backward) and
 // flash_short.cu (the short-sequence forms). Both key their dropout by
 // the same Philox counter, so for one seed they drop the same elements.
+// fused_xent.cu uses the tensor-core and cluster pieces (the last two
+// parts of this file).
 //
 // Two kinds of kernel use them. The tensor-core kernels (the bf16 forms
 // of K1c, K1b and K1d; the last part of this file) are described there.
@@ -571,6 +573,59 @@ __device__ __forceinline__ void store_frag(unsigned char* tile,
             pack_bf16(x0 - hf.x, x1 - hf.y);
       }
     }
+}
+
+
+// ---------------------------------------------------------------------------
+// Cluster pieces (sm_90): the address of a shared variable in another CTA
+// of the cluster, loads and stores through it, and the cluster barrier
+// (arrive has release and wait acquire semantics, so shared-memory
+// writes before an arrive are seen by every CTA after its wait).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster4(uint32_t addr, const float (&x)[4]) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ld_cluster4(float (&x)[4], uint32_t addr) {
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+               : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+// arrive without release semantics: for a CTA whose reads of the others'
+// shared memory before it have completed (their values are in registers)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 }  // namespace

@@ -413,42 +413,6 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward, bf16 on tensor cores: one thread-block cluster per b*H + h
 // ---------------------------------------------------------------------------
-// Cluster pieces (sm_90): the address of a shared variable in another CTA
-// of the cluster, loads and stores through it, and the cluster barrier.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t cta) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(addr), "r"(cta));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster4(uint32_t addr, const float (&x)[4]) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
-               : "memory");
-}
-
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // The dQ accumulator of the q tile a CTA owns, in the fragment map of its
 // warps (warp w: rows 16 w ..): registers at D = 64; at D = 128 shared
 // memory, element (j, e) of thread t at [(4 j + e) * 128 + t], since the

@@ -1,458 +1,793 @@
-// Fused linear + vocabulary cross-entropy for Hopper (sm_90a): forward
-// (per-row lse and label logit) and backward (dh; dW and db), with the
-// logits h W^T + b never written to device memory.
+// Fused linear + vocabulary cross-entropy for Hopper (sm_90a), on the
+// tensor cores: forward (per-row lse and label logit) and backward (dh;
+// dW and db), with the logits h W^T + b never written to device memory.
 //
 // Replaces the TPU kernels in paddle_tpu/ops/pallas/fused_xent.py:
 // _fwd_call (_fwd_kernel) and _bwd_call (_bwd_dh_kernel,
 // _bwd_dw_kernel).
 //
-// Bound: operations. At BERT's MLM head (N = 16384 rows, H = 768,
-// V = 30592) each logit tile is 2*H flops per element and the forward,
-// dh and dW passes (the two backward passes recompute the logits) do
-// about 5 * 2*N*H*V = 3.9 TFLOP in f32 against ~200 MB of operands.
-// These kernels use f32 FMA from shared memory (no tensor cores), so
-// their ceiling is the f32 rate.
+// Precision. The inputs are f32 and the plain version multiplies in f32.
+// Every product here is three bf16 wgmma terms with f32 accumulation,
+// hi*hi + hi*lo + lo*hi, where hi is the bf16 rounding of an f32 value x
+// and lo the bf16 rounding of x - hi (16 significant bits together; the
+// lo*lo term is dropped). One bf16 term a product misses the card check's
+// bound (1e-4 of the largest value) at BERT's head; three terms meet it
+// (tests/test_torch_xent_rounding.py models where these kernels round).
+// dh and dW add each 64-row step's product into their accumulators with
+// f32 adds: the tensor cores' own accumulation does not round to nearest,
+// and 1900 k16 steps into one accumulator moved dh past the bound.
 //
-// Design. The TPU kernels carry accumulators across a sequential grid
-// axis; GPU blocks run in no order, so each block loops over the axis
-// itself:
-// - forward: one block per 32 rows of h (kept in shared memory) loops
-//   over vocab tiles of 256, streaming W through a 16-deep transposed
-//   stage; each thread computes a 4 x 8 logit patch (rows ty*4+i,
-//   columns tx + 32 j), so a row's 256 logits sit in one warp and the
-//   online max / sum-exp and the label logit are warp reductions.
-// - dh: the same block shape recomputes each logit tile, forms
-//   P' = (exp(s - lse) - onehot) * g in shared memory and accumulates
-//   dh += P' W_tile, with W re-staged 8 rows at a time. The 32 x H f32
-//   accumulator is spread over the block's registers (each thread owns
-//   columns tid + 256 c of all 32 rows), so the TPU's bn of 256-1024
-//   rows, which would not fit one block's registers or shared memory at
-//   H = 768, becomes 32 rows a block and 512 blocks.
-// - dW/db: the roles swap: one block per 32 vocab rows of W (kept in
-//   shared memory) loops over row tiles of 256, recomputing the
-//   transposed logit tile, and accumulates dW += P'^T h and db += sum P'
-//   in registers. No atomics: every output element has one writer.
+// Bound: operations. At BERT's MLM head (N = 16384 rows, H = 768,
+// V = 30592) the forward forms S = h W^T once (2 N H V = 7.7e11 flop);
+// the backward forms it again for dh and again for dW, beside dh = P' W
+// and dW = P'^T h (four products, as the TPU kernel). At three bf16 terms
+// a product the tensor cores give 989 / 3 TFLOP/s: 2.33 ms for the
+// forward, 9.34 ms for the backward's four products (7.00 for the three
+// that one recompute would need).
+//
+// Design.
+// - A split pass (xent_split_fwd / xent_split_bwd, one body, named by the
+//   pass it serves) writes h and W as bf16 hi and lo arrays into scratch
+//   the caller allocates, 2 (N + V) H bf16, once an entry point.
+// - One kernel body for the three passes. A CTA keeps 64 rows of a
+//   resident operand R in shared memory and streams 64-row tiles of the
+//   other, X, through two stages filled by TMA (forward and dh: R = h,
+//   X = W; dW: R = W, X = h). Each step forms the 64 x 64 tile S = R X^T
+//   (wgmma, K-major operands), then
+//   forward (xent_fwd_mma): folds S + b into an online max, sum of
+//     exponentials and label logit a row;
+//   backward (xent_bwd_mma, one launch: dh's row tiles, then dW's vocab
+//     tiles): P' = (exp(S + b - lse) - onehot) g in f32 (db sums it),
+//     stored as hi + lo, and out += P' X (wgmma, X MN-major) with the X
+//     tile already in shared memory.
+// - H is split over a thread-block cluster of C = ceil(H / 256) CTAs (3
+//   at H = 768): CTA c owns columns 256 c .. of R and X, so the R slice
+//   and two X stages fit in its shared memory (226 KB), and owns those
+//   columns of dh or dW, whose 64 x 256 f32 accumulator sits in the
+//   registers of its two warpgroups. Each CTA forms a partial S over its
+//   columns; every CTA sums the C partials through distributed shared
+//   memory in rank order (0, 1, 2, ...), so all of them hold the same S,
+//   formed once a step. The forward's online state is kept by one CTA a
+//   16-row strip.
+// - What bounds it on the card: besides the products, the partials'
+//   exchange (distributed shared memory, 32 KB a CTA and step) and the
+//   cluster barrier that publishes them. They wait in line with the
+//   tensor cores: overlapping them with another step's products would
+//   need a third X stage, which does not fit beside the R slice.
+// - No float atomics: each output element has one writer, the per-thread
+//   partials of db and of the forward's state are merged in a fixed order,
+//   and two launches give the same bits.
 // Rows past N and vocab rows past V are masked in the kernels (the JAX
 // wrapper pads rows to a multiple of 256 instead). Ignored rows come in
 // with label -1 and g = 0.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kT = 256;         // threads a block
-constexpr int kR = 32;          // resident rows a block
-constexpr int kS = 256;         // streamed rows a tile
-constexpr int kK = 16;          // reduction depth of one stage
-constexpr int kSt = kS + 1;     // stage row stride (conflict-free stores)
-constexpr int kC = 8;           // rows a chunk in the dh / dW products
-constexpr int kPs = 36;         // row stride of the dW kernel's P' tile
-constexpr float kNegInit = -1e30f;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+constexpr int kXT = 256;                     // threads a block (8 warps)
+constexpr int kBM = 64;                      // resident rows a CTA
+constexpr int kBN = 64;                      // streamed rows a step
+constexpr int kHS = 256;                     // H columns a CTA owns
+constexpr int kMaxC = 4;                     // CTAs a cluster: H <= 1024
+constexpr uint32_t kRB = kBM * kHS * 2;      // one bf16 R slice (hi or lo)
+constexpr uint32_t kXB = kBN * kHS * 2;      // one bf16 X slice (hi or lo)
+constexpr uint32_t kSB = kXT * 4 * 16;       // the partial S: 4 float4 a thread
+constexpr uint32_t kPB = kBM * kBN * 2;      // one bf16 P' tile (hi or lo)
+constexpr uint32_t kCB = 3 * kBN * 4;        // a stage's column values
+
+enum { kFwd = 0, kDh = 1, kDw = 2 };
+
+struct XentArgs {
+  CUtensorMap rh, rl;       // resident operand, hi and lo: (nr, H)
+  CUtensorMap xh, xl;       // streamed operand, hi and lo: (nx, H)
+  const float* bias;        // (V,)
+  const int32_t* labels;    // (N,), -1 matches no class
+  const float* lse;         // (N,), backward
+  const float* g;           // (N,), backward
+  float* out;               // lse (N,), dh (N, H) or dW (V, H)
+  float* out2;              // the label logit (N,) or db (V,)
+  int nr, nx, H;
+};
+
+template <int MODE>
+constexpr size_t mma_smem() {      // tiles, column values, 3 mbarriers
+  return (size_t)2 * kRB + 4 * kXB + kSB + (MODE == kFwd ? 0 : 2 * kPB) +
+         2 * kCB + 3 * 8;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Operand tiles for wgmma: a [64][256] bf16 tile is four blocks of
+// [64][64] (8 KB each), 128-byte rows whose 16-byte chunks are XORed with
+// row % 8: the 128-byte swizzle of the TMA boxes that write them and of
+// the wgmma descriptors that read them, K-major for S = R X^T (rows R or
+// X, 64 columns of H a block) and MN-major for P' X (rows the k of the
+// product, 64 columns of H a block).
+
+// mbarriers: one arrival (the thread that starts the copies) plus the
+// bytes the copies bring (expect_tx)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
 }
 
-// rows [r0, r0 + rows) of a row-major (n, H) matrix into dst[rows][H];
-// rows at or past n load as zeros
-__device__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                          int rows, int n, int H) {
-  const int hv = H / 4;
-  for (int idx = threadIdx.x; idx < rows * hv; idx += kT) {
-    const int r = idx / hv, c = (idx % hv) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
-      x = *reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * H + c);
-    *reinterpret_cast<float4*>(dst + r * H + c) = x;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a 64 x 64 box (columns c0 .., rows r0 ..) of a tensor map into shared
+// memory; out-of-bounds elements arrive as zeros
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int c0, int r0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
+      : "memory");
+}
+
+// rows r0 .. r0 + 63 and this CTA's columns k0 .. k0 + ks - 1 of the hi
+// and lo arrays into a tile pair at dst, completing on bar. The blocks
+// past ks are not copied: S reads none of them, and what P' X makes of
+// them lands in out columns past ks, which are not stored.
+__device__ __forceinline__ void tma_slices(uint32_t dst, const CUtensorMap* hi,
+                                           const CUtensorMap* lo, int r0,
+                                           int k0, int ks, uint32_t bar) {
+  const int nb = (ks + 63) / 64;
+  mbar_expect(bar, (uint32_t)(2 * nb * kBM * 128));
+  for (int b = 0; b < nb; ++b) {
+    tma_box(dst + b * (kBM * 128), hi, k0 + 64 * b, r0, bar);
+    tma_box(dst + kRB + b * (kBM * 128), lo, k0 + 64 * b, r0, bar);
   }
 }
 
-// s[i][j] += sum_k A[(ty*4 + i) * H + k] * X[x0 + tx + 32 j][k] for the
-// resident rows A (shared, [32][H]) and 256 rows of the global (n, H)
-// matrix X from x0, staged transposed 16 columns at a time. Rows of X
-// at or past n count as zeros.
-__device__ void stream_dot(float (&s)[4][8], const float* As, int H,
-                           const float* __restrict__ X, int x0, int n,
-                           float* stage) {
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const bool live = x0 + tid < n;
-  const float* xrow = X + (int64_t)(x0 + tid) * H;
-  for (int k0 = 0; k0 < H; k0 += kK) {
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 4) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live) x = *reinterpret_cast<const float4*>(xrow + k0 + kk);
-      stage[(kk + 0) * kSt + tid] = x.x;
-      stage[(kk + 1) * kSt + tid] = x.y;
-      stage[(kk + 2) * kSt + tid] = x.z;
-      stage[(kk + 3) * kSt + tid] = x.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(As + (ty * 4 + i) * H + k0 +
-                                                 kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float b[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = stage[(kk + e) * kSt + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = comp(a[i], e);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av, b[j], s[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
+// This thread's word of the column values of streamed rows x0 .. x0 + 63,
+// [3][64] words a stage: the bias (forward, dh), or lse, g and the label
+// (dW); 0 past nx. Loaded into a register first, stored after the loads'
+// latency has passed.
+template <int MODE>
+__device__ __forceinline__ uint32_t cols_load(const XentArgs& a, int x0) {
+  const int t = threadIdx.x, arr = t / kBN, j = x0 + t % kBN;
+  if (t >= (MODE == kDw ? 3 : 1) * kBN || j >= a.nx) return 0u;
+  if (MODE != kDw) return __float_as_uint(a.bias[j]);
+  return arr == 0   ? __float_as_uint(a.lse[j])
+         : arr == 1 ? __float_as_uint(a.g[j])
+                    : (uint32_t)a.labels[j];
 }
 
-__device__ __forceinline__ void zero(float (&s)[4][8]) {
+__device__ __forceinline__ void cols_store(uint32_t* cs, int stage,
+                                           uint32_t word) {
+  if (threadIdx.x < 3 * kBN) cs[stage * (kCB / 4) + threadIdx.x] = word;
+}
+
+// a warp's 16 x 32 tile of P' (rows 16 wr .., columns 32 wc ..) as bf16
+// hi into the swizzled [64][64] tile at ``tile`` and lo into the next one
+__device__ __forceinline__ void store_p(unsigned char* tile,
+                                        const float (&p)[4][4], int wr,
+                                        int wc, int lane) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * wr + frag_row(lane, 2 * half);
+      const uint32_t off = swz<kBN>(r, 4 * wc + i) + 4 * (lane & 3);
+      const float x0 = p[i][2 * half], x1 = p[i][2 * half + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      *reinterpret_cast<__nv_bfloat162*>(tile + off) = h;
+      *reinterpret_cast<uint32_t*>(tile + kPB + off) =
+          pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+}
+
+// Phase A's arrive: this thread's partial S, written to its own CTA's
+// shared memory, is released to the cluster by a fence restricted to
+// those writes. A release on the arrive itself orders every memory
+// operation of the thread, the copies in flight included, and on the
+// card that wait was a large share of each step.
+__device__ __forceinline__ void cluster_arrive_shared_release() {
+  asm volatile("fence.release.sync_restrict::shared::cta.cluster;\n" ::
+                   : "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// (m, l) of an online log-sum-exp merged with another's; l's terms are
+// added in one order whichever side calls, so both sides get the same bits
+__device__ __forceinline__ void lse_merge(float& m, float& l, float mo,
+                                          float lo) {
+  const float mn = fmaxf(m, mo);
+  l = l * exp2_ftz((m - mn) * kLog2e) + lo * exp2_ftz((mo - mn) * kLog2e);
+  m = mn;
 }
 
 // ---------------------------------------------------------------------------
-// forward: per-row lse and label logit
+// wgmma (sm_90a): a warpgroup's D (64 x N, f32, N / 2 registers a thread,
+// warp k of the group holding rows 16 k .., the m16n8 C layout for each 8
+// columns) += A (64 x 16) B (16 x N), both from shared memory through
+// descriptors: start address, leading and stride byte offsets (16-byte
+// units), 128-byte swizzle.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kT)
-xent_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-           const float* __restrict__ bias, const int32_t* __restrict__ labels,
-           float* __restrict__ lse, float* __restrict__ ll, int N, int H,
-           int V) {
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [32][H]
-  float* stage = hs + kR * H;                    // [16][257]
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const int n0 = blockIdx.x * kR;
-  load_rows(hs, h, n0, kR, N, H);
-  int lab[4];
-  float m[4], l[4], hit[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n0 + ty * 4 + i;
-    lab[i] = row < N ? labels[row] : -1;
-    m[i] = kNegInit;
-    l[i] = 0.0f;
-    hit[i] = 0.0f;
-  }
-  for (int v0 = 0; v0 < V; v0 += kS) {
-    float s[4][8];
-    zero(s);
-    stream_dot(s, hs, H, w, v0, V, stage);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = v0 + tx + 32 * j;
-        if (col < V) {
-          s[i][j] += bias[col];
-          if (col == lab[i]) hit[i] += s[i][j];
-        } else {
-          s[i][j] = -INFINITY;
-        }
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], warp_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + warp_sum(sum);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float hv = warp_sum(hit[i]);
-    const int row = n0 + ty * 4 + i;
-    if (tx == 0 && row < N) {
-      lse[row] = m[i] + logf(fmaxf(l[i], 1e-30f));
-      ll[row] = hv;
-    }
-  }
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// ---------------------------------------------------------------------------
-// backward: dh = sum_v P'[n, v] W[v, :]
-// ---------------------------------------------------------------------------
-template <int CPT>
-__global__ void __launch_bounds__(kT)
-xent_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
-          const float* __restrict__ bias, const int32_t* __restrict__ labels,
-          const float* __restrict__ lse, const float* __restrict__ g,
-          float* __restrict__ dh, int N, int H, int V) {
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);        // [32][H]
-  float* stage = hs + kR * H;                          // max(16*257, 8*H)
-  float* ps = stage + (kK * kSt > kC * H ? kK * kSt : kC * H);  // [32][256]
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const int n0 = blockIdx.x * kR;
-  load_rows(hs, h, n0, kR, N, H);
-  int lab[4];
-  float lse_r[4], g_r[4];
-  bool live[4];
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// pins accumulator registers in place around a run of wgmma, so that the
+// compiler moves none of them between two wgmma (which would serialize
+// them)
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n0 + ty * 4 + i;
-    live[i] = row < N;
-    lab[i] = live[i] ? labels[row] : -1;
-    lse_r[i] = live[i] ? lse[row] : 0.0f;
-    g_r[i] = live[i] ? g[row] : 0.0f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async, st.shared) made
+// visible to wgmma's reads, before the barrier that publishes them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 32) += A B^T, A and B K-major (the scale-d predicate true: d
+// is added to)
+__device__ __forceinline__ void wg_n32(float (&d)[16], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#define XENT_D8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128) += A B, A K-major, B MN-major (transposed)
+__device__ __forceinline__ void wg_n128t(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 1;\n}\n"
+      : XENT_D8(0), XENT_D8(8), XENT_D8(16), XENT_D8(24), XENT_D8(32),
+        XENT_D8(40), XENT_D8(48), XENT_D8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef XENT_D8
+
+// The CTA's partial S over its ks columns of H: warpgroup g forms columns
+// 32 g .. 32 g + 31 of R X^T (all 64 rows), as hi hi + hi lo + lo hi each
+// k16 step; s[i][e] = d[4 i + e] in the m16n8 C layout of the warp's rows.
+__device__ __forceinline__ void partial_s(float (&s)[4][4], uint32_t Rh,
+                                          uint32_t Rl, uint32_t Xh,
+                                          uint32_t Xl, int ks, int g) {
+  float d[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) d[j] = 0.0f;
+  const uint32_t xrow = (uint32_t)(32 * g * 128);
+  for (int kk = 0; kk < ks / 16; ++kk) {
+    const uint32_t off = (uint32_t)((kk >> 2) * (kBM * 128) + (kk & 3) * 32);
+    const uint64_t rh = wg_desc(Rh + off, 16, 1024),
+                   rl = wg_desc(Rl + off, 16, 1024),
+                   xh = wg_desc(Xh + off + xrow, 16, 1024),
+                   xl = wg_desc(Xl + off + xrow, 16, 1024);
+    fence_operands(d);
+    wg_fence();
+    wg_n32(d, rh, xh);
+    wg_n32(d, rh, xl);
+    wg_n32(d, rl, xh);
+    wg_commit();
   }
-  float acc[kR][CPT];
+  wg_wait();
+  fence_operands(d);
 #pragma unroll
-  for (int r = 0; r < kR; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
-  for (int v0 = 0; v0 < V; v0 += kS) {
-    float s[4][8];
-    zero(s);
-    stream_dot(s, hs, H, w, v0, V, stage);
+    for (int e = 0; e < 4; ++e) s[i][e] = d[4 * i + e];
+}
+
+// acc += P' X for columns 128 g .. 128 g + 127 of the out slice (all 64
+// rows), P' (hi at Ps, lo after it, K-major) and the X tile (hi at Xh, lo
+// after it, MN-major) in shared memory. The step's product goes into its
+// own accumulator and then into acc by f32 adds: the tensor cores' own
+// f32 accumulation does not round to nearest, and 1900 k16 steps into one
+// accumulator (dh over the 30592-row vocabulary) moved dh past the 1e-4
+// bound on the card.
+__device__ __forceinline__ void product(float (&acc)[64], uint32_t Ps,
+                                        uint32_t Xh, int g) {
+  const uint32_t Pl = Ps + kPB, Xl = Xh + kXB;
+  const uint32_t xcol = (uint32_t)(2 * g * (kBM * 128));
+  float part[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) part[j] = 0.0f;
+  fence_operands(part);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t ph = wg_desc(Ps + 32 * kk, 16, 1024),
+                   pl = wg_desc(Pl + 32 * kk, 16, 1024),
+                   xh = wg_desc(Xh + xcol + 16 * 128 * kk, kBM * 128, 1024),
+                   xl = wg_desc(Xl + xcol + 16 * 128 * kk, kBM * 128, 1024);
+    wg_n128t(part, ph, xh);
+    wg_n128t(part, ph, xl);
+    wg_n128t(part, pl, xh);
+  }
+  wg_commit();
+  wg_wait();
+  fence_operands(part);
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] += part[j];
+}
+
+// The three passes. Warpgroup g = w / 4 forms columns 32 g .. of the S
+// tile and columns 128 g .. of the out slice; warp wr = w % 4 of a group
+// holds rows 16 wr .. of both (thread rows 16 wr + lane / 4 + 8 h).
+template <int MODE>
+__device__ __forceinline__ void xent_body(const XentArgs& a, int tile) {
+  extern __shared__ __align__(1024) unsigned char smem_x[];
+  const uint32_t Rh = smem_u32(smem_x), Xs = Rh + 2 * kRB,
+                 Ss = Xs + 4 * kXB, Ps = Ss + kSB,
+                 Cs = Ps + (MODE == kFwd ? 0 : 2 * kPB), Bar = Cs + 2 * kCB;
+  float* sp = reinterpret_cast<float*>(smem_x + (Ss - Rh));
+  unsigned char* pp = smem_x + (Ps - Rh);
+  uint32_t* cw = reinterpret_cast<uint32_t*>(smem_x + (Cs - Rh));
+  const float* cs = reinterpret_cast<const float*>(cw);
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int C = (a.H + kHS - 1) / kHS, rank = (int)cluster_rank();
+  const int r0 = tile * kBM, k0 = rank * kHS;
+  const int ks = min(kHS, a.H - k0);
+  const int nsteps = (a.nx + kBN - 1) / kBN;
+  const int wr = w & 3, wc = w >> 2;
+  const bool mine = MODE != kFwd || wr % C == rank;
+
+  // this thread's two rows: the n-side values (forward, dh) or the bias
+  // (dW)
+  float r_lse[2], r_g[2], r_b[2];
+  int r_lab[2];
+  bool r_live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * wr + frag_row(lane, 2 * h);
+    r_live[h] = row < a.nr;
+    r_lab[h] = MODE != kDw && r_live[h] ? a.labels[row] : -1;
+    r_lse[h] = MODE == kDh && r_live[h] ? a.lse[row] : 0.0f;
+    r_g[h] = MODE == kDh && r_live[h] ? a.g[row] : 0.0f;
+    r_b[h] = MODE == kDw && r_live[h] ? a.bias[row] : 0.0f;
+  }
+
+  // mbarriers: R at Bar, X stage s at Bar + 8 (1 + s)
+  if (tid == 0) {
+    mbar_init(Bar);
+    mbar_init(Bar + 8);
+    mbar_init(Bar + 16);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cols_store(cw, 0, cols_load<MODE>(a, 0));
+  __syncthreads();
+  if (tid == 0) {
+    tma_slices(Rh, &a.rh, &a.rl, r0, k0, ks, Bar);
+    tma_slices(Xs, &a.xh, &a.xl, 0, k0, ks, Bar + 8);
+  }
+  mbar_wait(Bar, 0);
+
+  float acc[64];           // dh or dW: element (j, e) at acc[4 j + e]
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.0f, 0.0f},
+        ll[2] = {0.0f, 0.0f}, dbp[2] = {0.0f, 0.0f};
+
+  // Step t: the partial S of tile t is published (cluster barrier phase
+  // A); X tile t + 1 starts loading (TMA) into the stage step t - 1 used;
+  // every partial is read and summed (phase B: done reading); then the
+  // softmax state, or P' and the product. One partial buffer a CTA: a CTA
+  // writes the next partial only after phase B, whose wait falls after the
+  // next step's S.
+  for (int t = 0; t < nsteps; ++t) {
+    const int st = t & 1;
+    const uint32_t Xh = Xs + 2 * st * kXB, Xl = Xh + kXB;
+    mbar_wait(Bar + 8 * (1 + st), (uint32_t)(t >> 1) & 1u);
+    float s[4][4];
+    partial_s(s, Rh, Rh + kRB, Xh, Xl, ks, wc);
+    if (t > 0) cluster_wait();      // B of t - 1
 #pragma unroll
     for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(sp + (i * kXT + tid) * 4) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    cluster_arrive_shared_release();  // A of t
+    const uint32_t next_cols =
+        t + 1 < nsteps ? cols_load<MODE>(a, (t + 1) * kBN) : 0u;
+    cluster_wait();
+    if (tid == 0 && t + 1 < nsteps)   // stage st ^ 1 is free since step t - 1
+      tma_slices(Xs + 2 * (st ^ 1) * kXB, &a.xh, &a.xl, (t + 1) * kBN, k0,
+                 ks, Bar + 8 * (2 - st));
+
+    if (mine) {
+      // S: the partials of ranks 0, 1, ... added in that order, the other
+      // CTAs' all loaded first, this CTA's from its registers
+      float ps[kMaxC][4][4], sum[4][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = v0 + tx + 32 * j;
-        float p = 0.0f;
-        if (col < V && live[i]) {
-          p = expf(s[i][j] + bias[col] - lse_r[i]);
-          if (col == lab[i]) p -= 1.0f;
-          p *= g_r[i];
+      for (int c = 0; c < kMaxC; ++c)
+        if (c < C && c != rank) {
+          const uint32_t src = cluster_map(Ss, c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ld_cluster4(ps[c][i], src + (uint32_t)(i * kXT + tid) * 16);
         }
-        ps[(ty * 4 + i) * kS + tx + 32 * j] = p;
-      }
-    // (stream_dot ended in a barrier; the next one publishes ps)
-    for (int vc = 0; vc < kS; vc += kC) {
-      load_rows(stage, w, v0 + vc, kC, V, H);
-      __syncthreads();
 #pragma unroll
-      for (int vv = 0; vv < kC; vv += 4) {
-        float wv[4][CPT];
+      for (int c = 0; c < kMaxC; ++c)
+        if (c < C)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            const int col = tid + 256 * c;
-            wv[e][c] = col < H ? stage[(vv + e) * H + col] : 0.0f;
-          }
+            for (int e = 0; e < 4; ++e) {
+              const float v = c == rank ? s[i][e] : ps[c][i][e];
+              sum[i][e] = c == 0 ? v : sum[i][e] + v;
+            }
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float4 p =
-              *reinterpret_cast<const float4*>(ps + r * kS + vc + vv);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            float a = acc[r][c];
-            a = fmaf(p.x, wv[0][c], a);
-            a = fmaf(p.y, wv[1][c], a);
-            a = fmaf(p.z, wv[2][c], a);
-            a = fmaf(p.w, wv[3][c], a);
-            acc[r][c] = a;
-          }
+        for (int e = 0; e < 4; ++e) s[i][e] = sum[i][e];
+      const float* cv = cs + st * (kCB / 4);
+      const int x0 = t * kBN;
+      if constexpr (MODE == kFwd) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x[8], mx = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cl = 32 * wc + frag_col(lane, i, e), col = x0 + cl;
+              const bool in = col < a.nx;
+              const float v = in ? s[i][2 * h + e] + cv[cl] : -INFINITY;
+              if (in && col == r_lab[h]) ll[h] += v;
+              x[2 * i + e] = v;
+              mx = fmaxf(mx, v);
+            }
+          const float mn = fmaxf(m[h], mx);
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum += exp2_ftz((x[j] - mn) * kLog2e);
+          l[h] = l[h] * exp2_ftz((m[h] - mn) * kLog2e) + sum;
+          m[h] = mn;
         }
+      } else {
+        const int32_t* clab = reinterpret_cast<const int32_t*>(cv + 2 * kBN);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, cl = 32 * wc + frag_col(lane, i, e);
+            const int col = x0 + cl;
+            float p;
+            if constexpr (MODE == kDh) {
+              p = exp2_ftz((s[i][e] + cv[cl] - r_lse[h]) * kLog2e);
+              if (col == r_lab[h]) p -= 1.0f;
+              p *= r_g[h];
+            } else {
+              const int v = r0 + 16 * wr + frag_row(lane, e);
+              p = exp2_ftz((s[i][e] + r_b[h] - cv[cl]) * kLog2e);
+              if (clab[cl] == v) p -= 1.0f;
+              p *= cv[kBN + cl];
+            }
+            if (!r_live[h] || col >= a.nx) p = 0.0f;
+            if constexpr (MODE == kDw) dbp[h] += p;
+            s[i][e] = p;
+          }
+        store_p(pp, s, wr, wc, lane);
       }
-      __syncthreads();
+    }
+    cols_store(cw, st ^ 1, next_cols);
+    // B of t: the values read are in registers already, so no release is
+    // needed to keep this CTA's reads ahead of the next partial's writes
+    cluster_arrive_relaxed();
+
+    if constexpr (MODE != kFwd) {
+      fence_async_smem();
+      __syncthreads();     // P' is whole
+      if (128 * wc < ks) product(acc, Ps, Xh, wc);
+    }
+    __syncthreads();       // the stage and P' are rewritten next
+  }
+  cluster_wait();          // B of the last step: exit is safe
+
+  if constexpr (MODE != kFwd) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 16 * wr + frag_row(lane, 2 * half);
+      if (row >= a.nr) continue;
+      float* o = a.out + (int64_t)row * a.H + k0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * wc + frag_col(lane, j, 0);
+        if (col < ks)
+          *reinterpret_cast<float2*>(o + col) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
     }
   }
+  // the per-thread partials: the four threads of a quad, then the two
+  // warps of a strip (wc 0, then wc 1), through shared memory
+  if constexpr (MODE == kFwd) {
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int row = n0 + r;
-    if (row >= N) break;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tid + 256 * c;
-      if (col < H) dh[(int64_t)row * H + col] = acc[r][c];
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[h], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[h], o);
+        ll[h] += __shfl_xor_sync(0xffffffffu, ll[h], o);
+        lse_merge(m[h], l[h], mo, lo);
+      }
+    if (mine && wc == 1 && (lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* q = sp + 3 * (16 * wr + frag_row(lane, 2 * h));
+        q[0] = m[h];
+        q[1] = l[h];
+        q[2] = ll[h];
+      }
+    __syncthreads();
+    if (mine && wc == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = 16 * wr + frag_row(lane, 2 * h);
+        const float* q = sp + 3 * rl;
+        lse_merge(m[h], l[h], q[0], q[1]);
+        if (r_live[h]) {
+          a.out[r0 + rl] = m[h] + logf(fmaxf(l[h], 1e-30f));
+          a.out2[r0 + rl] = ll[h] + q[2];
+        }
+      }
+  }
+  if constexpr (MODE == kDw) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      dbp[h] += __shfl_xor_sync(0xffffffffu, dbp[h], 1);
+      dbp[h] += __shfl_xor_sync(0xffffffffu, dbp[h], 2);
     }
+    if (wc == 1 && (lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) sp[16 * wr + frag_row(lane, 2 * h)] = dbp[h];
+    __syncthreads();
+    if (rank == 0 && wc == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = 16 * wr + frag_row(lane, 2 * h);
+        if (r_live[h]) a.out2[r0 + rl] = dbp[h] + sp[rl];
+      }
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward: dW = sum_n P'[n, v] h[n, :], db = sum_n P'[n, v]
-// ---------------------------------------------------------------------------
-template <int CPT>
-__global__ void __launch_bounds__(kT)
-xent_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
-          const float* __restrict__ bias, const int32_t* __restrict__ labels,
-          const float* __restrict__ lse, const float* __restrict__ g,
-          float* __restrict__ dw, float* __restrict__ db, int N, int H,
-          int V) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);        // [32][H]
-  float* stage = ws + kR * H;                          // max(16*257, 8*H)
-  float* ps = stage + (kK * kSt > kC * H ? kK * kSt : kC * H);  // [256][36]
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const int v0 = blockIdx.x * kR;
-  load_rows(ws, w, v0, kR, V, H);
-  float bias_v[4], db_part[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int v = v0 + ty * 4 + i;
-    bias_v[i] = v < V ? bias[v] : 0.0f;
-    db_part[i] = 0.0f;
-  }
-  float acc[kR][CPT];
-#pragma unroll
-  for (int r = 0; r < kR; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.0f;
-  for (int n0 = 0; n0 < N; n0 += kS) {
-    float s[4][8];
-    zero(s);
-    stream_dot(s, ws, H, h, n0, N, stage);  // s[i][j]: vocab i, row j
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 32 * j;
-      const bool live = n < N;
-      const int lab = live ? labels[n] : -1;
-      const float lse_n = live ? lse[n] : 0.0f;
-      const float g_n = live ? g[n] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = v0 + ty * 4 + i;
-        float p = 0.0f;
-        if (v < V && live) {
-          p = expf(s[i][j] + bias_v[i] - lse_n);
-          if (lab == v) p -= 1.0f;
-          p *= g_n;
-        }
-        ps[(tx + 32 * j) * kPs + ty * 4 + i] = p;
-        db_part[i] += p;
-      }
-    }
-    for (int nc = 0; nc < kS; nc += kC) {
-      load_rows(stage, h, n0 + nc, kC, N, H);
-      __syncthreads();
-#pragma unroll
-      for (int nn = 0; nn < kC; ++nn) {
-        float hv[CPT];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int col = tid + 256 * c;
-          hv[c] = col < H ? stage[nn * H + col] : 0.0f;
-        }
-#pragma unroll
-        for (int vq = 0; vq < kR; vq += 4) {
-          const float4 p =
-              *reinterpret_cast<const float4*>(ps + (nc + nn) * kPs + vq);
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            acc[vq + 0][c] = fmaf(p.x, hv[c], acc[vq + 0][c]);
-            acc[vq + 1][c] = fmaf(p.y, hv[c], acc[vq + 1][c]);
-            acc[vq + 2][c] = fmaf(p.z, hv[c], acc[vq + 2][c]);
-            acc[vq + 3][c] = fmaf(p.w, hv[c], acc[vq + 3][c]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float d = warp_sum(db_part[i]);
-    const int v = v0 + ty * 4 + i;
-    if (tx == 0 && v < V) db[v] = d;
-  }
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int v = v0 + r;
-    if (v >= V) break;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tid + 256 * c;
-      if (col < H) dw[(int64_t)v * H + col] = acc[r][c];
-    }
+__device__ __forceinline__ int cluster_tile(const XentArgs& a) {
+  return (int)blockIdx.x / ((a.H + kHS - 1) / kHS);
+}
+
+__global__ void __launch_bounds__(kXT, 1)
+xent_fwd_mma(const __grid_constant__ XentArgs a) {
+  xent_body<kFwd>(a, cluster_tile(a));
+}
+
+// the backward's two passes in one launch: the first clusters take dh's
+// row tiles, the rest dW's vocab tiles, so that the last wave of one pass
+// shares the card with the other's
+__global__ void __launch_bounds__(kXT, 1)
+xent_bwd_mma(const __grid_constant__ XentArgs dh,
+             const __grid_constant__ XentArgs dw) {
+  const int tile = cluster_tile(dh), dh_tiles = (dh.nr + kBM - 1) / kBM;
+  if (tile < dh_tiles)
+    xent_body<kDh>(dh, tile);
+  else
+    xent_body<kDw>(dw, tile - dh_tiles);
+}
+
+// h (nh4 float4s) and W (nw4) as bf16 hi and lo into out: hi(h), lo(h),
+// hi(W), lo(W), each in the source's layout
+__device__ __forceinline__ void split_body(const float4* __restrict__ h,
+                                           const float4* __restrict__ w,
+                                           uint2* __restrict__ out,
+                                           int64_t nh4, int64_t nw4) {
+  const int64_t n4 = nh4 + nw4;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const bool is_h = i < nh4;
+    const int64_t j = is_h ? i : i - nh4;
+    const float4 v = is_h ? h[j] : w[j];
+    uint2* hi = out + (is_h ? j : 2 * nh4 + j);
+    uint2* lo = hi + (is_h ? nh4 : nw4);
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+    *hi = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                     *reinterpret_cast<const uint32_t*>(&b));
+    *lo = make_uint2(pack_bf16(v.x - fa.x, v.y - fa.y),
+                     pack_bf16(v.z - fb.x, v.w - fb.y));
   }
 }
 
-size_t fwd_smem(int H) { return sizeof(float) * (kR * H + kK * kSt); }
+__global__ void __launch_bounds__(kXT)
+xent_split_fwd(const float4* __restrict__ h, const float4* __restrict__ w,
+               uint2* __restrict__ out, int64_t nh4, int64_t nw4) {
+  split_body(h, w, out, nh4, nw4);
+}
 
-size_t bwd_smem(int H, int ps_floats) {
-  const int stage = kK * kSt > kC * H ? kK * kSt : kC * H;
-  return sizeof(float) * (kR * H + stage + ps_floats);
+__global__ void __launch_bounds__(kXT)
+xent_split_bwd(const float4* __restrict__ h, const float4* __restrict__ w,
+               uint2* __restrict__ out, int64_t nh4, int64_t nw4) {
+  split_body(h, w, out, nh4, nw4);
 }
 
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <int CPT>
-int launch_bwd(const float* h, const float* w, const float* bias,
-               const int32_t* labels, const float* lse, const float* g,
-               float* dh, float* dw, float* db, int N, int H, int V,
-               cudaStream_t st) {
-  const size_t sh = bwd_smem(H, kR * kS), sw = bwd_smem(H, kS * kPs);
-  cudaError_t e = allow_smem(xent_dh_kernel<CPT>, sh);
-  if (e == cudaSuccess) e = allow_smem(xent_dw_kernel<CPT>, sw);
-  if (e != cudaSuccess) return (int)e;
-  xent_dh_kernel<CPT><<<(N + kR - 1) / kR, kT, sh, st>>>(h, w, bias, labels, lse,
-                                                    g, dh, N, H, V);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  xent_dw_kernel<CPT><<<(V + kR - 1) / kR, kT, sw, st>>>(h, w, bias, labels, lse,
-                                                    g, dw, db, N, H, V);
+int launch_split(K kern, const float* h, const float* w, void* scratch,
+                 int N, int H, int V, cudaStream_t st) {
+  const int64_t nh4 = (int64_t)N * H / 4, nw4 = (int64_t)V * H / 4;
+  const int64_t want = (nh4 + nw4 + kXT - 1) / kXT;
+  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+  kern<<<blocks, kXT, 0, st>>>(reinterpret_cast<const float4*>(h),
+                               reinterpret_cast<const float4*>(w),
+                               reinterpret_cast<uint2*>(scratch), nh4, nw4);
   return (int)cudaGetLastError();
 }
 
+// grid: ``tiles`` clusters of C = ceil(H / 256) CTAs
+template <typename K, typename... Args>
+int launch_mma(K kern, size_t smem, int tiles, int H, cudaStream_t st,
+               const Args&... args) {
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int C = (H + kHS - 1) / kHS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * C));
+  cfg.blockDim = dim3(kXT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (so the
+// library needs no link against libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static void* fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+  }
+  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+}
+
+// a (rows, H) bf16 array read in 64 x 64 boxes with the 128-byte swizzle,
+// zeros past its edges
+bool box_map(CUtensorMap* map, const bf16* base, int rows, int H) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)H, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)H * 2};
+  const cuuint32_t box[2] = {64, 64}, step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)base, dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the operands' hi and lo arrays in the scratch, hi(h), lo(h), hi(W),
+// lo(W), as the resident and streamed tensor maps
+bool operands(XentArgs& a, const void* scratch, int N, int H, int V,
+              bool w_resident) {
+  const bf16* s = static_cast<const bf16*>(scratch);
+  const int64_t nh = (int64_t)N * H, nw = (int64_t)V * H;
+  const bf16 *hh = s, *hl = s + nh, *wh = s + 2 * nh, *wl = wh + nw;
+  a.nr = w_resident ? V : N;
+  a.nx = w_resident ? N : V;
+  a.H = H;
+  return box_map(&a.rh, w_resident ? wh : hh, a.nr, H) &&
+         box_map(&a.rl, w_resident ? wl : hl, a.nr, H) &&
+         box_map(&a.xh, w_resident ? hh : wh, a.nx, H) &&
+         box_map(&a.xl, w_resident ? hl : wl, a.nx, H);
+}
+
+// N and V at least 1; H a multiple of 16 from 16 to 1024 (a cluster of
+// at most four CTAs of 256 columns)
 bool bad_shape(int N, int H, int V) {
-  return N < 1 || V < 1 || H < kK || H % kK != 0 || H > 4 * kT;
+  return N < 1 || V < 1 || H < 16 || H % 16 != 0 || H > kMaxC * kHS;
 }
 
 }  // namespace
 
 extern "C" {
 
+// scratch: 2 (N + V) H bf16, overwritten (the operands' hi and lo)
 int fused_xent_fwd(const float* h, const float* w, const float* bias,
-                   const int32_t* labels, float* lse, float* ll, int N, int H,
-                   int V, void* stream) {
-  if (bad_shape(N, H, V)) return (int)cudaErrorInvalidValue;
-  const size_t sm = fwd_smem(H);
-  cudaError_t e = allow_smem(xent_fwd_kernel, sm);
-  if (e != cudaSuccess) return (int)e;
-  xent_fwd_kernel<<<(N + kR - 1) / kR, kT, sm, (cudaStream_t)stream>>>(
-      h, w, bias, labels, lse, ll, N, H, V);
-  return (int)cudaGetLastError();
+                   const int32_t* labels, float* lse, float* ll,
+                   void* scratch, int N, int H, int V, void* stream) {
+  if (bad_shape(N, H, V) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int e = launch_split(xent_split_fwd, h, w, scratch, N, H, V, st);
+  if (e != 0) return e;
+  XentArgs a = {};
+  if (!operands(a, scratch, N, H, V, false))
+    return (int)cudaErrorInvalidValue;
+  a.bias = bias;
+  a.labels = labels;
+  a.out = lse;
+  a.out2 = ll;
+  return launch_mma(xent_fwd_mma, mma_smem<kFwd>(), (N + kBM - 1) / kBM, H,
+                    st, a);
 }
 
 int fused_xent_bwd(const float* h, const float* w, const float* bias,
                    const int32_t* labels, const float* lse, const float* g,
-                   float* dh, float* dw, float* db, int N, int H, int V,
-                   void* stream) {
-  if (bad_shape(N, H, V)) return (int)cudaErrorInvalidValue;
+                   float* dh, float* dw, float* db, void* scratch, int N,
+                   int H, int V, void* stream) {
+  if (bad_shape(N, H, V) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((H + kT - 1) / kT) {
-    case 1:
-      return launch_bwd<1>(h, w, bias, labels, lse, g, dh, dw, db, N, H, V, st);
-    case 2:
-      return launch_bwd<2>(h, w, bias, labels, lse, g, dh, dw, db, N, H, V, st);
-    case 3:
-      return launch_bwd<3>(h, w, bias, labels, lse, g, dh, dw, db, N, H, V, st);
-    default:
-      return launch_bwd<4>(h, w, bias, labels, lse, g, dh, dw, db, N, H, V, st);
-  }
+  int e = launch_split(xent_split_bwd, h, w, scratch, N, H, V, st);
+  if (e != 0) return e;
+  XentArgs a = {};
+  a.bias = bias;
+  a.labels = labels;
+  a.lse = lse;
+  a.g = g;
+  XentArgs b = a;
+  if (!operands(a, scratch, N, H, V, false) ||
+      !operands(b, scratch, N, H, V, true))
+    return (int)cudaErrorInvalidValue;
+  a.out = dh;
+  b.out = dw;
+  b.out2 = db;
+  return launch_mma(xent_bwd_mma, mma_smem<kDh>(),
+                    (N + kBM - 1) / kBM + (V + kBM - 1) / kBM, H, st, a, b);
 }
 
 const char* kernel_error_string(int err) {

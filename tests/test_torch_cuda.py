@@ -188,6 +188,48 @@ def test_fused_xent_kernels_match_plain(dev):
     assert counters.get("fused_xent_bwd") == 1
 
 
+@pytest.mark.parametrize("N,H,V,ignored", [
+    (1000, 768, 3001, 0.15),
+    (300, 16, 1000, 0.15),
+    (200, 1024, 777, 0.15),
+    (257, 768, 500, 1.0),
+], ids=["H768-ragged", "H16", "H1024", "all-ignored"])
+def test_tensor_core_xent_matches_plain_and_is_deterministic(dev, N, H, V,
+                                                             ignored):
+    """K2a/K2b on tensor cores (three bf16 terms a product, H split over a
+    cluster of ceil(H / 256) CTAs) against the plain version within 1e-4
+    of each output's largest value, with N and V no multiple of a tile, at
+    the shape rule's edges and with every row ignored (dh, dW and db
+    exactly zero); a second launch gives the same bits; one count a
+    call."""
+    g = torch.Generator(device=dev).manual_seed(40)
+    h = torch.randn((N, H), generator=g, device=dev)
+    w = torch.randn((V, H), generator=g, device=dev) * 0.02
+    b = torch.randn((V,), generator=g, device=dev) * 0.02
+    lab = torch.randint(0, V, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    drop = torch.rand((N,), generator=g, device=dev) < ignored
+    lab = torch.where(drop, torch.full_like(lab, -1), lab)
+    gr = (lab >= 0).float() / (lab >= 0).sum().clamp(min=1).float()
+    first = fx.fused_xent_fwd(h, w, b, lab)
+    first += fx.fused_xent_bwd(h, w, b, lab, first[0], gr)
+    assert counters.snapshot() == {"fused_xent_fwd": 1, "fused_xent_bwd": 1}
+    second = fx.fused_xent_fwd(h, w, b, lab)
+    second += fx.fused_xent_bwd(h, w, b, lab, second[0], gr)
+    rlse, rll = fx._plain_fwd(h, w, b, lab)
+    want = (rlse, rll) + fx._plain_bwd(h, w, b, lab, rlse, gr)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("lse", "ll", "dh", "dw", "db"), first, second,
+                             want):
+        assert bool(torch.isfinite(x).all()), name
+        assert float((x - z).abs().max()) <= 1e-4 * float(z.abs().max()), \
+            name
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), name
+    if ignored == 1.0:
+        assert all(int(torch.count_nonzero(x)) == 0 for x in first[1:])
+    assert counters.snapshot() == {"fused_xent_fwd": 2, "fused_xent_bwd": 2}
+
+
 def test_fused_adam_kernel_is_bitwise_the_plain_version(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = [(30592, 64), (768,), (3,), (0,), (1000, 7)]
@@ -240,6 +282,11 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
     h = torch.zeros((4, 100), device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
         fx.fused_xent_fwd(h, torch.zeros((8, 100), device=dev),
+                          torch.zeros(8, device=dev),
+                          torch.zeros(4, dtype=torch.int32, device=dev))
+    h = torch.zeros((4, 1040), device=dev)
+    with pytest.raises(ValueError, match="from 16 to 1024"):
+        fx.fused_xent_fwd(h, torch.zeros((8, 1040), device=dev),
                           torch.zeros(8, device=dev),
                           torch.zeros(4, dtype=torch.int32, device=dev))
     p = torch.zeros(8, device=dev, dtype=torch.float64)
