@@ -13,16 +13,19 @@ prints no result line:
             of the flash and fused xent libraries, from ``cuobjdump
             -sass``, and a failure unless every instantiation of the
             tensor-core kernels (``short_fwd_mma``, ``short_bwd_mma``,
-            ``flash_dq_mma``, ``flash_dkv_mma``, ``xent_fwd_mma``,
-            ``xent_bwd_mma``: every K2 kernel but its elementwise split
-            pass) has some;
+            ``flash_fwd_mma``, ``flash_dq_mma``, ``flash_dkv_mma``,
+            ``xent_fwd_mma``, ``xent_bwd_mma``: every K2 kernel but its
+            elementwise split pass) has some;
 1. kernels  each kernel against its plain version on the card at its
             main path's shapes: paged attention within atol/rtol 1e-4
-            (sum order), sampling bit for bit (decode slice); flash
-            attention forward and backward at BERT-base's
-            128 x 128 x 12 x 64 in bf16 (atol 2e-2 + rtol 1e-2, one bf16
-            ulp) and f32 (atol 1e-4), one f32 case at L = 512, one f32
-            causal case and GPT-2 small's causal 8 x 1024 in bf16, dropout
+            (sum order), two launches bit for bit, a len-0 row of zeros,
+            a -1 table entry, its cluster size; sampling bit for bit
+            (decode slice); flash attention forward and backward at
+            BERT-base's 128 x 128 x 12 x 64 in bf16 (atol 2e-2 + rtol
+            1e-2, one bf16 ulp) and f32 (atol 1e-4), one f32 case at
+            L = 512, one f32 causal case, GPT-2 small's causal 8 x 1024
+            in bf16 (its forward timed beside causal SDPA), bf16 with
+            Lq != Lk, a ragged causal L and D = 128, dropout
             0.1 with the keep mask read back bit for bit, two launches of
             every bf16 flash kernel (here and in the short, masked and
             external-lse checks below) equal bit for bit; the fused
@@ -50,8 +53,10 @@ prints no result line:
             bf16 one ulp); K1a/K1b's masked form at phase 2's padded 32 x
             512 x 12 x 64 bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
             128 x 128 f32, causal, fully masked rows (the mean of V) and
-            a masked first kv tile (atol 1e-4), the dropout mask through
-            a key mask bit for bit; K1b's external-lse form (``flash_ring``)
+            a masked first kv tile (atol 1e-4), in bf16 batch entries
+            with no live key and a causal left-padded batch, with the kv
+            tiles the bf16 forward skips, the dropout mask through a key
+            mask bit for bit; K1b's external-lse form (``flash_ring``)
             through the ring's arithmetic in one process at GPT-2 small's
             8 x 1024 x 12 x 64 bf16, kv in 2 and 4 chunks, causal, full and
             key-padded, against the one-launch K1a/K1b and the plain
@@ -270,8 +275,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 # ---------------------------------------------------------------------------
 # phase 0: the tensor-core kernels' instructions
 # ---------------------------------------------------------------------------
-TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_dq_mma",
-                       "flash_dkv_mma", "xent_fwd_mma", "xent_bwd_mma")
+TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_fwd_mma",
+                       "flash_dq_mma", "flash_dkv_mma", "xent_fwd_mma",
+                       "xent_bwd_mma")
 
 
 def tensor_core_counts(build):
@@ -361,6 +367,9 @@ def check_attention(torch, pa, rng, quant, timing):
     expect(bool(torch.isfinite(out).all()), "non-finite attention output")
     expect(torch.allclose(out, ref, atol=ATOL, rtol=RTOL),
            f"paged attention (quant={quant}) disagrees: max abs err {err}")
+    expect(same_bits(torch, (out,), (kern(),)),
+           f"paged attention (quant={quant}): two launches give different "
+           f"bits")
 
     # small odd shape: page 16, head_dim 64
     small = attention_case(torch, rng, 3, 4, 64, 16, 5, 24, [1, 17, 80],
@@ -378,8 +387,32 @@ def check_attention(torch, pa, rng, quant, timing):
     expect(torch.allclose(so, sr, atol=ATOL, rtol=RTOL),
            f"paged attention (quant={quant}) at S=16 D=64 disagrees: "
            f"max abs err {small_err}")
+    # len 0 (outside the contract) gives zeros; the other rows still
+    # agree, one of them past its table's T * S = 80 tokens (clamped)
+    zq, zkp, zvp, zks, zvs, ztab, zlen = attention_case(
+        torch, np.random.RandomState(7), 3, 4, 64, 16, 5, 24, [0, 17, 80],
+        quant)
+    zlen[2] = 100
+    if quant:
+        zo = pa._cuda_paged_attention_quant(zq, zkp, zvp, zks, zvs, ztab,
+                                            zlen)
+        zr = pa._plain_paged_attention_quant(zq, zkp, zvp, zks, zvs, ztab,
+                                             zlen)
+    else:
+        zo = pa._cuda_paged_attention(zq, zkp, zvp, ztab, zlen)
+        zr = pa._plain_paged_attention(zq, zkp, zvp, ztab, zlen)
+    expect(not bool(zo[0].any()), f"paged attention (quant={quant}): a "
+                                  f"len-0 row is not zeros")
+    expect(torch.allclose(zo[1:], zr[1:], atol=ATOL, rtol=RTOL),
+           f"paged attention (quant={quant}) beside a len-0 row, or past "
+           f"T pages, disagrees")
 
-    row = {"max_abs_err": err, "max_abs_err_small": small_err}
+    row = {"max_abs_err": err, "max_abs_err_small": small_err,
+           "bitwise_relaunch": True, "len0_zeros": True,
+           "past_T_clamped": True,
+           "minus1_entry_row": int(np.argmax(lens)),
+           "cluster_size": pa.cluster_size(T),
+           "cluster_size_small": pa.cluster_size(5)}
     if timing:
         n_tok = int(sum(lens))
         elem = 1 if quant else 4
@@ -703,22 +736,28 @@ def same_bits(torch, first, second):
 def check_flash(torch, fa, timing):
     """K1a/K1b against the plain version: BERT-base's shapes in bf16 and
     f32 with dropout 0.1, f32 at L = 512, f32 causal, GPT-2 small's
-    causal 8 x 1024 in bf16; two launches of each bf16 kernel give the
-    same bits; the dropout mask read back bit for bit."""
+    causal 8 x 1024 in bf16, and bf16 with Lq != Lk, a ragged causal L
+    and D = 128; two launches of each bf16 kernel give the same bits;
+    the dropout mask read back bit for bit. Times K1a at BERT's shape
+    and at GPT-2's causal one beside SDPA."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [("bf16", 128, 128, 12, 64, torch.bfloat16, False, 0.1),
-             ("f32", 128, 128, 12, 64, torch.float32, False, 0.1),
-             ("f32_L512", 8, 512, 12, 64, torch.float32, False, 0.0),
-             ("f32_causal", 8, 256, 12, 64, torch.float32, True, 0.1),
-             ("bf16_causal_L1024", 8, 1024, 12, 64, torch.bfloat16, True,
-              0.0)]
+    bf = torch.bfloat16
+    cases = [("bf16", 128, 128, 128, 12, 64, bf, False, 0.1),
+             ("f32", 128, 128, 128, 12, 64, torch.float32, False, 0.1),
+             ("f32_L512", 8, 512, 512, 12, 64, torch.float32, False, 0.0),
+             ("f32_causal", 8, 256, 256, 12, 64, torch.float32, True, 0.1),
+             ("bf16_causal_L1024", 8, 1024, 1024, 12, 64, bf, True, 0.0),
+             ("bf16_Lq_ne_Lk", 4, 200, 333, 12, 64, bf, False, 0.1),
+             ("bf16_ragged_causal", 4, 200, 200, 12, 64, bf, True, 0.1),
+             ("bf16_D128", 4, 256, 256, 12, 128, bf, False, 0.1)]
     seed = 0x5EED1234ABCD
     row = {"cases": {}}
-    main = None
-    for name, B, L, H, D, dt, causal, p in cases:
-        q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
-                                   device=dev).to(dt) for _ in range(4)]
+    main = gpt = None
+    for name, B, Lq, Lk, H, D, dt, causal, p in cases:
+        q, k, v, do = [torch.randn((B, n, H, D), generator=gen,
+                                   device=dev).to(dt)
+                       for n in (Lq, Lk, Lk, Lq)]
         out, lse = fa._cuda_fwd(q, k, v, causal, p, seed)
         rout, rlse = fa._plain_fwd(q, k, v, causal, p, seed)
         grads = fa._cuda_bwd(q, k, v, out, lse, do, causal, p, seed)
@@ -746,6 +785,8 @@ def check_flash(torch, fa, timing):
         row["cases"][name] = errs
         if name == "bf16":
             main = (q, k, v, do, out, lse, p)
+        elif name == "bf16_causal_L1024":
+            gpt = (q, k, v)
         del q, k, v, do, rout, grads, rgrads
     # the dropout mask, bit for bit: q = k = 0 gives P = 1/L, v = I reads
     # keep / (L (1 - p)) back out of the kernel's output
@@ -806,6 +847,23 @@ def check_flash(torch, fa, timing):
             "bwd_library_ms": time_ms(torch, lib_bwd),
             "bwd_bound_ms": bb, "bwd_bound_by": bby,
             "bound_rates": rates(BF16_FLOPS_PER_S, "bf16 tensor-core")})
+        # GPT-2 small's causal forward beside causal SDPA: the products
+        # below the diagonal only
+        q, k, v = gpt
+        B, L, H, D = q.shape
+        el = B * L * H * D * 2
+        cb, cby = bound_of(4 * el + B * H * L * 4,
+                           4 * B * H * D * L * (L + 1) // 2,
+                           BF16_FLOPS_PER_S)
+        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        row.update({
+            "causal_L1024_fwd_ms": time_ms(torch, lambda: fa._cuda_fwd(
+                q, k, v, True, 0.0, seed)),
+            "causal_L1024_fwd_library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True)),
+            "causal_L1024_fwd_bound_ms": cb,
+            "causal_L1024_fwd_bound_by": cby})
     return row
 
 
@@ -1440,7 +1498,7 @@ def phase_bert_parity(torch, counters, fa, fx, fo, masked=False):
 
 
 def bert_family(name):
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:        # flash_fwd_mma (bf16), _kernel (f32)
         return "flash_fwd"
     if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_bwd"
@@ -1917,7 +1975,7 @@ BERT512_FAMILIES = ("flash_short_fwd", "flash_short_bwd", "xent_fwd",
 
 
 def bert512_family(name):
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_masked_fwd"
     if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_masked_bwd"
@@ -2802,14 +2860,19 @@ def check_flash_masked(torch, fa, timing):
     32 x 512 x 12 x 64 in bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
     BERT phase 1's 128 x 128 in f32 with dropout (atol 1e-4), an f32
     causal case, a batch with fully masked rows (the mean of V) and one
-    whose first kv tile is all masked; the dropout keep mask read back
-    bit for bit through a mask; two launches of the bf16 kernels give
-    the same bits. Times the bf16 case against its bound,
+    whose first kv tile is all masked; in bf16 a batch with entries of
+    no live key (the mean of V) and a causal left-padded batch (a row
+    whose allowed keys are all masked), with the kv tiles the bf16
+    forward skipped (``kv_tile_visits``); the dropout keep mask read
+    back bit for bit through a mask; two launches of the bf16 kernels
+    give the same bits. Times the bf16 case against its bound,
     the plain version and SDPA with the float bias as ``attn_mask``."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(17)
     bf, f32 = torch.bfloat16, torch.float32
     first_tile = torch.arange(256, device=dev).expand(4, 256) >= 64
+    left_padded = torch.arange(256, device=dev)[None, :] >= torch.tensor(
+        [[0], [100], [3], [200]], device=dev)
     cases = [("bf16_L512", 32, 512, 12, 64, bf, False, 0.1,
               masked_lens(32, 512)),
              ("f32_L128", 128, 128, 12, 64, f32, False, 0.1,
@@ -2818,7 +2881,11 @@ def check_flash_masked(torch, fa, timing):
               masked_lens(8, 256, seed=2)),
              ("f32_all_masked", 4, 256, 4, 64, f32, False, 0.0,
               np.array([256, 0, 100, 0])),
-             ("f32_first_tile", 4, 256, 4, 64, f32, False, 0.1, first_tile)]
+             ("f32_first_tile", 4, 256, 4, 64, f32, False, 0.1, first_tile),
+             ("bf16_all_masked", 4, 256, 4, 64, bf, False, 0.0,
+              np.array([256, 0, 100, 0])),
+             ("bf16_causal_left_padded", 4, 256, 4, 64, bf, True, 0.1,
+              left_padded)]
     seed = 0x5EED9ABC
     row = {"cases": {}}
     main = None
@@ -2851,13 +2918,20 @@ def check_flash_masked(torch, fa, timing):
                 q, k, v, causal, p, seed, bias) + fa._cuda_bwd(
                 q, k, v, out, lse, do, causal, p, seed, bias)),
                 f"flash masked {name}: two launches give different bits")
-        if name == "f32_all_masked":
+        if name.endswith("_all_masked"):
             for b in (1, 3):
-                mean_v = v[b].mean(0, keepdim=True).expand(L, H, D)
+                mean_v = v[b].float().mean(0, keepdim=True).expand(L, H, D)
                 errs[f"mean_v_{b}"] = max_err(out[b], mean_v)
-                expect(errs[f"mean_v_{b}"] <= 1e-5,
-                       f"flash masked: a fully masked row is not the mean "
-                       f"of V ({errs[f'mean_v_{b}']})")
+                expect(torch.allclose(out[b].float(), mean_v, atol=atol,
+                                      rtol=rtol) if dt == bf
+                       else errs[f"mean_v_{b}"] <= 1e-5,
+                       f"flash masked {name}: a fully masked row is not the "
+                       f"mean of V ({errs[f'mean_v_{b}']})")
+        if dt == bf:    # the bf16 forward's dead kv tiles (kv_tile_visits)
+            full = fa.kv_tile_visits(B, L, L, causal)
+            visits = fa.kv_tile_visits(B, L, L, causal, bias)
+            errs["kv_tiles"] = int(full.sum())
+            errs["kv_tiles_skipped"] = int((full & ~visits).sum())
         row["cases"][name] = errs
         if name == "bf16_L512":
             main = (q, k, v, do, out, lse, p, bias, lens)

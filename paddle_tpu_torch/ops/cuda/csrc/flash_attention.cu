@@ -9,16 +9,36 @@
 //
 // Bound: the work is about 4*L*L*D flops per (batch, head) forward and
 // 10*L*L*D backward against 4*L*D and 8*L*D bf16 elements moved. At
-// BERT phase 1's 128 x 128 x 12 x 64 the backward's bytes bound it
-// (0.060 ms at 3.35 TB/s against 0.016 ms of operations at the 989
-// TFLOP/s bf16 tensor-core rate); at 512 keys the two meet, and past
-// them the operations bound it.
+// BERT phase 1's 128 x 128 x 12 x 64 the bytes bound both (forward
+// 0.030 ms at 3.35 TB/s against 0.0065 ms of operations at the 989
+// TFLOP/s bf16 tensor-core rate; backward 0.060 against 0.016); at 512
+// keys the two meet, and past them (GPT-2's causal 1024) the operations
+// bound it. A key-padded batch needs only its live keys' operations.
 //
-// The bf16 backward runs on tensor cores (flash_dq_mma, flash_dkv_mma;
-// pieces in flash_common.cuh): 4 warps a block, each warp 16 rows of a
-// 64-row tile, mma.sync m16n8k16 bf16 -> f32 from swizzled shared tiles
-// that a two-stage cp.async ring fills under the previous tile's
-// products.
+// Everything in bf16 runs on tensor cores: 4 warps a block, each warp 16
+// rows of a 64-row tile, mma.sync m16n8k16 bf16 -> f32 from swizzled
+// shared tiles that a two-stage cp.async ring fills under the previous
+// tile's products (pieces in flash_common.cuh).
+// - Forward (flash_fwd_mma, the body fwd_mma in flash_common.cuh, which
+//   K1c's short_fwd_mma shares), one block per (64-row q tile, b*H + h),
+//   causal grids longest tile first: q is read with Lq as its bound, k
+//   and v with Lk; per kv tile S = Q K^T, scaled in f32, plus the key
+//   bias (its 64 values staged in shared memory with the tile and added
+//   in the fragment layout), then -inf past Lk and above the diagonal
+//   (mask_tile); m and l per row in f32, l summing the undropped
+//   probabilities; P = exp(S - m), dropped by keep_frag (the plain
+//   version's philox_keep_mask bit for bit) and scaled by 1/(1-p),
+//   enters O += P V as two bf16 terms, hi + lo (acc_to_a2): with one
+//   term BERT phase 2's first loss moved by 1.4e-3. out = O / l in bf16,
+//   lse = m + log(l) in f32. With a key bias (the MASKED instantiation;
+//   the other, which K1c runs too, compiles in none of the bias code: it
+//   cost K1c 3 % when it was a runtime branch) the block first reads the
+//   batch entry's Lk bias values and skips the kv tiles whose every value
+//   is <= -1e30 when that is exact (scan_live_tiles): the padded batch
+//   pays for its live keys only. At D = 64 the registers are capped at
+//   128 so that 4 blocks share an SM; 8-warp blocks of 128 q rows, two
+//   m16 tiles a warp and a third ring stage were each slower on the
+//   card (PERF.md).
 // - dq kernel, one block per 64-row q tile: delta = rowsum(dO * O) in
 //   f32 under the first copies (written for the dk/dv kernel; the EXT
 //   form reads the caller's), then over kv tiles (up to the diagonal when
@@ -32,15 +52,12 @@
 //   operands of dV += P^T dO and dK += dS^T Q.
 // - Rounding: bf16 operands, f32 accumulators; m, lse, delta, P and dS
 //   are f32 until they become operands. P enters dV as one bf16 term; dS
-//   enters dQ and dK as two, hi + lo (acc_to_a2), since a fully masked
-//   row (P = 1 across it, lse = -1e30) makes dS Lk times its usual size
-//   and one rounding of it moved dQ and dK past the bf16 tolerance. So
-//   the pair does 9 L*L*D products where the gradient needs 5 (S and dP
-//   in both kernels, dQ and dK twice). No atomics and no split of a sum
-//   across blocks: two launches give the same bits.
-// The f32 forms, and the forward (K1a, both types), use the f32 FMA
-// kernels below: the f32 forms are the parity route held to 1e-4, which
-// TF32 cannot meet.
+//   enters dQ and dK as two, hi + lo, since a fully masked row (P = 1
+//   across it, lse = -1e30) makes dS Lk times its usual size and one
+//   rounding of it moved dQ and dK past the bf16 tolerance. No atomics
+//   and no split of a sum across blocks: two launches give the same bits.
+// The f32 forms use the f32 FMA kernels below: they are the parity route
+// held to 1e-4, which neither bf16 nor TF32 meets.
 //
 // FMA design: q, k, v, out and their gradients keep the JAX package's
 // (B, L, H, D) layout and the kernels index it directly, so no head
@@ -49,8 +66,8 @@
 // are in flash_common.cuh, shared with the short-sequence kernels.
 // - Forward: one block per (q-tile, b*H + h) loops over kv-tiles with
 //   an online softmax: m and l per row in registers, the 64 x D output
-//   accumulator spread over the block's registers. Writes out (input
-//   type) and lse = m + log(l) (f32).
+//   accumulator spread over the block's registers. Writes out and
+//   lse = m + log(l).
 // - Backward: the dq kernel (one block per q-tile) computes delta =
 //   rowsum(dO * O) for its rows, writes it for the dk/dv kernel, and
 //   loops over kv-tiles; the dk/dv kernel (one block per kv-tile) loops
@@ -68,9 +85,9 @@
 //   (g, query row, b*H + h, 0) with g = (col / 64) * 16 + col % 16 and
 //   word (col / 16) % 4. A thread's four columns tx + 16 j of one tile
 //   row are exactly one Philox call. The mask is a function of element
-//   coordinates only, so all three kernels (and the plain version)
-//   agree on it. l sums the undropped probabilities; the value sum,
-//   dV and dP see the mask scaled by 1/(1-p), as in the TPU kernel.
+//   coordinates only, so every kernel (and the plain version) agrees on
+//   it. l sums the undropped probabilities; the value sum, dV and dP see
+//   the mask scaled by 1/(1-p), as in the TPU kernel.
 // - Key mask (the masked form of _flash_fwd_kernel and both backward
 //   kernels, mask_ref): an optional (B, Lk) f32 additive bias, staged in
 //   shared memory a kv tile at a time next to K, added to the f32 score
@@ -89,7 +106,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, f32 FMA (the parity route)
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kT)
@@ -176,6 +193,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < C; ++j) acc[i][j] = acc[i][j] / lc;
   }
   store_rows<T, D>(out, acc, a, b, h, q0, a.Lq, 1.0f);
+}
+
+// forward, bf16 on tensor cores (the body is flash_common.cuh's fwd_mma)
+template <int D, bool MASKED>
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+              Args a) {
+  // causal: the longest q tiles start first
+  fwd_mma<D, MASKED>(q, k, v, out, lse, a,
+                     a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,15 +627,30 @@ constexpr size_t dkv_smem() {
          (kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad + 3 * kTile);
 }
 
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, const Args& a, cudaStream_t st) {
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const Args& a, cudaStream_t st) {
+  using T = float;
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t e = allow_smem(kern, fwd_smem<D>());
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.Lq + kTile - 1) / kTile, a.B * a.H);
   kern<<<grid, kT, fwd_smem<D>(), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                    float* lse, const Args& a, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  auto kern = a.bias ? flash_fwd_mma<D, true> : flash_fwd_mma<D, false>;
+  const size_t smem = fwd_mma_smem<D>(a.Lk);
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.Lq + kTile - 1) / kTile, a.B * a.H);
+  kern<<<grid, kMmaT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                  (T*)out, lse, a);
   return (int)cudaGetLastError();
 }
 
@@ -680,10 +725,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                            seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return D == 64 ? launch_fwd<float, 64>(q, k, v, out, lse, a, st)
-                   : launch_fwd<float, 128>(q, k, v, out, lse, a, st);
-  return D == 64 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, out, lse, a, st)
-                 : launch_fwd<__nv_bfloat16, 128>(q, k, v, out, lse, a, st);
+    return D == 64 ? launch_fwd_f32<64>(q, k, v, out, lse, a, st)
+                   : launch_fwd_f32<128>(q, k, v, out, lse, a, st);
+  return D == 64 ? launch_fwd_bf16<64>(q, k, v, out, lse, a, st)
+                 : launch_fwd_bf16<128>(q, k, v, out, lse, a, st);
 }
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,

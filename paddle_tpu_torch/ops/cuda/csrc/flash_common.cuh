@@ -1,21 +1,22 @@
 // Shared pieces of the flash attention kernels for Hopper (sm_90a):
 // flash_attention.cu (the streaming forward and backward) and
 // flash_short.cu (the short-sequence forms). Both key their dropout by
-// the same Philox counter, so for one seed they drop the same elements.
-// fused_xent.cu uses the tensor-core and cluster pieces (the last two
-// parts of this file).
+// the same Philox counter, so for one seed they drop the same elements,
+// and both run the bf16 forward body fwd_mma. fused_xent.cu uses the
+// tensor-core and cluster pieces, paged_attention.cu the cp.async and
+// cluster pieces.
 //
-// Two kinds of kernel use them. The tensor-core kernels (the bf16 forms
-// of K1c, K1b and K1d; the last part of this file) are described there.
-// The f32 FMA kernels (every f32 form, and the bf16 form of K1a):
+// Two kinds of kernel use them. The tensor-core kernels (every bf16 form
+// of K1: K1a, K1b, K1c and K1d; the last parts of this file) are
+// described there. The f32 FMA kernels (every f32 form):
 // tiles are 64 rows; 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, ... of every
 // tile it computes, so a row's values sit in one half-warp and row
-// max/sum are four shuffles. Operands live in shared memory as f32
-// (bf16 inputs are widened on load); the "A" operand is read as float4
-// along the reduction axis (a broadcast within the half-warp), the "B"
-// operand as scalars that are consecutive or odd-strided across
-// threads, so loads are free of bank conflicts.
+// max/sum are four shuffles. Operands live in shared memory as f32; the
+// "A" operand is read as float4 along the reduction axis (a broadcast
+// within the half-warp), the "B" operand as scalars that are
+// consecutive or odd-strided across threads, so loads are free of bank
+// conflicts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -144,10 +145,6 @@ struct Vec<__nv_bfloat16> {
       v[2 * i + 1] = f.y;
     }
   }
-  __device__ static float one(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ static __nv_bfloat16 put(float x) { return __float2bfloat16(x); }
 };
 
 // 64 rows of one head, starting at sequence row l0, into dst[r * ld + d]
@@ -335,6 +332,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool live) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(live ? 16 : 0));
+}
+
+// 4 bytes (cp.async.ca, the smallest copy), zero-filled where not live
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -573,6 +577,193 @@ __device__ __forceinline__ void store_frag(unsigned char* tile,
             pack_bf16(x0 - hf.x, x1 - hf.y);
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu)
+// and K1c's short_fwd_mma (flash_short.cu) run this one body; the design
+// is in flash_attention.cu's header.
+// ---------------------------------------------------------------------------
+// Shared memory: the q tile, two k, v and bias (64 values) stages, the
+// first live key and the live-tile bits (one a kv tile)
+template <int D>
+inline size_t fwd_mma_smem(int Lk) {
+  const size_t words = ((Lk + kTile - 1) / kTile + 31) / 32;
+  return (size_t)5 * kTile * D * 2 + 2 * kTile * 4 + 4 + words * 4;
+}
+
+// Dead kv-tile skipping of the masked forward (flash_attention.py's
+// kv_tile_visits is the same rule): a kv tile is dead when every bias
+// value in it is <= -1e30. The block of the q tile at q0 skips dead tiles
+// only when each of its rows keeps a live allowed key: not causal, when
+// batch entry b has a live key at all; causal, when b's first live key is
+// at or before q0. Then a skipped tile would score -1e30 + s everywhere:
+// after the first live tile its exp underflows to exactly 0 and m, l and
+// O keep their bits; before it, the first live tile's alpha = 0 wipes
+// what it left. Otherwise (an entry with no live key: the mean of V; a
+// causal row whose allowed keys are all masked) every tile is visited.
+// Writes bit t of ``words`` for each live tile t and returns whether to
+// skip; reads b's Lk bias values once.
+__device__ __forceinline__ bool scan_live_tiles(uint32_t* words, int* first,
+                                                const Args& a, int b,
+                                                int q0) {
+  const int ntiles = (a.Lk + kTile - 1) / kTile, nw = (ntiles + 31) / 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < nw; i += kMmaT) words[i] = 0u;
+  if (threadIdx.x == 0) *first = a.Lk;
+  __syncthreads();
+  const float* row = a.bias + (int64_t)b * a.Lk;
+  for (int t = w; t < ntiles; t += kWarps) {
+    const int c0 = t * kTile + lane, c1 = c0 + 32;
+    const uint32_t b0 = __ballot_sync(~0u, c0 < a.Lk && row[c0] > kNegInit);
+    const uint32_t b1 = __ballot_sync(~0u, c1 < a.Lk && row[c1] > kNegInit);
+    if (lane == 0 && (b0 | b1)) {
+      atomicOr(&words[t >> 5], 1u << (t & 31));
+      atomicMin(first, t * kTile + (b0 ? __ffs(b0) - 1 : 31 + __ffs(b1)));
+    }
+  }
+  __syncthreads();
+  return a.causal ? *first <= q0 : *first < a.Lk;
+}
+
+// the first live tile after t (n if none before n)
+__device__ __forceinline__ int next_live(const uint32_t* words, int t,
+                                         int n) {
+  for (int u = t + 1; u < n; u = (u | 31) + 1) {
+    const uint32_t bits = words[u >> 5] >> (u & 31);
+    if (bits) return min(u + __ffs(bits) - 1, n);
+  }
+  return n;
+}
+
+// out and lse of the 64-row q tile qt of (b, h) = blockIdx.y; MASKED: a
+// (B, Lk) key bias (a.bias) is added and dead kv tiles are skipped, else
+// a.bias is ignored and none of that code is compiled in
+template <int D, bool MASKED>
+__device__ __forceinline__ void fwd_mma(const __nv_bfloat16* __restrict__ q,
+                                        const __nv_bfloat16* __restrict__ k,
+                                        const __nv_bfloat16* __restrict__ v,
+                                        __nv_bfloat16* __restrict__ out,
+                                        float* __restrict__ lse,
+                                        const Args& a, int qt) {
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  constexpr uint32_t TB = kTile * D * 2;          // bytes of one tile
+  const uint32_t Qs = smem_u32(smem_mma), Ks = Qs + TB, Vs = Ks + 2 * TB,
+                 Bs = Vs + 2 * TB;
+  unsigned char* tail = smem_mma + 5 * TB;
+  const float* bias_s = reinterpret_cast<const float*>(tail);
+  int* first = reinterpret_cast<int*>(tail + 2 * kTile * 4);
+  uint32_t* live = reinterpret_cast<uint32_t*>(first + 1);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = qt * kTile, row0 = q0 + 16 * w;
+  const int nkv = kv_tiles_for(a, q0);
+  const bool drop = a.inv != 1.0f;
+  const bool skip = MASKED && scan_live_tiles(live, first, a, b, q0);
+  // tile t's k, v and bias values into stage s
+  auto stage = [&](int t, int s) {
+    tile_async<D>(Ks + s * TB, k, a, b, h, t * kTile, a.Lk);
+    tile_async<D>(Vs + s * TB, v, a, b, h, t * kTile, a.Lk);
+    if (MASKED && threadIdx.x < kTile) {
+      const int c = t * kTile + threadIdx.x;
+      cp_async4(Bs + (s * kTile + threadIdx.x) * 4,
+                a.bias + (c < a.Lk ? (int64_t)b * a.Lk + c : 0), c < a.Lk);
+    }
+  };
+
+  auto after = [&](int t) { return skip ? next_live(live, t, nkv) : t + 1; };
+  int t = after(-1);
+  tile_async<D>(Qs, q, a, b, h, q0, a.Lq);
+  stage(t, 0);
+  cp_commit();
+  float o[D / 8][4], m[2] = {kNegInit, kNegInit}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+
+  for (int s = 0; t < nkv; s ^= 1) {
+    const int tn = after(t);
+    if (tn < nkv) {               // the next tile's copy under this one
+      stage(tn, s ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int kv0 = t * kTile;
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.0f;
+    mma_abt<D>(sc, Qs, 16 * w, Ks + s * TB, lane);
+    // scale, add the key bias and mask in f32; the online softmax of the
+    // thread's two rows
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] *= a.scale;
+    if (MASKED) {
+      const float* bt = bias_s + s * kTile;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bt + frag_col(lane, i, 0));
+        sc[i][0] += bb.x;
+        sc[i][1] += bb.y;
+        sc[i][2] += bb.x;
+        sc[i][3] += bb.y;
+      }
+    }
+    mask_tile(sc, a, row0, kv0, lane, -INFINITY);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[i][e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2_ftz((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+    }
+    const uint32_t keep = drop ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_ftz((sc[i][e] - m[e >> 1]) * kLog2e);
+        rs[e >> 1] += p;
+        sc[i][e] =
+            !drop ? p : ((keep >> (4 * i + e)) & 1u) ? p * a.inv : 0.0f;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+    mma_rb<D>(o, sc, Vs + s * TB, lane);  // O += P V, P as hi + lo
+    __syncthreads();                      // the stage is refilled next
+    t = tn;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
+    const int row = row0 + frag_row(lane, 2 * r);
+    if ((lane & 3) == 0 && row < a.Lq)
+      lse[(int64_t)bh * a.Lq + row] = m[r] + logf(lc);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][2 * r] /= lc;
+      o[j][2 * r + 1] /= lc;
+    }
+  }
+  store_acc<D>(out, o, a, b, h, row0, a.Lq, 1.0f, lane);
 }
 
 

@@ -13,24 +13,15 @@
 // forward: 0.030 ms of bytes, 0.026 of operations; its backward 0.060
 // and 0.065).
 //
-// Forward, bf16 (short_fwd_mma, on tensor cores): one block of 4 warps
-// per 64-row q tile and (b, h), grid (L / 64, B*H); each warp owns 16 q
-// rows. The TPU kernel's direct softmax needs the whole score row, which
-// at L = 512 no longer fits beside the operands, so the block runs the
-// online softmax instead (the same function in another summation
-// order; lse is held to 1e-4): k and v stream through a two-stage
-// cp.async ring of 64-row bf16 tiles, the next tile's copy running under
-// this tile's products. S = Q K^T is mma.sync m16n8k16 (bf16 operands
-// from swizzled shared tiles, f32 accumulators in registers); S is
-// scaled in f32, the causal -inf applied, m and l kept per row in f32;
-// P = exp(S - m) with the dropout mask scaled by 1/(1-p) becomes, in
-// registers, the A operand of O += P V (v from shared memory through
-// ldmatrix.trans) as two bf16 terms, hi + lo (acc_to_a2), so P V sees
-// ~16 bits of P for a third product: with one term BERT phase 2's first
-// loss lay 1.4e-3 from the f32 FMA kernel's (11.0849 against 11.0863),
-// with two 7e-4. l sums the undropped probabilities, as in the TPU
-// kernel. Epilogue: out = O / l in bf16 and lse = m + log(l) in f32.
-// 40 KB of shared memory at D = 64, 80 KB at D = 128.
+// Forward, bf16 (short_fwd_mma, on tensor cores): the streaming
+// forward's body (flash_common.cuh fwd_mma, described in
+// flash_attention.cu's header), here with no key mask. The TPU kernel's
+// direct softmax needs the whole score row, which at L = 512 no longer
+// fits beside the operands, so the block runs the online softmax instead
+// (the same function in another summation order; lse is held to 1e-4).
+// P enters P V as two bf16 terms, hi + lo: with one term BERT phase 2's
+// first loss lay 1.4e-3 from the f32 FMA kernel's (11.0849 against
+// 11.0863), with two 7e-4.
 //
 // Backward, bf16 (short_bwd_mma, on tensor cores): one launch, one
 // thread-block cluster of L / 64 CTAs per (b, h), each CTA owning a kv
@@ -177,108 +168,19 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// forward, bf16 on tensor cores: one block per (64-row q tile, b*H + h)
+// forward, bf16 on tensor cores: one block per (64-row q tile, b*H + h),
+// the streaming forward's body (flash_common.cuh fwd_mma, no key mask)
 // ---------------------------------------------------------------------------
 template <int D>
-constexpr size_t short_fwd_mma_smem() {
-  return (size_t)5 * kTile * D * sizeof(__nv_bfloat16);  // q, 2 k, 2 v
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaT)
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
 short_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
               Args a) {
-  extern __shared__ __align__(128) unsigned char smem_mma[];
-  constexpr uint32_t TB = kTile * D * 2;          // bytes of one tile
-  const uint32_t Qs = smem_u32(smem_mma), Ks = Qs + TB, Vs = Ks + 2 * TB;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int L = a.Lq, q0 = blockIdx.x * kTile, row0 = q0 + 16 * w;
-  const int nkv = kv_tiles_for(a, q0);
-  const bool drop = a.inv != 1.0f;
-
-  tile_async<D>(Qs, q, a, b, h, q0, L);
-  tile_async<D>(Ks, k, a, b, h, 0, L);
-  tile_async<D>(Vs, v, a, b, h, 0, L);
-  cp_commit();
-  float o[D / 8][4], m[2] = {kNegInit, kNegInit}, l[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-
-  for (int t = 0; t < nkv; ++t) {
-    const uint32_t Kt = Ks + (t & 1) * TB, Vt = Vs + (t & 1) * TB;
-    if (t + 1 < nkv) {            // the next tile's copy under this one
-      const uint32_t nxt = ((t + 1) & 1) * TB;
-      tile_async<D>(Ks + nxt, k, a, b, h, (t + 1) * kTile, L);
-      tile_async<D>(Vs + nxt, v, a, b, h, (t + 1) * kTile, L);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int kv0 = t * kTile;
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
-    mma_abt<D>(s, Qs, 16 * w, Kt, lane);
-    // scale and mask in f32; the online softmax of the two rows
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] *= a.scale;
-    mask_tile(s, a, row0, kv0, lane, -INFINITY);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = exp2_ftz((m[r] - m_new) * kLog2e);
-      m[r] = m_new;
-    }
-    const uint32_t keep = drop ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2_ftz((s[i][e] - m[e >> 1]) * kLog2e);
-        rs[e >> 1] += p;
-        s[i][e] = !drop ? p : ((keep >> (4 * i + e)) & 1u) ? p * a.inv : 0.0f;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    mma_rb<D>(o, s, Vt, lane);  // O += P V, P as hi + lo
-    __syncthreads();                // the stage is refilled next
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
-    const int row = row0 + frag_row(lane, 2 * r);
-    if ((lane & 3) == 0 && row < L)
-      lse[(int64_t)bh * L + row] = m[r] + logf(lc);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][2 * r] /= lc;
-      o[j][2 * r + 1] /= lc;
-    }
-  }
-  store_acc<D>(out, o, a, b, h, row0, L, 1.0f, lane);
+  // causal: the longest q tiles start first
+  fwd_mma<D, false>(q, k, v, out, lse, a,
+                    a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -681,10 +583,11 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                     float* lse, const Args& a, cudaStream_t st) {
   using bf = __nv_bfloat16;
   auto kern = short_fwd_mma<D>;
-  cudaError_t e = allow_smem(kern, short_fwd_mma_smem<D>());
+  const size_t smem = fwd_mma_smem<D>(a.Lk);
+  cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.Lq / kTile, a.B * a.H);
-  kern<<<grid, kMmaT, short_fwd_mma_smem<D>(), st>>>(
+  kern<<<grid, kMmaT, smem, st>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (bf*)out, lse, a);
   return (int)cudaGetLastError();
 }

@@ -83,7 +83,7 @@ from . import _build, counters
 
 __all__ = ["flash_attention", "flash_attention_short", "short_ok",
            "flash_attention_bwd_ext", "key_padding_view", "kv_mask_bias",
-           "philox_keep_mask", "keep_threshold"]
+           "kv_tile_visits", "philox_keep_mask", "keep_threshold"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,6 +93,7 @@ _HEAD_DIMS = (64, 128)
 _SHORT_MIN, _SHORT_MAX = 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30             # the JAX package's finite mask value
+_TILE = 64                   # the kernels' q and kv tile rows
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -166,6 +167,36 @@ def kv_mask_bias(mask, batch, kv_len):
         return None
     zero = torch.zeros((), dtype=torch.float32, device=m.device)
     return torch.where(m, zero, torch.full_like(zero, _NEG_INF))
+
+
+def kv_tile_visits(batch, lq, lk, causal, bias=None):
+    """The 64-key tiles the bf16 forward's block of each 64-row q tile
+    visits: (batch, ceil(lq / 64), ceil(lk / 64)) bool. The rule of
+    ``csrc/flash_common.cuh`` ``scan_live_tiles``: causal blocks stop at
+    the diagonal's tile; with a (batch, lk) key ``bias``, a tile whose
+    every value is <= -1e30 is dead, and the block skips dead tiles when
+    every row of its q tile keeps a live allowed key (not causal: the
+    batch entry has a live key; causal: its first live key is at or
+    before the q tile's first row). Skipping then changes no bit: a
+    dead tile's exp underflows to 0 after the first live tile, and the
+    first live tile's rescale (alpha = 0) wipes one visited before it.
+    Otherwise every tile is visited."""
+    nq, nk = -(-lq // _TILE), -(-lk // _TILE)
+    q0 = torch.arange(nq) * _TILE
+    kt = torch.arange(nk)
+    last = torch.minimum(q0 // _TILE + 1, torch.tensor(nk)) if causal \
+        else torch.full((nq,), nk)
+    visits = (kt[None, :] < last[:, None]).expand(batch, nq, nk)
+    if bias is None:
+        return visits.clone()
+    live = bias.detach().to("cpu", torch.float32) > _NEG_INF   # (B, lk)
+    tiles = torch.nn.functional.pad(live, (0, nk * _TILE - lk))
+    live_tile = tiles.view(batch, nk, _TILE).any(-1)
+    first = torch.where(live.any(-1), live.float().argmax(-1),
+                        torch.tensor(lk))
+    skip = first[:, None] <= q0[None, :] if causal \
+        else (first < lk)[:, None].expand(batch, nq)
+    return visits & ~(skip[:, :, None] & ~live_tile[:, None, :])
 
 
 # ---------------------------------------------------------------------------

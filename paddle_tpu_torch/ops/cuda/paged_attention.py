@@ -13,7 +13,10 @@ Port of ``paddle_tpu/ops/pallas/paged_attention.py``. Layout, as there:
 Routing is by device, with no fallback: a CUDA tensor launches the
 kernel in ``csrc/paged_attention.cu`` (and counts the launch) or
 raises; a CPU tensor takes the plain version, which is what the tests
-use. A ``-1`` table entry inside the live length reads page 0, as the
+use. The kernel splits each (head, sequence)'s pages over a
+thread-block cluster of :func:`cluster_size` CTAs and merges their
+partial softmax states in rank order; it takes head_dim <= 256 and a
+multiple of 4. A ``-1`` table entry inside the live length reads page 0, as the
 JAX paths do. ``seq_len == 0`` is outside the contract: the kernel
 returns zeros there, the plain version (like the JAX gather path) the
 mean of the gathered V rows.
@@ -29,10 +32,12 @@ from ...ps.codec import encode_kv_rows
 from . import _build, counters
 
 __all__ = ["paged_attention", "paged_write", "paged_prefill_write",
-           "paged_write_quant", "paged_prefill_write_quant"]
+           "paged_write_quant", "paged_prefill_write_quant",
+           "cluster_size"]
 
 _NEG_INF = -1e30
 _MAX_D = 256
+_MAX_CLUSTER = 8             # the portable thread-block cluster limit
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -93,9 +98,9 @@ def _check_inputs(q, k_pages, v_pages, page_table, seq_lens, pool_dtype):
         raise ValueError(f"pool shape {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if D > _MAX_D:
+    if D > _MAX_D or D % 4:
         raise ValueError(f"the paged attention kernel takes head_dim <= "
-                         f"{_MAX_D}, got {D}")
+                         f"{_MAX_D} and a multiple of 4, got {D}")
     if q.dtype != torch.float32:
         raise TypeError(f"the paged attention kernel takes f32 queries, "
                         f"got {q.dtype}")
@@ -116,20 +121,30 @@ def _check_inputs(q, k_pages, v_pages, page_table, seq_lens, pool_dtype):
                              f"{dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention inputs must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention's pools must be 16-byte aligned")
     if not q.is_contiguous():
         raise ValueError("paged_attention inputs must be contiguous")
     return B, H, D, S, page_table.shape[1]
+
+
+def cluster_size(T):
+    """CTAs the kernel gives one (head, sequence): ``min(T, 8)`` for a
+    page table of width ``T``. CTA r takes table entries ``[r * ceil(T /
+    C), (r + 1) * ceil(T / C))``. Chosen from the table's shape, never
+    from the lengths, which the host would have to read back."""
+    return max(1, min(int(T), _MAX_CLUSTER))
 
 
 def _cuda_paged_attention(q, k_pages, v_pages, page_table, seq_lens):
     B, H, D, S, T = _check_inputs(q, k_pages, v_pages, page_table,
                                   seq_lens, torch.float32)
     fn = _build.entry("paged_attention", "paged_attention_f32",
-                      [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P])
+                      [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P])
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             B, H, D, S, T, 1.0 / math.sqrt(D),
+             B, H, D, S, T, cluster_size(T), 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("paged_attention", err, "paged_attention_f32")
     counters.bump("paged_attention")
@@ -148,12 +163,12 @@ def _cuda_paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
                              f"on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     fn = _build.entry("paged_attention", "paged_attention_int8",
-                      [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P])
+                      [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P])
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scales.data_ptr(), v_scales.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             B, H, D, S, T, 1.0 / math.sqrt(D),
+             B, H, D, S, T, cluster_size(T), 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("paged_attention", err, "paged_attention_int8")
     counters.bump("paged_attention_quant")

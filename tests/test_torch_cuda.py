@@ -74,6 +74,27 @@ def test_paged_attention_kernel_matches_plain(dev, quant, B, H, D, S, T,
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     assert counters.get("paged_attention_quant" if quant
                         else "paged_attention") == 1
+    again = pa.paged_attention(q, kp, vp, table, lens_t, k_scales=ks,
+                               v_scales=vs)
+    assert torch.equal(out, again)     # one launch, no atomics
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_attention_kernel_gives_zeros_at_len_0(dev, quant):
+    """len 0 is outside the contract: every CTA of the cluster has an
+    empty stripe and the row is zeros (the plain version's is the mean
+    of the gathered V rows); the other rows agree, one of them longer
+    than its table's T * S = 80 tokens (pages past T are not read)."""
+    q, kp, vp, table, lens_t, ks, vs = _case(dev, 8, 3, 4, 64, 16, 5,
+                                             [0, 17, 80], quant)
+    lens_t[2] = 100
+    out = pa.paged_attention(q, kp, vp, table, lens_t, k_scales=ks,
+                             v_scales=vs)
+    ref = pa._plain_paged_attention_quant(q, kp, vp, ks, vs, table, lens_t) \
+        if quant else pa._plain_paged_attention(q, kp, vp, table, lens_t)
+    torch.cuda.synchronize()
+    assert not out[0].any()
+    torch.testing.assert_close(out[1:], ref[1:], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("temperature", [0.7, 1.0, 1.7])
@@ -1120,6 +1141,59 @@ def test_tensor_core_backward_matches_plain(dev, B, L, H, D, causal, p,
         _close_bf16(a, b, name)
     assert counters.snapshot() == {
         "flash_attention_masked_bwd" if masked else "flash_attention_bwd": 1}
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,D,causal,p,masked", [
+    (128, 128, 128, 12, 64, False, 0.1, False),
+    (4, 200, 333, 4, 64, False, 0.1, False),
+    (8, 1024, 1024, 12, 64, True, 0.0, False),
+    (32, 512, 512, 12, 64, False, 0.1, True),
+    (2, 200, 200, 3, 128, True, 0.1, True),
+], ids=["bert128-dropout", "Lq-ne-Lk", "gpt-causal", "padded512-dropout",
+        "ragged-causal-D128"])
+def test_tensor_core_forward_matches_plain(dev, B, Lq, Lk, H, D, causal, p,
+                                           masked):
+    """K1a's bf16 forward (``flash_fwd_mma``; a key-padded batch skips its
+    dead kv tiles) against the plain version, the same bits from a second
+    launch, one count a call."""
+    g = torch.Generator(device=dev).manual_seed(39)
+    q, k, v = [torch.randn((B, n, H, D), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (Lq, Lk, Lk)]
+    bias = _padded_bias(dev, B, Lk) if masked else None
+    first = fa.flash_attention_fwd(q, k, v, causal, p, 560, bias)
+    second = fa.flash_attention_fwd(q, k, v, causal, p, 560, bias)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, p, 560, bias)
+    torch.cuda.synchronize()
+    _close_bf16(first[0], rout, "out")
+    assert (first[1] - rlse).abs().max().item() <= 1e-4
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert counters.snapshot() == {
+        "flash_attention_masked_fwd" if masked else "flash_attention_fwd": 2}
+
+
+@pytest.mark.parametrize("causal,starts,ends", [
+    (False, [0, 0, 0, 0], [256, 0, 70, 0]),
+    (True, [0, 100, 3, 200], [256, 256, 256, 256]),
+], ids=["no-live-key", "causal-left-padded"])
+def test_tensor_core_forward_keeps_the_masked_edge_rows(dev, causal, starts,
+                                                        ends):
+    """Entries that must not skip dead tiles: no live key (the mean of V)
+    and a causal entry whose rows before its first live key average V
+    over their allowed keys; as the plain version."""
+    q, k, v, _ = _qkvo(dev, 40, 4, 256, 4, 64, torch.bfloat16)
+    col = torch.arange(256, device=dev)[None, :]
+    keys = (col >= torch.tensor(starts, device=dev)[:, None]) \
+        & (col < torch.tensor(ends, device=dev)[:, None])
+    bias = fa.kv_mask_bias(keys, 4, 256)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, 0.0, 561, bias)
+    rout, rlse = fa._plain_fwd(q, k, v, causal, 0.0, 561, bias)
+    torch.cuda.synchronize()
+    _close_bf16(out, rout, "out")
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    if not causal:
+        _close_bf16(out[1], v[1].float().mean(0, keepdim=True)
+                    .expand(256, 4, 64), "mean of V")
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "diagonal"])

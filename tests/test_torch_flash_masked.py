@@ -10,6 +10,8 @@ the JAX package on the CPU, from the same numpy inputs.
   (B, 1, 1, Lk) bool form.
 - A batch whose every key is masked gives the mean of V (the finite
   -1e30 bias), never NaN; ``kv_mask_bias`` against ``_kv_mask_bias``.
+- ``kv_tile_visits``, the bf16 forward's dead kv-tile rule: what it
+  skips is dead and changes no bit of the plain forward.
 - ``scaled_dot_product_attention``'s routing: bool and float
   key-padding masks ride the streaming kernel (with the short-sequence
   flag on too), per-query masks and masks that require grad raise, and
@@ -90,6 +92,53 @@ def test_masked_forward_matches_pallas(causal):
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
     assert torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dead_kv_tiles_the_bf16_forward_skips_change_no_bit(causal):
+    """``kv_tile_visits``, the bf16 forward's dead-tile rule: every tile it
+    skips is dead (all keys -1e30), every row of a q tile that skips
+    keeps a live allowed key in a visited tile, and scoring the skipped
+    keys -inf instead of -1e30 leaves the plain forward's bits; an entry
+    with no live key and causal rows before the first live key visit
+    every tile. Not causal, against ``_flash_attention_pallas_masked``."""
+    B, L, H, D = 4, 256, 2, 64
+    q, k, v = (_t(a) for a in _qkv(b=B, l=L, h=H, d=D, seed=6))
+    col = torch.arange(L)[None, :]
+    live = (col >= torch.tensor([[0], [100], [0], [200]])) \
+        & (col < torch.tensor([[97], [256], [0], [256]]))
+    bias = tfa.kv_mask_bias(live, B, L)
+    full = tfa.kv_tile_visits(B, L, L, causal)
+    visits = tfa.kv_tile_visits(B, L, L, causal, bias)
+    skipped = full & ~visits
+    assert int(skipped.sum()) > 0 and bool((visits <= full).all())
+    assert torch.equal(visits[2], full[2])          # no live key at all
+    if causal:
+        assert torch.equal(visits[3], full[3])      # first live key 200
+    row = torch.arange(L)[:, None]
+    allowed = (col <= row) if causal else torch.ones(L, L, dtype=torch.bool)
+    drop = torch.zeros(B, L, L, dtype=torch.bool)   # skipped (row, key)
+    for b, qt, t in torch.nonzero(skipped).tolist():
+        assert not live[b, 64 * t:64 * t + 64].any()
+        drop[b, 64 * qt:64 * qt + 64, 64 * t:64 * t + 64] = True
+    for b, qt in torch.nonzero(skipped.any(-1)).tolist():
+        rows = slice(64 * qt, 64 * qt + 64)
+        assert (live[b][None, :] & allowed[rows] & ~drop[b, rows]).any(-1) \
+            .all()
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm = (x.permute(0, 2, 1, 3).reshape(B * H, L, D)
+                  for x in (q, k, v))
+    s = tfa._scores(qm, km, scale, causal, bias)
+    cut = s.masked_fill(drop.repeat_interleave(H, 0), float("-inf"))
+    out, out_cut = (torch.softmax(x, -1) @ vm for x in (s, cut))
+    assert torch.equal(out.view(torch.int32), out_cut.view(torch.int32))
+    if not causal:
+        want = jfa._flash_attention_pallas_masked(
+            *(jnp.asarray(x.numpy()) for x in (q, k, v)),
+            jfa._kv_mask_bias(jnp.asarray(live.numpy()), B, L))
+        got = out.reshape(B, H, L, D).permute(0, 2, 1, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

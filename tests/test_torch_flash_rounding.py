@@ -1,5 +1,5 @@
-"""The rounding of the tensor-core flash kernels (the bf16 forms of K1c's
-forward, of K1d and of K1b, ``csrc/flash_short.cu`` and
+"""The rounding of the tensor-core flash kernels (the bf16 forms of K1a's
+and K1c's forward, of K1d and of K1b, ``csrc/flash_short.cu`` and
 ``csrc/flash_attention.cu``) modelled on the CPU and held against the JAX
 kernels in interpret mode, so that the numerical design is checked
 before it reaches the card.
@@ -7,9 +7,15 @@ before it reaches the card.
 The model (test-local, in f32 torch arithmetic) rounds exactly where the
 kernels do and nowhere else:
 
-- forward: the online softmax over 64-column kv tiles, m and l in f32,
-  l summing the unrounded probabilities; P = exp(S - m) (dropped and
-  scaled by 1/(1-p)) into P V as two bf16 terms, hi + lo;
+- forward (``fwd_mma``, shared by K1a and K1c): each 64-row q tile's
+  online softmax over the 64-column kv tiles it visits, S scaled in f32
+  plus the (B, Lk) key bias, m and l in f32, l summing the unrounded
+  probabilities; P = exp(S - m) (dropped and scaled by 1/(1-p)) into
+  P V as two bf16 terms, hi + lo; Lq != Lk and ragged lengths. With a
+  key bias the visited tiles follow ``kv_tile_visits``, the kernel's
+  dead-tile rule, and skipping gives the same bits as visiting every
+  tile (key-padded and causal batches; an entry with no live key and a
+  causal left-padded entry are not skipped);
 - backward: P = exp(S - lse) and dS = P (dP - delta) in f32; the dropped
   P rounded to bf16 into dV = P^T dO; dS into dQ = dS K and dK = dS^T Q
   as two bf16 terms, hi + lo (one bf16 rounding of dS misses the
@@ -23,13 +29,13 @@ kernels do and nowhere else:
   from the bf16 output;
 - inputs bf16 values, outputs rounded to bf16.
 
-References: ``_flash_attention_core_short_fwd``,
+References: ``_fwd_call``, ``_flash_attention_core_short_fwd``,
 ``_flash_attention_core_short_bwd`` and ``_bwd_call`` with
 ``pl.pallas_call`` in interpret mode (f32, on the same bf16-valued
 inputs), and the port's plain versions where dropout is on (the JAX
 package's dropout bits are the TPU's, the port's Philox's). Tolerance:
 the card checks' bf16 one, atol 2e-2 + rtol 1e-2, and lse within 1e-4.
-Shapes: B 2, L 128-256, H 2, D 64 and 128.
+Shapes: B 2-4, L 128-333, H 2, D 64 and 128.
 """
 import functools
 import math
@@ -83,35 +89,48 @@ def _back(x, B, H):
     return x.reshape(B, H, L, D).permute(0, 2, 1, 3)
 
 
-def _dead(lq, lk, causal, c0):
-    col = torch.arange(c0, c0 + TILE).view(1, TILE)
-    row = torch.arange(lq).view(lq, 1)
-    return (col >= lk) | ((col > row) & causal)
-
-
-def model_fwd(q, k, v, causal, p=0.0, seed=0):
-    """K1c's tensor-core forward: (out in bf16 values, lse)."""
-    B, L, H, D = q.shape
+def model_fwd(q, k, v, causal, p=0.0, seed=0, bias=None, skip=False):
+    """The tensor-core forward (``fwd_mma``: K1a's ``flash_fwd_mma`` and
+    K1c's ``short_fwd_mma``): (out in bf16 values, lse (B*H, Lq)). Each
+    64-row q tile runs its own online softmax over the 64-key tiles it
+    visits: all up to the diagonal, or with ``skip`` those
+    ``kv_tile_visits`` names for the key ``bias``."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
-    qm, km, vm = _heads(q), _heads(k), _heads(v)
-    keep = tfa.philox_keep_mask(seed, B * H, L, L, p) if p > 0 else None
-    m = torch.full((B * H, L, 1), -1e30)
-    l = torch.zeros((B * H, L, 1))
-    o = torch.zeros((B * H, L, D))
-    for c0 in range(0, L, TILE):
-        s = (qm @ km[:, c0:c0 + TILE].transpose(1, 2)) * scale
-        s = s.masked_fill(_dead(L, L, causal, c0), float("-inf"))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        pr = torch.exp(s - m_new)
-        l = alpha * l + pr.sum(-1, keepdim=True)
-        if keep is not None:
-            pr = torch.where(keep[:, :, c0:c0 + TILE], pr / (1 - p),
-                             torch.zeros_like(pr))
-        o = o * alpha + split(pr) @ vm[:, c0:c0 + TILE]
-        m = m_new
-    lse = (m + torch.log(l)).squeeze(-1)
-    return bf(_back(o / l, B, H)), lse
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    keep = tfa.philox_keep_mask(seed, B * H, Lq, Lk, p).view(B, H, Lq, Lk) \
+        if p > 0 else None
+    visits = tfa.kv_tile_visits(B, Lq, Lk, causal, bias if skip else None)
+    out = torch.zeros((B, H, Lq, D))
+    lse = torch.zeros((B, H, Lq))
+    for b in range(B):
+        for qt in range(visits.shape[1]):
+            rows = slice(qt * TILE, min(qt * TILE + TILE, Lq))
+            row = torch.arange(rows.start, rows.stop).view(-1, 1)
+            m = torch.full((H, row.shape[0], 1), -1e30)
+            l = torch.zeros_like(m)
+            o = torch.zeros((H, row.shape[0], D))
+            for t in torch.nonzero(visits[b, qt]).flatten().tolist():
+                cols = slice(t * TILE, min(t * TILE + TILE, Lk))
+                s = (qh[b, :, rows] @ kh[b, :, cols].transpose(1, 2)) * scale
+                if bias is not None:
+                    s = s + bias[b, cols]
+                if causal:
+                    col = torch.arange(cols.start, cols.stop).view(1, -1)
+                    s = s.masked_fill(col > row, float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                pr = torch.exp(s - m_new)
+                l = alpha * l + pr.sum(-1, keepdim=True)
+                if keep is not None:
+                    pr = torch.where(keep[b, :, rows, cols], pr / (1 - p),
+                                     torch.zeros_like(pr))
+                o = o * alpha + split(pr) @ vh[b, :, cols]
+                m = m_new
+            out[b, :, rows] = o / l
+            lse[b, :, rows] = (m + torch.log(l)).squeeze(-1)
+    return bf(out.permute(0, 2, 1, 3)), lse.reshape(B * H, Lq)
 
 
 def model_bwd(q, k, v, dout, lse, delta, causal, p=0.0, seed=0, bias=None,
@@ -186,6 +205,86 @@ def test_forward_model_with_dropout_meets_the_card_tolerance():
     q, k, v = _inputs(2, 256, 2, 64, seed=3, n=3)
     out, lse = model_fwd(q, k, v, False, 0.1, 77)
     rout, rlse = tfa._plain_fwd(q, k, v, False, 0.1, 77)
+    _close(out, bf(rout), "out")
+    assert float((lse - rlse).abs().max()) <= 1e-4
+
+
+def _jax_fwd(q, k, v, causal, bias=None):
+    """``_fwd_call`` in interpret mode, one block over each whole
+    length: (out, lse (B*H, Lq))."""
+    B, Lq, H, D = q.shape
+    jout, jlse = jfa._fwd_call(
+        *(jnp.asarray(_heads(x).numpy()) for x in (q, k, v)), causal, Lq,
+        k.shape[1], 1.0 / math.sqrt(D),
+        mask_bias=None if bias is None
+        else jnp.asarray(bias.numpy())[:, None, :], heads=H)
+    return (_back(torch.tensor(np.asarray(jout)), B, H),
+            torch.tensor(np.asarray(jlse))[:, 0])
+
+
+def _key_bias(B, L, starts, ends):
+    """kv_mask_bias of keys [starts[b], ends[b]) live."""
+    col = torch.arange(L)[None, :]
+    return tfa.kv_mask_bias((col >= torch.tensor(starts)[:, None])
+                            & (col < torch.tensor(ends)[:, None]), B, L)
+
+
+@pytest.mark.parametrize("Lq,Lk,D,causal,masked", [
+    (128, 200, 64, False, False), (200, 200, 64, True, False),
+    (200, 200, 128, True, False), (128, 128, 128, False, True),
+    (256, 256, 64, True, True)],
+    ids=["Lq-ne-Lk", "ragged-causal", "ragged-causal-D128", "D128-masked",
+         "causal-masked"])
+def test_streaming_forward_model_meets_the_card_tolerance(Lq, Lk, D, causal,
+                                                          masked):
+    """K1a's forward (Lq != Lk, a ragged L, D 64 and 128, causal, a key
+    bias; dead tiles skipped) against ``_fwd_call`` in interpret mode."""
+    seed = Lq + Lk + D + causal
+    q = _inputs(2, Lq, 2, D, seed, n=1)[0]
+    k, v = _inputs(2, Lk, 2, D, seed + 1, n=2)
+    bias = _key_bias(2, Lk, [0, 0], [Lk, 97]) if masked else None
+    out, lse = model_fwd(q, k, v, causal, bias=bias, skip=True)
+    jout, jlse = _jax_fwd(q, k, v, causal, bias)
+    _close(out, bf(jout), "out")
+    assert float((lse - jlse).abs().max()) <= 1e-4
+
+
+def _int_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+# (causal, first live key, end of the live keys) of 4 batch entries of 256
+_SKIP_CASES = {
+    "key-padded": (False, [0, 0, 0, 0], [256, 97, 1, 160]),
+    "causal-live-first": (True, [0, 0, 0, 0], [256, 97, 1, 160]),
+    "no-live-key": (False, [0, 0, 0, 0], [256, 0, 70, 0]),
+    "causal-left-padded": (True, [0, 100, 3, 200], [256, 256, 256, 256]),
+}
+
+
+@pytest.mark.parametrize("case", list(_SKIP_CASES))
+def test_dead_tile_skip_gives_the_same_bits(case):
+    """The kernel's f32 order of operations, with and without skipping
+    the tiles ``kv_tile_visits`` drops: the same bits, and the plain
+    version within the card tolerance. An entry with no live key (the
+    mean of V) and a causal entry whose first live key lies past a q
+    tile's first row are not skipped."""
+    causal, starts, ends = _SKIP_CASES[case]
+    q, k, v = _inputs(4, 256, 2, 64, seed=len(case), n=3)
+    bias = _key_bias(4, 256, starts, ends)
+    full = tfa.kv_tile_visits(4, 256, 256, causal)
+    visits = tfa.kv_tile_visits(4, 256, 256, causal, bias)
+    assert bool((visits <= full).all()) and int((full & ~visits).sum()) > 0
+    for b in range(4):
+        first = starts[b] if ends[b] > starts[b] else 256
+        for qt in range(visits.shape[1]):
+            kept = causal and first > TILE * qt or first == 256
+            assert not kept or torch.equal(visits[b, qt], full[b, qt])
+    plain, plain_lse = model_fwd(q, k, v, causal, 0.1, 9, bias)
+    out, lse = model_fwd(q, k, v, causal, 0.1, 9, bias, skip=True)
+    assert torch.equal(_int_bits(out), _int_bits(plain))
+    assert torch.equal(_int_bits(lse), _int_bits(plain_lse))
+    rout, rlse = tfa._plain_fwd(q, k, v, causal, 0.1, 9, bias)
     _close(out, bf(rout), "out")
     assert float((lse - rlse).abs().max()) <= 1e-4
 

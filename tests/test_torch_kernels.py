@@ -5,6 +5,10 @@ against the JAX package on the CPU, from the same numpy inputs:
 - paged attention (f32 and int8 pools) against the XLA gather paths
   and the Pallas kernels in interpret mode, at the JAX suite's own
   tolerance (rtol/atol 2e-5), ragged lengths >= 1 with -1 table tails;
+- a model of the CUDA kernel's summation (pages striped over a cluster
+  of 1, 3 or 8 CTAs, per-warp online softmax over chunks, partials
+  merged in warp then rank order) against the same references, and its
+  zeros at len 0 against the Pallas kernel's;
 - the page-write scatters, equal to JAX's pools everywhere but the
   trash page 0 (duplicate writes land there in any order);
 - fused sampling, bit for bit against _xla_sample under jax.jit (the
@@ -135,6 +139,111 @@ def test_paged_attention_ignores_dead_page_contents():
                                _t(lens))
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+def _striped_model(q, kp, vp, table, lens, C, ks=None, vs=None):
+    """The CUDA kernel's summation structure (csrc/paged_attention.cu) in
+    f32: CTA r of a cluster of C takes table entries [r * ceil(T / C),
+    ...); its live tokens stream in chunks (16 tokens for f32 pools, 64
+    for int8, never across a page), of which warp w of 4 owns the w-th
+    quarter and runs its own online softmax (m, l, acc); the warps'
+    partials merge in warp order into the CTA's, the CTAs' in rank order
+    (the cluster leader's reads of distributed shared memory)."""
+    f = np.float32
+    quant = ks is not None
+    B, H, D = q.shape
+    S, T = kp.shape[1], table.shape[1]
+    chunk = 64 if quant else 16
+    che, per = min(chunk, S), -(-T // C)
+    out = np.zeros_like(q)
+    for b in range(B):
+        n_pages = min(-(-int(lens[b]) // S), T)
+        live_end = min(int(lens[b]), n_pages * S)
+        for h in range(H):
+            parts = []
+            for r in range(C):
+                m = np.full(4, -1e30, f)
+                l = np.zeros(4, f)
+                acc = np.zeros((4, D), f)
+                for j in range(r * per, min(r * per + per, n_pages)):
+                    page = max(int(table[b, j]), 0)
+                    for tok0 in range(0, S, che):
+                        n = min(che, S - tok0, live_end - j * S - tok0)
+                        for w in range(4):
+                            toks = np.arange(tok0 + w * chunk // 4,
+                                             tok0 + min((w + 1) * chunk // 4,
+                                                        n))
+                            if toks.size == 0:
+                                continue
+                            s = kp[page, toks, h].astype(f) @ q[b, h]
+                            if quant:
+                                s = s * ks[page, toks]
+                            s = s * f(1.0 / np.sqrt(D))
+                            m_new = max(m[w], s.max())
+                            alpha = np.exp(m[w] - m_new)
+                            p = np.exp(s - m_new)
+                            l[w] = alpha * l[w] + p.sum()
+                            pv = p * vs[page, toks] if quant else p
+                            acc[w] = acc[w] * alpha \
+                                + pv @ vp[page, toks, h].astype(f)
+                            m[w] = m_new
+                wm = m.max()
+                ww = np.exp(m - wm)
+                parts.append((wm, (l * ww).sum(), (acc * ww[:, None]).sum(0)))
+            M = max(pm for pm, _, _ in parts)
+            L = sum(pl_ * np.exp(pm - M) for pm, pl_, _ in parts)
+            A = sum(pa_ * np.exp(pm - M) for pm, _, pa_ in parts)
+            out[b, h] = A / max(L, f(1e-30))
+    return out
+
+
+def test_cluster_size_follows_the_table_width():
+    assert [tpa.cluster_size(t) for t in (1, 3, 8, 16, 100)] == \
+        [1, 3, 8, 8, 8]
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_striped_page_model_matches_xla_and_pallas(quant, C):
+    """Cluster sizes 1, 3 and 8 over a 3-page table: lens 1, S, S + 1
+    and T * S, one -1 entry inside the live length (page 0), empty
+    stripes (C = 8 leaves 5 of them for every row)."""
+    S, T = 64, 3
+    q, kp, vp, ks, vs = _attn_inputs(20 + C, b=4, h=2, d=16, s=S, pages=8,
+                                     quant=quant)
+    table = np.asarray([[1, -1, -1], [2, -1, -1], [3, 4, -1],
+                        [5, -1, 6]], np.int32)
+    lens = np.asarray([1, S, S + 1, T * S], np.int32)
+    got = _striped_model(q, kp, vp, table, lens, C, ks, vs)
+    j = [jnp.asarray(a) for a in (q, kp, vp)]
+    jt, jl = jnp.asarray(table), jnp.asarray(lens)
+    if quant:
+        jks, jvs = jnp.asarray(ks), jnp.asarray(vs)
+        ref = jpa._xla_paged_attention_quant(*j, jks, jvs, jt, jl)
+        pal = jpa._paged_attention_pallas_quant(*j, jks, jvs, jt, jl)
+    else:
+        ref = jpa._xla_paged_attention(*j, jt, jl)
+        pal = jpa._paged_attention_pallas(*j, jt, jl)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(pal), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_striped_page_model_gives_zeros_at_len_0_like_pallas(quant):
+    """len 0 is outside the contract: every stripe is empty and the
+    kernel writes zeros, as the Pallas kernel does (the gather paths
+    give the mean of the V rows)."""
+    q, kp, vp, ks, vs = _attn_inputs(30, quant=quant)
+    table = np.asarray([[1, 2, -1], [3, -1, -1], [4, 5, 6]], np.int32)
+    lens = np.asarray([12, 0, 20], np.int32)
+    got = _striped_model(q, kp, vp, table, lens, 3, ks, vs)
+    j = [jnp.asarray(a) for a in (q, kp, vp)]
+    jt, jl = jnp.asarray(table), jnp.asarray(lens)
+    pal = jpa._paged_attention_pallas_quant(
+        *j, jnp.asarray(ks), jnp.asarray(vs), jt, jl) if quant \
+        else jpa._paged_attention_pallas(*j, jt, jl)
+    assert not got[1].any() and not np.asarray(pal)[1].any()
+    np.testing.assert_allclose(got, np.asarray(pal), rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
