@@ -20,7 +20,10 @@ prints no result line:
             main path's shapes: paged attention within atol/rtol 1e-4
             (sum order), two launches bit for bit, a len-0 row of zeros,
             a -1 table entry, its cluster size; sampling bit for bit
-            (decode slice); flash attention forward and backward at
+            (decode slice) at V 32000 and 50257, top_k 0, 1, 4, 8, 50,
+            1024, V - 1 and V, on random rows and on rows of ties, +-0.0
+            and -inf, a relaunch equal, timed at top_k 0, 8 and 50; flash
+            attention forward and backward at
             BERT-base's 128 x 128 x 12 x 64 in bf16 (atol 2e-2 + rtol
             1e-2, one bf16 ulp) and f32 (atol 1e-4), one f32 case at
             L = 512, one f32 causal case, GPT-2 small's causal 8 x 1024
@@ -41,12 +44,15 @@ prints no result line:
             D = 128 case, each against the plain version and against the
             streaming kernel, the dropout mask bit for bit, and their
             times beside the streaming kernel's and SDPA's at L 128 and
-            512; fused SGD over LeNet's and BERT-base's parameter lists
-            and fused Lamb (phase 1 and apply) over BERT-base's, bit for
-            bit; K3's static forms (sgd, momentum, adam, lamb), one
-            launch a tensor over the static example's 25 tensors and
-            BERT-base's 206, FoundInfinite absent, false and true, bit
-            for bit with the beta-pow outputs; the embedding bag (K6) at
+            512; fused SGD over LeNet's and BERT-base's parameter lists,
+            bit for bit; fused Lamb over BERT-base's: m, v and r bit for
+            bit, the norms phase 1 takes within rtol 1e-6 of f64 norms, p
+            bit for bit the plain apply given those norms, two launches
+            bit for bit, one count of each kernel a call; K3's static
+            forms (sgd, momentum, adam, lamb), one launch a tensor over
+            the static example's 25 tensors and BERT-base's 206,
+            FoundInfinite absent, false and true, bit for bit with the
+            beta-pow outputs; the embedding bag (K6) at
             ``tools/op_bench.py:163``'s table 100000 x 256 and ids 4096 x
             64, sum, mean and sqrtn over an f32 and a bf16 table with
             all-padding bags and ids >= V (f32 atol 1e-5 + rtol 1e-5,
@@ -453,36 +459,87 @@ def check_attention(torch, pa, rng, quant, timing):
     return row
 
 
+SAMPLE_TOP_KS = (0, 1, 4, 8, 50, 1024)   # then V - 1 and V
+
+
+def sample_rows(rng, B, V, ties):
+    """(B, V) f32 logits, randn * 3; with ``ties`` each row is a hard
+    case of the top-k threshold: copies of one value straddling ranks 8,
+    50 and 1024, a maximum held three times, a run of +-0.0 at ranks
+    50 to 1024, half the row -inf, a row of one value, ten copies of
+    the minimum (rank V - 1), and one plain row."""
+    x = (rng.randn(B, V) * 3).astype(np.float32)
+    if not ties:
+        return x
+    for b in range(B):
+        row, kind = x[b], b % 8
+        top = np.sort(row)[::-1]
+        if kind in (0, 1, 2):                     # around ranks 8, 50, 1024
+            rank, copies = ((5, 10), (40, 30), (1000, 100))[kind]
+            row[rng.choice(V, copies, replace=False)] = top[rank]
+        elif kind == 3:                           # a tied maximum
+            row[rng.choice(V, 3, replace=False)] = top[0] + 1.0
+        elif kind == 4:                           # +-0.0 at ranks 50..1024
+            row[:] = -np.abs(row) - 1.0
+            row[:30] = np.abs(row[:30])
+            row[30:30 + 600] = 0.0
+            row[630:630 + 600] = -0.0
+            rng.shuffle(row)
+        elif kind == 5:                           # half the row -inf
+            row[rng.choice(V, V // 2, replace=False)] = -np.inf
+        elif kind == 6:                           # one value
+            row[:] = 1.5
+        elif kind == 7:                           # ten copies of the min
+            row[rng.choice(V, 10, replace=False)] = top[-1] - 1.0
+    return x
+
+
 def check_sampling(torch, samp, rng, timing):
-    B, V = 8, 32000
-    logits = torch.tensor((rng.randn(B, V) * 3).astype(np.float32),
-                          device="cuda")
-    noise = torch.tensor(rng.gumbel(size=(B, V)).astype(np.float32),
-                         device="cuda")
-    mismatches = 0
-    for top_k in (0, 1, 4, 8):
-        for temp in (0.7, 1.0):
-            out = samp._cuda_sample(logits, noise, temp, top_k)
-            ref = samp._plain_sample(logits, noise, temp, top_k, 1.0)
-            if not torch.equal(out, ref):
-                mismatches += 1
-    expect(mismatches == 0,
-           f"sampling kernel disagrees bitwise in {mismatches} of 8 cases")
-    row = {"max_abs_err": 0.0, "bitwise_cases": 8}
+    """K5 against its plain version, bit for bit: top_k 0, 1, 4, 8, 50,
+    1024, V - 1 and V at temperatures 0.7 and 1.0, over the engine's 8
+    rows at V 32000 (the engine's vocabulary) and 50257 (GPT-2's, which
+    the cluster of 8 does not divide), each on random rows and on rows of
+    tied values, +-0.0 and -inf; a relaunch gives the same tokens; one
+    count a call. Timed at the engine's shape at top_k 0, 8 and 50."""
+    B = 8
+    cases = mismatches = 0
+    for V in (32000, 50257):
+        for ties in (False, True):
+            logits = torch.tensor(sample_rows(rng, B, V, ties),
+                                  device="cuda")
+            noise = torch.tensor(rng.gumbel(size=(B, V)).astype(np.float32),
+                                 device="cuda")
+            for top_k in SAMPLE_TOP_KS + (V - 1, V):
+                for temp in (0.7, 1.0):
+                    out = samp._cuda_sample(logits, noise, temp, top_k)
+                    again = samp._cuda_sample(logits, noise, temp, top_k)
+                    ref = samp._plain_sample(logits, noise, temp, top_k,
+                                             1.0)
+                    cases += 1
+                    if not (torch.equal(out, ref) and torch.equal(out,
+                                                                  again)):
+                        mismatches += 1
+    expect(mismatches == 0, f"sampling kernel disagrees bitwise in "
+                            f"{mismatches} of {cases} cases")
+    row = {"max_abs_err": 0.0, "bitwise_cases": cases,
+           "cluster": 8, "top_ks": list(SAMPLE_TOP_KS) + ["V - 1", "V"]}
     if timing:
-        top_k, temp = 8, 0.8
-        io = 2 * B * V * 4 + B * 4
-        ops = B * V * (top_k + 3)   # k threshold rounds + scale, add, max
-        t_bytes = io / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS_PER_S * 1e3
+        V, temp = 32000, 0.8
+        logits = torch.tensor(sample_rows(rng, B, V, False), device="cuda")
+        noise = torch.tensor(rng.gumbel(size=(B, V)).astype(np.float32),
+                             device="cuda")
+        ms = {k: time_ms(torch, lambda k=k: samp._cuda_sample(
+            logits, noise, temp, k)) for k in (0, 8, 50)}
+        # logits and noise read once, a token written; a masked call does
+        # the scale, 4 digit rounds, the mask, the add and the compare
+        t_b, by = bound_of(2 * B * V * 4 + B * 4, B * V * 8,
+                           F32_FLOPS_PER_S)
         row.update({
-            "ms": time_ms(torch, lambda: samp._cuda_sample(
-                logits, noise, temp, top_k)),
+            "ms": ms[8], "ms_top_k0": ms[0], "ms_top_k50": ms[50],
             "plain_ms": time_ms(torch, lambda: samp._plain_sample(
-                logits, noise, temp, top_k, 1.0)),
-            "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                logits, noise, temp, 8, 1.0)),
+            "library_ms": None, "bound_ms": t_b, "bound_by": by,
+            "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
     return row
 
 
@@ -1299,11 +1356,15 @@ def check_sgd(torch, fo, shape_lists, timing):
     return row
 
 
-def check_lamb(torch, fo, shapes, timing):
-    """K3-lamb (phase 1 and apply) over BERT-base's parameter list, bit
-    for bit against the plain version: m, v, the trust-ratio numerator
-    r and p, from non-zero moments, with every bias-like tensor (1-D)
-    at zero, as at initialisation (trust 1 there)."""
+def check_lamb(torch, fo, counters, shapes, timing):
+    """K3-lamb (phase 1 with the norms folded in, then the apply) over
+    BERT-base's parameter list, from non-zero moments, with every
+    bias-like tensor (1-D) at zero, as at initialisation (trust 1
+    there): m, v and the trust-ratio numerator r bit for bit the plain
+    version's; the norms the kernels took within rtol 1e-6 of f64 norms
+    of the same tensors; p bit for bit the plain apply given those
+    norms; a second launch from the same state gives the same bits; one
+    count of each kernel a call."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -1318,33 +1379,58 @@ def check_lamb(torch, fo, shapes, timing):
 
     ps, gs = make(0.02, zero_1d=True), make(1e-3)
     ms, vs = make(1e-4), make(1e-6, positive=True)
-    rs = [torch.empty_like(p) for p in ps]
-    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
-    kr = [torch.empty_like(p) for p in ps]
     hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
               step=3)
-    cache = {}
-    fo.fused_lamb_(kp, gs, km, kv, kr, cache=cache, **hp)
     lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, 3)
-    plain_args = (ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1, c2,
-                  False)
-    fo._plain_lamb_(*plain_args)
+    runs = []
+    for _ in range(2):
+        kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+        kr = [torch.empty_like(p) for p in ps]
+        cache = {}
+        n0 = (counters.get("fused_lamb_phase1"),
+              counters.get("fused_lamb_apply"))
+        fo.fused_lamb_(kp, gs, km, kv, kr, cache=cache, **hp)
+        expect((counters.get("fused_lamb_phase1") - n0[0],
+                counters.get("fused_lamb_apply") - n0[1]) == (1, 1),
+               "fused Lamb: not one count of each kernel a call")
+        runs.append((kp, km, kv, kr, fo.lamb_kernel_norms(cache).clone()))
+    (kp, km, kv, kr, norms), again = runs
+    expect(same_bits(torch, kp + km + kv + kr + [norms],
+                     [x for xs in again[:4] for x in xs] + [again[4]]),
+           "fused Lamb: two launches differ")
+    rs = [torch.empty_like(p) for p in ps]
+    fo._plain_lamb_phase1_(ps, gs, ms, vs, rs, 0.9, 0.999, 1e-6, 0.01, c1,
+                           c2)
+    want = torch.stack(torch._foreach_norm(
+        [x.double() for x in ps + rs])).float()
+    norm_err = float(((norms - want).abs() / want.clamp_min(1e-30)).max())
+    zero_ok = bool((norms[want == 0] == 0).all())
+    fo._plain_lamb_apply_(ps, rs, norms, lr)
     torch.cuda.synchronize()
     differ = {name: sum(int(not torch.equal(a, b)) for a, b in zip(x, y))
               for name, x, y in (("p", kp, ps), ("m", km, ms), ("v", kv, vs),
                                  ("r", kr, rs))}
     expect(not any(differ.values()),
            f"fused Lamb differs bitwise in {differ} tensors")
+    expect(norm_err <= 1e-6 and zero_ok,
+           f"fused Lamb: norms off f64 by {norm_err} (rtol 1e-6)")
     zero = [i for i, s in enumerate(shapes) if len(s) == 1]
     expect(all(bool(torch.isfinite(kp[i]).all()) for i in zero),
            "fused Lamb: a zero parameter became non-finite")
     n = sum(p.numel() for p in ps)
+    pieces, _ = fo.lamb_pieces([p.numel() for p in ps])
     row = {"params": len(shapes), "elements": n, "zero_params": len(zero),
-           "max_abs_err": 0.0, "bitwise": True}
+           "pieces": int(pieces.shape[0]), "max_abs_err": 0.0,
+           "bitwise": True, "norm_max_rel_err": norm_err,
+           "bytes_per_element": 40}
     if timing:
         # the function reads p, g, m, v once and writes p, m, v once (r
-        # is the kernels' own scratch); ~20 flops an element
+        # is the kernels' own scratch: phase 1 writes it, the apply reads
+        # it and p again, 40 bytes an element in all); ~20 flops an
+        # element
         t_b, by = bound_of(28 * n, 20 * n, F32_FLOPS_PER_S)
+        plain_args = (ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1,
+                      c2, False)
         row.update({
             "ms": time_ms(torch, lambda: fo.fused_lamb_(
                 kp, gs, km, kv, kr, cache=cache, **hp)),
@@ -1352,6 +1438,7 @@ def check_lamb(torch, fo, shapes, timing):
                                 iters=5),
             "library_ms": None,
             "bound_ms": t_b, "bound_by": by,
+            "kernels_bytes_ms": 40 * n / HBM_BYTES_PER_S * 1e3,
             "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
     return row
 
@@ -1962,7 +2049,8 @@ def bert_short_family(name):
         return "flash_short_fwd"
     if "short_bwd_" in name:
         return "flash_short_bwd"
-    if "lambphase1rule" in name or "lambapplyrule" in name:
+    if "lambphase1rule" in name or "lambapplyrule" in name \
+            or "segment_sum" in name:
         return "lamb"
     if "norm" in name and "layer" not in name and "multi_tensor" in name:
         return "lamb_norms"
@@ -3767,7 +3855,7 @@ def check_chunk_lamb(torch, fo, counters, timing):
 
 
 def zero_family(name):
-    if "chunk_lamb" in name or "chunk_segment" in name:
+    if "chunk_lamb" in name or "segment_sum" in name:
         return "chunk_lamb"
     if "static" in name and "rule" in name:
         return "static_update"
@@ -4130,7 +4218,7 @@ def main() -> int:
         k3s = check_sgd(torch, fo, {"lenet": lenet_shapes,
                                     "bert_base": bert_shapes}, timing)
         emit({"phase": "kernels_vs_plain", "fused_sgd": k3s})
-        k3l = check_lamb(torch, fo, bert_shapes, timing)
+        k3l = check_lamb(torch, fo, counters, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_lamb": k3l})
         torch.cuda.empty_cache()
         static_shapes = static_param_shapes()

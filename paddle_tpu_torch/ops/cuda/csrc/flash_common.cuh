@@ -3,8 +3,8 @@
 // flash_short.cu (the short-sequence forms). Both key their dropout by
 // the same Philox counter, so for one seed they drop the same elements,
 // and both run the bf16 forward body fwd_mma. fused_xent.cu uses the
-// tensor-core and cluster pieces, paged_attention.cu the cp.async and
-// cluster pieces.
+// tensor-core and cluster pieces, paged_attention.cu and sampling.cu the
+// cp.async and cluster pieces.
 //
 // Two kinds of kernel use them. The tensor-core kernels (every bf16 form
 // of K1: K1a, K1b, K1c and K1d; the last parts of this file) are

@@ -15,11 +15,12 @@
 // - SGD: replaces _run_grid with _sgd_kernel (p - lr*g).
 // - Lamb, two rules: phase 1 replaces _run_grid with
 //   _lamb_phase1_kernel(dygraph=True) (m, v and the trust-ratio
-//   numerator r in one read of p, g, m, v); apply is the elementwise
-//   p - (lr*trust)*r that the JAX package runs in XLA after its
-//   per-tensor norms (fused_optimizer.py:608-613). The norms themselves
-//   are torch._foreach_norm between the two launches; the apply rule
-//   reads them from a device array, so nothing waits for the host.
+//   numerator r in one read of p, g, m, v) AND the per-tensor norms the
+//   JAX package takes in XLA after it: phase 1 runs one block a piece of
+//   a parameter and adds the piece's p*p and r*r as it goes (see the
+//   block above lamb_phase1_pieces_kernel). Apply is the elementwise
+//   p - (lr*trust)*r (fused_optimizer.py:608-613); it reads the sums
+//   from a device array, so nothing waits for the host.
 // - The static forms of all four (StaticSgdRule, StaticMomentumRule,
 //   StaticAdamRule, StaticLambPhase1Rule + StaticLambApplyRule): the
 //   same _run_grid bodies with dygraph=False, reached from
@@ -42,7 +43,8 @@
 // and writes p, v (20 bytes) for 3 flops (5 with Nesterov); ResNet-50's
 // 25.6 M parameters move 511 MB a step. SGD reads p, g and writes p
 // (12 bytes, 2 flops). Lamb's phase 1 reads p, g, m, v and writes m, v,
-// r (28 bytes); apply reads p, r and writes p (12 bytes). The static
+// r (28 bytes, the norms' sums included); apply reads p, r and writes p
+// (12 bytes): 40 bytes an element, 4.41 GB for BERT-base. The static
 // forms move the same bytes an element, but the static example's 25
 // tensors hold 77,850 elements (0.3-2 MB a step in all): a launch is
 // bound by its latency, not by the bytes, so the static forms launch
@@ -114,13 +116,44 @@ __device__ __forceinline__ void st(float* p, int64_t i, const float (&x)[N]) {
   }
 }
 
+// Whether tensor t's Rule::kArrays array pointers are all 16-byte aligned
+template <class Rule>
+__device__ __forceinline__ bool aligned(const int64_t* ptrs, int n, int t) {
+  bool vec = true;
+#pragma unroll
+  for (int r = 0; r < Rule::kArrays; ++r)
+    vec = vec && (ptrs[r * n + t] & 15) == 0;
+  return vec;
+}
+
+// Applies the rule to local elements [a, b) of one tensor, bound as q.
+// With vec, the elements at local indices that are multiples of 4 go
+// four at a time (one float4 load of each array a thread, so each thread
+// has 4 elements of every array in flight), with scalar heads and tails;
+// else one at a time. acc: per-thread sums a rule may add to.
+template <class Rule, class... Acc>
+__device__ __forceinline__ void walk_range(const Rule& rule,
+                                           const typename Rule::Ptrs& q,
+                                           bool vec, int64_t a, int64_t b,
+                                           Acc&... acc) {
+  int64_t a4 = b, b4 = b;
+  if (vec) {
+    a4 = (a + 3) & ~(int64_t)3;
+    if (a4 > b) a4 = b;
+    b4 = b & ~(int64_t)3;
+    if (b4 < a4) b4 = a4;
+  }
+  for (int64_t i = a + threadIdx.x; i < a4; i += kThreads)
+    rule.template apply<1>(q, i, acc...);
+  for (int64_t i = a4 + 4 * (int64_t)threadIdx.x; i < b4; i += 4 * kThreads)
+    rule.template apply<4>(q, i, acc...);
+  for (int64_t i = b4 + threadIdx.x; i < b; i += kThreads)
+    rule.template apply<1>(q, i, acc...);
+}
+
 // Walks this block's chunk (``chunk`` elements) of the concatenation; for
 // each tensor t it touches, binds the rule's pointers once (Rule::bind)
-// and applies the rule to its elements in the chunk. Where the tensor's
-// Rule::kArrays array pointers are all 16-byte aligned, the elements at
-// local indices that are multiples of 4 go four at a time (one float4
-// load of each array a thread, so each thread has 4 elements of every
-// array in flight), with scalar heads and tails; else one at a time.
+// and applies the rule to its elements in the chunk (walk_range).
 template <class Rule>
 __device__ __forceinline__ void walk(const int64_t* __restrict__ ptrs,
                                      const int64_t* __restrict__ offs,
@@ -133,25 +166,8 @@ __device__ __forceinline__ void walk(const int64_t* __restrict__ ptrs,
     while (t < n - 1 && offs[t + 1] <= start) ++t;
     const int64_t t0 = offs[t];
     const int64_t seg_end = offs[t + 1] < end ? offs[t + 1] : end;
-    const typename Rule::Ptrs q = rule.bind(ptrs, n, t);
-    const int64_t a = start - t0, b = seg_end - t0;   // local [a, b)
-    bool vec = true;
-#pragma unroll
-    for (int r = 0; r < Rule::kArrays; ++r)
-      vec = vec && (ptrs[r * n + t] & 15) == 0;
-    int64_t a4 = b, b4 = b;
-    if (vec) {
-      a4 = (a + 3) & ~(int64_t)3;
-      if (a4 > b) a4 = b;
-      b4 = b & ~(int64_t)3;
-      if (b4 < a4) b4 = a4;
-    }
-    for (int64_t i = a + threadIdx.x; i < a4; i += kThreads)
-      rule.template apply<1>(q, i);
-    for (int64_t i = a4 + 4 * (int64_t)threadIdx.x; i < b4; i += 4 * kThreads)
-      rule.template apply<4>(q, i);
-    for (int64_t i = b4 + threadIdx.x; i < b; i += kThreads)
-      rule.template apply<1>(q, i);
+    walk_range(rule, rule.bind(ptrs, n, t), aligned<Rule>(ptrs, n, t),
+               start - t0, seg_end - t0);
     start = seg_end;
   }
 }
@@ -298,7 +314,8 @@ struct SgdRule {
 };
 
 // _lamb_phase1_kernel (dygraph form): m2 = b1*m + (1-b1)*g,
-// v2 = b2*v + ((1-b2)*g)*g, r = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p.
+// v2 = b2*v + ((1-b2)*g)*g, r = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p,
+// and the thread's running sums sp += p*p, sr += r*r (element order).
 // Roles p, g, m, v, r; m, v and r are written, p is only read.
 struct LambPhase1Rule {
   static constexpr int kArrays = 5;
@@ -318,7 +335,8 @@ struct LambPhase1Rule {
             reinterpret_cast<float*>(ptrs[4 * n + t])};
   }
   template <int N>
-  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i, float& sp,
+                                        float& sr) const {
     float p[N], g[N], m[N], v[N], r[N];
     ld(q.p, i, p);
     ld(q.g, i, g);
@@ -333,6 +351,8 @@ struct LambPhase1Rule {
       const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], c2)), eps);
       r[j] = __fadd_rn(__fdiv_rn(__fdiv_rn(m[j], c1), den),
                        __fmul_rn(p[j], wd));
+      sp = __fadd_rn(sp, __fmul_rn(p[j], p[j]));
+      sr = __fadd_rn(sr, __fmul_rn(r[j], r[j]));
     }
     st(q.r, i, r);
     st(q.m, i, m);
@@ -340,14 +360,14 @@ struct LambPhase1Rule {
   }
 };
 
-// Lamb's update: trust = |p| / |r| where both are > 0, else 1 (a zero
-// parameter, such as a bias at initialisation, or a zero r never
-// divides); p2 = p - (lr*trust)*r. norms[t] is |p_t|, norms[n + t] is
-// |r_t|; the per-tensor factor lr*trust is formed once when the walker
-// binds tensor t. Roles p, r.
+// Lamb's update: w = sqrt(sums[2t]) = |p_t|, q = sqrt(sums[2t + 1]) =
+// |r_t| (phase 1's (n, 2) sums of squares); trust = w / q where both are
+// > 0, else 1 (a zero parameter, such as a bias at initialisation, or a
+// zero r never divides); p2 = p - (lr*trust)*r. The per-tensor factor
+// lr*trust is formed once when the walker binds tensor t. Roles p, r.
 struct LambApplyRule {
   static constexpr int kArrays = 2;
-  const float* norms;
+  const float* sums;
   float lr;
   struct Ptrs {
     float* p;
@@ -355,7 +375,7 @@ struct LambApplyRule {
     float s;
   };
   __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
-    const float w = norms[t], q = norms[n + t];
+    const float w = __fsqrt_rn(sums[2 * t]), q = __fsqrt_rn(sums[2 * t + 1]);
     const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
     return {reinterpret_cast<float*>(ptrs[t]),
             reinterpret_cast<const float*>(ptrs[n + t]),
@@ -371,6 +391,102 @@ struct LambApplyRule {
     st(q.p, i, p);
   }
 };
+
+// Sum of x over the block by a fixed tree; the result is in thread 0.
+// scratch: kThreads / 32 floats of shared memory. Shared by dygraph
+// Lamb's phase 1 and the chunk entry's.
+__device__ __forceinline__ float block_sum(float x, float* scratch) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  x = 0.0f;
+  if (warp == 0) {
+    x = lane < kThreads / 32 ? scratch[lane] : 0.0f;
+    for (int o = 16; o > 0; o >>= 1)
+      x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
+// Segment s's pieces are rows seg_first[s] .. seg_first[s + 1] - 1 of the
+// piece table (in order); their (p*p, r*r) sums are added in double into
+// seg_sums (n_seg, 2) f32: a segment may span thousands of pieces (2,862
+// for BERT-base's word-embedding table, as a ZeRO chunk or as a dygraph
+// tensor), and an f32 running sum over them would lose up to ~1e-4 of
+// the norm. A segment is a parameter's part of a ZeRO chunk (the chunk
+// entry, kLanes = 1: one thread a segment adds its pieces in order) or a
+// parameter (dygraph Lamb, kLanes = 32: a warp a segment, lane l adds
+// pieces l, l + 32, ... in order, then a fixed shuffle tree; one thread
+// took 0.16 ms over BERT-base's 13,561 pieces, the warp 0.01). Either
+// order is fixed: two runs give the same bits.
+template <int kLanes>
+__global__ void segment_sum_kernel(const float* __restrict__ piece_sums,
+                                   const int64_t* __restrict__ seg_first,
+                                   int n_seg, float* __restrict__ seg_sums) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = g / kLanes, lane = g % kLanes;
+  if (s >= n_seg) return;       // a segment's lanes return together
+  double a = 0.0, b = 0.0;
+  for (int64_t k = seg_first[s] + lane; k < seg_first[s + 1]; k += kLanes) {
+    a += (double)piece_sums[2 * k];
+    b += (double)piece_sums[2 * k + 1];
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  if (lane == 0) {
+    seg_sums[2 * s] = (float)a;
+    seg_sums[2 * s + 1] = (float)b;
+  }
+}
+
+template <int kLanes>
+cudaError_t launch_segment_sum(const float* piece_sums,
+                               const int64_t* seg_first, int n_seg,
+                               float* seg_sums, cudaStream_t st) {
+  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp");
+  const int64_t threads = (int64_t)n_seg * kLanes;
+  segment_sum_kernel<kLanes><<<(unsigned)((threads + 127) / 128), 128, 0,
+                               st>>>(piece_sums, seg_first, n_seg, seg_sums);
+  return cudaGetLastError();
+}
+
+// Dygraph Lamb's phase 1 with the norms folded in. The host cuts every
+// parameter into PIECES, runs of at most 8192 elements inside one
+// parameter starting at a multiple of 8192 of it (rows (start in the
+// concatenation, length, tensor) of ``pieces``, built once per parameter
+// list with the pointer table), and block b takes piece b: it applies
+// LambPhase1Rule to the piece (float4 where the tensor's arrays are
+// 16-byte aligned, as the walker does) and reduces the threads' running
+// sums of p*p and r*r by block_sum's fixed tree into piece_sums[b].
+// segment_sum_kernel<32> then adds each parameter's pieces in a fixed
+// order, in double. No float atomics: two runs give the same bits. The
+// parameter is only read here, so |p| is the norm of the old p, as in
+// JAX.
+__global__ void __launch_bounds__(kThreads)
+lamb_phase1_pieces_kernel(const int64_t* __restrict__ ptrs,
+                          const int64_t* __restrict__ offs, int n,
+                          const int64_t* __restrict__ pieces,
+                          float* __restrict__ piece_sums,
+                          LambPhase1Rule rule) {
+  __shared__ float scratch[2][kThreads / 32];
+  const int64_t* row = pieces + 3 * (int64_t)blockIdx.x;
+  const int t = (int)row[2];
+  const int64_t a = row[0] - offs[t];
+  float sp = 0.0f, sr = 0.0f;
+  walk_range(rule, rule.bind(ptrs, n, t), aligned<LambPhase1Rule>(ptrs, n, t),
+             a, a + row[1], sp, sr);
+  sp = block_sum(sp, scratch[0]);
+  sr = block_sum(sr, scratch[1]);
+  if (threadIdx.x == 0) {
+    piece_sums[2 * (int64_t)blockIdx.x] = sp;
+    piece_sums[2 * (int64_t)blockIdx.x + 1] = sr;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The static (program) forms: _run_grid with the dygraph=False bodies,
@@ -685,7 +801,7 @@ int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
 //    scratch r (StaticLambPhase1Rule's arithmetic) and reduces the piece's
 //    sums of p*p and r*r by a fixed tree (per-thread running sums, warp
 //    shuffles, then warp 0 over the warp sums), so two runs give the same
-//    bits: no float atomics. chunk_segment_sum_kernel then adds each
+//    bits: no float atomics. segment_sum_kernel<1> then adds each
 //    segment's pieces in order, in double, into the (n_seg, 2) f32 buffer
 //    that the wrapper sums across ranks (the psum at :522-523).
 // 2. chunk_lamb_apply_kernel: one block per piece again; trust = |p|/|r|
@@ -700,24 +816,7 @@ int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
 // written); the two launches move 48 (the scratch r, and p read twice).
 // ---------------------------------------------------------------------------
 constexpr int kChunkThreads = 256;
-constexpr int kChunkWarps = kChunkThreads / 32;
-
-// Sum of x over the block by a fixed tree; the result is in thread 0.
-// scratch: kChunkWarps floats of shared memory.
-__device__ __forceinline__ float block_sum(float x, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  x = 0.0f;
-  if (warp == 0) {
-    x = lane < kChunkWarps ? scratch[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1)
-      x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
+static_assert(kChunkThreads == kThreads, "block_sum sums kThreads threads");
 
 __global__ void __launch_bounds__(kChunkThreads)
 chunk_lamb_phase1_kernel(const float* __restrict__ p,
@@ -729,7 +828,7 @@ chunk_lamb_phase1_kernel(const float* __restrict__ p,
                          float* __restrict__ piece_sums, float b1,
                          float omb1, float b2, float omb2, float eps,
                          float wd) {
-  __shared__ float scratch[2][kChunkWarps];
+  __shared__ float scratch[2][kChunkThreads / 32];
   const int64_t start = pieces[3 * (int64_t)blockIdx.x];
   const int64_t end = start + pieces[3 * (int64_t)blockIdx.x + 1];
   const bool skip = found != nullptr && *found != 0;
@@ -763,26 +862,6 @@ chunk_lamb_phase1_kernel(const float* __restrict__ p,
     piece_sums[2 * (int64_t)blockIdx.x] = sp;
     piece_sums[2 * (int64_t)blockIdx.x + 1] = sr;
   }
-}
-
-// Segment s's pieces are rows seg_first[s] .. seg_first[s + 1] - 1 of the
-// table (the chunk's segments are in order); one thread per segment adds
-// them in that order, in double: a segment may span thousands of pieces
-// (2,862 for BERT-base's word-embedding chunk), and an f32 running sum
-// over them would lose up to ~1e-4 of the norm.
-__global__ void chunk_segment_sum_kernel(const float* __restrict__ piece_sums,
-                                         const int64_t* __restrict__ seg_first,
-                                         int n_seg,
-                                         float* __restrict__ seg_sums) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_seg) return;
-  double a = 0.0, b = 0.0;
-  for (int64_t k = seg_first[s]; k < seg_first[s + 1]; ++k) {
-    a += (double)piece_sums[2 * k];
-    b += (double)piece_sums[2 * k + 1];
-  }
-  seg_sums[2 * s] = (float)a;
-  seg_sums[2 * s + 1] = (float)b;
 }
 
 __global__ void __launch_bounds__(kChunkThreads)
@@ -826,18 +905,32 @@ int fused_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
   return launch(ptrs, offs, n, total, skip, stream, SgdRule{lr});
 }
 
+// pieces: (n_pieces, 3) rows (start, length, tensor); tensor_first: the
+// (n + 1,) first piece of each tensor; piece_sums: (n_pieces, 2) scratch;
+// sums: the (n, 2) sums of p*p and r*r of each tensor, written here
 int fused_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                          long long total, float b1, float omb1, float b2,
-                          float omb2, float eps, float wd, float c1, float c2,
-                          void* stream) {
-  return launch(ptrs, offs, n, total, 0, stream,
-                LambPhase1Rule{b1, omb1, b2, omb2, eps, wd, c1, c2});
+                          long long total, const int64_t* pieces,
+                          int n_pieces, const int64_t* tensor_first,
+                          float* piece_sums, float* sums, float b1,
+                          float omb1, float b2, float omb2, float eps,
+                          float wd, float c1, float c2, void* stream) {
+  if (n < 1 || total < 0 || n_pieces < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_pieces > 0) {
+    lamb_phase1_pieces_kernel<<<(unsigned)n_pieces, kThreads, 0, st>>>(
+        ptrs, offs, n, pieces, piece_sums,
+        LambPhase1Rule{b1, omb1, b2, omb2, eps, wd, c1, c2});
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_segment_sum<32>(piece_sums, tensor_first, n, sums,
+                                     st);
 }
 
 int fused_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                         long long total, const float* norms, float lr,
+                         long long total, const float* sums, float lr,
                          void* stream) {
-  return launch(ptrs, offs, n, total, 0, stream, LambApplyRule{norms, lr});
+  return launch(ptrs, offs, n, total, 0, stream, LambApplyRule{sums, lr});
 }
 
 int static_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
@@ -886,9 +979,8 @@ int chunk_lamb_phase1_f32(const float* p, const float* g, float* m, float* v,
       b1, omb1, b2, omb2, eps, wd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chunk_segment_sum_kernel<<<(unsigned)((n_seg + 127) / 128), 128, 0, st>>>(
-      piece_sums, seg_first, n_seg, seg_sums);
-  return (int)cudaGetLastError();
+  return (int)launch_segment_sum<1>(piece_sums, seg_first, n_seg, seg_sums,
+                                    st);
 }
 
 int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,

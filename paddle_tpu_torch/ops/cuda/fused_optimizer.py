@@ -25,20 +25,26 @@ SGD ports ``_sgd_kernel`` (the dygraph ``SGD`` update)::
 
 Lamb ports ``_lamb_phase1_kernel`` with ``dygraph=True`` and the two
 XLA steps the JAX package runs after it (``fused_try_rule``,
-``fused_optimizer.py:600-613``), in three steps over every parameter::
+``fused_optimizer.py:600-613``), in two passes over every parameter::
 
     1. kernel:  m2 = b1*m + (1-b1)*g
                 v2 = b2*v + ((1-b2)*g)*g
                 r  = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p     into scratch r
-    2. PyTorch: w = |p|, q = |r| per tensor (torch._foreach_norm)
-    3. kernel:  trust = w/q where w > 0 and q > 0, else 1
+                and each tensor's sums of p*p and r*r: one block a piece
+                (:func:`lamb_pieces`), a fixed reduction tree, then the
+                pieces of a tensor added in a fixed order in f64
+    2. kernel:  w = sqrt(sum p*p), q = sqrt(sum r*r)
+                trust = w/q where w > 0 and q > 0, else 1
                 p2 = p - (lr*trust)*r
 
-so a step is two kernel launches and two foreach reductions, with no
-host sync. ``r`` is a persistent f32 scratch per parameter that the
-optimizer keeps. The norms are summed in another order than XLA's, so
-against JAX the update holds to a tolerance; given the same norms the
-kernels are bit for bit the plain version.
+so a step is two counted launches (phase 1 is two kernels, counted as
+one) moving 40 bytes an element, with no host sync and no float
+atomics. ``r`` is a persistent f32 scratch per parameter that the
+optimizer keeps. The plain version takes its norms with
+``torch._foreach_norm``; the norms are summed in other orders than the
+kernel's and XLA's, so against either the update holds to a tolerance.
+m, v and r are the plain version's bit for bit, and given the kernel's
+norms (:func:`lamb_kernel_norms`) so is p.
 
 ``skip`` (the FoundInfinite flag) leaves every tensor as it was. Unlike
 the functional JAX update, parameters and state are updated IN PLACE.
@@ -72,9 +78,9 @@ __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
            "static_lamb_", "static_sgd_list_", "static_momentum_list_",
            "static_adam_list_", "static_lamb_list_", "static_capacity",
-           "static_param_bytes",
-           "CHUNK_PIECE", "chunk_segments", "chunk_pieces",
-           "chunk_lamb_", "chunk_update"]
+           "static_param_bytes", "LAMB_PIECE", "lamb_pieces",
+           "lamb_kernel_norms", "CHUNK_PIECE", "chunk_segments",
+           "chunk_pieces", "chunk_lamb_", "chunk_update"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -269,6 +275,51 @@ def _cuda_sgd_(params, grads, lr, skip, cache):
         counters.bump("fused_sgd")
 
 
+# elements a block of dygraph Lamb's phase 1 takes: the walker's chunk
+LAMB_PIECE = 8192
+
+
+def lamb_pieces(numels, piece: int = LAMB_PIECE):
+    """Dygraph Lamb's piece table over parameters of ``numels``
+    elements, in order: ``(pieces, tensor_first)``, ``pieces`` (m, 3)
+    int64 rows (start in the concatenation, length, tensor), each a run
+    of at most ``piece`` elements of one tensor starting at a multiple
+    of ``piece`` of it; tensor t's pieces are rows ``tensor_first[t]:
+    tensor_first[t + 1]``. The chunk entry's cut (:func:`chunk_pieces`)
+    over the whole concatenation; an empty tensor has no piece."""
+    pieces, first = chunk_pieces(numels, 0, int(sum(numels)), piece)
+    return pieces, first[:len(numels) + 1]
+
+
+def _lamb_tables(params, cache):
+    """The piece table, each tensor's first piece, the (m, 2) piece-sum
+    scratch and the (n, 2) sums of p*p and r*r on the parameters'
+    device, made once per list of sizes and kept in ``cache``."""
+    key = tuple(p.numel() for p in params)
+    if cache.get("pieces_key") != key:
+        dev = params[0].device
+        pieces, first = lamb_pieces(key)
+        cache["pieces_key"] = key
+        cache["pieces"] = torch.from_numpy(pieces).pin_memory().to(
+            dev, non_blocking=True)
+        cache["tensor_first"] = torch.from_numpy(first).pin_memory().to(
+            dev, non_blocking=True)
+        cache["piece_sums"] = torch.empty(len(pieces), 2,
+                                          dtype=torch.float32, device=dev)
+        cache["sums"] = torch.empty(len(key), 2, dtype=torch.float32,
+                                    device=dev)
+    return (cache["pieces"], cache["tensor_first"], cache["piece_sums"],
+            cache["sums"])
+
+
+def lamb_kernel_norms(cache):
+    """The norms the last card step of :func:`fused_lamb_` with this
+    ``cache`` used: (2n,) f32, |p| of each parameter before the step,
+    then |r| of each, as ``_plain_lamb_apply_`` takes them (square roots
+    of phase 1's sums, rounded as the apply kernel rounds them)."""
+    return torch.sqrt(cache["phase1"]["sums"]).t().reshape(-1)
+
+
 def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
                 c2, skip, cache):
     dev = params[0].device
@@ -278,24 +329,26 @@ def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
     if skip:       # a skipped step launches nothing
         return
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs, offs, total = _table((params, grads, m1s, m2s, rs),
-                               cache.setdefault("phase1", {}))
+    phase1 = cache.setdefault("phase1", {})
+    ptrs, offs, total = _table((params, grads, m1s, m2s, rs), phase1)
+    pieces, first, piece_sums, sums = _lamb_tables(params, phase1)
     fn = _build.entry("fused_optimizer", "fused_lamb_phase1_f32",
-                      [_P, _P, ctypes.c_int, ctypes.c_longlong]
-                      + [_F] * 8 + [_P])
+                      [_P, _P, ctypes.c_int, ctypes.c_longlong, _P,
+                       ctypes.c_int, _P, _P, _P] + [_F] * 8 + [_P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
+             pieces.data_ptr(), pieces.shape[0], first.data_ptr(),
+             piece_sums.data_ptr(), sums.data_ptr(),
              float(np.float32(beta1)), float(np.float32(1.0 - beta1)),
              float(np.float32(beta2)), float(np.float32(1.0 - beta2)),
              float(np.float32(eps)), float(np.float32(wd)), float(c1),
              float(c2), stream)
     _build.check("fused_optimizer", err, "fused_lamb_phase1_f32")
     counters.bump("fused_lamb_phase1")
-    norms = _lamb_norms(params, rs)
     ptrs, offs, total = _table((params, rs), cache.setdefault("apply", {}))
     fn = _build.entry("fused_optimizer", "fused_lamb_apply_f32",
                       [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _F, _P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
-             norms.data_ptr(), float(lr), stream)
+             sums.data_ptr(), float(lr), stream)
     _build.check("fused_optimizer", err, "fused_lamb_apply_f32")
     counters.bump("fused_lamb_apply")
 

@@ -16,6 +16,13 @@ engine's decode step runs; the plain version multiplies by a 0-dim f32
 tensor on the logits' device, and the kernel uses round-to-nearest
 multiply and add intrinsics, so the two agree bit for bit on the card.
 
+The kernel (``csrc/sampling.cu``) runs one thread-block cluster of 8
+CTAs a row: each CTA loads its slice of the row once, the top-k
+threshold is an exact radix select (four 8-bit rounds, whatever k is)
+whose histograms are summed across the cluster through distributed
+shared memory, and the masked argmax merges the CTAs' partials in rank
+order. One launch a call.
+
 Routing is by device, with no fallback: a CUDA tensor launches the
 kernel (and counts the launch) or raises; a CPU tensor takes the plain
 version. ``top_p < 1`` has no kernel (the JAX package routes it to XLA
@@ -78,6 +85,9 @@ def _cuda_sample(logits, noise, temperature, top_k):
     if top_k < 0:
         raise ValueError(f"top_k must be >= 0, got {top_k}")
     B, V = logits.shape
+    if not 1 <= B <= 65535 or V < 1:
+        raise ValueError(f"fused_sample takes 1 to 65535 rows of at least "
+                         f"one logit, got {tuple(logits.shape)}")
     fn = _build.entry("sampling", "fused_sample_f32",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])

@@ -29,8 +29,8 @@ is added, in the order of ``apply_gradients_fn`` (``:102-104``).
 The whole update is one ``ops.cuda.fused_optimizer`` call
 (``fused_sgd_``, ``fused_momentum_``, ``fused_adam_`` or
 ``fused_lamb_``) over every parameter that has a gradient: one kernel
-launch on CUDA (Lamb: two, with its per-tensor norms between them), the
-plain version on the CPU. Parameters and optimizer state are updated IN
+launch on CUDA (Lamb: two, phase 1 with its per-tensor norms, then the
+apply), the plain version on the CPU. Parameters and optimizer state are updated IN
 PLACE (the JAX update is functional). Regularizer objects and
 ``multi_precision`` master weights are later slices.
 """

@@ -112,6 +112,55 @@ def test_sampling_kernel_is_bitwise_the_plain_version(dev, top_k,
     assert counters.get("fused_sample") == 1
 
 
+def _tie_rows(rng, B, V):
+    """Rows of copies of one value straddling ranks 8 and 50, a tied
+    maximum, +-0.0 at ranks 50 and up, -inf logits."""
+    x = (rng.randn(B, V) * 3).astype(np.float32)
+    for b in range(B):
+        top = np.sort(x[b])[::-1]
+        kind = b % 4
+        if kind == 0:
+            x[b, rng.choice(V, min(60, V), replace=False)] = \
+                top[min(40, V - 1)]
+        elif kind == 1:
+            x[b, rng.choice(V, 3, replace=False)] = top[0] + 1.0
+        elif kind == 2:
+            x[b] = -np.abs(x[b]) - 1.0
+            x[b, :30] = 5.0
+            x[b, 30:V // 2] = 0.0
+            x[b, V // 2:] = -0.0
+        else:
+            x[b, rng.choice(V, V // 2, replace=False)] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("V", [5, 13, 1003, 32000, 50257, 262147])
+def test_sampling_cluster_kernel_is_bitwise_the_plain_version(dev, V, ties):
+    """The cluster of 8 CTAs at every V shape it meets: fewer elements
+    than CTAs, a V the cluster does not divide, the engine's 32000,
+    GPT-2's 50257, and 262147, whose slices outgrow shared memory and
+    are read from device memory in each round; top_k 0, 1, 4, 8, 50,
+    1024, V - 1 and V; one launch a call, a relaunch equal."""
+    rng = np.random.RandomState(V)
+    B = 4
+    x = _tie_rows(rng, B, V) if ties else \
+        (rng.randn(B, V) * 3).astype(np.float32)
+    logits = torch.tensor(x, device=dev)
+    noise = torch.tensor(rng.gumbel(size=(B, V)).astype(np.float32),
+                         device=dev)
+    ks = sorted({k for k in (0, 1, 4, 8, 50, 1024, V - 1, V) if k >= 0})
+    for top_k in ks:
+        for temperature in (0.7, 1.0):
+            counters.reset()
+            out = sm.fused_sample(logits, noise, temperature, top_k)
+            assert counters.get("fused_sample") == 1
+            again = sm.fused_sample(logits, noise, temperature, top_k)
+            ref = sm._plain_sample(logits, noise, temperature, top_k, 1.0)
+            assert torch.equal(out, ref), (top_k, temperature)
+            assert torch.equal(out, again)
+
+
 def test_sampling_kernel_counts_duplicates_in_top_k(dev):
     logits = torch.full((1, 300), -5.0, device=dev)
     logits[0, [3, 9, 40]] = 5.0
@@ -387,32 +436,71 @@ def test_fused_sgd_kernel_is_bitwise_the_plain_version(dev):
     assert counters.get("fused_sgd") == 3
 
 
-def test_fused_lamb_kernels_are_bitwise_the_plain_version(dev):
-    """Two steps from zero moments; a zero bias (trust 1) and an empty
-    tensor included: p, m, v and r bit for bit."""
-    g = torch.Generator(device=dev).manual_seed(8)
-    shapes = [(30592, 64), (768,), (3,), (0,), (1000, 7)]
+def _lamb_state(dev, shapes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     ps = [torch.randn(s, generator=g, device=dev) * 0.02 for s in shapes]
     ps[1].zero_()
+    grads = [[torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+             for _ in range(2)]
+    return ps, grads
+
+
+_LAMB_SHAPES = [(30592, 64), (768,), (3,), (0,), (1000, 7), (16384,),
+                (8193,)]
+
+
+def test_fused_lamb_kernels_are_bitwise_the_plain_version(dev):
+    """Two steps from zero moments; a zero bias (trust 1), an empty
+    tensor and tensors ending on and just past a piece boundary
+    included: m, v and r bit for bit; the norms phase 1 took within
+    rtol 1e-6 of f64 norms; p bit for bit the plain apply given those
+    norms; one count of each kernel a step."""
+    shapes = _LAMB_SHAPES
+    ps, grads = _lamb_state(dev, shapes, 8)
     ms = [torch.zeros(s, device=dev) for s in shapes]
     vs = [torch.zeros(s, device=dev) for s in shapes]
     rs = [torch.empty(s, device=dev) for s in shapes]
     kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
     kr = [torch.empty(s, device=dev) for s in shapes]
     cache = {}
-    for step in (1, 2):
-        gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+    for step, gs in zip((1, 2), grads):
         fo.fused_lamb_(kp, gs, km, kv, kr, lr=1e-3, beta1=0.9, beta2=0.999,
                        eps=1e-6, weight_decay=0.01, step=step, cache=cache)
         lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, step)
-        fo._plain_lamb_(ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1,
-                        c2, False)
+        fo._plain_lamb_phase1_(ps, gs, ms, vs, rs, 0.9, 0.999, 1e-6, 0.01,
+                               c1, c2)
+        norms = fo.lamb_kernel_norms(cache)
+        want = torch.stack(torch._foreach_norm([x.double()
+                                                for x in ps + rs]))
+        torch.testing.assert_close(norms, want.float(), rtol=1e-6, atol=0.0)
+        fo._plain_lamb_apply_(ps, rs, norms, lr)
     torch.cuda.synchronize()
     for a, b in zip(kp + km + kv + kr, ps + ms + vs + rs):
         assert torch.equal(a, b)
     assert bool(torch.isfinite(kp[1]).all()) and bool(kp[1].any())
     assert counters.get("fused_lamb_phase1") == 2
     assert counters.get("fused_lamb_apply") == 2
+
+
+def test_fused_lamb_two_launches_give_the_same_bits(dev):
+    """The norms are a fixed tree and a fixed-order f64 sum, no float
+    atomics: the same step from the same state twice gives the same p,
+    m, v, r and norms bit for bit."""
+    shapes = _LAMB_SHAPES
+    ps, grads = _lamb_state(dev, shapes, 9)
+    outs = []
+    for _ in range(2):
+        t = [[x.clone() for x in ps]] + [[torch.zeros(s, device=dev)
+                                          for s in shapes] for _ in range(2)]
+        r = [torch.empty(s, device=dev) for s in shapes]
+        cache = {}
+        fo.fused_lamb_(t[0], grads[0], t[1], t[2], r, lr=1e-3, beta1=0.9,
+                       beta2=0.999, eps=1e-6, weight_decay=0.01, step=1,
+                       cache=cache)
+        outs.append(t[0] + t[1] + t[2] + r + [fo.lamb_kernel_norms(cache)])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_slice_kernels_raise_on_what_they_do_not_take(dev):
