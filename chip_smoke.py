@@ -3,6 +3,7 @@ every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --kernels-only  # build + phase 1 only
+    python3 chip_smoke.py --bag-shapes    # K6's time at each of BAG_SHAPES
 
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
@@ -55,8 +56,10 @@ prints no result line:
             beta-pow outputs; the embedding bag (K6) at
             ``tools/op_bench.py:163``'s table 100000 x 256 and ids 4096 x
             64, sum, mean and sqrtn over an f32 and a bf16 table with
-            all-padding bags and ids >= V (f32 atol 1e-5 + rtol 1e-5,
-            bf16 one ulp); K1a/K1b's masked form at phase 2's padded 32 x
+            all-padding bags and ids >= V, and over a 24,000-row table
+            that fits in L2 (f32 atol 1e-5 + rtol 1e-5, bf16 one ulp;
+            two launches bit for bit); K1a/K1b's
+            masked form at phase 2's padded 32 x
             512 x 12 x 64 bf16 with dropout 0.1 (atol 2e-2 + rtol 1e-2),
             128 x 128 f32, causal, fully masked rows (the mean of V) and
             a masked first kv tile (atol 1e-4), in bf16 batch entries
@@ -73,7 +76,8 @@ prints no result line:
             word-embedding chunk (11,720,704) and a 524,288-element chunk
             over 64 segments, FoundInfinite absent, false and true: m, v
             and the beta-pows bit for bit, p within 1e-6 of its largest
-            value, two runs bit for bit. Kernel, plain and
+            value, two runs bit for bit, two launches a call, the ticket
+            left at 0. Kernel, plain and
             library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
@@ -2876,10 +2880,15 @@ def check_embedding_bag(torch, fe, timing):
     kernel as incubate's fused path gives it, -V - 1): sum, mean and
     sqrtn over an f32 and a bf16 table, with two bags that are all
     padding, one of only ids >= V and some ids >= V elsewhere (read as
-    row V - 1). f32 within atol 1e-5 + rtol 1e-5 (sum order), bf16
-    within one bf16 ulp; all-padding bags exactly 0. Times the sum over
-    the f32 table (the main path's call) against its bound, the plain
-    version and ``F.embedding_bag`` (sum and mean, padding_idx 0)."""
+    row V - 1), and over a 24,000-row f32 table that fits in L2 (the
+    f32 table takes the kernel's row-order sweep, the other two its
+    per-bag form). f32 within atol 1e-5 + rtol 1e-5 (the kernel adds a
+    bag's rows in another order than the plain version), bf16
+    within one bf16 ulp (both sum in f32 and round once); all-padding
+    bags exactly 0; two launches bit for bit. Times the sum over the f32
+    table (the main path's call) against its bound, the plain version
+    and ``F.embedding_bag`` (sum and mean, padding_idx 0), and the
+    24,000-row table against its own bound."""
     dev = "cuda"
     V, D, B, S = BAG_V, BAG_D, BAG_B, BAG_S
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -2891,19 +2900,29 @@ def check_embedding_bag(torch, fe, timing):
     edge[77] = -V - 1
     edge[3, :5] = torch.arange(V, V + 5, device=dev)
     edge[9] = V + 3
-    row = {"cases": {}}
-    for tname, t in (("f32", table), ("bf16", table.to(torch.bfloat16))):
+    # a table that fits in L2, the same ids drawn in its range
+    V1 = BAG_L2_ROWS
+    table1 = torch.randn((V1, D), generator=gen, device=dev)
+    edge1 = torch.where(edge >= V, edge - V + V1, torch.where(
+        edge >= 0, edge % V1, edge))
+    row = {"cases": {}, "l2_rows": V1}
+    table16 = table.to(torch.bfloat16)
+    for tname, t, x in (("f32", table, edge), ("bf16", table16, edge),
+                        ("f32_l2", table1, edge1)):
         for combiner in ("sum", "mean", "sqrtn"):
-            got = fe._cuda_bag(t, edge, combiner)
-            want = fe._plain_bag(t, edge, combiner)
+            got = fe._cuda_bag(t, x, combiner)
+            again = fe._cuda_bag(t, x, combiner)
+            want = fe._plain_bag(t, x, combiner)
             torch.cuda.synchronize()
+            expect(same_bits(torch, [got], [again]),
+                   f"embedding bag {tname} {combiner}: two launches differ")
             err = max_err(got, want)
             expect(bool(torch.isfinite(got.float()).all()),
                    f"embedding bag {tname} {combiner}: non-finite output")
             expect(bool((got[[5, 77]] == 0).all()),
                    f"embedding bag {tname} {combiner}: a padding-only bag "
                    f"is not 0")
-            if tname == "f32":
+            if t.dtype == torch.float32:   # f32 sums in another order
                 ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
             else:
                 ok = bool(((got.float() - want.float()).abs()
@@ -2916,7 +2935,6 @@ def check_embedding_bag(torch, fe, timing):
         F = torch.nn.functional
         raw_t = torch.tensor(raw, device=dev)
         distinct = int(torch.unique(ids[ids >= 0]).numel())
-        table16 = table.to(torch.bfloat16)
         bytes_ = distinct * D * 4 + ids.numel() * 8 + B * D * 4
         bound, by = bound_of(bytes_, B * S * D, F32_FLOPS_PER_S)
         row.update({
@@ -2934,8 +2952,59 @@ def check_embedding_bag(torch, fe, timing):
             "bound_ms": bound, "bound_by": by,
             "bound_bytes": bytes_, "distinct_rows": distinct,
             "op_bench_bound_ms": B * S * D * 4 / HBM_BYTES_PER_S * 1e3,
+            "host_ms": host_dispatch_ms(torch, lambda: fe._cuda_bag(
+                table, ids, "sum")),
+            "l2_table": bag_shapes(torch, fe, (f"rows{V1}",))[
+                f"rows{V1}"],
             "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
     return row
+
+
+BAG_L2_ROWS = 24000   # a 24.6 MB f32 table at D 256: fits in the 50 MB L2
+# name -> (rows, D, bags, ids a bag, table type): the main path's ids over
+# tables from 6,000 rows to twice the main one, bf16 tables of 1, 2 and 4
+# times its rows and one of 1 KB rows (D 512), an f32 D that is a multiple of 4 and not of 8, bags of
+# 1500 ids (256 and 2048 of them) and a 65,536-bag batch (more CTAs than
+# the card holds at once)
+BAG_SHAPES = {
+    **{f"rows{v}": (v, BAG_D, BAG_B, BAG_S, "f32") for v in (
+        6000, 12000, BAG_L2_ROWS, 36000, 50000, BAG_V, 200000)},
+    "bf16": (BAG_V, BAG_D, BAG_B, BAG_S, "bf16"),
+    "bf16_rows200000": (200000, BAG_D, BAG_B, BAG_S, "bf16"),
+    "bf16_rows400000": (400000, BAG_D, BAG_B, BAG_S, "bf16"),
+    "bf16_d512": (BAG_V, 512, BAG_B, BAG_S, "bf16"),
+    "d100": (BAG_V, 100, BAG_B, BAG_S, "f32"),
+    "long_bags": (BAG_V, BAG_D, 256, 1500, "f32"),
+    "long_bags_bf16": (BAG_V, BAG_D, 256, 1500, "bf16"),
+    "long_bags_b2048": (BAG_V, BAG_D, 2048, 1500, "f32"),
+    "bags65536": (BAG_V, BAG_D, 65536, BAG_S, "f32"),
+}
+
+
+def bag_shapes(torch, fe, names=tuple(BAG_SHAPES)):
+    """K6's sum at each named shape of BAG_SHAPES, ids drawn as the main
+    path's (~20% padding, given as -V - 1): the kernel's ms beside the
+    bound of the distinct rows those ids read once."""
+    dev = "cuda"
+    out = {}
+    for name in names:
+        V, D, B, S, dt = BAG_SHAPES[name]
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+        size = 4 if dt == "f32" else 2
+        gen = torch.Generator(device=dev).manual_seed(11)
+        table = torch.randn((V, D), generator=gen, device=dev).to(dtype)
+        raw = bag_ids(np.random.RandomState(11), B, S, V)
+        ids = torch.tensor(np.where(raw == 0, -V - 1, raw), device=dev)
+        distinct = int(torch.unique(ids[ids >= 0]).numel())
+        bytes_ = distinct * D * size + ids.numel() * 8 + B * D * size
+        bound, _ = bound_of(bytes_, B * S * D, F32_FLOPS_PER_S)
+        out[name] = {
+            "rows": V, "D": D, "bags": B, "ids_a_bag": S, "dtype": dt,
+            "table_mb": V * D * size / 1e6, "distinct_rows": distinct,
+            "ms": time_ms(torch, lambda: fe._cuda_bag(table, ids, "sum")),
+            "bound_ms": bound}
+        del table, ids
+    return out
 
 
 def len_mask(torch, lens, L):
@@ -3177,7 +3246,7 @@ def phase_bag_parity(torch, counters, fe):
 
 
 def bag_family(name):
-    if "bag_kernel" in name:
+    if "bag_sweep_kernel" in name or "bag_kernel" in name:
         return "bag_fwd"
     if "index" in name and ("add" in name or "func" in name):
         return "bag_bwd_index_add"
@@ -3774,6 +3843,39 @@ def chunk_call(fo, t, elems, pos, plain, seg=None, cache=None):
                           found=t["found"], cache=cache)
 
 
+def chunk_split_ms(torch, fo, t, elems, pos, cache, iters=20, warmup=3):
+    """Median device ms of the chunk Lamb's two launches apart, timed as
+    ``time_ms`` times a call (L2 flushed, a spin kernel ahead): phase 1
+    from the start event to an event recorded between the launches
+    (where the cross-rank sum runs), the apply from there to the end."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ev = {}
+
+    def call():
+        fo._cuda_chunk_lamb_(
+            t["p"], t["g"], t["m"], t["v"], t["b1p"], t["b2p"], t["lr"],
+            0.9, 0.999, 1e-6, 0.01, t["found"], elems, pos,
+            lambda sums: ev["mid"].record(), cache)
+
+    ev["mid"] = torch.cuda.Event(enable_timing=True)
+    for _ in range(warmup):
+        call()
+    p1, ap = [], []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
+        e0, ev["mid"], e1 = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        e0.record()
+        call()
+        e1.record()
+        torch.cuda.synchronize()
+        p1.append(e0.elapsed_time(ev["mid"]))
+        ap.append(ev["mid"].elapsed_time(e1))
+    return {"chunk_lamb_phase1": float(np.median(p1)),
+            "chunk_lamb_apply": float(np.median(ap))}
+
+
 def check_chunk_lamb(torch, fo, counters, timing):
     """K3's ZeRO chunk entry (chunk Lamb) against its plain version on
     the card, ``axis=None``: the book net's chunk over {"dp": 2} at both
@@ -3795,6 +3897,7 @@ def check_chunk_lamb(torch, fo, counters, timing):
     for name, (elems, c, pos) in cases.items():
         seg = torch.from_numpy(fo.chunk_segments(elems, pos, c)).cuda()
         sub = {"elements": c, "segments": len(elems) + 1, "position": pos,
+               "piece": fo.chunk_piece(c),
                "pieces": int(fo.chunk_pieces(elems, pos, c)[0].shape[0])}
         for found in (None, False, True):
             kern = chunk_state(torch, elems, c, pos, found, gen)
@@ -3845,7 +3948,12 @@ def check_chunk_lamb(torch, fo, counters, timing):
                     fo, t, elems, pos, False, cache=cache)),
                 "plain_ms": time_ms(torch, lambda: chunk_call(
                     fo, tp, elems, pos, True, seg=seg), iters=5),
-                "library_ms": None, "bound_ms": t_b, "bound_by": by})
+                "library_ms": None, "bound_ms": t_b, "bound_by": by,
+                "kernels_ms": chunk_split_ms(torch, fo, t, elems, pos,
+                                             cache)})
+            expect(int(cache["ticket"].item()) == 0,
+                   f"chunk_lamb {name}: the ticket was left at "
+                   f"{int(cache['ticket'].item())}")
         row[name] = sub
     if timing:
         row.update({k: row["book_rank0"][k] for k in (
@@ -4159,10 +4267,22 @@ def phase_static_zero(torch, counters):
             }, total
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    expect(smi.returncode == 0, "nvidia-smi failed")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 1 (no timing, no engine)")
+    ap.add_argument("--bag-shapes", action="store_true",
+                    help="only time K6 at each of BAG_SHAPES")
     args = ap.parse_args()
 
     import torch
@@ -4186,6 +4306,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(0)
+    if args.bag_shapes:   # K6 alone, built at its first call
+        emit({"phase": "bag_shapes", "card": card_line(),
+              "shapes": bag_shapes(torch, fe)})
+        return 0
     try:
         t0 = time.perf_counter()
         logs = _build.build_all(ptxas_verbose=True)
@@ -4413,12 +4537,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    expect(smi.returncode == 0, "nvidia-smi failed")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -412,29 +412,30 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
 
 // Segment s's pieces are rows seg_first[s] .. seg_first[s + 1] - 1 of the
 // piece table (in order); their (p*p, r*r) sums are added in double into
-// seg_sums (n_seg, 2) f32: a segment may span thousands of pieces (2,862
-// for BERT-base's word-embedding table, as a ZeRO chunk or as a dygraph
-// tensor), and an f32 running sum over them would lose up to ~1e-4 of
-// the norm. A segment is a parameter's part of a ZeRO chunk (the chunk
-// entry, kLanes = 1: one thread a segment adds its pieces in order) or a
-// parameter (dygraph Lamb, kLanes = 32: a warp a segment, lane l adds
-// pieces l, l + 32, ... in order, then a fixed shuffle tree; one thread
-// took 0.16 ms over BERT-base's 13,561 pieces, the warp 0.01). Either
-// order is fixed: two runs give the same bits.
-template <int kLanes>
-__global__ void segment_sum_kernel(const float* __restrict__ piece_sums,
-                                   const int64_t* __restrict__ seg_first,
-                                   int n_seg, float* __restrict__ seg_sums) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = g / kLanes, lane = g % kLanes;
-  if (s >= n_seg) return;       // a segment's lanes return together
+// seg_sums (n_seg, 2) f32: a segment may span thousands of pieces (1,431
+// for BERT-base's word-embedding table as a ZeRO chunk, 2,862 as a
+// dygraph tensor), and an f32 running sum over them would lose up to
+// ~1e-4 of the norm. A segment is a parameter (dygraph Lamb) or a
+// parameter's part of a ZeRO chunk (the chunk entry). One warp a
+// segment: lane l adds pieces l, l + 32, ... in order, then a fixed
+// shuffle tree, so two runs give the same bits (one thread a segment
+// took 0.16 ms over BERT-base's 13,561 pieces, the warp 0.01). Every
+// lane of the warp calls it; lane 0 writes.
+__device__ __forceinline__ void warp_segment_sum(
+    const float* piece_sums, const int64_t* __restrict__ seg_first, int s,
+    float* __restrict__ seg_sums) {
+  const int lane = threadIdx.x & 31;
   double a = 0.0, b = 0.0;
-  for (int64_t k = seg_first[s] + lane; k < seg_first[s + 1]; k += kLanes) {
-    a += (double)piece_sums[2 * k];
-    b += (double)piece_sums[2 * k + 1];
+  // unrolled so that several loads are in flight (BERT-base's 1,431
+  // pieces are 45 a lane); the adds stay in order
+#pragma unroll 8
+  for (int64_t k = seg_first[s] + lane; k < seg_first[s + 1]; k += 32) {
+    // L2, not L1: in the chunk entry other blocks wrote them this launch
+    a += (double)__ldcg(piece_sums + 2 * k);
+    b += (double)__ldcg(piece_sums + 2 * k + 1);
   }
 #pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
+  for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_down_sync(0xffffffffu, a, o);
     b += __shfl_down_sync(0xffffffffu, b, o);
   }
@@ -444,15 +445,12 @@ __global__ void segment_sum_kernel(const float* __restrict__ piece_sums,
   }
 }
 
-template <int kLanes>
-cudaError_t launch_segment_sum(const float* piece_sums,
-                               const int64_t* seg_first, int n_seg,
-                               float* seg_sums, cudaStream_t st) {
-  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp");
-  const int64_t threads = (int64_t)n_seg * kLanes;
-  segment_sum_kernel<kLanes><<<(unsigned)((threads + 127) / 128), 128, 0,
-                               st>>>(piece_sums, seg_first, n_seg, seg_sums);
-  return cudaGetLastError();
+__global__ void segment_sum_kernel(const float* __restrict__ piece_sums,
+                                   const int64_t* __restrict__ seg_first,
+                                   int n_seg, float* __restrict__ seg_sums) {
+  const int s = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (s < n_seg)        // a segment's lanes return together
+    warp_segment_sum(piece_sums, seg_first, s, seg_sums);
 }
 
 // Dygraph Lamb's phase 1 with the norms folded in. The host cuts every
@@ -463,7 +461,7 @@ cudaError_t launch_segment_sum(const float* piece_sums,
 // LambPhase1Rule to the piece (float4 where the tensor's arrays are
 // 16-byte aligned, as the walker does) and reduces the threads' running
 // sums of p*p and r*r by block_sum's fixed tree into piece_sums[b].
-// segment_sum_kernel<32> then adds each parameter's pieces in a fixed
+// segment_sum_kernel then adds each parameter's pieces in a fixed
 // order, in double. No float atomics: two runs give the same bits. The
 // parameter is only read here, so |p| is the norm of the old p, as in
 // JAX.
@@ -654,6 +652,12 @@ struct StaticAdamRule {
   }
 };
 
+__device__ __forceinline__ void add_squares(float p, float r, float& sp,
+                                            float& sr) {
+  sp = __fadd_rn(sp, __fmul_rn(p, p));
+  sr = __fadd_rn(sr, __fmul_rn(r, r));
+}
+
 // _lamb_phase1_kernel(dygraph=False): m2, v2 as Adam's,
 // r = (m2/(1-c1)) / (sqrt(v2/(1-c2)) + eps) + wd*p into the scratch r.
 // Roles p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out; p is only read.
@@ -678,8 +682,11 @@ struct StaticLambPhase1Rule {
             reinterpret_cast<float*>(ptrs[4 * n + t]),
             __fsub_rn(1.0f, w.c1), __fsub_rn(1.0f, w.c2), w};
   }
-  template <int N>
-  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+  // acc: none (the static forms), or the running sums sp += p*p,
+  // sr += r*r (the chunk entry; element order)
+  template <int N, class... Acc>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i,
+                                        Acc&... acc) const {
     q.pows.write(i);
     if (q.pows.skip) return;
     float p[N], g[N], m[N], v[N], r[N];
@@ -696,6 +703,7 @@ struct StaticLambPhase1Rule {
       const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], q.omc2)), eps);
       r[j] = __fadd_rn(__fdiv_rn(__fdiv_rn(m[j], q.omc1), den),
                        __fmul_rn(wd, p[j]));
+      if constexpr (sizeof...(Acc) == 2) add_squares(p[j], r[j], acc...);
     }
     st(q.r, i, r);
     st(q.m, i, m);
@@ -793,78 +801,82 @@ int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
 // parameters: element j of parameter i is segment i, the padding tail
 // the sentinel segment n_params. The trust ratio of parameter i needs
 // |p_i| and |r_i| over the WHOLE parameter, which other ranks hold parts
-// of, so the update is two launches around a cross-rank sum:
+// of, so the update is two launches around a cross-rank sum, the least
+// a call can take:
 //
-// 1. chunk_lamb_phase1_kernel: one block per PIECE, a run of at most
-//    4096 elements inside one segment (the host cuts the chunk at segment
-//    ends and every 4096 elements, once per plan). It writes m, v and the
-//    scratch r (StaticLambPhase1Rule's arithmetic) and reduces the piece's
-//    sums of p*p and r*r by a fixed tree (per-thread running sums, warp
-//    shuffles, then warp 0 over the warp sums), so two runs give the same
-//    bits: no float atomics. segment_sum_kernel<1> then adds each
-//    segment's pieces in order, in double, into the (n_seg, 2) f32 buffer
-//    that the wrapper sums across ranks (the psum at :522-523).
-// 2. chunk_lamb_apply_kernel: one block per piece again; trust = |p|/|r|
-//    of the piece's segment where both are > 0, else 1; p2 = p -
-//    (lr*trust)*r.
+// 1. chunk_lamb_phase1_kernel: one block per PIECE, a run of elements
+//    inside one segment (the host cuts the chunk at segment ends and
+//    every `piece` elements, a power of two that spreads a small chunk
+//    over many SMs and streams 8192 at a time from a large one; the table
+//    is built once per layout). The block walks its piece with the
+//    multi-tensor walker (walk_range: float4 where the five arrays are
+//    16-byte aligned, scalar heads and tails) applying
+//    StaticLambPhase1Rule, which writes m, v and the scratch r and keeps
+//    the thread's running sums of p*p and r*r; block_sum's fixed tree
+//    reduces them into piece_sums. Then the block draws a ticket (an
+//    integer atomicAdd after a __threadfence, so its sums are visible
+//    first); the block that draws the last one adds each segment's
+//    pieces in double, a warp a segment in a fixed order
+//    (warp_segment_sum), into the (n_seg, 2) f32 buffer that the wrapper
+//    sums across ranks (the psum at :522-523), and resets the ticket to
+//    0 for the next call. No float atomics: two runs give the same bits.
+// 2. chunk_lamb_apply_kernel: one block per piece again, float4 through
+//    the same walker (LambApplyRule's arithmetic); trust = |p|/|r| of the
+//    piece's segment where both are > 0, else 1; p2 = p - (lr*trust)*r.
 //
-// c1 = b1p*b1 and c2 = b2p*b2 are read on the device; block 0 writes the
-// beta-pow outputs to separate buffers. A set FoundInfinite flag keeps
-// p, m, v and the pows (the piece sums are then 0). Not copied from the
-// TPU: _run_grid's (8, 128)-tile padding and the n < 1024 XLA floor.
+// c1 = b1p*b1 and c2 = b2p*b2 are read on the device; the thread that
+// owns element 0 writes the beta-pow outputs to separate buffers. A set
+// FoundInfinite flag keeps p, m, v and the pows; phase 1 then still draws
+// its tickets and writes zero sums. Not copied from the TPU: _run_grid's
+// (8, 128)-tile padding and the n < 1024 XLA floor.
 // Bound: device-memory bytes, 28 an element (p, g, m, v read; p, m, v
-// written); the two launches move 48 (the scratch r, and p read twice).
+// written); the two launches move 40 (phase 1 reads p, g, m, v and
+// writes m, v, r; the apply reads p and r and writes p). An r-free apply
+// that recomputed r from p, g, m and v would move the same 40.
 // ---------------------------------------------------------------------------
-constexpr int kChunkThreads = 256;
-static_assert(kChunkThreads == kThreads, "block_sum sums kThreads threads");
+__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
+  return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+}
 
-__global__ void __launch_bounds__(kChunkThreads)
-chunk_lamb_phase1_kernel(const float* __restrict__ p,
-                         const float* __restrict__ g, float* __restrict__ m,
-                         float* __restrict__ v, float* __restrict__ r,
-                         const float* b1p_in, const float* b2p_in,
+__global__ void __launch_bounds__(kThreads)
+chunk_lamb_phase1_kernel(const float* p, const float* g, float* m, float* v,
+                         float* r, const float* b1p_in, const float* b2p_in,
                          const uint8_t* found, float* b1p_out,
                          float* b2p_out, const int64_t* __restrict__ pieces,
-                         float* __restrict__ piece_sums, float b1,
-                         float omb1, float b2, float omb2, float eps,
-                         float wd) {
-  __shared__ float scratch[2][kChunkThreads / 32];
+                         int n_pieces, const int64_t* __restrict__ seg_first,
+                         int n_seg, float* piece_sums,
+                         float* __restrict__ seg_sums,
+                         unsigned* __restrict__ ticket,
+                         StaticLambPhase1Rule rule) {
+  __shared__ float scratch[2][kThreads / 32];
+  __shared__ bool last;
   const int64_t start = pieces[3 * (int64_t)blockIdx.x];
   const int64_t end = start + pieces[3 * (int64_t)blockIdx.x + 1];
-  const bool skip = found != nullptr && *found != 0;
   const float b1p = *b1p_in, b2p = *b2p_in;
-  const float c1 = __fmul_rn(b1p, b1), c2 = __fmul_rn(b2p, b2);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *b1p_out = skip ? b1p : c1;
-    *b2p_out = skip ? b2p : c2;
-  }
+  const Pows w{b1p, b2p, __fmul_rn(b1p, rule.b1), __fmul_rn(b2p, rule.b2),
+               b1p_out, b2p_out, found != nullptr && *found != 0};
+  const StaticLambPhase1Rule::Ptrs q{p, g, m, v, r, __fsub_rn(1.0f, w.c1),
+                                     __fsub_rn(1.0f, w.c2), w};
+  const bool vec = aligned16(p, g) && aligned16(m, v) && aligned16(r, p);
   float sp = 0.0f, sr = 0.0f;
-  if (!skip) {
-    const float omc1 = __fsub_rn(1.0f, c1), omc2 = __fsub_rn(1.0f, c2);
-    for (int64_t i = start + threadIdx.x; i < end; i += kChunkThreads) {
-      const float pi = p[i], gi = g[i];
-      const float m2 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, gi));
-      const float v2 = __fadd_rn(__fmul_rn(b2, v[i]),
-                                 __fmul_rn(__fmul_rn(omb2, gi), gi));
-      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, omc2)), eps);
-      const float ri = __fadd_rn(__fdiv_rn(__fdiv_rn(m2, omc1), den),
-                                 __fmul_rn(wd, pi));
-      m[i] = m2;
-      v[i] = v2;
-      r[i] = ri;
-      sp = __fadd_rn(sp, __fmul_rn(pi, pi));
-      sr = __fadd_rn(sr, __fmul_rn(ri, ri));
-    }
-  }
+  walk_range(rule, q, vec, start, end, sp, sr);
   sp = block_sum(sp, scratch[0]);
   sr = block_sum(sr, scratch[1]);
   if (threadIdx.x == 0) {
     piece_sums[2 * (int64_t)blockIdx.x] = sp;
     piece_sums[2 * (int64_t)blockIdx.x + 1] = sr;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)(n_pieces - 1);
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int s = threadIdx.x / 32; s < n_seg; s += kThreads / 32)
+    warp_segment_sum(piece_sums, seg_first, s, seg_sums);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kThreads)
 chunk_lamb_apply_kernel(float* __restrict__ p, const float* __restrict__ r,
                         const float* lr, const uint8_t* found,
                         const int64_t* __restrict__ pieces,
@@ -876,9 +888,8 @@ chunk_lamb_apply_kernel(float* __restrict__ p, const float* __restrict__ r,
   const float w = __fsqrt_rn(seg_sums[2 * seg]);
   const float q = __fsqrt_rn(seg_sums[2 * seg + 1]);
   const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
-  const float s = __fmul_rn(*lr, trust);
-  for (int64_t i = start + threadIdx.x; i < end; i += kChunkThreads)
-    p[i] = __fsub_rn(p[i], __fmul_rn(s, r[i]));
+  walk_range(LambApplyRule{}, LambApplyRule::Ptrs{p, r, __fmul_rn(*lr, trust)},
+             aligned16(p, r), start, end);
 }
 
 }  // namespace
@@ -923,8 +934,9 @@ int fused_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch_segment_sum<32>(piece_sums, tensor_first, n, sums,
-                                     st);
+  segment_sum_kernel<<<(unsigned)((32 * (int64_t)n + 127) / 128), 128, 0,
+                       st>>>(piece_sums, tensor_first, n, sums);
+  return (int)cudaGetLastError();
 }
 
 int fused_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
@@ -969,25 +981,23 @@ int chunk_lamb_phase1_f32(const float* p, const float* g, float* m, float* v,
                           const uint8_t* found, float* b1p_out,
                           float* b2p_out, const int64_t* pieces,
                           int n_pieces, const int64_t* seg_first, int n_seg,
-                          float* piece_sums, float* seg_sums, float b1,
-                          float omb1, float b2, float omb2, float eps,
-                          float wd, void* stream) {
+                          float* piece_sums, float* seg_sums,
+                          unsigned* ticket, float b1, float omb1, float b2,
+                          float omb2, float eps, float wd, void* stream) {
   if (n_pieces < 1 || n_seg < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  chunk_lamb_phase1_kernel<<<(unsigned)n_pieces, kChunkThreads, 0, st>>>(
-      p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out, pieces, piece_sums,
-      b1, omb1, b2, omb2, eps, wd);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_segment_sum<1>(piece_sums, seg_first, n_seg, seg_sums,
-                                    st);
+  chunk_lamb_phase1_kernel<<<(unsigned)n_pieces, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      p, g, m, v, r, b1p, b2p, found, b1p_out, b2p_out, pieces, n_pieces,
+      seg_first, n_seg, piece_sums, seg_sums, ticket,
+      StaticLambPhase1Rule{b1, omb1, b2, omb2, eps, wd});
+  return (int)cudaGetLastError();
 }
 
 int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,
                          const uint8_t* found, const int64_t* pieces,
                          int n_pieces, const float* seg_sums, void* stream) {
   if (n_pieces < 1) return (int)cudaErrorInvalidValue;
-  chunk_lamb_apply_kernel<<<(unsigned)n_pieces, kChunkThreads, 0,
+  chunk_lamb_apply_kernel<<<(unsigned)n_pieces, kThreads, 0,
                             (cudaStream_t)stream>>>(p, r, lr, found, pieces,
                                                     seg_sums);
   return (int)cudaGetLastError();

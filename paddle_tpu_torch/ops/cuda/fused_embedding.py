@@ -12,6 +12,16 @@ does. The backward is ``_bag_bwd``: the pooled gradient divided as the
 forward divided, scattered with ``index_add_`` into a zero table. It
 drops ids < 0 and, as both JAX backward forms do, ids >= V.
 
+The kernel has two forms, chosen by the inputs
+(``csrc/fused_embedding.cu``). Where an f32 table has rows of 1 KB or
+more and is larger than half the L2, and the bags fill the card, it
+sweeps the table through L2 in row order: each CTA holds a run of bags'
+f32 accumulators in shared memory and adds every bag's rows in ascending
+row order, so the CTAs walk up the table together and a row's later
+reads find it in L2. Elsewhere one block takes each bag. The plain
+version adds a bag's rows in position order; all sum in f32, so they
+agree to a tolerance, not bit for bit.
+
 Routing is by device, with no fallback: a CUDA table launches the
 kernel (counting ``fused_embedding_bag``) or raises; a CPU table takes
 the plain version.

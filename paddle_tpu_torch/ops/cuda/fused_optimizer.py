@@ -79,8 +79,9 @@ __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "static_lamb_", "static_sgd_list_", "static_momentum_list_",
            "static_adam_list_", "static_lamb_list_", "static_capacity",
            "static_param_bytes", "LAMB_PIECE", "lamb_pieces",
-           "lamb_kernel_norms", "CHUNK_PIECE", "chunk_segments",
-           "chunk_pieces", "chunk_lamb_", "chunk_update"]
+           "lamb_kernel_norms", "CHUNK_PIECE", "CHUNK_SPREAD",
+           "chunk_piece", "chunk_segments", "chunk_pieces", "chunk_lamb_",
+           "chunk_update"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -814,11 +815,12 @@ def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
 #
 #     1. kernel:  m2, v2, r as the static Lamb (r into a scratch), and the
 #                 partial sums of p*p and r*r of each PIECE of the chunk: a
-#                 run of at most CHUNK_PIECE elements inside one segment
+#                 run of at most chunk_piece(c) elements inside one segment
 #                 (element j of parameter i is segment i, the padding the
-#                 sentinel segment n_params); one block a piece, a fixed
-#                 reduction tree, no float atomics; then a small kernel sums
-#                 each segment's pieces in order, in f64, into the
+#                 sentinel segment n_params); one block a piece, float4
+#                 loads, a fixed reduction tree; the block that finishes
+#                 last (an integer ticket, no float atomics) adds each
+#                 segment's pieces in a fixed order, in f64, into the
 #                 (n_params + 1, 2) f32 buffer (the plain version sums the
 #                 f32 squares in f64 too)
 #     2. PyTorch: that buffer summed over the dp axis (collectives.all_reduce,
@@ -828,17 +830,32 @@ def static_lamb_(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
 #
 # so two runs give the same bits. The piece table depends only on the
 # bucket's parameter sizes and the rank's position: it is built once on
-# the host and kept in the caller's ``cache``. A set FoundInfinite keeps p,
-# m, v and the beta-pows, which are returned as new (1,) tensors as in the
-# static forms. Counted ``chunk_lamb_phase1`` (both kernels of phase 1)
-# and ``chunk_lamb_apply``. Bound: bytes. The function reads p, g, m, v
-# and writes p, m, v: 28 bytes an element once (the kernels move 48, the
-# scratch r and a second read of p included). JAX's norms sum in another
+# the host and kept in the caller's ``cache`` with the piece-sum scratch
+# and the ticket (an int32 that the last block of each launch sets back
+# to 0). A set FoundInfinite keeps p, m, v and the beta-pows, which are
+# returned as new (1,) tensors as in the static forms. Counted
+# ``chunk_lamb_phase1`` and ``chunk_lamb_apply``, one launch each. Bound:
+# bytes. The function reads p, g, m, v and writes p, m, v: 28 bytes an
+# element once (the launches move 40: phase 1 reads p, g, m, v and writes
+# m, v, r; the apply reads p, r and writes p). JAX's norms sum in another
 # order (XLA's segment_sum, and the psum across ranks re-associates them),
 # so against JAX or the unsharded Lamb the update holds to a tolerance; m
 # and v are the static form's bit for bit.
 # ---------------------------------------------------------------------------
-CHUNK_PIECE = 4096
+CHUNK_PIECE = 8192     # the largest piece: a block streams 8 float4 a thread
+CHUNK_SPREAD = 264     # pieces a small chunk aims at: 2 for each of 132 SMs
+
+
+def chunk_piece(c: int) -> int:
+    """Elements a piece of a ``c``-element chunk holds at most: the
+    least power of two from 512 to :data:`CHUNK_PIECE` that cuts the
+    chunk into at most :data:`CHUNK_SPREAD` runs (the book net's 9,216
+    elements: 512; 524,288: 2048; BERT-base's word-embedding chunk:
+    8192)."""
+    piece = 512
+    while piece < CHUNK_PIECE and piece * CHUNK_SPREAD < int(c):
+        piece *= 2
+    return piece
 
 
 def chunk_segments(param_elems, position: int, c: int) -> np.ndarray:
@@ -851,12 +868,14 @@ def chunk_segments(param_elems, position: int, c: int) -> np.ndarray:
                            side="right")
 
 
-def chunk_pieces(param_elems, position: int, c: int,
-                 piece: int = CHUNK_PIECE):
-    """The chunk cut at segment ends and every ``piece`` elements:
-    ``(pieces, seg_first)``, ``pieces`` (n, 3) int64 rows (start, length,
-    segment) in chunk order, ``seg_first`` (n_params + 2,) int64 with
-    segment s's pieces at rows ``seg_first[s]:seg_first[s + 1]``."""
+def chunk_pieces(param_elems, position: int, c: int, piece: int = None):
+    """The chunk cut at segment ends and every ``piece`` elements
+    (default :func:`chunk_piece` of ``c``): ``(pieces, seg_first)``,
+    ``pieces`` (n, 3) int64 rows (start, length, segment) in chunk order,
+    ``seg_first`` (n_params + 2,) int64 with segment s's pieces at rows
+    ``seg_first[s]:seg_first[s + 1]``."""
+    if piece is None:
+        piece = chunk_piece(c)
     ends = np.cumsum(np.asarray(param_elems, np.int64))
     cuts = sorted({0, int(c)} | {int(e) - int(position) for e in ends
                                  if 0 < int(e) - int(position) < c})
@@ -897,8 +916,9 @@ def _plain_chunk_lamb_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, wd,
 
 
 def _chunk_tables(param_elems, position, c, dev, cache):
-    """The piece table and segment offsets on ``dev``, built once per
-    (parameter sizes, position, chunk) and kept in ``cache``."""
+    """The piece table, segment offsets, piece-sum scratch and ticket on
+    ``dev``, made once per (parameter sizes, position, chunk) and kept in
+    ``cache``."""
     key = (tuple(int(e) for e in param_elems), int(position), int(c), dev)
     if cache.get("key") != key:
         pieces, seg_first = chunk_pieces(param_elems, position, c)
@@ -907,30 +927,34 @@ def _chunk_tables(param_elems, position, c, dev, cache):
             dev, non_blocking=True)
         cache["seg_first"] = torch.from_numpy(seg_first).pin_memory().to(
             dev, non_blocking=True)
-    return cache["pieces"], cache["seg_first"]
+        cache["piece_sums"] = torch.empty(len(pieces), 2,
+                                          dtype=torch.float32, device=dev)
+        cache["ticket"] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return (cache["pieces"], cache["seg_first"], cache["piece_sums"],
+            cache["ticket"])
 
 
 def _cuda_chunk_lamb_(p, g, m, v, b1p, b2p, lr, beta1, beta2, eps, wd,
                       found, param_elems, position, reduce, cache):
     dev = p.device
-    pieces, seg_first = _chunk_tables(param_elems, position, p.numel(), dev,
-                                      cache)
+    pieces, seg_first, piece_sums, ticket = _chunk_tables(
+        param_elems, position, p.numel(), dev, cache)
     n_pieces, n_seg = pieces.shape[0], seg_first.shape[0] - 1
     r = torch.empty_like(p)
-    piece_sums = torch.empty(n_pieces, 2, dtype=torch.float32, device=dev)
     seg_sums = torch.empty(n_seg, 2, dtype=torch.float32, device=dev)
     pows = torch.empty(2, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _build.entry("fused_optimizer", "chunk_lamb_phase1_f32",
                       [_P] * 10 + [_P, ctypes.c_int, _P, ctypes.c_int, _P,
-                                   _P] + [_F] * 6 + [_P])
+                                   _P, _P] + [_F] * 6 + [_P])
     flag = 0 if found is None else found.data_ptr()
     err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
              r.data_ptr(), b1p.data_ptr(), b2p.data_ptr(), flag,
              pows[0:1].data_ptr(), pows[1:2].data_ptr(), pieces.data_ptr(),
              n_pieces, seg_first.data_ptr(), n_seg, piece_sums.data_ptr(),
-             seg_sums.data_ptr(), *_beta_consts(beta1, beta2, eps),
-             float(np.float32(wd)), stream)
+             seg_sums.data_ptr(), ticket.data_ptr(),
+             *_beta_consts(beta1, beta2, eps), float(np.float32(wd)),
+             stream)
     _build.check("fused_optimizer", err, "chunk_lamb_phase1_f32")
     counters.bump("chunk_lamb_phase1")
     reduce(seg_sums)

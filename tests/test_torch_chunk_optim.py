@@ -143,7 +143,8 @@ def test_segments_match_jax(layout):
 @pytest.mark.parametrize("layout", list(LAYOUTS) + ["bert_word_emb"])
 def test_piece_table_covers_the_chunk_in_segment_runs(layout):
     """Pieces tile [0, c) in order, each inside one segment and at most
-    CHUNK_PIECE long; seg_first indexes each segment's run of pieces."""
+    chunk_piece(c) long (the piece size follows the chunk, at most
+    CHUNK_PIECE); seg_first indexes each segment's run of pieces."""
     if layout == "bert_word_emb":
         elems = (30522 * 768,)
         c = padded_len(30522 * 768, 2) // 2
@@ -154,7 +155,8 @@ def test_piece_table_covers_the_chunk_in_segment_runs(layout):
     starts, lens, segs = pieces.T
     assert starts[0] == 0 and (starts[1:] == starts[:-1] + lens[:-1]).all()
     assert starts[-1] + lens[-1] == c
-    assert (lens > 0).all() and (lens <= tfo.CHUNK_PIECE).all()
+    assert tfo.chunk_piece(c) <= tfo.CHUNK_PIECE
+    assert (lens > 0).all() and (lens <= tfo.chunk_piece(c)).all()
     seg = tfo.chunk_segments(elems, pos, c)
     assert (seg[starts] == segs).all() and (seg[starts + lens - 1] == segs
                                             ).all()

@@ -799,16 +799,67 @@ def test_embedding_bag_kernel_matches_plain(dev, combiner, dtype, V, D, B,
     assert counters.get("fused_embedding_bag") == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("V,D,B,S", [(100000, 256, 4096, 64),
+                                     (24000, 256, 4096, 64),
+                                     (100000, 256, 200000, 4),
+                                     (100000, 100, 512, 64),
+                                     (100000, 256, 64, 1500),
+                                     (100000, 256, 1200, 1500)],
+                         ids=["over_l2", "fits_l2", "many_waves", "D100",
+                              "long_bags", "long_bags_swept"])
+def test_embedding_bag_sweep_matches_plain(dev, dtype, V, D, B, S):
+    """Both forms of the kernel. On an H100 (132 SMs, 50 MB of L2) the f32
+    tables of 100000 x 256 take the row-order sweep: 4096 bags, 200,000
+    bags of 4 ids (more CTAs than the card holds at once: at least 4
+    waves) and 1200 bags of 1500 ids (three staged runs, each sorted on
+    its own); the per-bag form takes the 24,000-row table (less than half
+    the L2), D = 100 (400-byte rows, the float4 form), 64 bags of 1500 ids
+    (too few to fill the card) and every bf16 table (512-byte rows). The
+    plain version within atol 1e-5 + rtol 1e-5 (f32, another sum
+    order; for 1500-id bags 1e-5 plus the worst-case error of a
+    recursive f32 sum, S * 2**-24 times the bag's sum of |rows|) or one
+    bf16 ulp; two launches bit for bit; one count a launch."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+    ids = torch.randint(-(V // 5), V + 40, (B, S), generator=g, device=dev)
+    for combiner in ("sum", "mean", "sqrtn"):
+        out = fe._cuda_bag(table, ids, combiner)
+        again = fe._cuda_bag(table, ids, combiner)
+        ref = fe._plain_bag(table, ids, combiner)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            tol = 1e-5 + 1e-5 * ref.abs()
+            if S > 64:
+                mag = fe._plain_bag(table.abs(), ids, combiner)
+                tol = 1e-5 + S * 2.0 ** -24 * mag
+            assert bool((err <= tol).all()), float(err.max())
+        else:
+            assert bool((err <= _bf16_ulp(ref.float())).all()), \
+                float(err.max())
+    assert counters.get("fused_embedding_bag") == 6
+
+
 def test_embedding_bag_gradient_on_the_card_matches_the_cpu(dev):
+    """The table's gradient of one seeded upstream gradient, card against
+    CPU: the backward alone. The forward, whose f32 sum order differs
+    between the two, is held to its own bound above; an upstream gradient
+    made from the forward's output, such as that of (out * out).sum(),
+    would carry that difference into the gradient (the forward's bound
+    times 2 |out| times each row's reuse), past this test's 1e-5."""
     g = torch.Generator().manual_seed(22)
     table = torch.randn((500, 128), generator=g)
     ids = torch.randint(-50, 550, (32, 40), generator=g)
+    gout = torch.randn((32, 128), generator=g)
     for combiner in ("sum", "mean", "sqrtn"):
         grads = []
         for d in ("cpu", dev):
             t = table.clone().to(d).requires_grad_()
             out = fe.fused_embedding_bag(t, ids.to(d), combiner)
-            (out * out).sum().backward()
+            out.backward(gout.to(d))
             grads.append(t.grad.cpu())
         torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=1e-5)
     assert counters.get("fused_embedding_bag") == 3
@@ -1106,6 +1157,42 @@ def test_chunk_lamb_kernels_match_the_plain_version(dev, layout, found):
         assert torch.equal(t["p"], _chunk_case(dev, lay, found, layout)["p"])
     assert counters.get("chunk_lamb_phase1") == 2
     assert counters.get("chunk_lamb_apply") == 2
+
+
+def test_chunk_lamb_is_two_launches_and_leaves_the_ticket_at_zero(dev):
+    """A call is one phase-1 launch (the segment sums folded in by the
+    last block's ticket) and one apply launch; calls on a shared cache
+    leave the ticket at 0 and give the bits of calls on fresh caches; a
+    set flag keeps p, m and v."""
+    from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
+
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    for lay in (_CHUNK_LAYOUTS[0], _CHUNK_LAYOUTS[3]):
+        elems, c, pos = lay
+        cache = {}
+        for found in (None, False, True):
+            runs = []
+            for shared in (cache, {}):
+                t = _chunk_case(dev, lay, found, seed=c)
+                n0 = counters.snapshot()
+                fo.chunk_lamb_(t["p"], t["g"], t["m"], t["v"], t["b1p"],
+                               t["b2p"], t["lr"], param_elems=elems,
+                               position=pos, found=t["found"], cache=shared,
+                               **kw)
+                n1 = counters.snapshot()
+                assert n1.get("chunk_lamb_phase1", 0) == \
+                    n0.get("chunk_lamb_phase1", 0) + 1
+                assert n1.get("chunk_lamb_apply", 0) == \
+                    n0.get("chunk_lamb_apply", 0) + 1
+                runs.append(t)
+            torch.cuda.synchronize()
+            assert int(cache["ticket"].item()) == 0
+            for k in ("p", "m", "v"):
+                assert torch.equal(runs[0][k], runs[1][k]), k
+            if found:
+                before = _chunk_case(dev, lay, found, seed=c)
+                for k in ("p", "m", "v"):
+                    assert torch.equal(runs[0][k], before[k]), k
 
 
 def test_chunk_lamb_raises_on_what_it_does_not_take(dev):
