@@ -45,10 +45,13 @@ prints no result line:
             D = 128 case, each against the plain version and against the
             streaming kernel, the dropout mask bit for bit, and their
             times beside the streaming kernel's and SDPA's at L 128 and
-            512; fused SGD over LeNet's and BERT-base's parameter lists,
-            bit for bit; fused Lamb over BERT-base's: m, v and r bit for
-            bit, the norms phase 1 takes within rtol 1e-6 of f64 norms, p
-            bit for bit the plain apply given those norms, two launches
+            512; fused SGD over LeNet's and BERT-base's parameter lists
+            with weight decay 0 and 1e-4 and over 1,400 small tensors (two
+            launches, offset views among them), bit for bit, a skipped step
+            launching nothing, its one-tensor launch floor timed; fused
+            Lamb over BERT-base's: m, v and r bit for bit, the norms
+            phase 1 takes within rtol 1e-6 of f64 norms, p bit for bit
+            the plain apply given those norms, two launches
             bit for bit, one count of each kernel a call; K3's static
             forms (sgd, momentum, adam, lamb), one launch a tensor over
             the static example's 25 tensors and BERT-base's 206,
@@ -127,8 +130,10 @@ prints no result line:
             flash, no streaming flash, 1 + 1 xent, 1 + 1 Lamb, no Adam)
             and a profiled step by family;
 11. lenet_sgd  LeNet at batch 128 x 1 x 28 x 28, SGD lr 0.01 with L2
-            1e-4: 3 warm-up and 10 timed steps; steps/s, the loss
-            (finite, falling), one SGD launch a step;
+            1e-4 (in the kernel): 3 warm-up and 10 timed steps; steps/s,
+            the loss (finite, falling), one SGD launch a step covering
+            every parameter, a profiled step's kernels, name for name,
+            those of a step without the decay;
 12. static_parity  the static example's network at batch 8, two steps
             through the static Executor with each static optimizer, with
             the kernels and again with the plain versions, cuDNN
@@ -1315,44 +1320,103 @@ def time_short_vs_stream(torch, fa, gen, B, L, H=12, D=64, p=0.1):
     return t
 
 
-def check_sgd(torch, fo, shape_lists, timing):
-    """K3-sgd over LeNet's and BERT-base's parameter lists, bit for bit
-    against the plain version, a skipped step included; timed over
-    LeNet's list (the main path's) and BERT-base's."""
+SGD_LR, SGD_WD = 0.01, 1e-4   # the main path's (phase 11's) SGD
+
+
+def check_sgd(torch, fo, counters, shape_lists, timing):
+    """K3-sgd (the table by value, a grid sized to the card, the coupled
+    L2 term folded in) over LeNet's and BERT-base's parameter lists, bit
+    for bit against the plain version with weight decay 0 and 1e-4, a
+    skipped step launching nothing, one count a launch; a list of more
+    tensors than one launch's table holds (consecutive launches, every
+    fifth tensor an offset view) bit for bit with the decay. Timed over
+    both lists with the main path's decay and without it, and over one
+    four-element tensor (the launch floor)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(8)
-    row = {"max_abs_err": 0.0, "bitwise": True}
+    lr, cap = SGD_LR, fo.static_capacity(2)
+    row = {"max_abs_err": 0.0, "bitwise": True, "capacity": cap}
+
+    def dup(x):
+        """a copy as far from 16-byte alignment as x (offset views stay
+        offset, on the walker's scalar path)"""
+        off = x.data_ptr() % 16 // 4
+        return torch.empty(x.numel() + off, device=dev)[off:].view(
+            x.shape).copy_(x)
+
+    def compare(label, ps, gs, wd):
+        kp, pp = [dup(x) for x in ps], [dup(x) for x in ps]
+        c0 = counters.get("fused_sgd")
+        rec = fo.fused_sgd_(kp, gs, lr=lr, weight_decay=wd)
+        fo._plain_sgd_(pp, gs, np.float32(lr), np.float32(wd), False)
+        skipped = fo.fused_sgd_(kp, gs, lr=lr, weight_decay=wd, skip=True)
+        torch.cuda.synchronize()
+        differ = sum(int(not torch.equal(a, b)) for a, b in zip(kp, pp))
+        expect(differ == 0, f"fused SGD ({label}, wd {wd}) differs bitwise "
+                            f"in {differ} tensors")
+        want = len(fo.table_splits(len(ps), cap))
+        launched = counters.get("fused_sgd") - c0
+        expect(launched == want, f"fused SGD ({label}): {launched} launches "
+                                 f"(a skipped step included), want {want}")
+        cover = {"tensors": len(ps), "elements": sum(p.numel() for p in ps)}
+        expect(rec == dict(cover, launches=want) and
+               skipped == dict(cover, launches=0),
+               f"fused SGD ({label}): the launches covered {rec}, the "
+               f"skipped step {skipped}")
+        return launched
+
     for label, shapes in shape_lists.items():
         ps = [torch.randn(s, generator=gen, device=dev) * 0.05
               for s in shapes]
         gs = [torch.randn(s, generator=gen, device=dev) * 1e-2
               for s in shapes]
-        kp = [x.clone() for x in ps]
-        cache = {}
-        fo.fused_sgd_(kp, gs, lr=0.01, cache=cache)
-        fo._plain_sgd_(ps, gs, np.float32(0.01), False)
-        fo.fused_sgd_(kp, gs, lr=0.01, skip=True, cache=cache)
-        torch.cuda.synchronize()
-        differ = sum(int(not torch.equal(a, b)) for a, b in zip(kp, ps))
-        expect(differ == 0, f"fused SGD ({label}) differs bitwise in "
-                            f"{differ} tensors")
+        for wd in (0.0, SGD_WD):
+            compare(label, ps, gs, wd)
         n = sum(p.numel() for p in ps)
         row[label] = {"params": len(shapes), "elements": n}
         if timing:
-            # p, g read once, p written once; 2 flops an element
-            t_b, by = bound_of(12 * n, 2 * n, F32_FLOPS_PER_S)
+            # p, g read once, p written once; 4 flops an element with the
+            # decay (2 without)
+            t_b, by = bound_of(12 * n, 4 * n, F32_FLOPS_PER_S)
             lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
             for p, gr in zip(lib_p, gs):
                 p.grad = gr.clone()
-            lib = torch.optim.SGD(lib_p, lr=0.01, fused=True)
+            lib = torch.optim.SGD(lib_p, lr=lr, weight_decay=SGD_WD,
+                                  fused=True)
+            kp = [x.clone() for x in ps]
+            # the wrapper checks and tables up to 206 tensors on the host
+            # (past the default spin at BERT-base's list): a long spin
+            # keeps that host work out of the device time
+            spin = STATIC_SPIN_CYCLES
             row[label].update({
                 "ms": time_ms(torch, lambda: fo.fused_sgd_(
-                    kp, gs, lr=0.01, cache=cache)),
+                    kp, gs, lr=lr, weight_decay=SGD_WD), spin=spin),
+                "ms_wd0": time_ms(torch, lambda: fo.fused_sgd_(
+                    kp, gs, lr=lr), spin=spin),
                 "plain_ms": time_ms(torch, lambda: fo._plain_sgd_(
-                    ps, gs, np.float32(0.01), False), iters=5),
-                "library_ms": time_ms(torch, lib.step),
+                    ps, gs, np.float32(lr), np.float32(SGD_WD), False),
+                    iters=5),
+                "library_ms": time_ms(torch, lib.step, spin=spin),
                 "bound_ms": t_b, "bound_by": by})
+    n = max(1400, cap + 1)
+    sizes = [1 + k % 9 for k in range(n)]
+
+    def split_list(scale):
+        out = []
+        for k, m in enumerate(sizes):
+            x = torch.randn(m + 1, generator=gen, device=dev) * scale
+            out.append(x[1:] if k % 5 == 0 else x[:m])
+        return out
+
+    launched = compare("split", split_list(0.05), split_list(1e-2), SGD_WD)
+    expect(launched >= 2, f"fused SGD: {n} tensors took {launched} launch")
+    row["split"] = {"params": n, "elements": sum(sizes),
+                    "launches": launched}
     if timing:
+        p4 = [torch.randn(4, generator=gen, device=dev)]
+        g4 = [torch.randn(4, generator=gen, device=dev)]
+        row["floor_ms"] = time_ms(torch, lambda: fo.fused_sgd_(
+            p4, g4, lr=lr, weight_decay=SGD_WD), spin=STATIC_SPIN_CYCLES)
         row.update({k: row["lenet"][k] for k in ("ms", "plain_ms",
                                                  "library_ms", "bound_ms",
                                                  "bound_by")})
@@ -2279,9 +2343,10 @@ def bert512_eval_check(torch, fa, model, batch):
     return errs
 
 
-def phase_lenet_sgd(torch, counters):
+def lenet_sgd_step(torch, weight_decay):
     """LeNet at ``bench_mnist``'s batch 128 x 1 x 28 x 28, f32, SGD lr
-    0.01 with coupled L2 1e-4, the same batch every step."""
+    0.01 with coupled L2 ``weight_decay``, the same batch every step:
+    (the TrainStep, the batch, the parameters)."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import SGD
@@ -2290,7 +2355,8 @@ def phase_lenet_sgd(torch, counters):
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LeNet(num_classes=10, generator=gen)
     params = list(model.parameters())
-    opt = SGD(learning_rate=0.01, weight_decay=1e-4, parameters=params)
+    opt = SGD(learning_rate=SGD_LR, weight_decay=weight_decay,
+              parameters=params)
     ce = nn.CrossEntropyLoss()
     step = TrainStep(model, lambda m, x, y: ce(m(x), y), opt)
     B = 128
@@ -2299,6 +2365,41 @@ def phase_lenet_sgd(torch, counters):
                           device="cuda"),
              torch.tensor(rng.randint(0, 10, (B,)).astype(np.int64),
                           device="cuda"))
+    return step, batch, params
+
+
+def step_device_events(torch, step, batch):
+    """One profiled step's device work: its kernels, memory copies and
+    fills (torch.profiler's CUDA events), and each kernel name's
+    count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch)
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0, "fills": 0}
+    names = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA" \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        kind = "copies" if e.name.startswith("Memcpy") else \
+            "fills" if e.name.startswith("Memset") else "kernels"
+        out[kind] += 1
+        if kind == "kernels":
+            names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    out["kernel_names"] = names
+    return out
+
+
+def phase_lenet_sgd(torch, counters):
+    """LeNet at ``bench_mnist``'s batch with SGD lr 0.01 and coupled L2
+    1e-4 (the kernel's decay): the loss falls, one SGD launch a step
+    over every parameter; a profiled step runs, name for name, the
+    kernels of a step of the same net without the decay."""
+    step, batch, params = lenet_sgd_step(torch, SGD_WD)
     losses, step_ms, launches = train_steps(torch, counters, step, batch)
     n_steps = WARM_STEPS + TIMED_STEPS
     expect(all(np.isfinite(losses)), f"lenet_sgd: non-finite loss {losses}")
@@ -2307,11 +2408,34 @@ def phase_lenet_sgd(torch, counters):
     expect(launches.get("fused_sgd", 0) == n_steps,
            f"lenet_sgd: fused_sgd launched {launches.get('fused_sgd', 0)} "
            f"times over {n_steps} steps, want one a step")
-    expect(len(opt._kernel_cache["key"]) == 3 * len(params),
-           "lenet_sgd: the SGD launch did not cover every parameter")
+    n_params = int(sum(p.numel() for p in params))
+    rec = step.optimizer._last_launch
+    expect(rec == {"tensors": len(params), "elements": n_params,
+                   "launches": 1},
+           f"lenet_sgd: the SGD launch covered {rec}, not the "
+           f"{len(params)} parameters ({n_params} elements)")
+    # the decay is in the SGD kernel: a decayed step runs the kernels of
+    # an undecayed one, no g + wd*p launches beside them (torch.profiler
+    # has missed kernels in a full run, so a pair that differs, or that
+    # lacks the SGD kernel, is profiled again, 3 pairs at most)
+    step0, batch0, _ = lenet_sgd_step(torch, 0.0)
+    step0(*batch0)
+    for _ in range(3):
+        events = step_device_events(torch, step, batch)
+        events0 = step_device_events(torch, step0, batch0)
+        names, names0 = events["kernel_names"], events0["kernel_names"]
+        sgd_seen = any("multi_tensor_arg_kernel" in k for k in names)
+        if names == names0 and sgd_seen:
+            break
+    expect(sgd_seen, f"lenet_sgd: no SGD kernel in a profiled step: {names}")
+    extra = {k: names.get(k, 0) - names0.get(k, 0)
+             for k in set(names) | set(names0)
+             if names.get(k, 0) != names0.get(k, 0)}
+    expect(not extra, f"lenet_sgd: the decayed step's kernels differ from "
+                      f"the undecayed step's by {extra}")
     return {"phase": "lenet_sgd", "config": "LeNet, batch 128 x 1 x 28 x "
             "28, f32, SGD lr 0.01, coupled L2 1e-4, the same batch every "
-            "step", "params": int(sum(p.numel() for p in params)),
+            "step", "params": n_params,
             "param_tensors": len(params), "warmup_steps": WARM_STEPS,
             "timed_steps": TIMED_STEPS,
             "steps_per_s": TIMED_STEPS / (sum(step_ms) / 1e3),
@@ -2319,8 +2443,9 @@ def phase_lenet_sgd(torch, counters):
             "step_ms_max": float(np.max(step_ms)),
             "loss_first": losses[0], "loss_last": losses[-1],
             "losses": losses, "launches": launches,
-            "launches_per_step": launches.get("fused_sgd", 0) / n_steps}, \
-        launches
+            "launches_per_step": launches.get("fused_sgd", 0) / n_steps,
+            "last_sgd_launch": rec, "profiled_step": events,
+            "profiled_step_without_l2": events0}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4339,8 +4464,9 @@ def main() -> int:
         k3m = check_momentum(torch, fo, shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_momentum": k3m})
         lenet_shapes = [tuple(p.shape) for p in LeNet().parameters()]
-        k3s = check_sgd(torch, fo, {"lenet": lenet_shapes,
-                                    "bert_base": bert_shapes}, timing)
+        k3s = check_sgd(torch, fo, counters, {"lenet": lenet_shapes,
+                                              "bert_base": bert_shapes},
+                        timing)
         emit({"phase": "kernels_vs_plain", "fused_sgd": k3s})
         k3l = check_lamb(torch, fo, counters, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_lamb": k3l})

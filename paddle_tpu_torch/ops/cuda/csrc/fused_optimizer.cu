@@ -12,7 +12,10 @@
 //   133-134), which the JAX package runs as a separate XLA op.
 // - Momentum: replaces _run_grid with _momentum_kernel, the dygraph
 //   Momentum update reached from fused_try_rule.
-// - SGD: replaces _run_grid with _sgd_kernel (p - lr*g).
+// - SGD: replaces _run_grid with _sgd_kernel (p - lr*g), with the
+//   coupled L2 term the JAX optimizer adds to the gradient before it
+//   (L2Decay.grad_term, optimizer.py:102-104) folded in: p - lr*(g + wd*p).
+//   Its table travels by value, as the static forms' do (below).
 // - Lamb, two rules: phase 1 replaces _run_grid with
 //   _lamb_phase1_kernel(dygraph=True) (m, v and the trust-ratio
 //   numerator r in one read of p, g, m, v) AND the per-tensor norms the
@@ -42,28 +45,32 @@
 // 110 M f32 parameters move about 3.1 GB a step. Momentum reads p, g, v
 // and writes p, v (20 bytes) for 3 flops (5 with Nesterov); ResNet-50's
 // 25.6 M parameters move 511 MB a step. SGD reads p, g and writes p
-// (12 bytes, 2 flops). Lamb's phase 1 reads p, g, m, v and writes m, v,
-// r (28 bytes, the norms' sums included); apply reads p, r and writes p
-// (12 bytes): 40 bytes an element, 4.41 GB for BERT-base. The static
+// (12 bytes, 2 flops, 4 with the decay). Lamb's phase 1 reads p, g, m,
+// v and writes m, v, r (28 bytes, the norms' sums included); apply
+// reads p, r and writes p (12 bytes): 40 bytes an element, 4.41 GB for
+// BERT-base. The static
 // forms move the same bytes an element, but the static example's 25
-// tensors hold 77,850 elements (0.3-2 MB a step in all): a launch is
-// bound by its latency, not by the bytes, so the static forms launch
-// once for a run of ops instead of once an op, and size their grid to
-// the card (static_chunk) instead of 8192 elements a block.
+// tensors hold 77,850 elements and LeNet's 10 hold 61,610 (0.3-2 MB a
+// step in all): a launch is bound by its latency, not by the bytes, so
+// the static forms launch once for a run of ops instead of once an op,
+// and they and dygraph SGD size their grid to the card (static_chunk)
+// instead of 8192 elements a block.
 //
-// Design: multi-tensor. A device table holds the pointers of every
-// parameter's tensors ((roles, n) int64: p, g, then the rule's state)
-// and the element offsets of their concatenation ((n + 1,) int64).
-// Block b takes elements [b*chunk, (b+1)*chunk) of that concatenation
-// (chunk = 8192 in the dygraph forms, static_chunk in the static ones),
+// Design: multi-tensor. A table holds the pointers of every parameter's
+// tensors ((roles, n) int64: p, g, then the rule's state) and the element
+// offsets of their concatenation ((n + 1,) int64), in device memory
+// (dygraph Adam, Momentum, Lamb) or in the kernel's parameters (SGD and
+// the static forms). Block b takes elements [b*chunk, (b+1)*chunk) of
+// that concatenation (chunk = 8192 in the device-table forms,
+// static_chunk in the others),
 // finds the first parameter it touches by binary search over the
 // offsets, and walks the parameters its chunk spans. Each thread takes
 // 4 consecutive elements (one float4 of each array) strided by 4x the
 // block size where the tensor's pointers are 16-byte aligned, else one,
 // so warps read coalesced runs of every tensor. One pass, no second read
 // of the old state; in the dygraph forms the FoundInfinite skip flag is
-// an entry-point argument (a skipped step launches nothing), in the
-// static forms a device flag the kernel reads.
+// the wrapper's (a skipped step launches nothing), in the static forms a
+// device flag the kernel reads.
 //
 // Bit-for-bit agreement with the plain PyTorch versions rests on doing
 // the same f32 operations in the same order, each rounded on its own:
@@ -172,8 +179,9 @@ __device__ __forceinline__ void walk(const int64_t* __restrict__ ptrs,
   }
 }
 
-// The dygraph forms: the table lives in device memory (built once and
-// cached by the optimizer while the pointers stay the same).
+// Dygraph Adam, Momentum and Lamb's apply: the table lives in device
+// memory (built once and cached by the optimizer while the pointers stay
+// the same).
 template <class Rule>
 __global__ void __launch_bounds__(kThreads)
 multi_tensor_kernel(const int64_t* __restrict__ ptrs,
@@ -182,15 +190,21 @@ multi_tensor_kernel(const int64_t* __restrict__ ptrs,
   walk(ptrs, offs, n, total, kChunk, rule);
 }
 
-// The static forms: one launch per RUN of update ops of one type (the
-// executor groups a program's consecutive updates), whose gradient and
-// beta-pow buffers change every step, so the table travels by value in
-// the kernel's parameter space (no host-to-device copy) with the same
-// (roles, n) layout. The parameter space is 4 KB, or 32,764 bytes from
-// CUDA 12.1 on (nvcc's version decides at build time); the table takes
-// what the launch's other parameters leave, so a launch holds
-// ArgTable<R>::kCap tensors (45 of Adam's ten roles in 4 KB, 370 in 32
-// KB) and the wrapper splits a longer run into consecutive launches.
+// The static forms and dygraph SGD: one launch per RUN of update ops of
+// one type (the executor groups a program's consecutive updates), or per
+// SGD step, whose gradient (and beta-pow) buffers may change every step,
+// so the table travels by value in the kernel's parameter space (no
+// host-to-device copy, no cache to miss) with the same (roles, n) layout.
+// The parameter space is 4 KB, or 32,764 bytes from CUDA 12.1 on (nvcc's
+// version decides at build time); the table takes what the launch's
+// other parameters leave, so a launch holds ArgTable<R>::kCap tensors
+// (45 of Adam's ten roles in 4 KB, 370 in 32 KB; 1,359 of SGD's two in
+// 32 KB) and the wrapper splits a longer list into consecutive launches.
+// A list that fits takes the SHORT table, sized to 4 KB of parameters
+// (165 of SGD's two roles, 45 of Adam's ten): the card copies the whole
+// parameter block at every launch, and a kernel whose parameters fill
+// 32 KB took ~2.3 us longer to launch than one with 4 KB (LeNet's SGD
+// on an H100: 0.0104 against 0.0078 ms, chip_smoke.py --sgd-variants).
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||     \
      (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
@@ -198,20 +212,21 @@ constexpr int kParamBytes = 32764;
 #else
 constexpr int kParamBytes = 4096;
 #endif
-// 8-byte words left for the table beside n, total, chunk and the rule
-constexpr int kArgWords = (kParamBytes - 128) / 8;
+constexpr int kShortParamBytes = 4096;
 
-template <int R>
+// Bytes of parameters -> 8-byte words left for the table beside n,
+// total, chunk and the rule
+template <int R, int Bytes = kParamBytes>
 struct ArgTable {
-  static constexpr int kCap = (kArgWords - 1) / (R + 1);
+  static constexpr int kCap = ((Bytes - 128) / 8 - 1) / (R + 1);
   int64_t ptrs[R * kCap];
   int64_t offs[kCap + 1];
 };
 
-template <class Rule>
+template <class Rule, class Tab>
 __global__ void __launch_bounds__(kThreads)
-multi_tensor_arg_kernel(const __grid_constant__ ArgTable<Rule::kRoles> tab,
-                        int n, int64_t total, int64_t chunk, Rule rule) {
+multi_tensor_arg_kernel(const __grid_constant__ Tab tab, int n,
+                        int64_t total, int64_t chunk, Rule rule) {
   walk(tab.ptrs, tab.offs, n, total, chunk, rule);
 }
 
@@ -290,10 +305,14 @@ struct MomentumRule {
   }
 };
 
-// _sgd_kernel: p2 = p - lr*g.
+// _sgd_kernel fed the coupled L2 gradient: p2 = p - lr*(g + wd*p), each
+// operation rounded on its own in that order (the optimizer's g + wd*p,
+// then the update); wd = 0 leaves the decay out, p2 = p - lr*g, so its
+// bits are the undecayed update's even where g + 0*p would not be g (an
+// infinite p, where 0*p is NaN). Roles p, g; lr and wd by value.
 struct SgdRule {
-  static constexpr int kArrays = 2;
-  float lr;
+  static constexpr int kRoles = 2, kArrays = 2;
+  float lr, wd;
   struct Ptrs {
     float* p;
     const float* g;
@@ -308,7 +327,11 @@ struct SgdRule {
     ld(q.p, i, p);
     ld(q.g, i, g);
 #pragma unroll
-    for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(lr, g[j]));
+    for (int j = 0; j < N; ++j) {
+      const float gj = wd != 0.0f ? __fadd_rn(g[j], __fmul_rn(wd, p[j]))
+                                  : g[j];
+      p[j] = __fsub_rn(p[j], __fmul_rn(lr, gj));
+    }
     st(q.p, i, p);
   }
 };
@@ -757,9 +780,10 @@ int launch(const int64_t* ptrs, const int64_t* offs, int n,
 }
 
 
-// Elements a block takes in a static launch: a multiple of 512 that
-// gives at least two blocks an SM when the elements allow (the static
-// example's 77,850 elements: 153 blocks of 512), at most kChunk.
+// Elements a block takes in a launch whose table travels by value: a
+// multiple of 512 that gives at least two blocks an SM when the elements
+// allow (the static example's 77,850 elements: 153 blocks of 512;
+// LeNet's 61,610: 121), at most kChunk (BERT-base's 110 M: 8192).
 int64_t static_chunk(int64_t total) {
   static const int sms = [] {
     int dev = 0, n = 0;
@@ -774,23 +798,35 @@ int64_t static_chunk(int64_t total) {
 }
 
 // Copies the host table ((Rule::kRoles, n) pointers and the (n + 1,)
-// offsets) into the launch's parameters.
-template <class Rule>
-int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
-                long long total, void* stream, const Rule& rule) {
-  using Tab = ArgTable<Rule::kRoles>;
-  if (n < 1 || n > Tab::kCap || total < 0)
-    return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaSuccess;
+// offsets) into the parameters of a launch whose table is a Tab; the
+// grid is sized by static_chunk.
+template <class Tab, class Rule>
+int launch_table(const int64_t* ptrs, const int64_t* offs, int n,
+                 long long total, void* stream, const Rule& rule) {
   Tab tab;
   for (int i = 0; i < Rule::kRoles * n; ++i) tab.ptrs[i] = ptrs[i];
   for (int i = 0; i <= n; ++i) tab.offs[i] = offs[i];
   const int64_t chunk = static_chunk(total);
   const int64_t blocks = (total + chunk - 1) / chunk;
-  multi_tensor_arg_kernel<Rule><<<(unsigned)blocks, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
+  multi_tensor_arg_kernel<Rule, Tab><<<(unsigned)blocks, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
       tab, n, (int64_t)total, chunk, rule);
   return (int)cudaGetLastError();
+}
+
+// The short table where the list fits in it, else the whole parameter
+// space's.
+template <class Rule>
+int launch_args(const int64_t* ptrs, const int64_t* offs, int n,
+                long long total, void* stream, const Rule& rule) {
+  using Tab = ArgTable<Rule::kRoles>;
+  using Short = ArgTable<Rule::kRoles, kShortParamBytes>;
+  if (n < 1 || n > Tab::kCap || total < 0)
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaSuccess;
+  return n <= Short::kCap
+      ? launch_table<Short>(ptrs, offs, n, total, stream, rule)
+      : launch_table<Tab>(ptrs, offs, n, total, stream, rule);
 }
 
 // ---------------------------------------------------------------------------
@@ -911,9 +947,11 @@ int fused_momentum_f32(const int64_t* ptrs, const int64_t* offs, int n,
                 MomentumRule{lr, mu, nesterov});
 }
 
+// ptrs, offs: the HOST table ((2, n) pointers p, g; (n + 1,) offsets) of
+// at most ArgTable<2>::kCap tensors, copied into the launch's parameters
 int fused_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                  long long total, float lr, int skip, void* stream) {
-  return launch(ptrs, offs, n, total, skip, stream, SgdRule{lr});
+                  long long total, float lr, float wd, void* stream) {
+  return launch_args(ptrs, offs, n, total, stream, SgdRule{lr, wd});
 }
 
 // pieces: (n_pieces, 3) rows (start, length, tensor); tensor_first: the
@@ -1003,11 +1041,13 @@ int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,
   return (int)cudaGetLastError();
 }
 
-// Tensors one static launch takes for a rule of ``roles`` table roles
-// (4: sgd, 5: momentum, 6: Lamb's apply, 10: Adam and Lamb's phase 1),
-// 0 for another count; and the parameter space the build assumed.
+// Tensors one launch whose table travels by value takes for a rule of
+// ``roles`` table roles (2: dygraph SGD; 4: static sgd, 5: momentum, 6:
+// Lamb's apply, 10: Adam and Lamb's phase 1), 0 for another count; and
+// the parameter space the build assumed.
 int static_table_capacity(int roles) {
   switch (roles) {
+    case 2: return ArgTable<2>::kCap;
     case 4: return ArgTable<4>::kCap;
     case 5: return ArgTable<5>::kCap;
     case 6: return ArgTable<6>::kCap;

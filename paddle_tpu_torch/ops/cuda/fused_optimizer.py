@@ -19,9 +19,12 @@ reached from ``fused_try_rule``)::
     v2 = mu*v + g
     p2 = p - lr*v2                  Nesterov: p2 = p - (g + mu*v2)*lr
 
-SGD ports ``_sgd_kernel`` (the dygraph ``SGD`` update)::
+SGD ports ``_sgd_kernel`` (the dygraph ``SGD`` update) with the
+coupled L2 term that the JAX optimizer adds to the gradient before it
+(``L2Decay.grad_term``, ``paddle_tpu/optimizer/optimizer.py:102-104``)
+folded in, each operation rounded on its own in this order::
 
-    p2 = p - lr*g
+    p2 = p - lr*(g + wd*p)          wd = 0: p2 = p - lr*g (no decay term)
 
 Lamb ports ``_lamb_phase1_kernel`` with ``dygraph=True`` and the two
 XLA steps the JAX package runs after it (``fused_try_rule``,
@@ -57,11 +60,15 @@ round-to-nearest intrinsics without contraction, so each kernel agrees
 with its plain version bit for bit on the card.
 
 Routing is by device, with no fallback: CUDA tensors launch ONE kernel
-over every parameter (a device table of pointers, cached while the
-pointers stay the same) and count one ``fused_adam``,
-``fused_momentum`` or ``fused_sgd`` launch (Lamb: one
-``fused_lamb_phase1`` and one ``fused_lamb_apply``), or raise; CPU
-tensors take the plain version. There is no size or dtype floor (the
+over every parameter and count one ``fused_adam``, ``fused_momentum``
+or ``fused_sgd`` launch (Lamb: one ``fused_lamb_phase1`` and one
+``fused_lamb_apply``), or raise; CPU tensors take the plain version.
+Adam, Momentum and Lamb read a device table of pointers, cached while
+the pointers stay the same; SGD's table travels by value in the
+launch's parameters, as the static forms' do, so a step makes no
+host-to-device copy and a list longer than ``static_capacity(2)``
+tensors is cut into consecutive launches (:func:`table_splits`), each
+counted. There is no size or dtype floor (the
 JAX gate's n >= 1024 and f32-only rules were TPU tuning): every f32
 parameter goes through the kernel.
 """
@@ -78,7 +85,7 @@ __all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
            "static_lamb_", "static_sgd_list_", "static_momentum_list_",
            "static_adam_list_", "static_lamb_list_", "static_capacity",
-           "static_param_bytes", "LAMB_PIECE", "lamb_pieces",
+           "static_param_bytes", "table_splits", "LAMB_PIECE", "lamb_pieces",
            "lamb_kernel_norms", "CHUNK_PIECE", "CHUNK_SPREAD",
            "chunk_piece", "chunk_segments", "chunk_pieces", "chunk_lamb_",
            "chunk_update"]
@@ -138,10 +145,12 @@ def _plain_momentum_(params, grads, velocities, lr, mu, nesterov, skip):
         v.copy_(v_new)
 
 
-def _plain_sgd_(params, grads, lr, skip):
+def _plain_sgd_(params, grads, lr, wd, skip):
     if skip:
         return
     for p, g in zip(params, grads):
+        if wd != 0.0:
+            g = g + _scalar(wd, p) * p
         p.copy_(p - _scalar(lr, p) * g)
 
 
@@ -261,19 +270,16 @@ def _cuda_momentum_(params, grads, velocities, lr, mu, nesterov, skip,
         counters.bump("fused_momentum")
 
 
-def _cuda_sgd_(params, grads, lr, skip, cache):
-    dev = params[0].device
+def _cuda_sgd_(params, grads, lr, wd, skip):
     _check_cuda("fused_sgd_", {"param": params, "grad": grads})
-    ptrs, offs, total = _table((params, grads), cache)
-    fn = _build.entry("fused_optimizer", "fused_sgd_f32",
-                      [_P, _P, ctypes.c_int, ctypes.c_longlong, _F,
-                       ctypes.c_int, _P])
-    err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
-             float(lr), int(bool(skip)),
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("fused_optimizer", err, "fused_sgd_f32")
+    numels = [p.numel() for p in params]
+    launches = 0
     if not skip:   # a skipped step launches nothing
-        counters.bump("fused_sgd")
+        launches = _launch_args("fused_sgd_f32", [params, grads], numels,
+                                (_F, _F), (float(lr), float(wd)),
+                                "fused_sgd")
+    return {"tensors": len(params), "elements": sum(numels),
+            "launches": launches}
 
 
 # elements a block of dygraph Lamb's phase 1 takes: the walker's chunk
@@ -401,20 +407,22 @@ def fused_momentum_(params, grads, velocities, *, lr, momentum, nesterov,
     _plain_momentum_(params, grads, velocities, lr32, mu32, nesterov, skip)
 
 
-def fused_sgd_(params, grads, *, lr, skip=False, cache=None):
-    """One SGD step ``p - lr*g`` over lists of parameters and gradients,
-    IN PLACE. ``cache`` (a dict the caller owns) keeps the kernel's
-    pointer table between calls."""
+def fused_sgd_(params, grads, *, lr, weight_decay=0.0, skip=False):
+    """One SGD step ``p - lr*(g + weight_decay*p)`` over lists of
+    parameters and gradients, IN PLACE. ``weight_decay`` is the coupled
+    L2 coefficient (0: ``p - lr*g``). On the card, returns what the
+    launches covered: ``{"tensors", "elements", "launches"}``; on the
+    CPU (the plain version) or for no parameters, None."""
     params, grads = list(params), list(grads)
     if len(params) != len(grads):
         raise ValueError("fused_sgd_: lists of different lengths")
     if not params:
-        return
-    lr32 = np.float32(lr)
+        return None
+    lr32, wd32 = np.float32(lr), np.float32(weight_decay)
     if _device_of("fused_sgd_", params).type == "cuda":
-        _cuda_sgd_(params, grads, lr32, skip, {} if cache is None else cache)
-        return
-    _plain_sgd_(params, grads, lr32, skip)
+        return _cuda_sgd_(params, grads, lr32, wd32, skip)
+    _plain_sgd_(params, grads, lr32, wd32, skip)
+    return None
 
 
 def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
@@ -599,11 +607,18 @@ def _plain_static_lamb_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs,
 _CAPACITY = {}
 
 
+def table_splits(n_tensors: int, cap: int):
+    """The consecutive launches a list of ``n_tensors`` tensors takes,
+    ``cap`` at most a launch, in order: ``[(first, count), ...]``."""
+    return [(a, min(cap, n_tensors - a)) for a in range(0, n_tensors, cap)]
+
+
 def static_capacity(roles: int) -> int:
-    """Tensors one static launch takes for a rule of ``roles`` table
-    roles (sgd 4, momentum 5, Lamb's apply 6, Adam and Lamb's phase 1
-    10): what the kernel parameter space of the build leaves for the
-    table (``static_table_capacity``, built on first use)."""
+    """Tensors one launch whose table travels by value takes for a rule
+    of ``roles`` table roles (dygraph SGD 2; static sgd 4, momentum 5,
+    Lamb's apply 6, Adam and Lamb's phase 1 10): what the kernel
+    parameter space of the build leaves for the table
+    (``static_table_capacity``, built on first use)."""
     if roles not in _CAPACITY:
         fn = _build.entry("fused_optimizer", "static_table_capacity",
                           [ctypes.c_int])
@@ -619,20 +634,20 @@ def static_param_bytes() -> int:
     return int(_build.entry("fused_optimizer", "static_param_bytes", [])())
 
 
-def _launch_static(fn_name, roles, numels, extra_types, extra, counter):
-    """The static rule ``fn_name`` over a run of tensors: ``roles`` is a
-    list of per-role lists (tensors, or None for a null pointer), one
-    entry a tensor of ``numels``. The table goes by value, so the run is
-    cut into consecutive launches of at most ``static_capacity(len(
-    roles))`` tensors, in order; each launch counts once."""
+def _launch_args(fn_name, roles, numels, extra_types, extra, counter):
+    """The rule ``fn_name``, whose table goes by value, over a list of
+    tensors: ``roles`` is a list of per-role lists (tensors, or None for
+    a null pointer), one entry a tensor of ``numels``. The list is cut
+    into consecutive launches of at most ``static_capacity(len(roles))``
+    tensors (:func:`table_splits`); each launch counts once (a part with
+    no element launches nothing). Returns the launches."""
     fn = _build.entry("fused_optimizer", fn_name,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong]
                       + list(extra_types) + [_P])
-    cap = static_capacity(len(roles))
     dev = roles[0][0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for a in range(0, len(numels), cap):
-        n = min(cap, len(numels) - a)
+    launches = 0
+    for a, n in table_splits(len(numels), static_capacity(len(roles))):
         ptrs = (ctypes.c_int64 * (len(roles) * n))(
             *[0 if t is None else t.data_ptr()
               for role in roles for t in role[a:a + n]])
@@ -640,7 +655,10 @@ def _launch_static(fn_name, roles, numels, extra_types, extra, counter):
         offs = (ctypes.c_int64 * (n + 1))(*[int(e) for e in ends])
         err = fn(ptrs, offs, n, int(ends[-1]), *extra, stream)
         _build.check("fused_optimizer", err, fn_name)
-        counters.bump(counter)
+        if ends[-1]:
+            counters.bump(counter)
+            launches += 1
+    return launches
 
 
 def _run_of(op, lists, scalars, founds):
@@ -683,8 +701,8 @@ def static_sgd_list_(params, grads, lrs, founds=None):
     if not cuda:
         _plain_static_sgd_list_(params, grads, lrs, founds)
         return
-    _launch_static("static_sgd_f32", [params, grads, lrs, founds],
-                   [p.numel() for p in params], (), (), "static_sgd")
+    _launch_args("static_sgd_f32", [params, grads, lrs, founds],
+                 [p.numel() for p in params], (), (), "static_sgd")
 
 
 def static_momentum_list_(params, grads, velocities, lrs, *, mu,
@@ -698,11 +716,11 @@ def static_momentum_list_(params, grads, velocities, lrs, *, mu,
         _plain_static_momentum_list_(params, grads, velocities, lrs, mu,
                                      nesterov, founds)
         return
-    _launch_static("static_momentum_f32",
-                   [params, grads, velocities, lrs, founds],
-                   [p.numel() for p in params], (_F, ctypes.c_int),
-                   (float(np.float32(mu)), int(bool(nesterov))),
-                   "static_momentum")
+    _launch_args("static_momentum_f32",
+                 [params, grads, velocities, lrs, founds],
+                 [p.numel() for p in params], (_F, ctypes.c_int),
+                 (float(np.float32(mu)), int(bool(nesterov))),
+                 "static_momentum")
 
 
 def _beta_consts(beta1, beta2, eps):
@@ -731,11 +749,11 @@ def static_adam_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs, *, beta1,
         return _plain_static_adam_list_(params, grads, m1s, m2s, b1ps, b2ps,
                                         lrs, beta1, beta2, eps, founds)
     pows = _pow_outputs(len(params), params[0].device)
-    _launch_static("static_adam_f32",
-                   [params, grads, m1s, m2s, lrs, b1ps, b2ps, founds,
-                    [a for a, _ in pows], [b for _, b in pows]],
-                   [p.numel() for p in params], [_F] * 5,
-                   _beta_consts(beta1, beta2, eps), "static_adam")
+    _launch_args("static_adam_f32",
+                 [params, grads, m1s, m2s, lrs, b1ps, b2ps, founds,
+                  [a for a, _ in pows], [b for _, b in pows]],
+                 [p.numel() for p in params], [_F] * 5,
+                 _beta_consts(beta1, beta2, eps), "static_adam")
     return pows
 
 
@@ -756,16 +774,16 @@ def static_lamb_list_(params, grads, m1s, m2s, b1ps, b2ps, lrs, *, beta1,
     n, numels = len(params), [p.numel() for p in params]
     rs = [torch.empty_like(p) for p in params]
     pows = _pow_outputs(n, params[0].device)
-    _launch_static("static_lamb_phase1_f32",
-                   [params, grads, m1s, m2s, rs, b1ps, b2ps, founds,
-                    [a for a, _ in pows], [b for _, b in pows]], numels,
-                   [_F] * 6, _beta_consts(beta1, beta2, eps)
-                   + (float(np.float32(weight_decay)),),
-                   "static_lamb_phase1")
+    _launch_args("static_lamb_phase1_f32",
+                 [params, grads, m1s, m2s, rs, b1ps, b2ps, founds,
+                  [a for a, _ in pows], [b for _, b in pows]], numels,
+                 [_F] * 6, _beta_consts(beta1, beta2, eps)
+                 + (float(np.float32(weight_decay)),),
+                 "static_lamb_phase1")
     norms = torch._foreach_norm(list(params) + rs)
-    _launch_static("static_lamb_apply_f32",
-                   [params, rs, lrs, norms[:n], norms[n:], founds], numels,
-                   (), (), "static_lamb_apply")
+    _launch_args("static_lamb_apply_f32",
+                 [params, rs, lrs, norms[:n], norms[n:], founds], numels,
+                 (), (), "static_lamb_apply")
     return pows
 
 

@@ -11,7 +11,9 @@ Momentum (``optimizer.py:286-304``) keeps a ``velocity`` that starts
 at zero: ``v2 = mu*v + g``, ``p2 = p - lr*v2``, or with Nesterov
 ``p - lr*(g + mu*v2)``. A float ``weight_decay`` on ``Momentum`` or
 plain ``Adam`` is the coupled L2 term ``g + wd*p``, as the JAX package's
-``L2Decay`` folds it. SGD (``optimizer.py:281``) is ``p - lr*g``.
+``L2Decay`` folds it. SGD (``optimizer.py:281``) is ``p - lr*g``; its
+coupled L2 term goes into the kernel, ``p - lr*(g + wd*p)``, rounded as
+the JAX package's ``g + wd*p`` followed by the update.
 Lamb (``optimizer.py:463-487``, the dygraph form of
 ``fused_try_rule``) keeps moment1/moment2 from zero and updates
 ``p - (lr*trust)*r`` with ``r = m_hat/(sqrt(v_hat) + eps) + wd*p`` and
@@ -24,7 +26,8 @@ reads the scheduler's value, which the caller advances with
 ``scheduler.step()``. The value reaches the kernel as a host f32
 argument each step (no host-to-device copy). ``grad_clip`` (an
 ``nn.clip`` object) clips the gradients first, then the coupled L2 term
-is added, in the order of ``apply_gradients_fn`` (``:102-104``).
+is added (by the SGD kernel itself), in the order of
+``apply_gradients_fn`` (``:102-104``).
 
 The whole update is one ``ops.cuda.fused_optimizer`` call
 (``fused_sgd_``, ``fused_momentum_``, ``fused_adam_`` or
@@ -110,11 +113,17 @@ class Optimizer:
                                       for k in self.SLOTS}
         return s
 
+    def _clipped(self, grads):
+        """The gradients clipped by ``grad_clip`` (as they are without
+        one)."""
+        if self._grad_clip is not None:
+            return self._grad_clip.apply_pytree(grads)
+        return grads
+
     def _grads(self, params, grads):
         """The gradients the rule sees: clipped by ``grad_clip``, then
         ``g + wd*p`` for a float ``weight_decay`` (coupled L2)."""
-        if self._grad_clip is not None:
-            grads = self._grad_clip.apply_pytree(grads)
+        grads = self._clipped(grads)
         if self._l2_coeff and not self.DECOUPLED_WD:
             return [g + self._l2_coeff * p for g, p in zip(grads, params)]
         return grads
@@ -125,8 +134,11 @@ class Optimizer:
 
 class SGD(Optimizer):
     def _apply(self, params, grads, t):
-        fused_sgd_([p.detach() for p in params], self._grads(params, grads),
-                   lr=self.get_lr(), cache=self._kernel_cache)
+        # the coupled L2 term is the kernel's: no g + wd*p tensors here;
+        # on the card, what the last step's launches covered is kept
+        self._last_launch = fused_sgd_(
+            [p.detach() for p in params], self._clipped(grads),
+            lr=self.get_lr(), weight_decay=self._l2_coeff)
 
 
 class Momentum(Optimizer):

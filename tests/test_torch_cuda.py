@@ -419,21 +419,69 @@ def test_flash_short_dropout_mask_is_bitwise_the_plain_mask(dev):
     assert torch.equal(got, keep)
 
 
-def test_fused_sgd_kernel_is_bitwise_the_plain_version(dev):
+def _offset_copy(x):
+    """A copy as far from 16-byte alignment as ``x`` (an offset view
+    stays on the walker's scalar path)."""
+    off = x.data_ptr() % 16 // 4
+    return torch.empty(x.numel() + off, device=x.device)[off:].view(
+        x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+def test_fused_sgd_kernel_is_bitwise_the_plain_version(dev, wd):
+    """Three steps and a skipped one over tensors of odd sizes, an empty
+    one and an offset view (the scalar path) included, without and with
+    the coupled decay: p bit for bit; one launch a step, none skipped;
+    the last launch covered every tensor."""
     g = torch.Generator(device=dev).manual_seed(7)
-    shapes = [(6, 1, 3, 3), (6,), (3,), (0,), (1000, 7)]
+    shapes = [(6, 1, 3, 3), (6,), (3,), (0,), (1000, 7), (4099,)]
     ps = [torch.randn(s, generator=g, device=dev) for s in shapes]
-    kp = [x.clone() for x in ps]
-    cache = {}
+    ps[-1] = torch.randn(4100, generator=g, device=dev)[1:]
+    kp = [_offset_copy(x) for x in ps]
+    assert kp[-1].data_ptr() % 16 == 4
+    cover = {"tensors": len(shapes),
+             "elements": sum(int(np.prod(s)) for s in shapes)}
     for _ in range(3):
         gs = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
-        fo.fused_sgd_(kp, gs, lr=0.01, cache=cache)
-        fo._plain_sgd_(ps, gs, np.float32(0.01), False)
-    fo.fused_sgd_(kp, gs, lr=0.01, skip=True, cache=cache)
+        assert fo.fused_sgd_(kp, gs, lr=0.01, weight_decay=wd) == dict(
+            cover, launches=1)
+        fo._plain_sgd_(ps, gs, np.float32(0.01), np.float32(wd), False)
+    assert fo.fused_sgd_(kp, gs, lr=0.01, weight_decay=wd,
+                         skip=True) == dict(cover, launches=0)
     torch.cuda.synchronize()
     for a, b in zip(kp, ps):
         assert torch.equal(a, b)
     assert counters.get("fused_sgd") == 3
+
+
+def test_fused_sgd_splits_a_list_past_the_table_capacity(dev):
+    """A list of more tensors than one launch's table holds by value
+    (``static_capacity(2)``: 1,359 with CUDA 12.1's parameter space)
+    runs as consecutive launches, each counted, bit for bit the plain
+    version with the decay; every fifth tensor an offset view."""
+    cap = fo.static_capacity(2)
+    assert cap == (((fo.static_param_bytes() - 128) // 8) - 1) // 3
+    n = cap + 41
+    g = torch.Generator(device=dev).manual_seed(17)
+    sizes = [1 + k % 9 for k in range(n)]
+
+    def tensors(scale):
+        out = []
+        for k, m in enumerate(sizes):
+            x = torch.randn(m + 1, generator=g, device=dev) * scale
+            out.append(x[1:] if k % 5 == 0 else x[:m])
+        return out
+
+    ps, gs = tensors(1.0), tensors(0.01)
+    kp = [_offset_copy(x) for x in ps]
+    assert sum(x.data_ptr() % 16 != 0 for x in kp) == -(-n // 5)
+    rec = fo.fused_sgd_(kp, gs, lr=0.01, weight_decay=1e-4)
+    fo._plain_sgd_(ps, gs, np.float32(0.01), np.float32(1e-4), False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kp, ps))
+    want = len(fo.table_splits(n, cap))
+    assert want == 2 and counters.get("fused_sgd") == want
+    assert rec == {"tensors": n, "elements": sum(sizes), "launches": want}
 
 
 def _lamb_state(dev, shapes, seed):

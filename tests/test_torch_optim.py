@@ -21,6 +21,7 @@ from paddle_tpu.nn import clip as jclip
 from paddle_tpu.ops.pallas import counters as jcounters
 from paddle_tpu.ops.pallas import fused_optimizer as jfo
 from paddle_tpu.optimizer import lr as jlr
+from paddle_tpu.regularizer import L2Decay
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.ops.cuda import counters
 from paddle_tpu_torch.ops.cuda import fused_optimizer as tfo
@@ -58,10 +59,14 @@ def _close(got, want, rtol):
 # ---------------------------------------------------------------------------
 # K3-sgd
 # ---------------------------------------------------------------------------
-def test_fused_sgd_matches_pallas_sgd_kernel():
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+def test_fused_sgd_matches_pallas_sgd_kernel(wd):
     """Three steps, the second skipped; p after each against the Pallas
-    kernel within rtol 1e-6 (XLA's CPU backend fuses ``p - lr*g`` into
-    one FMA; the port rounds the product, as the card's kernel does)."""
+    kernel fed the JAX optimizer's coupled L2 gradient ``g +
+    L2Decay(wd).grad_term(p)`` (the port folds the term into the
+    update), within rtol 1e-6 (XLA's CPU backend fuses ``p - lr*g``
+    into one FMA; the port rounds the product, as the card's kernel
+    does)."""
     n, lr = 3000, 0.01
     rng = np.random.RandomState(21)
     p = rng.randn(n).astype(np.float32)
@@ -69,13 +74,18 @@ def test_fused_sgd_matches_pallas_sgd_kernel():
     for step in range(3):
         g = rng.randn(n).astype(np.float32) * 0.1
         skip = step == 1
+        jg = jnp.asarray(g)
+        if wd:
+            jg = jg + L2Decay(wd).grad_term(jp)
         (jp,) = jfo._run_grid(jfo._sgd_kernel,
                               [jfo._scal(lr), jfo._scal(float(skip))],
-                              [jp, jnp.asarray(g)], 1, n, True)
+                              [jp, jg], 1, n, True)
         before = tp.clone()
-        tfo.fused_sgd_([tp], [_t(g)], lr=lr, skip=skip)
+        tfo.fused_sgd_([tp], [_t(g)], lr=lr, weight_decay=wd, skip=skip)
         if skip:
             assert torch.equal(tp, before)
+        else:
+            assert not torch.equal(tp, before)
         _close(tp, jp, 1e-6)
     assert counters.snapshot() == {}                  # the CPU runs plain
 
@@ -101,6 +111,71 @@ def test_sgd_step_with_l2_and_clip_matches_the_jax_optimizer():
         grad_clip=nn.ClipGradByGlobalNorm(1.0)).step()
     for k in ps:
         _close(tps[k].detach(), jp[k], 1e-6)
+
+
+def test_fused_sgd_decay_is_rounded_as_the_optimizer_adds_it():
+    """With a decay the plain version is, bit for bit, ``g + wd*p`` as
+    the optimizer built it before the decay moved into the update
+    (PyTorch's f32 product and sum), then ``p - lr*g``; with wd = 0 it
+    is ``p - lr*g`` itself, even where ``g + 0*p`` is not ``g`` (an
+    infinite p stays infinite, where 0*p would make it NaN)."""
+    rng = np.random.RandomState(23)
+    p = rng.randn(4099).astype(np.float32)
+    g = rng.randn(4099).astype(np.float32) * 0.1
+    p[:2] = np.inf, -np.inf
+    lr = np.float32(0.01)
+    for w in (1e-4, 0.0):
+        tp = _t(p)
+        tfo.fused_sgd_([tp], [_t(g)], lr=0.01, weight_decay=w)
+        gw = _t(g) + w * _t(p) if w else _t(g)
+        want = _t(p) - torch.tensor(lr) * gw
+        assert torch.equal(tp.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(tp[:2], _t(p[:2]))
+
+
+def test_sgd_passes_its_decay_to_the_kernel(monkeypatch):
+    """``SGD`` hands the kernel the clipped gradients as they are and
+    its float ``weight_decay`` (no ``g + wd*p`` tensors of its own);
+    Momentum still adds the term to the gradients it passes."""
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer import optimizer as topt
+
+    seen = {}
+
+    def record(name):
+        def fn(params, grads, *args, **kw):
+            seen[name] = (list(grads), kw)
+        return fn
+
+    monkeypatch.setattr(topt, "fused_sgd_", record("sgd"))
+    monkeypatch.setattr(topt, "fused_momentum_", record("momentum"))
+    rng = np.random.RandomState(24)
+    for cls, name in ((SGD, "sgd"), (Momentum, "momentum")):
+        w = torch.nn.Parameter(_t(rng.randn(5, 3).astype(np.float32)))
+        w.grad = _t(rng.randn(5, 3).astype(np.float32))
+        cls(learning_rate=0.1, parameters=[w], weight_decay=1e-4).step()
+        (g,), kw = seen[name]
+        if name == "sgd":
+            assert g is w.grad and kw["weight_decay"] == 1e-4
+        else:
+            assert torch.equal(g, w.grad + 1e-4 * w.detach())
+            assert "weight_decay" not in kw
+
+
+@pytest.mark.parametrize("n,cap,want", [
+    (10, 1359, [(0, 10)]),
+    (1359, 1359, [(0, 1359)]),
+    (1400, 1359, [(0, 1359), (1359, 41)]),
+    (2719, 1359, [(0, 1359), (1359, 1359), (2718, 1)]),
+    (0, 1359, []),
+    (206, 45, [(0, 45), (45, 45), (90, 45), (135, 45), (180, 26)]),
+])
+def test_table_splits_cut_a_long_list_in_order(n, cap, want):
+    """A list whose table travels by value splits into consecutive
+    launches of at most ``cap`` tensors that cover it once, in order."""
+    got = tfo.table_splits(n, cap)
+    assert got == want
+    assert [i for a, k in got for i in range(a, a + k)] == list(range(n))
 
 
 # ---------------------------------------------------------------------------
