@@ -13,8 +13,15 @@ the per-token-row f32 scale planes ``(n_layers, n_pages, page_size)``.
 The HOST side, :class:`PageTableManager`, is a copy of the JAX
 package's: a free-list allocator with per-sequence page lists, per-page
 refcounts, a chained-hash prefix index, a cached-page LRU and
-copy-on-write. Page 0 is the RESERVED trash page for masked lanes. The
-host KV tier (``HostKVPool``) waits for a later port slice.
+copy-on-write. Page 0 is the RESERVED trash page for masked lanes.
+
+Below the device pool sits the HOST tier, :class:`HostKVPool`, a copy
+of the reference's: int8-encoded page records in host RAM, keyed by
+parked session (every page of a sequence the engine parked under pool
+pressure) and by prefix chain key (indexed pages the allocator
+reclaimed, revivable at prefill). Pools of any dtype take the
+``ps.codec`` per-token-row layout there; an int8 pool's records are
+its own planes, so park -> resume is bitwise.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 
 from ..._device import resolve_device
 
-__all__ = ["PageTableManager", "alloc_kv_pool", "alloc_kv_scales"]
+__all__ = ["HostKVPool", "PageTableManager", "alloc_kv_pool",
+           "alloc_kv_scales"]
 
 
 def alloc_kv_pool(n_layers: int, n_pages: int, page_size: int,
@@ -67,6 +75,159 @@ def _chain_keys(tokens: Sequence[int], n_blocks: int,
         prev = hashlib.sha1(prev + block).digest()
         keys.append(prev)
     return keys
+
+
+class HostKVPool:
+    """Host-RAM offload tier for KV pages: int8-encoded page records
+    keyed two ways — PARKED SESSIONS (every page of an idle sequence,
+    restored wholesale on resume) and a PREFIX LRU (individual indexed
+    pages the HBM allocator reclaimed, revivable by chain key at
+    prefill time).
+
+    A page record is ``(kq, ks, vq, vs)`` numpy arrays: int8 rows
+    ``(n_layers, page_size, heads, head_dim)`` plus the per-token-row
+    f32 scales ``(n_layers, page_size)`` — exactly the int8 pool's
+    plane layout, so :attr:`page_nbytes` is the ps/codec closed form
+    ``2 * L * encoded_nbytes(S*H*D, "int8", block=H*D)``.
+
+    ``capacity_bytes`` bounds the tier. Parked sessions are load-
+    bearing (a parked request WILL resume) so they evict prefix pages
+    to make room but are never evicted themselves; prefix pages age
+    out LRU-oldest first. Everything here is plain numpy on the host:
+    no device, no locks beyond the caller's (the engine touches it from
+    its scheduler thread only)."""
+
+    def __init__(self, n_layers: int, page_size: int, heads: int,
+                 head_dim: int, capacity_bytes: int):
+        from ...ps.codec import encoded_nbytes
+
+        self.n_layers = int(n_layers)
+        self.page_size = int(page_size)
+        self.heads = int(heads)
+        self.head_dim = int(head_dim)
+        self.capacity_bytes = int(capacity_bytes)
+        row = self.heads * self.head_dim
+        #: encoded bytes one page costs on the host: K and V planes,
+        #: one f32 scale per token row per layer
+        self.page_nbytes = 2 * self.n_layers * encoded_nbytes(
+            self.page_size * row, "int8", block=row)
+        self._seqs: Dict[int, List[tuple]] = {}
+        self._prefix: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self._spilled_pages = 0      # cumulative d2h page count
+        self._restored_pages = 0     # cumulative h2d page count
+        self._dropped_pages = 0      # refused/aged-out prefix pages
+
+    # -- accounting -------------------------------------------------------
+    @property
+    def pages_host(self) -> int:
+        """Pages resident in the host tier right now."""
+        return (sum(len(p) for p in self._seqs.values())
+                + len(self._prefix))
+
+    @property
+    def bytes_in_use(self) -> int:
+        return self.pages_host * self.page_nbytes
+
+    @property
+    def spilled_pages(self) -> int:
+        return self._spilled_pages
+
+    @property
+    def restored_pages(self) -> int:
+        return self._restored_pages
+
+    def room_for(self, n_pages: int) -> bool:
+        """True when ``n_pages`` fit after aging out every prefix
+        page — parked sessions are the only immovable tenants."""
+        fixed = sum(len(p) for p in self._seqs.values())
+        return (fixed + int(n_pages)) * self.page_nbytes \
+            <= self.capacity_bytes
+
+    def _make_room(self, n_pages: int) -> bool:
+        """Age out LRU-oldest prefix pages until ``n_pages`` fit;
+        False when parked sessions alone exceed the budget."""
+        need = int(n_pages) * self.page_nbytes
+        while self.bytes_in_use + need > self.capacity_bytes:
+            if not self._prefix:
+                return False
+            self._prefix.popitem(last=False)
+            self._dropped_pages += 1
+        return True
+
+    # -- parked sessions --------------------------------------------------
+    def put_seq(self, key: int, records: Sequence[tuple]) -> bool:
+        """Park a session's encoded pages; False when the tier can't
+        hold them even after aging the prefix LRU out (caller falls
+        back to preemption)."""
+        if key in self._seqs:
+            raise ValueError(f"session {key} already parked")
+        records = list(records)
+        if not self._make_room(len(records)):
+            return False
+        self._seqs[key] = records
+        self._spilled_pages += len(records)
+        return True
+
+    def pop_seq(self, key: int) -> List[tuple]:
+        """Take a parked session's pages back for restore; raises
+        KeyError for an unknown session."""
+        records = self._seqs.pop(key)
+        self._restored_pages += len(records)
+        return records
+
+    def drop_seq(self, key: int) -> int:
+        """Discard a parked session (deadline expiry, shutdown);
+        returns the page count freed."""
+        records = self._seqs.pop(key, [])
+        self._dropped_pages += len(records)
+        return len(records)
+
+    def has_seq(self, key: int) -> bool:
+        return key in self._seqs
+
+    # -- prefix LRU -------------------------------------------------------
+    def put_prefix(self, key: bytes, record: tuple) -> bool:
+        """Spill one reclaimed prefix page under its chain key; the
+        newest entry is the warmest. False when there is no room even
+        after aging older prefixes out."""
+        if key in self._prefix:
+            self._prefix.move_to_end(key)
+            return True
+        if not self._make_room(1):
+            self._dropped_pages += 1
+            return False
+        self._prefix[key] = record
+        self._spilled_pages += 1
+        return True
+
+    def take_prefix(self, key: bytes) -> Optional[tuple]:
+        """Pop a spilled prefix page for revival; None on miss."""
+        record = self._prefix.pop(key, None)
+        if record is not None:
+            self._restored_pages += 1
+        return record
+
+    def has_prefix(self, key: bytes) -> bool:
+        return key in self._prefix
+
+    # -- views ------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-ready host-tier state (the reference's tools/dump_kv.py
+        reads this layout): residency
+        per parked session, the prefix LRU in temperature order
+        (oldest/coldest first), and the byte accounting."""
+        return {
+            "page_nbytes": self.page_nbytes,
+            "capacity_bytes": self.capacity_bytes,
+            "bytes_in_use": self.bytes_in_use,
+            "pages_host": self.pages_host,
+            "spilled_pages": self._spilled_pages,
+            "restored_pages": self._restored_pages,
+            "dropped_pages": self._dropped_pages,
+            "sessions": {str(k): len(v)
+                         for k, v in sorted(self._seqs.items())},
+            "prefix_lru": [k.hex()[:12] for k in self._prefix],
+        }
 
 
 class PageTableManager:

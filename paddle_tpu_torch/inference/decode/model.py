@@ -13,7 +13,12 @@ share the same math:
   produced, for scattering into the page pool.
 - :func:`decode_forward` — ONE token per sequence: writes its K/V into
   the page pool IN PLACE (``paged_write``) and attends through the
-  paged attention kernel over the page table. No length padding.
+  paged attention kernel over the page table. No length padding. It can
+  also give the next positions on the device, which the engine's async
+  tick chains from one tick to the next.
+- :func:`spec_decode_forward` — the speculative verify step: K+1 token
+  columns a sequence, flattened into B·(K+1) ragged rows that share
+  their sequence's page table, through the same kernels.
 
 The large products (qkv, out, ffn, head) and prefill's dense attention
 stay plain ``torch.matmul``/einsum, as the JAX package left them to XLA.
@@ -34,7 +39,7 @@ from ...ops.cuda.paged_attention import (paged_attention, paged_write,
 
 __all__ = ["DecodeModelConfig", "init_decode_params", "params_from_numpy",
            "dense_forward", "prefill_forward", "decode_forward",
-           "reference_generate"]
+           "spec_decode_forward", "reference_generate"]
 
 
 class DecodeModelConfig:
@@ -188,24 +193,12 @@ def prefill_forward(cfg: DecodeModelConfig, params, tokens, lens,
     return torch.argmax(last, dim=-1).to(torch.int32), ks, vs
 
 
-def decode_forward(cfg: DecodeModelConfig, params, tokens, positions,
-                   k_pages, v_pages, page_table, seq_lens, active,
-                   k_scales=None, v_scales=None,
-                   return_logits: bool = False):
-    """One ragged decode step at fixed max-batch: write each sequence's
-    new K/V into its page slot (IN PLACE on the pools), attend over its
-    live pages plus the token just written, and return the next greedy
-    token (B,) int32, or with ``return_logits`` the raw logits (B, V).
-
-    ``tokens``/``positions``/``seq_lens``/``active`` are (B,);
-    ``k_pages``/``v_pages`` are the stacked (n_layers, P, S, H, D)
-    pools. With ``k_scales``/``v_scales`` (n_layers, P, S) the pools are
-    int8: writes row-encode and attention dequantises in the kernel."""
+def _paged_fns(k_pages, v_pages, k_scales, v_scales, page_table,
+               positions, attend_lens, active):
+    """The (write, attend) pair of a paged forward: ``write(i, k, v)``
+    puts each row's new K/V at ``positions`` IN PLACE, ``attend(i, q, k,
+    v)`` runs the paged attention kernel over ``attend_lens`` tokens."""
     quant = k_scales is not None
-    maxp = cfg.max_context - 1
-    h = params["tok_emb"][tokens.long()] \
-        + params["pos_emb"][torch.clamp(positions.long(), 0, maxp)]
-    lens1 = seq_lens + 1
 
     def write(i, k, v):
         if quant:
@@ -218,14 +211,80 @@ def decode_forward(cfg: DecodeModelConfig, params, tokens, positions,
 
     def attn(i, q, k, v):
         return paged_attention(
-            q.contiguous(), k_pages[i], v_pages[i], page_table, lens1,
+            q.contiguous(), k_pages[i], v_pages[i], page_table, attend_lens,
             k_scales=k_scales[i] if quant else None,
             v_scales=v_scales[i] if quant else None)
 
+    return write, attn
+
+
+def decode_forward(cfg: DecodeModelConfig, params, tokens, positions,
+                   k_pages, v_pages, page_table, seq_lens, active,
+                   k_scales=None, v_scales=None,
+                   return_logits: bool = False,
+                   return_next_positions: bool = False):
+    """One ragged decode step at fixed max-batch: write each sequence's
+    new K/V into its page slot (IN PLACE on the pools), attend over its
+    live pages plus the token just written, and return the next greedy
+    token (B,) int32, or with ``return_logits`` the raw logits (B, V).
+    With ``return_next_positions`` it returns ``(out, positions + 1)``:
+    the next step's positions, made on the device (the reference step's
+    trailing output), so a tick can chain them without an upload.
+
+    ``tokens``/``positions``/``seq_lens``/``active`` are (B,);
+    ``k_pages``/``v_pages`` are the stacked (n_layers, P, S, H, D)
+    pools (f32, bf16 or f16: writes round to the pool's dtype). With
+    ``k_scales``/``v_scales`` (n_layers, P, S) the pools are int8:
+    writes row-encode and attention dequantises in the kernel."""
+    maxp = cfg.max_context - 1
+    h = params["tok_emb"][tokens.long()] \
+        + params["pos_emb"][torch.clamp(positions.long(), 0, maxp)]
+    write, attn = _paged_fns(k_pages, v_pages, k_scales, v_scales,
+                             page_table, positions, seq_lens + 1, active)
     logits = _forward_layers(cfg, params, h, attn, write_fn=write)
-    if return_logits:
-        return logits
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    out = logits if return_logits \
+        else torch.argmax(logits, dim=-1).to(torch.int32)
+    if return_next_positions:
+        return out, positions + 1
+    return out
+
+
+def spec_decode_forward(cfg: DecodeModelConfig, params, tokens, positions,
+                        k_pages, v_pages, page_table, seq_lens, active,
+                        k_scales=None, v_scales=None):
+    """Speculative verify step: score K+1 token columns a slot in ONE
+    ragged step. ``tokens`` (B, K+1) is [next_token, d_1..d_K], the
+    committed next token and the proposer's drafts; column j's K/V is
+    written at ``positions + j`` and its query attends over
+    ``positions + j + 1`` tokens (write, then attend: each draft sees
+    exactly the tokens before it, causal by the ragged lengths). The
+    (B, K+1) grid is flattened into B·(K+1) rows that share their slot's
+    page table, through the same write and attention kernels as
+    :func:`decode_forward`. Returns the greedy argmax a column (B, K+1)
+    int32: g_0 is the next token; g_j verifies d_j (accepted while d_j ==
+    g_{j-1}), so the accepted prefix is what token-by-token greedy
+    decode would emit.
+
+    ``active`` (B, K+1): column 0 live a slot, draft columns live only
+    where a draft was proposed (dead columns write to the trash page 0
+    and their outputs are ignored). ``seq_lens`` is unused (the lengths
+    follow from the positions), as in the reference."""
+    del seq_lens
+    B, K1 = tokens.shape
+    cols = torch.arange(K1, dtype=torch.int32, device=tokens.device)
+    pos = positions.to(torch.int32)[:, None] + cols[None, :]
+    maxp = cfg.max_context - 1
+    h = params["tok_emb"][tokens.long()] \
+        + params["pos_emb"][torch.clamp(pos.long(), 0, maxp)]
+    h = h.reshape(B * K1, cfg.hidden)
+    flat_pos = pos.reshape(-1)
+    T = page_table.shape[1]
+    flat_table = page_table[:, None, :].expand(B, K1, T).reshape(B * K1, T)
+    write, attn = _paged_fns(k_pages, v_pages, k_scales, v_scales,
+                             flat_table, flat_pos, flat_pos + 1,
+                             active.reshape(-1))
+    logits = _forward_layers(cfg, params, h, attn, write_fn=write)
+    return torch.argmax(logits, dim=-1).to(torch.int32).reshape(B, K1)
 
 
 @torch.no_grad()

@@ -3,7 +3,7 @@ slots, and page-pool pressure policy — pure host-side logic, fully
 deterministic under an injected clock.
 
 A copy of ``paddle_tpu/inference/decode/scheduler.py``; the parking
-hooks serve the host KV tier, which waits for a later port slice.
+hooks serve the engine's host KV tier.
 
 The admission surface is the serving engine's, typed error for
 typed error (``inference.serving``): a bounded queue and optional

@@ -32,8 +32,9 @@ class RequestFailed(ServingError):
 
 
 class KVRestoreError(ServingError):
-    """A parked session's staged restore was unavailable (raised by the
-    host KV tier, which waits for a later port slice)."""
+    """A parked session's staged restore was unavailable: the decode
+    engine's restore prefetcher died, failed or timed out. The engine
+    counts it (``kv_restore_fallbacks``) and restores synchronously."""
 
 
 class _DualHist:

@@ -3,8 +3,9 @@
 and fixed-bucket latency histograms with bucket-derived percentiles.
 
 A copy of the subset of ``paddle_tpu/observability/metrics.py`` the
-decode engine needs; labeled series and the Prometheus exposition wait
-for the port's ``/metrics`` listener. Stdlib only.
+decode engine needs, labelled histograms included (the engine's
+``decode_tick_phase_ms{phase=dispatch|host|fetch}``); the Prometheus
+exposition waits for the port's ``/metrics`` listener. Stdlib only.
 """
 from __future__ import annotations
 
@@ -22,11 +23,15 @@ DEFAULT_LATENCY_BUCKETS_MS: Tuple[float, ...] = (
 
 
 class Histogram:
-    """Fixed-bucket histogram (+Inf bucket implicit). ``percentile(q)``
-    interpolates inside the winning bucket."""
+    """Fixed-bucket histogram (+Inf bucket implicit), one series per set
+    of label values when ``labels`` were declared: ``observe(v,
+    **labels)``, ``snapshot(**labels)``, ``percentile(q, **labels)``
+    name every declared label. ``percentile(q)`` interpolates inside the
+    winning bucket."""
 
     def __init__(self, registry: "MetricsRegistry", name: str,
-                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS):
+                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS,
+                 labels: Sequence[str] = ()):
         bs = tuple(float(b) for b in buckets)
         if not bs or list(bs) != sorted(set(bs)):
             raise ValueError(
@@ -35,38 +40,53 @@ class Histogram:
         self._registry = registry
         self.name = name
         self.buckets = bs
-        self._counts = [0] * (len(bs) + 1)   # per bucket, +Inf last
-        self._sum = 0.0
-        self._count = 0
+        self.labels = tuple(labels)
+        # label values -> [per-bucket counts (+Inf last), sum, count]
+        self._series: Dict[tuple, list] = {}
 
-    def observe(self, value) -> None:
+    def _key(self, labels: Dict[str, object]) -> tuple:
+        if set(labels) != set(self.labels):
+            raise ValueError(
+                f"histogram {self.name!r} declared labels "
+                f"{list(self.labels)}, got {sorted(labels)}")
+        return tuple(str(labels[n]) for n in self.labels)
+
+    def observe(self, value, **labels) -> None:
         v = float(value)
+        key = self._key(labels)
         with self._registry.lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = [[0] * (len(self.buckets) + 1),
+                                         0.0, 0]
             idx = len(self.buckets)
             for i, b in enumerate(self.buckets):
                 if v <= b:
                     idx = i
                     break
-            self._counts[idx] += 1
-            self._sum += v
-            self._count += 1
+            s[0][idx] += 1
+            s[1] += v
+            s[2] += 1
 
-    def snapshot(self) -> dict:
+    def snapshot(self, **labels) -> dict:
         """{"count", "sum", "buckets": [(le, cumulative_count), ...]}
         with the +Inf bucket last."""
+        key = self._key(labels)
         with self._registry.lock:
+            counts, total, n = self._series.get(
+                key, ([0] * (len(self.buckets) + 1), 0.0, 0))
             cum, out = 0, []
-            for b, c in zip(self.buckets, self._counts):
+            for b, c in zip(self.buckets, counts):
                 cum += c
                 out.append((b, cum))
-            out.append((float("inf"), cum + self._counts[-1]))
-            return {"count": self._count, "sum": self._sum,
-                    "buckets": out}
+            out.append((float("inf"), cum + counts[-1]))
+            return {"count": n, "sum": total, "buckets": out}
 
-    def percentile(self, q: float) -> float:
+    def percentile(self, q: float, **labels) -> float:
         """q in [0, 100]. 0.0 when empty; the last finite bound when the
         quantile lands in the +Inf bucket."""
-        return percentile_from_buckets(self.snapshot()["buckets"], q)
+        return percentile_from_buckets(self.snapshot(**labels)["buckets"],
+                                       q)
 
 
 def percentile_from_buckets(buckets, q: float) -> float:
@@ -100,12 +120,17 @@ class MetricsRegistry:
 
     def histogram(self, name: str,
                   buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS,
-                  ) -> Histogram:
-        """The histogram ``name``, declared on first use."""
+                  labels: Sequence[str] = ()) -> Histogram:
+        """The histogram ``name``, declared on first use with its label
+        names; a later call with other label names raises."""
         with self.lock:
             h = self._hists.get(name)
             if h is None:
-                h = self._hists[name] = Histogram(self, name, buckets)
+                h = self._hists[name] = Histogram(self, name, buckets,
+                                                  labels)
+            elif h.labels != tuple(labels):
+                raise ValueError(f"histogram {name!r} already declared "
+                                 f"with labels {list(h.labels)}")
             return h
 
     def inc_scalar(self, name: str, n=1) -> None:

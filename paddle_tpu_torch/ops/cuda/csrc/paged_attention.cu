@@ -1,7 +1,9 @@
-// Paged decode attention for Hopper (sm_90a), f32 and int8 KV pools.
+// Paged decode attention for Hopper (sm_90a): f32, bf16, f16 and int8 KV
+// pools.
 //
 // Replaces the TPU kernels in paddle_tpu/ops/pallas/paged_attention.py:
-// _paged_attention_pallas (_paged_attn_kernel) and
+// _paged_attention_pallas (_paged_attn_kernel, which upcasts whatever page
+// type it is given, so one kernel serves the f32, bf16 and f16 pools) and
 // _paged_attention_pallas_quant (_paged_attn_kernel_quant). One query
 // token per sequence attends over the live pages its page table names,
 // with an online softmax over pages.
@@ -10,10 +12,11 @@
 // (len rows per sequence and head, plus their scales for int8) and does
 // about 4 flops per element read, far below the card's f32 balance
 // point of ~20 flop/byte. At the engine's shapes (8 sequences x 16 heads
-// x 128, pages of 128, 4,932 live tokens) that is 0.0242 ms for f32 and
-// 0.0061 ms for int8. The longest sequence holds 42 % of the tokens, so
-// one block per (head, sequence) walking its pages in series is bound by
-// that sequence's latency, not by the card's bandwidth.
+// x 128, pages of 128, 4,932 live tokens) and an H100 SXM's data-sheet
+// 3.35 TB/s (700 W) that is 0.0242 ms for f32, 0.0121 ms for bf16 and
+// f16, and 0.0061 ms for int8. The longest sequence holds 42 % of the
+// tokens, so one block per (head, sequence) walking its pages in series
+// is bound by that sequence's latency, not by the card's bandwidth.
 //
 // Design: the pages of one (head, sequence) are split over a thread-block
 // cluster of C CTAs. C comes from the table's width T on the host
@@ -21,15 +24,20 @@
 // from the lengths, which live on the device. CTA r takes the stripe of
 // table entries [r * ceil(T / C), (r + 1) * ceil(T / C)) and keeps its own
 // (m, l, acc). A stripe streams through shared memory in chunks of
-// Chunk<KV>::kTokens tokens (16 for f32, 64 for int8; a chunk never
-// crosses a page; of the sizes timed on the card these were fastest)
-// through a two-stage cp.async ring: the next chunk's K and V rows (16-
-// byte copies; 4-byte ones for an int8 head_dim that is not a multiple of
-// 16) and their scales arrive under this chunk's work. Only live rows are
-// copied; a row past the length scores -inf and its V row is never read.
+// Chunk<KV>::kTokens tokens (16 for f32, 32 for bf16 and f16, 64 for int8:
+// 2 KB of K row a chunk at head_dim 128 for f32, 8 KB for int8, whose
+// sizes were the fastest of those timed on the card; 2-byte pages take the
+// middle, not tuned; a chunk never crosses a page) through a two-stage
+// cp.async ring: the next chunk's K and V rows (16-byte copies; 4-byte ones
+// for an int8 head_dim that is not a multiple of 16 and a 2-byte one that
+// is not a multiple of 8) and their scales arrive under this chunk's work.
+// Only live rows are copied; a row past the length scores -inf and its V
+// row is never read.
 // - Scores: 8 lanes score one token, so one 16-byte load a lane scores 4
-//   tokens a warp (int8 at D = 128; f32 takes 4 loads), and a
-//   three-shuffle sum finishes each dot product. The int8 K scale
+//   tokens a warp (int8 at D = 128; bf16 and f16 take 2 loads, f32 4),
+//   and a three-shuffle sum finishes each dot product. 2-byte values are
+//   unpacked to f32 in registers: a bf16 is the upper half of its f32, so
+//   a shift; an f16 goes through __half2float. The int8 K scale
 //   multiplies the dot product, then the softmax scale.
 // - Softmax: each warp owns a quarter of every chunk's tokens and runs
 //   its own online softmax (m, l, and a D-wide accumulator, a 4-value
@@ -49,6 +57,10 @@
 // past T are not read. len == 0 is outside the contract (the engine
 // always attends over at least the token it just wrote); such a row
 // comes out as zeros, like the Pallas kernel.
+#include <cuda_fp16.h>
+
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -60,12 +72,21 @@ constexpr int kMaxCluster = 8;
 
 template <typename KV>
 struct Chunk {                      // tokens a ring stage
-  static constexpr int kTokens = 16;
+  static constexpr int kTokens = sizeof(KV) == 4 ? 16 : sizeof(KV) == 2 ? 32
+                                                                        : 64;
 };
-template <>
-struct Chunk<int8_t> {
-  static constexpr int kTokens = 64;
-};
+
+// the two 2-byte values of one 32-bit word as f32, the lower address first
+template <typename KV>
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  if constexpr (std::is_same<KV, __half>::value) {
+    lo = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+    hi = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  } else {                          // bf16: the upper half of an f32
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  }
+}
 
 // E consecutive pool values from shared memory as f32
 template <typename KV, int E>
@@ -78,6 +99,25 @@ __device__ __forceinline__ void load_vals(const unsigned char* p,
     x[1] = f.y;
     x[2] = f.z;
     x[3] = f.w;
+  } else if constexpr (sizeof(KV) == 2) {
+    static_assert(E == 2 || E == 4 || E == 8,
+                  "2-byte values come as 4, 8 or 16 bytes");
+    uint32_t w[E / 2];
+    if constexpr (E == 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else if constexpr (E == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) unpack2<KV>(w[i], x[2 * i], x[2 * i + 1]);
   } else {
     static_assert(E == 4 || E == 16, "int8 values come as 4 or 16 bytes");
     int w[E / 4];
@@ -385,6 +425,21 @@ bool bad_shape(int B, int H, int D, int S, int T, int C) {
          B > 65535 || H < 1 || H > 65535 || C < 1 || C > kMaxCluster;
 }
 
+// 2-byte pools: 16-byte K copies when a row is a multiple of 16 bytes
+template <typename KV>
+int launch_half(const float* q, const KV* k_pages, const KV* v_pages,
+                const int32_t* table, const int32_t* lens, float* out, int B,
+                int H, int D, int S, int T, int C, float sm_scale,
+                void* stream) {
+  if (bad_shape(B, H, D, S, T, C)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % 8 == 0)
+    return launch<KV, false, 16>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                 lens, out, B, H, D, S, T, C, sm_scale, st);
+  return launch<KV, false, 4>(q, k_pages, v_pages, nullptr, nullptr, table,
+                              lens, out, B, H, D, S, T, C, sm_scale, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -398,6 +453,22 @@ int paged_attention_f32(const float* q, const float* k_pages,
   return launch<float, false, 16>(q, k_pages, v_pages, nullptr, nullptr,
                                   table, lens, out, B, H, D, S, T, C,
                                   sm_scale, (cudaStream_t)stream);
+}
+
+int paged_attention_bf16(const float* q, const __nv_bfloat16* k_pages,
+                         const __nv_bfloat16* v_pages, const int32_t* table,
+                         const int32_t* lens, float* out, int B, int H, int D,
+                         int S, int T, int C, float sm_scale, void* stream) {
+  return launch_half<__nv_bfloat16>(q, k_pages, v_pages, table, lens, out, B,
+                                    H, D, S, T, C, sm_scale, stream);
+}
+
+int paged_attention_f16(const float* q, const __half* k_pages,
+                        const __half* v_pages, const int32_t* table,
+                        const int32_t* lens, float* out, int B, int H, int D,
+                        int S, int T, int C, float sm_scale, void* stream) {
+  return launch_half<__half>(q, k_pages, v_pages, table, lens, out, B, H, D,
+                             S, T, C, sm_scale, stream);
 }
 
 int paged_attention_int8(const float* q, const int8_t* k_pages,

@@ -5,15 +5,18 @@ Port of ``paddle_tpu/ops/pallas/paged_attention.py``. Layout, as there:
 
 - ``q``          (B, H, D) f32    one query token per sequence
 - ``k_pages``    (P, S, H, D)     the pool: P pages of S tokens each
-- ``v_pages``    (P, S, H, D)     (f32, or int8 with scales)
+- ``v_pages``    (P, S, H, D)     (f32, bf16 or f16, or int8 with scales)
 - ``page_table`` (B, T) int32     page ids per sequence, -1 = unused
 - ``seq_lens``   (B,) int32       live tokens per sequence (ragged)
 - ``k_scales`` / ``v_scales`` (P, S) f32, int8 pools only
 
 Routing is by device, with no fallback: a CUDA tensor launches the
-kernel in ``csrc/paged_attention.cu`` (and counts the launch) or
-raises; a CPU tensor takes the plain version, which is what the tests
-use. The kernel splits each (head, sequence)'s pages over a
+kernel in ``csrc/paged_attention.cu`` (and counts the launch under the
+pool's own name: ``paged_attention`` for f32, ``paged_attention_bf16``,
+``paged_attention_f16``, ``paged_attention_quant`` for int8) or raises;
+a CPU tensor takes the plain version, which is what the tests use.
+The plain versions upcast the gathered pages to f32, as the Pallas
+kernel does with whatever page type it is given. The kernel splits each (head, sequence)'s pages over a
 thread-block cluster of :func:`cluster_size` CTAs and merges their
 partial softmax states in rank order; it takes head_dim <= 256 and a
 multiple of 4. A ``-1`` table entry inside the live length reads page 0, as the
@@ -136,18 +139,30 @@ def cluster_size(T):
     return max(1, min(int(T), _MAX_CLUSTER))
 
 
+#: pool dtype -> (C entry point, launch counter) of the unquantized forms
+_ENTRIES = {
+    torch.float32: ("paged_attention_f32", "paged_attention"),
+    torch.bfloat16: ("paged_attention_bf16", "paged_attention_bf16"),
+    torch.float16: ("paged_attention_f16", "paged_attention_f16"),
+}
+
+
 def _cuda_paged_attention(q, k_pages, v_pages, page_table, seq_lens):
+    if k_pages.dtype not in _ENTRIES:
+        raise TypeError(f"the kernel wants f32, bf16 or f16 pools (int8 "
+                        f"with scales), got {k_pages.dtype}")
     B, H, D, S, T = _check_inputs(q, k_pages, v_pages, page_table,
-                                  seq_lens, torch.float32)
-    fn = _build.entry("paged_attention", "paged_attention_f32",
+                                  seq_lens, k_pages.dtype)
+    entry, counter = _ENTRIES[k_pages.dtype]
+    fn = _build.entry("paged_attention", entry,
                       [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P])
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
              B, H, D, S, T, cluster_size(T), 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("paged_attention", err, "paged_attention_f32")
-    counters.bump("paged_attention")
+    _build.check("paged_attention", err, entry)
+    counters.bump(counter)
     return out
 
 
@@ -179,9 +194,10 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                     k_scales=None, v_scales=None):
     """Decode-step attention over the paged KV pool -> (B, H, D).
 
-    On a CUDA tensor this launches the hand-written kernel (int8 pools
-    when ``k_scales``/``v_scales`` are given) or raises; on a CPU tensor
-    it runs the plain gather version."""
+    On a CUDA tensor this launches the hand-written kernel for the
+    pool's dtype (f32, bf16, f16; int8 when ``k_scales``/``v_scales``
+    are given) or raises; on a CPU tensor it runs the plain gather
+    version."""
     quant = k_scales is not None
     if q.is_cuda:
         if quant:

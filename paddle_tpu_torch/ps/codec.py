@@ -1,30 +1,35 @@
-"""Wire codecs (port of part of ``paddle_tpu/ps/codec.py``): the closed
-forms of the quantized collectives' wire bytes (``QUANT_BLOCK``,
-``CODEC_IDS``, ``encoded_nbytes``, ``ring_nbytes``, copied from
-``codec.py:30-72``) and the per-token-row int8 codec for KV pages
-(``jnp_encode_kv_rows`` / ``jnp_decode_kv_rows``) on torch tensors. The
-numpy wire encoders ``np_encode`` / ``np_decode`` (the parameter
-server's data plane) are a later port slice.
+"""Wire codecs (port of ``paddle_tpu/ps/codec.py``): the closed forms
+of the quantized wire bytes (``QUANT_BLOCK``, ``CODEC_IDS``,
+``encoded_nbytes``, ``ring_nbytes``), the numpy wire encoders
+``np_encode`` / ``np_decode`` / ``codec_name`` that the KV page frames
+(``serving/disagg.py``) and the host KV tier ship, and the per-token-row
+int8 codec for KV pages (``jnp_encode_kv_rows`` / ``jnp_decode_kv_rows``
+there) on torch tensors. The numpy half is a copy: same bytes for the
+same input, bit for bit.
 
-Layouts: ``f32`` raw float32 (id 0); ``bf16`` the round-to-nearest-even
-upper half of each float32 (id 1); ``int8`` one float32 scale (max-abs
-/ 127) per ``QUANT_BLOCK`` elements followed by the int8 payload (id 2).
+Layouts (little-endian): ``f32`` raw float32 (id 0); ``bf16`` the
+round-to-nearest-even upper half of each float32 (id 1); ``int8`` one
+float32 scale (max-abs / 127) per ``QUANT_BLOCK`` elements, the final
+block zero-padded, followed by the int8 payload (id 2).
 
 One symmetric f32 scale per TOKEN ROW (the blocked int8 layout with
 block = one row's ``H * D`` elements): ``scale = amax / 127``,
 ``q = clip(round_half_even(x / scale), -127, 127)``, with an all-zero
 row kept at scale 0. ``torch.round`` rounds half to even, like
-``jnp.rint``, so the payload and scales match the JAX encoder bit for
-bit (the division by 127 is an exact f32 division on both sides when
-the JAX encoder runs eagerly; under ``jax.jit`` XLA multiplies by
-``1/127`` instead, and the scales can differ in the last bit).
+``jnp.rint`` and ``np.rint``, so the payload and scales match the JAX
+encoder bit for bit (the division by 127 is an exact f32 division on
+both sides when the JAX encoder runs eagerly; under ``jax.jit`` XLA
+multiplies by ``1/127`` instead, and the scales can differ in the last
+bit).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["QUANT_BLOCK", "CODEC_IDS", "CODEC_NAMES", "encoded_nbytes",
-           "ring_nbytes", "encode_kv_rows", "decode_kv_rows"]
+__all__ = ["QUANT_BLOCK", "CODEC_IDS", "CODEC_NAMES", "codec_name",
+           "encoded_nbytes", "ring_nbytes", "np_encode", "np_decode",
+           "encode_kv_rows", "decode_kv_rows"]
 
 #: elements covered by one f32 scale in the blocked int8 encoding
 QUANT_BLOCK = 512
@@ -32,6 +37,13 @@ QUANT_BLOCK = 512
 #: wire/codec ids (0 keeps a zero-filled codec byte meaning "plain f32")
 CODEC_IDS = {"f32": 0, "bf16": 1, "int8": 2}
 CODEC_NAMES = {v: k for k, v in CODEC_IDS.items()}
+
+
+def codec_name(codec_id: int) -> str:
+    name = CODEC_NAMES.get(int(codec_id))
+    if name is None:
+        raise ValueError(f"unknown wire codec id {codec_id}")
+    return name
 
 
 def _nblocks(n: int, block: int = QUANT_BLOCK) -> int:
@@ -61,6 +73,52 @@ def ring_nbytes(n_elems: int, group: int, codec: str,
     if g <= 1:
         return 0
     return int(2 * (g - 1) * encoded_nbytes(n_elems, codec, block) // g)
+
+
+def np_encode(values: np.ndarray, codec: str,
+              block: int = QUANT_BLOCK) -> bytes:
+    """Encode a float32 array for the wire; the byte count is exactly
+    ``encoded_nbytes(values.size, codec)``."""
+    vals = np.ascontiguousarray(values, np.float32).reshape(-1)
+    if codec == "f32":
+        return vals.tobytes()
+    if codec == "bf16":
+        # f32's upper 16 bits, round-to-nearest-even
+        u = vals.view(np.uint32)
+        rounded = (u.astype(np.uint64) + 0x7FFF + ((u >> 16) & 1)) >> 16
+        return rounded.astype(np.uint16).tobytes()
+    if codec != "int8":
+        raise ValueError(f"unknown codec {codec!r}")
+    n = vals.size
+    nb = _nblocks(n, block)
+    padded = np.zeros(nb * block, np.float32)
+    padded[:n] = vals
+    xb = padded.reshape(nb, block)
+    amax = np.max(np.abs(xb), axis=1)
+    scale = (amax / 127.0).astype(np.float32)
+    safe = np.where(scale > 0, scale, 1.0)
+    q = np.clip(np.rint(xb / safe[:, None]), -127, 127).astype(np.int8)
+    return scale.tobytes() + q.reshape(-1)[:n].tobytes()
+
+
+def np_decode(raw: bytes, n_elems: int, codec: str,
+              block: int = QUANT_BLOCK) -> np.ndarray:
+    """Decode :func:`np_encode` output back to a 1-D float32 array."""
+    n = int(n_elems)
+    if codec == "f32":
+        return np.frombuffer(raw, np.float32, count=n).copy()
+    if codec == "bf16":
+        u = np.frombuffer(raw, np.uint16, count=n).astype(np.uint32)
+        return (u << 16).view(np.float32).copy()
+    if codec != "int8":
+        raise ValueError(f"unknown codec {codec!r}")
+    nb = _nblocks(n, block)
+    scale = np.frombuffer(raw, np.float32, count=nb)
+    q = np.frombuffer(raw, np.int8, count=n, offset=4 * nb)
+    padded = np.zeros(nb * block, np.float32)
+    padded[:n] = q.astype(np.float32)
+    out = (padded.reshape(nb, block) * scale[:, None]).reshape(-1)
+    return out[:n].astype(np.float32)
 
 
 def encode_kv_rows(x: torch.Tensor):

@@ -1,0 +1,356 @@
+"""Prefill/decode disaggregation (port of ``paddle_tpu/serving/
+disagg.py``): compute prompt KV on a PREFILL worker, ship the full pages
+over the wire, adopt them into a DECODE engine's ``PageTableManager``.
+
+The wire unit is a PAGE FRAME: a fixed header (magic, version, codec
+byte from ``CODEC_IDS``, pool geometry, token count), the covered
+tokens (the decode side re-derives the prefix-cache keys from them, so
+shipped pages dedupe against locally prefilled ones), then the K and V
+planes ``np_encode``-d per token row (int8 with one f32 scale a row:
+the int8 pool's own layout). The frame is byte-compatible with the
+reference's in both directions: the same rows encode to the same bytes,
+and a frame either side made decodes on the other. Anything short,
+mis-magicked, mis-versioned or mis-geometried raises
+:class:`MalformedPageFrame`.
+
+:func:`migration_cost` is the ship-vs-recompute closed form.
+:class:`PrefillWorker` runs the port's dense forward on its device (the
+card unless ``device="cpu"``). :class:`MigrationClient` gives the ship a
+deadline and a bounded :class:`~..fault.Retrier` budget and, when the
+budget is spent, DEGRADES: ``kv_migration_fallbacks`` ticks and the
+decode engine prefills locally.
+"""
+from __future__ import annotations
+
+import struct
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+import torch
+
+from .._device import resolve_device
+from ..fault import Backoff, Retrier
+from ..ps.codec import (CODEC_IDS, codec_name, encoded_nbytes, np_decode,
+                        np_encode)
+
+__all__ = [
+    "FRAME_MAGIC", "FRAME_VERSION", "MalformedPageFrame", "PageFrame",
+    "PrefillShipment", "PrefillWorker", "MigrationClient",
+    "decode_frame", "encode_frame", "migration_cost", "quantize_rows",
+]
+
+FRAME_MAGIC = b"KVPG"
+FRAME_VERSION = 1
+
+# magic, version, codec, n_layers, n_pages, page_size, heads, head_dim,
+# n_tokens — little-endian like the codec payloads
+_HEADER = struct.Struct("<4sBBHHHHHI")
+
+#: FLOPs one wire byte is worth when deciding ship-vs-recompute: peak
+#: matmul throughput over the network's bytes/s (machine balance). The
+#: reference's default, kept so both packages give the same verdict;
+#: pass the fabric's own figure per call.
+FLOPS_PER_WIRE_BYTE = 16000.0
+
+
+class MalformedPageFrame(RuntimeError):
+    """A page frame the decoder refuses to guess at: bad magic, unknown
+    version or codec byte, or a body shorter than its header promises."""
+
+
+def quantize_rows(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-token-row symmetric int8 quantization of ``(..., H, D)``
+    float32 rows: the rounding of ``np_encode`` and of
+    ``ps.codec.encode_kv_rows`` (amax/127 scale, half-even rint, clip),
+    so every producer of an int8 page row agrees bit for bit: the wire
+    frames, the int8 pool's writes and the decode engine's host KV tier
+    records (``kv_cache.HostKVPool``)."""
+    xf = np.asarray(rows, np.float32)
+    amax = np.max(np.abs(xf), axis=(-2, -1))
+    scale = (amax / 127.0).astype(np.float32)
+    safe = np.where(scale > 0, scale, 1.0)
+    q = np.clip(np.rint(xf / safe[..., None, None]),
+                -127, 127).astype(np.int8)
+    return q, scale
+
+
+def encode_frame(tokens: Sequence[int], ks: np.ndarray, vs: np.ndarray,
+                 page_size: int, codec: str = "int8") -> bytes:
+    """Encode full prefill pages for the wire. ``ks``/``vs`` are the
+    dense-forward KV stacks ``(n_layers, T, H, D)`` (float32) covering
+    exactly ``T = len(tokens)`` positions; ``T`` must be a whole number
+    of pages — partial tail pages never ship (the adopter's suffix
+    prefill covers them)."""
+    ks = np.ascontiguousarray(ks, np.float32)
+    vs = np.ascontiguousarray(vs, np.float32)
+    if ks.ndim != 4 or ks.shape != vs.shape:
+        raise ValueError(f"expected matching (n_layers, T, H, D) KV "
+                         f"stacks, got {ks.shape} and {vs.shape}")
+    n_layers, T, heads, head_dim = ks.shape
+    toks = [int(t) for t in tokens]
+    n_pages, rem = divmod(len(toks), int(page_size))
+    if len(toks) != T or rem or n_pages <= 0:
+        raise ValueError(
+            f"frame covers whole pages only: {len(toks)} tokens, "
+            f"{T} KV rows, page_size {page_size}")
+    if codec not in CODEC_IDS:
+        raise ValueError(f"unknown codec {codec!r}")
+    header = _HEADER.pack(FRAME_MAGIC, FRAME_VERSION, CODEC_IDS[codec],
+                          n_layers, n_pages, int(page_size), heads,
+                          head_dim, len(toks))
+    tok_bytes = np.asarray(toks, np.uint32).tobytes()
+    row = heads * head_dim
+    k_raw = np_encode(ks, codec, block=row)
+    v_raw = np_encode(vs, codec, block=row)
+    return header + tok_bytes + k_raw + v_raw
+
+
+class PageFrame:
+    """A decoded page frame: geometry + tokens + the two encoded KV
+    planes, with row-layout accessors for both pool dtypes."""
+
+    def __init__(self, codec: str, n_layers: int, n_pages: int,
+                 page_size: int, heads: int, head_dim: int,
+                 tokens: List[int], k_raw: bytes, v_raw: bytes):
+        self.codec = codec
+        self.n_layers = n_layers
+        self.n_pages = n_pages
+        self.page_size = page_size
+        self.heads = heads
+        self.head_dim = head_dim
+        self.tokens = tokens
+        self._raw = {"k": k_raw, "v": v_raw}
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_layers * self.n_pages * self.page_size
+
+    @property
+    def n_elems(self) -> int:
+        return self.n_rows * self.heads * self.head_dim
+
+    def f32_rows(self, which: str) -> np.ndarray:
+        """One plane as float32 ``(n_layers, n_pages, S, H, D)``."""
+        flat = np_decode(self._raw[which], self.n_elems, self.codec,
+                         block=self.heads * self.head_dim)
+        return flat.reshape(self.n_layers, self.n_pages, self.page_size,
+                            self.heads, self.head_dim)
+
+    def int8_rows(self, which: str
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """One plane as the int8 pool's storage pair: quantized rows
+        ``(n_layers, n_pages, S, H, D)`` int8 + per-row f32 scales
+        ``(n_layers, n_pages, S)``. An int8 frame parses its payload
+        directly (zero requantization — bitwise what a local int8
+        prefill would have written); other codecs requantize with the
+        same per-row rule."""
+        shape = (self.n_layers, self.n_pages, self.page_size,
+                 self.heads, self.head_dim)
+        if self.codec == "int8":
+            raw = self._raw[which]
+            scales = np.frombuffer(raw, np.float32, count=self.n_rows)
+            q = np.frombuffer(raw, np.int8, count=self.n_elems,
+                              offset=4 * self.n_rows)
+            return (q.reshape(shape).copy(),
+                    scales.reshape(shape[:3]).copy())
+        q, scales = quantize_rows(self.f32_rows(which))
+        return q, scales
+
+
+def decode_frame(frame: bytes) -> PageFrame:
+    """Parse a page frame; :class:`MalformedPageFrame` on anything that
+    does not parse EXACTLY (short body, trailing junk, bad magic or
+    codec byte) — a migration wire never guesses."""
+    if len(frame) < _HEADER.size:
+        raise MalformedPageFrame(
+            f"frame of {len(frame)} bytes is shorter than the "
+            f"{_HEADER.size}-byte header")
+    (magic, version, codec_id, n_layers, n_pages, page_size, heads,
+     head_dim, n_tokens) = _HEADER.unpack_from(frame)
+    if magic != FRAME_MAGIC:
+        raise MalformedPageFrame(f"bad frame magic {magic!r}")
+    if version != FRAME_VERSION:
+        raise MalformedPageFrame(f"unknown frame version {version}")
+    try:
+        codec = codec_name(codec_id)
+    except ValueError as e:
+        raise MalformedPageFrame(str(e)) from None
+    if n_tokens != n_pages * page_size or n_tokens == 0:
+        raise MalformedPageFrame(
+            f"{n_tokens} tokens do not cover {n_pages} pages of "
+            f"{page_size}")
+    n_elems = n_layers * n_tokens * heads * head_dim
+    plane = encoded_nbytes(n_elems, codec, block=heads * head_dim)
+    want = _HEADER.size + 4 * n_tokens + 2 * plane
+    if len(frame) != want:
+        raise MalformedPageFrame(
+            f"frame is {len(frame)} bytes, header promises {want}")
+    off = _HEADER.size
+    tokens = np.frombuffer(frame, np.uint32, count=n_tokens,
+                           offset=off).astype(int).tolist()
+    off += 4 * n_tokens
+    k_raw = frame[off:off + plane]
+    v_raw = frame[off + plane:off + 2 * plane]
+    return PageFrame(codec, n_layers, n_pages, page_size, heads,
+                     head_dim, tokens, k_raw, v_raw)
+
+
+def migration_cost(config, n_tokens: int, codec: str = "int8",
+                   flops_per_byte: float = FLOPS_PER_WIRE_BYTE) -> dict:
+    """Ship-vs-recompute closed form for an ``n_tokens`` prefix of a
+    ``DecodeModelConfig``-shaped model: encoded wire bytes of the KV
+    pages against the FLOP cost of recomputing the prefill locally,
+    expressed in wire-byte equivalents through the machine balance
+    (``flops_per_byte``). ``cheaper_to_ship`` is the drill's gate."""
+    E = config.n_heads * config.head_dim
+    n = int(n_tokens)
+    row = config.n_heads * config.head_dim
+    n_elems = config.n_layers * n * row
+    encoded = 2 * encoded_nbytes(n_elems, codec, block=row)
+    f32 = 2 * encoded_nbytes(n_elems, "f32", block=row)
+    # dense prefill: per-layer QKVO projections (4 E^2) + MLP (2 E F),
+    # x2 multiply-add, plus the causal attention term and the LM head
+    matmul = config.n_layers * (4 * E * E + 2 * E * config.ffn_dim)
+    flops = 2 * matmul * n + 4 * config.n_layers * E * n * n \
+        + 2 * E * config.vocab_size * n
+    flops_equiv_bytes = flops / float(flops_per_byte)
+    return {
+        "n_tokens": n,
+        "codec": codec,
+        "encoded_bytes": int(encoded),
+        "f32_bytes": int(f32),
+        "bytes_saved_pct": round(100.0 * (1 - encoded / f32), 2),
+        "reprefill_flops": int(flops),
+        "flops_equiv_bytes": int(flops_equiv_bytes),
+        "cheaper_to_ship": encoded < flops_equiv_bytes,
+    }
+
+
+class PrefillShipment:
+    """One prompt's prefill product: the encoded frame for its FULL
+    pages (None when the prompt spans less than one page), plus the
+    byte accounting the migration counters publish."""
+
+    __slots__ = ("prompt", "frame", "n_pages", "next_token",
+                 "encoded_bytes", "f32_bytes")
+
+    def __init__(self, prompt, frame, n_pages, next_token,
+                 encoded_bytes, f32_bytes):
+        self.prompt = prompt
+        self.frame = frame
+        self.n_pages = n_pages
+        self.next_token = next_token
+        self.encoded_bytes = encoded_bytes
+        self.f32_bytes = f32_bytes
+
+
+class PrefillWorker:
+    """The prefill half of the split: computes prompt KV with the dense
+    forward on ``device`` (default: the card) — no page pool, no decode
+    slots — and packages the full pages as wire frames. ``params`` are
+    carried over as :func:`~..inference.decode.params_from_numpy` takes
+    them (the decode engine's own, so a shipped page holds what its own
+    prefill would have written); omitted, they are made from ``seed``
+    as the engine makes them."""
+
+    def __init__(self, config, params: Optional[Dict] = None,
+                 seed: int = 0, page_size: int = 16,
+                 codec: str = "int8", device=None):
+        from ..inference.decode.model import (init_decode_params,
+                                              params_from_numpy)
+
+        if codec not in CODEC_IDS:
+            raise ValueError(f"unknown codec {codec!r}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.params = init_decode_params(config, seed, self.device) \
+            if params is None else params_from_numpy(params, self.device)
+        self.page_size = int(page_size)
+        self.codec = codec
+
+    @torch.no_grad()
+    def prefill(self, prompt: Sequence[int]) -> PrefillShipment:
+        from ..inference.decode.model import dense_forward
+
+        toks = [int(t) for t in prompt]
+        if not toks:
+            raise ValueError("empty prompt")
+        arr = torch.tensor([toks], dtype=torch.long, device=self.device)
+        logits, ks, vs = dense_forward(self.config, self.params, arr,
+                                       collect_kv=True)
+        next_token = int(torch.argmax(logits[0, len(toks) - 1]))
+        n_full = len(toks) // self.page_size
+        if n_full == 0:
+            return PrefillShipment(toks, None, 0, next_token, 0, 0)
+        cover = n_full * self.page_size
+        k_np = ks[:, 0, :cover].float().cpu().numpy()
+        v_np = vs[:, 0, :cover].float().cpu().numpy()
+        frame = encode_frame(toks[:cover], k_np, v_np, self.page_size,
+                             self.codec)
+        row = self.config.n_heads * self.config.head_dim
+        n_elems = self.config.n_layers * cover * row
+        return PrefillShipment(
+            toks, frame, n_full, next_token,
+            2 * encoded_nbytes(n_elems, self.codec, block=row),
+            2 * encoded_nbytes(n_elems, "f32", block=row))
+
+
+class MigrationClient:
+    """Ships page frames to a decode engine with deadlines, bounded
+    retries, and the degrade leg.
+
+    ``send`` is the transport: ``callable(frame_bytes) -> report
+    dict``, e.g. ``DecodeEngine.adopt_pages`` for an in-process
+    engine. Transport failures burn the
+    ``fault.Retrier`` budget; an exhausted budget (or a pool-full
+    adoption) is a FALLBACK, not an error: :meth:`migrate` returns
+    ``ok=False``, ``kv_migration_fallbacks`` ticks, and the caller's
+    normal submit path recomputes the prefill locally."""
+
+    def __init__(self, send, max_attempts: int = 3,
+                 deadline_s: float = 5.0,
+                 backoff: Optional[Backoff] = None,
+                 sleep=time.sleep, name: str = "kv_migrate"):
+        self._send = send
+        self._max_attempts = int(max_attempts)
+        self._deadline_s = float(deadline_s)
+        self._backoff = backoff if backoff is not None \
+            else Backoff(base=0.05, factor=2.0, cap=0.5, jitter=0.0)
+        self._sleep = sleep
+        self._name = name
+
+    def migrate(self, shipment: PrefillShipment) -> dict:
+        from .. import profiler
+
+        if shipment.frame is None:
+            profiler.bump_counter("kv_migration_fallbacks")
+            return {"ok": False, "reason": "no_full_pages",
+                    "adopted": 0, "shared": 0, "pages": 0}
+        retrier = Retrier(max_attempts=self._max_attempts,
+                          deadline=self._deadline_s,
+                          backoff=self._backoff,
+                          retry_on=(ConnectionError, OSError,
+                                    TimeoutError),
+                          giveup_on=(MalformedPageFrame,),
+                          sleep=self._sleep, name=self._name)
+        try:
+            report = retrier.call(self._send, shipment.frame)
+        except Exception as e:
+            profiler.bump_counter("kv_migration_fallbacks")
+            return {"ok": False,
+                    "reason": f"{type(e).__name__}: {e}",
+                    "adopted": 0, "shared": 0, "pages": 0}
+        if not report.get("ok"):
+            profiler.bump_counter("kv_migration_fallbacks")
+            return report
+        profiler.bump_counter("kv_migration_bytes", len(shipment.frame))
+        profiler.bump_counter(
+            "kv_migration_bytes_saved",
+            max(0, shipment.f32_bytes - shipment.encoded_bytes))
+        report = dict(report)
+        report["frame_bytes"] = len(shipment.frame)
+        report["encoded_bytes"] = shipment.encoded_bytes
+        report["f32_bytes"] = shipment.f32_bytes
+        return report

@@ -79,6 +79,34 @@ def test_paged_attention_kernel_matches_plain(dev, quant, B, H, D, S, T,
     assert torch.equal(out, again)     # one launch, no atomics
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("B,H,D,S,T,lens", [
+    (3, 4, 64, 16, 5, [1, 17, 80]),
+    (2, 2, 256, 8, 4, [32, 9]),
+    (4, 3, 44, 128, 3, [129, 1, 384, 255]),
+    (8, 16, 128, 128, 16, [1, 127, 128, 129, 700, 2047, 1500, 300]),
+], ids=["S16-D64", "D256", "odd-H-D44", "full-width"])
+def test_paged_attention_kernel_over_2_byte_pools_matches_plain(
+        dev, dtype, B, H, D, S, T, lens):
+    """K4a over bf16 and f16 pages (the pools of a ``dtype="bfloat16"``
+    or ``"float16"`` engine): the kernel unpacks the pages to f32 and the
+    plain version upcasts them, so the two differ by the sum order only
+    (1e-4). D 44 takes the 4-byte copies (a row is not a multiple of 16
+    bytes)."""
+    q, kp, vp, table, lens_t, _, _ = _case(dev, 7, B, H, D, S, T, lens,
+                                           False)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    out = pa.paged_attention(q, kp, vp, table, lens_t)
+    ref = pa._plain_paged_attention(q, kp, vp, table, lens_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    name = "paged_attention_bf16" if dtype == torch.bfloat16 \
+        else "paged_attention_f16"
+    assert counters.snapshot() == {name: 1}
+    assert torch.equal(out, pa.paged_attention(q, kp, vp, table, lens_t))
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
 def test_paged_attention_kernel_gives_zeros_at_len_0(dev, quant):
     """len 0 is outside the contract: every CTA of the cluster has an

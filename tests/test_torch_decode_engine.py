@@ -3,8 +3,11 @@ device="cpu", where every kernel runs its plain version) against the
 JAX package: the dense greedy oracle for mixed lengths, continuous
 arrival, preemption under pool pressure and a prefix-cache hit; the
 JAX engine itself for the int8 pool and for seeded sampling. Plus the
-typed admission errors, the later-slice options that must raise, and
-the no-silent-CPU rule of the entry points."""
+typed admission errors, the option of a later slice that must raise
+(``mesh_shape``), and the no-silent-CPU rule of the entry points. The
+async tick, speculative decoding, the host KV tier and page adoption
+have files of their own (``test_torch_decode_async.py``,
+``test_torch_decode_spec.py``, ``test_torch_disagg.py``)."""
 import threading
 import time
 
@@ -248,17 +251,11 @@ def test_admission_sheds_typed(np_params):
         h.result(timeout=0)
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(host_kv_bytes=1 << 20),
-                                dict(mesh_shape={"tp": 2})],
-                         ids=["spec_k", "host_kv_bytes", "mesh_shape"])
+@pytest.mark.parametrize("kw", [dict(mesh_shape={"tp": 2})],
+                         ids=["mesh_shape"])
 def test_later_slice_options_raise(np_params, kw):
     with pytest.raises(NotImplementedError, match="later port slice"):
         DecodeEngine(CFG, params=np_params, device="cpu", **GEOM, **kw)
-
-
-def test_adopt_pages_raises(np_params):
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        _engine(np_params).adopt_pages(b"")
 
 
 @pytest.mark.parametrize("entry", ["engine", "init", "pool"])

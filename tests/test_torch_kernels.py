@@ -2,9 +2,10 @@
 against the JAX package on the CPU, from the same numpy inputs:
 
 - the per-row int8 KV codec, bit for bit against jnp_encode_kv_rows;
-- paged attention (f32 and int8 pools) against the XLA gather paths
-  and the Pallas kernels in interpret mode, at the JAX suite's own
-  tolerance (rtol/atol 2e-5), ragged lengths >= 1 with -1 table tails;
+- paged attention (f32, bf16, f16 and int8 pools) against the XLA
+  gather paths and the Pallas kernels in interpret mode, at the JAX
+  suite's own tolerance (rtol/atol 2e-5), ragged lengths >= 1 with -1
+  table tails;
 - a model of the CUDA kernel's summation (pages striped over a cluster
   of 1, 3 or 8 CTAs, per-warp online softmax over chunks, partials
   merged in warp then rank order) against the same references, and its
@@ -125,6 +126,34 @@ def test_paged_attention_matches_xla_and_pallas(case, quant):
     np.testing.assert_allclose(out.numpy(), np.asarray(pal),
                                rtol=RTOL, atol=ATOL)
     # CPU tensors take the plain version: no kernel launch is counted
+    assert counters.snapshot() == {}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", range(len(_TABLES)))
+def test_paged_attention_over_2_byte_pools_matches_xla_and_pallas(case,
+                                                                  dtype):
+    """K4a over bf16 and f16 pages, the pools of a ``dtype="bfloat16"``
+    or ``"float16"`` engine: the plain version against the XLA gather
+    path and the Pallas kernel in interpret mode, both of which upcast
+    the pages to f32, at the suite's tolerance. The pages are rounded
+    to the 2-byte type once, in torch, and handed to JAX exactly."""
+    q, kp, vp, _, _ = _attn_inputs(case)
+    tdt = getattr(torch, dtype)
+    tk, tv = _t(kp).to(tdt), _t(vp).to(tdt)
+    jk = jnp.asarray(tk.float().numpy()).astype(dtype)
+    jv = jnp.asarray(tv.float().numpy()).astype(dtype)
+    table = np.asarray(_TABLES[case][0], np.int32)
+    lens = np.asarray(_TABLES[case][1], np.int32)
+    jt, jl, jq = jnp.asarray(table), jnp.asarray(lens), jnp.asarray(q)
+    ref = jpa._xla_paged_attention(jq, jk, jv, jt, jl)
+    pal = jpa._paged_attention_pallas(jq, jk, jv, jt, jl)
+    out = tpa.paged_attention(_t(q), tk, tv, _t(table), _t(lens))
+    assert out.shape == (3, 2, 16) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pal),
+                               rtol=RTOL, atol=ATOL)
     assert counters.snapshot() == {}
 
 
