@@ -6,7 +6,7 @@ every kernel on them against its plain PyTorch version.
     python3 chip_smoke.py --bag-shapes    # K6's time at each of BAG_SHAPES
 
 Phases, each printing one JSON line; any failure exits non-zero and
-prints no result line. Phases 2-4e run right after phase 1's decode
+prints no result line. Phases 2-4f run right after phase 1's decode
 kernels (K4, K5) and before its other checks: once a torch.profiler
 session has run in a process, its host-side launches stay slower, and
 a decode tick is its host's launch loop.
@@ -129,6 +129,23 @@ a decode tick is its host's launch loop.
             writes only the suffix; tokens equal a locally prefilled
             twin's except at near ties, K4b n_layers times a tick in
             both;
+4f. fleet   ``serving.FleetRouter`` (chunks of 8 tokens) over two
+            README-width int8 engines of 128 pages sharing one params
+            dict, 8 sessions of 16-1000 prompt tokens, 32 new each, in
+            three legs on fresh engines: A in process (``LocalReplica``),
+            every request served, both engines ticking; B the same with
+            session 0's replica stopped after its first chunk: every
+            request served, failovers and replays >= 1, tokens equal A's
+            except at a top-2 gap < 1e-3 (each such tie printed); C over
+            two ``DecodeEngineServer`` listeners on loopback and
+            ``HTTPReplica`` (tokens as B's rule), then GET /metrics per
+            server parsed with the decode counters in it, one
+            ``FleetSLOSignal`` refresh, a ``PrefillWorker`` frame of a
+            1100-token prompt PUT to /adopt on both and that prompt
+            routed with >= 8 prefix hits, and a malformed frame answered
+            400 ``MalformedPageFrame``; K4b n_layers times a tick in
+            every leg; tokens/s, router e2e p50/p99, dispatches,
+            affinity hits, failovers, replays, near ties a leg;
 5. bert_parity  a tiny BERT (2 layers, hidden 128, seq 128, batch 8, no
             dropout, f32) trained one AdamW step through ``TrainStep``
             with the kernels and again with the plain versions, on the
@@ -168,7 +185,8 @@ a decode tick is its host's launch loop.
             1e-4 (in the kernel): 3 warm-up and 10 timed steps; steps/s,
             the loss (finite, falling), one SGD launch a step covering
             every parameter, a profiled step's kernels, name for name,
-            those of a step without the decay;
+            those of a step without the decay (in a process of its own,
+            each window led by spin kernels the trace must hold);
 12. static_parity  the static example's network at batch 8, two steps
             through the static Executor with each static optimizer, with
             the kernels and again with the plain versions, cuDNN
@@ -180,6 +198,15 @@ a decode tick is its host's launch loop.
             (finite, falling), exactly 25 static Momentum launches a step
             and no other kernel; then the inference model saved, loaded
             and its logits equal to the test-mode program's;
+13b. serving  ``inference.AnalysisPredictor`` over that inference model
+            (buckets 1, 2, 4, 8, 16, warmed) behind a
+            ``ServingEngine`` on its thread: 64 requests of 1-4 rows
+            from 4 threads, each within atol 1e-4 of the request run
+            alone, fewer batches than requests, none degraded; then
+            ``serve.dispatch`` armed twice: the retry and the degraded
+            row-by-row leg on the card serve every request within atol
+            1e-4; ``ServingHealthServer``'s /readyz 200, 503 after
+            ``drain()``; requests/s, e2e p50/p99, batch fill;
 14-16. static_resnet_adam, _lamb, _sgd  the same network, 13 steps with
             Adam 2e-3, Lamb 1e-3 (25 + 25 launches a step) and SGD 0.05 +
             L2Decay(1e-4);
@@ -244,7 +271,7 @@ a decode tick is its host's launch loop.
             Lamb, rank 0's profiled step with the host ms in the
             ``collectives.*`` spans;
 26. the ``kernels`` line (launches summed over the phases that drive
-    each kernel's path: 2-4e for the decode kernels, 6 and 10 for the
+    each kernel's path: 2-4f for the decode kernels, 6 and 10 for the
     fused xent, 6 for the streaming flash kernels and Adam, 8 for
     Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
     13-16 for the static forms, 18 for K6, 20 for the masked flash
@@ -261,8 +288,10 @@ import ctypes
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1160,6 +1189,212 @@ def phase_adopt(torch, dec, counters, params, cfg, rng):
             "prefill_worker_ms": ship_ms, "adopt_ms": adopt_ms,
             "matched_local": matched, "ties": ties,
             "decode_ticks": adopt_ticks, "launches": launches}, launches
+
+
+FLEET_SESSIONS = 8
+FLEET_NEW = 32
+
+
+def fleet_engines(dec, params, cfg):
+    """Two README-width int8 engines on the card over one params dict,
+    128 pages each, warmed and started."""
+    engines = []
+    for _ in range(2):
+        e = dec.DecodeEngine(cfg, params=params, n_pages=128,
+                             kv_codec="int8", **ENGINE)
+        e.warm()
+        e.start()
+        engines.append(e)
+    return engines
+
+
+def fleet_leg(torch, counters, router, engines, prompts, cfg, kill=False):
+    """Route every prompt (session i each) through ``router``; with
+    ``kill`` the replica pinned to session 0 is stopped once that
+    session's first chunk lands. Returns (tokens, figures)."""
+    stopped = []
+
+    def on_chunk(emitted):
+        if not stopped:
+            name = router.session_replica("s0")
+            idx = [r.name for r in router.replicas].index(name)
+            engines[idx].stop()
+            stopped.append(name)
+
+    counters.reset()
+    t0 = time.perf_counter()
+    handles = [router.submit(p, max_new_tokens=FLEET_NEW, session=f"s{i}",
+                             on_chunk=on_chunk if kill and i == 0 else None)
+               for i, p in enumerate(prompts)]
+    outs, errors = [], []
+    for h in handles:
+        try:
+            outs.append(h.result(timeout=600))
+        except Exception as e:   # typed failure: the phase fails below
+            errors.append(f"{type(e).__name__}: {e}")
+            outs.append(None)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    expect(not errors, f"fleet requests failed: {errors[:3]}")
+    expect(all(len(o) == FLEET_NEW and all(0 <= t < cfg.vocab_size
+                                           for t in o) for o in outs),
+           "the fleet emitted malformed tokens")
+    ticks = [e.counters.get("decode_steps", 0) for e in engines]
+    k4b = launches.get("paged_attention_quant", 0)
+    expect(k4b == cfg.n_layers * sum(ticks),
+           f"K4b launched {k4b} times, want n_layers x ticks = "
+           f"{cfg.n_layers} x {ticks}")
+    c = router.counters
+    lat = router.engine_latency_stats()
+    return outs, {
+        "tokens_per_s": sum(len(o) for o in outs) / wall, "wall_s": wall,
+        "e2e_p50_ms": lat["e2e_p50_ms"], "e2e_p99_ms": lat["e2e_p99_ms"],
+        "dispatches": c.get("router_dispatches", 0),
+        "affinity_hits": c.get("router_affinity_hits", 0),
+        "failovers": c.get("router_failovers", 0),
+        "replays": c.get("router_replays", 0),
+        "ticks_per_engine": ticks, "launches": launches,
+        "stopped": stopped}
+
+
+def http_get(endpoint, path):
+    import http.client
+
+    host, _, port = endpoint.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_fleet(torch, dec, counters, params, cfg, rng):
+    """The port's FleetRouter (chunk_tokens 8) over two README-width
+    int8 engines, 8 sessions of 16-1000 prompt tokens and 32 new each:
+    leg A unkilled through LocalReplica; leg B on fresh engines with
+    session 0's replica stopped after its first chunk (failover +
+    replay; tokens equal A's except at a top-2 gap < 1e-3, each such
+    tie printed); leg C through two DecodeEngineServers on loopback and
+    HTTPReplica (tokens as B's rule), then GET /metrics per server
+    parsed, one FleetSLOSignal refresh, a PrefillWorker frame of a
+    1100-token prompt PUT to /adopt on both servers and that prompt
+    routed with prefix hits, and a malformed frame answered 400
+    MalformedPageFrame. K4b n_layers times a tick in every leg."""
+    import http.client
+
+    from paddle_tpu_torch.observability import parse_prometheus_text
+    from paddle_tpu_torch.serving import (DecodeEngineServer, FleetRouter,
+                                          FleetSLOSignal, HTTPReplica,
+                                          LocalReplica, MalformedPageFrame,
+                                          MigrationClient, PrefillWorker)
+
+    lengths = np.linspace(16, 1000, FLEET_SESSIONS).astype(int).tolist()
+    prompts = prompts_for(rng, lengths, cfg.vocab_size)
+    row = {"phase": "fleet", "sessions": FLEET_SESSIONS,
+           "prompt_tokens": int(sum(lengths)), "max_new_tokens": FLEET_NEW,
+           "chunk_tokens": 8, "engines": 2, "n_pages": 128,
+           "kv_codec": "int8"}
+    total, outs = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for leg in ("A", "B"):
+        engines = fleet_engines(dec, params, cfg)
+        router = FleetRouter([LocalReplica(e, name=f"local:{i}")
+                              for i, e in enumerate(engines)],
+                             chunk_tokens=8, config=cfg)
+        try:
+            outs[leg], fig = fleet_leg(torch, counters, router, engines,
+                                       prompts, cfg, kill=leg == "B")
+        finally:
+            router.stop()
+        add(fig["launches"])
+        if leg == "A":
+            expect(all(t > 0 for t in fig["ticks_per_engine"]),
+                   f"an engine served nothing: {fig['ticks_per_engine']}")
+        else:
+            expect(fig["failovers"] >= 1 and fig["replays"] >= 1,
+                   f"no failover/replay: {fig}")
+            matched, ties = match_except_ties(
+                torch, dec, cfg, params, prompts, outs["B"], outs["A"],
+                "int8", "fleet failover against unkilled")
+            fig.update(matched_unkilled=matched, near_ties=ties)
+        row[f"leg_{leg}"] = fig
+        del router, engines
+        torch.cuda.empty_cache()
+
+    engines = fleet_engines(dec, params, cfg)
+    # an int8 frame of 8 README-width pages is ~100 MB: past the
+    # listener's default 64 MiB body cap (a 413), so the cap is raised
+    servers = [DecodeEngineServer(e, port=0, max_body_bytes=256 << 20)
+               .start() for e in engines]
+    try:
+        replicas = [HTTPReplica(s.endpoint) for s in servers]
+        router = FleetRouter(replicas, chunk_tokens=8, config=cfg)
+        outs["C"], fig = fleet_leg(torch, counters, router, engines,
+                                   prompts, cfg)
+        add(fig["launches"])
+        matched, ties = match_except_ties(
+            torch, dec, cfg, params, prompts, outs["C"], outs["A"], "int8",
+            "fleet over HTTP against local")
+        fig.update(matched_unkilled=matched, near_ties=ties)
+        scraped = []
+        for s in servers:
+            status, body = http_get(s.endpoint, "/metrics")
+            samples = parse_prometheus_text(body.decode())
+            expect(status == 200 and samples.get("decode_requests", 0) > 0
+                   and samples.get("decode_steps", 0) > 0,
+                   f"/metrics on {s.endpoint} lacks the decode counters")
+            scraped.append(len(samples))
+        fig["metrics_samples"] = scraped
+        slo = FleetSLOSignal([s.endpoint for s in servers])
+        fig["slo_burning"] = sorted(slo.refresh())
+        fig["scale_hint"] = slo.scale_hint()
+        S = ENGINE["page_size"]
+        prompt = prompts_for(rng, [1100], cfg.vocab_size)[0]
+        shipment = PrefillWorker(cfg, params=params,
+                                 page_size=S).prefill(prompt)
+        reports = [MigrationClient(r.adopt).migrate(shipment)
+                   for r in replicas]
+        expect(all(rep["ok"] and rep["adopted"] == shipment.n_pages
+                   for rep in reports), f"PUT /adopt failed: {reports}")
+        hits0 = sum(e.pool.prefix_hits for e in engines)
+        adopted_out = router.generate(prompt, max_new_tokens=FLEET_NEW,
+                                      timeout=600)
+        hits = sum(e.pool.prefix_hits for e in engines) - hits0
+        expect(hits >= shipment.n_pages and len(adopted_out) == FLEET_NEW,
+               f"the adopted prompt shared {hits} pages")
+        try:
+            replicas[0].adopt(b"not a page frame")
+            expect(False, "a malformed frame was adopted")
+        except MalformedPageFrame:
+            pass
+        conn = http.client.HTTPConnection(replicas[0].host,
+                                          replicas[0].port, timeout=30)
+        conn.request("PUT", "/adopt", body=b"garbage")
+        resp = conn.getresponse()
+        resp.read()
+        conn.close()
+        expect(resp.status == 400 and resp.getheader("X-Paddle-Error")
+               == "MalformedPageFrame", "a bad frame was not a typed 400")
+        fig.update(adopt_frame_bytes=len(shipment.frame),
+                   adopt_prefix_hits=hits, malformed_status=resp.status)
+        row["leg_C"] = fig
+    finally:
+        for s in servers:
+            s.stop()
+        for e in engines:
+            e.stop()
+    del engines, servers
+    torch.cuda.empty_cache()
+    row["near_ties"] = len(row["leg_B"]["near_ties"]) + \
+        len(row["leg_C"]["near_ties"])
+    return row, total
 
 
 def phase_sample(torch, dec, counters, params, cfg, rng):
@@ -2796,22 +3031,35 @@ def lenet_sgd_step(torch, weight_decay):
     return step, batch, params
 
 
+LEAD_SPINS = 10   # spin kernels ahead of a profiled step
+
+
 def step_device_events(torch, step, batch):
     """One profiled step's device work: its kernels, memory copies and
-    fills (torch.profiler's CUDA events), and each kernel name's
-    count."""
+    fills (torch.profiler's CUDA events), and each kernel name's count.
+    The tracer starts recording some time after the window opens, so
+    ``LEAD_SPINS`` spin kernels, each finished before the next is
+    launched, lead the window (~2 ms each); ``lead_spins`` is how many
+    of them the trace holds: one proves it was recording before the
+    step began. They are counted nowhere else."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_SPINS):
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
+            torch.cuda.synchronize()
         step(*batch)
         torch.cuda.synchronize()
-    out = {"kernels": 0, "copies": 0, "fills": 0}
+    out = {"kernels": 0, "copies": 0, "fills": 0, "lead_spins": 0}
     names = {}
     for e in prof.events():
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA" \
                 or getattr(e, "is_user_annotation", False):
+            continue
+        if "spin_kernel" in e.name:
+            out["lead_spins"] += 1
             continue
         kind = "copies" if e.name.startswith("Memcpy") else \
             "fills" if e.name.startswith("Memset") else "kernels"
@@ -2822,11 +3070,51 @@ def step_device_events(torch, step, batch):
     return out
 
 
+def lenet_profiled_pairs():
+    """In a process of its own (``spawn``): a LeNet step with the decay
+    and one without, ``WARM_STEPS`` each, then the two profiled in turn
+    until a pair's windows both hold a lead spin and the same kernels
+    with the SGD kernel among them, 5 pairs at most: (the last pair's
+    two windows, the pairs profiled, what each pair profiled again
+    recorded). Late in a full run, the main process's torch.profiler
+    sessions dropped a window's first kernels (LeNet's forward) and
+    held none of some windows' lead spins; a process where no session
+    ran before records whole windows."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step, batch, _ = lenet_sgd_step(torch, SGD_WD)
+    step0, batch0, _ = lenet_sgd_step(torch, 0.0)
+    for _ in range(WARM_STEPS):
+        step(*batch)
+        step0(*batch0)
+    retried = []
+    for pairs in range(1, 6):
+        events = step_device_events(torch, step, batch)
+        events0 = step_device_events(torch, step0, batch0)
+        names, names0 = events["kernel_names"], events0["kernel_names"]
+        if names == names0 and events["lead_spins"] > 0 \
+                and events0["lead_spins"] > 0 \
+                and any("multi_tensor_arg_kernel" in k for k in names):
+            break
+        retried.append({
+            "kernels": [events["kernels"], events0["kernels"]],
+            "lead_spins": [events["lead_spins"], events0["lead_spins"]],
+            "differ_by": {k[:60]: names.get(k, 0) - names0.get(k, 0)
+                          for k in set(names) | set(names0)
+                          if names.get(k, 0) != names0.get(k, 0)}})
+    return events, events0, pairs, retried
+
+
 def phase_lenet_sgd(torch, counters):
     """LeNet at ``bench_mnist``'s batch with SGD lr 0.01 and coupled L2
     1e-4 (the kernel's decay): the loss falls, one SGD launch a step
     over every parameter; a profiled step runs, name for name, the
     kernels of a step of the same net without the decay."""
+    from paddle_tpu_torch.distributed import spawn
+
     step, batch, params = lenet_sgd_step(torch, SGD_WD)
     losses, step_ms, launches = train_steps(torch, counters, step, batch)
     n_steps = WARM_STEPS + TIMED_STEPS
@@ -2843,19 +3131,15 @@ def phase_lenet_sgd(torch, counters):
            f"lenet_sgd: the SGD launch covered {rec}, not the "
            f"{len(params)} parameters ({n_params} elements)")
     # the decay is in the SGD kernel: a decayed step runs the kernels of
-    # an undecayed one, no g + wd*p launches beside them (torch.profiler
-    # has missed kernels in a full run, so a pair that differs, or that
-    # lacks the SGD kernel, is profiled again, 3 pairs at most)
-    step0, batch0, _ = lenet_sgd_step(torch, 0.0)
-    step0(*batch0)
-    for _ in range(3):
-        events = step_device_events(torch, step, batch)
-        events0 = step_device_events(torch, step0, batch0)
-        names, names0 = events["kernel_names"], events0["kernel_names"]
-        sgd_seen = any("multi_tensor_arg_kernel" in k for k in names)
-        if names == names0 and sgd_seen:
-            break
-    expect(sgd_seen, f"lenet_sgd: no SGD kernel in a profiled step: {names}")
+    # an undecayed one, no g + wd*p launches beside them
+    events, events0, pairs, retried = spawn(lenet_profiled_pairs,
+                                            timeout=300)[0]
+    names, names0 = events["kernel_names"], events0["kernel_names"]
+    expect(events["lead_spins"] > 0 and events0["lead_spins"] > 0,
+           f"lenet_sgd: a profiled window holds none of its lead spin "
+           f"kernels (pairs profiled again: {retried})")
+    expect(any("multi_tensor_arg_kernel" in k for k in names),
+           f"lenet_sgd: no SGD kernel in a profiled step: {names}")
     extra = {k: names.get(k, 0) - names0.get(k, 0)
              for k in set(names) | set(names0)
              if names.get(k, 0) != names0.get(k, 0)}
@@ -2873,7 +3157,8 @@ def phase_lenet_sgd(torch, counters):
             "losses": losses, "launches": launches,
             "launches_per_step": launches.get("fused_sgd", 0) / n_steps,
             "last_sgd_launch": rec, "profiled_step": events,
-            "profiled_step_without_l2": events0}, launches
+            "profiled_step_without_l2": events0,
+            "profiled_pairs": pairs, "pairs_retried": retried}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3302,11 +3587,14 @@ def phase_static_parity(torch, counters, fo):
             "forms": out}
 
 
-def phase_static_resnet(torch, counters, form, steps, inference=False):
+def phase_static_resnet(torch, counters, form, steps, inference=False,
+                        save_to=None):
     """``examples/train_resnet_static.py`` through the port's static
     graph on the card: its program, batch 64, the example's batches of
     the synthetic CIFAR sample; with ``inference`` the saved and loaded
-    inference model's logits against the test-mode clone's."""
+    inference model's logits against the test-mode clone's (the model
+    saved into ``save_to`` when given, else a temporary directory)."""
+    import contextlib
     import tempfile
 
     from paddle_tpu_torch import static
@@ -3353,7 +3641,8 @@ def phase_static_resnet(torch, counters, form, steps, inference=False):
                 want = exe.run(main.clone(for_test=True),
                                feed={"img": x, "label": batches[0][1]},
                                fetch_list=[logits])[0]
-                with tempfile.TemporaryDirectory() as d:
+                with (contextlib.nullcontext(save_to) if save_to
+                      else tempfile.TemporaryDirectory()) as d:
                     static.save_inference_model(d, ["img"], [logits], exe,
                                                 main)
                     with static.scope_guard(static.Scope()):
@@ -3401,6 +3690,129 @@ def phase_static_resnet(torch, counters, form, steps, inference=False):
             "launches": launches, "launches_per_step": per_step,
             "peak_mem_gb": peak, "breakdown": breakdown,
             "host_profile_ms": host, "inference": infer}, launches
+
+
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+SERVE_REQUESTS = 64
+SERVE_THREADS = 4
+
+
+def serve_requests(imgs, n, seed):
+    """``n`` requests of 1-4 rows each, slices of the synthetic CIFAR
+    sample."""
+    sizes = np.random.RandomState(seed).randint(1, 5, size=n)
+    starts = np.cumsum([0] + sizes.tolist())
+    return [{"img": imgs[(a % 448):(a % 448) + k]}
+            for a, k in zip(starts, sizes)]
+
+
+def submit_from_threads(eng, feeds, n_threads):
+    """Submit ``feeds`` round-robin from ``n_threads`` threads at once;
+    the handles in feed order."""
+    import threading
+
+    handles = [None] * len(feeds)
+
+    def run(t):
+        for i in range(t, len(feeds), n_threads):
+            handles[i] = eng.submit(feeds[i])
+
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return handles
+
+
+def phase_serving(torch, blob):
+    """The port's AnalysisPredictor over the static ResNet inference
+    model phase 13 saved (buckets 1-16, warmed) behind a ServingEngine
+    on its scheduler thread: 64 requests of 1-4 rows from 4 threads,
+    each response equal to that request run alone through
+    ``run_batch`` within atol 1e-4 (cuDNN may choose another algorithm
+    at another bucket); packing (fewer batches than requests) and no
+    degraded request; then ``serve.dispatch`` armed twice: the retry
+    and the row-by-row leg on the card serve every request within atol
+    1e-4; ServingHealthServer's /readyz 200, then 503 after drain.
+    Requests/s, e2e p50/p99 ms (the engine's buckets) and batch fill."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import injector as fault
+    from paddle_tpu_torch.inference import (AnalysisPredictor,
+                                            ServingEngine,
+                                            ServingHealthServer)
+
+    t0 = time.perf_counter()
+    pred = AnalysisPredictor(blob, batch_buckets=SERVE_BUCKETS)
+    expect(pred.device.type == "cuda", "the predictor is not on the card")
+    pred.warm()
+    warm_s = time.perf_counter() - t0
+    imgs, _ = cifar_synthetic()
+    feeds = serve_requests(imgs, SERVE_REQUESTS, 3)
+    alone = [pred.run_batch(f)[0] for f in feeds]
+    eng = ServingEngine(pred, max_queue=2 * SERVE_REQUESTS).start()
+    hs = ServingHealthServer(eng).start()
+    try:
+        t0 = time.perf_counter()
+        handles = submit_from_threads(eng, feeds, SERVE_THREADS)
+        got = [h.result(timeout=300)[0] for h in handles]
+        wall = time.perf_counter() - t0
+        c = dict(eng.counters)
+        lat = eng.engine_latency_stats()
+        err = max(float(np.abs(g - a).max()) for g, a in zip(got, alone))
+        expect(all(g.shape == (len(f["img"]), 10) and np.isfinite(g).all()
+                   for g, f in zip(got, feeds)), "malformed responses")
+        expect(err <= 1e-4, f"a packed response differs from its request "
+                            f"run alone by {err}")
+        expect(c["serve_batches"] < SERVE_REQUESTS,
+               f"no packing: {c['serve_batches']} batches")
+        expect(c.get("serve_degraded", 0) == 0, "a clean request degraded")
+        clean = {"requests": SERVE_REQUESTS,
+                 "rows": int(sum(len(f["img"]) for f in feeds)),
+                 "requests_per_s": SERVE_REQUESTS / wall, "wall_s": wall,
+                 "e2e_p50_ms": lat["e2e_p50_ms"],
+                 "e2e_p99_ms": lat["e2e_p99_ms"],
+                 "queue_wait_p99_ms": lat["queue_wait_p99_ms"],
+                 "batches": c["serve_batches"],
+                 "batch_fill_pct": c["serve_batch_fill_pct"],
+                 "max_abs_err_vs_alone": err, "degraded": 0}
+
+        before = profiler.counters_snapshot()
+        fault.arm("serve.dispatch", times=2)
+        try:
+            fe = feeds[:4]
+            handles = submit_from_threads(eng, fe, 1)
+            got = [h.result(timeout=300)[0] for h in handles]
+        finally:
+            fault.disarm_all()
+        delta = profiler.counters_delta(before)
+        err_f = max(float(np.abs(g - a).max())
+                    for g, a in zip(got, alone[:4]))
+        expect(err_f <= 1e-4, f"the degraded leg differs by {err_f}")
+        expect(delta.get("faults_injected", 0) == 2
+               and delta.get("serve_degraded", 0) >= 1
+               and delta.get("serve_failed", 0) == 0,
+               f"the fault leg did not retry and degrade: {delta}")
+        fault_leg = {"requests": len(fe), "faults_injected": 2,
+                     "retry_attempts": delta.get("retry_attempts", 0),
+                     "degraded": delta["serve_degraded"],
+                     "max_abs_err_vs_alone": err_f}
+
+        ready = http_get(f"127.0.0.1:{hs.port}", "/readyz")[0]
+        expect(ready == 200, f"/readyz answered {ready} while serving")
+        expect(eng.drain(timeout=60), "the drain did not flush")
+        drained = http_get(f"127.0.0.1:{hs.port}", "/readyz")[0]
+        expect(drained == 503, f"/readyz answered {drained} after drain")
+    finally:
+        hs.stop()
+        eng.stop()
+    return {"phase": "serving", "model": "phase 13's static ResNet "
+            "inference model (3 x 32 x 32 -> 10 logits, f32)",
+            "buckets": list(SERVE_BUCKETS), "threads": SERVE_THREADS,
+            "warm_s": warm_s, "clean": clean, "fault": fault_leg,
+            "readyz": [ready, drained],
+            "memory": pred.memory_stats()}
 
 
 # ---------------------------------------------------------------------------
@@ -4892,7 +5304,8 @@ def main() -> int:
             emit({"phase": "init", "seconds": time.perf_counter() - t0,
                   "params": int(sum(p.numel() for p in params.values()))})
             for phase in (phase_int8, phase_f32, phase_sample, phase_2byte,
-                          phase_spec, phase_host_tier, phase_adopt):
+                          phase_spec, phase_host_tier, phase_adopt,
+                          phase_fleet):
                 extra = (pa,) if phase is phase_2byte else ()
                 row, launches = phase(torch, dec, counters, params, cfg, rng,
                                       *extra)
@@ -4980,12 +5393,20 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         emit(phase_static_parity(torch, counters, fo))
-        for form, steps in (("momentum", STATIC_STEPS), ("adam", 13),
-                            ("lamb", 13), ("sgd", 13)):
-            row, launches = phase_static_resnet(
-                torch, counters, form, steps, inference=form == "momentum")
-            emit(row)
-            add(launches)
+        blob = tempfile.mkdtemp(prefix="chip_smoke_blob_")
+        try:
+            for form, steps in (("momentum", STATIC_STEPS), ("adam", 13),
+                                ("lamb", 13), ("sgd", 13)):
+                row, launches = phase_static_resnet(
+                    torch, counters, form, steps,
+                    inference=form == "momentum",
+                    save_to=blob if form == "momentum" else None)
+                emit(row)
+                add(launches)
+            torch.cuda.empty_cache()
+            emit(phase_serving(torch, blob))
+        finally:
+            shutil.rmtree(blob, ignore_errors=True)
         total["static_lamb"] = total.get("static_lamb_phase1", 0) \
             + total.get("static_lamb_apply", 0)
         torch.cuda.empty_cache()

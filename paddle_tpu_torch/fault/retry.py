@@ -1,36 +1,66 @@
-"""Retry with exponential backoff and jitter (port of the part of
-``paddle_tpu/fault/retry.py`` that ``serving.disagg.MigrationClient``
-uses: :class:`Backoff` and :class:`Retrier`).
+"""Retry with exponential backoff + jitter.
 
-The defaults are the reference's own (3 attempts, a first delay of
-0.1 s, a 30 s cap); its ``PADDLE_RETRY_*`` environment overrides and the
-flight-recorder dump on a give-up are not ported here. Counters (the
-port's ``profiler``): ``retry_attempts``, re-attempts after a retryable
-failure; ``retry_giveups``, exhausted budgets (the last error is
-re-raised).
+A copy of ``paddle_tpu/fault/retry.py``: the one policy object for
+transient failures in the port — the disaggregation ship
+(``serving.disagg.MigrationClient``), the KV client's round-trips
+(``distributed.http_kv``), the fleet router's chunk failover and the
+serving engine's dispatch retry all share it.
+
+Defaults come from env knobs so an operator can harden a job without
+code changes::
+
+    PADDLE_RETRY_MAX_ATTEMPTS   total attempts incl. the first (default 3)
+    PADDLE_RETRY_BASE_DELAY_S   first backoff delay (default 0.1)
+    PADDLE_RETRY_MAX_DELAY_S    backoff cap (default 30.0)
+
+Counters (the port's ``profiler``): ``retry_attempts`` — re-attempts
+after a retryable failure; ``retry_giveups`` — exhaustions
+(budget/deadline spent, last error re-raised; the flight recorder
+records and dumps the give-up).
 """
 from __future__ import annotations
 
+import functools
+import os
 import random
 import time
 from typing import Callable, Optional, Tuple, Type, Union
 
-__all__ = ["Backoff", "Retrier"]
+__all__ = ["Backoff", "Retrier", "retry", "env_backoff",
+           "env_max_attempts"]
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
 
 
 class Backoff:
     """Exponential backoff schedule with proportional jitter.
 
-    ``delay(attempt)`` for attempt 0, 1, 2, ... is ``min(cap, base *
-    factor**attempt)`` with the last ``jitter`` fraction of it
-    randomized (jitter 0: deterministic, for tests)."""
+    ``delay(attempt)`` for attempt 0,1,2,... is
+    ``min(cap, base * factor**attempt)`` with the last ``jitter``
+    fraction of it randomized (jitter=0 → deterministic, for tests;
+    jitter=1 → full jitter a la the AWS architecture blog).
+    """
 
-    def __init__(self, base: float = 0.1, factor: float = 2.0,
-                 cap: float = 30.0, jitter: float = 0.5,
+    def __init__(self, base: Optional[float] = None, factor: float = 2.0,
+                 cap: Optional[float] = None, jitter: float = 0.5,
                  rng: Optional[random.Random] = None):
-        self.base = float(base)
+        self.base = (base if base is not None
+                     else _env_float("PADDLE_RETRY_BASE_DELAY_S", 0.1))
         self.factor = float(factor)
-        self.cap = float(cap)
+        self.cap = (cap if cap is not None
+                    else _env_float("PADDLE_RETRY_MAX_DELAY_S", 30.0))
         self.jitter = min(1.0, max(0.0, float(jitter)))
         self._rng = rng or random.Random()
 
@@ -42,6 +72,21 @@ class Backoff:
         return fixed + self._rng.random() * (raw - fixed)
 
 
+def env_backoff(base: float, cap: float, **kwargs) -> Backoff:
+    """A Backoff with site-specific defaults that the PADDLE_RETRY_*
+    env knobs override — call sites that hard-code a schedule would
+    otherwise make the documented operator knobs dead letters."""
+    return Backoff(base=_env_float("PADDLE_RETRY_BASE_DELAY_S", base),
+                   cap=_env_float("PADDLE_RETRY_MAX_DELAY_S", cap),
+                   **kwargs)
+
+
+def env_max_attempts(default: int) -> int:
+    """Site default for attempt budget, overridable by
+    PADDLE_RETRY_MAX_ATTEMPTS."""
+    return _env_int("PADDLE_RETRY_MAX_ATTEMPTS", default)
+
+
 _RetryOn = Union[Type[BaseException], Tuple[Type[BaseException], ...],
                  Callable[[BaseException], bool]]
 
@@ -49,11 +94,20 @@ _RetryOn = Union[Type[BaseException], Tuple[Type[BaseException], ...],
 class Retrier:
     """Callable retry policy: deadline, attempt budget, exception filter.
 
-    ``retry_on`` is an exception type or tuple, or a predicate;
-    ``giveup_on`` types pass through at once even when they match
-    ``retry_on``. On exhaustion the LAST error is re-raised."""
+    Usable three ways::
 
-    def __init__(self, max_attempts: int = 3,
+        Retrier(max_attempts=5).call(fetch, url)     # imperative
+        @Retrier(retry_on=(OSError,))                # decorator
+        def fetch(url): ...
+        retry(max_attempts=5)(fetch)                 # via the helper
+
+    ``retry_on`` is an exception type/tuple or a predicate; ``giveup_on``
+    types pass through immediately even when they match ``retry_on``
+    (e.g. retry OSError but never FileNotFoundError). On exhaustion the
+    LAST error is re-raised — no wrapper type to unwrap at call sites.
+    """
+
+    def __init__(self, max_attempts: Optional[int] = None,
                  deadline: Optional[float] = None,
                  backoff: Optional[Backoff] = None,
                  retry_on: _RetryOn = (OSError, ConnectionError,
@@ -61,7 +115,8 @@ class Retrier:
                  giveup_on: Tuple[Type[BaseException], ...] = (),
                  sleep: Callable[[float], None] = time.sleep,
                  name: Optional[str] = None):
-        self.max_attempts = int(max_attempts)
+        self.max_attempts = (max_attempts if max_attempts is not None
+                             else _env_int("PADDLE_RETRY_MAX_ATTEMPTS", 3))
         if self.max_attempts < 1:
             raise ValueError("max_attempts must be >= 1")
         self.deadline = deadline
@@ -90,12 +145,49 @@ class Retrier:
                 if not self._retryable(e):
                     raise
                 attempt += 1
+                out_of_budget = attempt >= self.max_attempts
                 delay = self.backoff.delay(attempt - 1)
                 past_deadline = (
                     self.deadline is not None
                     and time.monotonic() - t0 + delay > self.deadline)
-                if attempt >= self.max_attempts or past_deadline:
+                if out_of_budget or past_deadline:
                     profiler.bump_counter("retry_giveups")
+                    try:
+                        from ..observability.flight_recorder import \
+                            flight_recorder
+
+                        fr = flight_recorder()
+                        fr.record("retry_giveup", name=self.name,
+                                  attempts=attempt,
+                                  error=type(e).__name__,
+                                  message=str(e)[:500])
+                        fr.dump(reason=f"retry_giveup:{self.name}")
+                    except Exception:
+                        pass   # postmortem writer must not mask the error
                     raise
                 profiler.bump_counter("retry_attempts")
                 self._sleep(delay)
+
+    def __call__(self, fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            return self.call(fn, *args, **kwargs)
+
+        wrapper.retrier = self
+        return wrapper
+
+    wrap = __call__
+
+
+def retry(fn: Optional[Callable] = None, **kwargs) -> Callable:
+    """Decorator form: ``@retry``, ``@retry(max_attempts=5, ...)``, or
+    direct ``retry(fn, max_attempts=5)`` -> wrapped callable.
+
+    Keyword arguments are Retrier's.
+    """
+    if fn is None:
+        return Retrier(**kwargs)
+    if not callable(fn):
+        raise TypeError(f"retry: first argument must be callable, "
+                        f"got {fn!r}")
+    return Retrier(**kwargs)(fn)

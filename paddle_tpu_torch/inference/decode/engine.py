@@ -379,6 +379,11 @@ class DecodeEngine:
         # thread between ticks
         self._adoptions: deque = deque()
 
+        # the process's /metrics listener when PADDLE_METRICS_PORT is set
+        from ...observability.server import maybe_start_metrics_server
+
+        maybe_start_metrics_server()
+
     def _alloc_pool(self) -> None:
         cfg = self.config
         self._k_pages, self._v_pages = alloc_kv_pool(

@@ -1,0 +1,933 @@
+"""Fleet-scale decode serving: a router fronting N ``DecodeEngine``
+replicas, built so that ONE ENGINE DYING MID-GENERATION IS NOT AN
+OUTAGE.
+
+A copy of ``paddle_tpu/serving/router.py`` over the port's engines. The
+core trick is chunked dispatch + greedy replay: the router asks an
+engine for at most ``chunk_tokens`` tokens at a time, folding everything
+already emitted into the prompt of the next chunk. Every chunk
+therefore either *returned* (tokens are safely router-side) or *failed*
+(no tokens surfaced) — so when a replica dies, the bounded
+``fault.Retrier`` re-dispatches the chunk on a healthy replica, whose
+prefill regenerates the KV (shared params, greedy argmax) and continues
+the sequence: zero tokens lost, zero doubled. On the CPU the replay is
+bit for bit an unkilled run's; on the card a chunk's GEMMs see another
+batch than in the unkilled run, so a token may differ only where the
+top-2 logit gap is a near tie. The engines' prefix caches make the
+replayed prefill cheap, and adopted pages (``serving/disagg.py``) make
+it nearly free.
+
+Routing policy, in order:
+
+- **admission** — the serving typed taxonomy: ``Overloaded`` at the
+  in-flight bound (counted ``router_sheds``), ``EngineStopped`` after
+  drain begins, ``DeadlineExceeded`` pre-checked;
+- **health gating** — a replica is routable only while its ``/readyz``
+  probe is green (local engines answer ``engine.ready`` directly) and it
+  is not in a post-failure cooldown;
+- **SLO shed/scale signal** — an optional :class:`FleetSLOSignal`
+  (per-engine burn rates federated through
+  ``observability/federation.py``) deprioritizes burning replicas:
+  they only serve when every healthy replica burns;
+- **session affinity** — requests carrying the same session key (the
+  trace id by default) stick to their replica while it stays routable
+  (``router_affinity_hits``), keeping the folded-context prefix cache
+  hot;
+- **least-loaded** — otherwise the replica with the smallest
+  ``kv_pages_in_use + queue_weight * queue_depth`` wins.
+
+Threads: one per routed request and one per HTTP connection. None of
+them launches device work: ``engine.submit`` and ``engine.adopt_pages``
+only enqueue, and the engine's scheduler thread runs the ticks.
+
+Everything lands in the ``router_*`` counters and the ``router_e2e_ms``
+histogram, scraped through every /metrics listener.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import Counter as _Counter
+from typing import Dict, List, Optional, Sequence, Set
+
+from ..fault import Backoff, Retrier
+from ..inference.serving import (DeadlineExceeded, EngineStopped,
+                                 Overloaded, RequestFailed, ServingError,
+                                 _DualHist)
+from ..observability import tracing
+from ..observability.flight_recorder import (flight_recorder,
+                                             note_typed_error)
+from ..observability.metrics import MetricsRegistry
+
+__all__ = [
+    "DecodeEngineServer", "FleetRouter", "FleetSLOSignal",
+    "HTTPReplica", "LocalReplica", "ReplicaUnroutable",
+]
+
+#: typed-error name <-> HTTP status for the engine server wire; the
+#: name also travels in the X-Paddle-Error header so the client
+#: re-raises the exact type (status codes alone are ambiguous)
+_ERROR_STATUS = {
+    "Overloaded": 429,
+    "DeadlineExceeded": 504,
+    "EngineStopped": 503,
+    "RequestFailed": 500,
+    "MalformedPageFrame": 400,
+    "ValueError": 400,
+}
+_ERROR_TYPES = {
+    "Overloaded": Overloaded,
+    "DeadlineExceeded": DeadlineExceeded,
+    "EngineStopped": EngineStopped,
+    "RequestFailed": RequestFailed,
+}
+
+
+class ReplicaUnroutable(RuntimeError):
+    """Transport-level replica failure (connection refused/reset, a
+    half-written response): the router fails over — never user-visible
+    unless every replica is gone."""
+
+
+# ---------------------------------------------------------------------------
+# the engine-side HTTP surface
+# ---------------------------------------------------------------------------
+class DecodeEngineServer:
+    """One decode engine's fleet-facing HTTP listener, riding the
+    hardened ``KVHTTPServer`` scaffolding (body cap, per-connection
+    timeout, free GET /metrics):
+
+    - GET ``/healthz`` — 200 while the process serves at all;
+    - GET ``/readyz`` — 200 only while the engine is warmed and
+      admitting (503 while warming or draining);
+    - GET ``/stats`` — live load for least-loaded dispatch
+      (``kv_pages_in_use``, ``queue_depth``) plus geometry;
+    - PUT ``/generate`` — JSON ``{prompt, max_new_tokens, deadline_s}``
+      → ``{tokens, ttft_ms}``; typed admission errors map to status
+      codes (429/503/504/500) with the type name in ``X-Paddle-Error``;
+    - PUT ``/adopt`` — a raw disagg page frame → adoption report
+      (400 + ``MalformedPageFrame`` on a bad frame).
+    """
+
+    def __init__(self, engine, port: int = 0, host: str = "127.0.0.1",
+                 request_timeout: Optional[float] = 30.0,
+                 max_body_bytes: int = 64 << 20,
+                 result_timeout_s: float = 120.0):
+        from ..distributed.http_kv import KVHandler, KVHTTPServer
+
+        def _send_json(handler, code: int, payload: dict,
+                       error: Optional[str] = None):
+            body = json.dumps(payload).encode("utf-8")
+            handler.send_response(code)
+            handler.send_header("Content-Type", "application/json")
+            handler.send_header("Content-Length", str(len(body)))
+            if error is not None:
+                handler.send_header("X-Paddle-Error", error)
+            handler.end_headers()
+            handler.wfile.write(body)
+
+        def _send_typed(handler, e: BaseException):
+            name = type(e).__name__
+            code = _ERROR_STATUS.get(name, 500)
+            _send_json(handler, code,
+                       {"error": name, "message": str(e)}, error=name)
+
+        def _read_body(handler) -> Optional[bytes]:
+            try:
+                n = int(handler.headers.get("Content-Length"))
+            except (TypeError, ValueError):
+                handler.send_status_code(411)
+                handler.close_connection = True
+                return None
+            if n < 0 or (self._server.max_body_bytes is not None
+                         and n > self._server.max_body_bytes):
+                handler.send_status_code(413 if n >= 0 else 400)
+                handler.close_connection = True
+                return None
+            return handler.rfile.read(n) if n else b""
+
+        def _generate(handler):
+            body = _read_body(handler)
+            if body is None:
+                return
+            try:
+                req = json.loads(body.decode("utf-8"))
+                prompt = req["prompt"]
+                max_new = int(req.get("max_new_tokens", 16))
+                deadline_s = req.get("deadline_s")
+            except (ValueError, KeyError, TypeError) as e:
+                _send_json(handler, 400,
+                           {"error": "ValueError",
+                            "message": f"bad generate body: {e}"},
+                           error="ValueError")
+                return
+            try:
+                h = engine.submit(prompt, max_new, deadline_s=deadline_s)
+                timeout = result_timeout_s if deadline_s is None \
+                    else float(deadline_s) + 5.0
+                tokens = h.result(timeout=timeout)
+            except (ServingError, ValueError) as e:
+                _send_typed(handler, e)
+                return
+            except TimeoutError:
+                # unresolved handle: a stopped engine never flushes it
+                e = EngineStopped("engine stopped mid-request") \
+                    if not engine.ready else \
+                    RequestFailed("generation timed out in-engine")
+                _send_typed(handler, e)
+                return
+            _send_json(handler, 200,
+                       {"tokens": tokens,
+                        "ttft_ms": h.meta.get("ttft_ms")})
+
+        def _adopt(handler):
+            from .disagg import MalformedPageFrame
+
+            body = _read_body(handler)
+            if body is None:
+                return
+            try:
+                report = engine.adopt_pages(body)
+            except (MalformedPageFrame, ValueError) as e:
+                _send_typed(handler, e)
+                return
+            _send_json(handler, 200, report)
+
+        def _stats(handler):
+            pool = engine.pool
+            ctr = engine.counters
+            # kv_pages_in_use is HBM-RESIDENT pages only: parked
+            # sessions release their device pages into the free list,
+            # so an engine with a deep host tier legitimately looks
+            # light to the router's load signal — that is the point
+            # of the offload tier.
+            _send_json(handler, 200, {
+                "ready": bool(engine.ready),
+                "kv_pages_in_use": pool.pages_in_use,
+                "queue_depth": engine.queue_depth,
+                "page_size": pool.page_size,
+                "max_pages_per_seq": pool.max_pages_per_seq,
+                "vocab_size": engine.config.vocab_size,
+                "kv_pages_host": int(ctr.get("kv_pages_host", 0)),
+                "kv_offload_bytes": int(ctr.get("kv_offload_bytes", 0)),
+                "kv_page_restores": int(ctr.get("kv_page_restores", 0)),
+                "kv_restore_wait_p99_ms": float(
+                    engine.engine_latency_stats().get(
+                        "restore_wait_p99_ms", 0.0)),
+            })
+
+        class _Handler(KVHandler):
+            def do_GET(handler):  # noqa: N805 (handler-local self)
+                if handler.path == "/healthz":
+                    handler.send_response(200)
+                    handler.send_header("Content-Length", "2")
+                    handler.end_headers()
+                    handler.wfile.write(b"ok")
+                    return
+                if handler.path == "/readyz":
+                    code = 200 if engine.ready else 503
+                    msg = b"ready" if code == 200 else b"not ready"
+                    handler.send_response(code)
+                    handler.send_header("Content-Length",
+                                        str(len(msg)))
+                    handler.end_headers()
+                    handler.wfile.write(msg)
+                    return
+                if handler.path == "/stats":
+                    return _stats(handler)
+                KVHandler.do_GET(handler)
+
+            def do_PUT(handler):  # noqa: N805
+                if handler.path == "/generate":
+                    return _generate(handler)
+                if handler.path == "/adopt":
+                    return _adopt(handler)
+                KVHandler.do_PUT(handler)
+
+        self.engine = engine
+        self._server = KVHTTPServer(port, _Handler, host=host,
+                                    max_body_bytes=max_body_bytes,
+                                    request_timeout=request_timeout)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    @property
+    def endpoint(self) -> str:
+        host, port = self._server.server_address[:2]
+        return f"{host}:{port}"
+
+    def start(self) -> "DecodeEngineServer":
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True,
+            name="decode-engine-server")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._server.shutdown()
+            self._thread.join()
+            self._thread = None
+        self._server.server_close()
+
+
+# ---------------------------------------------------------------------------
+# replicas: the router's uniform view of an engine
+# ---------------------------------------------------------------------------
+class LocalReplica:
+    """An in-process ``DecodeEngine`` behind the replica interface —
+    what the tests and ``chip_smoke.py``'s fleet phase route to."""
+
+    def __init__(self, engine, name: Optional[str] = None):
+        self.engine = engine
+        self.name = name or f"local:{id(engine) & 0xFFFF:04x}"
+
+    def ready(self) -> bool:
+        return bool(self.engine.ready)
+
+    def load(self) -> Optional[tuple]:
+        return (self.engine.pool.pages_in_use, self.engine.queue_depth)
+
+    def generate_chunk(self, prompt: Sequence[int], max_new: int,
+                       deadline_s: Optional[float]) -> List[int]:
+        h = self.engine.submit(prompt, max_new, deadline_s=deadline_s)
+        limit = time.monotonic() + (120.0 if deadline_s is None
+                                    else float(deadline_s) + 5.0)
+        while True:
+            try:
+                return h.result(timeout=0.05)
+            except TimeoutError:
+                if not self.engine.ready and not h.done():
+                    # a stopped/draining engine never flushes the
+                    # handle — surface it as the typed death the
+                    # router fails over on
+                    raise EngineStopped(
+                        f"engine behind {self.name} stopped "
+                        "mid-chunk") from None
+                if time.monotonic() >= limit:
+                    raise RequestFailed(
+                        f"chunk timed out on {self.name}") from None
+
+    def adopt(self, frame: bytes) -> dict:
+        return self.engine.adopt_pages(frame)
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        return self.engine.drain(timeout=timeout)
+
+    def stop(self) -> None:
+        self.engine.stop()
+
+
+class HTTPReplica:
+    """A remote engine behind its :class:`DecodeEngineServer`, with the
+    readiness probe result cached for ``probe_ttl_s`` so per-chunk
+    dispatch doesn't double every request's HTTP round-trips."""
+
+    def __init__(self, endpoint: str, timeout_s: float = 30.0,
+                 probe_ttl_s: float = 0.5, clock=time.monotonic):
+        endpoint = endpoint.replace("http://", "").rstrip("/")
+        host, _, port = endpoint.rpartition(":")
+        self.host, self.port = host or "127.0.0.1", int(port)
+        self.name = f"{self.host}:{self.port}"
+        self.timeout_s = float(timeout_s)
+        self._probe_ttl = float(probe_ttl_s)
+        self._clock = clock
+        self._probe: Optional[tuple] = None   # (t, ready)
+
+    def _request(self, method: str, path: str,
+                 body: Optional[bytes] = None,
+                 timeout: Optional[float] = None):
+        import http.client
+
+        conn = http.client.HTTPConnection(
+            self.host, self.port,
+            timeout=self.timeout_s if timeout is None else timeout)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, resp.read(), \
+                resp.getheader("X-Paddle-Error")
+        except (OSError, http.client.HTTPException) as e:
+            raise ReplicaUnroutable(
+                f"{self.name}: {type(e).__name__}: {e}") from e
+        finally:
+            conn.close()
+
+    def _raise_typed(self, status: int, data: bytes,
+                     err: Optional[str]):
+        try:
+            msg = json.loads(data.decode("utf-8")).get("message", "")
+        except (ValueError, AttributeError):
+            msg = data.decode("utf-8", "replace")[:200]
+        cls = _ERROR_TYPES.get(err or "")
+        if cls is None:
+            cls = {429: Overloaded, 503: EngineStopped,
+                   504: DeadlineExceeded}.get(status, RequestFailed)
+        raise cls(f"{self.name}: {msg or f'HTTP {status}'}")
+
+    def ready(self) -> bool:
+        now = self._clock()
+        if self._probe is not None \
+                and now - self._probe[0] < self._probe_ttl:
+            return self._probe[1]
+        try:
+            status, _, _ = self._request("GET", "/readyz", timeout=2.0)
+            up = status == 200
+        except ReplicaUnroutable:
+            up = False
+        self._probe = (now, up)
+        return up
+
+    def load(self) -> Optional[tuple]:
+        try:
+            status, data, _ = self._request("GET", "/stats",
+                                            timeout=2.0)
+            if status != 200:
+                return None
+            stats = json.loads(data.decode("utf-8"))
+            return (int(stats.get("kv_pages_in_use", 0)),
+                    int(stats.get("queue_depth", 0)))
+        except (ReplicaUnroutable, ValueError):
+            return None
+
+    def generate_chunk(self, prompt: Sequence[int], max_new: int,
+                       deadline_s: Optional[float]) -> List[int]:
+        body = json.dumps({
+            "prompt": [int(t) for t in prompt],
+            "max_new_tokens": int(max_new),
+            "deadline_s": deadline_s,
+        }).encode("utf-8")
+        status, data, err = self._request(
+            "PUT", "/generate", body=body,
+            timeout=self.timeout_s if deadline_s is None
+            else float(deadline_s) + 10.0)
+        if status != 200:
+            self._raise_typed(status, data, err)
+        try:
+            return [int(t) for t in
+                    json.loads(data.decode("utf-8"))["tokens"]]
+        except (ValueError, KeyError, TypeError) as e:
+            raise ReplicaUnroutable(
+                f"{self.name}: unparseable generate response: "
+                f"{e}") from e
+
+    def adopt(self, frame: bytes) -> dict:
+        from .disagg import MalformedPageFrame
+
+        status, data, err = self._request("PUT", "/adopt", body=frame)
+        if status != 200:
+            if err == "MalformedPageFrame":
+                raise MalformedPageFrame(
+                    data.decode("utf-8", "replace")[:200])
+            self._raise_typed(status, data, err)
+        return json.loads(data.decode("utf-8"))
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        # the remote process owns its lifecycle (SIGTERM drain); the
+        # router draining itself only needs its OWN in-flight flushed
+        return True
+
+    def stop(self) -> None:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# SLO-burn shed/scale signal
+# ---------------------------------------------------------------------------
+class FleetSLOSignal:
+    """Per-engine burn rates as the router's shed/scale signal: each
+    engine's /metrics endpoint is federated through
+    ``FederatedMetrics`` (instance labels injected), one latency + one
+    error-rate objective per engine evaluate over the merged scrapes,
+    and :meth:`burning` names the endpoints whose error budget is
+    burning — the router deprioritizes them, and :meth:`scale_hint`
+    is the autoscaler-facing summary."""
+
+    def __init__(self, targets: Sequence[str],
+                 threshold_ms: float = 2500.0,
+                 max_error_ratio: float = 0.05,
+                 windows=None, clock=time.time, fetch=None):
+        from ..observability.federation import FederatedMetrics
+        from ..observability.slo import (DEFAULT_WINDOWS, Objective,
+                                         SLOEvaluator)
+
+        self.targets = [str(t) for t in targets]
+        self._fed = FederatedMetrics(self.targets, clock=clock,
+                                     fetch=fetch)
+        objectives = []
+        self._by_objective: Dict[str, str] = {}
+        for t in self.targets:
+            o_lat = Objective(f"decode_e2e_p99@{t}",
+                              hist="decode_e2e_ms", percentile=99.0,
+                              threshold_ms=threshold_ms, instance=t)
+            o_err = Objective(f"decode_errors@{t}",
+                              numerator="decode_failed",
+                              denominator="decode_requests",
+                              max_ratio=max_error_ratio, instance=t)
+            objectives += [o_lat, o_err]
+            self._by_objective[o_lat.name] = t
+            self._by_objective[o_err.name] = t
+        self._eval = SLOEvaluator(
+            objectives,
+            windows=windows if windows is not None else DEFAULT_WINDOWS,
+            clock=clock)
+        self._clock = clock
+        self._burning: Set[str] = set()
+        self._last_refresh: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def refresh(self) -> Set[str]:
+        """Scrape every engine, snapshot, evaluate; returns the burning
+        endpoint set (dead members go stale, not failed — staleness is
+        the health gate's job, not the SLO's)."""
+        self._fed.scrape_once()
+        self._eval.add_snapshot(self._fed.merged_samples())
+        burning: Set[str] = set()
+        for verdict in self._eval.evaluate():
+            if verdict.burning:
+                target = self._by_objective.get(verdict.objective)
+                if target is not None:
+                    burning.add(target)
+        with self._lock:
+            self._burning = burning
+            self._last_refresh = self._clock()
+        return set(burning)
+
+    def maybe_refresh(self, min_interval_s: float = 1.0) -> None:
+        with self._lock:
+            last = self._last_refresh
+        if last is not None \
+                and self._clock() - last < min_interval_s:
+            return
+        try:
+            self.refresh()
+        except Exception:
+            pass   # a broken scrape must never take dispatch down
+
+    def burning(self) -> Set[str]:
+        with self._lock:
+            return set(self._burning)
+
+    def scale_hint(self) -> dict:
+        """The autoscaler-facing summary: which engines burn, how many
+        are clean, and the resulting action — plus the KV tier view.
+        ``kv_pages_in_use`` is HBM-RESIDENT by construction (parked
+        sessions live in each engine's host tier), so ``kv_pages_host``
+        is the pressure the fleet absorbed WITHOUT scaling: a high
+        host-page count with a clean burn set means the offload tier is
+        doing its job; a high count WITH burn means the fleet is out of
+        headroom and paging cost is leaking into latency — scale up."""
+        burning = self.burning()
+        clean = [t for t in self.targets if t not in burning]
+        action = "steady"
+        if burning:
+            action = "scale_up" if len(clean) <= len(burning) \
+                else "shift_load"
+        samples = self._fed.merged_samples()
+        pages_host = 0.0
+        restores = 0.0
+        for key, v in samples.items():
+            if key.startswith("kv_pages_host"):
+                pages_host += v
+            elif key.startswith("kv_page_restores"):
+                restores += v
+        return {"burning": sorted(burning), "clean": len(clean),
+                "targets": len(self.targets), "action": action,
+                "kv_pages_host": int(pages_host),
+                "kv_page_restores": int(restores)}
+
+
+# ---------------------------------------------------------------------------
+# the router
+# ---------------------------------------------------------------------------
+class FleetRouter:
+    """Route generation requests across engine replicas with health
+    gating, session affinity, least-loaded dispatch, and chunked
+    retry-with-failover (module docstring has the policy order).
+
+    ``replicas`` mixes raw ``DecodeEngine`` objects (wrapped into
+    :class:`LocalReplica`), :class:`LocalReplica` and
+    :class:`HTTPReplica` freely. The router satisfies the engine duck
+    type ``install_sigterm_drain`` expects: ``submit`` →
+    handle, ``generate``, ``counters``, ``engine_latency_stats``,
+    ``ready``, ``drain``."""
+
+    def __init__(self, replicas: Sequence, chunk_tokens: int = 8,
+                 max_inflight: int = 64, max_attempts: int = 4,
+                 dispatch_timeout_s: float = 120.0,
+                 backoff: Optional[Backoff] = None,
+                 affinity: bool = True, config=None,
+                 default_deadline_s: Optional[float] = None,
+                 slo_signal: Optional[FleetSLOSignal] = None,
+                 shed_on_burn: bool = False, queue_weight: int = 4,
+                 cooldown_s: float = 1.0,
+                 clock=time.monotonic, sleep=time.sleep):
+        if not replicas:
+            raise ValueError("FleetRouter needs at least one replica")
+        self.replicas: List = []
+        for i, r in enumerate(replicas):
+            if hasattr(r, "generate_chunk"):
+                self.replicas.append(r)
+            else:
+                self.replicas.append(LocalReplica(r, name=f"local:{i}"))
+        self.config = config
+        if self.config is None:
+            for r in self.replicas:
+                eng = getattr(r, "engine", None)
+                if eng is not None and hasattr(eng, "config"):
+                    self.config = eng.config
+                    break
+        self.chunk_tokens = int(chunk_tokens)
+        if self.chunk_tokens < 1:
+            raise ValueError("chunk_tokens must be >= 1")
+        self.max_inflight = int(max_inflight)
+        self.max_attempts = int(max_attempts)
+        self.dispatch_timeout_s = float(dispatch_timeout_s)
+        self.affinity = bool(affinity)
+        self.default_deadline_s = default_deadline_s
+        self.shed_on_burn = bool(shed_on_burn)
+        self.queue_weight = int(queue_weight)
+        self.cooldown_s = float(cooldown_s)
+        self.slo = slo_signal
+        self._backoff = backoff if backoff is not None \
+            else Backoff(base=0.02, factor=2.0, cap=0.25, jitter=0.0)
+        self._clock = clock
+        self._sleep = sleep
+
+        self._lock = threading.Condition()
+        self._accepting = True
+        self._inflight = 0
+        self._affinity_map: Dict[str, object] = {}
+        self._cooldown: Dict[str, float] = {}
+        self._stats_lock = threading.Lock()
+        self._counters: _Counter = _Counter()
+        self._hist_reg = MetricsRegistry()
+        self._h_e2e = _DualHist("router_e2e_ms", self._hist_reg)
+
+    # -- counters ---------------------------------------------------------
+    def _count(self, name: str, n: int = 1) -> None:
+        from .. import profiler
+
+        with self._stats_lock:
+            self._counters[name] += n
+        profiler.bump_counter(name, n)
+
+    def _gauge(self, name: str, value) -> None:
+        from .. import profiler
+
+        with self._stats_lock:
+            self._counters[name] = value
+        profiler.set_counter(name, value)
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        from .. import profiler
+
+        with self._stats_lock:
+            out = dict(self._counters)
+        snap = profiler.counters_snapshot()
+        for name in profiler.FAULT_COUNTER_NAMES:
+            if name in snap:
+                out[name] = snap[name]
+        return out
+
+    def engine_latency_stats(self) -> Dict[str, float]:
+        """Router-side e2e latency in the engine's stats shape (step
+        and prefill are engine-internal — zero here)."""
+        snap = self._h_e2e._local.snapshot()
+        return {
+            "n": snap.get("count", 0),
+            "e2e_p50_ms": round(self._h_e2e.percentile(50), 3),
+            "e2e_p99_ms": round(self._h_e2e.percentile(99), 3),
+            "step_p50_ms": 0.0, "step_p99_ms": 0.0,
+            "prefill_p50_ms": 0.0, "prefill_p99_ms": 0.0,
+        }
+
+    # -- gating + choice --------------------------------------------------
+    def _routable(self) -> List:
+        now = self._clock()
+        with self._lock:
+            cooled = dict(self._cooldown)
+        out = []
+        for r in self.replicas:
+            if cooled.get(r.name, 0.0) > now:
+                continue
+            try:
+                if not r.ready():
+                    continue
+            except Exception:
+                continue
+            out.append(r)
+        self._gauge("router_engines_routable", len(out))
+        return out
+
+    def _pick(self, session: str):
+        if self.slo is not None:
+            self.slo.maybe_refresh()
+        cands = self._routable()
+        if not cands:
+            return None
+        burning = self.slo.burning() if self.slo is not None else set()
+        if burning:
+            clean = [r for r in cands if r.name not in burning]
+            if clean:           # burning replicas serve only as a
+                cands = clean   # last resort
+        if self.affinity:
+            with self._lock:
+                aff = self._affinity_map.get(session)
+            if aff is not None and aff in cands:
+                return aff
+        def score(r):
+            ld = r.load()
+            if ld is None:
+                return (float("inf"),)
+            pages, depth = ld
+            return (pages + self.queue_weight * depth,)
+        return min(cands, key=score)
+
+    def _is_routable(self, replica) -> bool:
+        with self._lock:
+            if self._cooldown.get(replica.name, 0.0) > self._clock():
+                return False
+        try:
+            return bool(replica.ready())
+        except Exception:
+            return False
+
+    def _mark_failed(self, replica, e: BaseException) -> None:
+        if isinstance(e, (ReplicaUnroutable, EngineStopped)):
+            with self._lock:
+                self._cooldown[replica.name] = \
+                    self._clock() + self.cooldown_s
+                self._affinity_map = {
+                    s: r for s, r in self._affinity_map.items()
+                    if r is not replica}
+            # the dead engine can't dump its own flight recorder after
+            # SIGKILL — the router names the kill from its side
+            flight_recorder().record(
+                "replica_dead", replica=replica.name,
+                error=type(e).__name__, detail=str(e)[:200])
+            note_typed_error(e)
+
+    # -- dispatch ---------------------------------------------------------
+    def _dispatch(self, session: str, ctx: List[int], chunk: int,
+                  deadline: Optional[float],
+                  has_emitted: bool) -> List[int]:
+        state = {"failed": False}
+
+        def attempt() -> List[int]:
+            replica = self._pick(session)
+            if replica is None:
+                raise Overloaded("no routable engine replica")
+            chunk_deadline = None
+            if deadline is not None:
+                chunk_deadline = max(0.01, deadline - self._clock())
+            try:
+                tokens = replica.generate_chunk(ctx, chunk,
+                                                chunk_deadline)
+            except DeadlineExceeded:
+                raise
+            except (ReplicaUnroutable, ServingError) as e:
+                state["failed"] = True
+                self._mark_failed(replica, e)
+                raise
+            with self._lock:
+                prev = self._affinity_map.get(session)
+                self._affinity_map[session] = replica
+            self._count("router_dispatches")
+            if prev is replica:
+                self._count("router_affinity_hits")
+            # a failover is a session landing away from its replica
+            # because that replica FAILED — either an attempt in this
+            # very dispatch died on it, or the health gate caught the
+            # death first and steered around it
+            if state["failed"] or (prev is not None
+                                   and prev is not replica
+                                   and not self._is_routable(prev)):
+                self._count("router_failovers")
+                if has_emitted:
+                    self._count("router_replays")
+                    flight_recorder().record(
+                        "router_replay", session=session,
+                        replica=replica.name, ctx_tokens=len(ctx))
+            return tokens
+
+        budget = self.dispatch_timeout_s
+        if deadline is not None:
+            budget = max(0.01, deadline - self._clock())
+        retrier = Retrier(max_attempts=self.max_attempts,
+                          deadline=budget, backoff=self._backoff,
+                          retry_on=(ServingError, ReplicaUnroutable,
+                                    ConnectionError, OSError),
+                          giveup_on=(DeadlineExceeded,),
+                          sleep=self._sleep, name="router.dispatch")
+        return retrier.call(attempt)
+
+    def _run(self, handle, prompt: List[int], max_new: int,
+             deadline: Optional[float], session: str, span,
+             on_chunk, t_submit: float) -> None:
+        emitted: List[int] = []
+        token_times: List[float] = []
+        err: Optional[BaseException] = None
+        try:
+            while len(emitted) < max_new:
+                if deadline is not None \
+                        and self._clock() >= deadline:
+                    raise DeadlineExceeded(
+                        f"deadline passed mid-generation after "
+                        f"{len(emitted)} tokens")
+                chunk = min(self.chunk_tokens, max_new - len(emitted))
+                tokens = self._dispatch(session, prompt + emitted,
+                                        chunk, deadline, bool(emitted))
+                now = self._clock()
+                emitted.extend(int(t) for t in tokens)
+                token_times.extend(now for _ in tokens)
+                if on_chunk is not None:
+                    on_chunk(list(emitted))
+                if len(tokens) < chunk:
+                    break   # engine finished early (eos)
+        except ServingError as e:
+            err = e
+        except BaseException as e:
+            err = RequestFailed(
+                f"router dispatch failed: {type(e).__name__}: {e}")
+        finally:
+            with self._lock:
+                self._inflight -= 1
+                self._lock.notify_all()
+        if token_times:
+            handle.meta["ttft_ms"] = round(
+                (token_times[0] - t_submit) * 1e3, 3)
+            handle.meta["token_times"] = token_times
+        if span is not None:
+            span.set("tokens", len(emitted))
+            if err is not None:
+                span.fail(err)
+            else:
+                span.end()
+        if err is not None:
+            handle._resolve(error=err)
+            return
+        self._h_e2e.observe((self._clock() - t_submit) * 1e3)
+        handle._resolve(value=emitted)
+
+    # -- the engine duck type --------------------------------------------
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
+               deadline_s: Optional[float] = None,
+               session: Optional[str] = None, on_chunk=None):
+        """Admit one fleet request; returns the familiar decode handle
+        (``result()`` → tokens, ``stats()`` → ttft/token times).
+        ``session`` keys affinity (defaults to the request's trace id);
+        ``on_chunk`` is the streaming hook — called with the tokens
+        emitted so far after every chunk lands router-side."""
+        from ..inference.decode.scheduler import _DecodeHandle
+
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        with self._lock:
+            if not self._accepting:
+                raise EngineStopped("router is draining; not admitting")
+            if self._inflight >= self.max_inflight:
+                self._count("router_sheds")
+                raise Overloaded(
+                    f"router at max_inflight={self.max_inflight}")
+            if self.shed_on_burn and self.slo is not None:
+                burning = self.slo.burning()
+                if burning and all(r.name in burning
+                                   for r in self.replicas):
+                    self._count("router_sheds")
+                    raise Overloaded(
+                        "every engine replica is burning its SLO "
+                        "budget; shedding new work")
+            self._inflight += 1
+        self._count("router_requests")
+        t_submit = self._clock()
+        deadline = None if deadline_s is None \
+            else t_submit + float(deadline_s)
+        span = tracing.Span("router.request", root=True,
+                            clock=self._clock,
+                            tokens_requested=int(max_new_tokens))
+        handle = _DecodeHandle()
+        handle.meta["trace_id"] = format(span.trace_id, "016x")
+        key = str(session) if session is not None \
+            else handle.meta["trace_id"]
+        threading.Thread(
+            target=self._run,
+            args=(handle, prompt, int(max_new_tokens), deadline, key,
+                  span, on_chunk, t_submit),
+            daemon=True, name="fleet-router-req").start()
+        return handle
+
+    def generate(self, prompt: Sequence[int], max_new_tokens: int = 16,
+                 deadline_s: Optional[float] = None,
+                 session: Optional[str] = None, on_chunk=None,
+                 timeout: Optional[float] = None) -> List[int]:
+        """Blocking convenience: submit + wait for the token list."""
+        return self.submit(prompt, max_new_tokens,
+                           deadline_s=deadline_s, session=session,
+                           on_chunk=on_chunk).result(timeout)
+
+    @property
+    def ready(self) -> bool:
+        with self._lock:
+            if not self._accepting:
+                return False
+        return bool(self._routable())
+
+    @property
+    def queue_depth(self) -> int:
+        with self._lock:
+            return self._inflight
+
+    def session_replica(self, session: str) -> Optional[str]:
+        """The replica name a session is currently pinned to (None
+        before its first dispatch) — drills use this to aim the kill."""
+        with self._lock:
+            r = self._affinity_map.get(str(session))
+        return None if r is None else r.name
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Stop admitting, flush the router's in-flight requests, then
+        drain every local replica — the duck-typed contract
+        ``install_sigterm_drain`` runs on SIGTERM. True when everything
+        flushed inside the budget."""
+        deadline = None if timeout is None \
+            else self._clock() + float(timeout)
+        with self._lock:
+            self._accepting = False
+            while self._inflight > 0:
+                left = None if deadline is None \
+                    else deadline - self._clock()
+                if left is not None and left <= 0:
+                    return False
+                self._lock.wait(timeout=0.05 if left is None
+                                else min(0.05, left))
+        ok = True
+        for r in self.replicas:
+            left = None if deadline is None \
+                else max(0.1, deadline - self._clock())
+            try:
+                ok = bool(r.drain(timeout=left)) and ok
+            except Exception:
+                ok = False
+        return ok
+
+    def stop(self) -> None:
+        with self._lock:
+            self._accepting = False
+            self._lock.notify_all()
+        for r in self.replicas:
+            try:
+                r.stop()
+            except Exception:
+                pass

@@ -249,7 +249,8 @@ class Executor:
         #: zero_buckets, zero_state_bytes_{replicated,sharded,saved_pct},
         #: comm_buckets, allreduce_overlap_frac (gauges, set when a plan
         #: runs) and comm_quant_bytes_{sent,saved},
-        #: zero_wire_bytes_{sent,saved} (summed over steps)
+        #: zero_wire_bytes_{sent,saved} (summed over steps), and
+        #: executor_steps (the program runs with feeds or fetches)
         self.counters: Dict[str, Any] = {}
 
     def _seed(self, program: Program) -> int:
@@ -302,6 +303,8 @@ class Executor:
         if key not in plans:
             plans[key] = live_ops(block, fetch_names)
         run_block(block, env, ctx, plans[key])
+        self.counters["executor_steps"] = \
+            self.counters.get("executor_steps", 0) + 1
         for name, desc in block.vars.items():
             if desc.persistable and name in env:
                 scope.set(name, env[name].detach())
@@ -463,6 +466,21 @@ class Executor:
                 stats[f"bytes_{what}"]
         c["comm_buckets"] = stats["comm_buckets"]
         c["allreduce_overlap_frac"] = stats["allreduce_overlap_frac"]
+
+    def memory_stats(self) -> Dict[str, int]:
+        """The caching allocator's view of the executor's card
+        (``torch.cuda.memory_stats``): ``peak_bytes`` (the most allocated
+        at once since the last peak reset), ``allocated_bytes`` and
+        ``reserved_bytes`` now. {} on the CPU, as the JAX executor's is
+        where its backend exposes no memory analysis."""
+        if self.device.type != "cuda":
+            return {}
+        st = torch.cuda.memory_stats(self.device)
+        return {"peak_bytes": int(st.get("allocated_bytes.all.peak", 0)),
+                "allocated_bytes": int(
+                    st.get("allocated_bytes.all.current", 0)),
+                "reserved_bytes": int(
+                    st.get("reserved_bytes.all.current", 0))}
 
     def _feed_tensor(self, block, name, value):
         """``value`` on the device, in the feed variable's dtype."""
