@@ -84,7 +84,23 @@ a decode tick is its host's launch loop.
             over 64 segments, FoundInfinite absent, false and true: m, v
             and the beta-pows bit for bit, p within 1e-6 of its largest
             value, two runs bit for bit, two launches a call, the ticket
-            left at 0. Kernel, plain and
+            left at 0; slice 2b's forms: K2a/K2b over bf16 and over f16
+            inputs at BERT-base's head and with h eight times larger
+            (a peaked softmax), f16 at a loss scale of 2^10 (lse and
+            the label logit within 1e-5 of their largest value; dh, dW,
+            db in the type, element by element, against the plain
+            version's f32 values within one unit of the type plus four
+            unit roundoffs of the 2-norm of the element's terms, the
+            rounding of P' (db, an f32 sum: 2^-16 of their 1-norm);
+            dW's softmax part, its rows no label hits,
+            within a relative norm of two unit roundoffs; two launches
+            bit for bit), K3's master forms over 2-byte
+            parameters with f32 masters, through the f32 forms' checks
+            (adam at BERT-base's list in bf16, momentum at ResNet-50's
+            in f16, sgd with its decay at LeNet's in bf16, lamb at
+            BERT-base's in bf16): parameters, masters and state bit for
+            bit the plain versions, two launches bit for bit, a skipped
+            call launching nothing. Kernel, plain and
             library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
@@ -156,6 +172,19 @@ a decode tick is its host's launch loop.
             ``bench.py`` ``bench_bert``): 3 warm-up and 10 timed steps;
             tokens/s, step ms, MFU, the loss (finite, falling), exact
             kernel launches per step, and a profiled step by family;
+6a. bert_o2_parity  phase 5's tiny BERT at AMP O2 bf16 with f32 masters
+            (``amp.decorate``), one AdamW step with the kernels (K1a,
+            K1b, K2's bf16 form, K3-adam's master form; no f32 K2/K3) and
+            again with the plain versions: the bf16 losses within 2 bf16
+            units, each gradient within 5e-2 of its largest value (the
+            key biases' exactly-zero gradient within 1e-3), the masters
+            within two steps' reach, every parameter its master's cast;
+6b. bert_o2  phase 6 at AMP O2 bf16 with f32 masters: exactly 12 K1a,
+            12 K1b, one K2a and one K2b bf16 form and one K3-adam master
+            a step and no f32 K2/K3 launch, the loss (finite, falling),
+            every parameter bf16 and its master's cast bit for bit after
+            the last step; tokens/s, step ms, MFU, peak memory and the
+            profiled step's busy share beside phase 6's;
 7. resnet_parity  a small ResNet (BottleneckBlock [1, 1, 1, 1], 64 x 64,
             batch 4, f32) trained two Momentum steps through
             ``TrainStep`` with the kernel and again with the plain version,
@@ -167,6 +196,17 @@ a decode tick is its host's launch loop.
             choice, ``cudnn.benchmark`` off): 3 warm-up and 10 timed
             steps; imgs/s, step ms, MFU, peak memory, the loss (finite),
             one Momentum launch a step, and a profiled step by family;
+8b. resnet50_fp16  phase 8 at AMP O2 fp16 with f32 masters: Momentum
+            with ``L2Decay(1e-4)`` and ``multi_precision``,
+            ``GradScaler(init_loss_scaling=128)`` in the eager loop
+            (``scaler.scale(loss).backward(); scaler.minimize(opt,
+            scaled); opt.clear_grad()``): 3 warm-up and 10 timed steps,
+            one K3-momentum master a step unskipped, the loss finite;
+            then the scale forced to 2**40 for two steps: no K3 launch,
+            parameters, masters and velocities bit for bit, the step
+            count unchanged, the scale 2**39 after; the state restored,
+            one more step launches one K3; imgs/s, step ms, peak memory,
+            skipped steps and a profiled step by family beside phase 8's;
 9. bert_lamb_parity  a tiny BERT (2 layers, hidden 128, seq 128, batch
             8, f32, dropout 0.1, ``flash_short_seq`` on) trained two Lamb
             steps with global-norm clipping through ``TrainStep`` with
@@ -272,11 +312,15 @@ a decode tick is its host's launch loop.
             ``collectives.*`` spans;
 26. the ``kernels`` line (launches summed over the phases that drive
     each kernel's path: 2-4f for the decode kernels, 6 and 10 for the
-    fused xent, 6 for the streaming flash kernels and Adam, 8 for
-    Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
+    fused xent, 6b for its bf16 form and K3-adam's master form, 8b for
+    K3-momentum's, 6 and 6b for the streaming flash kernels, 6 for Adam,
+    8 for Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
     13-16 for the static forms, 18 for K6, 20 for the masked flash
     kernels, 23 for the external-lse K1b, 25 for the chunk Lamb, both
-    ranks), then the card's name and power limit, then the result line.
+    ranks; K2's f16 form and K3-sgd's and K3-lamb's master forms run on
+    no phase's path, ``"main_path": false``, launches 0: K1 has no f16
+    form, so BERT cannot train at O2 fp16), then the card's name and
+    power limit, then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -1622,70 +1666,169 @@ def kernel_device_ms(torch, fn, pattern):
     return out if out and sum(out.values()) > 0 else "not measured"
 
 
-def check_xent(torch, fx, timing):
-    """K2a/K2b against the plain version at BERT-base's MLM head, two
-    launches bit for bit."""
+# the 2-byte K2 checks. Each P' the kernels round to the type moves by
+# at most its unit roundoff u (relative), so an element of dh or dW moves
+# from the plain version's f32 value by about u times the 2-norm of its
+# terms (``fused_xent._term_norms``; at most that where a few terms
+# dominate): the check allows XENT_TERMS_K of those beside one unit of
+# the output's rounding; db sums f32 P', so it is allowed 2^-16 of the
+# 1-norm of its terms (the f32 sum's order and exp's rounding, with
+# room) beside its unit. dW's softmax part (its rows no label hits), as
+# a relative norm, within two unit roundoffs (about 0.6 of one is
+# expected: P' and the output each round once). f16's gradient is taken
+# at a loss scale of 2^10, as f16 trains under a GradScaler (unscaled,
+# dW's softmax part would be f16 subnormals); bf16's and f32's at 1
+XENT_UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+XENT_TERMS_K = 4
+XENT_DB_L1 = 2.0 ** -16
+XENT_SOFTMAX_RTOL = {k: 2 * u for k, u in XENT_UNIT_ROUNDOFF.items()}
+XENT_LOSS_SCALE = {"float32": 1.0, "bfloat16": 1.0, "float16": 1024.0}
+
+
+def tolerance_ratio(torch, got, want, extra):
+    """The largest |got - want| (want f32) over one unit of got's type at
+    the larger of the two magnitudes plus ``extra`` (a tensor or a
+    float), element by element: <= 1 passes."""
+    big = torch.maximum(got.abs(), want.abs().to(got.dtype))
+    unit = (torch.nextafter(big, torch.full_like(big, float("inf")))
+            - big).float()
+    return float(((got.float() - want).abs() / (unit + extra)).max())
+
+
+def rel_norm(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def xent_vs_plain(torch, fx, row, tag, h, w, b, lab, g):
+    """One K2a + K2b launch on (h, W, bias) against the plain version.
+    The f32 form: every output within 1e-4 of its largest value. The
+    2-byte forms: lse and the label logit within 1e-5 of theirs; dh, dW
+    and db against the plain version's f32 values element by element,
+    within one unit of the type plus XENT_TERMS_K unit roundoffs of the
+    2-norm of the element's terms (db: XENT_DB_L1 of their 1-norm) plus
+    1e-6 of the largest value; dW's softmax part within ``XENT_SOFTMAX_RTOL``; dh's
+    softmax part (dh less its label term -g W[label]) reported the same
+    way. Returns the kernels' (lse, ll, dh, dW, db)."""
+    two = h.dtype != torch.float32
+    name_t = str(h.dtype).replace("torch.", "")
+    lse, ll = fx._cuda_fwd(h, w, b, lab)
+    got = (lse, ll) + fx._cuda_bwd(h, w, b, lab, lse, g)
+    rlse, rll = fx._plain_fwd(h, w, b, lab)
+    want = (rlse, rll) + fx._plain_bwd(h, w, b, lab, rlse, g)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("lse", "ll", "dh", "dw", "db"), got, want):
+        expect(x.dtype == y.dtype, f"xent {name_t}: {name} is {x.dtype}, "
+                                   f"want {y.dtype}")
+        expect(bool(torch.isfinite(x).all()),
+               f"xent {name_t}: non-finite {tag}{name}")
+        err, scale = max_err(x, y), float(y.abs().max())
+        row[tag + name + "_max_abs_err"] = err
+        row[tag + name + "_max_abs"] = scale
+        if x.dtype == torch.float32:
+            tol = (1e-5 if two else 1e-4) * scale
+            expect(err <= tol, f"xent {name_t}: {tag}{name} disagrees, max "
+                               f"abs err {err} against {tol}")
+    if two:
+        del want
+        u = XENT_UNIT_ROUNDOFF[name_t]
+        f32 = fx._plain_bwd(h.float(), w.float(), b.float(), lab, lse, g)
+        n2h, n2w, n1b = fx._term_norms(h, w, b, lab, lse, g)
+        for name, x, y, extra in zip(
+                ("dh", "dw", "db"), got[2:], f32,
+                (XENT_TERMS_K * u * n2h, XENT_TERMS_K * u * n2w,
+                 XENT_DB_L1 * n1b)):
+            ratio = tolerance_ratio(torch, x, y,
+                                    extra + 1e-6 * float(y.abs().max()))
+            row[tag + name + "_tolerance_used"] = ratio
+            expect(ratio <= 1.0, f"xent {name_t}: {tag}{name} is off the "
+                                 f"plain version by {ratio} of its "
+                                 f"tolerance")
+        del n2h, n2w, n1b, extra
+        valid = lab >= 0
+        hit = torch.zeros(w.shape[0], dtype=torch.bool, device=h.device)
+        hit[lab[valid].long()] = True
+        rel = rel_norm(got[3].float()[~hit], f32[1][~hit])
+        row[tag + "dw_softmax_rel_err"] = rel
+        row[tag + "dw_rows_no_label_hits"] = int((~hit).sum())
+        expect(rel <= XENT_SOFTMAX_RTOL[name_t],
+               f"xent {name_t}: {tag}dW's softmax part is {rel} off the "
+               f"plain version (limit {XENT_SOFTMAX_RTOL[name_t]})")
+        label = torch.where(valid[:, None], -g[:, None]
+                            * w.float()[lab.clamp(min=0).long()], 0.0)
+        row[tag + "dh_softmax_rel_err"] = rel_norm(got[2].float() - label,
+                                                   f32[0] - label)
+        del f32, label
+    return got
+
+
+def check_xent(torch, fx, timing, dtype_name="float32"):
+    """K2a/K2b against the plain version at BERT-base's MLM head (see
+    ``xent_vs_plain``), two launches bit for bit: the f32 form, or the
+    2-byte form over bf16 or f16 h, W and bias, checked also with h
+    eight times larger (a peaked softmax, whose part of dh the type
+    resolves; at the first input it is below a unit of dh's label
+    term)."""
     dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(1)
+    dt = getattr(torch, dtype_name)
+    two = dt != torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11 if two else 1)
     N, H, V = 16384, 768, 30592
-    h = torch.randn((N, H), generator=gen, device=dev)
-    w = torch.randn((V, H), generator=gen, device=dev) * 0.02
-    b = torch.randn((V,), generator=gen, device=dev) * 0.02
+    h = torch.randn((N, H), generator=gen, device=dev).to(dt)
+    w = (torch.randn((V, H), generator=gen, device=dev) * 0.02).to(dt)
+    b = (torch.randn((V,), generator=gen, device=dev) * 0.02).to(dt)
     lab = torch.randint(0, V, (N,), generator=gen, device=dev,
                         dtype=torch.int32)
     ignored = torch.rand((N,), generator=gen, device=dev) < 0.15
     lab = torch.where(ignored, torch.full_like(lab, -1), lab)
     valid = lab >= 0
-    g = valid.float() / valid.sum().float()        # d(mean)/d(row loss)
-    lse, ll = fx._cuda_fwd(h, w, b, lab)
-    rlse, rll = fx._plain_fwd(h, w, b, lab)
-    dh, dw, db = fx._cuda_bwd(h, w, b, lab, lse, g)
-    rdh, rdw, rdb = fx._plain_bwd(h, w, b, lab, rlse, g)
-    torch.cuda.synchronize()
-    row = {"ignored_rows": int(ignored.sum())}
-    for name, got, want in (("lse", lse, rlse), ("ll", ll, rll),
-                            ("dh", dh, rdh), ("dw", dw, rdw),
-                            ("db", db, rdb)):
-        err = max_err(got, want)
-        scale = float(want.abs().max())
-        row[name + "_max_abs_err"] = err
-        row[name + "_max_abs"] = scale
-        expect(bool(torch.isfinite(got).all()), f"xent: non-finite {name}")
-        expect(err <= 1e-4 * scale, f"xent: {name} disagrees, max abs err "
-                                    f"{err} against max |value| {scale}")
-    expect(same_bits(torch, (lse, ll, dh, dw, db), fx._cuda_fwd(
-        h, w, b, lab) + fx._cuda_bwd(h, w, b, lab, lse, g)),
-        "xent: two launches give different bits")
+    # d(mean)/d(row loss), times the loss scale
+    g = valid.float() / valid.sum().float() * XENT_LOSS_SCALE[dtype_name]
+    row = {"dtype": dtype_name, "ignored_rows": int(ignored.sum()),
+           "loss_scale": XENT_LOSS_SCALE[dtype_name]}
+    if two:
+        xent_vs_plain(torch, fx, row, "peaked_", h * 8, w, b, lab, g)
+        torch.cuda.empty_cache()
+    got = xent_vs_plain(torch, fx, row, "", h, w, b, lab, g)
+    lse = got[0]
+    expect(same_bits(torch, got, fx._cuda_fwd(h, w, b, lab)
+                     + fx._cuda_bwd(h, w, b, lab, lse, g)),
+           f"xent {dtype_name}: two launches give different bits")
     row["fwd_max_abs_err"] = max(row["lse_max_abs_err"],
                                  row["ll_max_abs_err"])
     row["bwd_max_abs_err"] = max(row["dh_max_abs_err"],
                                  row["dw_max_abs_err"],
                                  row["db_max_abs_err"])
     if timing:
-        # every product as three bf16 tensor-core terms (the kernels'
-        # rate: 989 / 3 TFLOP/s); the f32 bounds beside them
-        rate3 = BF16_FLOPS_PER_S / 3
-        io = (N * H + V * H + V + N) * 4
+        # the f32 form runs every product as three bf16 tensor-core terms
+        # (its rate: 989 / 3 TFLOP/s), the 2-byte forms as one (f16's
+        # dense rate is bf16's); h, W, bias in the input type, labels,
+        # lse, ll and g f32; the backward forms the logits once more
+        # (from lse) beside dh and dW
+        terms = 1 if two else 3
+        es = h.element_size()
+        io = (N * H + V * H + V) * es + N * 4
         fwd_io, fwd_ops = io + 2 * N * 4, 2 * N * H * V
-        # backward: the logits once more (from lse), dh and dW
-        bwd_io = io + 2 * N * 4 + (N * H + V * H + V) * 4
+        bwd_io = io + 2 * N * 4 + (N * H + V * H + V) * es
         bwd_ops = 6 * N * H * V
-        fb, fby = bound_of(fwd_io, 3 * fwd_ops, BF16_FLOPS_PER_S)
-        bb, bby = bound_of(bwd_io, 3 * bwd_ops, BF16_FLOPS_PER_S)
+        fb, fby = bound_of(fwd_io, terms * fwd_ops, BF16_FLOPS_PER_S)
+        bb, bby = bound_of(bwd_io, terms * bwd_ops, BF16_FLOPS_PER_S)
         F = torch.nn.functional
         lab64 = lab.long()
         hg, wg, bg = (x.clone().requires_grad_() for x in (h, w, b))
 
+        def lib_logits(x, y, z):
+            return (torch.matmul(x, y.t()) + z).float()
+
         def lib_fwd():
-            return F.cross_entropy(torch.matmul(h, w.t()) + b, lab64,
+            return F.cross_entropy(lib_logits(h, w, b), lab64,
                                    ignore_index=-1)
 
         def lib_fwd_bwd():
-            loss = F.cross_entropy(torch.matmul(hg, wg.t()) + bg, lab64,
+            loss = F.cross_entropy(lib_logits(hg, wg, bg), lab64,
                                    ignore_index=-1)
             return torch.autograd.grad(loss, (hg, wg, bg))
 
-        lib_loss = F.cross_entropy(torch.matmul(hg, wg.t()) + bg, lab64,
+        lib_loss = F.cross_entropy(lib_logits(hg, wg, bg), lab64,
                                    ignore_index=-1)
 
         def lib_bwd():
@@ -1707,28 +1850,119 @@ def check_xent(torch, fx, timing):
                                           warmup=1),
             "bwd_library_ms": time_ms(torch, lib_bwd, iters=10, warmup=1),
             "bwd_bound_ms": bb, "bwd_bound_by": bby,
-            "bwd_bound_4_products_ms": 3 * 8 * N * H * V / BF16_FLOPS_PER_S
-            * 1e3,
-            "fwd_bound_f32_ms": bound_of(fwd_io, fwd_ops,
-                                         F32_FLOPS_PER_S)[0],
-            "bwd_bound_f32_ms": bound_of(bwd_io, bwd_ops,
-                                         F32_FLOPS_PER_S)[0],
-            "bound_rates": rates(rate3, "bf16 tensor-core, three terms a "
-                                        "product"),
+            "bwd_bound_4_products_ms": terms * 8 * N * H * V
+            / BF16_FLOPS_PER_S * 1e3,
+            "bound_rates": rates(BF16_FLOPS_PER_S / terms,
+                                 f"{'bf16' if not two else dtype_name} "
+                                 f"tensor-core, {terms} term"
+                                 f"{'s' if terms > 1 else ''} a product"),
             "fwd_kernels_ms": kernel_device_ms(torch, lambda: fx._cuda_fwd(
                 h, w, b, lab), r"xent_\w+"),
             "bwd_kernels_ms": kernel_device_ms(torch, lambda: fx._cuda_bwd(
                 h, w, b, lab, lse, g), r"xent_\w+")})
-        row["split_ms"] = {
-            k: (v if isinstance(v, str) else v.get("xent_split_" + k))
-            for k, v in (("fwd", row["fwd_kernels_ms"]),
-                         ("bwd", row["bwd_kernels_ms"]))}
+        if not two:
+            row.update({
+                "fwd_bound_f32_ms": bound_of(fwd_io, fwd_ops,
+                                             F32_FLOPS_PER_S)[0],
+                "bwd_bound_f32_ms": bound_of(bwd_io, bwd_ops,
+                                             F32_FLOPS_PER_S)[0]})
+            row["split_ms"] = {
+                k: (v if isinstance(v, str) else v.get("xent_split_" + k))
+                for k, v in (("fwd", row["fwd_kernels_ms"]),
+                             ("bwd", row["bwd_kernels_ms"]))}
         del lib_loss
     return row
 
 
-def check_adam(torch, fo, shapes, timing):
-    """K3 over BERT-base's parameter list, bit for bit."""
+def k3_form(torch, ps, gs, dtype_name):
+    """K3's f32 form (params, grads, masters None), or with a 2-byte
+    ``dtype_name`` its master form: the parameters and gradients cast to
+    that type, the f32 ``ps`` their masters."""
+    if dtype_name == "float32":
+        return ps, gs, None
+    dt = getattr(torch, dtype_name)
+    return [p.to(dt) for p in ps], [g.to(dt) for g in gs], ps
+
+
+def k3_names(names, masters):
+    """The counters of a form's kernels (``_master`` for the master
+    form)."""
+    return [n + ("" if masters is None else "_master") for n in names]
+
+
+def k3_compare(torch, counters, label, names, state, kernel, plain):
+    """``kernel(state, skip=False)`` (one count of each of ``names`` a
+    call) run twice, each on copies of ``state`` ([params, masters or
+    None, the rule's state lists...]), the two bit for bit; the first
+    against ``plain(copies, first)`` bit for bit; a master form also: a
+    skipped call launches nothing and changes nothing, and each
+    parameter is its master's cast. Returns the two kernel runs."""
+    def copy():
+        return [None if xs is None else [x.clone() for x in xs]
+                for xs in state]
+
+    def flat(s):
+        return [x for xs in s if xs is not None for x in xs]
+
+    runs = []
+    for _ in range(2):
+        k = copy()
+        before = {n: counters.get(n) for n in names}
+        if state[1] is not None:
+            kernel(k, skip=True)
+            expect(all(counters.get(n) == before[n] for n in names),
+                   f"{label}: a skipped call launched a kernel")
+            expect(same_bits(torch, flat(k), flat(state)),
+                   f"{label}: a skipped call changed the state")
+        kernel(k)
+        expect(all(counters.get(n) == before[n] + 1 for n in names),
+               f"{label}: not one count of each kernel a call")
+        runs.append(k)
+    expect(same_bits(torch, flat(runs[0]), flat(runs[1])),
+           f"{label}: two launches differ")
+    want = copy()
+    plain(want, runs[0])
+    torch.cuda.synchronize()
+    differ = sum(int(not torch.equal(a, b))
+                 for a, b in zip(flat(runs[0]), flat(want)))
+    expect(differ == 0, f"{label} differs bitwise in {differ} tensors")
+    if state[1] is not None:
+        ps, ws = runs[0][0], runs[0][1]
+        expect(same_bits(torch, ps, [w.to(p.dtype) for p, w in zip(ps, ws)]),
+               f"{label}: a parameter is not its master's cast")
+    return runs
+
+
+def k3_library(torch, ps, gs, ws, make_opt):
+    """One PyTorch call set computing the same function (timed, never
+    called by the port): a fused ``torch.optim`` step over f32 copies of
+    the parameters, or of the masters with f32 copies of the gradients
+    followed by ``torch._foreach_copy_`` into the 2-byte parameters."""
+    lib_w = [torch.nn.Parameter(w.clone()) for w in (ps if ws is None
+                                                      else ws)]
+    for p, g in zip(lib_w, gs):
+        p.grad = g.to(torch.float32, copy=True)
+    opt = make_opt(lib_w)
+    if ws is None:
+        return opt.step
+    dst = [p.clone() for p in ps]
+
+    def run():
+        opt.step()
+        torch._foreach_copy_(dst, [p.detach() for p in lib_w])
+
+    return run
+
+
+def k3_row(dtype_name, shapes, n, per):
+    return {"dtype": dtype_name, "params": len(shapes), "elements": n,
+            "max_abs_err": 0.0, "bitwise": True, "bytes_per_element": per}
+
+
+def check_adam(torch, fo, counters, shapes, timing, dtype_name="float32"):
+    """K3-adam (AdamW's decoupled decay) over BERT-base's parameter list,
+    bit for bit (``k3_compare``); with a 2-byte ``dtype_name``, its
+    master form."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -1740,43 +1974,45 @@ def check_adam(torch, fo, shapes, timing):
         return out
 
     ps, gs, ms, vs = make(0.02), make(1e-3), make(1e-4), make(1e-6, True)
-    kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
+    ps, gs, ws = k3_form(torch, ps, gs, dtype_name)
     hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, step=3,
               weight_decay=0.01)
-    cache = {}
-    fo.fused_adam_(kp, gs, km, kv, cache=cache, **hp)
     lr, c1, c2, lrwd = fo.adam_scalars(1e-4, 0.9, 0.999, 3, 0.01)
-    fo._plain_adam_(ps, gs, ms, vs, lr, 0.9, 0.999, 1e-8, c1, c2, lrwd,
-                    False)
-    torch.cuda.synchronize()
-    differ = sum(int(not torch.equal(a, b))
-                 for a, b in zip(kp + km + kv, ps + ms + vs))
-    expect(differ == 0, f"fused Adam differs bitwise in {differ} tensors")
+    caches = {}
+
+    def kernel(s, skip=False):
+        fo.fused_adam_(s[0], gs, s[2], s[3], skip=skip, masters=s[1],
+                       cache=caches.setdefault(id(s[0]), {}), **hp)
+
+    def plain(s, _=None):
+        plain_over(fo, s[0], gs, s[1], False, lambda w, g: fo._plain_adam_(
+            w, g, s[2], s[3], lr, 0.9, 0.999, 1e-8, c1, c2, lrwd, False))
+
+    state = [ps, ws, ms, vs]
+    k, _ = k3_compare(torch, counters, f"fused Adam ({dtype_name})",
+                      k3_names(["fused_adam"], ws), state, kernel, plain)
     n = sum(p.numel() for p in ps)
-    row = {"params": len(shapes), "elements": n, "max_abs_err": 0.0,
-           "bitwise": True}
+    row = k3_row(dtype_name, shapes, n, 28)
     if timing:
+        # g (f32 or 2-byte) and the f32 p or master, m, v read once, they
+        # and a 2-byte p written once: 28 bytes an element either way
         t_b, by = bound_of(28 * n, 16 * n, F32_FLOPS_PER_S)
-        lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
-        for p, gr in zip(lib_p, gs):
-            p.grad = gr.clone()
-        lib = torch.optim.AdamW(lib_p, lr=1e-4, weight_decay=0.01,
-                                fused=True)
+        lib = k3_library(torch, ps, gs, ws, lambda p: torch.optim.AdamW(
+            p, lr=1e-4, weight_decay=0.01, fused=True))
         row.update({
-            "ms": time_ms(torch, lambda: fo.fused_adam_(
-                kp, gs, km, kv, cache=cache, **hp)),
-            "plain_ms": time_ms(torch, lambda: fo._plain_adam_(
-                ps, gs, ms, vs, lr, 0.9, 0.999, 1e-8, c1, c2, lrwd, False),
-                iters=5),
-            "library_ms": time_ms(torch, lib.step),
+            "ms": time_ms(torch, lambda: kernel(k)),
+            "plain_ms": time_ms(torch, lambda: plain(state), iters=5),
+            "library_ms": time_ms(torch, lib),
             "bound_ms": t_b, "bound_by": by,
             "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
     return row
 
 
-def check_momentum(torch, fo, shapes, timing):
-    """K3-momentum over ResNet-50's parameter list, bit for bit, without
-    and with Nesterov, from a non-zero velocity."""
+def check_momentum(torch, fo, counters, shapes, timing,
+                   dtype_name="float32"):
+    """K3-momentum over ResNet-50's parameter list, bit for bit
+    (``k3_compare``), without and with Nesterov, from a non-zero
+    velocity; with a 2-byte ``dtype_name``, its master form."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1785,39 +2021,39 @@ def check_momentum(torch, fo, shapes, timing):
                 for s in shapes]
 
     ps, gs, vs = make(0.05), make(1e-3), make(1e-3)
+    ps, gs, ws = k3_form(torch, ps, gs, dtype_name)
     lr, mu = 0.1, 0.9
-    cache = {}
+    caches = {}
+    state = [ps, ws, vs]
     for nesterov in (False, True):
-        kp, kv = [x.clone() for x in ps], [x.clone() for x in vs]
-        pp, pv = [x.clone() for x in ps], [x.clone() for x in vs]
-        fo.fused_momentum_(kp, gs, kv, lr=lr, momentum=mu,
-                           nesterov=nesterov, cache=cache)
-        fo._plain_momentum_(pp, gs, pv, np.float32(lr), np.float32(mu),
-                            nesterov, False)
-        torch.cuda.synchronize()
-        differ = sum(int(not torch.equal(a, b))
-                     for a, b in zip(kp + kv, pp + pv))
-        expect(differ == 0, f"fused Momentum (nesterov={nesterov}) differs "
-                            f"bitwise in {differ} tensors")
+        def kernel(s, skip=False, nesterov=nesterov):
+            fo.fused_momentum_(s[0], gs, s[2], lr=lr, momentum=mu,
+                               nesterov=nesterov, skip=skip, masters=s[1],
+                               cache=caches.setdefault(id(s[0]), {}))
+
+        def plain(s, _=None, nesterov=nesterov):
+            plain_over(fo, s[0], gs, s[1], False, lambda w, g:
+                       fo._plain_momentum_(w, g, s[2], np.float32(lr),
+                                           np.float32(mu), nesterov, False))
+
+        runs = k3_compare(torch, counters,
+                          f"fused Momentum ({dtype_name}, nesterov="
+                          f"{nesterov})", k3_names(["fused_momentum"], ws),
+                          state, kernel, plain)
+        if not nesterov:
+            k, kernel0, plain0 = runs[0], kernel, plain
     n = sum(p.numel() for p in ps)
-    row = {"params": len(shapes), "elements": n, "max_abs_err": 0.0,
-           "bitwise": True, "nesterov_bitwise": True}
+    row = dict(k3_row(dtype_name, shapes, n, 20), nesterov_bitwise=True)
     if timing:
-        # p, g, v read once, p and v written once; 3 flops an element
+        # g and the f32 p or master, v read once, they and a 2-byte p
+        # written once: 20 bytes an element either way; 3 flops
         t_b, by = bound_of(20 * n, 3 * n, F32_FLOPS_PER_S)
-        lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
-        for p, gr in zip(lib_p, gs):
-            p.grad = gr.clone()
-        lib = torch.optim.SGD(lib_p, lr=lr, momentum=mu, fused=True)
-        kp, kv = [x.clone() for x in ps], [x.clone() for x in vs]
+        lib = k3_library(torch, ps, gs, ws, lambda p: torch.optim.SGD(
+            p, lr=lr, momentum=mu, fused=True))
         row.update({
-            "ms": time_ms(torch, lambda: fo.fused_momentum_(
-                kp, gs, kv, lr=lr, momentum=mu, nesterov=False,
-                cache=cache)),
-            "plain_ms": time_ms(torch, lambda: fo._plain_momentum_(
-                ps, gs, vs, np.float32(lr), np.float32(mu), False, False),
-                iters=5),
-            "library_ms": time_ms(torch, lib.step),
+            "ms": time_ms(torch, lambda: kernel0(k)),
+            "plain_ms": time_ms(torch, lambda: plain0(state), iters=5),
+            "library_ms": time_ms(torch, lib),
             "bound_ms": t_b, "bound_by": by,
             "bound_rates": rates(F32_FLOPS_PER_S, "f32")})
     return row
@@ -1986,39 +2222,64 @@ def time_short_vs_stream(torch, fa, gen, B, L, H=12, D=64, p=0.1):
 SGD_LR, SGD_WD = 0.01, 1e-4   # the main path's (phase 11's) SGD
 
 
-def check_sgd(torch, fo, counters, shape_lists, timing):
+def check_sgd(torch, fo, counters, shape_lists, timing, dtype_name="float32"):
     """K3-sgd (the table by value, a grid sized to the card, the coupled
-    L2 term folded in) over LeNet's and BERT-base's parameter lists, bit
-    for bit against the plain version with weight decay 0 and 1e-4, a
-    skipped step launching nothing, one count a launch; a list of more
-    tensors than one launch's table holds (consecutive launches, every
-    fifth tensor an offset view) bit for bit with the decay. Timed over
-    both lists with the main path's decay and without it, and over one
-    four-element tensor (the launch floor)."""
+    L2 term folded in) over each of ``shape_lists`` (LeNet's and
+    BERT-base's parameter lists), bit for bit against the plain version
+    with weight decay 0 and 1e-4, a skipped step launching nothing, one
+    count a launch; with a 2-byte ``dtype_name``, its master form (the
+    decay rounded in the parameters' type, each parameter its master's
+    cast). The f32 form also: a list of more tensors than one launch's
+    table holds (consecutive launches, every fifth tensor an offset
+    view) bit for bit with the decay, and the launch floor (one
+    four-element tensor). Timed over each list with the main path's
+    decay and without it."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(8)
     lr, cap = SGD_LR, fo.static_capacity(2)
-    row = {"max_abs_err": 0.0, "bitwise": True, "capacity": cap}
+    name = "fused_sgd" + ("" if dtype_name == "float32" else "_master")
+    row = {"dtype": dtype_name, "max_abs_err": 0.0, "bitwise": True,
+           "capacity": cap}
 
     def dup(x):
         """a copy as far from 16-byte alignment as x (offset views stay
         offset, on the walker's scalar path)"""
-        off = x.data_ptr() % 16 // 4
-        return torch.empty(x.numel() + off, device=dev)[off:].view(
-            x.shape).copy_(x)
+        off = x.data_ptr() % 16 // x.element_size()
+        return torch.empty(x.numel() + off, device=dev, dtype=x.dtype)[
+            off:].view(x.shape).copy_(x)
 
-    def compare(label, ps, gs, wd):
+    def step(ps, gs, ws, wd, skip=False):
+        return fo.fused_sgd_(ps, gs, lr=lr, weight_decay=wd, skip=skip,
+                             masters=ws)
+
+    def plain(ps, gs, ws, wd):
+        if ws is not None and wd:      # the decay in the parameters' type
+            gs = fo._plain_decay_2byte(ps, gs, fo.decay_in(ps[0].dtype, wd))
+        plain_over(fo, ps, gs, ws, False, lambda w, g: fo._plain_sgd_(
+            w, g, np.float32(lr), np.float32(wd if ws is None else 0.0),
+            False))
+
+    def compare(label, ps, gs, ws, wd):
         kp, pp = [dup(x) for x in ps], [dup(x) for x in ps]
-        c0 = counters.get("fused_sgd")
-        rec = fo.fused_sgd_(kp, gs, lr=lr, weight_decay=wd)
-        fo._plain_sgd_(pp, gs, np.float32(lr), np.float32(wd), False)
-        skipped = fo.fused_sgd_(kp, gs, lr=lr, weight_decay=wd, skip=True)
+        kw, pw = (None, None) if ws is None else ([dup(x) for x in ws],
+                                                  [dup(x) for x in ws])
+        c0 = counters.get(name)
+        skipped = step(kp, gs, kw, wd, skip=True)
+        rec = step(kp, gs, kw, wd)
+        plain(pp, gs, pw, wd)
         torch.cuda.synchronize()
-        differ = sum(int(not torch.equal(a, b)) for a, b in zip(kp, pp))
-        expect(differ == 0, f"fused SGD ({label}, wd {wd}) differs bitwise "
-                            f"in {differ} tensors")
-        want = len(fo.table_splits(len(ps), cap))
-        launched = counters.get("fused_sgd") - c0
+        got, want = kp + (kw or []), pp + (pw or [])
+        differ = sum(int(not torch.equal(a, b)) for a, b in zip(got, want))
+        expect(differ == 0, f"fused SGD ({dtype_name}, {label}, wd {wd}) "
+                            f"differs bitwise in {differ} tensors")
+        if kw is not None:
+            expect(same_bits(torch, kp, [w.to(p.dtype)
+                                         for p, w in zip(kp, kw)]),
+                   f"fused SGD ({label}): a parameter is not its master's "
+                   f"cast")
+        want = len(fo.table_splits(len(ps), fo.static_capacity(
+            2 if ws is None else 3)))
+        launched = counters.get(name) - c0
         expect(launched == want, f"fused SGD ({label}): {launched} launches "
                                  f"(a skipped step included), want {want}")
         cover = {"tensors": len(ps), "elements": sum(p.numel() for p in ps)}
@@ -2033,34 +2294,45 @@ def check_sgd(torch, fo, counters, shape_lists, timing):
               for s in shapes]
         gs = [torch.randn(s, generator=gen, device=dev) * 1e-2
               for s in shapes]
+        ps, gs, ws = k3_form(torch, ps, gs, dtype_name)
         for wd in (0.0, SGD_WD):
-            compare(label, ps, gs, wd)
+            compare(label, ps, gs, ws, wd)
         n = sum(p.numel() for p in ps)
-        row[label] = {"params": len(shapes), "elements": n}
+        # g, p read once, p written once (f32: 12 bytes an element); the
+        # master form reads the 2-byte g and p and the master and writes
+        # the master and p (14); 4 flops an element with the decay
+        per = 12 if ws is None else 14
+        row[label] = {"params": len(shapes), "elements": n,
+                      "bytes_per_element": per}
         if timing:
-            # p, g read once, p written once; 4 flops an element with the
-            # decay (2 without)
-            t_b, by = bound_of(12 * n, 4 * n, F32_FLOPS_PER_S)
-            lib_p = [torch.nn.Parameter(x.clone()) for x in ps]
-            for p, gr in zip(lib_p, gs):
-                p.grad = gr.clone()
-            lib = torch.optim.SGD(lib_p, lr=lr, weight_decay=SGD_WD,
-                                  fused=True)
+            t_b, by = bound_of(per * n, 4 * n, F32_FLOPS_PER_S)
+            lib = k3_library(torch, ps, gs, ws, lambda p: torch.optim.SGD(
+                p, lr=lr, weight_decay=SGD_WD, fused=True))
             kp = [x.clone() for x in ps]
+            kw = None if ws is None else [x.clone() for x in ws]
             # the wrapper checks and tables up to 206 tensors on the host
             # (past the default spin at BERT-base's list): a long spin
             # keeps that host work out of the device time
             spin = STATIC_SPIN_CYCLES
+            pp = [x.clone() for x in ps]
+            pw = None if ws is None else [x.clone() for x in ws]
             row[label].update({
-                "ms": time_ms(torch, lambda: fo.fused_sgd_(
-                    kp, gs, lr=lr, weight_decay=SGD_WD), spin=spin),
-                "ms_wd0": time_ms(torch, lambda: fo.fused_sgd_(
-                    kp, gs, lr=lr), spin=spin),
-                "plain_ms": time_ms(torch, lambda: fo._plain_sgd_(
-                    ps, gs, np.float32(lr), np.float32(SGD_WD), False),
-                    iters=5),
-                "library_ms": time_ms(torch, lib.step, spin=spin),
+                "ms": time_ms(torch, lambda: step(kp, gs, kw, SGD_WD),
+                              spin=spin),
+                "ms_wd0": time_ms(torch, lambda: step(kp, gs, kw, 0.0),
+                                  spin=spin),
+                "plain_ms": time_ms(torch, lambda: plain(pp, gs, pw,
+                                                         SGD_WD), iters=5),
+                "library_ms": time_ms(torch, lib, spin=spin),
                 "bound_ms": t_b, "bound_by": by})
+    first = next(iter(shape_lists))
+    if timing:
+        row.update({k: row[first][k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "bound_by")})
+        row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
+    if dtype_name != "float32":
+        return row
     n = max(1400, cap + 1)
     sizes = [1 + k % 9 for k in range(n)]
 
@@ -2071,7 +2343,8 @@ def check_sgd(torch, fo, counters, shape_lists, timing):
             out.append(x[1:] if k % 5 == 0 else x[:m])
         return out
 
-    launched = compare("split", split_list(0.05), split_list(1e-2), SGD_WD)
+    launched = compare("split", split_list(0.05), split_list(1e-2), None,
+                       SGD_WD)
     expect(launched >= 2, f"fused SGD: {n} tensors took {launched} launch")
     row["split"] = {"params": n, "elements": sum(sizes),
                     "launches": launched}
@@ -2080,22 +2353,18 @@ def check_sgd(torch, fo, counters, shape_lists, timing):
         g4 = [torch.randn(4, generator=gen, device=dev)]
         row["floor_ms"] = time_ms(torch, lambda: fo.fused_sgd_(
             p4, g4, lr=lr, weight_decay=SGD_WD), spin=STATIC_SPIN_CYCLES)
-        row.update({k: row["lenet"][k] for k in ("ms", "plain_ms",
-                                                 "library_ms", "bound_ms",
-                                                 "bound_by")})
-        row["bound_rates"] = rates(F32_FLOPS_PER_S, "f32")
     return row
 
 
-def check_lamb(torch, fo, counters, shapes, timing):
+def check_lamb(torch, fo, counters, shapes, timing, dtype_name="float32"):
     """K3-lamb (phase 1 with the norms folded in, then the apply) over
     BERT-base's parameter list, from non-zero moments, with every
     bias-like tensor (1-D) at zero, as at initialisation (trust 1
-    there): m, v and the trust-ratio numerator r bit for bit the plain
-    version's; the norms the kernels took within rtol 1e-6 of f64 norms
-    of the same tensors; p bit for bit the plain apply given those
-    norms; a second launch from the same state gives the same bits; one
-    count of each kernel a call."""
+    there): p, m, v and the trust-ratio numerator r bit for bit the
+    plain version's given the kernels' norms (``k3_compare``); those
+    norms within rtol 1e-6 of f64 norms of the same tensors, and the
+    same in a second launch. With a 2-byte ``dtype_name``, its master
+    form: the norms are the masters'."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -2110,63 +2379,62 @@ def check_lamb(torch, fo, counters, shapes, timing):
 
     ps, gs = make(0.02, zero_1d=True), make(1e-3)
     ms, vs = make(1e-4), make(1e-6, positive=True)
+    ps, gs, ws = k3_form(torch, ps, gs, dtype_name)
     hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
               step=3)
     lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, 3)
-    runs = []
-    for _ in range(2):
-        kp, km, kv = ([x.clone() for x in xs] for xs in (ps, ms, vs))
-        kr = [torch.empty_like(p) for p in ps]
-        cache = {}
-        n0 = (counters.get("fused_lamb_phase1"),
-              counters.get("fused_lamb_apply"))
-        fo.fused_lamb_(kp, gs, km, kv, kr, cache=cache, **hp)
-        expect((counters.get("fused_lamb_phase1") - n0[0],
-                counters.get("fused_lamb_apply") - n0[1]) == (1, 1),
-               "fused Lamb: not one count of each kernel a call")
-        runs.append((kp, km, kv, kr, fo.lamb_kernel_norms(cache).clone()))
-    (kp, km, kv, kr, norms), again = runs
-    expect(same_bits(torch, kp + km + kv + kr + [norms],
-                     [x for xs in again[:4] for x in xs] + [again[4]]),
-           "fused Lamb: two launches differ")
-    rs = [torch.empty_like(p) for p in ps]
-    fo._plain_lamb_phase1_(ps, gs, ms, vs, rs, 0.9, 0.999, 1e-6, 0.01, c1,
-                           c2)
-    want = torch.stack(torch._foreach_norm(
-        [x.double() for x in ps + rs])).float()
-    norm_err = float(((norms - want).abs() / want.clamp_min(1e-30)).max())
-    zero_ok = bool((norms[want == 0] == 0).all())
-    fo._plain_lamb_apply_(ps, rs, norms, lr)
-    torch.cuda.synchronize()
-    differ = {name: sum(int(not torch.equal(a, b)) for a, b in zip(x, y))
-              for name, x, y in (("p", kp, ps), ("m", km, ms), ("v", kv, vs),
-                                 ("r", kr, rs))}
-    expect(not any(differ.values()),
-           f"fused Lamb differs bitwise in {differ} tensors")
-    expect(norm_err <= 1e-6 and zero_ok,
-           f"fused Lamb: norms off f64 by {norm_err} (rtol 1e-6)")
+    caches, seen = {}, {}
+
+    def kernel(s, skip=False):
+        fo.fused_lamb_(s[0], gs, s[2], s[3], s[4], skip=skip, masters=s[1],
+                       cache=caches.setdefault(id(s[0]), {}), **hp)
+
+    def plain(s, k):
+        def run(w, g):
+            fo._plain_lamb_phase1_(w, g, s[2], s[3], s[4], 0.9, 0.999, 1e-6,
+                                   0.01, c1, c2)
+            seen["want"] = torch.stack(torch._foreach_norm(
+                [x.double() for x in w + s[4]])).float()
+            fo._plain_lamb_apply_(w, s[4], norms(k), lr)
+
+        plain_over(fo, s[0], gs, s[1], False, run)
+
+    def norms(k):
+        return fo.lamb_kernel_norms(caches[id(k[0])])
+
+    weights = ps if ws is None else ws
+    state = [ps, ws, ms, vs, [torch.empty_like(w) for w in weights]]
+    k, again = k3_compare(torch, counters, f"fused Lamb ({dtype_name})",
+                          k3_names(["fused_lamb_phase1", "fused_lamb_apply"],
+                                   ws), state, kernel, plain)
+    expect(same_bits(torch, [norms(k)], [norms(again)]),
+           "fused Lamb: two launches took different norms")
+    want = seen["want"]
+    norm_err = float(((norms(k) - want).abs()
+                      / want.clamp_min(1e-30)).max())
+    expect(norm_err <= 1e-6 and bool((norms(k)[want == 0] == 0).all()),
+           f"fused Lamb ({dtype_name}): norms off f64 by {norm_err} (rtol "
+           f"1e-6)")
     zero = [i for i, s in enumerate(shapes) if len(s) == 1]
-    expect(all(bool(torch.isfinite(kp[i]).all()) for i in zero),
+    expect(all(bool(torch.isfinite(k[0][i]).all()) for i in zero),
            "fused Lamb: a zero parameter became non-finite")
     n = sum(p.numel() for p in ps)
     pieces, _ = fo.lamb_pieces([p.numel() for p in ps])
-    row = {"params": len(shapes), "elements": n, "zero_params": len(zero),
-           "pieces": int(pieces.shape[0]), "max_abs_err": 0.0,
-           "bitwise": True, "norm_max_rel_err": norm_err,
-           "bytes_per_element": 40}
+    row = dict(k3_row(dtype_name, shapes, n, 40), zero_params=len(zero),
+               pieces=int(pieces.shape[0]), norm_max_rel_err=norm_err)
     if timing:
-        # the function reads p, g, m, v once and writes p, m, v once (r
-        # is the kernels' own scratch: phase 1 writes it, the apply reads
-        # it and p again, 40 bytes an element in all); ~20 flops an
-        # element
+        # the function reads g, p (or the master), m, v once and writes
+        # them (and a 2-byte p) once, 28 bytes an element; the kernels
+        # also write r in phase 1 and read it and p again in the apply,
+        # 40 bytes an element in all; ~20 flops an element
         t_b, by = bound_of(28 * n, 20 * n, F32_FLOPS_PER_S)
-        plain_args = (ps, gs, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1,
-                      c2, False)
+        rs = [torch.empty_like(w) for w in weights]
         row.update({
-            "ms": time_ms(torch, lambda: fo.fused_lamb_(
-                kp, gs, km, kv, kr, cache=cache, **hp)),
-            "plain_ms": time_ms(torch, lambda: fo._plain_lamb_(*plain_args),
-                                iters=5),
+            "ms": time_ms(torch, lambda: kernel(k)),
+            "plain_ms": time_ms(torch, lambda: plain_over(
+                fo, ps, gs, ws, False, lambda w, g: fo._plain_lamb_(
+                    w, g, ms, vs, rs, lr, 0.9, 0.999, 1e-6, 0.01, c1, c2,
+                    False)), iters=5),
             "library_ms": None,
             "bound_ms": t_b, "bound_by": by,
             "kernels_bytes_ms": 40 * n / HBM_BYTES_PER_S * 1e3,
@@ -2202,13 +2470,26 @@ class swapped:
         return False
 
 
+def plain_over(fo, params, grads, masters, skip, run):
+    """``run(weights, grads)``, a plain version; for a master form on the
+    masters with the gradients upcast, then each parameter set to its
+    master's cast (the wrappers' own plain route)."""
+    if masters is None:
+        run(params, grads)
+    elif not skip:
+        run(masters, fo._upcast(grads))
+        fo._cast_down_(params, masters)
+
+
 def bert_plain_swaps(fa, fx, fo, optmod):
     def plain_adam(params, grads, m1, m2, *, lr, beta1, beta2, eps,
-                   step, weight_decay=0.0, skip=False, cache=None):
+                   step, weight_decay=0.0, skip=False, cache=None,
+                   masters=None):
         lr32, c1, c2, lrwd = fo.adam_scalars(lr, beta1, beta2, step,
                                              weight_decay)
-        fo._plain_adam_(params, grads, m1, m2, lr32, beta1, beta2, eps,
-                        c1, c2, lrwd, skip)
+        plain_over(fo, params, grads, masters, skip, lambda w, g:
+                   fo._plain_adam_(w, g, m1, m2, lr32, beta1, beta2, eps,
+                                   c1, c2, lrwd, skip))
 
     return [(fa, "flash_attention_fwd", fa._plain_fwd),
             (fa, "flash_attention_bwd", fa._plain_bwd),
@@ -2480,9 +2761,9 @@ def phase_bert(torch, counters):
                f"{n_steps} steps, want {n} a step")
     expect(all(p.grad is not None for p in model.parameters()),
            "bert: a parameter got no gradient, so Adam skipped it")
-    expect(len(opt._kernel_cache["key"]) == 5 * len(list(
-        model.parameters())), "bert: the Adam launch did not cover every "
-                              "parameter")
+    expect(len(opt._kernel_cache[(torch.float32, False)]["key"]) == 5 * len(
+        list(model.parameters())), "bert: the Adam launch did not cover "
+                                   "every parameter")
     flops_per_step = bert_flops_per_step(cfg, B, S)
     med = float(np.median(step_ms))
     breakdown = profile_step(torch, step, batch, bert_family, BERT_FAMILIES,
@@ -2525,9 +2806,11 @@ def phase_resnet_parity(torch, counters, fo):
     from paddle_tpu_torch.vision.models import BottleneckBlock, ResNet
 
     def plain_momentum(params, grads, velocities, *, lr, momentum,
-                       nesterov, skip=False, cache=None):
-        fo._plain_momentum_(params, grads, velocities, np.float32(lr),
-                            np.float32(momentum), nesterov, skip)
+                       nesterov, skip=False, cache=None, masters=None):
+        plain_over(fo, params, grads, masters, skip, lambda w, g:
+                   fo._plain_momentum_(w, g, velocities, np.float32(lr),
+                                       np.float32(momentum), nesterov,
+                                       skip))
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     base = ResNet(BottleneckBlock, [1, 1, 1, 1], num_classes=10,
@@ -2624,7 +2907,8 @@ def phase_resnet50(torch, counters):
            f"want one a step")
     expect(all(p.grad is not None for p in params),
            "resnet50: a parameter got no gradient, so Momentum skipped it")
-    expect(len(opt._kernel_cache["key"]) == 4 * len(params),
+    expect(len(opt._kernel_cache[(torch.float32, False)]["key"])
+           == 4 * len(params),
            "resnet50: the Momentum launch did not cover every parameter")
     bufs = [b for _, b in model.named_buffers()]
     expect(len(bufs) == 2 * 53 and all(bool(torch.isfinite(b).all())
@@ -2682,10 +2966,11 @@ class short_seq_on:
 
 def lamb_plain_swaps(fa, fx, fo, optmod):
     def plain_lamb(params, grads, m1, m2, rs, *, lr, beta1, beta2, eps,
-                   weight_decay, step, skip=False, cache=None):
+                   weight_decay, step, skip=False, cache=None, masters=None):
         lr32, c1, c2, _ = fo.adam_scalars(lr, beta1, beta2, step)
-        fo._plain_lamb_(params, grads, m1, m2, rs, lr32, beta1, beta2, eps,
-                        weight_decay, c1, c2, skip)
+        plain_over(fo, params, grads, masters, skip, lambda w, g:
+                   fo._plain_lamb_(w, g, m1, m2, rs, lr32, beta1, beta2,
+                                   eps, weight_decay, c1, c2, skip))
 
     return [(fa, "flash_attention_short_fwd", fa._plain_fwd),
             (fa, "flash_attention_short_bwd", fa._plain_bwd),
@@ -2891,7 +3176,8 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
                f"{n_steps} steps, want {n} a step")
     expect(all(p.grad is not None for p in params),
            f"{name_}: a parameter got no gradient, so Lamb skipped it")
-    expect(len(opt._kernel_cache["phase1"]["key"]) == 6 * len(params),
+    expect(len(opt._kernel_cache[(torch.float32, False)]["phase1"]["key"])
+           == 6 * len(params),
            f"{name_}: the Lamb launch did not cover every parameter")
     flops_per_step = bert_flops_per_step(cfg, B, S)
     row = {"phase": name_, "config": "BERT-base (vocab 30592, 12 "
@@ -5232,6 +5518,384 @@ def phase_static_zero(torch, counters):
             }, total
 
 
+# ---------------------------------------------------------------------------
+# slice 2b: the AMP O2 phases
+# ---------------------------------------------------------------------------
+def unit_at_max(torch, x):
+    """One unit of x's type at its largest magnitude (the gap to the next
+    value up)."""
+    m = x.detach().abs().max().reshape(1)
+    return float((torch.nextafter(m, torch.full_like(m, float("inf")))
+                  - m).float())
+
+
+# the O2 step's gradients, kernels against plain versions: bf16
+# activations round in other places in the two runs, and a gradient that
+# sums 1024 positions' bf16 terms (the embeddings') carries that
+# rounding; measured on an H100: 3.2e-2 of the largest |g| at worst (the
+# token-type table), 1.8e-2 elsewhere (two bf16 units)
+GRAD_O2_RTOL = 5e-2
+# the key projections' biases have an exactly-zero true gradient; their
+# bf16 gradients are rounding noise, bounded here (measured on an H100:
+# 5.3e-5, against ~0.1 for the largest |g| elsewhere)
+ZERO_GRAD_O2 = 1e-3
+O2_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+              "fused_xent_fwd_bf16", "fused_xent_bwd_bf16",
+              "fused_adam_master")
+F32_TRAIN_FORMS = ("fused_xent_fwd", "fused_xent_bwd", "fused_adam")
+
+
+def o2_bert_loss(m, *a):
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        return m.loss(*a)
+
+
+def o2_bert(torch, model):
+    """``model`` (an f32 BERT) decorated to O2 bf16 with an AdamW of f32
+    masters, and its TrainStep."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, opt, TrainStep(model, o2_bert_loss, opt)
+
+
+def masters_hold(torch, model, opt):
+    """Whether every parameter is bf16/f16 and its f32 master's cast, bit
+    for bit."""
+    for p in model.parameters():
+        w = opt._slots[id(p)].get("__master__")
+        if w is None or w.dtype != torch.float32 or \
+                not torch.equal(p, w.to(p.dtype)):
+            return False
+    return True
+
+
+def phase_bert_o2_parity(torch, counters, fa, fx, fo):
+    """One O2 bf16 TrainStep of a tiny BERT (f32 masters, dropout 0) with
+    the kernels and with the plain versions, from the same weights, on
+    the card: the kernels on the step's path (K1a, K1b, K2's bf16 form,
+    K3-adam's master form) launch in one run and not in the other; the
+    bf16 losses within 2 units of bf16, every gradient within
+    ``GRAD_O2_RTOL`` of its largest value, the masters within twice one
+    step's reach (2 lr (1 + wd |w|)) after the step, each parameter its
+    master's cast."""
+    import copy
+
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = BertForPretraining(cfg, generator=gen)
+    batch = bert_batch(torch, np.random.RandomState(4), 8, 128,
+                       cfg.vocab_size)
+    batch[2][:, ::3] = -100
+    runs = {}
+    for name in ("kernel", "plain"):
+        m, o, step = o2_bert(torch, copy.deepcopy(base))
+        counters.reset()
+        if name == "plain":
+            with swapped(bert_plain_swaps(fa, fx, fo, optmod)):
+                loss = step(*batch)
+        else:
+            loss = step(*batch)
+        torch.cuda.synchronize()
+        runs[name] = (loss, m, o, counters.snapshot())
+    (lk, mk, ok, ck), (lp, mp, op, cp) = runs["kernel"], runs["plain"]
+    expect(all(ck.get(n, 0) == 1 or n.startswith("flash")
+               and ck.get(n, 0) == cfg.num_hidden_layers
+               for n in O2_KERNELS),
+           f"bert_o2_parity: the O2 kernels did not launch: {ck}")
+    expect(not any(ck.get(n, 0) for n in F32_TRAIN_FORMS),
+           f"bert_o2_parity: an f32 K2/K3 form launched: {ck}")
+    expect(not any(cp.get(n, 0) for n in O2_KERNELS),
+           f"bert_o2_parity: the plain run launched kernels: {cp}")
+    expect(lk.dtype == lp.dtype == torch.bfloat16,
+           f"bert_o2_parity: loss types {lk.dtype}, {lp.dtype}")
+    loss_tol = 2 * unit_at_max(torch, lp)
+    expect(abs(float(lk) - float(lp)) <= loss_tol,
+           f"bert_o2_parity: loss {float(lk)} (kernels) against "
+           f"{float(lp)} (plain)")
+    worst_g, worst_w, rels, zero_g = {"rel": 0.0}, 0.0, {}, 0.0
+    pp = dict(mp.named_parameters())
+    lr = 1e-4
+    for n, p in mk.named_parameters():
+        q = pp[n]
+        expect(p.grad.dtype == torch.bfloat16, f"bert_o2_parity: grad of "
+                                               f"{n} is {p.grad.dtype}")
+        gerr = max_err(p.grad, q.grad)
+        gscale = float(q.grad.float().abs().max())
+        if n.endswith("k_proj.bias"):
+            # an exactly-zero true gradient (a constant added to a row of
+            # scores): both runs give rounding noise there, bounded apart
+            zero_g = max(zero_g, gscale, float(p.grad.float().abs().max()))
+            continue
+        rel = gerr / max(gscale, 1e-30)
+        rels[n] = rel
+        if rel > worst_g["rel"]:
+            worst_g = {"rel": rel, "err": gerr, "max_abs": gscale,
+                       "param": n}
+        wk = ok._slots[id(p)]["__master__"]
+        werr = max_err(wk, op._slots[id(q)]["__master__"])
+        # one AdamW step moves an element by at most lr (the Adam term)
+        # plus lr*wd*|w| (the decay): two runs whose gradients differ in
+        # sign stay within twice that, plus f32 rounding
+        wmax = float(wk.abs().max())
+        worst_w = max(worst_w, werr / (2 * lr * (1 + 0.01 * wmax)
+                                       + 1e-6 * wmax))
+    top = dict(sorted(rels.items(), key=lambda kv: -kv[1])[:5])
+    expect(worst_g["rel"] <= GRAD_O2_RTOL,
+           f"bert_o2_parity: a gradient differs past {GRAD_O2_RTOL} of its "
+           f"largest value: {worst_g}; worst five {top}")
+    expect(zero_g <= ZERO_GRAD_O2,
+           f"bert_o2_parity: the key biases' zero gradient reads {zero_g}")
+    expect(worst_w <= 1.0,
+           f"bert_o2_parity: a master differs past two steps' reach "
+           f"(ratio {worst_w})")
+    expect(masters_hold(torch, mk, ok) and masters_hold(torch, mp, op),
+           "bert_o2_parity: a parameter is not its master's cast")
+    return {"phase": "bert_o2_parity", "config": "tiny (2 x 128, 2 heads, "
+            "ffn 256, vocab 1024), batch 8 x 128, AMP O2 bf16 with f32 "
+            "masters (amp.decorate), AdamW lr 1e-4 wd 0.01, no dropout",
+            "loss_kernel": float(lk), "loss_plain": float(lp),
+            "loss_tol": loss_tol,
+            "grad_rtol_of_max": GRAD_O2_RTOL,
+            "max_grad_err": worst_g, "worst_grad_rel": top,
+            "key_bias_grad_max": zero_g,
+            "master_err_over_two_steps": worst_w,
+            "launches": ck}
+
+
+def phase_bert_o2(torch, counters, o1_row):
+    """``bench_bert``'s configuration at AMP O2: BERT-base with bf16
+    weights and f32 masters (``amp.decorate``), 128 x 128, dropout 0.1,
+    AdamW; 12 K1a, 12 K1b, one K2a and one K2b bf16 form and one
+    K3-adam master form a step, no f32 K2/K3 launch."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = BertConfig.base()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model, opt, step = o2_bert(torch, BertForPretraining(cfg,
+                                                          generator=gen))
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S = BERT_BATCH, BERT_SEQ
+    batch = bert_batch(torch, np.random.RandomState(0), B, S,
+                       cfg.vocab_size)
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+            "fused_xent_fwd_bf16": 1, "fused_xent_bwd_bf16": 1,
+            "fused_adam_master": 1}
+    per_step = {k: launches.get(k, 0) / n_steps for k in want}
+    expect(all(np.isfinite(losses)), f"bert_o2: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"bert_o2: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"bert_o2: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+    expect(not any(launches.get(k, 0) for k in F32_TRAIN_FORMS),
+           f"bert_o2: an f32 K2/K3 form launched: {launches}")
+    expect(masters_hold(torch, model, opt),
+           "bert_o2: after the last step a parameter is not bf16 or not "
+           "its master's cast")
+    expect(len(opt._kernel_cache[(torch.bfloat16, True)]["key"])
+           == 6 * len(list(model.parameters())),
+           "bert_o2: the Adam master launch did not cover every parameter")
+    flops_per_step = bert_flops_per_step(cfg, B, S)
+    med = float(np.median(step_ms))
+    breakdown = profile_step(torch, step, batch, bert_family, BERT_FAMILIES,
+                             med)
+    row = {"phase": "bert_o2", "config": "BERT-base (vocab 30592, 12 x "
+           "768, 12 x 64 heads, ffn 3072), batch 128 x seq 128, AMP O2 "
+           "bf16 with f32 masters (amp.decorate), dropout 0.1, AdamW lr "
+           "1e-4 wd 0.01",
+           "params": n_params, "warmup_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS,
+           "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "step_ms": step_ms, "flops_per_step": flops_per_step,
+           "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "masters_hold": True,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "breakdown": breakdown}
+    row["o1"] = {k: o1_row.get(k) for k in (
+        "tokens_per_s", "step_ms_median", "step_ms_max", "mfu",
+        "peak_mem_gb")}
+    row["o1"]["device_busy_share"] = o1_row["breakdown"].get(
+        "device_busy_share")
+    return row, launches
+
+
+def scaler_step(model, opt, scaler, loss_fn, x, y):
+    """The eager O2 loop's step: ``scaler.scale(loss).backward();
+    scaler.minimize(opt, scaled); opt.clear_grad()``; the loss."""
+    model.train()
+    loss = loss_fn(model, x, y)
+    scaled = scaler.scale(loss)
+    scaled.backward()
+    scaler.minimize(opt, scaled)
+    opt.clear_grad()
+    return loss.detach()
+
+
+def phase_resnet50_fp16(torch, counters, o1_row):
+    """The fp16 ResNet-50 recipe: ``decorate(level="O2",
+    dtype="float16")``, Momentum(lr 0.1, mu 0.9, ``L2Decay(1e-4)``,
+    ``multi_precision``) and ``GradScaler(init_loss_scaling=128)`` in the
+    eager loop; 3 warm-up and 10 timed steps, each unskipped one a
+    K3-momentum master launch. Then a forced overflow through the public
+    API (scale 2**40 for two steps): no K3 launch, parameters, masters
+    and velocities unchanged bit for bit, ``_step_count`` unchanged, the
+    scale 2**39 after; the state restored, one more step launches one
+    K3."""
+    from paddle_tpu_torch import amp, nn, regularizer
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = resnet50(num_classes=RESNET_CLASSES, generator=gen)
+    params = list(model.parameters())
+    opt = Momentum(learning_rate=0.1, momentum=0.9, parameters=params,
+                   weight_decay=regularizer.L2Decay(1e-4),
+                   multi_precision=True)
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=128.0)
+    ce = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            return ce(m(x), y)
+
+    B, S = RESNET_BATCH, RESNET_SIZE
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(B, 3, S, S).astype(np.float32),
+                     device="cuda")
+    y = torch.tensor(rng.randint(0, RESNET_CLASSES, (B,)).astype(np.int64),
+                     device="cuda")
+    counters.reset()
+    losses, step_ms, skipped = [], [], 0
+    n_steps = WARM_STEPS + TIMED_STEPS
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        before = opt._step_count
+        losses.append(float(scaler_step(model, opt, scaler, loss_fn, x, y)))
+        torch.cuda.synchronize()
+        if i >= WARM_STEPS:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        skipped += int(opt._step_count == before)
+    launches = counters.snapshot()
+    expect(all(np.isfinite(losses)),
+           f"resnet50_fp16: non-finite loss {losses}")
+    expect(launches.get("fused_momentum_master", 0) == n_steps - skipped,
+           f"resnet50_fp16: fused_momentum_master launched "
+           f"{launches.get('fused_momentum_master', 0)} times over "
+           f"{n_steps - skipped} unskipped steps")
+    expect(not launches.get("fused_momentum", 0),
+           f"resnet50_fp16: the f32 Momentum form launched: {launches}")
+    expect(masters_hold(torch, model, opt),
+           "resnet50_fp16: a parameter is not fp16 or not its master's cast")
+    bufs = [b for _, b in model.named_buffers()]
+    expect(all(b.dtype == torch.float16 and bool(torch.isfinite(b).all())
+               for b in bufs),
+           "resnet50_fp16: a running statistic is not finite fp16")
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile_step(
+        torch, lambda a, b: scaler_step(model, opt, scaler, loss_fn, a, b),
+        (x, y), resnet_family, RESNET_FAMILIES, med)
+    # a forced overflow through the public API
+    saved = scaler.state_dict()
+    snap = [t.clone() for p in params for t in
+            (p.detach(), opt._slots[id(p)]["__master__"],
+             opt._slots[id(p)]["velocity"])]
+    count0 = opt._step_count
+    counters.reset()
+    scaler.set_state_dict({"scale": 2.0 ** 40, "good": 0, "bad": 0})
+    overflow_losses = [float(scaler_step(model, opt, scaler, loss_fn, x, y))
+                       for _ in range(2)]
+    torch.cuda.synchronize()
+    over = counters.snapshot()
+    expect(not over.get("fused_momentum_master", 0),
+           f"resnet50_fp16: a K3 launch on a forced-overflow step: {over}")
+    expect(same_bits(torch, snap, [t for p in params for t in
+                                   (p.detach(),
+                                    opt._slots[id(p)]["__master__"],
+                                    opt._slots[id(p)]["velocity"])]),
+           "resnet50_fp16: a forced-overflow step changed a parameter, "
+           "master or velocity")
+    expect(opt._step_count == count0,
+           "resnet50_fp16: a forced-overflow step counted")
+    expect(scaler.get_loss_scaling() == 2.0 ** 39,
+           f"resnet50_fp16: scale {scaler.get_loss_scaling()} after two "
+           f"overflows, want 2**39")
+    scaled_down = scaler.get_loss_scaling()
+    scaler.set_state_dict(saved)
+    counters.reset()
+    after = float(scaler_step(model, opt, scaler, loss_fn, x, y))
+    torch.cuda.synchronize()
+    expect(counters.get("fused_momentum_master") == 1
+           and opt._step_count == count0 + 1,
+           "resnet50_fp16: the step after the restore did not launch one "
+           "K3")
+    expect(np.isfinite(after), f"resnet50_fp16: non-finite loss {after}")
+    row = {"phase": "resnet50_fp16", "config": "ResNet-50 (BottleneckBlock "
+           "[3, 4, 6, 3], 1000 classes), batch 128 x 3 x 224 x 224, AMP O2 "
+           "fp16 with f32 masters (amp.decorate), Momentum lr 0.1 mu 0.9 "
+           "L2Decay(1e-4) multi_precision, GradScaler(128) dynamic, eager "
+           "loop, the same batch every step",
+           "params": int(sum(p.numel() for p in params)),
+           "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS,
+           "imgs_per_s": B * TIMED_STEPS / (sum(step_ms) / 1e3),
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "step_ms": step_ms, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": losses,
+           "skipped_steps": skipped, "launches": launches,
+           "launches_per_unskipped_step":
+               launches.get("fused_momentum_master", 0)
+               / max(n_steps - skipped, 1),
+           "loss_scale": saved["scale"],
+           "forced_overflow": {"losses": overflow_losses,
+                               "k3_launches": over.get(
+                                   "fused_momentum_master", 0),
+                               "unchanged_bitwise": True,
+                               "step_count_unchanged": True,
+                               "scale_after": scaled_down},
+           "loss_after_restore": after,
+           "mem_at_start_gb": mem_start, "peak_mem_gb": peak,
+           "breakdown": breakdown}
+    row["o1"] = {k: o1_row.get(k) for k in (
+        "imgs_per_s", "step_ms_median", "step_ms_max", "peak_mem_gb")}
+    row["o1"]["device_busy_share"] = o1_row["breakdown"].get(
+        "device_busy_share")
+    return row, launches
+
+
+# forms no phase's main path runs, checked in phase 1 only: BERT cannot
+# run at O2 fp16 (K1 has bf16 and f32 forms), and the main paths train
+# with AdamW and Momentum
+PHASE1_ONLY = ("fused_xent_fwd_f16", "fused_xent_bwd_f16", "fused_sgd_master",
+               "fused_lamb_master")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -5324,10 +5988,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         bert_shapes = [tuple(p.shape) for p in BertForPretraining(
             BertConfig.base()).parameters()]
-        k3 = check_adam(torch, fo, bert_shapes, timing)
+        k3 = check_adam(torch, fo, counters, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_adam": k3})
         shapes = [tuple(p.shape) for p in resnet50().parameters()]
-        k3m = check_momentum(torch, fo, shapes, timing)
+        k3m = check_momentum(torch, fo, counters, shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_momentum": k3m})
         lenet_shapes = [tuple(p.shape) for p in LeNet().parameters()]
         k3s = check_sgd(torch, fo, counters, {"lenet": lenet_shapes,
@@ -5336,6 +6000,22 @@ def main() -> int:
         emit({"phase": "kernels_vs_plain", "fused_sgd": k3s})
         k3l = check_lamb(torch, fo, counters, bert_shapes, timing)
         emit({"phase": "kernels_vs_plain", "fused_lamb": k3l})
+        torch.cuda.empty_cache()
+        k2h = check_xent(torch, fx, timing, "bfloat16")
+        k2f = check_xent(torch, fx, timing, "float16")
+        emit({"phase": "kernels_vs_plain", "fused_xent_bf16": k2h,
+              "fused_xent_f16": k2f})
+        torch.cuda.empty_cache()
+        k3am = check_adam(torch, fo, counters, bert_shapes, timing,
+                          "bfloat16")
+        k3mm = check_momentum(torch, fo, counters, shapes, timing, "float16")
+        k3sm = check_sgd(torch, fo, counters, {"lenet": lenet_shapes},
+                         timing, "bfloat16")
+        k3lm = check_lamb(torch, fo, counters, bert_shapes, timing,
+                          "bfloat16")
+        emit({"phase": "kernels_vs_plain", "fused_adam_master": k3am,
+              "fused_momentum_master": k3mm, "fused_sgd_master": k3sm,
+              "fused_lamb_master": k3lm})
         torch.cuda.empty_cache()
         static_shapes = static_param_shapes()
         k3st = check_static_optim(torch, fo, counters,
@@ -5365,17 +6045,29 @@ def main() -> int:
 
         emit(phase_bert_parity(torch, counters, fa, fx, fo))
         torch.cuda.empty_cache()
-        row, launches = phase_bert(torch, counters)
+        o1_row, launches = phase_bert(torch, counters)
+        emit(o1_row)
+        add(launches)
+        torch.cuda.empty_cache()
+        emit(phase_bert_o2_parity(torch, counters, fa, fx, fo))
+        torch.cuda.empty_cache()
+        row, launches = phase_bert_o2(torch, counters, o1_row)
         emit(row)
         add(launches)
+        del row, launches, o1_row
         torch.cuda.empty_cache()
 
         emit(phase_resnet_parity(torch, counters, fo))
         torch.cuda.empty_cache()
-        row, launches = phase_resnet50(torch, counters)
+        o1_row, launches = phase_resnet50(torch, counters)
+        emit(o1_row)
+        add(launches)
+        del launches
+        torch.cuda.empty_cache()
+        row, launches = phase_resnet50_fp16(torch, counters, o1_row)
         emit(row)
         add(launches)
-        del row, launches
+        del row, launches, o1_row
         torch.cuda.empty_cache()
 
         emit(phase_bert_lamb_parity(torch, counters, fa, fx, fo))
@@ -5511,15 +6203,36 @@ def main() -> int:
                 ("flash_attention_ext_bwd", k1r, src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339"),
                 ("chunk_lamb", k3c, src + "fused_optimizer.cu",
-                 "paddle_tpu/ops/pallas/fused_optimizer.py:455")):
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:455"),
+                ("fused_xent_fwd_bf16", split(k2h, "fwd"),
+                 src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:185"),
+                ("fused_xent_bwd_bf16", split(k2h, "bwd"),
+                 src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:216"),
+                ("fused_xent_fwd_f16", split(k2f, "fwd"),
+                 src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:185"),
+                ("fused_xent_bwd_f16", split(k2f, "bwd"),
+                 src + "fused_xent.cu",
+                 "paddle_tpu/ops/pallas/fused_xent.py:216"),
+                ("fused_adam_master", k3am, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("fused_momentum_master", k3mm, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("fused_sgd_master", k3sm, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                ("fused_lamb_master", k3lm, src + "fused_optimizer.cu",
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
+            on_path = name not in PHASE1_ONLY
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": total.get(name, 0),
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]})
-            expect(total.get(name, 0) > 0,
+                "library_ms": row["library_ms"], "main_path": on_path})
+            expect(not on_path or total.get(name, 0) > 0,
                    f"{name} was not launched on the main path")
         emit({"kernels": kernels})
     except PhaseFailed as e:

@@ -7,7 +7,10 @@ JAX. It grows slice by slice: paged-KV decode serving
 sampling, then the BERT pretraining step (``models.bert``, ``nn``,
 ``amp``, ``optimizer``, ``jit.TrainStep``) with CUDA kernels for flash
 attention, the fused vocabulary cross-entropy and the fused Adam update
-(``ops.cuda``), then ResNet training (``vision.models``: convolution,
+(``ops.cuda``), and at AMP O2 (``amp.decorate``, ``amp.GradScaler``,
+``multi_precision``, regularizer objects, ``nn.ParamAttr``) with the
+cross-entropy over bf16/f16 inputs and the updates' master-weight
+forms, then ResNet training (``vision.models``: convolution,
 batch norm, pooling; ``optimizer.Momentum``) with a CUDA kernel for the
 fused Momentum update, then BERT phase-2 pretraining at seq 512 with
 ``optimizer.Lamb`` (``optimizer.lr`` schedulers, ``nn.clip``) through

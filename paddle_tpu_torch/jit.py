@@ -9,7 +9,11 @@ is kept in train mode. Dropout draws from a
 the counterpart of ``jax.random.fold_in(make_key(seed), step)``
 (``jit.py:300``), with ``step`` the optimizer's step count before the
 update (0 on the first call). Its bits differ from JAX's. No
-``torch.compile``.
+``torch.compile``. The optimizer keeps its state across calls, so a
+model and optimizer decorated by ``amp.decorate(level="O2")`` train on
+their f32 masters (the step takes them as JAX's ``init_state(params,
+param_objs)`` takes restored slots), and the returned loss keeps the
+dtype the loss function gives it (bf16 for BERT at O2).
 
 With a ``mesh`` (``parallel.create_mesh``; one process per rank, every
 rank calling the step with the same global batch) the step is the

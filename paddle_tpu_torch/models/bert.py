@@ -9,7 +9,9 @@ so that table gets gradient from both the lookup and the loss.
 ``attention_mask`` (a (B, 1, 1, L) or (B, L) key-padding mask, True =
 attend) reaches every layer's attention, which runs the flash kernels'
 masked form. The pooler reads ``seq[:, 0]`` and ``mlm_bias`` starts at
-zero. Only the
+zero. The tensor sums (the embeddings, the logits' bias, ``mlm + nsp``)
+go through ``F.add``, the JAX ``add`` op: under O2 the loss is bf16, as
+in JAX. Only the
 fused loss path is ported (``FLAGS_fused_vocab_xent``'s materialised
 arm is a later slice); ``forward`` still returns materialised logits.
 """
@@ -70,9 +72,9 @@ class BertEmbeddings(nn.Layer):
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         emb = self.word_embeddings(input_ids)
-        emb = emb + self.position_embeddings(pos)
+        emb = F.add(emb, self.position_embeddings(pos))
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = F.add(emb, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
 
 
@@ -123,8 +125,9 @@ class BertForPretraining(nn.Layer):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         h = self._mlm_hidden(seq)
-        logits = F.matmul(h, self.bert.embeddings.word_embeddings.weight,
-                          transpose_y=True) + self.mlm_bias
+        logits = F.add(F.matmul(
+            h, self.bert.embeddings.word_embeddings.weight,
+            transpose_y=True), self.mlm_bias)
         return logits, self.nsp(pooled)
 
     def loss(self, input_ids, token_type_ids, mlm_labels, nsp_labels,
@@ -136,4 +139,4 @@ class BertForPretraining(nn.Layer):
             h, self.bert.embeddings.word_embeddings.weight, self.mlm_bias,
             mlm_labels, ignore_index=ignore_index)
         nsp = F.cross_entropy(self.nsp(pooled), nsp_labels)
-        return mlm + nsp
+        return F.add(mlm, nsp)

@@ -8,7 +8,7 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 from .common import Dropout, Embedding, Linear, ReLU, Tanh
 from .container import LayerList, Sequential
 from .conv import Conv2D
-from .layer import Layer
+from .layer import Layer, ParamAttr, Parameter
 from .loss import CrossEntropyLoss
 from .norm import BatchNorm, BatchNorm2D, LayerNorm
 from .pooling import AdaptiveAvgPool2D, MaxPool2D
@@ -18,7 +18,7 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["clip", "functional", "initializer", "ClipGradByValue",
            "ClipGradByNorm", "ClipGradByGlobalNorm", "GradientClipByValue",
            "GradientClipByNorm", "GradientClipByGlobalNorm",
-           "clip_grad_norm_", "Layer", "Linear", "Embedding",
+           "clip_grad_norm_", "Layer", "ParamAttr", "Parameter", "Linear", "Embedding",
            "Dropout", "Tanh", "ReLU", "LayerNorm", "BatchNorm",
            "BatchNorm2D", "Conv2D", "MaxPool2D", "AdaptiveAvgPool2D",
            "CrossEntropyLoss", "LayerList", "Sequential",

@@ -1,6 +1,8 @@
 """Common layers: ``Linear``, ``Embedding``, ``Dropout``, ``Tanh`` and
 ``ReLU`` (port of ``paddle_tpu/nn/common.py`` and the ``ReLU`` layer
-``paddle_tpu/nn/__init__.py`` exports)."""
+``paddle_tpu/nn/__init__.py`` exports). ``weight_attr``/``bias_attr``
+take what ``ParamAttr._to_attr`` takes; ``bias_attr=False`` drops the
+bias."""
 from __future__ import annotations
 
 import torch
@@ -16,16 +18,16 @@ class Linear(Layer):
     """y = x @ W + b, W: (in_features, out_features) (reference fc/mul
     op); the transpose of ``torch.nn.Linear``'s weight."""
 
-    def __init__(self, in_features, out_features, device=None,
-                 generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None, generator=None):
         super().__init__()
         self._in_features = in_features
         self._out_features = out_features
         kw = {"device": device, "generator": generator}
         self.weight = self.create_parameter([in_features, out_features],
-                                            **kw)
-        self.bias = self.create_parameter([out_features], is_bias=True,
-                                          **kw)
+                                            attr=weight_attr, **kw)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True, **kw)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -42,13 +44,14 @@ class Embedding(Layer):
     whose lookups give zero and pass no gradient."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 device=None, generator=None):
+                 sparse=False, weight_attr=None, name=None, device=None,
+                 generator=None):
         super().__init__()
         self._padding_idx = None if padding_idx is None else (
             padding_idx if padding_idx >= 0
             else num_embeddings + padding_idx)
         self.weight = self.create_parameter(
-            [num_embeddings, embedding_dim],
+            [num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=I.XavierUniform(), device=device,
             generator=generator)
         if self._padding_idx is not None:

@@ -1,7 +1,8 @@
 """``Conv2D`` (port of ``paddle_tpu/nn/conv.py`` ``_ConvNd`` and
 ``Conv2D``). The weight is (C_out, C_in/groups, kh, kw), Kaiming-uniform
 over fan_in = C_in/groups * kh * kw; the bias is U(-1/sqrt(fan_in),
-1/sqrt(fan_in)), and ``bias_attr=False`` means no bias parameter."""
+1/sqrt(fan_in)), and ``bias_attr=False`` means no bias parameter;
+``weight_attr``/``bias_attr`` take what ``ParamAttr._to_attr`` takes."""
 from __future__ import annotations
 
 import math
@@ -22,9 +23,6 @@ class Conv2D(Layer):
         if padding_mode != "zeros":
             raise NotImplementedError(f"padding_mode {padding_mode!r} is a "
                                       f"later port slice")
-        if weight_attr is not None or bias_attr not in (None, False):
-            raise NotImplementedError("ParamAttr objects are a later port "
-                                      "slice; bias_attr=False drops the bias")
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = F._tuple_n(kernel_size, 2)
@@ -37,14 +35,12 @@ class Conv2D(Layer):
         kw = {"device": device, "generator": generator}
         self.weight = self.create_parameter(
             (out_channels, in_channels // groups) + self._kernel_size,
+            attr=weight_attr,
             default_initializer=I.KaimingUniform(fan_in=fan_in), **kw)
-        if bias_attr is False:
-            self.bias = None
-        else:
-            bound = 1.0 / math.sqrt(fan_in)
-            self.bias = self.create_parameter(
-                [out_channels], is_bias=True,
-                default_initializer=I.Uniform(-bound, bound), **kw)
+        bound = 1.0 / math.sqrt(fan_in)
+        self.bias = self.create_parameter(
+            [out_channels], attr=bias_attr, is_bias=True,
+            default_initializer=I.Uniform(-bound, bound), **kw)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,

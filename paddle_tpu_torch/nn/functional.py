@@ -23,6 +23,14 @@ normalises in bf16 and its f32 scale makes its output f32, as in JAX;
 the running update and keep bf16. Python scalars in bf16 arithmetic are
 rounded to bf16 first, as JAX's weak types are.
 
+``add``, ``subtract``, ``multiply`` and ``divide`` are the JAX
+package's elementwise ops (``ops/math.py:44``), which its ``Tensor``
+arithmetic reaches (``framework/math_op_patch.py:22-50``): under O2
+they cast their floating inputs down like every op that is not
+black-listed. The port's models call them where the JAX models write
+``a + b`` on tensors (residuals, the embedding sum, the loss sum);
+PyTorch's own ``+`` would promote ``f32 + bf16`` to f32.
+
 Attention, the MLM head's loss and the pooled embedding bag are the
 kernels' entry points (``ops/cuda/flash_attention.py``,
 ``ops/cuda/fused_xent.py``, ``ops/cuda/fused_embedding.py``): on CUDA
@@ -43,13 +51,34 @@ from ..ops.cuda import fused_embedding as _fe
 from ..ops.cuda import fused_xent as _fx
 from ..parallel import ring as _ring
 
-__all__ = ["linear", "matmul", "embedding", "fused_embedding_seq_pool",
+__all__ = ["add", "subtract", "multiply", "divide", "linear", "matmul", "embedding", "fused_embedding_seq_pool",
            "dropout", "gelu", "tanh", "relu", "layer_norm", "cross_entropy",
            "scaled_dot_product_attention", "fused_linear_cross_entropy",
            "conv2d", "max_pool2d", "adaptive_avg_pool2d", "batch_norm",
            "flatten"]
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def add(x, y):
+    """``x + y`` as the JAX ``add`` op (cast by the amp rule)."""
+    x, y = maybe_cast_inputs("add", [x, y])
+    return torch.add(x, y)
+
+
+def subtract(x, y):
+    x, y = maybe_cast_inputs("subtract", [x, y])
+    return torch.sub(x, y)
+
+
+def multiply(x, y):
+    x, y = maybe_cast_inputs("multiply", [x, y])
+    return torch.mul(x, y)
+
+
+def divide(x, y):
+    x, y = maybe_cast_inputs("divide", [x, y])
+    return torch.div(x, y)
 
 
 def linear(x, weight, bias=None):
@@ -432,6 +461,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 
 def flatten(x, start_axis=0, stop_axis=-1):
     """Merge the axes start_axis..stop_axis into one."""
+    (x,) = maybe_cast_inputs("flatten", [x])
     nd = x.dim()
     if nd == 0:
         return x.reshape(1)

@@ -15,7 +15,8 @@ import math
 
 import torch
 
-__all__ = ["Constant", "Uniform", "XavierUniform", "KaimingUniform", "fans"]
+__all__ = ["Initializer", "Constant", "Uniform", "XavierUniform",
+           "KaimingUniform", "fans"]
 
 
 def fans(shape):
@@ -32,7 +33,15 @@ def fans(shape):
     return shape[1] * receptive, shape[0] * receptive
 
 
-class Constant:
+class Initializer:
+    """Base class: ``init(shape, device, generator) -> Tensor`` (a
+    ``ParamAttr`` takes one as its ``initializer``)."""
+
+    def __call__(self, shape, device, generator=None):
+        raise NotImplementedError
+
+
+class Constant(Initializer):
     def __init__(self, value=0.0):
         self.value = float(value)
 
@@ -41,7 +50,7 @@ class Constant:
                           device=device)
 
 
-class Uniform:
+class Uniform(Initializer):
     """U(low, high)."""
 
     def __init__(self, low=-1.0, high=1.0):
@@ -52,7 +61,7 @@ class Uniform:
         return out.uniform_(self.low, self.high, generator=generator)
 
 
-class XavierUniform:
+class XavierUniform(Initializer):
     """U(-limit, limit), limit = gain * sqrt(6 / (fan_in + fan_out))."""
 
     def __init__(self, fan_in=None, fan_out=None, gain=1.0):
@@ -67,7 +76,7 @@ class XavierUniform:
         return out.uniform_(-limit, limit, generator=generator)
 
 
-class KaimingUniform:
+class KaimingUniform(Initializer):
     """U(-limit, limit), limit = gain * sqrt(3 / fan_in) with the leaky
     ReLU gain sqrt(2 / (1 + negative_slope**2))."""
 

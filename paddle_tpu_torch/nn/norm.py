@@ -5,7 +5,9 @@ and only its embedding and MLM norms pass the configuration's 1e-12.
 Batch norm keeps its running statistics in the persistable buffers
 ``_mean`` (zeros) and ``_variance`` (ones), so ``state_dict()`` keys
 match the JAX layer's; ``momentum`` is Paddle's (0.9 keeps 90 % of the
-old running value, see ``functional.batch_norm``)."""
+old running value, see ``functional.batch_norm``). ``weight_attr``/
+``bias_attr`` take what ``ParamAttr._to_attr`` takes; False drops the
+parameter."""
 from __future__ import annotations
 
 import torch
@@ -19,8 +21,8 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D"]
 
 
 class LayerNorm(Layer):
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 generator=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, device=None, generator=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
@@ -28,10 +30,10 @@ class LayerNorm(Layer):
         self._epsilon = epsilon
         kw = {"device": device, "generator": generator}
         self.weight = self.create_parameter(
-            self._normalized_shape, default_initializer=I.Constant(1.0),
-            **kw)
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0), **kw)
         self.bias = self.create_parameter(self._normalized_shape,
-                                          is_bias=True, **kw)
+                                          attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -49,21 +51,20 @@ class BatchNorm(Layer):
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, device=None, generator=None):
+                 use_global_stats=None, name=None, device=None,
+                 generator=None):
         super().__init__()
-        if weight_attr not in (None, False) or bias_attr not in (None, False):
-            raise NotImplementedError("ParamAttr objects are a later port "
-                                      "slice; False drops the parameter")
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         kw = {"device": device, "generator": generator}
-        self.weight = None if weight_attr is False else self.create_parameter(
-            [num_features], default_initializer=I.Constant(1.0), **kw)
-        self.bias = None if bias_attr is False else self.create_parameter(
-            [num_features], is_bias=True, **kw)
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0), **kw)
+        self.bias = self.create_parameter([num_features], attr=bias_attr,
+                                          is_bias=True, **kw)
         device = resolve_device(device)
         self.register_buffer("_mean", torch.zeros(num_features,
                                                   device=device))

@@ -8,7 +8,8 @@ through unchanged, and a key-padding mask ((B, Lk), (B, 1, Lk) or
 (B, 1, 1, Lk), boolean or float) rides the kernel as a key bias. As in
 the JAX package, the encoder layers' norms are ``LayerNorm(d_model)``
 with the default epsilon 1e-5, and ``TransformerEncoder`` deep-copies
-its first layer, so every layer starts from the same weights. Post-norm
+its first layer, so every layer starts from the same weights. The residual
+sums are ``F.add`` (the JAX ``add`` op: bf16 under O2). Post-norm
 layers only (BERT's); the pre-norm option, cross-attention key/value
 widths, the decoder, the key/value cache and per-query masks are later
 slices.
@@ -97,13 +98,13 @@ class TransformerEncoderLayer(Layer):
         self.activation = activation
 
     def _act(self, x):
-        return x.clamp(min=0) if self.activation == "relu" else F.gelu(x)
+        return F.relu(x) if self.activation == "relu" else F.gelu(x)
 
     def forward(self, src, src_mask=None):
-        src = self.norm1(src + self.dropout1(
-            self.self_attn(src, src, src, src_mask)))
+        src = self.norm1(F.add(src, self.dropout1(
+            self.self_attn(src, src, src, src_mask))))
         ffn = self.linear2(self.dropout(self._act(self.linear1(src))))
-        return self.norm2(src + self.dropout2(ffn))
+        return self.norm2(F.add(src, self.dropout2(ffn)))
 
 
 class TransformerEncoder(Layer):

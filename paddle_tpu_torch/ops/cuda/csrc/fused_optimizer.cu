@@ -34,6 +34,16 @@
 //   static Adam uses lr_t = lr*sqrt(1-c2)/(1-c1) with eps outside the
 //   sqrt, static Lamb divides by 1-c1 where the dygraph form divides by
 //   c1. See the block above the static rules.
+// - The master-weight forms of Adam(W), Momentum, SGD and Lamb
+//   (multi_precision, amp.decorate(level="O2")): the JAX package runs
+//   g.astype(f32) -> the fused rule on the f32 master ->
+//   master.astype(p.dtype) (paddle_tpu/optimizer/optimizer.py:115-128,
+//   fused_try_rule over the master). Here that is the same rule in one
+//   launch: it reads the 2-byte (bf16 or f16) gradient and the f32 master
+//   and state, writes the master and state and the round-to-nearest-even
+//   cast of the new master into the 2-byte parameter. Each rule is
+//   templated on the parameter type T (float: the f32 form). See the
+//   block above AdamRule.
 // - K3's ZeRO chunk entry (fused_chunk_update, fused_optimizer.py:455):
 //   static Lamb's phase 1 over one flat chunk of a ZeRO bucket with the
 //   per-segment sums of p*p and r*r its trust ratios need, then the
@@ -77,8 +87,12 @@
 // the __f*_rn intrinsics keep nvcc from contracting a multiply and an
 // add into one FMA, and __fsqrt_rn/__fdiv_rn are the IEEE operations
 // PyTorch's sqrt and division use.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -97,29 +111,60 @@ __device__ __forceinline__ int find_tensor(const int64_t* offs, int n,
   return lo;
 }
 
-// N consecutive f32 values at p[i]: one 16-byte access when N == 4 (the
-// caller has checked that p + i is 16-byte aligned), else scalars
-template <int N>
-__device__ __forceinline__ void ld(const float* p, int64_t i, float (&x)[N]) {
-  if constexpr (N == 4) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// x rounded to T, to nearest even (float: x itself)
+template <class T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(x);
+  else if constexpr (std::is_same<T, __half>::value)
+    return __float2half_rn(x);
+  else
+    return x;
+}
+
+// N consecutive values at p[i] as f32: one 16-byte (f32) or 8-byte
+// (bf16, f16) access when N == 4 (the caller has checked that the
+// array's base is 16-byte aligned and i is a multiple of 4), else
+// scalars
+template <int N, class T>
+__device__ __forceinline__ void ld(const T* p, int64_t i, float (&x)[N]) {
+  if constexpr (N == 4 && sizeof(T) == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p + i);
     x[0] = v.x;
     x[1] = v.y;
     x[2] = v.z;
     x[3] = v.w;
+  } else if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = to_f32(e[j]);
   } else {
 #pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = p[i + j];
+    for (int j = 0; j < N; ++j) x[j] = to_f32(p[i + j]);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void st(float* p, int64_t i, const float (&x)[N]) {
-  if constexpr (N == 4) {
+// the f32 values x rounded to T into p[i] .. p[i + N - 1]
+template <int N, class T>
+__device__ __forceinline__ void st(T* p, int64_t i, const float (&x)[N]) {
+  if constexpr (N == 4 && sizeof(T) == 4) {
     *reinterpret_cast<float4*>(p + i) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (N == 4) {
+    uint2 v;
+    T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j] = from_f32<T>(x[j]);
+    *reinterpret_cast<uint2*>(p + i) = v;
   } else {
 #pragma unroll
-    for (int j = 0; j < N; ++j) p[i + j] = x[j];
+    for (int j = 0; j < N; ++j) p[i + j] = from_f32<T>(x[j]);
   }
 }
 
@@ -230,25 +275,40 @@ multi_tensor_arg_kernel(const __grid_constant__ Tab tab, int n,
   walk(tab.ptrs, tab.offs, n, total, chunk, rule);
 }
 
+// The dygraph rules are templated on the parameter type T. T = float is
+// the f32 form: the rule updates p in place from g (roles p, g, then the
+// state). T = __nv_bfloat16 or __half is the master-weight form: roles p
+// (T, written only), g (T), the f32 master, then the f32 state; the rule
+// runs on the master w with g upcast (exactly) to f32, writes the master
+// and state, and stores from_f32<T>(new master) into p, the
+// round-to-nearest-even cast of master.astype(p.dtype). w is the f32
+// weight the arithmetic sees: p itself, or the master.
+template <class T>
+constexpr bool kMaster = !std::is_same<T, float>::value;
+
+template <class T>
 struct AdamRule {
-  static constexpr int kArrays = 4;
+  static constexpr int kArrays = kMaster<T> ? 5 : 4;
   float lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd;
   struct Ptrs {
-    float* p;
-    const float* g;
+    float* w;
+    const T* g;
     float* m;
     float* v;
+    T* p;
   };
   __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
-    return {reinterpret_cast<float*>(ptrs[t]),
-            reinterpret_cast<const float*>(ptrs[n + t]),
-            reinterpret_cast<float*>(ptrs[2 * n + t]),
-            reinterpret_cast<float*>(ptrs[3 * n + t])};
+    const int s = kMaster<T> ? 1 : 0;   // the master's extra role
+    return {reinterpret_cast<float*>(ptrs[(2 * s) * n + t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[(2 + s) * n + t]),
+            reinterpret_cast<float*>(ptrs[(3 + s) * n + t]),
+            reinterpret_cast<T*>(ptrs[t])};
   }
   template <int N>
   __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     float p[N], g[N], m[N], v[N];
-    ld(q.p, i, p);
+    ld(q.w, i, p);
     ld(q.g, i, g);
     ld(q.m, i, m);
     ld(q.v, i, v);
@@ -264,32 +324,37 @@ struct AdamRule {
       if (lrwd != 0.0f) p2 = __fsub_rn(p2, __fmul_rn(lrwd, pi));
       p[j] = p2;
     }
-    st(q.p, i, p);
+    st(q.w, i, p);
     st(q.m, i, m);
     st(q.v, i, v);
+    if constexpr (kMaster<T>) st(q.p, i, p);
   }
 };
 
 // _momentum_kernel: v2 = mu*v + g; p2 = p - lr*v2, or with Nesterov
 // p2 = p - (g + mu*v2)*lr.
+template <class T>
 struct MomentumRule {
-  static constexpr int kArrays = 3;
+  static constexpr int kArrays = kMaster<T> ? 4 : 3;
   float lr, mu;
   int nesterov;
   struct Ptrs {
-    float* p;
-    const float* g;
+    float* w;
+    const T* g;
     float* v;
+    T* p;
   };
   __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
-    return {reinterpret_cast<float*>(ptrs[t]),
-            reinterpret_cast<const float*>(ptrs[n + t]),
-            reinterpret_cast<float*>(ptrs[2 * n + t])};
+    const int s = kMaster<T> ? 1 : 0;
+    return {reinterpret_cast<float*>(ptrs[(2 * s) * n + t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<float*>(ptrs[(2 + s) * n + t]),
+            reinterpret_cast<T*>(ptrs[t])};
   }
   template <int N>
   __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     float p[N], g[N], v[N];
-    ld(q.p, i, p);
+    ld(q.w, i, p);
     ld(q.g, i, g);
     ld(q.v, i, v);
 #pragma unroll
@@ -300,8 +365,9 @@ struct MomentumRule {
           : __fmul_rn(lr, v[j]);
       p[j] = __fsub_rn(p[j], step);
     }
-    st(q.p, i, p);
+    st(q.w, i, p);
     st(q.v, i, v);
+    if constexpr (kMaster<T>) st(q.p, i, p);
   }
 };
 
@@ -309,50 +375,75 @@ struct MomentumRule {
 // operation rounded on its own in that order (the optimizer's g + wd*p,
 // then the update); wd = 0 leaves the decay out, p2 = p - lr*g, so its
 // bits are the undecayed update's even where g + 0*p would not be g (an
-// infinite p, where 0*p is NaN). Roles p, g; lr and wd by value.
+// infinite p, where 0*p is NaN). Roles p, g; lr and wd by value. The
+// master form (roles p, g, master) adds the decay term as the JAX
+// optimizer does before it upcasts: in T, from the 2-byte parameter,
+// g + wd*p with each of the two operations rounded to T (wd arrives
+// already rounded to T), then master - lr*g in f32.
+template <class T>
 struct SgdRule {
-  static constexpr int kRoles = 2, kArrays = 2;
+  static constexpr int kRoles = kMaster<T> ? 3 : 2, kArrays = kRoles;
   float lr, wd;
   struct Ptrs {
-    float* p;
-    const float* g;
+    float* w;
+    const T* g;
+    T* p;
   };
   __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
-    return {reinterpret_cast<float*>(ptrs[t]),
-            reinterpret_cast<const float*>(ptrs[n + t])};
+    return {reinterpret_cast<float*>(ptrs[(kMaster<T> ? 2 : 0) * n + t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<T*>(ptrs[t])};
   }
   template <int N>
   __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     float p[N], g[N];
-    ld(q.p, i, p);
+    ld(q.w, i, p);
     ld(q.g, i, g);
+    if constexpr (kMaster<T>) {
+      if (wd != 0.0f) {
+        float pt[N];
+        ld(q.p, i, pt);
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float gj = wd != 0.0f ? __fadd_rn(g[j], __fmul_rn(wd, p[j]))
-                                  : g[j];
-      p[j] = __fsub_rn(p[j], __fmul_rn(lr, gj));
+        for (int j = 0; j < N; ++j)
+          g[j] = to_f32(from_f32<T>(__fadd_rn(
+              g[j], to_f32(from_f32<T>(__fmul_rn(wd, pt[j]))))));
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(lr, g[j]));
+      st(q.p, i, p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float gj = wd != 0.0f ? __fadd_rn(g[j], __fmul_rn(wd, p[j]))
+                                    : g[j];
+        p[j] = __fsub_rn(p[j], __fmul_rn(lr, gj));
+      }
     }
-    st(q.p, i, p);
+    st(q.w, i, p);
   }
 };
 
 // _lamb_phase1_kernel (dygraph form): m2 = b1*m + (1-b1)*g,
 // v2 = b2*v + ((1-b2)*g)*g, r = (m2/c1) / (sqrt(v2/c2) + eps) + wd*p,
 // and the thread's running sums sp += p*p, sr += r*r (element order).
-// Roles p, g, m, v, r; m, v and r are written, p is only read.
+// Roles p, g, m, v, r; m, v and r are written, p is only read. The
+// master form (T 2-byte) has the same roles with the master in p's place
+// and a T gradient: Lamb runs on the master, so its norms are the
+// master's, as the JAX package runs it.
+template <class T>
 struct LambPhase1Rule {
   static constexpr int kArrays = 5;
   float b1, omb1, b2, omb2, eps, wd, c1, c2;
   struct Ptrs {
     const float* p;
-    const float* g;
+    const T* g;
     float* m;
     float* v;
     float* r;
   };
   __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
     return {reinterpret_cast<const float*>(ptrs[t]),
-            reinterpret_cast<const float*>(ptrs[n + t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
             reinterpret_cast<float*>(ptrs[2 * n + t]),
             reinterpret_cast<float*>(ptrs[3 * n + t]),
             reinterpret_cast<float*>(ptrs[4 * n + t])};
@@ -387,31 +478,36 @@ struct LambPhase1Rule {
 // |r_t| (phase 1's (n, 2) sums of squares); trust = w / q where both are
 // > 0, else 1 (a zero parameter, such as a bias at initialisation, or a
 // zero r never divides); p2 = p - (lr*trust)*r. The per-tensor factor
-// lr*trust is formed once when the walker binds tensor t. Roles p, r.
+// lr*trust is formed once when the walker binds tensor t. Roles p, r;
+// the master form: p (T, written only), r, the master, which the rule
+// updates and casts into p.
+template <class T>
 struct LambApplyRule {
-  static constexpr int kArrays = 2;
+  static constexpr int kArrays = kMaster<T> ? 3 : 2;
   const float* sums;
   float lr;
   struct Ptrs {
-    float* p;
+    float* w;
     const float* r;
     float s;
+    T* p;
   };
   __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
     const float w = __fsqrt_rn(sums[2 * t]), q = __fsqrt_rn(sums[2 * t + 1]);
     const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
-    return {reinterpret_cast<float*>(ptrs[t]),
+    return {reinterpret_cast<float*>(ptrs[(kMaster<T> ? 2 : 0) * n + t]),
             reinterpret_cast<const float*>(ptrs[n + t]),
-            __fmul_rn(trust, lr)};
+            __fmul_rn(trust, lr), reinterpret_cast<T*>(ptrs[t])};
   }
   template <int N>
   __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
     float p[N], r[N];
-    ld(q.p, i, p);
+    ld(q.w, i, p);
     ld(q.r, i, r);
 #pragma unroll
     for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(q.s, r[j]));
-    st(q.p, i, p);
+    st(q.w, i, p);
+    if constexpr (kMaster<T>) st(q.p, i, p);
   }
 };
 
@@ -488,19 +584,19 @@ __global__ void segment_sum_kernel(const float* __restrict__ piece_sums,
 // order, in double. No float atomics: two runs give the same bits. The
 // parameter is only read here, so |p| is the norm of the old p, as in
 // JAX.
+template <class Rule>
 __global__ void __launch_bounds__(kThreads)
 lamb_phase1_pieces_kernel(const int64_t* __restrict__ ptrs,
                           const int64_t* __restrict__ offs, int n,
                           const int64_t* __restrict__ pieces,
-                          float* __restrict__ piece_sums,
-                          LambPhase1Rule rule) {
+                          float* __restrict__ piece_sums, Rule rule) {
   __shared__ float scratch[2][kThreads / 32];
   const int64_t* row = pieces + 3 * (int64_t)blockIdx.x;
   const int t = (int)row[2];
   const int64_t a = row[0] - offs[t];
   float sp = 0.0f, sr = 0.0f;
-  walk_range(rule, rule.bind(ptrs, n, t), aligned<LambPhase1Rule>(ptrs, n, t),
-             a, a + row[1], sp, sr);
+  walk_range(rule, rule.bind(ptrs, n, t), aligned<Rule>(ptrs, n, t), a,
+             a + row[1], sp, sr);
   sp = block_sum(sp, scratch[0]);
   sr = block_sum(sr, scratch[1]);
   if (threadIdx.x == 0) {
@@ -924,51 +1020,22 @@ chunk_lamb_apply_kernel(float* __restrict__ p, const float* __restrict__ r,
   const float w = __fsqrt_rn(seg_sums[2 * seg]);
   const float q = __fsqrt_rn(seg_sums[2 * seg + 1]);
   const float trust = (w > 0.0f && q > 0.0f) ? __fdiv_rn(w, q) : 1.0f;
-  walk_range(LambApplyRule{}, LambApplyRule::Ptrs{p, r, __fmul_rn(*lr, trust)},
+  walk_range(LambApplyRule<float>{},
+             LambApplyRule<float>::Ptrs{p, r, __fmul_rn(*lr, trust)},
              aligned16(p, r), start, end);
 }
 
-}  // namespace
-
-extern "C" {
-
-int fused_adam_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                   long long total, float lr, float b1, float omb1,
-                   float b2, float omb2, float eps, float c1, float c2,
-                   float lrwd, int skip, void* stream) {
-  return launch(ptrs, offs, n, total, skip, stream,
-                AdamRule{lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd});
-}
-
-int fused_momentum_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                       long long total, float lr, float mu, int nesterov,
-                       int skip, void* stream) {
-  return launch(ptrs, offs, n, total, skip, stream,
-                MomentumRule{lr, mu, nesterov});
-}
-
-// ptrs, offs: the HOST table ((2, n) pointers p, g; (n + 1,) offsets) of
-// at most ArgTable<2>::kCap tensors, copied into the launch's parameters
-int fused_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                  long long total, float lr, float wd, void* stream) {
-  return launch_args(ptrs, offs, n, total, stream, SgdRule{lr, wd});
-}
-
-// pieces: (n_pieces, 3) rows (start, length, tensor); tensor_first: the
-// (n + 1,) first piece of each tensor; piece_sums: (n_pieces, 2) scratch;
-// sums: the (n, 2) sums of p*p and r*r of each tensor, written here
-int fused_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                          long long total, const int64_t* pieces,
-                          int n_pieces, const int64_t* tensor_first,
-                          float* piece_sums, float* sums, float b1,
-                          float omb1, float b2, float omb2, float eps,
-                          float wd, float c1, float c2, void* stream) {
+// Dygraph Lamb's phase 1: the pieces kernel, then the segment sums
+template <class Rule>
+int lamb_phase1(const int64_t* ptrs, const int64_t* offs, int n,
+                long long total, const int64_t* pieces, int n_pieces,
+                const int64_t* tensor_first, float* piece_sums, float* sums,
+                void* stream, const Rule& rule) {
   if (n < 1 || total < 0 || n_pieces < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (n_pieces > 0) {
-    lamb_phase1_pieces_kernel<<<(unsigned)n_pieces, kThreads, 0, st>>>(
-        ptrs, offs, n, pieces, piece_sums,
-        LambPhase1Rule{b1, omb1, b2, omb2, eps, wd, c1, c2});
+    lamb_phase1_pieces_kernel<Rule><<<(unsigned)n_pieces, kThreads, 0, st>>>(
+        ptrs, offs, n, pieces, piece_sums, rule);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -977,11 +1044,59 @@ int fused_lamb_phase1_f32(const int64_t* ptrs, const int64_t* offs, int n,
   return (int)cudaGetLastError();
 }
 
-int fused_lamb_apply_f32(const int64_t* ptrs, const int64_t* offs, int n,
-                         long long total, const float* sums, float lr,
-                         void* stream) {
-  return launch(ptrs, offs, n, total, 0, stream, LambApplyRule{sums, lr});
-}
+}  // namespace
+
+extern "C" {
+
+#define FUSED_DYGRAPH_FORMS(SUFFIX, T)                                        \
+  int fused_adam_##SUFFIX(const int64_t* ptrs, const int64_t* offs, int n,    \
+                          long long total, float lr, float b1, float omb1,    \
+                          float b2, float omb2, float eps, float c1,          \
+                          float c2, float lrwd, int skip, void* stream) {     \
+    return launch(ptrs, offs, n, total, skip, stream,                         \
+                  AdamRule<T>{lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd});    \
+  }                                                                           \
+  int fused_momentum_##SUFFIX(const int64_t* ptrs, const int64_t* offs,       \
+                              int n, long long total, float lr, float mu,     \
+                              int nesterov, int skip, void* stream) {         \
+    return launch(ptrs, offs, n, total, skip, stream,                         \
+                  MomentumRule<T>{lr, mu, nesterov});                         \
+  }                                                                           \
+  int fused_sgd_##SUFFIX(const int64_t* ptrs, const int64_t* offs, int n,     \
+                         long long total, float lr, float wd, void* stream) { \
+    return launch_args(ptrs, offs, n, total, stream, SgdRule<T>{lr, wd});     \
+  }                                                                           \
+  int fused_lamb_phase1_##SUFFIX(                                             \
+      const int64_t* ptrs, const int64_t* offs, int n, long long total,       \
+      const int64_t* pieces, int n_pieces, const int64_t* tensor_first,       \
+      float* piece_sums, float* sums, float b1, float omb1, float b2,         \
+      float omb2, float eps, float wd, float c1, float c2, void* stream) {    \
+    return lamb_phase1(ptrs, offs, n, total, pieces, n_pieces, tensor_first,  \
+                       piece_sums, sums, stream,                              \
+                       LambPhase1Rule<T>{b1, omb1, b2, omb2, eps, wd, c1,     \
+                                         c2});                                \
+  }                                                                           \
+  int fused_lamb_apply_##SUFFIX(const int64_t* ptrs, const int64_t* offs,     \
+                                int n, long long total, const float* sums,    \
+                                float lr, void* stream) {                     \
+    return launch(ptrs, offs, n, total, 0, stream,                            \
+                  LambApplyRule<T>{sums, lr});                                \
+  }
+
+// The f32 forms. fused_sgd_f32's ptrs, offs: the HOST table ((2, n)
+// pointers p, g; (n + 1,) offsets) of at most ArgTable<2>::kCap tensors,
+// copied into the launch's parameters. fused_lamb_phase1_f32's pieces:
+// (n_pieces, 3) rows (start, length, tensor); tensor_first: the (n + 1,)
+// first piece of each tensor; piece_sums: (n_pieces, 2) scratch; sums:
+// the (n, 2) sums of p*p and r*r of each tensor, written there.
+FUSED_DYGRAPH_FORMS(f32, float)
+// The master-weight forms over bf16 and f16 parameters: the tables hold
+// p (2-byte), g (2-byte), the f32 master, then the rule's f32 state
+// (Lamb's phase 1: master, g, m, v, r; its apply: p, r, master); SGD's
+// host table has three roles.
+FUSED_DYGRAPH_FORMS(bf16, __nv_bfloat16)
+FUSED_DYGRAPH_FORMS(f16, __half)
+#undef FUSED_DYGRAPH_FORMS
 
 int static_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
                    long long total, void* stream) {
@@ -1042,12 +1157,13 @@ int chunk_lamb_apply_f32(float* p, const float* r, const float* lr,
 }
 
 // Tensors one launch whose table travels by value takes for a rule of
-// ``roles`` table roles (2: dygraph SGD; 4: static sgd, 5: momentum, 6:
+// ``roles`` table roles (2: dygraph SGD; 3: its master form; 4: static sgd, 5: momentum, 6:
 // Lamb's apply, 10: Adam and Lamb's phase 1), 0 for another count; and
 // the parameter space the build assumed.
 int static_table_capacity(int roles) {
   switch (roles) {
     case 2: return ArgTable<2>::kCap;
+    case 3: return ArgTable<3>::kCap;
     case 4: return ArgTable<4>::kCap;
     case 5: return ArgTable<5>::kCap;
     case 6: return ArgTable<6>::kCap;

@@ -49,6 +49,23 @@ kernel's and XLA's, so against either the update holds to a tolerance.
 m, v and r are the plain version's bit for bit, and given the kernel's
 norms (:func:`lamb_kernel_norms`) so is p.
 
+The master-weight forms (``masters=`` a list of f32 tensors, one a
+parameter; ``amp.decorate(level="O2")`` and ``multi_precision=True``)
+take bf16 or f16 parameters and gradients. They port the JAX package's
+multi-precision update (``paddle_tpu/optimizer/optimizer.py:115-128``):
+``g.astype(f32)``, the rule above on the f32 master in the parameter's
+place (Lamb's norms are the master's), then ``master.astype(p.dtype)``
+into the parameter, rounded to nearest even. On the card that is one
+launch over every parameter (Lamb: the same two), counted
+``fused_adam_master``, ``fused_momentum_master``, ``fused_sgd_master``,
+``fused_lamb_phase1_master`` and ``fused_lamb_apply_master``; the plain
+versions run the f32 plain versions on the masters with the gradients
+upcast, then copy each master into its parameter. SGD's master form adds
+its coupled L2 term as the JAX optimizer does before the upcast: ``g +
+wd*p`` from the 2-byte parameter, each operation rounded to its type
+(``wd`` rounded to it first). Bytes an element stay the f32 forms':
+Adam 28, Momentum 20, SGD 12 (14 with the decay), Lamb 40.
+
 ``skip`` (the FoundInfinite flag) leaves every tensor as it was. Unlike
 the functional JAX update, parameters and state are updated IN PLACE.
 
@@ -81,7 +98,7 @@ import torch
 
 from . import _build, counters
 
-__all__ = ["adam_scalars", "fused_adam_", "fused_momentum_", "fused_sgd_",
+__all__ = ["adam_scalars", "decay_in", "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
            "static_lamb_", "static_sgd_list_", "static_momentum_list_",
            "static_adam_list_", "static_lamb_list_", "static_capacity",
@@ -110,6 +127,20 @@ def _scalar(x, like):
     by it (where it would multiply by the reciprocal of a Python
     scalar on CUDA) and multiplies by it in f32, as the kernels do."""
     return torch.tensor(float(x), dtype=torch.float32, device=like.device)
+
+
+TWO_BYTE = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _upcast(grads):
+    return [g.to(torch.float32) for g in grads]
+
+
+def _cast_down_(params, masters):
+    """Each 2-byte parameter set to its master's round-to-nearest-even
+    cast (``master.astype(p.dtype)``)."""
+    for p, w in zip(params, masters):
+        p.copy_(w)
 
 
 def _plain_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
@@ -215,31 +246,47 @@ def _table(tensors_by_role, cache):
     return cache["ptrs"], cache["offs"], cache["total"]
 
 
-def _check_cuda(op, roles):
+def _check_cuda(op, roles, low=None):
     """Raise unless every tensor of ``roles`` ({role: [tensor, ...]}) is
-    a contiguous f32 tensor on the first parameter's device, and the
-    tensors of each parameter share its shape."""
+    a contiguous tensor on the first parameter's device, f32, or of the
+    2-byte type ``low`` for the parameters and gradients of a
+    master-weight form, and the tensors of each parameter share its
+    shape."""
     dev = roles["param"][0].device
     for role, ts in roles.items():
+        want = low if low is not None and role in ("param", "grad") \
+            else torch.float32
         for t in ts:
-            if t.dtype != torch.float32 or t.device != dev \
-                    or not t.is_contiguous():
+            if t.dtype != want or t.device != dev or not t.is_contiguous():
                 raise ValueError(f"{op} takes contiguous f32 tensors on "
-                                 f"{dev}; a {role} is {t.dtype} on "
-                                 f"{t.device}")
+                                 f"{dev} (a master form's parameters and "
+                                 f"gradients {low}); a {role} is {t.dtype} "
+                                 f"on {t.device}")
     for group in zip(*roles.values()):
         if len({tuple(t.shape) for t in group}) != 1:
             raise ValueError(f"{op}: shapes differ: "
                              f"{[tuple(t.shape) for t in group]}")
 
 
+def _form(params, masters):
+    """(entry-point suffix, counter suffix): the f32 form, or the master
+    form of the parameters' type."""
+    if masters is None:
+        return "f32", ""
+    return TWO_BYTE[params[0].dtype], "_master"
+
+
 def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
-                lrwd, skip, cache):
+                lrwd, skip, cache, masters=None):
     dev = params[0].device
-    _check_cuda("fused_adam_", {"param": params, "grad": grads,
-                                "moment1": m1s, "moment2": m2s})
-    ptrs, offs, total = _table((params, grads, m1s, m2s), cache)
-    fn = _build.entry("fused_optimizer", "fused_adam_f32",
+    roles = {"param": params, "grad": grads, "moment1": m1s, "moment2": m2s}
+    if masters is not None:
+        roles["master"] = masters
+    _check_cuda("fused_adam_", roles, _low(params, masters))
+    kind, tag = _form(params, masters)
+    lead = (params, grads) if masters is None else (params, grads, masters)
+    ptrs, offs, total = _table(lead + (m1s, m2s), cache)
+    fn = _build.entry("fused_optimizer", "fused_adam_" + kind,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong]
                       + [_F] * 9 + [ctypes.c_int, _P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
@@ -248,36 +295,54 @@ def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
              float(np.float32(1.0 - beta2)), float(np.float32(eps)),
              float(c1), float(c2), float(lrwd), int(bool(skip)),
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("fused_optimizer", err, "fused_adam_f32")
+    _build.check("fused_optimizer", err, "fused_adam_" + kind)
     if not skip:   # a skipped step launches nothing
-        counters.bump("fused_adam")
+        counters.bump("fused_adam" + tag)
+
+
+def _low(params, masters):
+    """The 2-byte type of a master form's parameters (None: f32)."""
+    if masters is None:
+        return None
+    if params[0].dtype not in TWO_BYTE:
+        raise ValueError(f"a master-weight form takes bf16 or f16 "
+                         f"parameters, got {params[0].dtype}")
+    return params[0].dtype
 
 
 def _cuda_momentum_(params, grads, velocities, lr, mu, nesterov, skip,
-                    cache):
+                    cache, masters=None):
     dev = params[0].device
-    _check_cuda("fused_momentum_", {"param": params, "grad": grads,
-                                    "velocity": velocities})
-    ptrs, offs, total = _table((params, grads, velocities), cache)
-    fn = _build.entry("fused_optimizer", "fused_momentum_f32",
+    roles = {"param": params, "grad": grads, "velocity": velocities}
+    if masters is not None:
+        roles["master"] = masters
+    _check_cuda("fused_momentum_", roles, _low(params, masters))
+    kind, tag = _form(params, masters)
+    lead = (params, grads) if masters is None else (params, grads, masters)
+    ptrs, offs, total = _table(lead + (velocities,), cache)
+    fn = _build.entry("fused_optimizer", "fused_momentum_" + kind,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong, _F, _F,
                        ctypes.c_int, ctypes.c_int, _P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
              float(lr), float(mu), int(bool(nesterov)), int(bool(skip)),
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("fused_optimizer", err, "fused_momentum_f32")
+    _build.check("fused_optimizer", err, "fused_momentum_" + kind)
     if not skip:   # a skipped step launches nothing
-        counters.bump("fused_momentum")
+        counters.bump("fused_momentum" + tag)
 
 
-def _cuda_sgd_(params, grads, lr, wd, skip):
-    _check_cuda("fused_sgd_", {"param": params, "grad": grads})
+def _cuda_sgd_(params, grads, lr, wd, skip, masters=None):
+    roles = {"param": params, "grad": grads}
+    if masters is not None:
+        roles["master"] = masters
+    _check_cuda("fused_sgd_", roles, _low(params, masters))
+    kind, tag = _form(params, masters)
     numels = [p.numel() for p in params]
     launches = 0
     if not skip:   # a skipped step launches nothing
-        launches = _launch_args("fused_sgd_f32", [params, grads], numels,
-                                (_F, _F), (float(lr), float(wd)),
-                                "fused_sgd")
+        launches = _launch_args("fused_sgd_" + kind, list(roles.values()),
+                                numels, (_F, _F), (float(lr), float(wd)),
+                                "fused_sgd" + tag)
     return {"tensors": len(params), "elements": sum(numels),
             "launches": launches}
 
@@ -328,18 +393,22 @@ def lamb_kernel_norms(cache):
 
 
 def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
-                c2, skip, cache):
+                c2, skip, cache, masters=None):
     dev = params[0].device
-    _check_cuda("fused_lamb_", {"param": params, "grad": grads,
-                                "moment1": m1s, "moment2": m2s,
-                                "trust_r": rs})
+    roles = {"param": params, "grad": grads, "moment1": m1s, "moment2": m2s,
+             "trust_r": rs}
+    if masters is not None:
+        roles["master"] = masters
+    _check_cuda("fused_lamb_", roles, _low(params, masters))
     if skip:       # a skipped step launches nothing
         return
+    kind, tag = _form(params, masters)
+    weights = params if masters is None else masters
     stream = torch.cuda.current_stream(dev).cuda_stream
     phase1 = cache.setdefault("phase1", {})
-    ptrs, offs, total = _table((params, grads, m1s, m2s, rs), phase1)
-    pieces, first, piece_sums, sums = _lamb_tables(params, phase1)
-    fn = _build.entry("fused_optimizer", "fused_lamb_phase1_f32",
+    ptrs, offs, total = _table((weights, grads, m1s, m2s, rs), phase1)
+    pieces, first, piece_sums, sums = _lamb_tables(weights, phase1)
+    fn = _build.entry("fused_optimizer", "fused_lamb_phase1_" + kind,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong, _P,
                        ctypes.c_int, _P, _P, _P] + [_F] * 8 + [_P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
@@ -349,15 +418,16 @@ def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
              float(np.float32(beta2)), float(np.float32(1.0 - beta2)),
              float(np.float32(eps)), float(np.float32(wd)), float(c1),
              float(c2), stream)
-    _build.check("fused_optimizer", err, "fused_lamb_phase1_f32")
-    counters.bump("fused_lamb_phase1")
-    ptrs, offs, total = _table((params, rs), cache.setdefault("apply", {}))
-    fn = _build.entry("fused_optimizer", "fused_lamb_apply_f32",
+    _build.check("fused_optimizer", err, "fused_lamb_phase1_" + kind)
+    counters.bump("fused_lamb_phase1" + tag)
+    apply_roles = (params, rs) if masters is None else (params, rs, masters)
+    ptrs, offs, total = _table(apply_roles, cache.setdefault("apply", {}))
+    fn = _build.entry("fused_optimizer", "fused_lamb_apply_" + kind,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _F, _P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
              sums.data_ptr(), float(lr), stream)
-    _build.check("fused_optimizer", err, "fused_lamb_apply_f32")
-    counters.bump("fused_lamb_apply")
+    _build.check("fused_optimizer", err, "fused_lamb_apply_" + kind)
+    counters.bump("fused_lamb_apply" + tag)
 
 
 def _device_of(op, params):
@@ -367,84 +437,135 @@ def _device_of(op, params):
     return dev
 
 
+def _lists(op, masters, *lists):
+    lists = [list(x) for x in lists]
+    if masters is not None:
+        lists.append(list(masters))
+    if len({len(x) for x in lists}) != 1:
+        raise ValueError(f"{op}: lists of different lengths")
+    return lists
+
+
 def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
-                step, weight_decay=0.0, skip=False, cache=None):
+                step, weight_decay=0.0, skip=False, cache=None, masters=None):
     """One Adam(W) step over lists of parameters, gradients and moments,
     IN PLACE. ``step`` is the 1-based step t; ``weight_decay`` is the
-    decoupled (AdamW) coefficient. ``cache`` (a dict the caller owns)
-    keeps the kernel's pointer table between calls."""
-    params, grads = list(params), list(grads)
-    moment1, moment2 = list(moment1), list(moment2)
-    if not (len(params) == len(grads) == len(moment1) == len(moment2)):
-        raise ValueError("fused_adam_: lists of different lengths")
+    decoupled (AdamW) coefficient, applied to the master with the old
+    master in the master form. ``cache`` (a dict the caller owns) keeps
+    the kernel's pointer table between calls. ``masters``: the f32
+    masters of bf16/f16 parameters (the master-weight form)."""
+    params, grads, moment1, moment2, *ms = _lists(
+        "fused_adam_", masters, params, grads, moment1, moment2)
+    masters = ms[0] if ms else None
     if not params:
         return
     lr32, c1, c2, lrwd = adam_scalars(lr, beta1, beta2, step, weight_decay)
     if _device_of("fused_adam_", params).type == "cuda":
         _cuda_adam_(params, grads, moment1, moment2, lr32, beta1, beta2,
-                    eps, c1, c2, lrwd, skip, {} if cache is None else cache)
+                    eps, c1, c2, lrwd, skip, {} if cache is None else cache,
+                    masters)
         return
-    _plain_adam_(params, grads, moment1, moment2, lr32, beta1, beta2, eps,
-                 c1, c2, lrwd, skip)
+    if masters is None:
+        _plain_adam_(params, grads, moment1, moment2, lr32, beta1, beta2,
+                     eps, c1, c2, lrwd, skip)
+    elif not skip:
+        _plain_adam_(masters, _upcast(grads), moment1, moment2, lr32, beta1,
+                     beta2, eps, c1, c2, lrwd, False)
+        _cast_down_(params, masters)
 
 
 def fused_momentum_(params, grads, velocities, *, lr, momentum, nesterov,
-                    skip=False, cache=None):
+                    skip=False, cache=None, masters=None):
     """One Momentum step over lists of parameters, gradients and
     velocities, IN PLACE. ``cache`` (a dict the caller owns) keeps the
-    kernel's pointer table between calls."""
-    params, grads = list(params), list(grads)
-    velocities = list(velocities)
-    if not (len(params) == len(grads) == len(velocities)):
-        raise ValueError("fused_momentum_: lists of different lengths")
+    kernel's pointer table between calls. ``masters``: the f32 masters
+    of bf16/f16 parameters (the master-weight form)."""
+    params, grads, velocities, *ms = _lists(
+        "fused_momentum_", masters, params, grads, velocities)
+    masters = ms[0] if ms else None
     if not params:
         return
     lr32, mu32 = np.float32(lr), np.float32(momentum)
     if _device_of("fused_momentum_", params).type == "cuda":
         _cuda_momentum_(params, grads, velocities, lr32, mu32, nesterov,
-                        skip, {} if cache is None else cache)
+                        skip, {} if cache is None else cache, masters)
         return
-    _plain_momentum_(params, grads, velocities, lr32, mu32, nesterov, skip)
+    if masters is None:
+        _plain_momentum_(params, grads, velocities, lr32, mu32, nesterov,
+                         skip)
+    elif not skip:
+        _plain_momentum_(masters, _upcast(grads), velocities, lr32, mu32,
+                         nesterov, False)
+        _cast_down_(params, masters)
 
 
-def fused_sgd_(params, grads, *, lr, weight_decay=0.0, skip=False):
+def decay_in(dtype, weight_decay) -> float:
+    """``weight_decay`` rounded to ``dtype`` (``jnp.asarray(coeff,
+    p.dtype)``), as a Python float."""
+    return float(torch.tensor(float(weight_decay), dtype=dtype).item())
+
+
+def _plain_decay_2byte(params, grads, wd):
+    """``g + wd*p`` in the parameters' 2-byte type, each operation
+    rounded to it (``L2Decay.grad_term`` on a bf16/f16 parameter)."""
+    return [g + torch.tensor(wd, dtype=p.dtype, device=p.device) * p
+            for p, g in zip(params, grads)]
+
+
+def fused_sgd_(params, grads, *, lr, weight_decay=0.0, skip=False,
+               masters=None):
     """One SGD step ``p - lr*(g + weight_decay*p)`` over lists of
     parameters and gradients, IN PLACE. ``weight_decay`` is the coupled
-    L2 coefficient (0: ``p - lr*g``). On the card, returns what the
-    launches covered: ``{"tensors", "elements", "launches"}``; on the
-    CPU (the plain version) or for no parameters, None."""
-    params, grads = list(params), list(grads)
-    if len(params) != len(grads):
-        raise ValueError("fused_sgd_: lists of different lengths")
+    L2 coefficient (0: ``p - lr*g``). ``masters``: the f32 masters of
+    bf16/f16 parameters (the master-weight form). On the card, returns
+    what the launches covered: ``{"tensors", "elements", "launches"}``;
+    on the CPU (the plain version) or for no parameters, None."""
+    params, grads, *ms = _lists("fused_sgd_", masters, params, grads)
+    masters = ms[0] if ms else None
     if not params:
         return None
-    lr32, wd32 = np.float32(lr), np.float32(weight_decay)
+    lr32 = np.float32(lr)
+    wd32 = np.float32(weight_decay) if masters is None or not weight_decay \
+        else np.float32(decay_in(params[0].dtype, weight_decay))
     if _device_of("fused_sgd_", params).type == "cuda":
-        return _cuda_sgd_(params, grads, lr32, wd32, skip)
-    _plain_sgd_(params, grads, lr32, wd32, skip)
+        return _cuda_sgd_(params, grads, lr32, wd32, skip, masters)
+    if masters is None:
+        _plain_sgd_(params, grads, lr32, wd32, skip)
+    elif not skip:
+        if wd32 != 0.0:
+            grads = _plain_decay_2byte(params, grads, float(wd32))
+        _plain_sgd_(masters, _upcast(grads), lr32, np.float32(0.0), False)
+        _cast_down_(params, masters)
     return None
 
 
 def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
-                beta2, eps, weight_decay, step, skip=False, cache=None):
+                beta2, eps, weight_decay, step, skip=False, cache=None,
+                masters=None):
     """One Lamb step over lists of parameters, gradients, moments and
     trust-ratio scratch tensors (f32, shaped like the parameters, their
     contents overwritten), IN PLACE. ``step`` is the 1-based step t;
     ``weight_decay`` is Lamb's own decay inside ``r``. ``cache`` (a dict
-    the caller owns) keeps the kernels' pointer tables between calls."""
-    lists = [list(x) for x in (params, grads, moment1, moment2, trust_r)]
-    if len({len(x) for x in lists}) != 1:
-        raise ValueError("fused_lamb_: lists of different lengths")
-    params, grads, moment1, moment2, trust_r = lists
+    the caller owns) keeps the kernels' pointer tables between calls.
+    ``masters``: the f32 masters of bf16/f16 parameters (the
+    master-weight form; the norms are the masters')."""
+    params, grads, moment1, moment2, trust_r, *ms = _lists(
+        "fused_lamb_", masters, params, grads, moment1, moment2, trust_r)
+    masters = ms[0] if ms else None
     if not params:
         return
     lr32, c1, c2, _ = adam_scalars(lr, beta1, beta2, step)
-    args = (params, grads, moment1, moment2, trust_r, lr32, beta1, beta2,
-            eps, weight_decay, c1, c2, skip)
+    rest = (moment1, moment2, trust_r, lr32, beta1, beta2, eps,
+            weight_decay, c1, c2)
     if _device_of("fused_lamb_", params).type == "cuda":
-        _cuda_lamb_(*args, {} if cache is None else cache)
+        _cuda_lamb_(params, grads, *rest, skip,
+                    {} if cache is None else cache, masters)
         return
-    _plain_lamb_(*args)
+    if masters is None:
+        _plain_lamb_(params, grads, *rest, skip)
+    elif not skip:
+        _plain_lamb_(masters, _upcast(grads), *rest, False)
+        _cast_down_(params, masters)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ kernel streams vocab tiles with an online log-sum-exp and returns the
 per-row ``lse`` and label logit ``ll``; the backward kernels recompute
 the logit tiles from ``lse`` and produce dh (row tiles looping over the
 vocabulary) and dW, db (vocab tiles looping over rows). The logits
-never reach device memory. Inputs and outputs are f32.
+never reach device memory. Two forms: f32 inputs and outputs, and the
+2-byte forms over bf16 or f16 h, W and bias (what ``amp.auto_cast(level=
+"O2")`` hands the MLM head): lse and the label logit f32, dh, dW and db
+in the inputs' type, as the JAX kernel returns them.
 
 The kernels (``csrc/fused_xent.cu``) run every product on the tensor
 cores as three bf16 terms, hi*hi + hi*lo + lo*hi, with f32
@@ -22,6 +25,19 @@ bf16 that the wrapper allocates for the call (144 MB at BERT's head).
 Their bound is the tensor cores' bf16 rate over three terms: 2.33 ms for
 the forward and 9.34 ms for the backward's four products at 16384 x 768
 x 30592.
+
+The 2-byte forms (``fused_xent_{fwd,bwd}_{bf16,f16}`` in the same
+source) read h and W as they are, with no split and no scratch: one
+bf16 or f16 tensor-core term a product with f32 accumulation (S = h W^T
+is exact products summed in f32); P' is rounded to the input type once,
+scaled by a power of two into f16's range, and dh, dW, db are rounded
+once from their f32 accumulators. Their plain versions upcast h, W and
+bias to f32, compute the f32 plain version's arithmetic, and round dh,
+dW and db to the inputs' type (the JAX kernel's own upcast-each-tile
+arithmetic). Bounds at BERT's head, one term a product at 989 TFLOP/s:
+0.778 ms forward, 2.335 ms backward (three products). Each type counts
+apart: ``fused_xent_fwd_bf16`` / ``_bwd_bf16`` / ``_fwd_f16`` /
+``_bwd_f16``.
 
 As in the JAX ``_fused_xent_sums`` custom vjp, the differentiable piece
 is the SUM over valid rows of ``lse - ll``; the mean is ``sum /
@@ -47,11 +63,14 @@ import torch
 
 from . import _build, counters
 
-__all__ = ["fused_linear_cross_entropy", "fused_xent_fwd", "fused_xent_bwd"]
+__all__ = ["fused_linear_cross_entropy", "fused_xent_fwd", "fused_xent_bwd",
+           "TWO_BYTE"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MAX_H = 1024      # four CTAs of a cluster, 256 columns of H each
+#: the 2-byte forms' entry-point and counter suffix of each input type
+TWO_BYTE = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +86,13 @@ def _hits(labels, V):
     return hit, labels.long().clamp(0, V - 1)[:, None]
 
 
+def _f32(*ts):
+    return [t.to(torch.float32) for t in ts]
+
+
 def _plain_fwd(h, w, bias, labels):
+    """(lse, label logit), f32, from h, W, bias upcast to f32."""
+    h, w, bias = _f32(h, w, bias)
     logits = _logits(h, w, bias)
     lse = torch.logsumexp(logits, dim=-1)
     hit, idx = _hits(labels, w.shape[0])
@@ -77,11 +102,38 @@ def _plain_fwd(h, w, bias, labels):
 
 
 def _plain_bwd(h, w, bias, labels, lse, g):
+    """(dh, dW, db) in f32, and rounded to h's, W's and bias's types
+    when those are 2-byte."""
+    types = (h.dtype, w.dtype, bias.dtype)
+    h, w, bias = _f32(h, w, bias)
     p = torch.exp(_logits(h, w, bias) - lse[:, None])
     hit, idx = _hits(labels, w.shape[0])
     p = p.scatter_add(1, idx, -hit.to(p.dtype)[:, None])
     p = p * g[:, None]
-    return torch.matmul(p, w), torch.matmul(p.t(), h), p.sum(dim=0)
+    outs = (torch.matmul(p, w), torch.matmul(p.t(), h), p.sum(dim=0))
+    return tuple(o.to(t) for o, t in zip(outs, types))
+
+
+def _term_norms(h, w, bias, labels, lse, g):
+    """For checks of the 2-byte kernels: per element of dh and of dW,
+    the 2-norm of the terms it sums, |P' W| over the vocabulary for dh
+    and |P'^T h| over the rows for dW, with P' = (P - onehot) g; per
+    element of db the 1-norm of its terms |P'| over the rows. The
+    kernels round each P' of dh and dW to the inputs' type once
+    (relative error at most its unit roundoff u), so such an element's
+    f32 sum moves from the plain version's by about u times its 2-norm
+    (the errors' signs vary), and by at most u times it where a few
+    terms dominate; db sums P' in f32, so it moves by f32's rounding of
+    its 1-norm."""
+    h, w, bias = _f32(h, w, bias)
+    p = torch.exp(_logits(h, w, bias) - lse[:, None])
+    hit, idx = _hits(labels, w.shape[0])
+    p = p.scatter_add(1, idx, -hit.to(p.dtype)[:, None])
+    p = (p * g[:, None]).abs_()
+    l1 = p.sum(dim=0)
+    p = p.square_()
+    return (torch.matmul(p, w.square()).sqrt_(),
+            torch.matmul(p.t(), h.square()).sqrt_(), l1)
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +154,13 @@ def _check(h, w, bias, labels):
     if bias.shape != (V,) or labels.shape != (N,):
         raise ValueError(f"bias {tuple(bias.shape)} / labels "
                          f"{tuple(labels.shape)} do not match ({N}, {V})")
-    for name, t in (("h", h), ("w", w), ("bias", bias)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused xent kernels take f32, {name} is "
-                            f"{t.dtype}")
+    if h.dtype != torch.float32 and h.dtype not in TWO_BYTE:
+        raise TypeError(f"the fused xent kernels take f32, bf16 or f16, "
+                        f"h is {h.dtype}")
+    for name, t in (("w", w), ("bias", bias)):
+        if t.dtype != h.dtype:
+            raise TypeError(f"the fused xent kernels take h, w and bias of "
+                            f"one type: h is {h.dtype}, {name} {t.dtype}")
     if labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32, got {labels.dtype}")
     for t in (h, w, bias, labels):
@@ -127,6 +182,8 @@ def _scratch(h, N, H, V):
 
 def _cuda_fwd(h, w, bias, labels):
     N, H, V = _check(h, w, bias, labels)
+    if h.dtype in TWO_BYTE:
+        return _cuda_fwd_2byte(h, w, bias, labels, N, H, V)
     fn = _build.entry("fused_xent", "fused_xent_fwd",
                       [_P] * 7 + [_I] * 3 + [_P])
     lse = torch.empty((N,), dtype=torch.float32, device=h.device)
@@ -140,12 +197,43 @@ def _cuda_fwd(h, w, bias, labels):
     return lse, ll
 
 
+def _cuda_fwd_2byte(h, w, bias, labels, N, H, V):
+    kind = TWO_BYTE[h.dtype]
+    fn = _build.entry("fused_xent", "fused_xent_fwd_" + kind,
+                      [_P] * 6 + [_I] * 3 + [_P])
+    lse = torch.empty((N,), dtype=torch.float32, device=h.device)
+    ll = torch.empty_like(lse)
+    err = fn(h.data_ptr(), w.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+             lse.data_ptr(), ll.data_ptr(), N, H, V,
+             torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check("fused_xent", err, "fused_xent_fwd_" + kind)
+    counters.bump("fused_xent_fwd_" + kind)
+    return lse, ll
+
+
+def _cuda_bwd_2byte(h, w, bias, labels, lse, g, N, H, V):
+    kind = TWO_BYTE[h.dtype]
+    fn = _build.entry("fused_xent", "fused_xent_bwd_" + kind,
+                      [_P] * 9 + [_I] * 3 + [_P])
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
+    db = torch.empty_like(bias)
+    err = fn(h.data_ptr(), w.data_ptr(), bias.data_ptr(), labels.data_ptr(),
+             lse.data_ptr(), g.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+             db.data_ptr(), N, H, V,
+             torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check("fused_xent", err, "fused_xent_bwd_" + kind)
+    counters.bump("fused_xent_bwd_" + kind)
+    return dh, dw, db
+
+
 def _cuda_bwd(h, w, bias, labels, lse, g):
     N, H, V = _check(h, w, bias, labels)
     for name, t in (("lse", lse), ("g", g)):
         if t.shape != (N,) or t.dtype != torch.float32 \
                 or t.device != h.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 ({N},)")
+    if h.dtype in TWO_BYTE:
+        return _cuda_bwd_2byte(h, w, bias, labels, lse, g, N, H, V)
     fn = _build.entry("fused_xent", "fused_xent_bwd",
                       [_P] * 10 + [_I] * 3 + [_P])
     dh, dw = torch.empty_like(h), torch.empty_like(w)
@@ -205,7 +293,8 @@ class _FusedXentSums(torch.autograd.Function):
 def fused_linear_cross_entropy(h, w, bias, labels, ignore_index=-100):
     """Mean softmax cross-entropy of ``h @ w.T + bias`` against
     ``labels`` over the rows whose label is not ``ignore_index``.
-    h: (..., H) f32; w: (V, H); bias: (V,); labels: (...,) int."""
+    h: (..., H); w: (V, H); bias: (V,), all f32 or all of one 2-byte
+    type; labels: (...,) int. The loss is f32."""
     hd = h.shape[-1]
     h2 = h.reshape(-1, hd).contiguous()
     lab = labels.reshape(-1)

@@ -4,23 +4,30 @@ Port of ``paddle_tpu/utils/unique_name.py``. A name is
 ``f"{key}_{n}"`` with ``n`` the count of earlier names under ``key``,
 the JAX package's counter rule, so that a program built by both
 packages under ``guard()`` names every variable alike. The counter pool
-is this module's own (the port's eager layers do not draw names from
-it).
+is this module's own; the port's eager layers draw their names and
+their parameters' from it too (:func:`next_name`), as the JAX package's
+layers draw from its pool.
 """
 from __future__ import annotations
 
 import contextlib
 
-__all__ = ["generate", "switch", "guard"]
+__all__ = ["generate", "next_name", "switch", "guard"]
 
 _counters: dict = {}
 _prefix_stack: list = []
 
 
-def generate(key: str) -> str:
+def next_name(key: str) -> str:
+    """``f"{key}_{n}"``, n the count of earlier names under ``key`` (no
+    prefix: the JAX ``nn.layer._unique_name``)."""
     n = _counters.get(key, 0)
     _counters[key] = n + 1
-    name = f"{key}_{n}"
+    return f"{key}_{n}"
+
+
+def generate(key: str) -> str:
+    name = next_name(key)
     if _prefix_stack:
         return "".join(_prefix_stack) + name
     return name

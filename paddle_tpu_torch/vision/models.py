@@ -4,7 +4,8 @@
 NCHW throughout. Attribute names follow the JAX models, so
 ``state_dict()`` keys, the batch norms' ``_mean``/``_variance`` buffers
 included, equal the JAX model's one to one and :func:`load_numpy_state`
-carries weights across by name. Every layer is built on ``device``
+carries weights across by name. A block's residual sum is ``F.add``,
+the JAX ``add`` op. Every layer is built on ``device``
 (``None``: CUDA, raising without a GPU) from ``generator`` (``None``:
 the device's global generator).
 """
@@ -64,7 +65,7 @@ class BasicBlock(nn.Layer):
         out = self.bn2(self.conv2(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(out + identity)
+        return self.relu(F.add(out, identity))
 
 
 class BottleneckBlock(nn.Layer):
@@ -91,7 +92,7 @@ class BottleneckBlock(nn.Layer):
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(out + identity)
+        return self.relu(F.add(out, identity))
 
 
 class ResNet(nn.Layer):

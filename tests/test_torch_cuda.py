@@ -1537,3 +1537,199 @@ def test_f32_forms_keep_the_parity_tolerance(dev):
     for a, b in zip(fa.flash_attention_bwd_ext(q, k, v, do, lse, delta, True),
                     fa._plain_bwd_ext(q, k, v, do, lse, delta, True)):
         torch.testing.assert_close(a, b, **tol)
+
+
+# ---------------------------------------------------------------------------
+# slice 2b: K2 over 2-byte inputs, K3's master-weight forms
+# ---------------------------------------------------------------------------
+def _tolerance_ratio(got, want, extra):
+    """The largest |got - want| (want f32) over one unit of got's type at
+    the larger of the two magnitudes plus ``extra``."""
+    big = torch.maximum(got.abs(), want.abs().to(got.dtype))
+    unit = (torch.nextafter(big, torch.full_like(big, float("inf")))
+            - big).float()
+    return float(((got.float() - want).abs() / (unit + extra)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("N,H,V,ignored,h_scale", [
+    (1000, 768, 3001, 0.15, 1.0),
+    (1000, 768, 3001, 0.15, 8.0),
+    (300, 16, 1000, 0.15, 1.0),
+    (200, 1024, 777, 0.15, 1.0),
+    (257, 768, 500, 1.0, 1.0),
+], ids=["H768-ragged", "H768-peaked", "H16", "H1024", "all-ignored"])
+def test_2byte_xent_matches_plain_and_is_deterministic(dev, dtype, N, H, V,
+                                                       ignored, h_scale):
+    """K2a/K2b's 2-byte forms (one tensor-core term a product): lse and
+    the label logit within 1e-5 of their largest value of the plain
+    version's (the f32 arithmetic on the upcast inputs); dh, dW and db in
+    the inputs' type, element by element against the plain version's f32
+    values, within one unit of the type plus four unit roundoffs of the
+    2-norm of the element's terms (``_term_norms``: the rounding of P';
+    db, an f32 sum: 2^-16 of their 1-norm) plus 1e-6 of the largest
+    value; a second launch gives
+    the same bits; one count of the type's form a call. h eight times
+    larger gives a peaked softmax, whose part of dh the type resolves.
+    f16's gradient is taken at a loss scale of 2^10, as f16 trains
+    under a GradScaler."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    h = (torch.randn((N, H), generator=g, device=dev) * h_scale).to(dtype)
+    w = (torch.randn((V, H), generator=g, device=dev) * 0.02).to(dtype)
+    b = (torch.randn((V,), generator=g, device=dev) * 0.02).to(dtype)
+    lab = torch.randint(0, V, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    drop = torch.rand((N,), generator=g, device=dev) < ignored
+    lab = torch.where(drop, torch.full_like(lab, -1), lab)
+    gr = (lab >= 0).float() / (lab >= 0).sum().clamp(min=1).float()
+    gr = gr * (1024.0 if dtype == torch.float16 else 1.0)
+    kind = fx.TWO_BYTE[dtype]
+    first = fx.fused_xent_fwd(h, w, b, lab)
+    first += fx.fused_xent_bwd(h, w, b, lab, first[0], gr)
+    second = fx.fused_xent_fwd(h, w, b, lab)
+    second += fx.fused_xent_bwd(h, w, b, lab, second[0], gr)
+    rlse, rll = fx._plain_fwd(h, w, b, lab)
+    up = [t.float() for t in (h, w, b)]
+    f32 = fx._plain_bwd(*up, lab, first[0], gr)
+    n2h, n2w, n1b = fx._term_norms(h, w, b, lab, first[0], gr)
+    u = 2.0 ** (-8 if dtype == torch.bfloat16 else -11)
+    extras = (4 * u * n2h, 4 * u * n2w, 2.0 ** -16 * n1b)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("lse", "ll"), first, (rlse, rll)):
+        assert x.dtype == torch.float32, name
+        err = float((x - y).abs().max())
+        assert err <= 1e-5 * float(y.abs().max()), (name, err)
+    for name, x, y, e in zip(("dh", "dw", "db"), first[2:], f32, extras):
+        assert x.dtype == dtype and bool(torch.isfinite(x).all()), name
+        ratio = _tolerance_ratio(x, y, e + 1e-6 * float(y.abs().max()))
+        assert ratio <= 1.0, (name, ratio)
+    for name, x, y in zip(("lse", "ll", "dh", "dw", "db"), first, second):
+        assert torch.equal(x.view(torch.int16 if x.element_size() == 2
+                                  else torch.int32),
+                           y.view(torch.int16 if y.element_size() == 2
+                                  else torch.int32)), name
+    if ignored == 1.0:
+        assert all(int(torch.count_nonzero(x)) == 0 for x in first[2:])
+    assert counters.snapshot() == {f"fused_xent_fwd_{kind}": 2,
+                                   f"fused_xent_bwd_{kind}": 2}
+
+
+def _master_case(dev, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(30592, 64), (768,), (3,), (0,), (1000, 7)]
+    ws = [torch.randn(s, generator=g, device=dev) * 0.05 for s in shapes]
+    gs = [(torch.randn(s, generator=g, device=dev) * 0.01).to(dtype)
+          for s in shapes]
+    ms = [torch.randn(s, generator=g, device=dev) * 0.01 for s in shapes]
+    vs = [torch.rand(s, generator=g, device=dev) * 1e-4 for s in shapes]
+    return [w.to(dtype) for w in ws], gs, ws, ms, vs
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_master_forms_are_bitwise_the_plain_versions(dev, dtype):
+    """Adam(W), Momentum, SGD (with and without its decay) and Lamb over
+    bf16/f16 parameters with f32 masters: parameters, masters and state
+    bit for bit the plain versions (Lamb's apply given the kernel's
+    norms); each parameter its master's cast; one count of each master
+    form a call; a skipped step launches nothing."""
+    ps, gs, ws, ms, vs = _master_case(dev, dtype, 50)
+    clone = (lambda xs: [x.clone() for x in xs])
+    # Adam
+    kp, kw, km, kv = clone(ps), clone(ws), clone(ms), clone(vs)
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, step=3,
+              weight_decay=0.01)
+    fo.fused_adam_(kp, gs, km, kv, masters=kw, **hp)
+    fo.fused_adam_(kp, gs, km, kv, masters=kw, skip=True, **hp)
+    pp, pw, pm, pv = clone(ps), clone(ws), clone(ms), clone(vs)
+    lr, c1, c2, lrwd = fo.adam_scalars(1e-4, 0.9, 0.999, 3, 0.01)
+    fo._plain_adam_(pw, fo._upcast(gs), pm, pv, lr, 0.9, 0.999, 1e-8, c1,
+                    c2, lrwd, False)
+    fo._cast_down_(pp, pw)
+    torch.cuda.synchronize()
+    assert _same(kp + kw + km + kv, pp + pw + pm + pv)
+    assert _same(kp, [w.to(dtype) for w in kw])
+    # Momentum
+    kp, kw, kv = clone(ps), clone(ws), clone(vs)
+    fo.fused_momentum_(kp, gs, kv, lr=0.1, momentum=0.9, nesterov=True,
+                       masters=kw)
+    pp, pw, pv = clone(ps), clone(ws), clone(vs)
+    fo._plain_momentum_(pw, fo._upcast(gs), pv, np.float32(0.1),
+                        np.float32(0.9), True, False)
+    fo._cast_down_(pp, pw)
+    torch.cuda.synchronize()
+    assert _same(kp + kw + kv, pp + pw + pv)
+    # SGD, without and with the decay (rounded in the parameter's type)
+    for wd in (0.0, 1e-4):
+        kp, kw = clone(ps), clone(ws)
+        fo.fused_sgd_(kp, gs, lr=0.1, weight_decay=wd, masters=kw)
+        pp, pw = clone(ps), clone(ws)
+        pg = fo._plain_decay_2byte(pp, gs, fo.decay_in(dtype, wd)) \
+            if wd else gs
+        fo._plain_sgd_(pw, fo._upcast(pg), np.float32(0.1), np.float32(0),
+                       False)
+        fo._cast_down_(pp, pw)
+        torch.cuda.synchronize()
+        assert _same(kp + kw, pp + pw), wd
+    # Lamb: the norms are the masters'
+    kp, kw, km, kv = clone(ps), clone(ws), clone(ms), clone(vs)
+    cache = {}
+    fo.fused_lamb_(kp, gs, km, kv, [torch.empty_like(w) for w in ws],
+                   lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6,
+                   weight_decay=0.01, step=3, masters=kw, cache=cache)
+    pp, pw, pm, pv = clone(ps), clone(ws), clone(ms), clone(vs)
+    rs = [torch.empty_like(w) for w in ws]
+    lr, c1, c2, _ = fo.adam_scalars(1e-3, 0.9, 0.999, 3)
+    fo._plain_lamb_phase1_(pw, fo._upcast(gs), pm, pv, rs, 0.9, 0.999, 1e-6,
+                           0.01, c1, c2)
+    fo._plain_lamb_apply_(pw, rs, fo.lamb_kernel_norms(cache), lr)
+    fo._cast_down_(pp, pw)
+    torch.cuda.synchronize()
+    assert _same(kp + kw + km + kv, pp + pw + pm + pv)
+    assert counters.snapshot() == {
+        "fused_adam_master": 1, "fused_momentum_master": 1,
+        "fused_sgd_master": 2, "fused_lamb_phase1_master": 1,
+        "fused_lamb_apply_master": 1}
+
+
+def test_2byte_parameters_without_masters_raise_on_the_card(dev):
+    """``decorate(master_weight=False)`` leaves bf16/f16 parameters
+    without f32 masters; the card has no kernel for them, so the step
+    raises and launches nothing (the CPU runs the plain versions)."""
+    from paddle_tpu_torch import amp, nn, optimizer
+
+    layer = nn.Linear(8, 4)
+    layer.to(dev)
+    opt = optimizer.Momentum(learning_rate=0.1,
+                             parameters=layer.parameters())
+    amp.decorate(layer, opt, level="O2", dtype="float16",
+                 master_weight=False)
+    for p in layer.parameters():
+        p.grad = torch.ones_like(p)
+    before = [p.detach().clone() for p in layer.parameters()]
+    with pytest.raises(NotImplementedError, match="without f32 masters"):
+        opt.step()
+    assert _same(list(layer.parameters()), before)
+    assert counters.snapshot() == {}
+
+
+def test_slice_2b_kernels_raise_on_what_they_do_not_take(dev):
+    p = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="bf16 or f16"):
+        fo.fused_adam_([p], [p], [p], [p], lr=1e-3, beta1=0.9, beta2=0.999,
+                       eps=1e-8, step=1, masters=[p])
+    h = torch.zeros((4, 16), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one type"):
+        fx.fused_xent_fwd(h, torch.zeros((8, 16), device=dev),
+                          torch.zeros(8, device=dev),
+                          torch.zeros(4, dtype=torch.int32, device=dev))
+    lo = torch.zeros(8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32"):
+        fo.fused_momentum_([lo], [lo], [lo], lr=0.1, momentum=0.9,
+                           nesterov=False, masters=[p])
+    assert counters.snapshot() == {}

@@ -407,3 +407,103 @@ def test_clip_pairs_aliases_and_clip_grad_norm():
     np.testing.assert_allclose(float(gnorm), want, rtol=1e-6)
     after = torch.stack([p.grad.norm() for p in ps]).norm()
     np.testing.assert_allclose(after.item(), 2.0, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K3's master-weight forms (multi_precision)
+# ---------------------------------------------------------------------------
+def _spacing(x, dtype):
+    """The gap between |x| and the next value of ``dtype`` above it."""
+    t = torch.tensor(np.abs(np.asarray(x, np.float32))).to(dtype)
+    return (torch.nextafter(t, torch.tensor(float("inf"), dtype=dtype))
+            - t).float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("rule", ["adamw", "momentum_l2", "sgd_wd", "lamb"])
+def test_master_steps_match_the_jax_optimizer(monkeypatch, rule, dtype):
+    """Three multi-precision steps over bf16/f16 parameters (one above
+    the JAX kernel's 1024-element gate, so the Pallas kernel runs over
+    its f32 master in interpret mode) against ``apply_gradients_fn``:
+    the masters and f32 state within rtol 1e-6 (Lamb's norms: 1e-5),
+    each parameter its master's cast bit for bit and within one unit of
+    its type of JAX's parameter. Momentum's L2 and SGD's decay are added
+    in the parameter's type before the upcast, as JAX adds them."""
+    monkeypatch.setenv("PADDLE_FUSED_OPT_INTERPRET", "1")
+    from paddle_tpu_torch import regularizer as treg
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.RandomState(31)
+    ps = {"w": rng.randn(40, 64).astype(np.float32) * 0.05,
+          "b": rng.randn(64).astype(np.float32) * 0.05}
+    make = {
+        "adamw": (lambda: jopt.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                     parameters=[], multi_precision=True),
+                  lambda p: AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                  parameters=p, multi_precision=True)),
+        "momentum_l2": (lambda: jopt.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=[],
+            weight_decay=L2Decay(1e-4), multi_precision=True),
+            lambda p: Momentum(learning_rate=0.1, momentum=0.9,
+                               parameters=p,
+                               weight_decay=treg.L2Decay(1e-4),
+                               multi_precision=True)),
+        "sgd_wd": (lambda: jopt.SGD(learning_rate=0.1, weight_decay=1e-4,
+                                    parameters=[], multi_precision=True),
+                   lambda p: SGD(learning_rate=0.1, weight_decay=1e-4,
+                                 parameters=p, multi_precision=True)),
+        "lamb": (lambda: jopt.Lamb(learning_rate=1e-3, parameters=[],
+                                   multi_precision=True),
+                 lambda p: Lamb(learning_rate=1e-3, parameters=p,
+                                multi_precision=True))}[rule]
+    jo = make[0]()
+    jp = {k: jnp.asarray(x).astype(jdt) for k, x in ps.items()}
+    state = jo.init_state(jp)
+    tps = {k: torch.nn.Parameter(_t(x).to(tdt)) for k, x in ps.items()}
+    to = make[1](list(tps.values()))
+    before = jcounters.snapshot()
+    lr = jo.get_lr()
+    for _ in range(3):
+        gs = {k: (rng.randn(*x.shape) * 0.1).astype(np.float32)
+              for k, x in ps.items()}
+        jp, state = jo.apply_gradients_fn(
+            {k: jnp.asarray(g).astype(jdt) for k, g in gs.items()}, jp,
+            state, lr)
+        for k, t in tps.items():
+            t.grad = _t(gs[k]).to(tdt)
+        to.step()
+    assert jcounters.delta(before).get("fused_opt.pallas", 0) >= 1
+    rtol = 1e-5 if rule == "lamb" else 1e-6
+    for k in ps:
+        slots = to._slots[id(tps[k])]
+        jslots = state["slots"][k]
+        assert set(slots) == set(jslots)
+        for name, got in slots.items():
+            assert got.dtype == torch.float32
+            _close(got, jslots[name], rtol)
+        p = tps[k].detach()
+        assert p.dtype == tdt
+        assert torch.equal(p, slots["__master__"].to(tdt))
+        want = np.asarray(jp[k]).astype(np.float32)
+        assert np.all(np.abs(p.float().numpy() - want)
+                      <= _spacing(want, tdt)), k
+
+
+def test_sgd_master_decay_is_rounded_in_the_parameter_type():
+    """The master form's ``g + wd*p`` is the 2-byte computation (wd
+    rounded to the type, the product and the sum each rounded), not the
+    f32 one: a case where the two differ."""
+    p = torch.tensor([1.0, 3.0, -7.0], dtype=torch.bfloat16)
+    g = torch.tensor([1e-3, 2.5e-4, 1e-2], dtype=torch.bfloat16)
+    master = p.float()
+    wd = 0.013
+    tfo.fused_sgd_([p], [g], lr=0.5, weight_decay=wd, masters=[master])
+    wd16 = torch.tensor(wd, dtype=torch.bfloat16)
+    g2 = (g + wd16 * torch.tensor([1.0, 3.0, -7.0], dtype=torch.bfloat16))
+    want = torch.tensor([1.0, 3.0, -7.0]) - torch.tensor(0.5) * g2.float()
+    assert torch.equal(master, want)
+    f32_way = torch.tensor([1.0, 3.0, -7.0]) - 0.5 * (
+        g.float() + np.float32(wd) * torch.tensor([1.0, 3.0, -7.0]))
+    assert not torch.equal(master, f32_way)
+    assert torch.equal(p, master.to(torch.bfloat16))

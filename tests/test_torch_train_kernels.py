@@ -11,7 +11,12 @@ kernels are held against those plain versions on the card
   sums run in another order).
 - K2 fused xent: loss, dh, dW, db against ``_fused_xent_core`` and its
   vjp, with ignored rows and N = 300 (the JAX side pads to 512 with
-  ignored rows, as its wrapper does); atol 1e-5.
+  ignored rows, as its wrapper does); atol 1e-5. The 2-byte forms over
+  bf16 and f16 inputs: the loss within 1e-5, the gradients in the
+  inputs' type within one unit of it element by element; the card
+  checks' tolerance for the kernels' rounding of P' (one unit plus four
+  unit roundoffs of ``_term_norms``) against a model of that rounding,
+  and against a softmax part 3 % off, which it rejects.
 - K3 Adam: p, m, v against ``_run_grid(_adam_kernel, dygraph=True)``
   and the decoupled AdamW decay, rtol 1e-6; and a whole AdamW step
   against the JAX optimizer with ``PADDLE_FUSED_OPT_INTERPRET=1``.
@@ -178,6 +183,116 @@ def test_fused_xent_loss_and_grads_match_pallas():
                                rtol=0)
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), atol=ATOL,
                                rtol=0)
+
+
+def _spacing(x, dtype):
+    """The gap between |x| and the next value of ``dtype`` above it."""
+    t = torch.tensor(np.abs(np.asarray(x, np.float32))).to(dtype)
+    return (torch.nextafter(t, torch.tensor(float("inf"), dtype=dtype))
+            - t).float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_fused_xent_2byte_plain_matches_pallas(dtype):
+    """K2 over bf16/f16 h, W and bias (what O2 hands the MLM head): the
+    port's plain version upcasts to f32 and rounds dh, dW, db to the
+    inputs' type, as the Pallas kernels do (``fused_xent.py:98-167``,
+    ``:256``, ``:302``). The loss (f32) within 1e-5; each gradient in
+    the inputs' type, element by element within one unit of that type
+    of the Pallas kernel's, plus 1e-6 of the largest value (the two f32
+    sums round to neighbours)."""
+    hm, w, b, lab = _xent_case()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    n, pad = hm.shape[0], (-hm.shape[0]) % 256
+    hp = np.concatenate([hm, np.zeros((pad, hm.shape[1]), np.float32)])
+    lp = np.concatenate([lab, np.full(pad, -100, np.int32)])
+    jloss, vjp = jax.vjp(
+        lambda a, c, d: jfx._fused_xent_core(a, c, d, jnp.asarray(lp), -100),
+        *(jnp.asarray(x).astype(jdt) for x in (hp, w, b)))
+    jgrads = vjp(jnp.ones((), jnp.float32))
+    ts = [_t(x).to(tdt).requires_grad_() for x in (hm, w, b)]
+    loss = tfx.fused_linear_cross_entropy(*ts, _t(lab))
+    assert loss.dtype == torch.float32
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=ATOL,
+                               rtol=1e-6)
+    for t, jg, rows in zip(ts, jgrads, (n, None, None)):
+        assert t.grad.dtype == tdt and str(jg.dtype) == dtype
+        want = np.asarray(jg.astype(jnp.float32))[:rows]
+        got = t.grad.float().numpy()
+        unit = _spacing(np.maximum(np.abs(got), np.abs(want)), tdt)
+        assert np.all(np.abs(got - want)
+                      <= unit + 1e-6 * np.abs(want).max()), t.shape
+    assert counters.snapshot() == {}                  # the CPU runs plain
+
+
+def _rounded_p_grads(h, w, b, lab, lse, g, tdt, factor=1.0):
+    """dh and dW (f32 sums) with P' = (P - onehot) g rounded to ``tdt``
+    as the card's 2-byte kernels round it: dh's P - onehot lifted by
+    2^14, dW's P' by 2^(14 - e), 2^e the largest |g| of each 64 rows
+    rounded down to a power of two. ``factor`` scales P (not the
+    onehot): a wrong softmax part."""
+    p = torch.exp(h @ w.t() + b - lse[:, None]) * factor
+    hit = lab >= 0
+    p[hit.nonzero()[:, 0], lab[hit].long()] -= 1.0
+    dh = ((p * 2.0 ** 14).to(tdt).float() @ w) * (g / 2.0 ** 14)[:, None]
+    gm = torch.nn.functional.pad(g.abs(), (0, -len(g) % 64))
+    gm = gm.view(-1, 64).amax(dim=1)
+    e = torch.where(gm > 0, torch.frexp(gm)[1] - 1, torch.zeros_like(
+        gm, dtype=torch.int32))
+    sc = torch.pow(2.0, (14 - e).double()).float().repeat_interleave(64)
+    sc = sc[:len(g), None]
+    dw = ((p * g[:, None] * sc).to(tdt).float() / sc).t() @ h
+    return dh, dw
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_fused_xent_2byte_check_tolerance_holds_the_p_rounding(dtype):
+    """The card checks of K2's 2-byte forms hold dh and dW element by
+    element against the plain version's f32 values within one unit of
+    the type plus four unit roundoffs u times ``_term_norms`` (the
+    2-norm of the element's terms). ``_term_norms`` equals the norms
+    taken in f64 (and db's 1-norms); the kernels' rounding of P' (modelled here, per-row
+    gradients over several binades, f16 at a loss scale of 2^10) stays
+    within that tolerance; a softmax part 3 % off does not, in dh or in
+    dW."""
+    hm, w, b, lab = _xent_case(n=300, h=64, v=3000)
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(1)
+    scale = 1024.0 if dtype == "float16" else 1.0
+    g = _t(((lab >= 0) * rng.uniform(0.1, 4.0, lab.shape) * scale
+            / 300).astype(np.float32))
+    ts = [_t(x).to(tdt) for x in (hm, w, b)]
+    up = [t.float() for t in ts]
+    tl = _t(lab)
+    lse, _ = tfx._plain_fwd(*ts, tl)
+    f32 = tfx._plain_bwd(*up, tl, lse, g)[:2]
+    *norms, l1 = tfx._term_norms(*ts, tl, lse, g)
+    pg = (torch.exp(up[0] @ up[1].t() + up[2] - lse[:, None]).double()
+          * g[:, None].double())
+    pg[(lab >= 0).nonzero()[0], lab[lab >= 0]] -= g.double()[lab >= 0]
+    want = ((pg ** 2) @ up[1].double() ** 2, (pg.t() ** 2)
+            @ up[0].double() ** 2)
+    for n, m in zip(norms, want):
+        np.testing.assert_allclose(n.numpy(), np.sqrt(m.numpy()),
+                                   rtol=1e-5, atol=0)
+    np.testing.assert_allclose(l1.numpy(), pg.abs().sum(0).numpy(),
+                               rtol=1e-5, atol=0)
+    u = 2.0 ** (-8 if dtype == "bfloat16" else -11)
+
+    def ratio(got, ref, n):
+        got = got.to(tdt)
+        big = torch.maximum(got.abs(), ref.abs().to(tdt))
+        unit = (torch.nextafter(big, torch.tensor(float("inf"), dtype=tdt))
+                - big).float()
+        extra = 4 * u * n + 1e-6 * float(ref.abs().max())
+        return float(((got.float() - ref).abs() / (unit + extra)).max())
+
+    ok = _rounded_p_grads(*up, tl, lse, g, tdt)
+    wrong = _rounded_p_grads(*up, tl, lse, g, tdt, factor=1.03)
+    assert max(ratio(x, y, n) for x, y, n in zip(ok, f32, norms)) <= 1.0
+    assert min(ratio(x, y, n) for x, y, n in zip(wrong, f32, norms)) > 1.0
+    assert counters.snapshot() == {}
 
 
 def test_fused_xent_all_rows_ignored_is_zero():
