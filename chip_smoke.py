@@ -18,7 +18,8 @@ a decode tick is its host's launch loop.
             -sass``, and a failure unless every instantiation of the
             tensor-core kernels (``short_fwd_mma``, ``short_bwd_mma``,
             ``flash_fwd_mma``, ``flash_dq_mma``, ``flash_dkv_mma``,
-            ``xent_fwd_mma``, ``xent_bwd_mma``: every K2 kernel but its
+            ``xent_fwd_mma``, ``xent_bwd_mma``, ``xent_fwd_ws``,
+            ``xent_bwd_ws``: every K2 kernel but the f32 form's
             elementwise split pass) has some;
 1. kernels  each kernel against its plain version on the card at its
             main path's shapes: paged attention over f32, bf16, f16 and
@@ -400,7 +401,7 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 # ---------------------------------------------------------------------------
 TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_fwd_mma",
                        "flash_dq_mma", "flash_dkv_mma", "xent_fwd_mma",
-                       "xent_bwd_mma")
+                       "xent_bwd_mma", "xent_fwd_ws", "xent_bwd_ws")
 
 
 def tensor_core_counts(build):
@@ -2601,9 +2602,9 @@ def bert_family(name):
         return "flash_fwd"
     if any(t in name for t in ("flash_dq_", "flash_dkv_")):
         return "flash_bwd"
-    if "xent_fwd_mma" in name or "xent_split_fwd" in name:
+    if any(t in name for t in ("xent_fwd_", "xent_split_fwd")):
         return "xent_fwd"
-    if "xent_bwd_mma" in name or "xent_split_bwd" in name:
+    if any(t in name for t in ("xent_bwd_", "xent_split_bwd")):
         return "xent_bwd"
     if "adamrule" in name:
         return "adam"

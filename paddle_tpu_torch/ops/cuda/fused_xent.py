@@ -27,17 +27,26 @@ the forward and 9.34 ms for the backward's four products at 16384 x 768
 x 30592.
 
 The 2-byte forms (``fused_xent_{fwd,bwd}_{bf16,f16}`` in the same
-source) read h and W as they are, with no split and no scratch: one
-bf16 or f16 tensor-core term a product with f32 accumulation (S = h W^T
-is exact products summed in f32); P' is rounded to the input type once,
-scaled by a power of two into f16's range, and dh, dW, db are rounded
+source) read h and W as they are, with no split and no scratch: one bf16
+or f16 tensor-core term a product with f32 accumulation (S = h W^T is
+exact products summed in f32). They are kernels of their own, two
+warpgroups a CTA fed by a TMA ring that one thread keeps filled. The
+forward takes 128-row tiles of h against 256-row tiles of W with an
+online log-sum-exp, no cluster (H is only contracted), one CTA a row
+tile walking the whole vocabulary. The backward keeps the cluster split
+of H (dh and dW have H as an output axis), 128 rows a CTA, and exchanges
+the partial logits and P' between the cluster's CTAs by asynchronous
+stores into each other's shared memory, completing on the receiver's
+mbarriers, with no cluster barrier in the loop. P' is rounded to the
+input type once, scaled by a power of two into f16's range (dW's scale
+is one for the launch, from the largest |g|), and dh, dW, db are rounded
 once from their f32 accumulators. Their plain versions upcast h, W and
 bias to f32, compute the f32 plain version's arithmetic, and round dh,
 dW and db to the inputs' type (the JAX kernel's own upcast-each-tile
 arithmetic). Bounds at BERT's head, one term a product at 989 TFLOP/s:
-0.778 ms forward, 2.335 ms backward (three products). Each type counts
-apart: ``fused_xent_fwd_bf16`` / ``_bwd_bf16`` / ``_fwd_f16`` /
-``_bwd_f16``.
+0.778 ms forward, 3.114 ms backward (four products; 2.335 ms for three).
+Each type counts apart: ``fused_xent_fwd_bf16`` / ``_bwd_bf16`` /
+``_fwd_f16`` / ``_bwd_f16``.
 
 As in the JAX ``_fused_xent_sums`` custom vjp, the differentiable piece
 is the SUM over valid rows of ``lse - ll``; the mean is ``sum /

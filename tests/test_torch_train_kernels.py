@@ -29,6 +29,7 @@ kernels are held against those plain versions on the card
   backward regenerates the forward's mask).
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -229,19 +230,16 @@ def test_fused_xent_2byte_plain_matches_pallas(dtype):
 def _rounded_p_grads(h, w, b, lab, lse, g, tdt, factor=1.0):
     """dh and dW (f32 sums) with P' = (P - onehot) g rounded to ``tdt``
     as the card's 2-byte kernels round it: dh's P - onehot lifted by
-    2^14, dW's P' by 2^(14 - e), 2^e the largest |g| of each 64 rows
-    rounded down to a power of two. ``factor`` scales P (not the
-    onehot): a wrong softmax part."""
+    2^14, dW's P' by 2^(14 - e), 2^e the largest |g| of the launch
+    rounded down to a power of two (one lift for every row, so dW's
+    accumulator takes each step's product unscaled). ``factor`` scales
+    P (not the onehot): a wrong softmax part."""
     p = torch.exp(h @ w.t() + b - lse[:, None]) * factor
     hit = lab >= 0
     p[hit.nonzero()[:, 0], lab[hit].long()] -= 1.0
     dh = ((p * 2.0 ** 14).to(tdt).float() @ w) * (g / 2.0 ** 14)[:, None]
-    gm = torch.nn.functional.pad(g.abs(), (0, -len(g) % 64))
-    gm = gm.view(-1, 64).amax(dim=1)
-    e = torch.where(gm > 0, torch.frexp(gm)[1] - 1, torch.zeros_like(
-        gm, dtype=torch.int32))
-    sc = torch.pow(2.0, (14 - e).double()).float().repeat_interleave(64)
-    sc = sc[:len(g), None]
+    gm = float(g.abs().max())
+    sc = 2.0 ** (14 - (math.frexp(gm)[1] - 1 if gm > 0 else 0))
     dw = ((p * g[:, None] * sc).to(tdt).float() / sc).t() @ h
     return dh, dw
 
