@@ -37,7 +37,16 @@ a decode tick is its host's launch loop.
             Lq != Lk, a ragged causal L and D = 128, dropout
             0.1 with the keep mask read back bit for bit, two launches of
             every bf16 flash kernel (here and in the short, masked and
-            external-lse checks below) equal bit for bit; the fused
+            external-lse checks below) equal bit for bit; K1a/K1b's f16
+            forms (``check_flash_f16``) at the NMT's 64 x 128 x 8 x 64
+            with dropout 0.1, causal and not, dO at 2^15 times a unit
+            gradient, a peaked softmax, dO at scale 1, a key-padded batch,
+            and f16 and bf16 at the decoding lengths (Lq 1, 17, 64, 127
+            against Lk 128; causal L 1, 17, 64), element by element (one
+            unit of the type plus four unit roundoffs of the terms'
+            2-norm, and the f32 sums' rounding where dS cancels), two f16
+            launches bit for bit, the f16 launches counted apart, the f16
+            and bf16 forms timed beside SDPA over f16; the fused
             vocabulary cross-entropy forward and backward
             at 16384 x 768 x 30592 f32 with ~15% ignored rows (largest
             error within 1e-4 of the largest value, two launches equal
@@ -311,17 +320,44 @@ a decode tick is its host's launch loop.
             and one chunk_lamb_apply a step on each rank and no static
             Lamb, rank 0's profiled step with the host ms in the
             ``collectives.*`` spans;
-26. the ``kernels`` line (launches summed over the phases that drive
-    each kernel's path: 2-4f for the decode kernels, 6 and 10 for the
-    fused xent, 6b for its bf16 form and K3-adam's master form, 8b for
-    K3-momentum's, 6 and 6b for the streaming flash kernels, 6 for Adam,
+26. nmt_parity  a narrower NMT (vocab 1000, d_model 128, 2 x 64 heads,
+            2 + 2 layers, ffn 256, dropout 0, batch 8 x 128), three Adam
+            steps through ``TrainStep`` with the kernels and again with
+            the plain versions, in f32 (losses within rtol 1e-5) and at
+            AMP O1 fp16 (K1's f16 forms; rtol 2e-3);
+27. nmt      ``bench_nmt`` at its full width (vocab 32000, d_model 512,
+            8 x 64 heads, 6 + 6 layers, ffn 2048, dropout 0.1), batch 64
+            x seq 128, Adam lr 1e-4, AMP O1 bf16, ``TrainStep``, the ids
+            of ``bench.py:1653-1661``: 3 warm-up and 10 timed steps;
+            tokens/s (2 B S a step), step ms, MFU (``bench.py:1662-1666``
+            over 989 TFLOP/s), peak memory, the loss (finite, falling),
+            exactly 18 K1a + 18 K1b (the decoder's subsequent mask runs
+            as causal masking), one K2a + K2b and one K3-adam a step and
+            no per-query plain attention, a profiled step;
+28. nmt_decode  the trained model's ``greedy_decode`` and
+            ``beam_search_decode`` (beam 4, max_len 64) of 8 sources, f32,
+            against the same model with the plain versions: tokens equal
+            but at near ties (a greedy row at a top-2 gap < 1e-3; a beam
+            entry at best scores within 1e-3); tokens/s, K1's launches;
+29. nmt_fp16 the same model at AMP O1 fp16 in the eager loop with
+            ``GradScaler()`` (first scale 2^15): 18 + 18 f16 K1 launches a
+            step and no bf16 one, one K2a + K2b, one K3-adam an unskipped
+            step; the loss scale and skipped steps; then a forced overflow
+            (2^40 for two steps: no K3, parameters and moments unchanged
+            bit for bit, the scale 2^39 after) and one step after the
+            restore; the figures beside ``nmt``'s;
+30. the ``kernels`` line (launches summed over the phases that drive
+    each kernel's path: 2-4f for the decode kernels, 6, 10, 27 and 29
+    for the fused xent, 6b for its bf16 form and K3-adam's master form,
+    8b for K3-momentum's, 6, 6b and 27 for the streaming flash kernels,
+    29 for their f16 forms, 6, 27 and 29 for Adam,
     8 for Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
     13-16 for the static forms, 18 for K6, 20 for the masked flash
     kernels, 23 for the external-lse K1b, 25 for the chunk Lamb, both
     ranks; K2's f16 form and K3-sgd's and K3-lamb's master forms run on
-    no phase's path, ``"main_path": false``, launches 0: K1 has no f16
-    form, so BERT cannot train at O2 fp16), then the card's name and
-    power limit, then the result line.
+    no phase's path, ``"main_path": false``, launches 0: at O1 the
+    vocabulary heads take f32 from a black-listed norm), then the card's
+    name and power limit, then the result line.
 
 Weights are random, made on the card from a seed. Depth and width are
 the configurations' own.
@@ -1638,6 +1674,215 @@ def check_flash(torch, fa, timing):
                     qh, kh, vh, is_causal=True)),
             "causal_L1024_fwd_bound_ms": cb,
             "causal_L1024_fwd_bound_by": cby})
+    return row
+
+
+# K1's 2-byte forms, element by element (the 2-byte rule of K2's check):
+# each P' or dS the kernels round to the type moves an element of
+# out, dq, dk or dv by about u times the 2-norm of its terms
+# (``flash_attention._term_norms``), so the check allows
+# FLASH_TERMS_K of those beside one unit of the output's own rounding
+# and 1e-6 of the largest value; the plain version computes in f32 from
+# the same 2-byte inputs, its backward from the kernel's out and lse.
+# dq and dk are also allowed FLASH_F32_SUMS D f32 unit roundoffs of the
+# sums behind dP and delta: where dS cancels (a row whose one live key
+# makes dP' = delta up to out's rounding, L = 1) it is those sums'
+# rounding noise, which the kernel's order and cuBLAS's give apart
+FLASH_UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+FLASH_TERMS_K = 4
+FLASH_F32_SUMS = 2 * 2.0 ** -24
+NMT_ATTENTION = (64, 128, 8, 64)   # bench_nmt's B, L, heads, head_dim
+LOSS_SCALE = 2.0 ** 15             # GradScaler's default first scale
+
+
+def flash_2byte_vs_plain(torch, fa, q, k, v, do, causal, p, seed,
+                         bias=None, case=""):
+    """One K1a + K1b launch over 2-byte q, k, v against the plain version
+    in f32 (the rule above); fails past the tolerance. Returns ({name:
+    tolerance used}, {name: max abs err}, the kernels' (out, lse, dq, dk,
+    dv))."""
+    out, lse = fa._cuda_fwd(q, k, v, causal, p, seed, bias)
+    grads = fa._cuda_bwd(q, k, v, out, lse, do, causal, p, seed, bias)
+    f = [x.float() for x in (q, k, v, out, do)]
+    rout, rlse = fa._plain_fwd(f[0], f[1], f[2], causal, p, seed, bias)
+    want = (rout,) + fa._plain_bwd(f[0], f[1], f[2], f[3], lse, f[4],
+                                   causal, p, seed, bias)
+    norms, sums = fa._term_norms(q, k, v, out, lse, do, causal, p, seed,
+                                 bias)
+    u = FLASH_UNIT_ROUNDOFF[str(q.dtype).replace("torch.", "")]
+    floor = (0.0,) + tuple(FLASH_F32_SUMS * q.shape[3] * x for x in sums) \
+        + (0.0,)
+    torch.cuda.synchronize()
+    used, errs = {}, {"lse": max_err(lse, rlse)}
+    expect(errs["lse"] <= 1e-4, f"flash {q.dtype}: lse err {errs['lse']}")
+    for name, got, ref, n, fl in zip(("out", "dq", "dk", "dv"),
+                                     (out,) + grads, want, norms, floor):
+        expect(got.dtype == q.dtype and bool(torch.isfinite(got).all()),
+               f"flash {q.dtype}: {name} non-finite or of another type")
+        errs[name] = max_err(got, ref)
+        used[name] = tolerance_ratio(
+            torch, got, ref,
+            FLASH_TERMS_K * u * n + fl + 1e-6 * float(ref.abs().max()))
+        expect(used[name] <= 1.0,
+               f"flash {q.dtype} {case}: {name} is off the plain version "
+               f"by {used[name]} of its tolerance")
+    return used, errs, (out, lse) + grads
+
+
+def attention_inputs(torch, gen, B, Lq, Lk, H, D, dt, q_mul=1.0,
+                     do_scale=LOSS_SCALE):
+    """q, k, v ~ N(0, 1) (q times ``q_mul``: 8 gives a peaked softmax)
+    and dO = ``do_scale`` times a unit gradient, the gradient of a mean
+    over the B Lq tokens (N(0, 1) / (B Lq)), all of type ``dt``."""
+    def r(n, mul=1.0):
+        return (torch.randn((B, n, H, D), generator=gen, device="cuda")
+                * mul).to(dt)
+    return r(Lq, q_mul), r(Lk), r(Lk), r(Lq, do_scale / (B * Lq))
+
+
+def check_flash_f16(torch, fa, counters, timing):
+    """K1a/K1b's f16 forms (and the bf16 ones beside them) at the NMT's
+    shapes: 64 x 128 x 8 x 64 with dropout 0.1, causal (the decoder's
+    self-attention) and not (encoder and cross), dO at the GradScaler's
+    2^15 times a unit gradient, a peaked softmax (q x 8), dO at scale 1,
+    a key-padded batch; the decode lengths (Lq 1, 17, 64, 127 against Lk
+    128; causal L 1, 17, 64; batch 8, no dropout) in f16 and bf16; two
+    f16 launches bit for bit; the f16 launches counted apart from the
+    bf16 ones. Every case is held element by element (the rule above
+    FLASH_UNIT_ROUNDOFF). Times the f16 and bf16 forms at the NMT's shape
+    beside SDPA over f16."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    f16, bf = torch.float16, torch.bfloat16
+    B, L, H, D = NMT_ATTENTION
+    seed = 0x5EED2020
+    row = {"cases": {}}
+    before = counters.snapshot()
+    n_f16 = n_bf16 = 0
+    main = None
+    for name, causal, p, q_mul, scale in (
+            ("nmt_cross", False, 0.1, 1.0, LOSS_SCALE),
+            ("nmt_self_causal", True, 0.1, 1.0, LOSS_SCALE),
+            ("nmt_peaked_causal", True, 0.1, 8.0, LOSS_SCALE),
+            ("nmt_scale1_causal", True, 0.1, 1.0, 1.0)):
+        q, k, v, do = attention_inputs(torch, gen, B, L, L, H, D, f16,
+                                       q_mul, scale)
+        used, errs, got = flash_2byte_vs_plain(torch, fa, q, k, v, do,
+                                               causal, p, seed, case=name)
+        n_f16 += 1
+        row["cases"][name] = {"tolerance_used": used, "max_abs_err": errs}
+        if name == "nmt_cross":
+            again = fa._cuda_fwd(q, k, v, False, p, seed)
+            again += fa._cuda_bwd(q, k, v, got[0], got[1], do, False, p,
+                                  seed)
+            n_f16 += 1
+            expect(same_bits(torch, got, again),
+                   "flash f16: two launches give different bits")
+            row["f16_relaunch_bitwise"] = True
+            main = (q, k, v, do, got[0], got[1])
+        del q, k, v, do, got
+    # a key-padded batch (a src_mask of key-padding shape) in f16
+    q, k, v, do = attention_inputs(torch, gen, 8, L, L, H, D, f16)
+    lens = torch.tensor([128, 100, 77, 64, 33, 17, 5, 1], device="cuda")
+    bias = fa.kv_mask_bias(
+        torch.arange(L, device="cuda")[None, :] < lens[:, None], 8, L)
+    used, errs, _ = flash_2byte_vs_plain(torch, fa, q, k, v, do, False, 0.1,
+                                         seed, bias, case="masked")
+    row["cases"]["masked_f16"] = {"tolerance_used": used,
+                                  "max_abs_err": errs}
+    # the decode lengths
+    for dt in (f16, bf):
+        tag = "f16" if dt == f16 else "bf16"
+        for lq, lk, causal in ((1, 128, False), (17, 128, False),
+                               (64, 128, False), (127, 128, False),
+                               (1, 1, True), (17, 17, True),
+                               (64, 64, True)):
+            q, k, v, do = attention_inputs(torch, gen, 8, lq, lk, H, D, dt)
+            used, errs, _ = flash_2byte_vs_plain(
+                torch, fa, q, k, v, do, causal, 0.0, seed,
+                case=f"Lq {lq} Lk {lk} causal {causal}")
+            if dt == bf:
+                n_bf16 += 1
+            else:
+                n_f16 += 1
+            row["cases"][f"{tag}_Lq{lq}_Lk{lk}" + ("_causal" if causal
+                                                    else "")] = {
+                "tolerance_used": used, "max_abs_err": errs}
+    after = counters.snapshot()
+    moved = {c: after.get(c, 0) - before.get(c, 0) for c in (
+        "flash_attention_fwd_f16", "flash_attention_bwd_f16",
+        "flash_attention_masked_fwd_f16", "flash_attention_masked_bwd_f16",
+        "flash_attention_fwd", "flash_attention_bwd")}
+    row["launches"] = moved
+    expect(moved["flash_attention_fwd_f16"] == n_f16
+           and moved["flash_attention_bwd_f16"] == n_f16
+           and moved["flash_attention_masked_fwd_f16"] == 1
+           and moved["flash_attention_masked_bwd_f16"] == 1
+           and moved["flash_attention_fwd"] == n_bf16
+           and moved["flash_attention_bwd"] == n_bf16,
+           f"flash f16: launch counts {moved}, want {n_f16} f16, 1 masked "
+           f"f16 and {n_bf16} bf16 pairs")
+    cases = row["cases"].values()
+    row["fwd_max_abs_err"] = max(c["max_abs_err"]["out"] for c in cases)
+    row["bwd_max_abs_err"] = max(max(c["max_abs_err"][g]
+                                     for g in ("dq", "dk", "dv"))
+                                 for c in cases)
+    row["max_tolerance_used"] = max(
+        max(c["tolerance_used"].values()) for c in cases)
+    if timing:
+        row.update(time_flash_2byte(torch, fa, main, seed))
+    return row
+
+
+def time_flash_2byte(torch, fa, main, seed, p=0.1):
+    """K1a/K1b over f16 and bf16 at the NMT's shape, causal and not, with
+    dropout ``p``; the plain versions; SDPA over f16 as the library call
+    (its forward, and its backward replaying a retained graph); each
+    half's bound (bytes once at 3.35 TB/s, or the products at 989
+    TFLOP/s; causal: the products on and below the diagonal)."""
+    q, k, v, do, out, lse = main
+    B, L, H, D = q.shape
+    F = torch.nn.functional
+    el = B * L * H * D * 2
+    row = {}
+    for causal in (False, True):
+        frac = (L + 1) / (2 * L) if causal else 1.0
+        fb, fby = bound_of(4 * el + B * H * L * 4,
+                           4 * B * H * L * L * D * frac, BF16_FLOPS_PER_S)
+        bb, bby = bound_of(8 * el + B * H * L * 4,
+                           10 * B * H * L * L * D * frac, BF16_FLOPS_PER_S)
+        tag = "_causal" if causal else ""
+        for dt in (torch.float16, torch.bfloat16):
+            t = "f16" if dt == torch.float16 else "bf16"
+            qq, kk, vv, dd = (x.to(dt) for x in (q, k, v, do))
+            o, ls = fa._cuda_fwd(qq, kk, vv, causal, p, seed)
+            row[f"{t}{tag}_fwd_ms"] = time_ms(torch, lambda: fa._cuda_fwd(
+                qq, kk, vv, causal, p, seed))
+            row[f"{t}{tag}_bwd_ms"] = time_ms(torch, lambda: fa._cuda_bwd(
+                qq, kk, vv, o, ls, dd, causal, p, seed))
+        qh, kh, vh, doh = (x.permute(0, 2, 1, 3).contiguous()
+                           for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p,
+                                                 is_causal=causal)
+        row.update({
+            f"f16{tag}_fwd_plain_ms": time_ms(torch, lambda: fa._plain_fwd(
+                q, k, v, causal, p, seed), iters=5),
+            f"f16{tag}_bwd_plain_ms": time_ms(torch, lambda: fa._plain_bwd(
+                q, k, v, out, lse, do, causal, p, seed), iters=5),
+            f"f16{tag}_fwd_library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, dropout_p=p, is_causal=causal)),
+            f"f16{tag}_bwd_library_ms": time_ms(
+                torch, lambda: torch.autograd.grad(
+                    lib_out, (qg, kg, vg), doh, retain_graph=True)),
+            f"f16{tag}_fwd_bound_ms": fb, f"f16{tag}_fwd_bound_by": fby,
+            f"f16{tag}_bwd_bound_ms": bb, f"f16{tag}_bwd_bound_by": bby})
+        del lib_out, qg, kg, vg
+    for half in ("fwd", "bwd"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            row[f"{half}_{key}"] = row[f"f16_{half}_{key}"]
+    row["bound_rates"] = rates(BF16_FLOPS_PER_S, "f16 tensor-core (the "
+                               "bf16 rate)")
     return row
 
 
@@ -5890,9 +6135,382 @@ def phase_resnet50_fp16(torch, counters, o1_row):
     return row, launches
 
 
-# forms no phase's main path runs, checked in phase 1 only: BERT cannot
-# run at O2 fp16 (K1 has bf16 and f32 forms), and the main paths train
-# with AdamW and Momentum
+# ---------------------------------------------------------------------------
+# the Transformer NMT (bench.py's config 4, bench_nmt)
+# ---------------------------------------------------------------------------
+NMT_VOCAB = 32000
+NMT_CONFIG = dict(src_vocab_size=NMT_VOCAB, tgt_vocab_size=NMT_VOCAB,
+                  d_model=512, nhead=8, num_encoder_layers=6,
+                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+NMT_DESC = ("Transformer NMT (vocab 32000 / 32000, d_model 512, 8 x 64 "
+            "heads, 6 + 6 layers, ffn 2048, dropout 0.1), batch 64 x seq "
+            "128, Adam lr 1e-4, the same batch every step (bench_nmt)")
+# a step's launches: 6 encoder self-attention, 6 decoder self-attention
+# (the subsequent mask: causal) and 6 cross-attention calls
+NMT_ATTENTION_CALLS = 18
+
+
+def nmt_batch(torch, B, S, vocab):
+    """``bench.py:1653-1661``'s ids: src, tgt_in, tgt_out from
+    ``RandomState(0)``, in [1, vocab)."""
+    rng = np.random.RandomState(0)
+    return [torch.tensor(rng.randint(1, vocab, (B, S)).astype(np.int64),
+                         device="cuda") for _ in range(3)]
+
+
+def nmt_flops_per_step(B, S, vocab=NMT_VOCAB, H=512, inner=2048, layers=6):
+    """``bench.py:1662-1666``: 3 x the forward's matmul flops (encoder
+    token 8H^2 + 4HI + 4SH, decoder token 16H^2 + 4HI + 8SH a layer, the
+    output projection 2HV)."""
+    enc = layers * (8 * H * H + 4 * H * inner + 4 * S * H)
+    dec = layers * (16 * H * H + 4 * H * inner + 8 * S * H) + 2 * H * vocab
+    return 3 * (enc + dec) * B * S
+
+
+def nmt_figures(torch, losses, step_ms, launches, n_steps, B, S):
+    """The training row's common figures: tokens/s as bench counts them
+    (2 B S a step: source and target), step ms, MFU over 989 TFLOP/s,
+    peak memory, the losses and the launches a step."""
+    med = float(np.median(step_ms))
+    flops = nmt_flops_per_step(B, S)
+    return {"warmup_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
+            "tokens_per_s": 2 * B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+            "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+            "step_ms": step_ms, "flops_per_step": flops,
+            "mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "launches": launches,
+            "launches_per_step": {k: v / n_steps
+                                  for k, v in launches.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def expect_launches(what, launches, want, n_steps):
+    """Exactly ``want[k]`` launches of each kernel k a step (0: none)."""
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"{what}: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+
+
+def phase_nmt(torch, counters):
+    """bench_nmt at its full width on the card: ``jit.TrainStep``, AMP O1
+    bf16, 3 warm-up and 10 timed steps; exactly 18 K1a + 18 K1b (bf16),
+    one K2a + K2b (f32: the decoder's last norm is black-listed) and one
+    K3-adam a step, no per-query plain attention; a profiled step.
+    Returns (row, launches, model) (the model for ``nmt_decode``)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.transformer import TransformerNMT
+    from paddle_tpu_torch.optimizer import Adam
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TransformerNMT(**NMT_CONFIG, generator=gen)
+    opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+
+    def loss_fn(m, src, tin, tout):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(src, tin, tout)
+
+    step = TrainStep(model, loss_fn, opt)
+    B, L, _, _ = NMT_ATTENTION
+    batch = nmt_batch(torch, B, L, NMT_VOCAB)
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    expect(all(np.isfinite(losses)), f"nmt: non-finite loss {losses}")
+    expect(losses[-1] < losses[0],
+           f"nmt: loss did not fall ({losses[0]} -> {losses[-1]})")
+    expect_launches("nmt", launches, {
+        "flash_attention_fwd": NMT_ATTENTION_CALLS,
+        "flash_attention_bwd": NMT_ATTENTION_CALLS, "fused_xent_fwd": 1,
+        "fused_xent_bwd": 1, "fused_adam": 1, "attention_per_query_plain": 0,
+        "flash_attention_fwd_f16": 0, "flash_attention_masked_fwd": 0,
+        "fused_xent_fwd_bf16": 0}, n_steps)
+    row = {"phase": "nmt", "config": NMT_DESC + ", AMP O1 bf16, "
+           "jit.TrainStep",
+           "params": int(sum(p.numel() for p in model.parameters())),
+           **nmt_figures(torch, losses, step_ms, launches, n_steps, B, L)}
+    row["breakdown"] = profile_step(torch, step, batch, bert_family,
+                                    BERT_FAMILIES, row["step_ms_median"])
+    return row, launches, model
+
+
+def nmt_small(torch, seed=3):
+    """The parity runs' narrower NMT: vocab 1000, d_model 128 (2 x 64
+    heads), 2 + 2 layers, ffn 256, dropout 0."""
+    from paddle_tpu_torch.models.transformer import TransformerNMT
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return TransformerNMT(1000, 1000, d_model=128, nhead=2,
+                          num_encoder_layers=2, num_decoder_layers=2,
+                          dim_feedforward=256, dropout=0.0, generator=gen)
+
+
+NMT_PARITY_RTOL = {"float32": 1e-5, "float16": 2e-3}
+
+
+def phase_nmt_parity(torch, counters, fa, fx, fo):
+    """Three Adam steps of a narrower NMT (``nmt_small``, batch 8 x 128,
+    pad id 0 at the targets' last 16 positions) through ``TrainStep``
+    with the kernels and again with the plain versions swapped in, from
+    the same weights, on the card: in f32 (K1's f32 forms) and at AMP O1
+    fp16 (K1's f16 forms); the losses within NMT_PARITY_RTOL."""
+    import copy
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    base = nmt_small(torch)
+    src, tin, tout = nmt_batch(torch, 8, 128, 1000)
+    tout[:, -16:] = 0
+    row = {"phase": "nmt_parity", "config": "NMT vocab 1000, d_model 128, "
+           "2 x 64 heads, 2 + 2 layers, ffn 256, dropout 0, batch 8 x 128, "
+           "Adam lr 1e-3, 3 steps", "legs": {}}
+    for dtype, flash in (("float32", "flash_attention_fwd"),
+                         ("float16", "flash_attention_fwd_f16")):
+        runs = {}
+        for name in ("kernel", "plain"):
+            model = copy.deepcopy(base)
+
+            def loss_fn(m, *a):
+                with amp.auto_cast(enable=dtype != "float32", level="O1",
+                                   dtype=dtype):
+                    return m.loss(*a)
+
+            step = TrainStep(model, loss_fn, Adam(
+                learning_rate=1e-3, parameters=model.parameters()))
+            counters.reset()
+            if name == "plain":
+                with swapped(bert_plain_swaps(fa, fx, fo, optmod)):
+                    losses = [float(step(src, tin, tout)) for _ in range(3)]
+            else:
+                losses = [float(step(src, tin, tout)) for _ in range(3)]
+            torch.cuda.synchronize()
+            runs[name] = (losses, counters.snapshot())
+        (lk, ck), (lp, cp) = runs["kernel"], runs["plain"]
+        rtol = NMT_PARITY_RTOL[dtype]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        expect(ck.get(flash, 0) == 3 * 6 and ck.get("fused_adam", 0) == 3
+               and ck.get("fused_xent_fwd", 0) == 3,
+               f"nmt_parity {dtype}: kernel launches {ck}")
+        expect(not any(v for k, v in cp.items()),
+               f"nmt_parity {dtype}: the plain run launched kernels: {cp}")
+        expect(all(np.isfinite(lk)) and rel <= rtol,
+               f"nmt_parity {dtype}: losses {lk} (kernels) against {lp} "
+               f"(plain), relative {rel} > {rtol}")
+        row["legs"][dtype] = {"losses_kernel": lk, "losses_plain": lp,
+                              "max_rel_diff": rel, "rtol": rtol,
+                              "launches": ck}
+    return row
+
+
+def nmt_scaler_step(model, opt, scaler, loss_fn, batch):
+    """The eager fp16 loop's step (``scaler_step`` over the NMT batch)."""
+    model.train()
+    loss = loss_fn(model, *batch)
+    scaled = scaler.scale(loss)
+    scaled.backward()
+    scaler.minimize(opt, scaled)
+    opt.clear_grad()
+    return loss.detach()
+
+
+def phase_nmt_fp16(torch, counters, o1_row):
+    """bench_nmt at AMP O1 fp16 in the eager loop with ``GradScaler()``
+    (its default first scale, 2^15; dynamic): 3 warm-up and 10 timed
+    steps; every step 18 K1a + 18 K1b in their f16 forms and none in
+    bf16, one K2a + K2b (f32), one K3-adam an unskipped step. Then a
+    forced overflow (the scale set to 2^40 for two steps): no K3 launch,
+    parameters and moments unchanged bit for bit, the step count
+    unchanged, the scale 2^39 after; the state restored, one more step
+    launches one K3."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.transformer import TransformerNMT
+    from paddle_tpu_torch.optimizer import Adam
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TransformerNMT(**NMT_CONFIG, generator=gen)
+    params = list(model.parameters())
+    opt = Adam(learning_rate=1e-4, parameters=params)
+    scaler = amp.GradScaler()
+
+    def loss_fn(m, *a):
+        with amp.auto_cast(level="O1", dtype="float16"):
+            return m.loss(*a)
+
+    B, L, _, _ = NMT_ATTENTION
+    batch = nmt_batch(torch, B, L, NMT_VOCAB)
+    counters.reset()
+    losses, step_ms, skipped = [], [], 0
+    n_steps = WARM_STEPS + TIMED_STEPS
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        before = opt._step_count
+        losses.append(float(nmt_scaler_step(model, opt, scaler, loss_fn,
+                                            batch)))
+        torch.cuda.synchronize()
+        if i >= WARM_STEPS:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        skipped += int(opt._step_count == before)
+    launches = counters.snapshot()
+    expect(all(np.isfinite(losses)), f"nmt_fp16: non-finite loss {losses}")
+    expect_launches("nmt_fp16", launches, {
+        "flash_attention_fwd_f16": NMT_ATTENTION_CALLS,
+        "flash_attention_bwd_f16": NMT_ATTENTION_CALLS,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "fused_xent_fwd": 1, "fused_xent_bwd": 1,
+        "attention_per_query_plain": 0}, n_steps)
+    expect(launches.get("fused_adam", 0) == n_steps - skipped,
+           f"nmt_fp16: fused_adam launched {launches.get('fused_adam', 0)} "
+           f"times over {n_steps - skipped} unskipped steps")
+    row = {"phase": "nmt_fp16", "config": NMT_DESC + ", AMP O1 fp16, "
+           "GradScaler() dynamic, the eager loop",
+           **nmt_figures(torch, losses, step_ms, launches, n_steps, B, L),
+           "skipped_steps": skipped, "loss_scale": scaler.get_loss_scaling()}
+    row["breakdown"] = profile_step(
+        torch, lambda *a: nmt_scaler_step(model, opt, scaler, loss_fn, a),
+        batch, bert_family, BERT_FAMILIES, row["step_ms_median"])
+    saved = scaler.state_dict()
+
+    def state():
+        return [t.clone() for p in params for t in
+                (p.detach(), opt._slots[id(p)]["moment1"],
+                 opt._slots[id(p)]["moment2"])]
+
+    snap, count0 = state(), opt._step_count
+    counters.reset()
+    scaler.set_state_dict({"scale": 2.0 ** 40, "good": 0, "bad": 0})
+    over_losses = [float(nmt_scaler_step(model, opt, scaler, loss_fn, batch))
+                   for _ in range(2)]
+    torch.cuda.synchronize()
+    over = counters.snapshot()
+    expect(not over.get("fused_adam", 0),
+           f"nmt_fp16: a K3 launch on a forced-overflow step: {over}")
+    expect(same_bits(torch, snap, state()),
+           "nmt_fp16: a forced-overflow step changed a parameter or moment")
+    expect(opt._step_count == count0 and
+           scaler.get_loss_scaling() == 2.0 ** 39,
+           f"nmt_fp16: after two overflows the step count moved or the "
+           f"scale is {scaler.get_loss_scaling()} (want 2**39)")
+    scaled_down = scaler.get_loss_scaling()
+    scaler.set_state_dict(saved)
+    counters.reset()
+    after = float(nmt_scaler_step(model, opt, scaler, loss_fn, batch))
+    torch.cuda.synchronize()
+    expect(counters.get("fused_adam") == 1 and np.isfinite(after),
+           "nmt_fp16: the step after the restore did not launch one K3")
+    row["forced_overflow"] = {"losses": over_losses,
+                              "k3_launches": over.get("fused_adam", 0),
+                              "f16_flash_fwd": over.get(
+                                  "flash_attention_fwd_f16", 0),
+                              "unchanged_bitwise": True,
+                              "scale_after": scaled_down}
+    row["loss_after_restore"] = after
+    row["o1_bf16"] = {k: o1_row.get(k) for k in (
+        "tokens_per_s", "step_ms_median", "step_ms_max", "mfu",
+        "peak_mem_gb")}
+    row["o1_bf16"]["device_busy_share"] = o1_row["breakdown"].get(
+        "device_busy_share")
+    return row, launches
+
+
+def nmt_top2_gap(torch, model, src, prefix):
+    """The top-2 gap of ``model``'s next-token logits after ``prefix``
+    (one row), with the plain versions in place of the kernels."""
+    with torch.no_grad():
+        logits = model(src[None], prefix[None])[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_nmt_decode(torch, counters, fa, model):
+    """``greedy_decode`` and ``beam_search_decode`` (beam 4, max_len 64)
+    of the first 8 sources of the ``nmt`` phase's batch with the trained
+    model (f32, eval: K1's f32 forms, cross-attention at Lq 1-63 against
+    Lk 128, causal self-attention at L 1-63; beam search at L 64 over
+    32 rows), held against the same model with the plain versions: a
+    greedy row may part only where the plain model's top-2 gap at the
+    first differing token is < 1e-3; a beam entry's ids may differ only
+    where the two runs' best scores are within 1e-3. Tokens/s, the K1
+    launches; no per-query plain attention."""
+    src = nmt_batch(torch, 8, NMT_ATTENTION[1], NMT_VOCAB)[0]
+    plain = [(fa, "flash_attention_fwd", fa._plain_fwd),
+             (fa, "flash_attention_bwd", fa._plain_bwd)]
+    out = {}
+    for name in ("kernel", "plain"):
+        counters.reset()
+        with swapped(plain if name == "plain" else []):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            greedy = model.greedy_decode(src, max_len=64)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ids, scores = model.beam_search_decode(src, beam_size=4,
+                                                   max_len=64)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        out[name] = {"greedy": greedy, "ids": ids, "scores": scores,
+                     "greedy_s": t1 - t0, "beam_s": t2 - t1,
+                     "launches": counters.snapshot()}
+    k, p = out["kernel"], out["plain"]
+    expect(k["launches"].get("flash_attention_fwd", 0) > 0
+           and not k["launches"].get("attention_per_query_plain", 0),
+           f"nmt_decode: K1 did not launch, or the per-query route ran: "
+           f"{k['launches']}")
+    expect(not p["launches"].get("flash_attention_fwd", 0),
+           f"nmt_decode: the plain run launched K1: {p['launches']}")
+    ties, greedy_equal = [], 0
+    model.eval()
+    with swapped(plain):
+        for r in range(src.shape[0]):
+            a, b = k["greedy"][r].tolist(), p["greedy"][r].tolist()
+            t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if t is None and len(a) == len(b):
+                greedy_equal += 1
+                continue
+            expect(t is not None, "nmt_decode: greedy rows of other lengths")
+            gap = nmt_top2_gap(torch, model, src[r], p["greedy"][r][:t])
+            expect(gap < 1e-3, f"nmt_decode: greedy row {r} parted at token "
+                               f"{t} with a top-2 gap of {gap}")
+            ties.append({"row": r, "token": t, "gap": gap})
+    model.train()
+    beam_equal, beam_ties = 0, []
+    for r in range(src.shape[0]):
+        if torch.equal(k["ids"][r, 0], p["ids"][r, 0]):
+            beam_equal += 1
+            continue
+        gap = abs(float(k["scores"][r, 0]) - float(p["scores"][r, 0]))
+        expect(gap < 1e-3, f"nmt_decode: beam entry {r} parted with best "
+                           f"scores {gap} apart")
+        beam_ties.append({"row": r, "score_gap": gap})
+    n_greedy = int(k["greedy"].shape[1] - 1) * src.shape[0]
+    return {"phase": "nmt_decode", "config": "the nmt phase's trained "
+            "model, f32 eval, 8 sources of 128 tokens, greedy max_len 64, "
+            "beam 4 max_len 64 (length penalty 0.6)",
+            "greedy_tokens_per_s": n_greedy / k["greedy_s"],
+            "greedy_plain_tokens_per_s": n_greedy / p["greedy_s"],
+            "beam_tokens_per_s": 8 * 4 * 63 / k["beam_s"],
+            "beam_plain_tokens_per_s": 8 * 4 * 63 / p["beam_s"],
+            "greedy_len": int(k["greedy"].shape[1]),
+            "greedy_rows_equal": greedy_equal, "greedy_near_ties": ties,
+            "beam_best_equal": beam_equal, "beam_near_ties": beam_ties,
+            "beam_ids_equal_all": bool(torch.equal(k["ids"], p["ids"])),
+            "launches": k["launches"]}
+
+
+# forms no phase's main path runs, checked in phase 1 only: K2's f16 form
+# (at O1 the vocabulary heads take the f32 output of a black-listed norm,
+# and no phase trains BERT at O2 fp16), and the main paths train with
+# Adam, AdamW and Momentum
 PHASE1_ONLY = ("fused_xent_fwd_f16", "fused_xent_bwd_f16", "fused_sgd_master",
                "fused_lamb_master")
 
@@ -5982,6 +6600,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         k1 = check_flash(torch, fa, timing)
         emit({"phase": "kernels_vs_plain", "flash_attention": k1})
+        k1h = check_flash_f16(torch, fa, counters, timing)
+        emit({"phase": "kernels_vs_plain", "flash_attention_f16": k1h})
+        torch.cuda.empty_cache()
         k2 = check_xent(torch, fx, timing)
         emit({"phase": "kernels_vs_plain", "fused_xent": k2})
         k1s = check_flash_short(torch, fa, timing, tc_counts)
@@ -6136,6 +6757,20 @@ def main() -> int:
         total["chunk_lamb"] = launches.get("chunk_lamb_phase1", 0) \
             + launches.get("chunk_lamb_apply", 0)
         del row, launches
+        torch.cuda.empty_cache()
+
+        emit(phase_nmt_parity(torch, counters, fa, fx, fo))
+        o1_row, launches, nmt_model = phase_nmt(torch, counters)
+        emit(o1_row)
+        add(launches)
+        emit(phase_nmt_decode(torch, counters, fa, nmt_model))
+        del nmt_model, launches
+        torch.cuda.empty_cache()
+        row, launches = phase_nmt_fp16(torch, counters, o1_row)
+        emit(row)
+        add(launches)
+        del row, launches, o1_row
+        torch.cuda.empty_cache()
 
         def split(k, part):
             """the forward (a) or backward (b) half of a K1/K2 row; the
@@ -6164,6 +6799,12 @@ def main() -> int:
                  src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:284"),
                 ("flash_attention_bwd", split(k1, "bwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:339"),
+                ("flash_attention_fwd_f16", split(k1h, "fwd"),
+                 src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:284"),
+                ("flash_attention_bwd_f16", split(k1h, "bwd"),
                  src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339"),
                 ("fused_xent_fwd", split(k2, "fwd"), src + "fused_xent.cu",

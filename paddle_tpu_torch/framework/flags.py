@@ -9,6 +9,11 @@ variables and settable with :func:`set_flags`, as ``fluid.set_flags`` /
   L % 128 == 0) to them instead of the streaming flash kernel. The JAX
   flag's doc says 128 <= seq <= 256, but its code admits 512
   (``_SHORT_SEQ_MAX``); the port follows the code.
+- ``fused_vocab_xent`` (default True): the models' vocabulary losses
+  (BERT's MLM head, the Transformer NMT's) take the fused linear +
+  cross-entropy kernel; False materialises the logits and runs
+  ``F.cross_entropy`` (the JAX flag's A/B arm, ``paddle_tpu/ops/pallas/
+  fused_xent.py:31``).
 """
 from __future__ import annotations
 
@@ -70,3 +75,7 @@ define_flag("flash_short_seq", False,
             "L % 128 == 0 to the short-sequence kernels (direct softmax "
             "per head, one backward launch) instead of the streaming "
             "flash kernel")
+define_flag("fused_vocab_xent", True,
+            "Route large-vocab linear+cross-entropy heads (BERT MLM, the "
+            "NMT's output projection) through the fused kernel; False "
+            "materialises the logits and runs F.cross_entropy")

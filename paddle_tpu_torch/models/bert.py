@@ -11,9 +11,9 @@ attend) reaches every layer's attention, which runs the flash kernels'
 masked form. The pooler reads ``seq[:, 0]`` and ``mlm_bias`` starts at
 zero. The tensor sums (the embeddings, the logits' bias, ``mlm + nsp``)
 go through ``F.add``, the JAX ``add`` op: under O2 the loss is bf16, as
-in JAX. Only the
-fused loss path is ported (``FLAGS_fused_vocab_xent``'s materialised
-arm is a later slice); ``forward`` still returns materialised logits.
+in JAX. ``loss`` follows ``FLAGS_fused_vocab_xent``: on (the default),
+the fused vocabulary cross-entropy; off, ``forward``'s materialised
+logits through ``F.cross_entropy``, as the JAX model's A/B arm.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from .. import nn
 from .._device import resolve_device
+from ..framework.flags import get_flag
 from ..nn import functional as F
 from ..nn.layer import load_numpy_state
 
@@ -132,7 +133,14 @@ class BertForPretraining(nn.Layer):
 
     def loss(self, input_ids, token_type_ids, mlm_labels, nsp_labels,
              attention_mask=None, ignore_index=-100):
-        """MLM (fused vocabulary cross-entropy, tied decoder) + NSP."""
+        """MLM (the fused vocabulary cross-entropy with the tied decoder,
+        or the materialised logits with the flag off) + NSP."""
+        if not get_flag("fused_vocab_xent"):
+            logits, nsp_logits = self(input_ids, token_type_ids,
+                                      attention_mask)
+            mlm = F.cross_entropy(logits, mlm_labels,
+                                  ignore_index=ignore_index)
+            return F.add(mlm, F.cross_entropy(nsp_logits, nsp_labels))
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         h = self._mlm_hidden(seq)
         mlm = F.fused_linear_cross_entropy(

@@ -1,6 +1,6 @@
-"""The ``nn`` layers and functional ops of BERT and the vision models,
-and gradient clipping (port of the matching part of
-``paddle_tpu/nn``)."""
+"""The ``nn`` layers and functional ops of BERT, GPT, the Transformer
+NMT and the vision models, and gradient clipping (port of the matching
+part of ``paddle_tpu/nn``)."""
 from . import clip, functional, initializer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    GradientClipByGlobalNorm, GradientClipByNorm,
@@ -12,8 +12,9 @@ from .layer import Layer, ParamAttr, Parameter
 from .loss import CrossEntropyLoss
 from .norm import BatchNorm, BatchNorm2D, LayerNorm
 from .pooling import AdaptiveAvgPool2D, MaxPool2D
-from .transformer import (MultiHeadAttention, TransformerEncoder,
-                          TransformerEncoderLayer)
+from .transformer import (MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["clip", "functional", "initializer", "ClipGradByValue",
            "ClipGradByNorm", "ClipGradByGlobalNorm", "GradientClipByValue",
@@ -23,4 +24,5 @@ __all__ = ["clip", "functional", "initializer", "ClipGradByValue",
            "BatchNorm2D", "Conv2D", "MaxPool2D", "AdaptiveAvgPool2D",
            "CrossEntropyLoss", "LayerList", "Sequential",
            "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]

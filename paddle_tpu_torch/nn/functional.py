@@ -55,7 +55,7 @@ __all__ = ["add", "subtract", "multiply", "divide", "linear", "matmul", "embeddi
            "dropout", "gelu", "tanh", "relu", "layer_norm", "cross_entropy",
            "scaled_dot_product_attention", "fused_linear_cross_entropy",
            "conv2d", "max_pool2d", "adaptive_avg_pool2d", "batch_norm",
-           "flatten"]
+           "flatten", "mark_subsequent_mask", "is_subsequent_mask"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -187,28 +187,54 @@ def cross_entropy(input, label, ignore_index=-100):
     return loss.sum() / valid.sum().to(loss.dtype).clamp(min=1.0)
 
 
-def _key_mask_bias(mask, batch, kv_len):
-    """The (B, Lk) f32 key bias of an attention mask: a boolean
-    key-padding mask through ``kv_mask_bias`` (0 or -1e30), a float one
-    of a key-padding shape as given (``_xla_attention`` adds it to the
-    f32 scores). Per-query masks and masks that require grad raise."""
+# the subsequent mask's tag: the tensor's version counter when it was
+# made (a host-side integer; an in-place change bumps it)
+_SUBSEQUENT_TAG = "_subsequent_mask_version"
+
+
+def mark_subsequent_mask(mask):
+    """Tag ``mask``, an (L, L) float tensor that is 0 on and below the
+    diagonal and -1e9 above it (``Transformer.
+    generate_square_subsequent_mask``), so that attention runs it as
+    causal masking; returns it. Nothing reads its values: the tag is an
+    attribute of the tensor holding its version counter, so a copy, a
+    conversion or an in-place change leaves a mask without a valid tag
+    (a per-query mask)."""
+    setattr(mask, _SUBSEQUENT_TAG, mask._version)
+    return mask
+
+
+def is_subsequent_mask(mask, q_len, kv_len):
+    """Whether ``mask`` is a tagged, unchanged subsequent mask of shape
+    (q_len, kv_len) with q_len == kv_len; a host-side test, no device
+    read."""
+    return (q_len == kv_len and tuple(mask.shape) == (q_len, kv_len)
+            and getattr(mask, _SUBSEQUENT_TAG, None) == mask._version)
+
+
+def _mask_route(mask, batch, q_len, kv_len):
+    """What attention does with ``mask``, by its kind, from its shape,
+    dtype and tag alone (no device read): ("causal", None) for the
+    subsequent mask (the kernels' causal masking; scores of -1e9 and
+    -inf give the same softmax, since a causal row keeps its diagonal);
+    ("key", bias) for a key-padding mask, the (B, Lk) f32 key bias that
+    rides the flash kernels (a boolean one through ``kv_mask_bias``, 0
+    or -1e30; a float one as given, as ``_xla_attention`` adds it); and
+    ("per_query", mask) for every other mask, and for a float key mask
+    that requires grad (the kernels give the key bias no gradient),
+    which then goes as (B, 1, 1, Lk), so that it masks keys as the
+    kernels' form does."""
+    if is_subsequent_mask(mask, q_len, kv_len):
+        return "causal", None
     bias = _fa.kv_mask_bias(mask, batch, kv_len)
     if bias is not None:
-        return bias
-    if mask.dtype != torch.bool:
+        return "key", bias
+    m = _fa.key_padding_view(mask, batch, kv_len)
+    if m is not None and mask.dtype != torch.bool:
         if mask.requires_grad:
-            raise NotImplementedError(
-                "a float attention mask that requires grad is a later port "
-                "slice (slice 10, the decoder): the flash kernels give the "
-                "key mask no gradient")
-        m = _fa.key_padding_view(mask, batch, kv_len)
-        if m is not None:
-            return m.to(torch.float32).contiguous()
-    raise NotImplementedError(
-        f"attention mask {tuple(mask.shape)} for batch {batch} and "
-        f"{kv_len} keys: only key-padding masks ((B, Lk), (B, 1, Lk), "
-        f"(B, 1, 1, Lk)) ride the flash kernels; per-query masks are a "
-        f"later port slice (slice 10, the decoder)")
+            return "per_query", m[:, None, None, :]
+        return "key", m.to(torch.float32).contiguous()
+    return "per_query", mask
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -219,29 +245,49 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``FLAGS_flash_short_seq`` on and a shape the short-sequence kernels
     take (``flash_attention.short_ok``: Lq == Lk, 128 <= L <= 512,
     L % 128 == 0) it runs them, as the JAX package's ``_short_choice``
-    does without its TPU autotune; otherwise the streaming kernel. Both
-    branches launch a kernel: this is dispatch by shape.
+    does without its TPU autotune; otherwise the streaming kernel. f16
+    inputs always take the streaming kernel, the short kernels' f16
+    forms not being ported. Each branch launches a kernel: this is
+    dispatch by shape and type.
 
-    ``attn_mask`` may be a key-padding mask, boolean (True = attend) or
-    float (added to the scores), of shape (B, Lk), (B, 1, Lk) or
-    (B, 1, 1, Lk): it rides the streaming kernels as a (B, Lk) f32 bias,
-    with dropout and causal masking too, and with the short-sequence
-    flag on (the JAX short route needs no mask). Per-query masks and
-    float masks that require grad raise ``NotImplementedError``.
+    ``attn_mask`` is dispatched by its kind (``_mask_route``, from its
+    shape, dtype and tag, never its values): the subsequent mask of
+    ``Transformer.generate_square_subsequent_mask`` runs as the
+    kernels' causal masking with no bias; a key-padding mask, boolean
+    (True = attend) or float (added to the scores), of shape (B, Lk),
+    (B, 1, Lk) or (B, 1, 1, Lk), rides the streaming kernels as a
+    (B, Lk) f32 bias, with dropout and causal masking too, and with the
+    short-sequence flag on (the JAX short route needs no mask); any other
+    mask (per-query, or a float mask that requires grad) runs
+    ``flash_attention.per_query_attention``, the plain attention the JAX
+    package computes for it outside Pallas, counted as
+    ``attention_per_query_plain``.
 
     Inside an active ``parallel.sequence_parallel`` scope q, k and v are
     this rank's sequence shards and attention is ring attention over the
     scope's axis (``parallel.ring``), with a key-padding mask riding the
-    ring beside its k/v block (``flash_attention.py:898-945``). The ring
-    runs at dropout 0 only: attention dropout under sequence parallelism
-    raises ``NotImplementedError`` (JAX computes it replicated, outside
-    the ring; the port does not copy that)."""
+    ring beside its k/v block (``flash_attention.py:898-945``) and the
+    subsequent mask as causal attention; a per-query mask raises
+    ``ValueError`` there, as in the JAX package without
+    ``FLAGS_sp_mask_fallback``. The ring runs at dropout 0 only:
+    attention dropout under sequence parallelism raises
+    ``NotImplementedError`` (JAX computes it replicated, outside the
+    ring; the port does not copy that)."""
     query, key, value = maybe_cast_inputs("sdpa", [query, key, value])
-    bias = None if attn_mask is None else \
-        _key_mask_bias(attn_mask, query.shape[0], key.shape[1])
+    b, lq, lk = query.shape[0], query.shape[1], key.shape[1]
+    route, arg = ("none", None) if attn_mask is None else \
+        _mask_route(attn_mask, b, lq, lk)
+    bias = arg if route == "key" else None
+    if route == "causal":
+        attn_mask, is_causal = None, True
     p = float(dropout_p) if training else 0.0
     sp = _ring.active_sequence_parallel()
     if sp is not None:
+        if route == "per_query":
+            raise ValueError(
+                "sequence_parallel attention received a query-dependent "
+                "mask it cannot ride the ring with: pass is_causal=True "
+                "plus a (B, L) key-padding mask instead")
         if p > 0.0:
             raise NotImplementedError(
                 f"attention dropout ({p}) under sequence parallelism: ring "
@@ -251,8 +297,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _ring._ring_local(query, key, value, axis, is_causal, bias,
                                  mesh, key=attn_mask)
     seed = current_rng(query.device).next_seed() if p > 0.0 else 0
+    if route == "per_query":
+        return _fa.per_query_attention(query, key, value, arg,
+                                       causal=is_causal, dropout_p=p,
+                                       seed=seed)
     if bias is None and get_flag("flash_short_seq") \
-            and _fa.short_ok(query, key):
+            and query.dtype != torch.float16 and _fa.short_ok(query, key):
         return _fa.flash_attention_short(query, key, value, causal=is_causal,
                                          dropout_p=p, seed=seed)
     return _fa.flash_attention(query, key, value, causal=is_causal,

@@ -3,10 +3,13 @@
 One plain integer per kernel, bumped by its wrapper exactly where it
 launches the kernel and nowhere else, so a run can show that its main
 path went through the kernels. There is no second path to count: a
-CUDA tensor launches the kernel or raises. The one exception with its
-own count is ``fused_sample.top_p_plain``: nucleus sampling has no
-kernel (the JAX package routes it to XLA too) and runs the plain
-sort+cumsum path on any device.
+CUDA tensor launches the kernel or raises. Two routes have no kernel
+and a count of their own, since the JAX package computes them in XLA
+too: ``fused_sample.top_p_plain`` (nucleus sampling, the plain
+sort+cumsum path on any device) and ``attention_per_query_plain``
+(attention under a per-query mask, ``flash_attention.
+per_query_attention``, one a call), each reached by an explicit
+dispatch on what the call asks for.
 
 Beside the launches live the data-parallel static step's plan verdicts,
 the JAX package's dispatch counters (``paddle_tpu/ops/pallas/

@@ -15,10 +15,11 @@
 // keys the two meet, and past them (GPT-2's causal 1024) the operations
 // bound it. A key-padded batch needs only its live keys' operations.
 //
-// Everything in bf16 runs on tensor cores: 4 warps a block, each warp 16
-// rows of a 64-row tile, mma.sync m16n8k16 bf16 -> f32 from swizzled
-// shared tiles that a two-stage cp.async ring fills under the previous
-// tile's products (pieces in flash_common.cuh).
+// Everything in bf16 or f16 runs on tensor cores (the description below
+// says bf16; the f16 forms differ only as their paragraph says): 4 warps
+// a block, each warp 16 rows of a 64-row tile, mma.sync m16n8k16 -> f32
+// from swizzled shared tiles that a two-stage cp.async ring fills under
+// the previous tile's products (pieces in flash_common.cuh).
 // - Forward (flash_fwd_mma, the body fwd_mma in flash_common.cuh, which
 //   K1c's short_fwd_mma shares), one block per (64-row q tile, b*H + h),
 //   causal grids longest tile first: q is read with Lq as its bound, k
@@ -56,6 +57,31 @@
 //   across it, lse = -1e30) makes dS Lk times its usual size and one
 //   rounding of it moved dQ and dK past the bf16 tolerance. No atomics
 //   and no split of a sum across blocks: two launches give the same bits.
+// - f16 (AMP O1 fp16: the JAX kernel takes any input type and computes in
+//   f32): the same three kernels with T = __half, the f16 mma
+//   (m16n8k16.f32.f16.f16.f32) and f16 roundings of P, P' and dS; out,
+//   dq, dk, dv in f16. f16 keeps 11 bits (bf16 8) but spans only 6.1e-5
+//   (smallest normal) to 65504. P and P' lie in [0, 1/(1-p)]: no lift.
+//   dS = P (dP - delta) does not: under a GradScaler dO carries the loss
+//   scale (2^15 by default), so |dP| can pass 65504 while dQ's own sum
+//   fits, and at scale 1 most of a row's dS sit below f16's normals. So
+//   dS is lifted by a power of two before its rounding, as K2's f16 form
+//   lifts P' (fused_xent.cu): the dq kernel keeps a running exponent per
+//   q row, the dk/dv kernel one per block (dK sums over all 64 q rows of
+//   a tile: the four warps' largest |dS| meet in shared memory, one more
+//   barrier a tile), raised so that a tile's largest |dS| 2^-E < 2^14;
+//   the accumulator is rescaled by 2^(E_old - E_new) when E grows and by
+//   2^E at the store. Powers of two only: where nothing overflows or
+//   underflows, the products are the unlifted ones exactly. Decided on
+//   the card (tools/flash_f16_lift.py builds the unlifted variant with
+//   FLASH_F16_NO_LIFT; figures in PERF.md): at the NMT's 64 x 128 x 8 x 64
+//   with dO a unit gradient (scale 1) the unlifted dq and dk used 1.55
+//   and 1.38 of the 2-byte check's tolerance (4.09 for dk with a peaked
+//   softmax), the lifted ones 0.50 at most; at scales 2^15 and 2^24 the
+//   two builds used the same share of it (dk overflowed f16 in both at
+//   2^24 with the peaked softmax: its true value is 80,638). So the lift
+//   stays. bf16 has f32's
+//   range and keeps the unlifted code (no template branch reaches it).
 // The f32 forms use the f32 FMA kernels below: they are the parity route
 // held to 1e-4, which neither bf16 nor TF32 meets.
 //
@@ -195,14 +221,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(out, acc, a, b, h, q0, a.Lq, 1.0f);
 }
 
-// forward, bf16 on tensor cores (the body is flash_common.cuh's fwd_mma)
-template <int D, bool MASKED>
+// forward, bf16 or f16 on tensor cores (the body is flash_common.cuh's
+// fwd_mma)
+template <int D, bool MASKED, typename T>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-              Args a) {
+flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, Args a) {
   // causal: the longest q tiles start first
   fwd_mma<D, MASKED>(q, k, v, out, lse, a,
                      a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
@@ -391,17 +416,72 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16 on tensor cores: dq (+ delta), then dk, dv
+// backward, bf16 or f16 on tensor cores: dq (+ delta), then dk, dv
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t dq_mma_smem() {   // q, dO, 2 k, 2 v; 64 delta
-  return (size_t)6 * kTile * D * sizeof(__nv_bfloat16) + kTile * 4;
+  return (size_t)6 * kTile * D * 2 + kTile * 4;
 }
 
 template <int D>
-constexpr size_t dkv_mma_smem() {  // k, v, 2 q, 2 dO; P, dS hi and lo
-  return (size_t)6 * kTile * D * sizeof(__nv_bfloat16) +
-         (size_t)3 * kTile * kTile * sizeof(__nv_bfloat16);
+constexpr size_t dkv_mma_smem() {  // k, v, 2 q, 2 dO; P, dS hi and lo;
+  return (size_t)6 * kTile * D * 2 +  // the warps' largest |dS| (f16)
+         (size_t)3 * kTile * kTile * 2 + kWarps * 4;
+}
+
+// The f16 forms' dS lift (see the header): dS enters its products as
+// dS 2^-E (hi + lo), E a running exponent that only grows, and the sum
+// is scaled back by 2^E at the store. E starts at kLiftMin; a tile whose
+// largest |dS| is m raises E to lift_exp(m), so that m 2^-E < 2^14 and
+// the rounded terms stay inside f16's range at any loss scale, while
+// small dS are lifted above its subnormals. Powers of two: nothing else
+// changes, so without overflow or underflow the sums are the unlifted
+// ones times 2^-E exactly.
+constexpr int kLiftMin = -100;
+#ifdef FLASH_F16_NO_LIFT   // the unlifted variant, for the measurement only
+template <typename T>
+constexpr bool kLift = false;
+#else
+template <typename T>
+constexpr bool kLift = kIsHalf<T>;
+#endif
+
+__device__ __forceinline__ float pow2i(int e) {   // 2^e, |e| <= 126
+  return __int_as_float((e + 127) << 23);
+}
+
+// E with m 2^-E in [2^13, 2^14) for a normal f32 m > 0, within
+// [kLiftMin, 100]; kLiftMin for m = 0
+__device__ __forceinline__ int lift_exp(float m) {
+  const int e = ((__float_as_int(m) >> 23) & 0xff) - 127 - 13;
+  return m > 0.0f ? max(kLiftMin, min(100, e)) : kLiftMin;
+}
+
+// raise the running exponent E to e: an accumulator in units of 2^E
+// (rows ``rows`` of acc) is rescaled, exactly unless it underflows
+template <int N>
+__device__ __forceinline__ void raise_lift(int& E, int e, float (&acc)[N][4],
+                                           int half) {
+  if (e <= E) return;
+  const float f = E - e < -126 ? 0.0f : pow2i(E - e);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (half < 0 || (c >> 1) == half) acc[j][c] *= f;
+  E = e;
+}
+
+// the largest |x| over a warp's 16 x 64 tile, rows of half r (0 or 1) or
+// both (r = -1), across the quad that holds a row
+__device__ __forceinline__ float tile_absmax(const float (&s)[8][4], int r) {
+  float m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (r < 0 || (e >> 1) == r) m = fmaxf(m, fabsf(s[i][e]));
+  return quad_max(m);
 }
 
 // the (B, Lk) key mask at this thread's 16 columns of a kv tile (0 past
@@ -417,15 +497,12 @@ __device__ __forceinline__ void bias_frag(float (&bv)[8][2], const Args& a,
     }
 }
 
-template <int D, bool EXT>
+template <int D, bool EXT, typename T>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 3 : 2)
-flash_dq_mma(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             const __nv_bfloat16* __restrict__ o,
-             const __nv_bfloat16* __restrict__ dout,
-             const float* __restrict__ lse, float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, Args a) {
+flash_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ o,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             float* __restrict__ delta, T* __restrict__ dq, Args a) {
   extern __shared__ __align__(128) unsigned char smem_mma[];
   constexpr uint32_t TB = kTile * D * 2;
   const uint32_t Qs = smem_u32(smem_mma), dOs = Qs + TB, Ks = dOs + TB,
@@ -451,8 +528,8 @@ flash_dq_mma(const __nv_bfloat16* __restrict__ q,
       float x[8], y[8];
 #pragma unroll
       for (int c = 0; c < D / 2; c += 8) {
-        Vec<__nv_bfloat16>::load(dout + off + c, x);
-        Vec<__nv_bfloat16>::load(o + off + c, y);
+        Vec<T>::load(dout + off + c, x);
+        Vec<T>::load(o + off + c, y);
 #pragma unroll
         for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
       }
@@ -480,6 +557,7 @@ flash_dq_mma(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  int lift[2] = {kLiftMin, kLiftMin};   // f16: each row's dS exponent
   for (int t = 0; t < nkv; ++t) {
     const uint32_t Kt = Ks + (t & 1) * TB, Vt = Vs + (t & 1) * TB;
     if (t + 1 < nkv) {
@@ -500,24 +578,40 @@ flash_dq_mma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-    mma_abt<D>(s, Qs, 16 * w, Kt, lane);     // S = Q K^T
-    mma_abt<D>(dp, dOs, 16 * w, Vt, lane);   // dP = dO V^T
+    mma_abt<D, T>(s, Qs, 16 * w, Kt, lane);     // S = Q K^T
+    mma_abt<D, T>(dp, dOs, 16 * w, Vt, lane);   // dP = dO V^T
     grad_scores<false>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
-    mma_rb<D>(acc, s, Kt, lane);       // dQ += dS K, dS hi + lo
+    if constexpr (kLift<T>) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        raise_lift(lift[r], lift_exp(tile_absmax(s, r)), acc, r);
+        const float f = pow2i(-lift[r]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[i][2 * r] *= f;
+          s[i][2 * r + 1] *= f;
+        }
+      }
+    }
+    mma_rb<D, T>(acc, s, Kt, lane);       // dQ += dS K, dS hi + lo
     __syncthreads();
+  }
+  if constexpr (kLift<T>) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= pow2i(lift[e >> 1]);
   }
   store_acc<D>(dq, acc, a, b, h, row0, a.Lq, a.scale, lane);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kMmaT)
-flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
+flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse,
-              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, Args a) {
+              const float* __restrict__ delta, T* __restrict__ dk,
+              T* __restrict__ dv, Args a) {
   extern __shared__ __align__(128) unsigned char smem_mma[];
   constexpr uint32_t TB = kTile * D * 2;
   const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
@@ -526,6 +620,7 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
   unsigned char* Pp = smem_mma + 6 * TB;            // [64 q][64 kv] bf16
   unsigned char* dSp = Pp + kTile * kTile * 2;      // dS, hi
   unsigned char* dLp = dSp + kTile * kTile * 2;     // dS, lo
+  float* wmax = reinterpret_cast<float*>(dLp + kTile * kTile * 2);  // [4]
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int kv0 = blockIdx.x * kTile;
@@ -546,6 +641,7 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  int lift = kLiftMin;    // f16: the block's dS exponent
   for (int t = first; t < nq; ++t) {
     const uint32_t stg = ((t - first) & 1) * TB;
     const uint32_t Qt = Qs + stg, dOt = dOs + stg;
@@ -575,11 +671,28 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-    mma_abt<D>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
-    mma_abt<D>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+    mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
+    mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
     grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
-    store_frag(Pp, nullptr, dp, w, lane);    // dropped P, bf16
-    store_frag(dSp, dLp, s, w, lane);        // dS, hi + lo
+    store_frag<T>(Pp, nullptr, dp, w, lane);    // dropped P, one term
+    if constexpr (kLift<T>) {
+      // dK sums over the tile's 64 q rows (every warp's): one exponent
+      // for the block, from the four warps' largest |dS|
+      float mw = tile_absmax(s, -1);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+      if (lane == 0) wmax[w] = mw;
+      __syncthreads();
+      const float mb = fmaxf(fmaxf(wmax[0], wmax[1]), fmaxf(wmax[2], wmax[3]));
+      raise_lift(lift, lift_exp(mb), dka, -1);
+      const float f = pow2i(-lift);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] *= f;
+    }
+    store_frag<T>(dSp, dLp, s, w, lane);        // dS, hi + lo
     __syncthreads();
     // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
 #pragma unroll
@@ -590,8 +703,8 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < D / 16; ++n) {
         uint32_t fb[4];
         frag_bt<D>(fb, dOt, 16 * n, 16 * kk, lane);
-        mma16816(dva[2 * n], fa, fb[0], fb[1]);
-        mma16816(dva[2 * n + 1], fa, fb[2], fb[3]);
+        mma16816<T>(dva[2 * n], fa, fb[0], fb[1]);
+        mma16816<T>(dva[2 * n + 1], fa, fb[2], fb[3]);
       }
       frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
       frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
@@ -599,15 +712,16 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < D / 16; ++n) {
         uint32_t fb[4];
         frag_bt<D>(fb, Qt, 16 * n, 16 * kk, lane);
-        mma16816(dka[2 * n], fa, fb[0], fb[1]);
-        mma16816(dka[2 * n + 1], fa, fb[2], fb[3]);
-        mma16816(dka[2 * n], fl, fb[0], fb[1]);
-        mma16816(dka[2 * n + 1], fl, fb[2], fb[3]);
+        mma16816<T>(dka[2 * n], fa, fb[0], fb[1]);
+        mma16816<T>(dka[2 * n + 1], fa, fb[2], fb[3]);
+        mma16816<T>(dka[2 * n], fl, fb[0], fb[1]);
+        mma16816<T>(dka[2 * n + 1], fl, fb[2], fb[3]);
       }
     }
-    __syncthreads();     // P, dS and the stage are rewritten next
-  }
-  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk, a.scale, lane);
+    __syncthreads();     // P, dS, the warps' maxima and the stage are
+  }                      // rewritten next
+  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk,
+               kLift<T> ? a.scale * pow2i(lift) : a.scale, lane);
   store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk, 1.0f, lane);
 }
 
@@ -640,11 +754,10 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                    float* lse, const Args& a, cudaStream_t st) {
-  using T = __nv_bfloat16;
-  auto kern = a.bias ? flash_fwd_mma<D, true> : flash_fwd_mma<D, false>;
+template <int D, typename T>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const Args& a, cudaStream_t st) {
+  auto kern = a.bias ? flash_fwd_mma<D, true, T> : flash_fwd_mma<D, false, T>;
   const size_t smem = fwd_mma_smem<D>(a.Lk);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
@@ -680,14 +793,13 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int D, bool EXT = false>
-int launch_bwd_bf16(const void* q, const void* k, const void* v,
-                    const void* o, const void* dout, const float* lse,
-                    float* delta, void* dq, void* dk, void* dv,
-                    const Args& a, cudaStream_t st) {
-  using T = __nv_bfloat16;
-  auto kdq = flash_dq_mma<D, EXT>;
-  auto kdkv = flash_dkv_mma<D>;
+template <int D, typename T, bool EXT = false>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv,
+                   const Args& a, cudaStream_t st) {
+  auto kdq = flash_dq_mma<D, EXT, T>;
+  auto kdkv = flash_dkv_mma<D, T>;
   cudaError_t e = allow_smem(kdq, dq_mma_smem<D>());
   if (e == cudaSuccess) e = allow_smem(kdkv, dkv_mma_smem<D>());
   if (e != cudaSuccess) return (int)e;
@@ -706,14 +818,14 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D, int dtype) {
   return B < 1 || Lq < 1 || Lk < 1 || H < 1 || (D != 64 && D != 128) ||
-         (dtype != 0 && dtype != 1);
+         dtype < 0 || dtype > 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16
+// dtype: 0 = f32, 1 = bf16, 2 = f16
 // bias: (B, Lk) f32 additive key mask, or null for none
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, float* lse, const float* bias, int B,
@@ -727,8 +839,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return D == 64 ? launch_fwd_f32<64>(q, k, v, out, lse, a, st)
                    : launch_fwd_f32<128>(q, k, v, out, lse, a, st);
-  return D == 64 ? launch_fwd_bf16<64>(q, k, v, out, lse, a, st)
-                 : launch_fwd_bf16<128>(q, k, v, out, lse, a, st);
+  if (dtype == 2)
+    return D == 64 ? launch_fwd_mma<64, __half>(q, k, v, out, lse, a, st)
+                   : launch_fwd_mma<128, __half>(q, k, v, out, lse, a, st);
+  return D == 64 ? launch_fwd_mma<64, __nv_bfloat16>(q, k, v, out, lse, a, st)
+                 : launch_fwd_mma<128, __nv_bfloat16>(q, k, v, out, lse, a,
+                                                      st);
 }
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -747,21 +863,28 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                                         dv, a, st)
                    : launch_bwd_f32<128>(q, k, v, o, dout, lse, delta, dq,
                                          dk, dv, a, st);
-  return D == 64 ? launch_bwd_bf16<64>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, a, st)
-                 : launch_bwd_bf16<128>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, a, st);
+  if (dtype == 2)
+    return D == 64 ? launch_bwd_mma<64, __half>(q, k, v, o, dout, lse, delta,
+                                                dq, dk, dv, a, st)
+                   : launch_bwd_mma<128, __half>(q, k, v, o, dout, lse, delta,
+                                                 dq, dk, dv, a, st);
+  return D == 64 ? launch_bwd_mma<64, __nv_bfloat16>(q, k, v, o, dout, lse,
+                                                     delta, dq, dk, dv, a, st)
+                 : launch_bwd_mma<128, __nv_bfloat16>(q, k, v, o, dout, lse,
+                                                      delta, dq, dk, dv, a,
+                                                      st);
 }
 
 // the external-lse backward: lse and delta (B*H, Lq) f32 from the
-// caller; no dropout
+// caller; no dropout; f32 or bf16 (its f16 form is not ported)
 int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, void* dk, void* dv,
                             const float* bias, int B, int Lq, int Lk, int H,
                             int D, int causal, int dtype, float scale,
                             void* stream) {
-  if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Lq, Lk, H, D, dtype) || dtype == 2)
+    return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, causal, scale, 0u, 1.0f, 0u, 0u,
                            bias);
   cudaStream_t st = (cudaStream_t)stream;
@@ -771,10 +894,11 @@ int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
                                               dl, dq, dk, dv, a, st)
                    : launch_bwd_f32<128, true>(q, k, v, nullptr, dout, lse,
                                                dl, dq, dk, dv, a, st);
-  return D == 64 ? launch_bwd_bf16<64, true>(q, k, v, nullptr, dout, lse, dl,
-                                             dq, dk, dv, a, st)
-                 : launch_bwd_bf16<128, true>(q, k, v, nullptr, dout, lse,
-                                              dl, dq, dk, dv, a, st);
+  using BF = __nv_bfloat16;
+  return D == 64 ? launch_bwd_mma<64, BF, true>(q, k, v, nullptr, dout, lse,
+                                                dl, dq, dk, dv, a, st)
+                 : launch_bwd_mma<128, BF, true>(q, k, v, nullptr, dout, lse,
+                                                 dl, dq, dk, dv, a, st);
 }
 
 const char* kernel_error_string(int err) {

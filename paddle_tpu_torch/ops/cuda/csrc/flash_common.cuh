@@ -7,8 +7,8 @@
 // cp.async and cluster pieces.
 //
 // Two kinds of kernel use them. The tensor-core kernels (every bf16 form
-// of K1: K1a, K1b, K1c and K1d; the last parts of this file) are
-// described there. The f32 FMA kernels (every f32 form):
+// of K1: K1a, K1b, K1c and K1d, and the f16 forms of K1a and K1b; the
+// last parts of this file) are described there. The f32 FMA kernels (every f32 form):
 // tiles are 64 rows; 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, ... of every
 // tile it computes, so a row's values sit in one half-warp and row
@@ -20,9 +20,12 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -147,6 +150,21 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const __half* p, float (&v)[8]) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+
 // 64 rows of one head, starting at sequence row l0, into dst[r * ld + d]
 // as f32 times ``mul``; rows at or past L load as zeros.
 template <typename T, int D>
@@ -233,11 +251,13 @@ Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core pieces (bf16 operands, f32 accumulators)
+// Tensor-core pieces (2-byte operands, f32 accumulators)
 // ---------------------------------------------------------------------------
 // A tensor-core block is 4 warps; each warp owns 16 rows of a 64-row tile
-// and multiplies with mma.sync m16n8k16 (bf16 x bf16 -> f32). Operand
-// tiles sit in shared memory as bf16, 64 rows of W elements (W = D for
+// and multiplies with mma.sync m16n8k16 (bf16 x bf16 -> f32, or f16 x f16
+// -> f32: the operand type T is a template parameter of every piece that
+// rounds, packs or multiplies, bf16 by default). Operand
+// tiles sit in shared memory as T, 64 rows of W elements (W = D for
 // q/k/v/dO tiles, 64 for a P or dS tile), in 16-byte chunks whose index
 // is XORed with row % 8, so the eight rows one ldmatrix phase reads (and
 // the rows a fragment store writes) fall in eight different bank groups.
@@ -254,6 +274,29 @@ Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
 constexpr int kWarps = 4;
 constexpr int kMmaT = kWarps * 32;   // threads of a tensor-core block
 constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// two f32 values rounded to a packed pair of T, and back
+template <typename T>
+struct Pack2;
+
+template <>
+struct Pack2<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  __device__ static T2 rn(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ static float2 widen(T2 h) { return __bfloat1622float2(h); }
+};
+
+template <>
+struct Pack2<__half> {
+  using T2 = __half2;
+  __device__ static T2 rn(float lo, float hi) { return __floats2half2_rn(lo, hi); }
+  __device__ static float2 widen(T2 h) { return __half22float2(h); }
+};
 
 // 2^x by the MUFU unit (ex2.approx, as exp2f without its subnormal
 // handling): an output below 2^-126 flushes to 0, where the f32 sums it
@@ -352,9 +395,8 @@ __device__ __forceinline__ void cp_wait() {
 
 // 64 rows of one head from the (B, L, H, D) layout, starting at row l0,
 // into a swizzled shared tile; rows at or past L are zero-filled
-template <int D>
-__device__ __forceinline__ void tile_async(uint32_t dst,
-                                           const __nv_bfloat16* src,
+template <int D, typename T>
+__device__ __forceinline__ void tile_async(uint32_t dst, const T* src,
                                            const Args& a, int b, int h,
                                            int l0, int L) {
   constexpr int NC = D / 8;
@@ -362,7 +404,7 @@ __device__ __forceinline__ void tile_async(uint32_t dst,
   for (int idx = threadIdx.x; idx < kTile * NC; idx += kMmaT) {
     const int r = idx / NC, c = idx % NC;
     const bool live = l0 + r < L;
-    const __nv_bfloat16* p =
+    const T* p =
         live ? src + (((int64_t)b * L + l0 + r) * a.H + h) * D + c * 8 : src;
     cp_async16(dst + swz<D>(r, c), p, live);
   }
@@ -414,17 +456,31 @@ __device__ __forceinline__ void frag_bt(uint32_t (&r)[4], uint32_t tile,
                           (n0 >> 3) + (lane >> 4)));
 }
 
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kIsHalf<T>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
+  typename Pack2<T>::T2 v = Pack2<T>::rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -435,23 +491,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // saved lse is -1e30 and P is 1 across the row, the plain version's
 // arithmetic, so dS grows with Lk and one bf16 rounding of it moves dQ
 // and dK past the bf16 tolerance), and so does P into P V
-// (flash_short.cu)
+// (flash_short.cu). In f16 hi + lo carries 22 bits, within f16's range
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void acc_to_a2(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                           const float (&s)[8][4], int kk) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float x0 = s[2 * kk + (j >> 1)][2 * (j & 1)];
     const float x1 = s[2 * kk + (j >> 1)][2 * (j & 1) + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
+    const typename Pack2<T>::T2 h = Pack2<T>::rn(x0, x1);
+    const float2 hf = Pack2<T>::widen(h);
     hi[j] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    lo[j] = pack_pair<T>(x0 - hf.x, x1 - hf.y);
   }
 }
 
 // acc (16 x 64) += A (16 rows m0.. of tile A, [m][k], depth D) B^T with B
 // stored [n][k] (64 rows, depth D): S = Q K^T and dP = dO V^T
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t A,
                                         int m0, uint32_t B, int lane) {
 #pragma unroll
@@ -462,30 +519,30 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t A,
     for (int n = 0; n < 4; ++n) {
       uint32_t fb[4];
       frag_b<D>(fb, B, 16 * n, 16 * kk, lane);
-      mma16816(acc[2 * n], fa, fb[0], fb[1]);
-      mma16816(acc[2 * n + 1], fa, fb[2], fb[3]);
+      mma16816<T>(acc[2 * n], fa, fb[0], fb[1]);
+      mma16816<T>(acc[2 * n + 1], fa, fb[2], fb[3]);
     }
   }
 }
 
 // acc (16 x D) += A (16 x 64, from registers as hi + lo) B, with B a
 // 64-row tile stored [k][n] of width D: O += P V and dQ += dS K
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_rb(float (&acc)[D / 8][4],
                                        const float (&s)[8][4], uint32_t B,
                                        int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t fa[4], fl[4];
-    acc_to_a2(fa, fl, s, kk);
+    acc_to_a2<T>(fa, fl, s, kk);
 #pragma unroll
     for (int n = 0; n < D / 16; ++n) {
       uint32_t fb[4];
       frag_bt<D>(fb, B, 16 * n, 16 * kk, lane);
-      mma16816(acc[2 * n], fa, fb[0], fb[1]);
-      mma16816(acc[2 * n + 1], fa, fb[2], fb[3]);
-      mma16816(acc[2 * n], fl, fb[0], fb[1]);
-      mma16816(acc[2 * n + 1], fl, fb[2], fb[3]);
+      mma16816<T>(acc[2 * n], fa, fb[0], fb[1]);
+      mma16816<T>(acc[2 * n + 1], fa, fb[2], fb[3]);
+      mma16816<T>(acc[2 * n], fl, fb[0], fb[1]);
+      mma16816<T>(acc[2 * n + 1], fl, fb[2], fb[3]);
     }
   }
 }
@@ -501,10 +558,10 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// a warp's 16 x D accumulator, times mul, as bf16 rows l0 + 16 w .. of
+// a warp's 16 x D accumulator, times mul, as T rows l0 + 16 w .. of
 // (B, L, H, D); rows at or past L are not written
-template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
+template <int D, typename T>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst,
                                           const float (&acc)[D / 8][4],
                                           const Args& a, int b, int h,
                                           int row0, int L, float mul,
@@ -517,7 +574,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + off + frag_col(lane, j, 0)) =
-          pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+          pack_pair<T>(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
   }
 }
 
@@ -555,9 +612,10 @@ __device__ __forceinline__ void grad_scores(float (&s)[8][4],
     }
 }
 
-// a warp's 16 x 64 accumulator tile as bf16 into a swizzled [64][64]
+// a warp's 16 x 64 accumulator tile as T into a swizzled [64][64]
 // shared tile, rows 16 w ..; with lo, its rounding error (acc_to_a2)
 // into a second tile
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void store_frag(unsigned char* tile,
                                            unsigned char* lo,
                                            const float (&s)[8][4], int w,
@@ -569,20 +627,20 @@ __device__ __forceinline__ void store_frag(unsigned char* tile,
       const int r = 16 * w + frag_row(lane, 2 * half);
       const uint32_t off = swz<kTile>(r, i) + 4 * (lane & 3);
       const float x0 = s[i][2 * half], x1 = s[i][2 * half + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-      *reinterpret_cast<__nv_bfloat162*>(tile + off) = h;
+      const typename Pack2<T>::T2 h = Pack2<T>::rn(x0, x1);
+      *reinterpret_cast<typename Pack2<T>::T2*>(tile + off) = h;
       if (lo) {
-        const float2 hf = __bfloat1622float2(h);
+        const float2 hf = Pack2<T>::widen(h);
         *reinterpret_cast<uint32_t*>(lo + off) =
-            pack_bf16(x0 - hf.x, x1 - hf.y);
+            pack_pair<T>(x0 - hf.x, x1 - hf.y);
       }
     }
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu)
-// and K1c's short_fwd_mma (flash_short.cu) run this one body; the design
-// is in flash_attention.cu's header.
+// The 2-byte forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu,
+// bf16 and f16) and K1c's short_fwd_mma (flash_short.cu, bf16) run this one
+// body; the design is in flash_attention.cu's header.
 // ---------------------------------------------------------------------------
 // Shared memory: the q tile, two k, v and bias (64 values) stages, the
 // first live key and the live-tile bits (one a kv tile)
@@ -639,11 +697,11 @@ __device__ __forceinline__ int next_live(const uint32_t* words, int t,
 // out and lse of the 64-row q tile qt of (b, h) = blockIdx.y; MASKED: a
 // (B, Lk) key bias (a.bias) is added and dead kv tiles are skipped, else
 // a.bias is ignored and none of that code is compiled in
-template <int D, bool MASKED>
-__device__ __forceinline__ void fwd_mma(const __nv_bfloat16* __restrict__ q,
-                                        const __nv_bfloat16* __restrict__ k,
-                                        const __nv_bfloat16* __restrict__ v,
-                                        __nv_bfloat16* __restrict__ out,
+template <int D, bool MASKED, typename T>
+__device__ __forceinline__ void fwd_mma(const T* __restrict__ q,
+                                        const T* __restrict__ k,
+                                        const T* __restrict__ v,
+                                        T* __restrict__ out,
                                         float* __restrict__ lse,
                                         const Args& a, int qt) {
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -698,7 +756,7 @@ __device__ __forceinline__ void fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[i][e] = 0.0f;
-    mma_abt<D>(sc, Qs, 16 * w, Ks + s * TB, lane);
+    mma_abt<D, T>(sc, Qs, 16 * w, Ks + s * TB, lane);
     // scale, add the key bias and mask in f32; the online softmax of the
     // thread's two rows
 #pragma unroll
@@ -747,7 +805,7 @@ __device__ __forceinline__ void fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    mma_rb<D>(o, sc, Vs + s * TB, lane);  // O += P V, P as hi + lo
+    mma_rb<D, T>(o, sc, Vs + s * TB, lane);  // O += P V, P as hi + lo
     __syncthreads();                      // the stage is refilled next
     t = tn;
   }

@@ -16,8 +16,14 @@ the kernels index that layout directly (no head merge). Scores use the
 scaled query ``q * (1/sqrt(D))``; the forward also returns the per-row
 log-sum-exp ``lse`` (B*H, Lq) in f32, which the backward uses to
 recompute the probabilities (delta = rowsum(dO * O) is computed in the
-dq pass). Inputs are bf16 or f32 (the plain version computes in f32, or
-f64 when given f64, for gradient checks). The bf16 short forward and
+dq pass). Inputs are f32, bf16 or f16 (the plain version computes in
+f32, or f64 when given f64, for gradient checks, and returns the input
+type, as the JAX kernel computes in f32 and writes ``q.dtype``). The
+f16 forms are the streaming forward and its saved-output backward
+(K1a and K1b over f16: AMP O1 fp16, ``csrc/flash_attention.cu``, dS
+lifted by a power of two before its f16 rounding); the short kernels
+and the external-lse backward take f32 and bf16 only (their f16 forms
+are not ported) and raise ``TypeError`` on f16. The bf16 short forward and
 the bf16 streaming backward (all three of its forms) run on tensor
 cores, and so does the bf16 short backward (one thread-block cluster a
 (batch, head), dQ summed in distributed shared memory in a fixed
@@ -64,8 +70,10 @@ Routing is by device, with no fallback: CUDA tensors launch the kernels
 (counting ``flash_attention_fwd`` per forward and
 ``flash_attention_bwd`` per backward pair of launches,
 ``flash_attention_masked_fwd`` / ``flash_attention_masked_bwd`` for
-the same launches with a bias, and ``flash_attention_short_fwd`` /
-``flash_attention_short_bwd`` per launch of the short forms) or raise;
+the same launches with a bias, each with the suffix ``_f16`` for the
+f16 forms (f32 and bf16 share the unsuffixed counts), and
+``flash_attention_short_fwd`` / ``flash_attention_short_bwd`` per
+launch of the short forms) or raise;
 CPU tensors take the plain version. The JAX package's dispatch floors
 (seq >= 256, the TPU autotune of the short forms) were TPU tuning: on
 CUDA, attention always launches a kernel, and ``nn.functional`` picks
@@ -83,7 +91,8 @@ from . import _build, counters
 
 __all__ = ["flash_attention", "flash_attention_short", "short_ok",
            "flash_attention_bwd_ext", "key_padding_view", "kv_mask_bias",
-           "kv_tile_visits", "philox_keep_mask", "keep_threshold"]
+           "kv_tile_visits", "philox_keep_mask", "keep_threshold",
+           "per_query_attention"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,7 +100,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _HEAD_DIMS = (64, 128)
 _SHORT_MIN, _SHORT_MAX = 128, 512
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG_INF = -1e30             # the JAX package's finite mask value
 _TILE = 64                   # the kernels' q and kv tile rows
 
@@ -300,6 +309,60 @@ def _plain_grads(q, k, v, qm, km, vm, dom, lse, delta, scale, causal,
     return back(dq, Lq, q), back(dk, Lk, k), back(dv, Lk, v)
 
 
+def _term_norms(q, k, v, out, lse, dout, causal, dropout_p, seed,
+                bias=None):
+    """For checks of the 2-byte kernels: per element of out, dq, dk and
+    dv, the 2-norm of the terms it sums (|P' V| over the keys for out,
+    scale |dS K| for dq, scale |dS^T Q| for dk, |P'^T dO| for dv; P' the
+    dropped probabilities, dS = P (dP' - delta)), in f32 from the
+    inputs' values, the given ``out`` and ``lse``. A kernel that rounds
+    each P' or dS to its 2-byte type once moves such an element from the
+    plain version's f32 value by about the unit roundoff times this
+    norm. Then, for dq and dk, the terms' sums that the f32 rounding of
+    dP and delta reaches: scale P (|dP'| + |delta|)'s 1-norms times |K|
+    (dq) or |Q| (dk), where dP's is sum |dO V| (dropped and scaled) and
+    delta's sum |dO out|. Where dS cancels (a row whose only live key
+    gives dP' = delta up to out's rounding) it is the rounding noise of
+    those f32 sums, which two summation orders give differently; a few
+    D f32 unit roundoffs of these sums bound it. Returns (out, dq, dk,
+    dv) norms and (dq, dk) sums, each in its tensor's (B, L, H, D)."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qm, km, vm, om, dom = (_heads(x.float(), torch.float32)
+                           for x in (q, k, v, out, dout))
+    s = _scores(qm, km, scale, causal, bias)
+    prob = torch.exp(s - lse.float().unsqueeze(-1))
+    dp = torch.matmul(dom, vm.transpose(1, 2))
+    dp_abs = torch.matmul(dom.abs(), vm.abs().transpose(1, 2))
+    if dropout_p > 0.0:
+        keep = philox_keep_mask(seed, B * H, Lq, Lk, dropout_p, q.device)
+        inv = 1.0 / (1.0 - dropout_p)
+        zero = torch.zeros_like(prob)
+        pd = torch.where(keep, prob * inv, zero)
+        dp = torch.where(keep, dp * inv, zero)
+        dp_abs = torch.where(keep, dp_abs * inv, zero)
+    else:
+        pd = prob
+    delta = (dom * om).sum(-1, keepdim=True)
+    ds = prob * (dp - delta)
+    sums = prob * (dp_abs + (dom * om).abs().sum(-1, keepdim=True))
+    pd2, ds2 = pd.square(), ds.square()
+
+    def back(x, L):
+        return x.reshape(B, H, L, D).permute(0, 2, 1, 3)
+
+    def norm(x, L):
+        return back(x.sqrt_(), L)
+
+    return ((norm(torch.matmul(pd2, vm.square()), Lq),
+             norm(torch.matmul(ds2, km.square()), Lq) * scale,
+             norm(torch.matmul(ds2.transpose(1, 2), qm.square()), Lk) * scale,
+             norm(torch.matmul(pd2.transpose(1, 2), dom.square()), Lk)),
+            (back(torch.matmul(sums, km.abs()), Lq) * scale,
+             back(torch.matmul(sums.transpose(1, 2), qm.abs()), Lk) * scale))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -316,8 +379,8 @@ def _check(q, k, v, causal):
         raise ValueError(f"the flash attention kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {D}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the flash attention kernel takes f32 or bf16 "
-                        f"q/k/v of one type, got {q.dtype}/{k.dtype}/"
+        raise TypeError(f"the flash attention kernel takes f32, bf16 or "
+                        f"f16 q/k/v of one type, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype}")
     if causal and k.shape[1] != Lq:
         raise ValueError("causal flash attention needs Lq == Lk")
@@ -327,6 +390,17 @@ def _check(q, k, v, causal):
             raise ValueError("flash_attention inputs must be contiguous, "
                              "16-byte aligned and on one device")
     return B, Lq, k.shape[1], H, D
+
+
+def _no_f16(q, what):
+    if q.dtype == torch.float16:
+        raise TypeError(f"{what}: f32 or bf16 only, the f16 form is not "
+                        f"ported (the streaming kernels take f16)")
+
+
+def _counter(name, q):
+    """The launch count of ``name``: f16 launches apart."""
+    return name + "_f16" if q.dtype == torch.float16 else name
 
 
 def _check_bias(bias, q, B, Lk):
@@ -365,8 +439,8 @@ def _cuda_fwd(q, k, v, causal, dropout_p, seed, bias=None):
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_fwd")
-    counters.bump("flash_attention_fwd" if bias is None
-                  else "flash_attention_masked_fwd")
+    counters.bump(_counter("flash_attention_fwd" if bias is None
+                           else "flash_attention_masked_fwd", q))
     return out, lse
 
 
@@ -401,8 +475,8 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
              1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_bwd")
-    counters.bump("flash_attention_bwd" if bias is None
-                  else "flash_attention_masked_bwd")
+    counters.bump(_counter("flash_attention_bwd" if bias is None
+                           else "flash_attention_masked_bwd", q))
     return dq, dk, dv
 
 
@@ -461,6 +535,7 @@ def _no_bias(bias):
 
 
 def _check_short(q, k, v, causal):
+    _no_f16(q, "the short flash kernels")
     dims = _check(q, k, v, causal)
     if not short_ok(q, k, causal):
         raise ValueError(f"the short flash kernels take Lq == Lk, "
@@ -543,6 +618,7 @@ def flash_attention_bwd_ext(q, k, v, dout, lse, delta, causal=False,
     ``lse`` and ``delta`` = rowsum(dO * O) ((B*H, Lq) f32) of the whole
     sequence, with an optional (B, Lk) f32 key mask ``bias``; no
     dropout. The kernel on CUDA, the plain version on the CPU."""
+    _no_f16(q, "the external-lse flash backward")
     if _route(q):
         return _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias)
     return _plain_bwd_ext(q, k, v, dout, lse, delta, causal, bias)
@@ -569,6 +645,43 @@ def flash_attention_short_bwd(q, k, v, out, lse, dout, causal=False,
                                seed)
     _check_short(q, k, v, causal)
     return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
+
+
+def per_query_attention(q, k, v, mask, causal=False, dropout_p=0.0, seed=0):
+    """Attention under a per-query mask, in plain PyTorch on q's device
+    and counted ``attention_per_query_plain`` (one a call): what the JAX
+    package computes outside Pallas for such a mask (``_xla_attention``,
+    ``flash_attention.py:32-62``): f32 scores of the (B, L, H, D)
+    inputs scaled by 1/sqrt(D), -1e30 above the bottom-right-aligned
+    diagonal when ``causal``, then ``mask`` (broadcast against (B, H,
+    Lq, Lk): boolean, True = attend, else -1e30; or float, added), the
+    f32 softmax rounded to q's type, and P V in q's type. Dropout keeps
+    the flash kernels' Philox bits (``philox_keep_mask``), not JAX's.
+    Differentiable in q, k, v and a float mask. No kernel takes such a
+    mask: ``nn.functional`` sends only masks of this kind here, by their
+    kind, never as a fallback."""
+    counters.bump("attention_per_query_plain")
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) \
+        / math.sqrt(D)
+    neg = torch.full((), _NEG_INF, dtype=s.dtype, device=s.device)
+    if causal:
+        keep = torch.ones((Lq, Lk), dtype=torch.bool,
+                          device=s.device).tril(Lk - Lq)
+        s = torch.where(keep, s, neg)
+    if mask.dtype == torch.bool:
+        s = torch.where(mask, s, neg)
+    else:
+        s = s + mask.to(s.dtype)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = philox_keep_mask(seed, B * H, Lq, Lk, dropout_p,
+                                q.device).view(B, H, Lq, Lk)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
+    return torch.matmul(probs, vh).permute(0, 2, 1, 3)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -374,9 +374,16 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
     q = torch.zeros((1, 64, 2, 96), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
-    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float16)
+    # f16 is taken by the streaming kernels since the NMT slice; f64, a
+    # mix of types, and f16 in the short kernels are not
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="one type"):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="short"):
+        fa.flash_attention_short(q, q, q)
     h = torch.zeros((4, 100), device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
         fx.fused_xent_fwd(h, torch.zeros((8, 100), device=dev),
@@ -1733,3 +1740,39 @@ def test_slice_2b_kernels_raise_on_what_they_do_not_take(dev):
         fo.fused_momentum_([lo], [lo], [lo], lr=0.1, momentum=0.9,
                            nesterov=False, masters=[p])
     assert counters.snapshot() == {}
+
+
+# ---------------------------------------------------------------------------
+# K1a/K1b over f16 (AMP O1 fp16)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,Lq,Lk,causal,p,masked,scale", [
+    (8, 128, 128, False, 0.1, False, 2.0 ** 15),
+    (8, 128, 128, True, 0.1, False, 2.0 ** 15),
+    (8, 128, 128, True, 0.1, False, 1.0),
+    (8, 128, 128, False, 0.1, True, 2.0 ** 15),
+    (8, 17, 128, False, 0.0, False, 2.0 ** 15),
+    (8, 1, 1, True, 0.0, False, 2.0 ** 15),
+], ids=["cross", "causal", "causal-scale1", "masked", "decode-Lq17",
+        "decode-L1"])
+def test_f16_flash_kernels_hold_the_2byte_rule(dev, B, Lq, Lk, causal, p,
+                                               masked, scale):
+    """K1a/K1b's f16 forms against the plain version in f32, element by
+    element (``chip_smoke.flash_2byte_vs_plain``: one f16 unit plus four
+    unit roundoffs of the terms' 2-norm, with the f32 sums' allowance),
+    dO at ``scale`` times a unit gradient; a second launch the same bits;
+    the launches counted under the f16 names."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, do = cs.attention_inputs(torch, gen, B, Lq, Lk, 8, 64,
+                                      torch.float16, do_scale=scale)
+    bias = _padded_bias(dev, B, Lk) if masked else None
+    _, _, got = cs.flash_2byte_vs_plain(torch, fa, q, k, v, do, causal, p,
+                                        42, bias)
+    again = fa._cuda_fwd(q, k, v, causal, p, 42, bias) + fa._cuda_bwd(
+        q, k, v, got[0], got[1], do, causal, p, 42, bias)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    name = "masked_" if masked else ""
+    assert counters.snapshot() == {f"flash_attention_{name}fwd_f16": 2,
+                                   f"flash_attention_{name}bwd_f16": 2}

@@ -14,7 +14,8 @@ the JAX package on the CPU, from the same numpy inputs.
   skips is dead and changes no bit of the plain forward.
 - ``scaled_dot_product_attention``'s routing: bool and float
   key-padding masks ride the streaming kernel (with the short-sequence
-  flag on too), per-query masks and masks that require grad raise, and
+  flag on too), per-query masks and float masks that require grad take
+  the counted plain route (``per_query_attention``), and
   dropout with a mask equals the dense formula built from
   ``philox_keep_mask`` (values and autograd gradients).
 - A tiny masked BERT (``BertConfig.tiny()``, weights carried across,
@@ -230,19 +231,22 @@ def test_a_float_key_mask_is_added_to_the_scores():
 
 
 def test_masks_the_kernel_does_not_take_raise():
+    """The masks no kernel takes raised until the decoder's slice; now
+    each runs the per-query plain route, counted once a call (the values
+    are held against ``_xla_attention`` in tests/test_torch_nmt.py). The
+    short kernels still refuse a key mask."""
+    from paddle_tpu_torch.ops.cuda import counters
+
     q = torch.zeros((2, 128, 2, 64))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        F.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones((2, 1, 128, 128), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        F.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones((128, 128), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        F.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.zeros((2, 1, 128, 128)))
-    with pytest.raises(NotImplementedError, match="requires grad"):
-        F.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.zeros((2, 128), requires_grad=True))
+    counters.reset()
+    for mask in (torch.ones((2, 1, 128, 128), dtype=torch.bool),
+                 torch.ones((128, 128), dtype=torch.bool),
+                 torch.zeros((2, 1, 128, 128)),
+                 torch.zeros((2, 128), requires_grad=True)):
+        out = F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+        assert out.shape == q.shape
+    assert counters.get("attention_per_query_plain") == 4
+    counters.reset()
     bias = torch.zeros((2, 128))
     with pytest.raises(ValueError, match="no key mask"):
         tfa.flash_attention_short(q, q, q, bias=bias)

@@ -97,14 +97,32 @@ def test_causal_attention_with_a_key_mask_matches_jax():
 
 def test_causal_attention_with_a_per_query_mask_raises():
     """Folding the causal constraint into a per-query mask, or into any
-    mask at Lq != Lk, is slice 10's (the decoder); the JAX layer folds."""
+    mask at Lq != Lk, raised until the decoder's slice; now the port folds
+    as the JAX layer does (bottom-right aligned) and runs the counted
+    per-query plain route: a (B, 1, L, L) bool mask, and a (B, 1, 1, Lk)
+    key mask at Lq != Lk, each within atol 1e-5 of the JAX layer."""
+    from paddle_tpu_torch.ops.cuda import counters
+
+    paddle.seed(1)
+    jmha = JMHA(32, 4, is_causal=True)
     tmha = nn.MultiHeadAttention(32, 4, is_causal=True, device="cpu")
-    x = torch.zeros(2, 16, 32)
-    with pytest.raises(NotImplementedError, match="per-query"):
-        tmha(x, attn_mask=torch.ones(2, 1, 16, 16, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="per-query"):
-        tmha(x, torch.zeros(2, 8, 32), torch.zeros(2, 8, 32),
-             attn_mask=torch.ones(2, 8, dtype=torch.bool))
+    load_numpy_state(tmha, {k: v.numpy()
+                            for k, v in jmha.state_dict().items()})
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 16, 32).astype(np.float32)
+    kv = rng.randn(2, 8, 32).astype(np.float32)
+    per_query = rng.rand(2, 1, 16, 16) < 0.8
+    per_query[..., 0] = True
+    key8 = (np.arange(8)[None, :] < np.array([8, 5])[:, None])[:, None, None]
+    counters.reset()
+    for args, mask in (((x,), per_query), ((x, kv, kv), key8)):
+        jout = jmha(*(paddle.to_tensor(a) for a in args),
+                    attn_mask=paddle.to_tensor(mask))
+        tout = tmha(*(torch.from_numpy(a) for a in args),
+                    attn_mask=torch.from_numpy(mask))
+        np.testing.assert_allclose(tout.detach().numpy(), jout.numpy(),
+                                   atol=1e-5, rtol=0)
+    assert counters.get("attention_per_query_plain") == 2
 
 
 def _jax_losses(state):

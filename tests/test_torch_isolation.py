@@ -52,3 +52,23 @@ def test_port_source_names_no_jax_or_paddle_tpu_import(path):
         for root in roots:
             assert root not in ("jax", "jaxlib", "paddle_tpu"), \
                 f"{path}:{node.lineno} imports {root}"
+
+
+@pytest.mark.parametrize("path", [
+    "paddle_tpu_torch/models/transformer.py",
+    "paddle_tpu_torch/ops/beam_search.py",
+    "paddle_tpu_torch/nn/transformer.py",
+    "paddle_tpu_torch/ops/cuda/flash_attention.py",
+])
+def test_the_nmt_slice_modules_are_checked(path):
+    """The Transformer NMT slice's modules are among the files the two
+    checks above walk (the probe imports every module of the package)."""
+    assert path in PORT_FILES
+    name = path[:-3].replace("/", ".")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import {name}, sys; bad = [n for n in "
+         f"sys.modules if n.split('.')[0] in ('jax', 'jaxlib', "
+         f"'paddle_tpu')]; assert not bad, bad"],
+        cwd=str(REPO), capture_output=True, text=True, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert proc.returncode == 0, proc.stderr
