@@ -59,7 +59,11 @@ a decode tick is its host's launch loop.
             D = 128 case, each against the plain version and against the
             streaming kernel, the dropout mask bit for bit, and their
             times beside the streaming kernel's and SDPA's at L 128 and
-            512; fused SGD over LeNet's and BERT-base's parameter lists
+            512, and their f16 forms (dO at scale 1 and 2^15, a peaked
+            softmax, causal L 256 and 512, D 128 at L 384, L 128: the
+            backward's clusters of 2, 4, 6 and 8) element by element by
+            the 2-byte rule, two launches bit for bit, K1c f16's lse
+            K1a f16's, timed beside SDPA over f16 at L 512; fused SGD over LeNet's and BERT-base's parameter lists
             with weight decay 0 and 1e-4 and over 1,400 small tensors (two
             launches, offset views among them), bit for bit, a skipped step
             launching nothing, its one-tensor launch floor timed; fused
@@ -87,7 +91,12 @@ a decode tick is its host's launch loop.
             8 x 1024 x 12 x 64 bf16, kv in 2 and 4 chunks, causal, full and
             key-padded, against the one-launch K1a/K1b and the plain
             versions (bf16 atol 2e-2 + rtol 1e-2, one f32 case at 1e-4),
-            and alone at the SP block 8 x 512 x 12 x 64; K3's ZeRO chunk
+            and alone at the SP block 8 x 512 x 12 x 64; its f16 form
+            through the ring (causal in 2 and 4 chunks, full in 2, dO at
+            scale 1 and 2^15) and alone at the SP block (full, diagonal,
+            a block holding little of each row's mass) by the 2-byte rule,
+            two launches bit for bit, timed beside aten's flash backward
+            over f16; K3's ZeRO chunk
             entry (``chunk_lamb``) at the book net's chunk over {"dp": 2}
             (9,216 elements, both ranks' positions), BERT-base's
             word-embedding chunk (11,720,704) and a 524,288-element chunk
@@ -231,6 +240,10 @@ a decode tick is its host's launch loop.
             model within rtol 1e-4), exact launches a step (12 + 12 short
             flash, no streaming flash, 1 + 1 xent, 1 + 1 Lamb, no Adam)
             and a profiled step by family;
+10b. bert512_fp16  phase 10 at AMP O1 fp16 with no loss scaler: exactly
+            12 + 12 f16 short flash launches a step and no other K1, the
+            first loss within 2^-11 (relative) of a plain-version copy's
+            one step, the rest as phase 10;
 11. lenet_sgd  LeNet at batch 128 x 1 x 28 x 28, SGD lr 0.01 with L2
             1e-4 (in the kernel): 3 warm-up and 10 timed steps; steps/s,
             the loss (finite, falling), one SGD launch a step covering
@@ -303,6 +316,10 @@ a decode tick is its host's launch loop.
             (rank 0: 12 K1a + 12 external-lse K1b; rank 1: 24 + 24; no
             saved-form K1b), a profiled step with the time in the
             collectives;
+23b. gpt_sp_fp16  phase 23 at AMP O1 fp16 with no loss scaler, 3 warm-up
+            and 5 timed steps: rank 0 12 K1a f16 + 12 external-lse K1b
+            f16 a step, rank 1 24 + 24, no bf16 or f32 K1, the ranks'
+            losses equal, finite and falling;
 24. static_zero_parity  the book's recognize_digits conv net
             (``tests/test_book.py:62-81``) over ``{"dp": 2}``, two
             processes on the card over gloo, global batch 64, 2 steps a
@@ -351,10 +368,10 @@ a decode tick is its host's launch loop.
     for the fused xent, 6b for its bf16 form and K3-adam's master form,
     8b for K3-momentum's, 6, 6b and 27 for the streaming flash kernels,
     29 for their f16 forms, 6, 27 and 29 for Adam,
-    8 for Momentum, 10 for the short flash kernels and Lamb, 11 for SGD,
-    13-16 for the static forms, 18 for K6, 20 for the masked flash
-    kernels, 23 for the external-lse K1b, 25 for the chunk Lamb, both
-    ranks; K2's f16 form and K3-sgd's and K3-lamb's master forms run on
+    8 for Momentum, 10 for the short flash kernels and Lamb, 10b for
+    their f16 forms, 11 for SGD, 13-16 for the static forms, 18 for K6,
+    20 for the masked flash kernels, 23 for the external-lse K1b, 23b for
+    its f16 form (and K1a f16), 25 for the chunk Lamb, both ranks; K2's f16 form and K3-sgd's and K3-lamb's master forms run on
     no phase's path, ``"main_path": false``, launches 0: at O1 the
     vocabulary heads take f32 from a black-listed norm), then the card's
     name and power limit, then the result line.
@@ -1695,38 +1712,112 @@ NMT_ATTENTION = (64, 128, 8, 64)   # bench_nmt's B, L, heads, head_dim
 LOSS_SCALE = 2.0 ** 15             # GradScaler's default first scale
 
 
+def unit_of(torch, x, dtype):
+    """One unit in the last place of ``dtype`` at |x| (f32 x), as f32."""
+    xb = x.abs().to(dtype)
+    return (torch.nextafter(xb, torch.full_like(xb, float("inf")))
+            - xb).float()
+
+
+def ring_block_bounds(torch, fa, q, k, v, do, lse, causal, bias, sums):
+    """Per element of (out, dq, dk, dv), a bound of any ring block's
+    partial: the 1-norm of the element's terms over every key (P |V|,
+    P^T |dO|; for dq and dk ``sums`` of ``_term_norms``, which bound
+    |dS| by P (|dP'| + |delta|)), P = exp(S - lse) with the whole
+    sequence's lse."""
+    B, L, H, D = q.shape
+    qm, km, vm, dom = (fa._heads(x.float(), torch.float32)
+                       for x in (q, k, v, do))
+    prob = torch.exp(fa._scores(qm, km, 1.0 / D ** 0.5, causal, bias)
+                     - lse.float().unsqueeze(-1))
+
+    def back(x):
+        return x.reshape(B, H, L, D).permute(0, 2, 1, 3)
+
+    return (back(torch.matmul(prob, vm.abs())), sums[0], sums[1],
+            back(torch.matmul(prob.transpose(1, 2), dom.abs())))
+
+
 def flash_2byte_vs_plain(torch, fa, q, k, v, do, causal, p, seed,
-                         bias=None, case=""):
-    """One K1a + K1b launch over 2-byte q, k, v against the plain version
-    in f32 (the rule above); fails past the tolerance. Returns ({name:
-    tolerance used}, {name: max abs err}, the kernels' (out, lse, dq, dk,
-    dv))."""
-    out, lse = fa._cuda_fwd(q, k, v, causal, p, seed, bias)
-    grads = fa._cuda_bwd(q, k, v, out, lse, do, causal, p, seed, bias)
+                         bias=None, case="", form="stream", glob=None):
+    """One launch of a 2-byte flash form over q, k, v against the plain
+    version in f32 (the rule above); fails past the tolerance. ``form``:
+    "stream" K1a + K1b, "short" K1c + K1d, "ext" the external-lse K1b
+    alone, given ``glob`` = (out, lse) of the whole sequence whose k/v
+    block this is (no dropout; delta = rowsum(dO out) in f32, as the ring
+    takes it), or "ring" the ring's walk over ``glob`` = its n chunks
+    (``ring_attention_chunks``, K1a and the external-lse K1b a block;
+    each of the n blocks' outputs is rounded to the type once more before
+    the f32 sums, as JAX's ring rounds it, so each element is also allowed
+    n half units of the type at the bound of a block partial,
+    ``ring_block_bounds``: where the partials cancel, or where dq at dO
+    scale 1 is an f16 subnormal, a count of the sum's own units or
+    roundoffs does not bound it). Returns ({name: tolerance used},
+    {name: max abs err}, the kernels' (out, lse, dq, dk, dv); ext: (dq,
+    dk, dv); ring: (out, dq, dk, dv))."""
+    if form == "ext":
+        out, lse = glob
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(lse.shape).contiguous()
+        grads = fa._cuda_bwd_ext(q, k, v, do, lse, delta, causal, bias)
+        got_all = grads
+    elif form == "ring":
+        from paddle_tpu_torch.parallel import ring
+
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = ring.ring_attention_chunks(qg, kg, vg, glob, causal, bias=bias)
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        out = out.detach()
+        got_all = (out,) + grads
+    else:
+        fwd, bwd = (fa._cuda_short_fwd, fa._cuda_short_bwd) \
+            if form == "short" else (fa._cuda_fwd, fa._cuda_bwd)
+        args = () if form == "short" else (bias,)
+        out, lse = fwd(q, k, v, causal, p, seed, *args)
+        grads = bwd(q, k, v, out, lse, do, causal, p, seed, *args)
+        got_all = (out, lse) + grads
     f = [x.float() for x in (q, k, v, out, do)]
     rout, rlse = fa._plain_fwd(f[0], f[1], f[2], causal, p, seed, bias)
-    want = (rout,) + fa._plain_bwd(f[0], f[1], f[2], f[3], lse, f[4],
-                                   causal, p, seed, bias)
+    if form == "ext":
+        want = fa._plain_bwd_ext(f[0], f[1], f[2], f[4], lse, delta, causal,
+                                 bias)
+        names, gots = ("dq", "dk", "dv"), grads
+    else:
+        if form == "ring":   # the backward's lse: the whole sequence's
+            lse = rlse
+        want = (rout,) + fa._plain_bwd(f[0], f[1], f[2], f[3], lse, f[4],
+                                       causal, p, seed, bias)
+        names, gots = ("out", "dq", "dk", "dv"), (out,) + grads
     norms, sums = fa._term_norms(q, k, v, out, lse, do, causal, p, seed,
                                  bias)
     u = FLASH_UNIT_ROUNDOFF[str(q.dtype).replace("torch.", "")]
     floor = (0.0,) + tuple(FLASH_F32_SUMS * q.shape[3] * x for x in sums) \
         + (0.0,)
+    ring = (0.0,) * 4
+    if form == "ring":
+        ring = tuple(0.5 * glob * unit_of(torch, x, q.dtype)
+                     for x in ring_block_bounds(torch, fa, q, k, v, do, lse,
+                                                causal, bias, sums))
+    if form == "ext":
+        norms, floor = norms[1:], floor[1:]
     torch.cuda.synchronize()
-    used, errs = {}, {"lse": max_err(lse, rlse)}
-    expect(errs["lse"] <= 1e-4, f"flash {q.dtype}: lse err {errs['lse']}")
-    for name, got, ref, n, fl in zip(("out", "dq", "dk", "dv"),
-                                     (out,) + grads, want, norms, floor):
+    used, errs = {}, {}
+    if form != "ext":
+        errs["lse"] = max_err(lse, rlse)
+        expect(errs["lse"] <= 1e-4, f"flash {q.dtype}: lse err "
+                                    f"{errs['lse']}")
+    for name, got, ref, n, fl, rb in zip(names, gots, want, norms, floor,
+                                         ring):
         expect(got.dtype == q.dtype and bool(torch.isfinite(got).all()),
                f"flash {q.dtype}: {name} non-finite or of another type")
         errs[name] = max_err(got, ref)
         used[name] = tolerance_ratio(
-            torch, got, ref,
-            FLASH_TERMS_K * u * n + fl + 1e-6 * float(ref.abs().max()))
+            torch, got, ref, FLASH_TERMS_K * u * n + fl + rb
+            + 1e-6 * float(ref.abs().max()))
         expect(used[name] <= 1.0,
-               f"flash {q.dtype} {case}: {name} is off the plain version "
-               f"by {used[name]} of its tolerance")
-    return used, errs, (out, lse) + grads
+               f"flash {q.dtype} {form} {case}: {name} is off the plain "
+               f"version by {used[name]} of its tolerance")
+    return used, errs, got_all
 
 
 def attention_inputs(torch, gen, B, Lq, Lk, H, D, dt, q_mul=1.0,
@@ -2316,7 +2407,16 @@ def check_flash_short(torch, fa, timing, tc_counts):
     of each bf16 kernel give the same bits; the dropout mask read back
     bit for bit. Times the short kernels, the streaming K1 (its
     backward is K1b's pair, ``stream_bwd_ms``) and
-    ``F.scaled_dot_product_attention`` at L 128 and L 512."""
+    ``F.scaled_dot_product_attention`` at L 128 and L 512. Then the f16
+    forms (``short_f16``): BERT phase 2's shape with dropout 0.1 at dO
+    scale 1 (a unit gradient: BERT's O1 fp16 path has no loss scaler)
+    and 2^15 and with a peaked softmax, causal L 256, D 128 at L 384 and
+    L 128, so the backward runs at clusters of 2, 4, 6 and 8, each held
+    element by element (the rule above FLASH_UNIT_ROUNDOFF), two
+    launches bit for bit, K1c f16's lse bit for bit K1a f16's (the same
+    body; K1c f16 takes P into P V as one term, K1a f16 as hi + lo), the
+    f16 launches counted apart, and K1c/K1d f16 timed beside SDPA
+    over f16 at L 512."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(7)
     cases = [("bf16_L512", 32, 512, 12, 64, torch.bfloat16, False, 0.1),
@@ -2407,19 +2507,99 @@ def check_flash_short(torch, fa, timing, tc_counts):
                         f"{part}_bound_ms": t[f"{part}_bound_ms"],
                         f"{part}_bound_by": t[f"{part}_bound_by"]})
         row["bound_rates"] = rates(BF16_FLOPS_PER_S, "bf16 tensor-core")
+    row["short_f16"] = check_flash_short_f16(torch, fa, gen, timing)
     return row
 
 
-def time_short_vs_stream(torch, fa, gen, B, L, H=12, D=64, p=0.1):
+# the f16 cases of check_flash_short: (name, B, L, H, D, causal, dO's
+# multiple of a unit gradient, q's multiplier); dropout 0.1 in each
+SHORT_F16_CASES = (
+    ("f16_L512_scale1", 32, 512, 12, 64, False, 1.0, 1.0),
+    ("f16_L512_scale2^15", 8, 512, 12, 64, False, LOSS_SCALE, 1.0),
+    ("f16_L512_peaked_scale1", 8, 512, 12, 64, False, 1.0, 8.0),
+    ("f16_causal_L512_scale1", 8, 512, 12, 64, True, 1.0, 1.0),
+    ("f16_causal_L256_scale1", 4, 256, 4, 64, True, 1.0, 1.0),
+    ("f16_causal_L256_scale2^15", 4, 256, 4, 64, True, LOSS_SCALE, 1.0),
+    ("f16_D128_L384_scale1", 2, 384, 4, 128, False, 1.0, 1.0),
+    ("f16_D128_L384_scale2^15", 2, 384, 4, 128, False, LOSS_SCALE, 1.0),
+    ("f16_L128_scale1", 8, 128, 12, 64, False, 1.0, 1.0),
+    ("f16_L128_scale2^15", 8, 128, 12, 64, False, LOSS_SCALE, 1.0))
+
+
+def check_flash_short_f16(torch, fa, gen, timing):
+    """K1c/K1d over f16 (check_flash_short's f16 part)."""
+    from paddle_tpu_torch.ops.cuda import counters
+
+    seed, p = 0x5EED2121, 0.1
+    row = {"cases": {}}
+    before = counters.snapshot()
+    n = 0
+    for name, B, L, H, D, causal, scale, q_mul in SHORT_F16_CASES:
+        q, k, v, do = attention_inputs(torch, gen, B, L, L, H, D,
+                                       torch.float16, q_mul, scale)
+        used, errs, got = flash_2byte_vs_plain(
+            torch, fa, q, k, v, do, causal, p, seed, case=name,
+            form="short")
+        again = fa._cuda_short_fwd(q, k, v, causal, p, seed)
+        again += fa._cuda_short_bwd(q, k, v, got[0], got[1], do, causal, p,
+                                    seed)
+        n += 2
+        expect(same_bits(torch, got, again),
+               f"flash short {name}: two launches give different bits")
+        stream = fa._cuda_fwd(q, k, v, causal, p, seed)
+        expect(same_bits(torch, got[1:2], stream[1:]),
+               f"flash short {name}: K1c f16's lse differs from K1a f16's")
+        row["cases"][name] = {"tolerance_used": used, "max_abs_err": errs,
+                              "clusters": L // 64}
+        if name == "f16_L512_scale1":
+            main = (q, k, v, do, got[0], got[1])
+        del q, k, v, do, got, again, stream
+    moved = {c: counters.snapshot().get(c, 0) - before.get(c, 0) for c in (
+        "flash_attention_short_fwd_f16", "flash_attention_short_bwd_f16",
+        "flash_attention_short_fwd", "flash_attention_short_bwd",
+        "flash_attention_fwd_f16")}
+    row["launches"] = moved
+    expect(moved == {"flash_attention_short_fwd_f16": n,
+                     "flash_attention_short_bwd_f16": n,
+                     "flash_attention_short_fwd": 0,
+                     "flash_attention_short_bwd": 0,
+                     "flash_attention_fwd_f16": n // 2},
+           f"flash short f16: launch counts {moved}, want {n} f16 pairs")
+    cases = row["cases"].values()
+    row["fwd_max_abs_err"] = max(c["max_abs_err"]["out"] for c in cases)
+    row["bwd_max_abs_err"] = max(max(c["max_abs_err"][g]
+                                     for g in ("dq", "dk", "dv"))
+                                 for c in cases)
+    row["max_tolerance_used"] = max(
+        max(c["tolerance_used"].values()) for c in cases)
+    if timing:
+        q, k, v, do, out, lse = main
+        t = time_short_vs_stream(torch, fa, gen, *q.shape[:2], inputs=main)
+        row["times"] = t
+        for part in ("fwd", "bwd"):
+            row.update({f"{part}_ms": t[f"short_{part}_ms"],
+                        f"{part}_plain_ms": t[f"plain_{part}_ms"],
+                        f"{part}_library_ms": t[f"library_{part}_ms"],
+                        f"{part}_bound_ms": t[f"{part}_bound_ms"],
+                        f"{part}_bound_by": t[f"{part}_bound_by"]})
+        row["bound_rates"] = rates(BF16_FLOPS_PER_S, "f16 tensor-core (the "
+                                   "bf16 rate)")
+    return row
+
+
+def time_short_vs_stream(torch, fa, gen, B, L, H=12, D=64, p=0.1,
+                         inputs=None):
     """Device ms of the short kernels, the streaming K1, the plain
     version and ``F.scaled_dot_product_attention`` (forward, backward
     alone by replaying a retained graph, forward + backward) on one bf16
-    input with dropout ``p``, and the bound of the forward and of the
+    input with dropout ``p`` (or on ``inputs``, (q, k, v, dO, ...) of
+    another 2-byte type), and the bound of the forward and of the
     backward."""
     dev, seed = "cuda", 99
-    q, k, v, do = [torch.randn((B, L, H, D), generator=gen,
-                               device=dev).to(torch.bfloat16)
-                   for _ in range(4)]
+    q, k, v, do = inputs[:4] if inputs is not None else [
+        torch.randn((B, L, H, D), generator=gen,
+                    device=dev).to(torch.bfloat16) for _ in range(4)]
+    B, L, H, D = q.shape
     out, lse = fa._cuda_short_fwd(q, k, v, False, p, seed)
     sout, slse = fa._cuda_fwd(q, k, v, False, p, seed)
     el = B * L * H * D * 2
@@ -2941,14 +3121,15 @@ def profile_step(torch, step, batch, family, families, step_ms, spans=()):
 WARM_STEPS, TIMED_STEPS = 3, 10
 
 
-def train_steps(torch, counters, step, batch, after=None):
-    """WARM_STEPS + TIMED_STEPS training steps, each ending in a device
+def train_steps(torch, counters, step, batch, after=None,
+                timed=TIMED_STEPS):
+    """WARM_STEPS + ``timed`` training steps, each ending in a device
     synchronise, with the launch counts set to 0 just before: (losses,
     wall ms of each timed step, the launches). ``after`` runs after each
     step (a scheduler's ``step``)."""
     counters.reset()
     losses, step_ms = [], []
-    for i in range(WARM_STEPS + TIMED_STEPS):
+    for i in range(WARM_STEPS + timed):
         t0 = time.perf_counter()
         loss = float(step(*batch))
         torch.cuda.synchronize()
@@ -3336,7 +3517,8 @@ BERT512_MASKED_FAMILIES = ("flash_masked_fwd", "flash_masked_bwd") \
     + BERT512_FAMILIES
 
 
-def phase_bert512_lamb(torch, counters, fa=None, masked=False):
+def phase_bert512_lamb(torch, counters, fa=None, masked=False,
+                       dtype="bfloat16"):
     """BERT-base phase-2 pretraining, ``bench_bert(seq=512)``'s batch 32,
     AMP O1 bf16, dropout 0.1, the short flash kernels on, Lamb with a
     linear warm-up into a polynomial decay and global-norm clipping. The
@@ -3350,7 +3532,13 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     ``RandomState(0)`` uniform in 128-512, row 0 full; a (B, 1, 1, 512)
     bool key-padding mask; no MLM labels at padding), so attention runs
     the masked streaming kernels; then one eval forward at dropout 0
-    with the kernels and again with the plain versions."""
+    with the kernels and again with the plain versions. ``dtype="float16"``
+    (phase ``bert512_fp16``): the same at AMP O1 fp16, so attention runs
+    K1c/K1d's f16 forms, 12 + 12 a step and no other K1; no loss scaler
+    (``TrainStep`` takes none, as in the JAX package), so dO reaches
+    them at scale 1; the first step's loss within an f16 unit roundoff
+    (2^-11, relative) of the plain versions', whose copy runs that one
+    step only."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
@@ -3366,7 +3554,7 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     opt, sched = phase2_optimizer(params)
 
     def loss_fn(m, ids, tt, mlm, nsp, mask=None):
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level="O1", dtype=dtype):
             return m.loss(ids, tt, mlm, nsp, mask)
 
     step = TrainStep(model, loss_fn, opt)
@@ -3382,10 +3570,13 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
         batch.append(mask)
         name_, family, families = "bert512_masked", bert512_family, \
             BERT512_MASKED_FAMILIES
+    f16 = dtype == "float16"
+    if f16:
+        name_ = "bert512_fp16"
     n_steps = WARM_STEPS + TIMED_STEPS
     lrs_used = [opt.get_lr()]
     plain = None if masked else plain_losses(torch, model, loss_fn, batch,
-                                             n_steps)
+                                             1 if f16 else n_steps)
     torch.cuda.reset_peak_memory_stats()      # the copy's steps off the peak
 
     def next_lr():
@@ -3409,11 +3600,21 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
                      "flash_attention_short_bwd": 0,
                      "flash_attention_masked_fwd": L,
                      "flash_attention_masked_bwd": L})
+    if f16:
+        want.update({"flash_attention_short_fwd": 0,
+                     "flash_attention_short_bwd": 0,
+                     "flash_attention_short_fwd_f16": L,
+                     "flash_attention_short_bwd_f16": L,
+                     "flash_attention_fwd_f16": 0,
+                     "flash_attention_bwd_f16": 0,
+                     "flash_attention_masked_fwd_f16": 0,
+                     "flash_attention_masked_bwd_f16": 0})
     per_step = {k: launches.get(k, 0) / n_steps for k in want}
     expect(all(np.isfinite(losses)), f"{name_}: non-finite loss {losses}")
     if not masked:
+        rtol = FLASH_UNIT_ROUNDOFF["float16"] if f16 else 1e-4
         expect(all(np.isfinite(plain)), f"{name_}: non-finite plain loss")
-        expect(abs(losses[0] - plain[0]) <= 1e-4 * abs(plain[0]),
+        expect(abs(losses[0] - plain[0]) <= rtol * abs(plain[0]),
                f"{name_}: the first loss {losses[0]} is not the plain "
                f"versions' {plain[0]}")
     for k, n in want.items():
@@ -3428,7 +3629,8 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
     flops_per_step = bert_flops_per_step(cfg, B, S)
     row = {"phase": name_, "config": "BERT-base (vocab 30592, 12 "
            "x 768, 12 x 64 heads, ffn 3072), batch 32 x seq 512, AMP O1 "
-           "bf16, dropout 0.1, flash_short_seq on, Lamb wd 0.01 eps 1e-6, "
+           + ("fp16 (no loss scaler)" if f16 else "bf16") + ", dropout "
+           "0.1, flash_short_seq on, Lamb wd 0.01 eps 1e-6, "
            "LinearWarmup(3 steps, 0 -> 1e-3) into PolynomialDecay(1e-3, "
            "1000 steps, end 0), ClipGradByGlobalNorm(1.0)"
            + (", key-padding mask (lengths 128-512)" if masked else ""),
@@ -3440,7 +3642,8 @@ def phase_bert512_lamb(torch, counters, fa=None, masked=False):
            "step_ms": step_ms, "flops_per_step": flops_per_step,
            "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
            "loss_first": losses[0], "loss_last": losses[-1],
-           "losses_plain": plain,
+           "losses_plain": plain, "first_loss_rel_diff": None if masked
+           else abs(losses[0] - plain[0]) / abs(plain[0]),
            "losses": losses, "lr": lrs_used[:n_steps], "launches": launches,
            "launches_per_step": per_step, "mem_at_start_gb": mem_start,
            "peak_mem_gb": peak, "breakdown": breakdown}
@@ -4834,7 +5037,7 @@ def check_flash_ring(torch, fa, ring, timing):
     at atol 1e-4). Then the kernel alone against its plain version at
     the SP path's block, 8 x 512 x 12 x 64 bf16 (a full block and the
     causal diagonal; two launches give the same bits), and its time
-    there."""
+    there. Then the f16 forms (``f16``, ``check_flash_ring_f16``)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(23)
     bf, f32 = torch.bfloat16, torch.float32
@@ -4944,6 +5147,114 @@ def check_flash_ring(torch, fa, ring, timing):
                 q, k, v, out, lse, do, False, 0.0, 0)),
             "shape": [B, Lb, H, D], "dtype": "bf16",
             "bound_rates": rates(BF16_FLOPS_PER_S, "bf16 tensor-core")})
+    row["f16"] = check_flash_ring_f16(torch, fa, gen, timing)
+    return row
+
+
+def check_flash_ring_f16(torch, fa, gen, timing):
+    """The external-lse K1b over f16 (GPT-2 over {"sp": 2} at O1 fp16),
+    each case element by element (the rule above FLASH_UNIT_ROUNDOFF):
+    the chunked ring (``ring_attention_chunks``, K1a f16 and the
+    external-lse K1b f16 a block) at GPT-2 small's 8 x 1024 x 12 x 64,
+    causal in 2 and 4 chunks and full in 2, dO at scale 1 (a unit
+    gradient: the SP path has no loss scaler) and 2^15, against the
+    plain version over the whole sequence, each block's rounding to f16
+    allowed as ``flash_2byte_vs_plain`` says; then the kernel alone at
+    the SP block 8 x 512 x 12 x 64 (lse and delta of two blocks): full,
+    diagonal, and a block whose keys hold little of each row's mass (the
+    other block's keys x 4), at scale 1 and 2^15, two launches bit for
+    bit, and its time beside aten's flash backward over f16."""
+    from paddle_tpu_torch.ops.cuda import counters
+
+    f16 = torch.float16
+    B, L, H, D = GPT_BATCH, GPT_SEQ, 12, 64
+    row = {"cases": {}}
+    before = counters.snapshot()
+    for name, causal, n, scale in (("ring_causal_2_scale1", True, 2, 1.0),
+                                   ("ring_causal_2_scale2^15", True, 2,
+                                    LOSS_SCALE),
+                                   ("ring_causal_4_scale1", True, 4, 1.0),
+                                   ("ring_full_2_scale1", False, 2, 1.0)):
+        q, k, v, do = attention_inputs(torch, gen, B, L, L, H, D, f16,
+                                       do_scale=scale)
+        used, errs, _ = flash_2byte_vs_plain(
+            torch, fa, q, k, v, do, causal, 0.0, 0, case=name, form="ring",
+            glob=n)
+        row["cases"][name] = {"tolerance_used": used, "max_abs_err": errs}
+        del q, k, v, do
+    Lb = L // SP
+    n_ext = 0
+    for name, causal, k0_mul, scale in (
+            ("block_full_scale1", False, 1.0, 1.0),
+            ("block_full_scale2^15", False, 1.0, LOSS_SCALE),
+            ("block_diagonal_scale1", True, 1.0, 1.0),
+            ("block_little_mass_scale1", False, 4.0, 1.0),
+            ("block_little_mass_scale2^15", False, 4.0, LOSS_SCALE)):
+        q, k, v, do = attention_inputs(torch, gen, B, Lb, Lb, H, D, f16,
+                                       do_scale=scale)
+        k0, v0 = (torch.randn((B, Lb, H, D), generator=gen, device="cuda")
+                  * m for m in (k0_mul, 1.0))
+        # the whole (two-block) sequence's output and lse, in f32; the
+        # kernel's block is the second one
+        out, lse = fa._plain_fwd(q.float(), torch.cat([k0, k.float()], 1),
+                                 torch.cat([v0, v.float()], 1), False, 0.0,
+                                 0)
+        out = out.to(f16)
+        used, errs, got = flash_2byte_vs_plain(
+            torch, fa, q, k, v, do, causal, 0.0, 0, case=name, form="ext",
+            glob=(out, lse))
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(B * H, Lb).contiguous()
+        expect(same_bits(torch, got, fa._cuda_bwd_ext(q, k, v, do, lse,
+                                                      delta, causal)),
+               f"flash ext bwd f16 {name}: two launches give different "
+               f"bits")
+        n_ext += 2
+        row["cases"][name] = {"tolerance_used": used, "max_abs_err": errs}
+        if name == "block_full_scale1":
+            main = (q, k, v, do, out, lse, delta)
+        del k0, v0, got
+    moved = {c: counters.snapshot().get(c, 0) - before.get(c, 0) for c in (
+        "flash_attention_ext_bwd_f16", "flash_attention_ext_bwd",
+        "flash_attention_fwd_f16")}
+    row["launches"] = moved
+    # the ring's live blocks: causal in 2 chunks 3, in 4 chunks 10; full
+    # in 2 chunks 4
+    ring_blocks = 3 + 3 + 10 + 4
+    expect(moved == {"flash_attention_ext_bwd_f16": n_ext + ring_blocks,
+                     "flash_attention_ext_bwd": 0,
+                     "flash_attention_fwd_f16": ring_blocks},
+           f"flash ext bwd f16: launch counts {moved}")
+    row["max_abs_err"] = max(max(c["max_abs_err"][g] for g in ("dq", "dk",
+                                                              "dv"))
+                             for c in row["cases"].values())
+    row["max_tolerance_used"] = max(
+        max(c["tolerance_used"].values()) for c in row["cases"].values())
+    if timing:
+        q, k, v, do, out, lse, delta = main
+        el = B * Lb * H * D * 2
+        bound, by = bound_of(7 * el + 2 * B * H * Lb * 4,
+                             10 * B * H * Lb * Lb * D, BF16_FLOPS_PER_S)
+        library = flash_ring_library(torch, q, k, v, do, out, lse)
+        kern = fa._cuda_bwd_ext(q, k, v, do, lse, delta, False)
+        row["library_vs_kernel_max_abs_err"] = {
+            g: max_err(a.transpose(1, 2), b)
+            for g, a, b in zip(("dq", "dk", "dv"), library(), kern)}
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+        row.update({
+            "ms": time_ms(torch, lambda: fa._cuda_bwd_ext(
+                q, k, v, do, lse, delta, False)),
+            "plain_ms": time_ms(torch, lambda: fa._plain_bwd_ext(
+                q, k, v, do, lse, delta, False), iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(torch, library),
+            "diagonal_ms": time_ms(torch, lambda: fa._cuda_bwd_ext(
+                q, k, v, do, lse, delta, True)),
+            "bf16_ms": time_ms(torch, lambda: fa._cuda_bwd_ext(
+                qb, kb, vb, dob, lse, delta, False)),
+            "shape": [B, Lb, H, D], "dtype": "f16",
+            "bound_rates": rates(BF16_FLOPS_PER_S, "f16 tensor-core (the "
+                                 "bf16 rate)")})
     return row
 
 
@@ -4984,10 +5295,11 @@ def gpt_ids(B, L, vocab):
     return np.random.RandomState(0).randint(0, vocab, (B, L)).astype(np.int64)
 
 
-def gpt_step(torch, small, lr, mesh=None):
+def gpt_step(torch, small, lr, mesh=None, dtype="bfloat16"):
     """(model, TrainStep) of a GPT from seed 0 on the card: AdamW wd 0.01;
-    full width under AMP O1 bf16. With a mesh: ``data_spec=(None,
-    "sp")``, ``sequence_parallel="sp"``."""
+    full width under AMP O1 in ``dtype`` (fp16 with no loss scaler, as
+    ``TrainStep`` takes none). With a mesh: ``data_spec=(None, "sp")``,
+    ``sequence_parallel="sp"``."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
@@ -5002,7 +5314,7 @@ def gpt_step(torch, small, lr, mesh=None):
     def loss_fn(m, ids):
         if small:
             return m.loss(ids)
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level="O1", dtype=dtype):
             return m.loss(ids)
 
     kw = {} if mesh is None else dict(
@@ -5131,8 +5443,8 @@ def gpt_flops_per_step(cfg, B, S):
 def gpt_row(torch, cfg, losses, step_ms, launches, tokens):
     med = float(np.median(step_ms))
     flops = gpt_flops_per_step(cfg, GPT_BATCH, GPT_SEQ)
-    return {"warmup_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
-            "tokens_per_s": tokens * TIMED_STEPS / (sum(step_ms) / 1e3),
+    return {"warmup_steps": WARM_STEPS, "timed_steps": len(step_ms),
+            "tokens_per_s": tokens * len(step_ms) / (sum(step_ms) / 1e3),
             "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
             "step_ms": step_ms, "flops_per_step": flops,
             "mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
@@ -5179,24 +5491,26 @@ def phase_gpt(torch, counters):
             **row}, launches
 
 
-def gpt_sp_rank():
-    """A rank of ``gpt_sp``: GPT-2 small over ``{"sp": 2}``, each rank
-    its half of every sequence; 3 warm-up and 10 timed steps, then one
-    profiled step (rank 0 records it, rank 1 runs its half)."""
+def gpt_sp_rank(dtype="bfloat16", timed=TIMED_STEPS):
+    """A rank of ``gpt_sp`` (``gpt_sp_fp16``: ``dtype="float16"``): GPT-2
+    small over ``{"sp": 2}``, each rank its half of every sequence; 3
+    warm-up and ``timed`` timed steps, then one profiled step (rank 0
+    records it, rank 1 runs its half)."""
     torch, mesh = sp_rank_setup()
     from paddle_tpu_torch.ops.cuda import counters
     from paddle_tpu_torch.parallel.collectives import STAGED_BYTES
 
     cfg = gpt_config(False)
     torch.cuda.reset_peak_memory_stats()
-    model, step = gpt_step(torch, False, 1e-4, mesh)
+    model, step = gpt_step(torch, False, 1e-4, mesh, dtype)
     batch = [torch.tensor(gpt_ids(GPT_BATCH, GPT_SEQ, cfg.vocab_size),
                           device="cuda")]
-    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    losses, step_ms, launches = train_steps(torch, counters, step, batch,
+                                            timed=timed)
     row = gpt_row(torch, cfg, losses, step_ms, launches,
                   GPT_BATCH * GPT_SEQ)
     row["staged_bytes_per_step"] = launches.get(STAGED_BYTES, 0) / (
-        WARM_STEPS + TIMED_STEPS)
+        WARM_STEPS + timed)
     if mesh.rank == 0:
         row["breakdown"] = profile_step(torch, step, batch, gpt_family,
                                         GPT_FAMILIES, row["step_ms_median"],
@@ -5207,34 +5521,52 @@ def gpt_sp_rank():
     return row
 
 
-def phase_gpt_sp(torch, counters):
+GPT_SP_FP16_TIMED = 5    # gpt_sp_fp16's timed steps (after 3 warm-up)
+
+
+def phase_gpt_sp(torch, counters, dtype="bfloat16"):
     """GPT-2 small and the same global batch over ``{"sp": 2}``: two
     processes on the card over gloo, rank 0 reporting; exact launches a
     step (rank 0: 12 K1a and 12 external-lse K1b, the diagonal; rank 1:
-    24 and 24, its full block and the diagonal; no saved-form K1b)."""
+    24 and 24, its full block and the diagonal; no saved-form K1b). At
+    ``dtype="float16"`` (phase ``gpt_sp_fp16``, AMP O1 fp16 with no loss
+    scaler, 3 warm-up and GPT_SP_FP16_TIMED timed steps) those launches
+    are K1a's and the external-lse K1b's f16 forms, and no bf16 or f32
+    K1 runs."""
     from paddle_tpu_torch.distributed import spawn
 
+    f16 = dtype == "float16"
+    name = "gpt_sp_fp16" if f16 else "gpt_sp"
+    timed = GPT_SP_FP16_TIMED if f16 else TIMED_STEPS
     cfg = gpt_config(False)
     t0 = time.perf_counter()
-    ranks = spawn(gpt_sp_rank, nprocs=SP, timeout=600)
+    ranks = spawn(gpt_sp_rank, args=(dtype, timed), nprocs=SP, timeout=600)
     seconds = time.perf_counter() - t0
-    n_steps, L = WARM_STEPS + TIMED_STEPS, cfg.num_hidden_layers
+    n_steps, L = WARM_STEPS + timed, cfg.num_hidden_layers
+    sfx = "_f16" if f16 else ""
     total = {}
     for r, row in enumerate(ranks):
-        check_gpt_losses(f"gpt_sp rank {r}", row["losses"])
-        want = {"flash_attention_fwd": (r + 1) * L,
-                "flash_attention_ext_bwd": (r + 1) * L,
-                "flash_attention_bwd": 0, "fused_adam": 1}
+        check_gpt_losses(f"{name} rank {r}", row["losses"])
+        want = {"flash_attention_fwd" + sfx: (r + 1) * L,
+                "flash_attention_ext_bwd" + sfx: (r + 1) * L,
+                "flash_attention_bwd": 0, "flash_attention_bwd_f16": 0,
+                "fused_adam": 1}
+        if f16:
+            want.update({"flash_attention_fwd": 0,
+                         "flash_attention_ext_bwd": 0})
         for k, n in want.items():
             got = row["launches"].get(k, 0)
             expect(got == n * n_steps,
-                   f"gpt_sp: rank {r} launched {k} {got} times over "
+                   f"{name}: rank {r} launched {k} {got} times over "
                    f"{n_steps} steps, want {n} a step")
         for k, n in row["launches"].items():
             total[k] = total.get(k, 0) + n
     expect(ranks[0]["losses"] == ranks[1]["losses"],
-           "gpt_sp: the ranks report different global losses")
-    return {"phase": "gpt_sp", "config": GPT_CONFIG_DESC + ", sequence "
+           f"{name}: the ranks report different global losses")
+    config = GPT_CONFIG_DESC.replace(
+        "AMP O1 bf16", "AMP O1 fp16 (no loss scaler)") if f16 \
+        else GPT_CONFIG_DESC
+    return {"phase": name, "config": config + ", sequence "
             "parallel over {'sp': 2}: two processes on one card over gloo, "
             "ring exchange staged through pinned host buffers",
             "seconds": seconds, **ranks[0],
@@ -6699,6 +7031,11 @@ def main() -> int:
         add(launches)
         del row, launches
         torch.cuda.empty_cache()
+        row, launches = phase_bert512_lamb(torch, counters, dtype="float16")
+        emit(row)
+        add(launches)
+        del row, launches
+        torch.cuda.empty_cache()
         row, launches = phase_lenet_sgd(torch, counters)
         emit(row)
         add(launches)
@@ -6748,6 +7085,12 @@ def main() -> int:
         emit(row)
         total["flash_attention_ext_bwd"] = launches.get(
             "flash_attention_ext_bwd", 0)
+        del row, launches
+        torch.cuda.empty_cache()
+        row, launches = phase_gpt_sp(torch, counters, dtype="float16")
+        emit(row)
+        for k in ("flash_attention_fwd_f16", "flash_attention_ext_bwd_f16"):
+            total[k] = total.get(k, 0) + launches.get(k, 0)
         del row, launches
         torch.cuda.empty_cache()
 
@@ -6843,6 +7186,17 @@ def main() -> int:
                  src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339"),
                 ("flash_attention_ext_bwd", k1r, src + "flash_attention.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:339"),
+                ("flash_attention_short_fwd_f16", split(k1s["short_f16"],
+                                                        "fwd"),
+                 src + "flash_short.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:611"),
+                ("flash_attention_short_bwd_f16", split(k1s["short_f16"],
+                                                        "bwd"),
+                 src + "flash_short.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:638"),
+                ("flash_attention_ext_bwd_f16", k1r["f16"],
+                 src + "flash_attention.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:339"),
                 ("chunk_lamb", k3c, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:455"),

@@ -245,10 +245,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``FLAGS_flash_short_seq`` on and a shape the short-sequence kernels
     take (``flash_attention.short_ok``: Lq == Lk, 128 <= L <= 512,
     L % 128 == 0) it runs them, as the JAX package's ``_short_choice``
-    does without its TPU autotune; otherwise the streaming kernel. f16
-    inputs always take the streaming kernel, the short kernels' f16
-    forms not being ported. Each branch launches a kernel: this is
-    dispatch by shape and type.
+    does without its TPU autotune, for f32, bf16 and f16 alike;
+    otherwise the streaming kernel. Each branch launches a kernel: this
+    is dispatch by shape.
 
     ``attn_mask`` is dispatched by its kind (``_mask_route``, from its
     shape, dtype and tag, never its values): the subsequent mask of
@@ -302,7 +301,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                        causal=is_causal, dropout_p=p,
                                        seed=seed)
     if bias is None and get_flag("flash_short_seq") \
-            and query.dtype != torch.float16 and _fa.short_ok(query, key):
+            and _fa.short_ok(query, key):
         return _fa.flash_attention_short(query, key, value, causal=is_causal,
                                          dropout_p=p, seed=seed)
     return _fa.flash_attention(query, key, value, causal=is_causal,

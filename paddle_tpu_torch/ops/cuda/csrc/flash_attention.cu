@@ -58,7 +58,7 @@
 //   rounding of it moved dQ and dK past the bf16 tolerance. No atomics
 //   and no split of a sum across blocks: two launches give the same bits.
 // - f16 (AMP O1 fp16: the JAX kernel takes any input type and computes in
-//   f32): the same three kernels with T = __half, the f16 mma
+//   f32): the same three kernels (and the EXT form) with T = __half, the f16 mma
 //   (m16n8k16.f32.f16.f16.f32) and f16 roundings of P, P' and dS; out,
 //   dq, dk, dv in f16. f16 keeps 11 bits (bf16 8) but spans only 6.1e-5
 //   (smallest normal) to 65504. P and P' lie in [0, 1/(1-p)]: no lift.
@@ -72,7 +72,9 @@
 //   barrier a tile), raised so that a tile's largest |dS| 2^-E < 2^14;
 //   the accumulator is rescaled by 2^(E_old - E_new) when E grows and by
 //   2^E at the store. Powers of two only: where nothing overflows or
-//   underflows, the products are the unlifted ones exactly. Decided on
+//   underflows, the products are the unlifted ones exactly. P, rounded
+//   once for dV, takes a block exponent of its own the same way (the
+//   external-lse form's low-mass blocks; flash_common.cuh). Decided on
 //   the card (tools/flash_f16_lift.py builds the unlifted variant with
 //   FLASH_F16_NO_LIFT; figures in PERF.md): at the NMT's 64 x 128 x 8 x 64
 //   with dO a unit gradient (scale 1) the unlifted dq and dk used 1.55
@@ -106,7 +108,12 @@
 //   is an exact share of the full gradient. The same two kernels run;
 //   the dq kernel's EXT instantiation reads delta instead of computing
 //   it from O (there is no O of the block), and the entry takes no
-//   dropout (the ring runs at dropout 0).
+//   dropout (the ring runs at dropout 0). Over f16 (GPT-2 over
+//   {"sp": 2} at O1 fp16) it keeps the dS lift below: off the diagonal
+//   a block's keys may hold little of a row's mass, so its P, and dS,
+//   lie far below the saved form's, which is what the lift's per-tile
+//   exponent is for (tools/flash_f16_lift.py measures the ext form at
+//   the SP block with and without it; PERF.md).
 // - Dropout: Philox4x32-10 keyed by the 64-bit seed, counter
 //   (g, query row, b*H + h, 0) with g = (col / 64) * 16 + col % 16 and
 //   word (col / 16) % 4. A thread's four columns tx + 16 j of one tile
@@ -425,63 +432,8 @@ constexpr size_t dq_mma_smem() {   // q, dO, 2 k, 2 v; 64 delta
 
 template <int D>
 constexpr size_t dkv_mma_smem() {  // k, v, 2 q, 2 dO; P, dS hi and lo;
-  return (size_t)6 * kTile * D * 2 +  // the warps' largest |dS| (f16)
-         (size_t)3 * kTile * kTile * 2 + kWarps * 4;
-}
-
-// The f16 forms' dS lift (see the header): dS enters its products as
-// dS 2^-E (hi + lo), E a running exponent that only grows, and the sum
-// is scaled back by 2^E at the store. E starts at kLiftMin; a tile whose
-// largest |dS| is m raises E to lift_exp(m), so that m 2^-E < 2^14 and
-// the rounded terms stay inside f16's range at any loss scale, while
-// small dS are lifted above its subnormals. Powers of two: nothing else
-// changes, so without overflow or underflow the sums are the unlifted
-// ones times 2^-E exactly.
-constexpr int kLiftMin = -100;
-#ifdef FLASH_F16_NO_LIFT   // the unlifted variant, for the measurement only
-template <typename T>
-constexpr bool kLift = false;
-#else
-template <typename T>
-constexpr bool kLift = kIsHalf<T>;
-#endif
-
-__device__ __forceinline__ float pow2i(int e) {   // 2^e, |e| <= 126
-  return __int_as_float((e + 127) << 23);
-}
-
-// E with m 2^-E in [2^13, 2^14) for a normal f32 m > 0, within
-// [kLiftMin, 100]; kLiftMin for m = 0
-__device__ __forceinline__ int lift_exp(float m) {
-  const int e = ((__float_as_int(m) >> 23) & 0xff) - 127 - 13;
-  return m > 0.0f ? max(kLiftMin, min(100, e)) : kLiftMin;
-}
-
-// raise the running exponent E to e: an accumulator in units of 2^E
-// (rows ``rows`` of acc) is rescaled, exactly unless it underflows
-template <int N>
-__device__ __forceinline__ void raise_lift(int& E, int e, float (&acc)[N][4],
-                                           int half) {
-  if (e <= E) return;
-  const float f = E - e < -126 ? 0.0f : pow2i(E - e);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (half < 0 || (c >> 1) == half) acc[j][c] *= f;
-  E = e;
-}
-
-// the largest |x| over a warp's 16 x 64 tile, rows of half r (0 or 1) or
-// both (r = -1), across the quad that holds a row
-__device__ __forceinline__ float tile_absmax(const float (&s)[8][4], int r) {
-  float m = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (r < 0 || (e >> 1) == r) m = fmaxf(m, fabsf(s[i][e]));
-  return quad_max(m);
+  return (size_t)6 * kTile * D * 2 +  // the warps' largest |dS| and P (f16)
+         (size_t)3 * kTile * kTile * 2 + 2 * kWarps * 4;
 }
 
 // the (B, Lk) key mask at this thread's 16 columns of a kv tile (0 past
@@ -620,7 +572,7 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   unsigned char* Pp = smem_mma + 6 * TB;            // [64 q][64 kv] bf16
   unsigned char* dSp = Pp + kTile * kTile * 2;      // dS, hi
   unsigned char* dLp = dSp + kTile * kTile * 2;     // dS, lo
-  float* wmax = reinterpret_cast<float*>(dLp + kTile * kTile * 2);  // [4]
+  float* wmax = reinterpret_cast<float*>(dLp + kTile * kTile * 2);  // [8]
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int kv0 = blockIdx.x * kTile;
@@ -641,7 +593,8 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
-  int lift = kLiftMin;    // f16: the block's dS exponent
+  int lift = kLiftMin, plift = kLiftMin;   // f16: the block's dS and P
+                                           // exponents
   for (int t = first; t < nq; ++t) {
     const uint32_t stg = ((t - first) & 1) * TB;
     const uint32_t Qt = Qs + stg, dOt = dOs + stg;
@@ -674,24 +627,18 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
     mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
     mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
     grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
-    store_frag<T>(Pp, nullptr, dp, w, lane);    // dropped P, one term
     if constexpr (kLift<T>) {
-      // dK sums over the tile's 64 q rows (every warp's): one exponent
-      // for the block, from the four warps' largest |dS|
-      float mw = tile_absmax(s, -1);
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
-      if (lane == 0) wmax[w] = mw;
-      __syncthreads();
-      const float mb = fmaxf(fmaxf(wmax[0], wmax[1]), fmaxf(wmax[2], wmax[3]));
-      raise_lift(lift, lift_exp(mb), dka, -1);
-      const float f = pow2i(-lift);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] *= f;
+      // dK and dV sum over the tile's 64 q rows (every warp's): one
+      // exponent each for the block, from the four warps' largest |dS|
+      // and P
+      float ms = tile_absmax(s, -1), mp = tile_absmax(dp, -1);
+      block_absmax2(ms, mp, wmax, w, lane);
+      raise_lift(lift, lift_exp(ms), dka, -1);
+      raise_lift(plift, lift_exp(mp), dva, -1);
+      scale_tile(s, lift);
+      scale_tile(dp, plift);
     }
+    store_frag<T>(Pp, nullptr, dp, w, lane);    // dropped P, one term
     store_frag<T>(dSp, dLp, s, w, lane);        // dS, hi + lo
     __syncthreads();
     // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
@@ -722,7 +669,8 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   }                      // rewritten next
   store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk,
                kLift<T> ? a.scale * pow2i(lift) : a.scale, lane);
-  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk, 1.0f, lane);
+  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk,
+               kLift<T> ? pow2i(plift) : 1.0f, lane);
 }
 
 template <int D>
@@ -876,15 +824,14 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // the external-lse backward: lse and delta (B*H, Lq) f32 from the
-// caller; no dropout; f32 or bf16 (its f16 form is not ported)
+// caller; no dropout; f32, bf16 or f16
 int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, void* dk, void* dv,
                             const float* bias, int B, int Lq, int Lk, int H,
                             int D, int causal, int dtype, float scale,
                             void* stream) {
-  if (bad_shape(B, Lq, Lk, H, D, dtype) || dtype == 2)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Lq, Lk, H, D, dtype)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, causal, scale, 0u, 1.0f, 0u, 0u,
                            bias);
   cudaStream_t st = (cudaStream_t)stream;
@@ -894,6 +841,11 @@ int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
                                               dl, dq, dk, dv, a, st)
                    : launch_bwd_f32<128, true>(q, k, v, nullptr, dout, lse,
                                                dl, dq, dk, dv, a, st);
+  if (dtype == 2)
+    return D == 64 ? launch_bwd_mma<64, __half, true>(
+                         q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st)
+                   : launch_bwd_mma<128, __half, true>(
+                         q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st);
   using BF = __nv_bfloat16;
   return D == 64 ? launch_bwd_mma<64, BF, true>(q, k, v, nullptr, dout, lse,
                                                 dl, dq, dk, dv, a, st)

@@ -6,9 +6,9 @@
 // tensor-core and cluster pieces, paged_attention.cu and sampling.cu the
 // cp.async and cluster pieces.
 //
-// Two kinds of kernel use them. The tensor-core kernels (every bf16 form
-// of K1: K1a, K1b, K1c and K1d, and the f16 forms of K1a and K1b; the
-// last parts of this file) are described there. The f32 FMA kernels (every f32 form):
+// Two kinds of kernel use them. The tensor-core kernels (every bf16 and
+// f16 form of K1: K1a, K1b, K1c and K1d; the last parts of this file)
+// are described there. The f32 FMA kernels (every f32 form):
 // tiles are 64 rows; 256 threads; thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, ... of every
 // tile it computes, so a row's values sit in one half-warp and row
@@ -547,6 +547,29 @@ __device__ __forceinline__ void mma_rb(float (&acc)[D / 8][4],
   }
 }
 
+// acc (16 x D) += A B as mma_rb, A as one term of T: P V in K1c's f16
+// form (flash_short.cu's header)
+template <int D, typename T>
+__device__ __forceinline__ void mma_r1(float (&acc)[D / 8][4],
+                                       const float (&s)[8][4], uint32_t B,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t fa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      fa[j] = pack_pair<T>(s[2 * kk + (j >> 1)][2 * (j & 1)],
+                           s[2 * kk + (j >> 1)][2 * (j & 1) + 1]);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t fb[4];
+      frag_bt<D>(fb, B, 16 * n, 16 * kk, lane);
+      mma16816<T>(acc[2 * n], fa, fb[0], fb[1]);
+      mma16816<T>(acc[2 * n + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
 // row max / sum over the quad that holds a row
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -637,10 +660,108 @@ __device__ __forceinline__ void store_frag(unsigned char* tile,
     }
 }
 
+// The f16 forms' dS lift (flash_attention.cu's header; K1b's dq and
+// dk/dv kernels, and K1d's short_bwd_mma in flash_short.cu): dS enters
+// its products as dS 2^-E (hi + lo), E a running exponent that only
+// grows, and the sum is scaled back by 2^E at the store (K1d's dQ
+// partials take a fresh E a row and tile and are scaled back before the
+// exchange). E starts at kLiftMin; a tile whose largest |dS| is m raises
+// E to lift_exp(m), so that m 2^-E < 2^14 and the rounded terms stay
+// inside f16's range at any loss scale, while small dS are lifted above
+// its subnormals. P, rounded once for dV += P^T dO, is lifted the same
+// way (its own exponent a block): with the global lse of the
+// external-lse form a block's keys may hold little of every row's mass,
+// and its P then lie below f16's normals (unlifted, such a block's dv
+// used 3.65 of the 2-byte check's tolerance; PERF.md). Powers of two:
+// nothing else changes, so without overflow or underflow the sums are
+// the unlifted ones times 2^-E exactly.
+constexpr int kLiftMin = -100;
+#ifdef FLASH_F16_NO_LIFT   // the unlifted variant, for the measurement only
+template <typename T>
+constexpr bool kLift = false;
+#else
+template <typename T>
+constexpr bool kLift = kIsHalf<T>;
+#endif
+
+__device__ __forceinline__ float pow2i(int e) {   // 2^e, |e| <= 126
+  return __int_as_float((e + 127) << 23);
+}
+
+// E with m 2^-E in [2^13, 2^14) for a normal f32 m > 0, within
+// [kLiftMin, 100]; kLiftMin for m = 0
+__device__ __forceinline__ int lift_exp(float m) {
+  const int e = ((__float_as_int(m) >> 23) & 0xff) - 127 - 13;
+  return m > 0.0f ? max(kLiftMin, min(100, e)) : kLiftMin;
+}
+
+// raise the running exponent E to e: an accumulator in units of 2^E
+// (rows ``rows`` of acc) is rescaled, exactly unless it underflows
+template <int N>
+__device__ __forceinline__ void raise_lift(int& E, int e, float (&acc)[N][4],
+                                           int half) {
+  if (e <= E) return;
+  const float f = E - e < -126 ? 0.0f : pow2i(E - e);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (half < 0 || (c >> 1) == half) acc[j][c] *= f;
+  E = e;
+}
+
+// the largest |x| over a warp's 16 x 64 tile, rows of half r (0 or 1) or
+// both (r = -1), across the quad that holds a row
+__device__ __forceinline__ float tile_absmax(const float (&s)[8][4], int r) {
+  float m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (r < 0 || (e >> 1) == r) m = fmaxf(m, fabsf(s[i][e]));
+  return quad_max(m);
+}
+
+// the largest |x| of two quantities (dS and P) over a block's 64-row
+// tile (the four warps' 16 x 64 tiles): each warp's, ``a`` and ``b`` from
+// tile_absmax(., -1), across its quads, then the warps' through ``wmax``
+// [2 kWarps] in shared memory, into ``a`` and ``b``. One barrier; wmax
+// may be written again only after another one.
+__device__ __forceinline__ void block_absmax2(float& a, float& b,
+                                              float* wmax, int w, int lane) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+  if (lane == 0) {
+    wmax[w] = a;
+    wmax[kWarps + w] = b;
+  }
+  __syncthreads();
+  a = fmaxf(fmaxf(wmax[0], wmax[1]), fmaxf(wmax[2], wmax[3]));
+  b = fmaxf(fmaxf(wmax[4], wmax[5]), fmaxf(wmax[6], wmax[7]));
+}
+
+// x *= 2^-e over a warp's 16 x 64 tile
+__device__ __forceinline__ void scale_tile(float (&x)[8][4], int e) {
+  const float f = pow2i(-e);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[i][c] *= f;
+}
+
+// x 2^e for |e| <= 252 (two exact steps), exactly unless it over- or
+// underflows
+__device__ __forceinline__ float times_pow2(float x, int e) {
+  return x * pow2i(e / 2) * pow2i(e - e / 2);
+}
+
 // ---------------------------------------------------------------------------
-// The 2-byte forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu,
-// bf16 and f16) and K1c's short_fwd_mma (flash_short.cu, bf16) run this one
-// body; the design is in flash_attention.cu's header.
+// The 2-byte forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu)
+// and K1c's short_fwd_mma (flash_short.cu), bf16 and f16, run this one body;
+// the design is in flash_attention.cu's header.
 // ---------------------------------------------------------------------------
 // Shared memory: the q tile, two k, v and bias (64 values) stages, the
 // first live key and the live-tile bits (one a kv tile)
@@ -696,8 +817,9 @@ __device__ __forceinline__ int next_live(const uint32_t* words, int t,
 
 // out and lse of the 64-row q tile qt of (b, h) = blockIdx.y; MASKED: a
 // (B, Lk) key bias (a.bias) is added and dead kv tiles are skipped, else
-// a.bias is ignored and none of that code is compiled in
-template <int D, bool MASKED, typename T>
+// a.bias is ignored and none of that code is compiled in; P_ONE: P enters
+// P V as one term of T (K1c's f16 form), else as hi + lo
+template <int D, bool MASKED, typename T, bool P_ONE = false>
 __device__ __forceinline__ void fwd_mma(const T* __restrict__ q,
                                         const T* __restrict__ k,
                                         const T* __restrict__ v,
@@ -805,7 +927,10 @@ __device__ __forceinline__ void fwd_mma(const T* __restrict__ q,
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    mma_rb<D, T>(o, sc, Vs + s * TB, lane);  // O += P V, P as hi + lo
+    if constexpr (P_ONE)
+      mma_r1<D, T>(o, sc, Vs + s * TB, lane);   // O += P V, P one term
+    else
+      mma_rb<D, T>(o, sc, Vs + s * TB, lane);   // O += P V, P as hi + lo
     __syncthreads();                      // the stage is refilled next
     t = tn;
   }

@@ -8,8 +8,8 @@
 // ONE launch from lse), including the in-kernel dropout.
 //
 // Bound: at BERT's seq 512 (D = 64) a head is 4*L*L*D flops forward and
-// 10*L*L*D backward against 4*L*D and 8*L*D bf16 elements moved: near
-// the card's balance point at the bf16 tensor-core rate (BERT phase 2's
+// 10*L*L*D backward against 4*L*D and 8*L*D 2-byte elements moved: near
+// the card's balance point at the bf16 (and f16) tensor-core rate (BERT phase 2's
 // forward: 0.030 ms of bytes, 0.026 of operations; its backward 0.060
 // and 0.065).
 //
@@ -22,8 +22,20 @@
 // P enters P V as two bf16 terms, hi + lo: with one term BERT phase 2's
 // first loss lay 1.4e-3 from the f32 FMA kernel's (11.0849 against
 // 11.0863), with two 7e-4.
+// f16 (AMP O1 fp16, short_fwd_mma<D, __half>): the same body over the
+// f16 mma, with P into P V as ONE f16 term (fwd_mma's P_ONE). P lies in
+// [0, 1/(1-p)], inside f16's range, and f16 keeps 11 bits where bf16
+// keeps 8, so one rounding of P moves out by about 2^-11 of its terms'
+// 2-norm, inside the per-element 2-byte rule of chip_smoke.py's checks
+// (one unit of the type plus four unit roundoffs of that norm): at BERT phase 2's 32 x 512 x
+// 12 x 64 with dropout 0.1 one term used 0.508 of the rule's tolerance
+// (0.407 with a peaked softmax, q x 8) against hi + lo's 0.328 (0.269),
+// and the forward took 0.238 ms against 0.268 (tools/flash_f16_lift.py
+// on an H100 at 700 W, K1a f16 being the hi + lo form of the same body;
+// PERF.md). So K1c f16 takes one term. Its lse is K1a f16's bit for bit;
+// its out is not.
 //
-// Backward, bf16 (short_bwd_mma, on tensor cores): one launch, one
+// Backward, bf16 or f16 (short_bwd_mma, on tensor cores): one launch, one
 // thread-block cluster of L / 64 CTAs per (b, h), each CTA owning a kv
 // tile and a q tile's dQ; the partial dQ of every (kv tile, q tile) pair
 // goes to its owner through distributed shared memory and is summed
@@ -32,7 +44,10 @@
 // products and the rounding are K1b's streaming pair's (flash_dq_mma +
 // flash_dkv_mma: dS as hi + lo into dQ and dK, the dropped P as one
 // bf16 term into dV), but S, dP and the dropout bits are computed once
-// per tile pair instead of twice. Details above the kernel.
+// per tile pair instead of twice. Over f16 dS is lifted by a power of
+// two before its rounding, as in K1b's f16 form, with one exponent a
+// (row, kv tile) for dQ's partials and one a CTA for dK. Details above
+// the kernel.
 //
 // f32 (short_fwd_kernel and short_bwd_kernel, the parity route held to
 // 1e-4, which TF32 cannot meet) uses f32 FMA from shared memory, one
@@ -168,19 +183,19 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// forward, bf16 on tensor cores: one block per (64-row q tile, b*H + h),
-// the streaming forward's body (flash_common.cuh fwd_mma, no key mask)
+// forward, bf16 or f16 on tensor cores: one block per (64-row q tile,
+// b*H + h), the streaming forward's body (flash_common.cuh fwd_mma, no
+// key mask)
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
-short_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-              Args a) {
-  // causal: the longest q tiles start first
-  fwd_mma<D, false>(q, k, v, out, lse, a,
-                    a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+short_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, Args a) {
+  // causal: the longest q tiles start first; f16 takes P as one term
+  fwd_mma<D, false, T, kIsHalf<T>>(
+      q, k, v, out, lse, a,
+      a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -313,7 +328,8 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16 on tensor cores: one thread-block cluster per b*H + h
+// backward, bf16 or f16 on tensor cores: one thread-block cluster per
+// b*H + h
 // ---------------------------------------------------------------------------
 // The dQ accumulator of the q tile a CTA owns, in the fragment map of its
 // warps (warp w: rows 16 w ..): registers at D = 64; at D = 128 shared
@@ -354,12 +370,14 @@ __device__ __forceinline__ void absorb(DqAcc<D>& acc,
   }
 }
 
-template <int D>
+template <int D, typename T>
 constexpr size_t short_bwd_mma_smem() {
-  // k, v; 2 q, 2 dO; P, dS hi, dS lo; 2 dQ inboxes; delta; (D = 128) acc
+  // k, v; 2 q, 2 dO; P, dS hi, dS lo; 2 dQ inboxes; delta; (D = 128) acc;
+  // (f16) the warps' largest |dS| and P
   return (size_t)6 * kTile * D * 2 + (size_t)3 * kTile * kTile * 2 +
          (size_t)2 * kTile * D * 4 + kTile * 4 +
-         (D == 64 ? 0 : (size_t)kTile * D * 4);
+         (D == 64 ? 0 : (size_t)kTile * D * 4) +
+         (kLift<T> ? 2 * kWarps * 4 : 0);
 }
 
 // Replaces _short_bwd_kernel on tensor cores: dq, dk and dv in one launch
@@ -376,7 +394,7 @@ constexpr size_t short_bwd_mma_smem() {
 //     barrier, so each dQ element sums its n terms in one fixed order
 //     (s = 0, 1, ...): no atomics, no device-memory scratch, two
 //     launches give the same bits;
-//   - the dropped P (one bf16 term) and dS (hi + lo) go to shared tiles,
+//   - the dropped P (one 2-byte term) and dS (hi + lo) go to shared tiles,
 //     read back transposed for dV_c += P^T dO_j and dK_c += dS^T Q_j.
 // delta = rowsum(dO O) of q tile c is computed by its owner before the
 // first step and read by the visitors from the owner's shared memory.
@@ -388,18 +406,25 @@ constexpr size_t short_bwd_mma_smem() {
 // inboxes keep a store two steps ahead of the add that empties its
 // buffer. 104 KB of shared memory at D = 64 (two CTAs an SM), 216 KB at
 // D = 128.
-template <int D>
+// f16 (T = __half) lifts dS as flash_attention.cu's f16 backward does
+// (flash_common.cuh's lift pieces; bf16 compiles none of it): a q row's
+// dS is split over the cluster, no CTA sees the whole row, so each
+// partial dQ_j takes its own exponent a row (the row's largest |dS| in
+// this kv tile) and is scaled back by it in f32 before it enters the
+// exchange: the owner adds partials on one scale, in the bf16 form's
+// order. dK_c and dV_c sum the 64 q rows of every step's tile: one
+// running exponent each for the CTA, raised by the four warps' largest
+// |dS| and P through shared memory (one more barrier a step), dK and dV
+// scaled back at the store.
+template <int D, typename T>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 2 : 1)
-short_bwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ o,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
-              __nv_bfloat16* __restrict__ dk,
-              __nv_bfloat16* __restrict__ dv, Args a) {
+short_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ o,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+              Args a) {
   extern __shared__ __align__(128) unsigned char smem_mma[];
-  constexpr uint32_t TB = kTile * D * 2;           // bytes of a bf16 tile
+  constexpr uint32_t TB = kTile * D * 2;           // bytes of a 2-byte tile
   constexpr uint32_t PB = kTile * kTile * 2;       // bytes of a P/dS tile
   constexpr uint32_t IB = kTile * D * 4;           // bytes of an inbox
   const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
@@ -411,6 +436,7 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
   unsigned char* inbox = dLp + PB;                 // [2][D/8][128] float4
   float* dl_s = reinterpret_cast<float*>(inbox + 2 * IB);        // [64]
   DqAcc<D> acc(dl_s + kTile);
+  float* wmax = dl_s + kTile + (D == 64 ? 0 : kTile * D);       // [8], f16
   const uint32_t inbox_u = smem_u32(inbox), dl_u = smem_u32(dl_s);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
@@ -432,8 +458,8 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
     float d = 0.0f, x[8], y[8];
 #pragma unroll
     for (int col = 0; col < D / 2; col += 8) {
-      Vec<__nv_bfloat16>::load(dout + off + col, x);
-      Vec<__nv_bfloat16>::load(o + off + col, y);
+      Vec<T>::load(dout + off + col, x);
+      Vec<T>::load(o + off + col, y);
 #pragma unroll
       for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
     }
@@ -446,6 +472,9 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
   const float bv[8][2] = {};                       // the short forms: no bias
+  int lift = kLiftMin;       // f16: dK's exponent (the CTA's)
+  int plift = kLiftMin;      // f16: dV's
+  int row_lift[2] = {0, 0};  // f16: this step's dQ partial's, a row
   cluster_arrive();     // delta is written and every CTA has started
   cluster_wait();
 
@@ -476,11 +505,30 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-      mma_abt<D>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
-      mma_abt<D>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+      mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
+      mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
       grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
-      store_frag(Pp, nullptr, dp, w, lane);    // dropped P, bf16
-      store_frag(dSp, dLp, s, w, lane);        // dS, hi + lo
+      if constexpr (kLift<T>) {
+        const float m0 = tile_absmax(s, 0), m1 = tile_absmax(s, 1);
+        row_lift[0] = lift_exp(m0);
+        row_lift[1] = lift_exp(m1);
+        float ms = fmaxf(m0, m1), mp = tile_absmax(dp, -1);
+        block_absmax2(ms, mp, wmax, w, lane);
+        raise_lift(lift, lift_exp(ms), dka, -1);
+        raise_lift(plift, lift_exp(mp), dva, -1);
+        scale_tile(s, lift);
+        scale_tile(dp, plift);
+      }
+      store_frag<T>(Pp, nullptr, dp, w, lane);    // dropped P, one term
+      store_frag<T>(dSp, dLp, s, w, lane);        // dS, hi + lo
+      if constexpr (kLift<T>) {
+        // dK's scale to the dQ partial's: dS 2^-row_lift, a row
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][e] = times_pow2(s[i][e], lift - row_lift[e >> 1]);
+      }
     }
     if (st > 1) {
       // the last step's barrier, then its visitor's part of q tile c
@@ -501,16 +549,23 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           uint32_t fa[4], fl[4];
-          acc_to_a2(fa, fl, s, kk);
+          acc_to_a2<T>(fa, fl, s, kk);
 #pragma unroll
           for (int nn = 0; nn < 4; ++nn) {
             uint32_t fb[4];
             frag_bt<D>(fb, Ks, 64 * hh + 16 * nn, 16 * kk, lane);
-            mma16816(part[2 * nn], fa, fb[0], fb[1]);
-            mma16816(part[2 * nn + 1], fa, fb[2], fb[3]);
-            mma16816(part[2 * nn], fl, fb[0], fb[1]);
-            mma16816(part[2 * nn + 1], fl, fb[2], fb[3]);
+            mma16816<T>(part[2 * nn], fa, fb[0], fb[1]);
+            mma16816<T>(part[2 * nn + 1], fa, fb[2], fb[3]);
+            mma16816<T>(part[2 * nn], fl, fb[0], fb[1]);
+            mma16816<T>(part[2 * nn + 1], fl, fb[2], fb[3]);
           }
+        }
+        if constexpr (kLift<T>) {   // back to dS's own scale, in f32
+          const float f[2] = {pow2i(row_lift[0]), pow2i(row_lift[1])};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][e] *= f[e >> 1];
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -536,8 +591,8 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
         for (int nn = 0; nn < D / 16; ++nn) {
           uint32_t fb[4];
           frag_bt<D>(fb, dOt, 16 * nn, 16 * kk, lane);
-          mma16816(dva[2 * nn], fa, fb[0], fb[1]);
-          mma16816(dva[2 * nn + 1], fa, fb[2], fb[3]);
+          mma16816<T>(dva[2 * nn], fa, fb[0], fb[1]);
+          mma16816<T>(dva[2 * nn + 1], fa, fb[2], fb[3]);
         }
         frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
         frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
@@ -545,15 +600,15 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
         for (int nn = 0; nn < D / 16; ++nn) {
           uint32_t fb[4];
           frag_bt<D>(fb, Qt, 16 * nn, 16 * kk, lane);
-          mma16816(dka[2 * nn], fa, fb[0], fb[1]);
-          mma16816(dka[2 * nn + 1], fa, fb[2], fb[3]);
-          mma16816(dka[2 * nn], fl, fb[0], fb[1]);
-          mma16816(dka[2 * nn + 1], fl, fb[2], fb[3]);
+          mma16816<T>(dka[2 * nn], fa, fb[0], fb[1]);
+          mma16816<T>(dka[2 * nn + 1], fa, fb[2], fb[3]);
+          mma16816<T>(dka[2 * nn], fl, fb[0], fb[1]);
+          mma16816<T>(dka[2 * nn + 1], fl, fb[2], fb[3]);
         }
       }
     }
-    __syncthreads();     // P, dS and the stage are rewritten next
-  }
+    __syncthreads();     // P, dS, the warps' maxima and the stage are
+  }                      // rewritten next
   cluster_wait();        // the last step's barrier (n >= 2)
   absorb<D>(acc, inbox + ((n - 1) & 1) * IB, c, n - 1, n, a.causal);
   float out[D / 8][4];
@@ -562,8 +617,10 @@ short_bwd_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[jj][e] = acc.at(jj, e);
   store_acc<D>(dq, out, a, b, h, kv0 + 16 * w, L, a.scale, lane);
-  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, L, a.scale, lane);
-  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, L, 1.0f, lane);
+  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, L,
+               kLift<T> ? a.scale * pow2i(lift) : a.scale, lane);
+  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, L,
+               kLift<T> ? pow2i(plift) : 1.0f, lane);
 }
 
 template <int D>
@@ -578,17 +635,16 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                    float* lse, const Args& a, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  auto kern = short_fwd_mma<D>;
+template <int D, typename T>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const Args& a, cudaStream_t st) {
+  auto kern = short_fwd_mma<D, T>;
   const size_t smem = fwd_mma_smem<D>(a.Lk);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.Lq / kTile, a.B * a.H);
   kern<<<grid, kMmaT, smem, st>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (bf*)out, lse, a);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, a);
   return (int)cudaGetLastError();
 }
 
@@ -608,10 +664,9 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// the launch configuration of the bf16 backward: grid (L / 64, B*H),
+// the launch configuration of the 2-byte backward: grid (L / 64, B*H),
 // clusters of L / 64 CTAs
-template <int D>
-cudaLaunchConfig_t bwd_bf16_config(int L, int BH, size_t smem,
+cudaLaunchConfig_t bwd_mma_config(int L, int BH, size_t smem,
                                    cudaLaunchAttribute* attr,
                                    cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
@@ -629,36 +684,35 @@ cudaLaunchConfig_t bwd_bf16_config(int L, int BH, size_t smem,
 }
 
 // one cluster of L / 64 CTAs per b*H + h (at most 8, the portable limit)
-template <int D>
-int launch_bwd_bf16(const void* q, const void* k, const void* v,
-                    const void* o, const void* dout, const float* lse,
-                    void* dq, void* dk, void* dv, const Args& a,
-                    cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  auto kern = short_bwd_mma<D>;
-  const size_t smem = short_bwd_mma_smem<D>();
+template <int D, typename T>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, const Args& a,
+                   cudaStream_t st) {
+  auto kern = short_bwd_mma<D, T>;
+  const size_t smem = short_bwd_mma_smem<D, T>();
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      bwd_bf16_config<D>(a.Lq, a.B * a.H, smem, attr, st);
-  e = cudaLaunchKernelEx(&cfg, kern, (const bf*)q, (const bf*)k,
-                         (const bf*)v, (const bf*)o, (const bf*)dout, lse,
-                         (bf*)dq, (bf*)dk, (bf*)dv, a);
+      bwd_mma_config(a.Lq, a.B * a.H, smem, attr, st);
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
+                         (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk,
+                         (T*)dv, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 bool bad_shape(int B, int L, int H, int D, int dtype) {
   return B < 1 || H < 1 || L < 128 || L > kMaxL || L % 128 != 0 ||
-         (D != 64 && D != 128) || (dtype != 0 && dtype != 1);
+         (D != 64 && D != 128) || dtype < 0 || dtype > 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16
+// dtype: 0 = f32, 1 = bf16, 2 = f16
 int flash_short_fwd(const void* q, const void* k, const void* v, void* out,
                     float* lse, int B, int L, int H, int D, int causal,
                     int dtype, float scale, unsigned thr, float inv,
@@ -670,12 +724,16 @@ int flash_short_fwd(const void* q, const void* k, const void* v, void* out,
   if (dtype == 0)
     return D == 64 ? launch_fwd_f32<64>(q, k, v, out, lse, a, st)
                    : launch_fwd_f32<128>(q, k, v, out, lse, a, st);
-  return D == 64 ? launch_fwd_bf16<64>(q, k, v, out, lse, a, st)
-                 : launch_fwd_bf16<128>(q, k, v, out, lse, a, st);
+  if (dtype == 2)
+    return D == 64 ? launch_fwd_mma<64, __half>(q, k, v, out, lse, a, st)
+                   : launch_fwd_mma<128, __half>(q, k, v, out, lse, a, st);
+  using BF = __nv_bfloat16;
+  return D == 64 ? launch_fwd_mma<64, BF>(q, k, v, out, lse, a, st)
+                 : launch_fwd_mma<128, BF>(q, k, v, out, lse, a, st);
 }
 
 // dq_acc: f32 scratch (B*H, L, D) of the f32 form, whose contents are
-// overwritten; the bf16 form takes none (null)
+// overwritten; the 2-byte forms take none (null)
 int flash_short_bwd(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* dq_acc, void* dq, void* dk, void* dv, int B,
@@ -692,13 +750,20 @@ int flash_short_bwd(const void* q, const void* k, const void* v,
                                         dk, dv, a, st)
                    : launch_bwd_f32<128>(q, k, v, o, dout, lse, dq_acc, dq,
                                          dk, dv, a, st);
-  return D == 64 ? launch_bwd_bf16<64>(q, k, v, o, dout, lse, dq, dk, dv, a,
-                                       st)
-                 : launch_bwd_bf16<128>(q, k, v, o, dout, lse, dq, dk, dv, a,
-                                        st);
+  if (dtype == 2)
+    return D == 64 ? launch_bwd_mma<64, __half>(q, k, v, o, dout, lse, dq, dk,
+                                                dv, a, st)
+                   : launch_bwd_mma<128, __half>(q, k, v, o, dout, lse, dq,
+                                                 dk, dv, a, st);
+  using BF = __nv_bfloat16;
+  return D == 64 ? launch_bwd_mma<64, BF>(q, k, v, o, dout, lse, dq, dk, dv,
+                                          a, st)
+                 : launch_bwd_mma<128, BF>(q, k, v, o, dout, lse, dq, dk, dv,
+                                           a, st);
 }
 
-// How many clusters of the bf16 backward at sequence length L and head
+// How many clusters of the bf16 backward (the f16 one's 16 more bytes
+// of shared memory change no count) at sequence length L and head
 // dim D the card can hold at once (cudaOccupancyMaxActiveClusters), or a
 // negative cudaError_t.
 int flash_short_bwd_max_clusters(int L, int D) {
@@ -706,18 +771,19 @@ int flash_short_bwd_max_clusters(int L, int D) {
   cudaLaunchAttribute attr[1];
   int n = 0;
   cudaError_t e;
+  using BF = __nv_bfloat16;
   if (D == 64) {
-    auto kern = short_bwd_mma<64>;
-    e = allow_smem(kern, short_bwd_mma_smem<64>());
-    const cudaLaunchConfig_t cfg = bwd_bf16_config<64>(
-        L, 1, short_bwd_mma_smem<64>(), attr, nullptr);
+    auto kern = short_bwd_mma<64, BF>;
+    e = allow_smem(kern, short_bwd_mma_smem<64, BF>());
+    const cudaLaunchConfig_t cfg = bwd_mma_config(
+        L, 1, short_bwd_mma_smem<64, BF>(), attr, nullptr);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
   } else {
-    auto kern = short_bwd_mma<128>;
-    e = allow_smem(kern, short_bwd_mma_smem<128>());
-    const cudaLaunchConfig_t cfg = bwd_bf16_config<128>(
-        L, 1, short_bwd_mma_smem<128>(), attr, nullptr);
+    auto kern = short_bwd_mma<128, BF>;
+    e = allow_smem(kern, short_bwd_mma_smem<128, BF>());
+    const cudaLaunchConfig_t cfg = bwd_mma_config(
+        L, 1, short_bwd_mma_smem<128, BF>(), attr, nullptr);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
   }

@@ -18,20 +18,18 @@ log-sum-exp ``lse`` (B*H, Lq) in f32, which the backward uses to
 recompute the probabilities (delta = rowsum(dO * O) is computed in the
 dq pass). Inputs are f32, bf16 or f16 (the plain version computes in
 f32, or f64 when given f64, for gradient checks, and returns the input
-type, as the JAX kernel computes in f32 and writes ``q.dtype``). The
-f16 forms are the streaming forward and its saved-output backward
-(K1a and K1b over f16: AMP O1 fp16, ``csrc/flash_attention.cu``, dS
-lifted by a power of two before its f16 rounding); the short kernels
-and the external-lse backward take f32 and bf16 only (their f16 forms
-are not ported) and raise ``TypeError`` on f16. The bf16 short forward and
-the bf16 streaming backward (all three of its forms) run on tensor
-cores, and so does the bf16 short backward (one thread-block cluster a
-(batch, head), dQ summed in distributed shared memory in a fixed
-order): bf16 operands, f32 accumulators, m, l, lse, delta, P and dS in
-f32 until they become operands of a product, P and dS then entering as
-two bf16 terms (hi + lo) except P into dV (one). Every other kernel
-(the f32 forms, the parity route held to 1e-4, which TF32 cannot meet;
-the streaming forward in bf16) computes in f32 FMA.
+type, as the JAX kernel computes in f32 and writes ``q.dtype``). Every
+kernel has an f16 form (AMP O1 fp16): the streaming forward and its
+saved-output and external-lse backward (``csrc/flash_attention.cu``),
+the short forward and backward (``csrc/flash_short.cu``), dS lifted by
+a power of two before its f16 rounding in each backward. The 2-byte
+(bf16 and f16) forms run on tensor cores, the short backward as one
+thread-block cluster a (batch, head) with dQ summed in distributed
+shared memory in a fixed order: 2-byte operands, f32 accumulators, m,
+l, lse, delta, P and dS in f32 until they become operands of a
+product, P and dS then entering as two terms of the type (hi + lo)
+except P into dV (one). The f32 forms (the parity route held to 1e-4,
+which TF32 cannot meet) compute in f32 FMA.
 
 Dropout (rate p) is generated inside the kernels by Philox4x32-10 keyed
 by the 64-bit ``seed`` and counted by element coordinates: counter
@@ -64,16 +62,17 @@ The external-lse backward (:func:`flash_attention_bwd_ext`, the form
 (dq, dk, dv) of one kv block from the caller's ``lse`` and ``delta``
 (B*H, Lq) f32 of the whole sequence, with no saved output and no
 dropout; it launches the same two kernels with the dq pass reading
-delta instead of computing it, and counts ``flash_attention_ext_bwd``.
+delta instead of computing it, and counts ``flash_attention_ext_bwd``
+(``flash_attention_ext_bwd_f16`` over f16).
 
 Routing is by device, with no fallback: CUDA tensors launch the kernels
 (counting ``flash_attention_fwd`` per forward and
 ``flash_attention_bwd`` per backward pair of launches,
 ``flash_attention_masked_fwd`` / ``flash_attention_masked_bwd`` for
-the same launches with a bias, each with the suffix ``_f16`` for the
-f16 forms (f32 and bf16 share the unsuffixed counts), and
-``flash_attention_short_fwd`` / ``flash_attention_short_bwd`` per
-launch of the short forms) or raise;
+the same launches with a bias, ``flash_attention_short_fwd`` /
+``flash_attention_short_bwd`` per launch of the short forms, each with
+the suffix ``_f16`` for the f16 forms (f32 and bf16 share the
+unsuffixed counts)) or raise;
 CPU tensors take the plain version. The JAX package's dispatch floors
 (seq >= 256, the TPU autotune of the short forms) were TPU tuning: on
 CUDA, attention always launches a kernel, and ``nn.functional`` picks
@@ -392,12 +391,6 @@ def _check(q, k, v, causal):
     return B, Lq, k.shape[1], H, D
 
 
-def _no_f16(q, what):
-    if q.dtype == torch.float16:
-        raise TypeError(f"{what}: f32 or bf16 only, the f16 form is not "
-                        f"ported (the streaming kernels take f16)")
-
-
 def _counter(name, q):
     """The launch count of ``name``: f16 launches apart."""
     return name + "_f16" if q.dtype == torch.float16 else name
@@ -509,7 +502,7 @@ def _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias=None):
              _DTYPES[q.dtype], 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err, "flash_attention_bwd_ext")
-    counters.bump("flash_attention_ext_bwd")
+    counters.bump(_counter("flash_attention_ext_bwd", q))
     return dq, dk, dv
 
 
@@ -535,7 +528,6 @@ def _no_bias(bias):
 
 
 def _check_short(q, k, v, causal):
-    _no_f16(q, "the short flash kernels")
     dims = _check(q, k, v, causal)
     if not short_ok(q, k, causal):
         raise ValueError(f"the short flash kernels take Lq == Lk, "
@@ -556,7 +548,7 @@ def _cuda_short_fwd(q, k, v, causal, dropout_p, seed):
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_short", err, "flash_short_fwd")
-    counters.bump("flash_attention_short_fwd")
+    counters.bump(_counter("flash_attention_short_fwd", q))
     return out, lse
 
 
@@ -567,8 +559,8 @@ def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
                       [_P] * 10 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    # the f32 form's dQ scratch; the bf16 form sums dQ in its clusters'
-    # shared memory
+    # the f32 form's dQ scratch; the 2-byte forms sum dQ in their
+    # clusters' shared memory
     dq_acc = torch.empty((B * H, L, D), dtype=torch.float32,
                          device=q.device) if q.dtype == torch.float32 else None
     thr, inv, lo, hi = _dropout_args(dropout_p, seed)
@@ -579,7 +571,7 @@ def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
              int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr,
              inv, lo, hi, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_short", err, "flash_short_bwd")
-    counters.bump("flash_attention_short_bwd")
+    counters.bump(_counter("flash_attention_short_bwd", q))
     return dq, dk, dv
 
 
@@ -618,7 +610,6 @@ def flash_attention_bwd_ext(q, k, v, dout, lse, delta, causal=False,
     ``lse`` and ``delta`` = rowsum(dO * O) ((B*H, Lq) f32) of the whole
     sequence, with an optional (B, Lk) f32 key mask ``bias``; no
     dropout. The kernel on CUDA, the plain version on the CPU."""
-    _no_f16(q, "the external-lse flash backward")
     if _route(q):
         return _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias)
     return _plain_bwd_ext(q, k, v, dout, lse, delta, causal, bias)

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process tests (tests/test_torch_ring.py,
-tests/test_torch_gpt.py, tests/test_torch_cuda.py), at module level so
+tests/test_torch_gpt.py, tests/test_torch_sp_fp16.py,
+tests/test_torch_cuda.py), at module level so
 that ``paddle_tpu_torch.distributed.spawn`` can import them in each rank.
 They import torch and the port only: a rank never loads JAX.
 
@@ -17,16 +18,24 @@ def _np(t):
     return t.detach().float().cpu().numpy()
 
 
-def ring_rank(n, cases, device="cpu"):
-    """``ring_attention`` on ``create_mesh({"sp": n})`` for each case
-    (name, q, k, v, w, is_causal, lens or None): the global output and
-    the gradients of sum(w * out) in q, k and v, and the launches."""
-    from paddle_tpu_torch.parallel import create_mesh, ring_attention
-
+def _join(device):
     torch.set_num_threads(1)
     if device == "cuda":
         torch.cuda.set_device(0)
     init_parallel_env("gloo")
+
+
+def ring_rank(n, cases, device="cpu"):
+    """``ring_attention`` on ``create_mesh({"sp": n})`` for each case
+    (name, q, k, v, w, is_causal, lens or None): the global output and
+    the gradients of sum(w * out) in q, k and v, and the launches."""
+    _join(device)
+    return _ring_cases(n, cases, device)
+
+
+def _ring_cases(n, cases, device):
+    from paddle_tpu_torch.parallel import create_mesh, ring_attention
+
     mesh = create_mesh({"sp": n})
     got = {}
     counters.reset()
@@ -58,6 +67,32 @@ def gpt_sp_rank(mesh_shape, cfg, state, ids, steps, lr, device="cpu"):
     global batch ``ids``: losses, every parameter after the steps, the
     step-1 all-reduced gradients, this rank's kernel launches and the
     attention-dropout check (NotImplementedError under the ring)."""
+    _join(device)
+    return _gpt_steps(mesh_shape, cfg, state, ids, steps, lr, device)
+
+
+def o1_fp16_loss(m, x):
+    """The GPT's loss under AMP O1 fp16."""
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O1", dtype="float16"):
+        return m.loss(x)
+
+
+def sp_fp16_rank(ring_cases, cfg, state, ids, steps, lr):
+    """The SP checks at f16 in one gloo group of 4 ranks on the CPU:
+    ``ring_attention`` over ``create_mesh({"sp": 4})`` for each f16 case
+    (as ``ring_rank``), then ``steps`` AdamW steps of a GPT at AMP O1
+    fp16 over ``create_mesh({"dp": 2, "sp": 2})`` (as ``gpt_sp_rank``):
+    {"ring": ..., "gpt": ...}."""
+    _join("cpu")
+    return {"ring": _ring_cases(4, ring_cases, "cpu"),
+            "gpt": _gpt_steps({"dp": 2, "sp": 2}, cfg, state, ids, steps,
+                              lr, "cpu", o1_fp16_loss)}
+
+
+def _gpt_steps(mesh_shape, cfg, state, ids, steps, lr, device,
+               loss_fn=None):
     import dataclasses
 
     from paddle_tpu_torch.jit import TrainStep
@@ -65,16 +100,12 @@ def gpt_sp_rank(mesh_shape, cfg, state, ids, steps, lr, device="cpu"):
     from paddle_tpu_torch.parallel import (PartitionSpec, create_mesh,
                                            sequence_parallel)
 
-    torch.set_num_threads(1)
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    init_parallel_env("gloo")
     mesh = create_mesh(mesh_shape)
     model = _gpt(cfg, state, device)
     opt = AdamW(learning_rate=lr, parameters=model.parameters(),
                 weight_decay=0.01)
-    step = TrainStep(model, lambda m, x: m.loss(x), opt, mesh=mesh,
-                     data_spec=PartitionSpec("dp", "sp"),
+    step = TrainStep(model, loss_fn or (lambda m, x: m.loss(x)), opt,
+                     mesh=mesh, data_spec=PartitionSpec("dp", "sp"),
                      sequence_parallel="sp")
     batch = torch.tensor(ids, device=device)
     counters.reset()

@@ -374,16 +374,18 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
     q = torch.zeros((1, 64, 2, 96), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
-    # f16 is taken by the streaming kernels since the NMT slice; f64, a
-    # mix of types, and f16 in the short kernels are not
+    # every flash kernel takes f16; f64, a mix of types, and a length the
+    # short kernels do not take are refused
     q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="one type"):
         fa.flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(TypeError, match="short"):
-        fa.flash_attention_short(q, q, q)
+    with pytest.raises(ValueError, match="short"):
+        fa.flash_attention_short(q[:, :64].contiguous(),
+                                 q[:, :64].contiguous(),
+                                 q[:, :64].contiguous())
     h = torch.zeros((4, 100), device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
         fx.fused_xent_fwd(h, torch.zeros((8, 100), device=dev),
@@ -1776,3 +1778,69 @@ def test_f16_flash_kernels_hold_the_2byte_rule(dev, B, Lq, Lk, causal, p,
     name = "masked_" if masked else ""
     assert counters.snapshot() == {f"flash_attention_{name}fwd_f16": 2,
                                    f"flash_attention_{name}bwd_f16": 2}
+
+
+# ---------------------------------------------------------------------------
+# K1c/K1d and the external-lse K1b over f16 (BERT phase 2 and GPT-2 over
+# {"sp": 2} at O1 fp16)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,L,H,D,causal,scale", [
+    (4, 512, 4, 64, False, 1.0),
+    (4, 512, 4, 64, False, 2.0 ** 15),
+    (4, 256, 4, 64, True, 1.0),
+    (2, 384, 4, 128, False, 1.0),
+    (4, 128, 4, 64, True, 2.0 ** 15),
+], ids=["L512-scale1", "L512-scale2^15", "causal-L256", "D128-L384",
+        "causal-L128"])
+def test_f16_short_kernels_hold_the_2byte_rule(dev, B, L, H, D, causal,
+                                               scale):
+    """K1c/K1d's f16 forms (clusters of L / 64 CTAs) against the plain
+    version in f32 by the 2-byte rule, dropout 0.1, dO at ``scale``
+    times a unit gradient; a second launch the same bits; K1c f16's lse
+    K1a f16's bit for bit; the launches counted under the f16 names."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    q, k, v, do = cs.attention_inputs(torch, gen, B, L, L, H, D,
+                                      torch.float16, do_scale=scale)
+    _, _, got = cs.flash_2byte_vs_plain(torch, fa, q, k, v, do, causal, 0.1,
+                                        44, form="short")
+    again = fa._cuda_short_fwd(q, k, v, causal, 0.1, 44) + \
+        fa._cuda_short_bwd(q, k, v, got[0], got[1], do, causal, 0.1, 44)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], fa._cuda_fwd(q, k, v, causal, 0.1, 44)[1])
+    assert counters.snapshot() == {"flash_attention_short_fwd_f16": 2,
+                                   "flash_attention_short_bwd_f16": 2,
+                                   "flash_attention_fwd_f16": 1}
+
+
+@pytest.mark.parametrize("causal,k0_mul,scale", [
+    (False, 1.0, 1.0), (True, 1.0, 1.0), (False, 4.0, 1.0),
+    (False, 4.0, 2.0 ** 15)],
+    ids=["full", "diagonal", "little-mass", "little-mass-scale2^15"])
+def test_f16_ext_backward_holds_the_2byte_rule(dev, causal, k0_mul, scale):
+    """The external-lse K1b over f16 at a ring block (B 4, 256 rows, the
+    lse and delta of two blocks; "little mass": the other block's keys x
+    4, so this block holds little of each row's softmax) against its
+    plain version by the 2-byte rule; two launches the same bits; counted
+    as ``flash_attention_ext_bwd_f16``."""
+    import chip_smoke as cs
+
+    B, L, H, D = 4, 256, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(45)
+    q, k, v, do = cs.attention_inputs(torch, gen, B, L, L, H, D,
+                                      torch.float16, do_scale=scale)
+    k0, v0 = (torch.randn((B, L, H, D), generator=gen, device=dev) * m
+              for m in (k0_mul, 1.0))
+    out, lse = fa._plain_fwd(q.float(), torch.cat([k0, k.float()], 1),
+                             torch.cat([v0, v.float()], 1), False, 0.0, 0)
+    out = out.half()
+    _, _, got = cs.flash_2byte_vs_plain(torch, fa, q, k, v, do, causal, 0.0,
+                                        0, form="ext", glob=(out, lse))
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(B * H, L).contiguous()
+    for a, b in zip(got, fa.flash_attention_bwd_ext(q, k, v, do, lse, delta,
+                                                    causal)):
+        assert torch.equal(a, b)
+    assert counters.snapshot() == {"flash_attention_ext_bwd_f16": 2}

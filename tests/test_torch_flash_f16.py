@@ -1,8 +1,10 @@
 """K1a/K1b over f16 (AMP O1 fp16): the port's plain versions held against
 the JAX package's Pallas kernels run over f16 inputs in interpret mode on
-the CPU, the f16 dispatch, and the 2-byte check that holds the card's
-f16 kernels (``chip_smoke.flash_2byte_vs_plain``) against a model of
-their dS rounding.
+the CPU, the f16 dispatch (the short kernels under the short flag, as
+for bf16) and the f16 forms' plain versions and counter names, and the
+2-byte check that holds the card's f16 kernels
+(``chip_smoke.flash_2byte_vs_plain``) against a model of their dS
+rounding.
 
 The JAX kernel computes in f32 whatever its input type and writes its
 output in ``q.dtype`` (``flash_attention.py:65-67, 179-180, 318``), as
@@ -99,9 +101,12 @@ def test_f16_backward_matches_pallas(lq, lk, causal):
 
 def test_f16_attention_takes_the_streaming_kernel_with_the_short_flag(
         monkeypatch):
-    """The short kernels' f16 forms are not ported: with
-    ``FLAGS_flash_short_seq`` on, f16 attention at a shape they take runs
-    the streaming kernel (a dispatch by type), bf16 the short one."""
+    """The dispatch by shape, not type (this test's name is older than
+    K1c/K1d's f16 forms; it held the streaming route for f16 while they
+    were not ported): with ``FLAGS_flash_short_seq`` on, f16 attention at
+    a shape the short kernels take runs them, as bf16 does and as JAX's
+    ``_short_choice`` does for any type; off, or at a shape they refuse
+    (L 64), the streaming kernel."""
     called = []
     for name in ("flash_attention", "flash_attention_short"):
         real = getattr(tfa, name)
@@ -110,24 +115,48 @@ def test_f16_attention_takes_the_streaming_kernel_with_the_short_flag(
             real, name))
     set_flags({"flash_short_seq": True})
     try:
-        for dt in (torch.float16, torch.bfloat16):
-            q = torch.randn(1, 128, 2, 64).to(dt)
+        for dt, L in ((torch.float16, 128), (torch.bfloat16, 128),
+                      (torch.float16, 64)):
+            q = torch.randn(1, L, 2, 64).to(dt)
             out = F.scaled_dot_product_attention(q, q, q)
             assert out.dtype == dt
     finally:
         set_flags({"flash_short_seq": False})
-    assert called == ["flash_attention", "flash_attention_short"]
+    q = torch.randn(1, 128, 2, 64).half()
+    assert F.scaled_dot_product_attention(q, q, q).dtype == torch.float16
+    assert called == ["flash_attention_short", "flash_attention_short",
+                      "flash_attention", "flash_attention"]
+    assert counters.snapshot() == {}                  # the CPU runs plain
 
 
 def test_f16_forms_not_ported_raise_and_f16_counts_apart():
-    q = torch.zeros(1, 128, 2, 64, dtype=torch.float16)
-    lse = torch.zeros(2, 128)
-    with pytest.raises(TypeError, match="short"):
-        tfa.flash_attention_short_fwd(q, q, q)
-    with pytest.raises(TypeError, match="external-lse"):
-        tfa.flash_attention_bwd_ext(q, q, q, q, lse, lse)
-    assert tfa._counter("flash_attention_fwd", q) == \
-        "flash_attention_fwd_f16"
+    """Every form takes f16 now (this test's name is older than the
+    short and external-lse f16 forms, which it held raising): their
+    plain versions run on the CPU, write f16 and equal the streaming
+    forms' plain arithmetic; f16 launches count under their own names,
+    the three new ones among them."""
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(_f16(rng, 1, 128, 2, 64))
+                   for _ in range(4))
+    out, lse = tfa.flash_attention_short_fwd(q, k, v, True)
+    sout, slse = tfa.flash_attention_fwd(q, k, v, True)
+    assert out.dtype == torch.float16
+    assert torch.equal(out, sout) and torch.equal(lse, slse)
+    grads = tfa.flash_attention_short_bwd(q, k, v, out, lse, do, True)
+    for got, want in zip(grads, tfa.flash_attention_bwd(q, k, v, out, lse,
+                                                        do, True)):
+        assert got.dtype == torch.float16 and torch.equal(got, want)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(2, 128).contiguous()
+    ext = tfa.flash_attention_bwd_ext(q, k, v, do, lse, delta, True)
+    for got, want in zip(ext, grads):
+        assert got.dtype == torch.float16 and torch.equal(got, want)
+    assert counters.snapshot() == {}                  # the CPU runs plain
+    for name in ("flash_attention_fwd", "flash_attention_short_fwd",
+                 "flash_attention_short_bwd", "flash_attention_ext_bwd"):
+        assert tfa._counter(name, q) == name + "_f16"
+        assert tfa._counter(name, q.bfloat16()) == name
+        assert tfa._counter(name, q.float()) == name
     assert tfa._counter("flash_attention_masked_bwd", q.bfloat16()) == \
         "flash_attention_masked_bwd"
 
