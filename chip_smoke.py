@@ -119,7 +119,17 @@ a decode tick is its host's launch loop.
             in f16, sgd with its decay at LeNet's in bf16, lamb at
             BERT-base's in bf16): parameters, masters and state bit for
             bit the plain versions, two launches bit for bit, a skipped
-            call launching nothing. Kernel, plain and
+            call launching nothing; slice 1b's 2-byte forms without
+            masters (``k3_2byte``: state in the parameters' type, each
+            operation rounded to it) over bf16 and f16, Adam and AdamW,
+            SGD with and without its L2 term and Lamb at BERT-base's 206
+            tensors, Momentum with and without Nesterov at ResNet-50's
+            161: bit for bit the plain versions (Lamb's apply given the
+            kernel's sums, the sums within rtol 1e-6 of f64), two
+            launches bit for bit, one count a call, a skipped call
+            launching nothing, timed beside ``AdamW`` / ``SGD(momentum=
+            0.9)`` / ``SGD`` with ``fused=True`` over the same 2-byte
+            tensors. Kernel, plain and
             library times and the least time the card could take (bound);
 2. int8     the decode engine at the full width of its README
             configuration (vocab 32000, 24 layers, 16 x 128 heads, ffn
@@ -191,6 +201,14 @@ a decode tick is its host's launch loop.
             ``bench.py`` ``bench_bert``): 3 warm-up and 10 timed steps;
             tokens/s, step ms, MFU, the loss (finite, falling), exact
             kernel launches per step, and a profiled step by family;
+6c. bert_recompute  phase 6 under ``RecomputeOptimizer(AdamW)`` with the
+            12 encoder layers as checkpoints: every step-1 gradient bit
+            for bit a fresh phase-6 model's (same weights, seed and
+            dropout; both steps under PyTorch's deterministic algorithms,
+            whose embedding backward otherwise adds with atomics),
+            exactly 24 K1a and 12 K1b launches a step (each layer's
+            forward again in the backward), peak memory below that
+            fresh model's step and phase 6's, step ms beside phase 6's;
 6a. bert_o2_parity  phase 5's tiny BERT at AMP O2 bf16 with f32 masters
             (``amp.decorate``), one AdamW step with the kernels (K1a,
             K1b, K2's bf16 form, K3-adam's master form; no f32 K2/K3) and
@@ -204,6 +222,13 @@ a decode tick is its host's launch loop.
             every parameter bf16 and its master's cast bit for bit after
             the last step; tokens/s, step ms, MFU, peak memory and the
             profiled step's busy share beside phase 6's;
+6d. bert_o2_pure  phase 6b WITHOUT masters (``decorate(master_weight=
+            False)``: bf16 weights and AdamW moments): the first loss
+            (the terms added in f32) within 1e-4 relative of a
+            plain-version copy's, exactly 12 + 12 K1, one K2a + K2b bf16
+            and one K3-adam 2-byte launch a step and no f32, master or
+            other K3 form, every parameter and moment bf16; tokens/s,
+            step ms and peak memory beside phase 6b's;
 7. resnet_parity  a small ResNet (BottleneckBlock [1, 1, 1, 1], 64 x 64,
             batch 4, f32) trained two Momentum steps through
             ``TrainStep`` with the kernel and again with the plain version,
@@ -226,6 +251,18 @@ a decode tick is its host's launch loop.
             count unchanged, the scale 2**39 after; the state restored,
             one more step launches one K3; imgs/s, step ms, peak memory,
             skipped steps and a profiled step by family beside phase 8's;
+8c. resnet50_lars  phase 8 with ``LarsMomentum(0.1, momentum=0.9,
+            lars_coeff=0.001, lars_weight_decay=0.0005)``: no K3 launch,
+            161 ``optimizer_rule.LarsMomentum`` counts a step (the rule in
+            tensor operations, as JAX runs it in XLA), the loss finite,
+            imgs/s and step ms beside phase 8's;
+8d. optimizer_rules_parity  the eight XLA-only rules, DGCMomentum with a
+            warm-up, GradientMerge(k=4), LookAhead, EMA and ModelAverage,
+            3 steps over BERT-base's 206 f32 shapes on the card against
+            the same code on the CPU: each tensor within 1e-5 of its
+            largest value (bit for bit counted), DGC's masks equal, one
+            rule count a parameter and step, Dpsgd's noise by its
+            moments;
 9. bert_lamb_parity  a tiny BERT (2 layers, hidden 128, seq 128, batch
             8, f32, dropout 0.1, ``flash_short_seq`` on) trained two Lamb
             steps with global-norm clipping through ``TrainStep`` with
@@ -371,8 +408,11 @@ a decode tick is its host's launch loop.
     8 for Momentum, 10 for the short flash kernels and Lamb, 10b for
     their f16 forms, 11 for SGD, 13-16 for the static forms, 18 for K6,
     20 for the masked flash kernels, 23 for the external-lse K1b, 23b for
-    its f16 form (and K1a f16), 25 for the chunk Lamb, both ranks; K2's f16 form and K3-sgd's and K3-lamb's master forms run on
-    no phase's path, ``"main_path": false``, launches 0: at O1 the
+    its f16 form (and K1a f16), 25 for the chunk Lamb, both ranks, 6d
+    for K3-adam's bf16 form without masters (and 6c for the streaming
+    flash kernels, K2 and Adam); K2's f16 form, K3-sgd's and K3-lamb's
+    master forms and the other 2-byte forms without masters run on no
+    phase's path, ``"main_path": false``, launches 0: at O1 the
     vocabulary heads take f32 from a black-listed norm), then the card's
     name and power limit, then the result line.
 
@@ -2227,13 +2267,17 @@ def k3_names(names, masters):
     return [n + ("" if masters is None else "_master") for n in names]
 
 
-def k3_compare(torch, counters, label, names, state, kernel, plain):
+def k3_compare(torch, counters, label, names, state, kernel, plain,
+               skip=None):
     """``kernel(state, skip=False)`` (one count of each of ``names`` a
     call) run twice, each on copies of ``state`` ([params, masters or
     None, the rule's state lists...]), the two bit for bit; the first
-    against ``plain(copies, first)`` bit for bit; a master form also: a
-    skipped call launches nothing and changes nothing, and each
-    parameter is its master's cast. Returns the two kernel runs."""
+    against ``plain(copies, first)`` bit for bit; a master form (or any
+    form with ``skip`` True) also: a skipped call launches nothing and
+    changes nothing; a master form: each parameter is its master's cast.
+    Returns the two kernel runs."""
+    if skip is None:
+        skip = state[1] is not None
     def copy():
         return [None if xs is None else [x.clone() for x in xs]
                 for xs in state]
@@ -2245,7 +2289,7 @@ def k3_compare(torch, counters, label, names, state, kernel, plain):
     for _ in range(2):
         k = copy()
         before = {n: counters.get(n) for n in names}
-        if state[1] is not None:
+        if skip:
             kernel(k, skip=True)
             expect(all(counters.get(n) == before[n] for n in names),
                    f"{label}: a skipped call launched a kernel")
@@ -2260,7 +2304,7 @@ def k3_compare(torch, counters, label, names, state, kernel, plain):
     want = copy()
     plain(want, runs[0])
     torch.cuda.synchronize()
-    differ = sum(int(not torch.equal(a, b))
+    differ = sum(int(not same_bits(torch, [a], [b]))
                  for a, b in zip(flat(runs[0]), flat(want)))
     expect(differ == 0, f"{label} differs bitwise in {differ} tensors")
     if state[1] is not None:
@@ -2272,13 +2316,14 @@ def k3_compare(torch, counters, label, names, state, kernel, plain):
 
 def k3_library(torch, ps, gs, ws, make_opt):
     """One PyTorch call set computing the same function (timed, never
-    called by the port): a fused ``torch.optim`` step over f32 copies of
-    the parameters, or of the masters with f32 copies of the gradients
-    followed by ``torch._foreach_copy_`` into the 2-byte parameters."""
+    called by the port): a fused ``torch.optim`` step over copies of the
+    parameters (f32, or 2-byte without masters) and gradients of their
+    type, or of the masters with f32 copies of the gradients followed by
+    ``torch._foreach_copy_`` into the 2-byte parameters."""
     lib_w = [torch.nn.Parameter(w.clone()) for w in (ps if ws is None
                                                       else ws)]
     for p, g in zip(lib_w, gs):
-        p.grad = g.to(torch.float32, copy=True)
+        p.grad = g.to(p.dtype, copy=True)
     opt = make_opt(lib_w)
     if ws is None:
         return opt.step
@@ -2869,6 +2914,222 @@ def check_lamb(torch, fo, counters, shapes, timing, dtype_name="float32"):
 
 
 # ---------------------------------------------------------------------------
+# phase 1: K3's 2-byte forms without masters
+# ---------------------------------------------------------------------------
+# bytes an element each form reads and writes once (2 an array) and its
+# f32 operations an element (the rounding steps not counted)
+K3_2BYTE = {"adam": (14, 16), "momentum": (10, 5), "sgd": (6, 4),
+            "lamb": (14, 20)}
+
+
+def k3_2byte_state(torch, gen, shapes, dt, scales, positive=()):
+    """Tensors of type ``dt`` shaped like ``shapes``, one list a scale,
+    made in f32 from ``gen`` and rounded once; the lists at the indices
+    in ``positive`` take absolute values."""
+    out = []
+    for i, scale in enumerate(scales):
+        xs = []
+        for s in shapes:
+            x = torch.randn(s, generator=gen, device="cuda") * scale
+            xs.append((x.abs() if i in positive else x).to(dt))
+        out.append(xs)
+    return out
+
+
+def k3_2byte_row(torch, name, n, rows, kernel_ms, plain_ms, library_ms):
+    per, flops = K3_2BYTE[name]
+    t_b, by = bound_of(per * n, flops * n, F32_FLOPS_PER_S)
+    return dict(rows, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=t_b, bound_by=by,
+                bytes_per_element=per,
+                bound_rates=rates(F32_FLOPS_PER_S, "f32"))
+
+
+def check_k3_2byte(torch, fo, counters, bert_shapes, resnet_shapes, timing):
+    """K3's 2-byte forms without masters (state in the parameters' type,
+    each operation rounded to it), over bf16 and f16: Adam without and
+    with AdamW's decay and Lamb (phase 1 + apply) at BERT-base's 206
+    tensors, Momentum without and with Nesterov at ResNet-50's 161, SGD
+    without and with its coupled L2 term at BERT-base's; each bit for
+    bit against its plain version (Lamb's apply given the kernel's
+    sums), two launches bit for bit, one count a call, a skipped step
+    launching nothing and changing nothing. Timed beside the bound and
+    ``torch.optim.AdamW`` / ``SGD(momentum=0.9)`` / ``SGD`` with
+    ``fused=True`` over the same 2-byte tensors (Lamb has none).
+    Returns {kernel name: row}."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for dtype_name in ("bfloat16", "float16"):
+        dt = getattr(torch, dtype_name)
+        tag = fo.TWO_BYTE[dt]
+        # f16 state sits near its subnormals at bf16's scales: larger ones
+        g_s, m_s, v_s = (1e-3, 1e-4, 1e-6) if tag == "bf16" \
+            else (1e-2, 1e-3, 1e-4)
+        caches = {}
+
+        def cache(s):
+            return caches.setdefault(id(s[0]), {})
+
+        # Adam(W) at BERT-base's list
+        ps, gs, ms, vs = k3_2byte_state(torch, gen, bert_shapes, dt,
+                                        (0.02, g_s, m_s, v_s), positive=(3,))
+        n = sum(p.numel() for p in ps)
+        for wd in (0.0, 0.01):
+            hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, step=3,
+                      weight_decay=wd)
+            sc = fo.adam_scalars_2byte(dt, **{k: hp[k] for k in (
+                "lr", "beta1", "beta2", "eps", "step")}, weight_decay=wd)
+
+            def kernel(s, skip=False, hp=hp):
+                fo.fused_adam_(s[0], gs, s[2], s[3], skip=skip,
+                               cache=cache(s), **hp)
+
+            def plain(s, _=None, sc=sc):
+                fo._plain_adam_2byte_(s[0], gs, s[2], s[3], sc, False)
+
+            runs = k3_compare(torch, counters, f"2-byte Adam ({tag}, wd "
+                              f"{wd})", ["fused_adam_" + tag],
+                              [ps, None, ms, vs], kernel, plain, skip=True)
+        if timing:
+            k = runs[0]
+            lib = k3_library(torch, ps, gs, None, lambda p: torch.optim.AdamW(
+                p, lr=1e-4, weight_decay=0.01, fused=True))
+            rows["fused_adam_" + tag] = k3_2byte_row(
+                torch, "adam", n, dict(k3_row(dtype_name, bert_shapes, n, 14),
+                                       weight_decays=[0.0, 0.01]),
+                time_ms(torch, lambda: kernel(k)),
+                time_ms(torch, lambda: plain([ps, None, ms, vs]), iters=5),
+                time_ms(torch, lib))
+        else:
+            rows["fused_adam_" + tag] = k3_row(dtype_name, bert_shapes, n, 14)
+        # SGD at BERT-base's list, without and with the coupled L2 term
+        ps, gs = k3_2byte_state(torch, gen, bert_shapes, dt, (0.05, g_s))
+        for wd in (0.0, SGD_WD):
+            wd_t = fo.decay_in(dt, wd) if wd else 0.0
+
+            def kernel(s, skip=False, wd=wd):
+                fo.fused_sgd_(s[0], gs, lr=SGD_LR, weight_decay=wd,
+                              skip=skip)
+
+            def plain(s, _=None, wd_t=wd_t):
+                fo._plain_sgd_2byte_(s[0], gs, fo.decay_in(dt, SGD_LR), wd_t,
+                                     False)
+
+            runs = k3_compare(torch, counters, f"2-byte SGD ({tag}, wd {wd})",
+                              ["fused_sgd_" + tag], [ps, None], kernel, plain,
+                              skip=True)
+        row = dict(k3_row(dtype_name, bert_shapes, n, 6),
+                   weight_decays=[0.0, SGD_WD])
+        if timing:
+            k = runs[0]
+            lib = k3_library(torch, ps, gs, None, lambda p: torch.optim.SGD(
+                p, lr=SGD_LR, weight_decay=SGD_WD, fused=True))
+            row = k3_2byte_row(torch, "sgd", n, row,
+                               time_ms(torch, lambda: kernel(k),
+                                       spin=STATIC_SPIN_CYCLES),
+                               time_ms(torch, lambda: plain([ps, None]),
+                                       iters=5),
+                               time_ms(torch, lib, spin=STATIC_SPIN_CYCLES))
+        rows["fused_sgd_" + tag] = row
+        # Lamb at BERT-base's list, the 1-D tensors at zero (trust 1)
+        ps, gs, ms, vs = k3_2byte_state(torch, gen, bert_shapes, dt,
+                                        (0.02, g_s, m_s, v_s), positive=(3,))
+        for p in ps:
+            if p.dim() == 1:
+                p.zero_()
+        hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6,
+                  weight_decay=0.01, step=3)
+        sc = fo.adam_scalars_2byte(dt, 1e-3, 0.9, 0.999, 1e-6, 3)
+        wd_t = fo.decay_in(dt, 0.01)
+
+        def kernel(s, skip=False):
+            fo.fused_lamb_(s[0], gs, s[2], s[3], s[4], skip=skip,
+                           cache=cache(s), **hp)
+
+        def plain(s, k):
+            fo._plain_lamb_phase1_2byte_(s[0], gs, s[2], s[3], s[4], sc,
+                                         wd_t)
+            fo._plain_lamb_apply_2byte_(
+                s[0], s[4], fo.lamb_kernel_sums(caches[id(k[0])]), sc[0])
+
+        state = [ps, None, ms, vs, [torch.empty_like(p) for p in ps]]
+        k, again = k3_compare(torch, counters, f"2-byte Lamb ({tag})",
+                              ["fused_lamb_phase1_" + tag,
+                               "fused_lamb_apply_" + tag], state, kernel,
+                              plain, skip=True)
+        sums = fo.lamb_kernel_sums(caches[id(k[0])])
+        expect(same_bits(torch, [sums], [fo.lamb_kernel_sums(
+            caches[id(again[0])])]), f"2-byte Lamb ({tag}): two launches "
+                                     f"took different sums")
+        want = fo._lamb_sums_2byte(ps, k[4])
+        # an f16 r past 256 squares to inf (r = m/eps where v is 0):
+        # those sums are inf in both, the rest within rtol 1e-6 of f64
+        fin = torch.isfinite(want)
+        sum_err = float(((sums - want).abs()[fin]
+                         / want[fin].clamp_min(1e-30)).max())
+        expect(sum_err <= 1e-6 and torch.equal(fin, torch.isfinite(sums))
+               and torch.equal(sums[~fin], want[~fin]),
+               f"2-byte Lamb ({tag}): sums off f64 by {sum_err} (rtol "
+               f"1e-6), or their infinities differ")
+        zero = [i for i, s in enumerate(bert_shapes) if len(s) == 1]
+        expect(all(bool(torch.isfinite(k[0][i]).all()) for i in zero),
+               f"2-byte Lamb ({tag}): a zero parameter became non-finite")
+        row = dict(k3_row(dtype_name, bert_shapes, n, 14),
+                   zero_params=len(zero), sums_max_rel_err=sum_err,
+                   infinite_sums=int((~fin).sum()))
+        if timing:
+            rs = [torch.empty_like(p) for p in ps]
+            row = k3_2byte_row(
+                torch, "lamb", n, row, time_ms(torch, lambda: kernel(k)),
+                time_ms(torch, lambda: fo._plain_lamb_2byte_(
+                    ps, gs, ms, vs, rs, sc, wd_t, False), iters=5), None)
+            row["kernels_bytes_ms"] = 20 * n / HBM_BYTES_PER_S * 1e3
+        rows["fused_lamb_" + tag] = row
+        del ps, gs, ms, vs, state, k, again
+        # Momentum at ResNet-50's list, without and with Nesterov
+        ps, gs, vs = k3_2byte_state(torch, gen, resnet_shapes, dt,
+                                    (0.05, g_s, g_s))
+        n = sum(p.numel() for p in ps)
+        lr_t, mu_t = fo.decay_in(dt, 0.1), fo.decay_in(dt, 0.9)
+        for nesterov in (False, True):
+            def kernel(s, skip=False, nesterov=nesterov):
+                fo.fused_momentum_(s[0], gs, s[2], lr=0.1, momentum=0.9,
+                                   nesterov=nesterov, skip=skip,
+                                   cache=cache(s))
+
+            def plain(s, _=None, nesterov=nesterov):
+                fo._plain_momentum_2byte_(s[0], gs, s[2], lr_t, mu_t,
+                                          nesterov, False)
+
+            runs = k3_compare(torch, counters, f"2-byte Momentum ({tag}, "
+                              f"nesterov={nesterov})",
+                              ["fused_momentum_" + tag], [ps, None, vs],
+                              kernel, plain, skip=True)
+            if not nesterov:
+                k, kernel0, plain0 = runs[0], kernel, plain
+        row = dict(k3_row(dtype_name, resnet_shapes, n, 10),
+                   nesterov_bitwise=True)
+        if timing:
+            lib = k3_library(torch, ps, gs, None, lambda p: torch.optim.SGD(
+                p, lr=0.1, momentum=0.9, fused=True))
+            row = k3_2byte_row(torch, "momentum", n, row,
+                               time_ms(torch, lambda: kernel0(k)),
+                               time_ms(torch, lambda: plain0([ps, None, vs]),
+                                       iters=5),
+                               time_ms(torch, lib))
+        rows["fused_momentum_" + tag] = row
+        del ps, gs, vs, k, runs
+        torch.cuda.empty_cache()
+    if timing:
+        # the bounds worked out from the bytes: AdamW 14 B x 110.2 M at
+        # 3.35 TB/s ~ 0.46 ms, Momentum 10 B x 25.5 M ~ 0.076 ms
+        rows["bound_check"] = {
+            "adam_bf16_bound_ms": rows["fused_adam_bf16"]["bound_ms"],
+            "momentum_bf16_bound_ms": rows["fused_momentum_bf16"]["bound_ms"]}
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 5-6: the BERT pretraining step
 # ---------------------------------------------------------------------------
 BERT_BATCH, BERT_SEQ = 128, 128
@@ -2911,6 +3172,11 @@ def bert_plain_swaps(fa, fx, fo, optmod):
     def plain_adam(params, grads, m1, m2, *, lr, beta1, beta2, eps,
                    step, weight_decay=0.0, skip=False, cache=None,
                    masters=None):
+        if masters is None and params[0].dtype in fo.TWO_BYTE:
+            fo._plain_adam_2byte_(params, grads, m1, m2, fo.adam_scalars_2byte(
+                params[0].dtype, lr, beta1, beta2, eps, step, weight_decay),
+                skip)
+            return
         lr32, c1, c2, lrwd = fo.adam_scalars(lr, beta1, beta2, step,
                                              weight_decay)
         plain_over(fo, params, grads, masters, skip, lambda w, g:
@@ -3031,7 +3297,7 @@ def bert_family(name):
         return "xent_fwd"
     if any(t in name for t in ("xent_bwd_", "xent_split_bwd")):
         return "xent_bwd"
-    if "adamrule" in name:
+    if "adamrule" in name or "adam2rule" in name:
         return "adam"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "gemm"
@@ -6318,6 +6584,559 @@ def phase_bert_o2(torch, counters, o1_row):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# slice 1b: pure-bf16 BERT (K3-adam's 2-byte form), LARS ResNet-50, the
+# eight XLA-only rules and the meta-optimizers, BERT under recompute
+# ---------------------------------------------------------------------------
+O2_PURE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                   "fused_xent_fwd_bf16", "fused_xent_bwd_bf16",
+                   "fused_adam_bf16")
+K3_OTHER_FORMS = ("fused_adam", "fused_adam_master", "fused_adam_f16",
+                  "fused_momentum", "fused_momentum_master",
+                  "fused_momentum_bf16", "fused_momentum_f16", "fused_sgd",
+                  "fused_sgd_master", "fused_sgd_bf16", "fused_sgd_f16",
+                  "fused_lamb_phase1", "fused_lamb_apply",
+                  "fused_lamb_phase1_master", "fused_lamb_apply_master",
+                  "fused_lamb_phase1_bf16", "fused_lamb_apply_bf16",
+                  "fused_lamb_phase1_f16", "fused_lamb_apply_f16")
+FIRST_LOSS_RTOL = 1e-4
+
+
+def o2_bert_loss_f32(m, ids, tt, mlm, nsp):
+    """The O2 BERT loss with its two terms added in f32 (``m.loss`` adds
+    them in bf16): the first-loss comparison's yardstick."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        seq, pooled = m.bert(ids, tt)
+        h = m._mlm_hidden(seq)
+        lm = F.fused_linear_cross_entropy(
+            h, m.bert.embeddings.word_embeddings.weight, m.mlm_bias, mlm)
+        ln = F.cross_entropy(m.nsp(pooled), nsp)
+    return lm.float() + ln.float()
+
+
+def o2_pure_bert(torch, model):
+    """``model`` (an f32 BERT) decorated to O2 bf16 WITHOUT masters
+    (``master_weight=False``: every parameter and AdamW's moments bf16),
+    its AdamW and TrainStep."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                 master_weight=False)
+    return model, opt, TrainStep(model, o2_bert_loss, opt)
+
+
+def phase_bert_o2_pure(torch, counters, fa, fx, fo, o2_row):
+    """``bench_bert``'s model at ``decorate(level="O2", master_weight=
+    False)``: BERT-base 128 x 128, dropout 0.1, AdamW 1e-4 through
+    TrainStep, bf16 weights and moments, no master. First, from the same
+    weights, one step with the kernels and one with the plain versions,
+    their first losses (the terms added in f32) within 1e-4 relative;
+    then 3 + 10 steps: exactly 12 + 12 K1 bf16, one K2a + K2b bf16 and
+    one K3-adam 2-byte launch a step, no f32, master or other K3 form;
+    tokens/s, step ms and peak memory beside ``bert_o2``'s. The loss is
+    not required to fall: bf16 updates without masters lose the small
+    steps."""
+    import copy
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import optimizer as optmod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = BertConfig.base()
+    B, S = BERT_BATCH, BERT_SEQ
+    batch = bert_batch(torch, np.random.RandomState(0), B, S,
+                       cfg.vocab_size)
+    first = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = BertForPretraining(cfg, generator=gen)
+    for name in ("kernel", "plain"):
+        model, opt = o2_pure_bert(torch, copy.deepcopy(base))[:2]
+        step = TrainStep(model, o2_bert_loss_f32, opt)
+        counters.reset()
+        if name == "plain":
+            with swapped(bert_plain_swaps(fa, fx, fo, optmod)):
+                first[name] = float(step(*batch))
+        else:
+            first[name] = float(step(*batch))
+        torch.cuda.synchronize()
+        first[name + "_launches"] = counters.snapshot()
+        del model, opt, step
+    del base
+    rel = abs(first["kernel"] - first["plain"]) / abs(first["plain"])
+    expect(rel <= FIRST_LOSS_RTOL,
+           f"bert_o2_pure: first loss {first['kernel']} (kernels) against "
+           f"{first['plain']} (plain), {rel} relative")
+    expect(first["kernel_launches"].get("fused_adam_bf16", 0) == 1
+           and not any(first["plain_launches"].get(k, 0)
+                       for k in O2_PURE_KERNELS),
+           f"bert_o2_pure: the comparison's launches {first}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model, opt, step = o2_pure_bert(torch, BertForPretraining(
+        cfg, generator=gen))
+    params = list(model.parameters())
+    expect(all(p.dtype == torch.bfloat16 for p in params)
+           and not any("__master__" in opt._slots.get(id(p), {})
+                       for p in params),
+           "bert_o2_pure: a parameter is not bf16 or has a master")
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+            "fused_xent_fwd_bf16": 1, "fused_xent_bwd_bf16": 1,
+            "fused_adam_bf16": 1}
+    expect(all(np.isfinite(losses)), f"bert_o2_pure: non-finite loss "
+                                     f"{losses}")
+    for k, n in want.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"bert_o2_pure: {k} launched {launches.get(k, 0)} times over "
+               f"{n_steps} steps, want {n} a step")
+    expect(not any(launches.get(k, 0) for k in F32_TRAIN_FORMS
+                   + K3_OTHER_FORMS),
+           f"bert_o2_pure: an f32, master or other K3 form launched: "
+           f"{launches}")
+    expect(all(p.dtype == torch.bfloat16 for p in params) and all(
+        all(v.dtype == torch.bfloat16 for v in opt._slots[id(p)].values())
+        for p in params), "bert_o2_pure: a parameter or moment left bf16")
+    expect(len(opt._kernel_cache[(torch.bfloat16, False)]["key"])
+           == 5 * len(params),
+           "bert_o2_pure: the Adam launch did not cover every parameter")
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile_step(torch, step, batch, bert_family, BERT_FAMILIES,
+                             med)
+    flops_per_step = bert_flops_per_step(cfg, B, S)
+    row = {"phase": "bert_o2_pure", "config": "BERT-base (vocab 30592, 12 x "
+           "768, 12 x 64 heads, ffn 3072), batch 128 x seq 128, AMP O2 bf16 "
+           "WITHOUT masters (amp.decorate master_weight=False: bf16 weights "
+           "and AdamW moments), dropout 0.1, AdamW lr 1e-4 wd 0.01",
+           "params": int(sum(p.numel() for p in params)),
+           "warmup_steps": WARM_STEPS, "timed_steps": TIMED_STEPS,
+           "first_loss_kernel_f32": first["kernel"],
+           "first_loss_plain_f32": first["plain"],
+           "first_loss_rel_err": rel, "first_loss_rtol": FIRST_LOSS_RTOL,
+           "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "step_ms": step_ms, "flops_per_step": flops_per_step,
+           "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": launches,
+           "launches_per_step": {k: launches.get(k, 0) / n_steps
+                                 for k in want},
+           "peak_mem_gb": peak, "breakdown": breakdown}
+    row["bert_o2"] = {k: o2_row.get(k) for k in (
+        "tokens_per_s", "step_ms_median", "step_ms_max", "mfu",
+        "peak_mem_gb")}
+    row["peak_mem_drop_gb"] = o2_row["peak_mem_gb"] - peak
+    return row, launches
+
+
+def phase_resnet50_lars(torch, counters, o1_row):
+    """ResNet-50 128 x 224^2 at AMP O1 bf16 with ``LarsMomentum(0.1,
+    momentum=0.9, lars_coeff=0.001, lars_weight_decay=0.0005)``: the
+    large-batch recipe. No K3 launch; the rule runs in tensor operations,
+    one ``optimizer_rule.LarsMomentum`` count a parameter, 161 a step;
+    the loss finite; imgs/s and step ms beside ``resnet50``'s."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import LarsMomentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = resnet50(num_classes=RESNET_CLASSES, generator=gen)
+    params = list(model.parameters())
+    opt = LarsMomentum(0.1, momentum=0.9, lars_coeff=0.001,
+                       lars_weight_decay=0.0005, parameters=params)
+    ce = nn.CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return ce(m(x), y)
+
+    step = TrainStep(model, loss_fn, opt)
+    B, S = RESNET_BATCH, RESNET_SIZE
+    rng = np.random.RandomState(0)
+    batch = (torch.tensor(rng.randn(B, 3, S, S).astype(np.float32),
+                          device="cuda"),
+             torch.tensor(rng.randint(0, RESNET_CLASSES, (B,)).astype(
+                 np.int64), device="cuda"))
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    expect(all(np.isfinite(losses)), f"resnet50_lars: non-finite loss "
+                                     f"{losses}")
+    got = launches.get("optimizer_rule.LarsMomentum", 0)
+    expect(got == len(params) * n_steps,
+           f"resnet50_lars: optimizer_rule.LarsMomentum {got} over {n_steps} "
+           f"steps, want {len(params)} a step")
+    k3 = {k: v for k, v in launches.items() if k.startswith(("fused_",
+                                                             "static_"))
+          and "xent" not in k and "flash" not in k and "bag" not in k}
+    expect(not k3, f"resnet50_lars: a K3 kernel launched: {k3}")
+    expect(all(p.grad is not None for p in params)
+           and all(bool((opt._slots[id(p)]["velocity"] != 0).any())
+                   for p in params),
+           "resnet50_lars: a parameter's velocity was never updated")
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile_step(torch, step, batch, resnet_family,
+                             RESNET_FAMILIES, med)
+    flops_per_step = 3 * 8.2e9 * B
+    row = {"phase": "resnet50_lars", "config": "ResNet-50 (BottleneckBlock "
+           "[3, 4, 6, 3], 1000 classes), batch 128 x 3 x 224 x 224, AMP O1 "
+           "bf16, LarsMomentum lr 0.1 mu 0.9 lars_coeff 0.001 "
+           "lars_weight_decay 0.0005, the same batch every step",
+           "param_tensors": len(params), "warmup_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS,
+           "imgs_per_s": B * TIMED_STEPS / (sum(step_ms) / 1e3),
+           "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+           "step_ms": step_ms, "flops_per_step": flops_per_step,
+           "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": launches,
+           "rule_counts_per_step": got / n_steps, "peak_mem_gb": peak,
+           "breakdown": breakdown}
+    row["resnet50"] = {k: o1_row.get(k) for k in (
+        "imgs_per_s", "step_ms_median", "step_ms_max", "peak_mem_gb")}
+    return row, launches
+
+
+# per-tensor bound of the card-vs-CPU comparison, a share of the tensor's
+# largest magnitude: the elementwise rules are the same IEEE operations on
+# both (bit for bit where no reduction or pow enters); LARS's and Dpsgd's
+# norms are sums in other orders, Ftrl's pow is another implementation
+RULES_RTOL = 1e-5
+DPSGD_NOISE = (1.0, 16)   # sigma, batch_size of the moment check (clip 1)
+
+
+def rule_configs():
+    """(name, build(params), steps) of the parity phase: the eight rules,
+    DGC with a warm-up (momentum at step 1, sparsity 0.75 at step 2,
+    0.999 at step 3), and the meta-optimizers over kernel rules."""
+    from paddle_tpu_torch import optimizer as O
+
+    def meta(cls, inner, **kw):
+        return lambda ps: cls(inner(ps), **kw)
+
+    return [
+        ("Adamax", lambda ps: O.Adamax(1e-3, parameters=ps), 3),
+        ("Adagrad", lambda ps: O.Adagrad(
+            1e-2, parameters=ps, initial_accumulator_value=0.1), 3),
+        ("DecayedAdagrad", lambda ps: O.DecayedAdagrad(1e-2, parameters=ps),
+         3),
+        ("Adadelta", lambda ps: O.Adadelta(1.0, parameters=ps), 3),
+        ("RMSProp", lambda ps: O.RMSProp(1e-3, momentum=0.9, centered=True,
+                                         parameters=ps), 3),
+        ("Ftrl", lambda ps: O.Ftrl(1e-2, l1=1e-4, l2=1e-4, parameters=ps), 3),
+        ("LarsMomentum", lambda ps: O.LarsMomentum(0.1, parameters=ps), 3),
+        ("Dpsgd", lambda ps: O.Dpsgd(1e-2, clip=1.0, sigma=0.0,
+                                     parameters=ps, seed=7), 3),
+        ("DGCMomentum", lambda ps: O.DGCMomentum(
+            1e-2, momentum=0.9, rampup_begin_step=1, rampup_step=2,
+            sparsity=[0.75, 0.999], parameters=ps), 3),
+        ("GradientMerge", meta(O.GradientMergeOptimizer,
+                               lambda ps: O.Momentum(1e-2, parameters=ps),
+                               k_steps=4), 12),
+        ("LookAhead", meta(O.LookAhead, lambda ps: O.SGD(1e-2, parameters=ps),
+                           alpha=0.5, k=2), 3)]
+
+
+def rule_run(torch, build, shapes, grads, steps, device, record=None):
+    """``steps`` steps of ``build(params)`` over f32 parameters of
+    ``shapes`` on ``device``, the gradients ``grads[i % len(grads)]``
+    (CPU tensors, copied): (parameters, slot tensors, DGC's masks)."""
+    gen = torch.Generator().manual_seed(11)
+    params = [torch.nn.Parameter((torch.randn(s, generator=gen) * 0.02)
+                                 .to(device)) for s in shapes]
+    opt = build(params)
+    masks = []
+    if record is not None:
+        inner = opt.mask
+
+        def mask(v, s):
+            m = inner(v, s)
+            masks.append(m.cpu())
+            return m
+
+        opt.mask = mask
+    for i in range(steps):
+        for p, g in zip(params, grads[i % len(grads)]):
+            p.grad = g.to(device)
+        opt.step()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    core = getattr(opt, "inner", opt)
+    slots = [v for p in params for v in core._slots.get(id(p), {}).values()]
+    out = ([p.detach().cpu() for p in params], [s.cpu() for s in slots],
+           masks)
+    del params, opt
+    return out
+
+
+RULE_NAMES = ("Adamax", "Adagrad", "DecayedAdagrad", "Adadelta", "RMSProp",
+              "Ftrl", "LarsMomentum", "Dpsgd", "DGCMomentum")
+
+
+def rel_err(a, b):
+    scale = float(b.abs().max()) or 1.0
+    return float((a - b).abs().max()) / scale
+
+
+def phase_optimizer_rules_parity(torch, counters, bert_shapes):
+    """The eight XLA-only rules, DGCMomentum with a warm-up schedule and
+    GradientMerge(k=4), LookAhead, EMA and ModelAverage, 3 steps on the
+    card over BERT-base's 206 f32 parameter shapes with gradients from a
+    seed, against the same code on the CPU in this process: every
+    parameter and state tensor within ``RULES_RTOL`` of its largest
+    value, the tensors bit for bit counted, DGC's masks equal bit for
+    bit; the rules' counters on the card (``optimizer_rule.<rule>``, one
+    a parameter and step); Dpsgd's noise (sigma 1, zero gradients) with
+    the mean and deviation of its largest tensor."""
+    from paddle_tpu_torch import optimizer as O
+
+    gen = torch.Generator().manual_seed(13)
+    grads = [[torch.randn(s, generator=gen) * 1e-3 for s in bert_shapes]
+             for _ in range(2)]
+    out = {}
+    for name, build, steps in rule_configs():
+        counters.reset()
+        card = rule_run(torch, build, bert_shapes, grads, steps, "cuda",
+                        record=True if name == "DGCMomentum" else None)
+        launched = counters.snapshot()
+        host = rule_run(torch, build, bert_shapes, grads, steps, "cpu",
+                        record=True if name == "DGCMomentum" else None)
+        pairs = list(zip(card[0] + card[1], host[0] + host[1]))
+        worst = max(rel_err(a, b) for a, b in pairs)
+        same = sum(int(torch.equal(a, b)) for a, b in pairs)
+        expect(worst <= RULES_RTOL, f"optimizer_rules_parity: {name} on the "
+               f"card differs from the CPU by {worst} of a tensor's largest "
+               f"value (bound {RULES_RTOL})")
+        row = {"tensors": len(pairs), "bitwise_tensors": same,
+               "max_rel_err": worst}
+        if name == "DGCMomentum":
+            expect(len(card[2]) == len(host[2]) == 2 * len(bert_shapes)
+                   and all(torch.equal(a, b)
+                           for a, b in zip(card[2], host[2])),
+                   "optimizer_rules_parity: DGC's masks differ")
+            row["masks_equal"] = len(card[2])
+            row["mask_density"] = [float(m.float().mean())
+                                   for m in card[2][:1] + card[2][-1:]]
+        key = "optimizer_rule." + name
+        if name in RULE_NAMES:
+            expect(launched.get(key, 0) == steps * len(bert_shapes),
+                   f"optimizer_rules_parity: {key} counted "
+                   f"{launched.get(key, 0)}, want {steps} x "
+                   f"{len(bert_shapes)}")
+            row["counted"] = launched.get(key, 0)
+        row["kernel_launches"] = {k: v for k, v in launched.items()
+                                  if k.startswith("fused_")}
+        out[name] = row
+        del card, host, pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("EMA", "ModelAverage"):
+        res = {}
+        for device in ("cuda", "cpu"):
+            params = [torch.nn.Parameter(g.to(device) * 20.0)
+                      for g in grads[0]]
+            opt = O.SGD(1e-2, parameters=params)
+            avg = O.EMA(0.999) if name == "EMA" else O.ModelAverage()
+            avg.register(params)
+            for i in range(3):
+                for p, g in zip(params, grads[i % 2]):
+                    p.grad = g.to(device)
+                opt.step()
+                avg.update()
+            fast = [p.detach().clone() for p in params]
+            avg.apply()
+            applied = [p.detach().to("cpu", copy=True) for p in params]
+            avg.restore()
+            restored = all(torch.equal(p, f) for p, f in zip(params, fast))
+            res[device] = (applied, restored, [f.cpu() for f in fast])
+            del params, opt, avg, fast
+        pairs = list(zip(res["cuda"][0], res["cpu"][0]))
+        worst = max(rel_err(a, b) for a, b in pairs)
+        fast_worst = max(rel_err(a, b) for a, b in zip(res["cuda"][2],
+                                                      res["cpu"][2]))
+        bad = [(i, tuple(a.shape), rel_err(a, b), int((a != b).sum()))
+               for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+        expect(worst <= RULES_RTOL and res["cuda"][1] and res["cpu"][1],
+               f"optimizer_rules_parity: {name} differs by {worst} (the "
+               f"SGD-stepped weights by {fast_worst}; tensors {bad[:6]}) "
+               f"or did not restore ({res['cuda'][1]}, {res['cpu'][1]})")
+        out[name] = {"tensors": len(pairs), "max_rel_err": worst,
+                     "bitwise_tensors": sum(int(torch.equal(a, b))
+                                            for a, b in pairs),
+                     "restored": True}
+    # Dpsgd's noise: zero gradients, lr 1: p2 - p = -(sigma clip / batch) n
+    sigma, batch = DPSGD_NOISE
+    big = max(bert_shapes, key=lambda s: int(np.prod(s)))
+    p = torch.nn.Parameter(torch.zeros(big, device="cuda"))
+    opt = O.Dpsgd(1.0, clip=1.0, batch_size=batch, sigma=sigma,
+                  parameters=[p], seed=7)
+    p.grad = torch.zeros_like(p)
+    opt.step()
+    noise = -p.detach().double() / (sigma / batch)
+    mean, std = float(noise.mean()), float(noise.std())
+    n = noise.numel()
+    expect(abs(mean) <= 5.0 / np.sqrt(n) and abs(std - 1.0) <= 1e-2,
+           f"optimizer_rules_parity: Dpsgd's noise mean {mean}, deviation "
+           f"{std} over {n} draws")
+    out["Dpsgd"]["noise"] = {"draws": n, "mean": mean, "std": std}
+    return {"phase": "optimizer_rules_parity", "config": "BERT-base's 206 "
+            "f32 parameter shapes (110 M elements), gradients from a seed "
+            "(x 1e-3), 3 steps (GradientMerge 12 calls), the card against "
+            "the CPU in one process", "rtol_of_max": RULES_RTOL,
+            "rules": out}
+
+
+class deterministic:
+    """PyTorch's deterministic algorithms inside the block (warnings, not
+    errors, where an op has none): its CUDA embedding backward adds with
+    atomics, so two BERT steps without recompute differ in the token-type
+    table's gradient (measured on an H100: 2.7e-7)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.prev = (self.torch.are_deterministic_algorithms_enabled(),
+                     self.torch.is_deterministic_algorithms_warn_only_enabled())
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.prev[0],
+                                                warn_only=self.prev[1])
+        return False
+
+
+def phase_bert_recompute(torch, counters, bert_row):
+    """BERT-base 128 x 128 at O1 bf16 with dropout 0.1 under
+    ``RecomputeOptimizer(AdamW)`` with the 12 encoder layers as
+    checkpoints: every step-1 gradient bit for bit the ``bert`` phase's
+    (a fresh model from the same weights and seed, without recompute;
+    both steps under ``deterministic``, since PyTorch's embedding
+    backward is not);
+    then 3 + 10 steps: exactly 24 K1a and 12 K1b launches a step (each
+    layer's forward runs again in the backward), one K2a + K2b and one
+    K3-adam; peak memory below that of the step without recompute (a
+    fresh model, measured in this phase from an empty cache) and below
+    ``bert``'s, step ms beside ``bert``'s."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW, RecomputeOptimizer
+
+    cfg = BertConfig.base()
+    B, S = BERT_BATCH, BERT_SEQ
+    batch = bert_batch(torch, np.random.RandomState(0), B, S,
+                       cfg.vocab_size)
+
+    def loss_fn(m, ids, tt, mlm, nsp):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(ids, tt, mlm, nsp)
+
+    def build(recompute):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = BertForPretraining(cfg, generator=gen)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        if recompute:
+            opt = RecomputeOptimizer(opt)
+            opt._set_checkpoints(list(model.bert.encoder.layers))
+        return model, opt, TrainStep(model, loss_fn, opt)
+
+    def step1_grads():
+        model, _, step = build(False)
+        with deterministic(torch):
+            step(*batch)
+        return [p.grad.cpu() for p in model.parameters()]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    want = step1_grads()
+    # the step without recompute, measured as this phase measures its own
+    # (phase 6's peak also counts what earlier phases left allocated)
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = build(True)
+    counters.reset()
+    with deterministic(torch):
+        loss1 = float(step(*batch))
+    torch.cuda.synchronize()
+    first = counters.snapshot()
+    got = [p.grad.cpu() for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    differ = [n for n, a, b in zip(names, got, want)
+              if not same_bits(torch, [a], [b])]
+    row = {"phase": "bert_recompute", "step1_grads_bitwise":
+           len(names) - len(differ), "grads": len(names)}
+    if differ:
+        # shown and explained: is the plain step itself deterministic?
+        again = step1_grads()
+        row["differ"] = {n: max_err(a, b) for n, a, b in zip(
+            names, got, want) if n in differ}
+        row["plain_step_deterministic"] = all(
+            same_bits(torch, [a], [b]) for a, b in zip(again, want))
+        emit(row)
+    expect(not differ, f"bert_recompute: {len(differ)} step-1 gradients "
+                       f"differ from the run without recompute: "
+                       f"{differ[:5]}")
+    del want
+    L = cfg.num_hidden_layers
+    expect(first.get("flash_attention_fwd", 0) == 2 * L
+           and first.get("flash_attention_bwd", 0) == L,
+           f"bert_recompute: step 1 launched {first}")
+    losses, step_ms, launches = train_steps(torch, counters, step, batch)
+    n_steps = WARM_STEPS + TIMED_STEPS
+    per = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+           "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_adam": 1}
+    for k, n in per.items():
+        expect(launches.get(k, 0) == n * n_steps,
+               f"bert_recompute: {k} launched {launches.get(k, 0)} times "
+               f"over {n_steps} steps, want {n} a step")
+    expect(all(np.isfinite(losses)), f"bert_recompute: non-finite loss "
+                                     f"{losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect(peak < min(plain_peak, bert_row["peak_mem_gb"]),
+           f"bert_recompute: peak {peak} GB, not below one step's without "
+           f"recompute ({plain_peak}) or bert's ({bert_row['peak_mem_gb']})")
+    med = float(np.median(step_ms))
+    flops_per_step = bert_flops_per_step(cfg, B, S)
+    row.update({
+        "config": "BERT-base (vocab 30592, 12 x 768, 12 x 64 heads, ffn "
+        "3072), batch 128 x seq 128, AMP O1 bf16, dropout 0.1, "
+        "RecomputeOptimizer(AdamW lr 1e-4 wd 0.01), the 12 encoder layers "
+        "as checkpoints", "warmup_steps": WARM_STEPS,
+        "timed_steps": TIMED_STEPS, "loss_step1": loss1,
+        "tokens_per_s": B * S * TIMED_STEPS / (sum(step_ms) / 1e3),
+        "step_ms_median": med, "step_ms_max": float(np.max(step_ms)),
+        "step_ms": step_ms, "flops_per_step": flops_per_step,
+        "mfu": flops_per_step / (med / 1e3) / BF16_FLOPS_PER_S,
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: launches.get(k, 0) / n_steps for k in per},
+        "peak_mem_gb": peak, "peak_mem_gb_without_recompute": plain_peak,
+        "bert": {k: bert_row.get(k) for k in (
+            "tokens_per_s", "step_ms_median", "step_ms_max",
+            "peak_mem_gb")}})
+    return row, launches
+
+
 def scaler_step(model, opt, scaler, loss_fn, x, y):
     """The eager O2 loop's step: ``scaler.scale(loss).backward();
     scaler.minimize(opt, scaled); opt.clear_grad()``; the loss."""
@@ -6844,7 +7663,9 @@ def phase_nmt_decode(torch, counters, fa, model):
 # and no phase trains BERT at O2 fp16), and the main paths train with
 # Adam, AdamW and Momentum
 PHASE1_ONLY = ("fused_xent_fwd_f16", "fused_xent_bwd_f16", "fused_sgd_master",
-               "fused_lamb_master")
+               "fused_lamb_master", "fused_adam_f16", "fused_momentum_bf16",
+               "fused_momentum_f16", "fused_sgd_bf16", "fused_sgd_f16",
+               "fused_lamb_bf16", "fused_lamb_f16")
 
 
 def card_line() -> str:
@@ -6971,6 +7792,9 @@ def main() -> int:
               "fused_momentum_master": k3mm, "fused_sgd_master": k3sm,
               "fused_lamb_master": k3lm})
         torch.cuda.empty_cache()
+        k3n = check_k3_2byte(torch, fo, counters, bert_shapes, shapes, timing)
+        emit({"phase": "kernels_vs_plain", "k3_2byte": k3n})
+        torch.cuda.empty_cache()
         static_shapes = static_param_shapes()
         k3st = check_static_optim(torch, fo, counters,
                                   {"static_resnet": static_shapes,
@@ -7003,12 +7827,21 @@ def main() -> int:
         emit(o1_row)
         add(launches)
         torch.cuda.empty_cache()
+        row, launches = phase_bert_recompute(torch, counters, o1_row)
+        emit(row)
+        add(launches)
+        torch.cuda.empty_cache()
         emit(phase_bert_o2_parity(torch, counters, fa, fx, fo))
         torch.cuda.empty_cache()
         row, launches = phase_bert_o2(torch, counters, o1_row)
         emit(row)
         add(launches)
-        del row, launches, o1_row
+        del launches, o1_row
+        torch.cuda.empty_cache()
+        row, launches = phase_bert_o2_pure(torch, counters, fa, fx, fo, row)
+        emit(row)
+        add(launches)
+        del row, launches
         torch.cuda.empty_cache()
 
         emit(phase_resnet_parity(torch, counters, fo))
@@ -7018,10 +7851,19 @@ def main() -> int:
         add(launches)
         del launches
         torch.cuda.empty_cache()
+        row, launches = phase_resnet50_lars(torch, counters, o1_row)
+        emit(row)
+        add(launches)
+        del row, launches
+        torch.cuda.empty_cache()
         row, launches = phase_resnet50_fp16(torch, counters, o1_row)
         emit(row)
         add(launches)
         del row, launches, o1_row
+        torch.cuda.empty_cache()
+
+        emit(phase_optimizer_rules_parity(torch, counters, bert_shapes))
+        gc.collect()
         torch.cuda.empty_cache()
 
         emit(phase_bert_lamb_parity(torch, counters, fa, fx, fo))
@@ -7219,7 +8061,13 @@ def main() -> int:
                 ("fused_sgd_master", k3sm, src + "fused_optimizer.cu",
                  "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
                 ("fused_lamb_master", k3lm, src + "fused_optimizer.cu",
-                 "paddle_tpu/ops/pallas/fused_optimizer.py:267")):
+                 "paddle_tpu/ops/pallas/fused_optimizer.py:267"),
+                *[(f"fused_{rule}_{t}", k3n[f"fused_{rule}_{t}"],
+                   src + "fused_optimizer.cu",
+                   # no TPU kernel: JAX's XLA route for non-f32 updates
+                   "paddle_tpu/ops/pallas/fused_optimizer.py:305")
+                  for rule in ("adam", "momentum", "sgd", "lamb")
+                  for t in ("bf16", "f16")]):
             on_path = name not in PHASE1_ONLY
             kernels.append({
                 "name": name, "route": "cuda", "source": source,

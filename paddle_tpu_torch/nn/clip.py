@@ -65,8 +65,19 @@ def _over(c, x):
 
 def _global_scale(grads, clip_norm):
     """(0-dim global norm, 0-dim ``clip_norm / max(norm, clip_norm)``),
-    both on the gradients' device."""
-    gnorm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+    both on the gradients' device. Gradients all of one 2-byte type take
+    JAX's roundings in that type (``sqrt(sum_t sum(square(g_t)))``: each
+    square, each tensor's sum and each partial total rounded to it); the
+    norms of other lists are f32 sums of ``_foreach_norm``'s squares."""
+    if len({g.dtype for g in grads}) == 1 and \
+            grads[0].dtype in (torch.bfloat16, torch.float16):
+        total = None
+        for g in grads:
+            s = torch.sum(g * g)
+            total = s if total is None else total + s
+        gnorm = torch.sqrt(total)
+    else:
+        gnorm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
     return gnorm, _over(clip_norm, gnorm.clamp(min=clip_norm))
 
 

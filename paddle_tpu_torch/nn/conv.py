@@ -2,7 +2,11 @@
 ``Conv2D``). The weight is (C_out, C_in/groups, kh, kw), Kaiming-uniform
 over fan_in = C_in/groups * kh * kw; the bias is U(-1/sqrt(fan_in),
 1/sqrt(fan_in)), and ``bias_attr=False`` means no bias parameter;
-``weight_attr``/``bias_attr`` take what ``ParamAttr._to_attr`` takes."""
+``weight_attr``/``bias_attr`` take what ``ParamAttr._to_attr`` takes.
+``padding_mode`` is accepted and not stored: the convolution pads with
+zeros whatever the mode, as the JAX package's ``_ConvNd`` does
+(``paddle_tpu/nn/conv.py:18-47``). ``data_format`` "NHWC" takes and
+gives channel-last tensors, the weight's layout unchanged."""
 from __future__ import annotations
 
 import math
@@ -20,9 +24,6 @@ class Conv2D(Layer):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  device=None, generator=None):
         super().__init__()
-        if padding_mode != "zeros":
-            raise NotImplementedError(f"padding_mode {padding_mode!r} is a "
-                                      f"later port slice")
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = F._tuple_n(kernel_size, 2)

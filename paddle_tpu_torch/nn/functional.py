@@ -5,8 +5,11 @@ Port of the matching part of ``paddle_tpu/nn/functional.py`` (and
 the JAX package, not PyTorch's habits: ``linear``'s W is (in, out) and
 ``y = x @ W + b`` (the reference fc/mul op); attention takes
 (B, L, H, D); ``fused_linear_cross_entropy``'s W is (V, H), the
-embedding layout; convolution and pooling take NCHW and a conv weight
-(C_out, C_in/groups, kh, kw), which is PyTorch's layout too. Each op
+embedding layout; convolution and pooling take NCHW or NHWC (the
+channel axis moved around PyTorch's NCHW op, as JAX's ``channel_last``)
+and a conv weight (C_out, C_in/groups, kh, kw) either way, and padding
+as ints, pairs or "SAME"/"VALID" (``jax.lax.padtype_to_pads``'s split,
+the odd pixel at the end). Each op
 passes its inputs through ``amp.maybe_cast_inputs`` under the JAX op
 name, so ``auto_cast`` casts the same ops as in the JAX package
 (``linear``/``matmul``/``conv2d`` down, ``layer_norm``/
@@ -170,21 +173,74 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
                                           weight, bias, epsilon)
 
 
-def cross_entropy(input, label, ignore_index=-100):
-    """Mean hard-label softmax cross-entropy over the last axis: the sum
-    over rows whose label is not ``ignore_index`` divided by their count
-    (at least 1), as in the JAX package."""
+def _reduce_loss(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Softmax cross-entropy over ``axis`` (``paddle_tpu/nn/
+    functional.py:754-802``): log-softmax of ``input`` (with
+    ``use_softmax=False``, ``log(max(input, 1e-30))``); soft labels
+    (``-sum(label * logp)``, mean over rows for ``"mean"``); hard labels
+    (integer class ids, the class axis dropped or of size 1), optionally
+    smoothed through a one-hot (``(1 - s) * onehot + s / classes``), rows
+    labelled ``ignore_index`` set to 0. Class ``weight`` scales each row by
+    its label's weight, and the weighted mean divides by the sum of the
+    valid rows' weights (at least 1e-12); the plain mean by their count
+    (at least 1). ``reduction`` "mean", "sum" or "none"."""
     (input,) = maybe_cast_inputs("softmax_with_cross_entropy", [input])
-    if not input.is_floating_point() or label.is_floating_point():
-        raise ValueError("cross_entropy: float logits and integer labels")
-    if label.dim() == input.dim():
-        label = label.squeeze(-1)
-    logp = torch.log_softmax(input, dim=-1)
-    valid = label != ignore_index
-    safe = torch.where(valid, label, torch.zeros_like(label)).long()
-    loss = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=axis)
+    else:
+        logp = torch.log(torch.clamp(input, min=1e-30))
+    n_classes = input.shape[axis]
+    if soft_label:
+        loss = -(label.to(logp.dtype) * logp).sum(dim=axis)
+        return _reduce_loss(loss, reduction)
+    if label.is_floating_point():
+        raise ValueError(
+            f"cross_entropy: hard labels must be integer class ids, got "
+            f"{label.dtype} {tuple(label.shape)}; pass soft_label=True for "
+            "probability targets")
+    lbl = label
+    if lbl.dim() == logp.dim():
+        if lbl.shape[axis] != 1:
+            raise ValueError(
+                f"cross_entropy: cannot squeeze axis {axis} of label "
+                f"shape {tuple(label.shape)}: its size is not 1")
+        lbl = lbl.squeeze(axis)
+    elif lbl.dim() != logp.dim() - 1:
+        raise ValueError(
+            f"cross_entropy: label shape {tuple(label.shape)} must be "
+            f"logits shape {tuple(input.shape)} without the class axis "
+            f"(or with a trailing 1)")
+    ax = axis % logp.dim()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
+    if label_smoothing > 0.0:
+        onehot = torch.nn.functional.one_hot(safe, n_classes).to(logp.dtype)
+        onehot = torch.where(valid.unsqueeze(-1), onehot,
+                             torch.zeros_like(onehot)).movedim(-1, ax)
+        soft = onehot * (1 - label_smoothing) + label_smoothing / n_classes
+        loss = -(soft * logp).sum(dim=ax)
+    else:
+        loss = -logp.gather(ax, safe.unsqueeze(ax)).squeeze(ax)
     loss = torch.where(valid, loss, torch.zeros_like(loss))
-    return loss.sum() / valid.sum().to(loss.dtype).clamp(min=1.0)
+    if weight is not None:
+        w = weight.to(loss.dtype)[safe]
+        loss = loss * w
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(
+                torch.where(valid, w, torch.zeros_like(w)).sum(), min=1e-12)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().to(loss.dtype).clamp(min=1.0)
+    return _reduce_loss(loss, reduction)
 
 
 # the subsequent mask's tag: the tensor's version counter when it was
@@ -326,12 +382,25 @@ def _tuple_n(v, n):
     return tuple(int(x) for x in v)
 
 
-def _pads(padding, n):
+def _pads(padding, n, sizes=None, window=None, stride=None):
     """[(low, high)] per spatial dim from an int, n ints, 2n ints or n
-    pairs (JAX's ``_conv_padding``)."""
+    pairs (JAX's ``_conv_padding``), or a string: "VALID" (none),
+    "SAME" or "SAME_LOWER" (``jax.lax.padtype_to_pads`` over the spatial
+    ``sizes`` with the (dilated) ``window`` and ``stride``: enough to
+    give ceil(size / stride) outputs, the odd pixel at the end, or at
+    the start for "SAME_LOWER")."""
     if isinstance(padding, str):
-        raise NotImplementedError(f"padding {padding!r}: SAME/VALID are a "
-                                  f"later port slice; pass ints")
+        kind = padding.upper()
+        if kind == "VALID":
+            return [(0, 0)] * n
+        if kind not in ("SAME", "SAME_LOWER"):
+            raise ValueError(f"Unknown padding type: {padding}")
+        out = []
+        for size, k, st in zip(sizes, window, stride):
+            total = max((-(-size // st) - 1) * st + k - size, 0)
+            lo = total // 2 if kind == "SAME" else total - total // 2
+            out.append((lo, total - lo))
+        return out
     if isinstance(padding, int):
         return [(padding, padding)] * n
     padding = list(padding)
@@ -345,27 +414,38 @@ def _pads(padding, n):
     raise ValueError(f"Bad padding {padding}")
 
 
+def _nchw(x, data_format):
+    """An NHWC input as NCHW (the torch ops' layout); NCHW as it is."""
+    if data_format == "NHWC":
+        return x.permute(0, 3, 1, 2)
+    if data_format != "NCHW":
+        raise ValueError(f"data_format {data_format!r}: NCHW or NHWC")
+    return x
+
+
+def _back(x, data_format):
+    """An NCHW result in the caller's ``data_format``."""
+    return x.permute(0, 2, 3, 1) if data_format == "NHWC" else x
+
+
 def _pad_spatial(x, pads, value):
     """Pad the two trailing (H, W) dims of an NCHW tensor."""
     (ht, hb), (wl, wr) = pads
     return torch.nn.functional.pad(x, (wl, wr, ht, hb), value=value)
 
 
-def _nchw_only(op, data_format):
-    if data_format != "NCHW":
-        raise NotImplementedError(f"{op}: data_format {data_format!r} is a "
-                                  f"later port slice; NCHW is ported")
-
-
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
-    """NCHW convolution, weight (C_out, C_in/groups, kh, kw); the bias is
-    added after the product, as the JAX package does."""
-    _nchw_only("conv2d", data_format)
+    """Convolution of an NCHW or NHWC (``data_format``) input, weight
+    (C_out, C_in/groups, kh, kw) either way, the output in the input's
+    layout; the bias is added after the product, as the JAX package
+    does. ``padding`` as ``_pads`` takes it ("SAME" and "VALID" over the
+    dilated kernel)."""
     if x.dim() != 4 or weight.dim() != 4:
         raise ValueError(f"conv2d: expected rank-4 input and weight, got "
                          f"input {tuple(x.shape)} and weight "
                          f"{tuple(weight.shape)}")
+    x = _nchw(x, data_format)
     if x.shape[1] != weight.shape[1] * groups:
         raise ValueError(
             f"conv2d: input {tuple(x.shape)} (C_in={x.shape[1]}) is "
@@ -374,7 +454,8 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
             f"{weight.shape[1]} * groups({groups})")
     x, weight, bias = maybe_cast_inputs("conv2d", [x, weight, bias])
     stride, dilation = _tuple_n(stride, 2), _tuple_n(dilation, 2)
-    pads = _pads(padding, 2)
+    window = [(k - 1) * d + 1 for k, d in zip(weight.shape[2:], dilation)]
+    pads = _pads(padding, 2, x.shape[2:], window, stride)
     if all(lo == hi for lo, hi in pads):
         out = torch.nn.functional.conv2d(x, weight, None, stride,
                                          [lo for lo, _ in pads], dilation,
@@ -382,23 +463,25 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     else:
         out = torch.nn.functional.conv2d(_pad_spatial(x, pads, 0.0), weight,
                                          None, stride, 0, dilation, groups)
+    out = _back(out, data_format)
     if bias is not None:
-        out = out + bias.reshape(1, -1, 1, 1)
+        shape = (1, 1, 1, -1) if data_format == "NHWC" else (1, -1, 1, 1)
+        out = out + bias.reshape(shape)
     return out
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW"):
-    """Max over windows of an NCHW tensor padded with -inf; ``ceil_mode``
-    widens the high padding so that a partial last window counts."""
-    _nchw_only("max_pool2d", data_format)
-    if return_mask:
-        raise NotImplementedError("max_pool2d return_mask is a later port "
-                                  "slice")
+    """Max over windows of an NCHW or NHWC tensor padded with -inf
+    (``padding`` as ``_pads`` takes it); ``ceil_mode`` widens the high
+    padding so that a partial last window counts. ``return_mask`` is
+    accepted and only the pooled tensor returned, as the JAX package
+    does (``paddle_tpu/nn/functional.py:487-490``)."""
     (x,) = maybe_cast_inputs("max_pool2d", [x])
+    x = _nchw(x, data_format)
     kernel = _tuple_n(kernel_size, 2)
     stride = _tuple_n(stride if stride is not None else kernel_size, 2)
-    pads = _pads(padding, 2)
+    pads = _pads(padding, 2, x.shape[2:], kernel, stride)
     if ceil_mode:
         for i in range(2):
             size = x.shape[2 + i] + pads[i][0] + pads[i][1]
@@ -407,17 +490,21 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                 pads[i] = (pads[i][0], pads[i][1] + stride[i] - rem)
     if any(p for pair in pads for p in pair):
         x = _pad_spatial(x, pads, float("-inf"))
-    return torch.nn.functional.max_pool2d(x, kernel, stride)
+    return _back(torch.nn.functional.max_pool2d(x, kernel, stride),
+                 data_format)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    """Mean over H, then over W, into ``output_size`` bins: a reshape
-    where the size divides, variable windows elsewhere (as JAX)."""
-    _nchw_only("adaptive_avg_pool2d", data_format)
+    """Mean over H, then over W (axes 2, 3 of NCHW, 1, 2 of NHWC), into
+    ``output_size`` bins: a reshape where the size divides, variable
+    windows elsewhere (as JAX)."""
     (x,) = maybe_cast_inputs("adaptive_avg_pool2d", [x])
     sizes = (output_size,) * 2 if isinstance(output_size, int) \
         else tuple(output_size)
-    for dim, o in zip((2, 3), sizes):
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"data_format {data_format!r}: NCHW or NHWC")
+    dims = (1, 2) if data_format == "NHWC" else (2, 3)
+    for dim, o in zip(dims, sizes):
         n = x.shape[dim]
         o = n if o is None else int(o)
         if n % o == 0:

@@ -1,6 +1,7 @@
-"""``CrossEntropyLoss`` (port of ``paddle_tpu/nn/loss.py``): the mean
-hard-label softmax cross-entropy over the last axis, rows labelled
-``ignore_index`` left out of the sum and the count."""
+"""``CrossEntropyLoss`` (port of ``paddle_tpu/nn/loss.py``): softmax
+cross-entropy with class weights, the three reductions, soft labels,
+another axis, ``use_softmax=False`` and label smoothing, as
+``functional.cross_entropy`` computes them."""
 from __future__ import annotations
 
 from . import functional as F
@@ -12,15 +13,19 @@ __all__ = ["CrossEntropyLoss"]
 class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
-                 label_smoothing=0.0):
+                 label_smoothing=0.0, name=None):
         super().__init__()
-        if weight is not None or reduction != "mean" or soft_label \
-                or axis != -1 or not use_softmax or label_smoothing:
-            raise NotImplementedError(
-                "CrossEntropyLoss: class weights, other reductions, soft "
-                "labels, another axis, use_softmax=False and label "
-                "smoothing are a later port slice")
+        self.weight = weight
         self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.use_softmax = use_softmax
+        self.label_smoothing = label_smoothing
 
     def forward(self, input, label):
-        return F.cross_entropy(input, label, ignore_index=self.ignore_index)
+        return F.cross_entropy(
+            input, label, weight=self.weight, ignore_index=self.ignore_index,
+            reduction=self.reduction, soft_label=self.soft_label,
+            axis=self.axis, use_softmax=self.use_softmax,
+            label_smoothing=self.label_smoothing)

@@ -1,5 +1,8 @@
 """``MaxPool2D`` and ``AdaptiveAvgPool2D`` (port of
-``paddle_tpu/nn/pooling.py``)."""
+``paddle_tpu/nn/pooling.py``). ``MaxPool2D`` stores ``return_mask`` and
+``data_format`` and pools NCHW whatever they say, as the JAX layer does
+(its ``forward`` hands the functional neither); ``AdaptiveAvgPool2D``
+takes NCHW or NHWC."""
 from __future__ import annotations
 
 from . import functional as F
@@ -21,8 +24,7 @@ class MaxPool2D(Layer):
 
     def forward(self, x):
         return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            self.ceil_mode, self.return_mask,
-                            self.data_format)
+                            self.ceil_mode)
 
 
 class AdaptiveAvgPool2D(Layer):

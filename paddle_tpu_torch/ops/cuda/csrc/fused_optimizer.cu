@@ -44,6 +44,12 @@
 //   cast of the new master into the 2-byte parameter. Each rule is
 //   templated on the parameter type T (float: the f32 form). See the
 //   block above AdamRule.
+// - The 2-byte forms without masters of Adam(W), Momentum, SGD and Lamb
+//   (multi_precision=False, amp.decorate(master_weight=False)): no TPU
+//   kernel, since the JAX package sends every non-f32 update to XLA
+//   (fused_optimizer.py:305-306), which runs the rule in the parameter's
+//   type; here that rule is a kernel over every parameter, state in T,
+//   each operation rounded to T. See the block above Adam2Rule.
 // - K3's ZeRO chunk entry (fused_chunk_update, fused_optimizer.py:455):
 //   static Lamb's phase 1 over one flat chunk of a ZeRO bucket with the
 //   per-segment sums of p*p and r*r its trust ratios need, then the
@@ -508,6 +514,241 @@ struct LambApplyRule {
     for (int j = 0; j < N; ++j) p[j] = __fsub_rn(p[j], __fmul_rn(q.s, r[j]));
     st(q.w, i, p);
     if constexpr (kMaster<T>) st(q.p, i, p);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The 2-byte forms without masters (multi_precision=False,
+// amp.decorate(level="O2", master_weight=False)): bf16 or f16 parameters
+// whose state is of their own type. No TPU kernel covers them: the JAX
+// package's gate sends every non-f32 update to XLA
+// (paddle_tpu/ops/pallas/fused_optimizer.py:305-306), which runs the
+// optimizer's rule in the parameter's type (paddle_tpu/optimizer/
+// optimizer.py:131-134; Adam :318-327, Momentum :297-304, SGD :281, Lamb
+// :476-487). These rules are kernels for that XLA route. Every operation
+// of JAX's rule yields T, so each operation here is one IEEE f32
+// operation on values of T (a product of two 2-byte values is exact in
+// f32), rounded to T at once (rt<T>, round to nearest even); no
+// intrinsic contracts two of them. The wrapper hands the scalars over
+// already rounded to T, as JAX's weak types and casts make them: lr
+// (jnp.asarray(lr, p.dtype)), b1, 1-b1, b2, 1-b2, eps and the decay
+// coefficients, c1 = 1 - b1^t and c2 = 1 - b2^t (f32, then cast to T),
+// and AdamW's lr*wd (the product of the two rounded values, rounded).
+// XLA on the CPU rounds bf16 after every operation as well, so the
+// plain versions and JAX agree bit for bit there; for f16 it keeps a
+// fused multiply-add chain in f32 and rounds once (measured: 0.9*v + g),
+// which this form does not copy: the rule's own semantics round each op.
+//
+// Adam(W):   m2 = rt(rt(b1*m) + rt(omb1*g))
+//            v2 = rt(rt(b2*v) + rt(omb2*rt(g*g)))
+//            den = rt(rt(sqrt(rt(v2/c2))) + eps)
+//            p2 = rt(p - rt(rt(lr*rt(m2/c1)) / den))
+//            AdamW: p3 = rt(p2 - rt(lrwd*p)), the OLD p
+// Momentum:  v2 = rt(rt(mu*v) + g); p2 = rt(p - rt(lr*v2)), or with
+//            Nesterov p2 = rt(p - rt(lr*rt(g + rt(mu*v2))))
+// SGD:       p2 = rt(p - rt(lr*g)); with the coupled L2 term g is first
+//            rt(g + rt(wd*p))
+// Lamb:      phase 1: m2, v2 and den as Adam's;
+//            r = rt(rt(rt(m2/c1) / den) + rt(wd*p)), and the sums of
+//            rt(p*p) and rt(r*r) (JAX's jnp.sum(jnp.square(x)) over a T
+//            array: the squares rounded to T, summed in f32 and the sum
+//            rounded to T; here the squares are summed in f32 a thread,
+//            by block_sum's tree a piece and in double across pieces,
+//            and the apply rounds each sum to T);
+//            apply: w = rt(sqrt(rt(sum_p))), q = rt(sqrt(rt(sum_r))),
+//            trust = rt(w/q) where both > 0, else 1;
+//            p2 = rt(p - rt(rt(lr*trust)*r))
+// Roles (tables): p, g, then the state (m, v; v; none; m, v, r for
+// Lamb's phase 1, p, r for its apply), every array in T.
+// Bound: device bytes, 2 an element an array: Adam reads p, g, m, v and
+// writes p, m, v (14 bytes, half the f32 form's 28), Momentum 10, SGD 6,
+// Lamb 14 for the function (20 moved by the two launches, r written and
+// read again).
+// ---------------------------------------------------------------------------
+template <class T>
+__device__ __forceinline__ float rt(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+template <class T>
+struct Adam2Rule {
+  static constexpr int kArrays = 4;
+  float lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd;
+  struct Ptrs {
+    T* p;
+    const T* g;
+    T* m;
+    T* v;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<T*>(ptrs[t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<T*>(ptrs[2 * n + t]),
+            reinterpret_cast<T*>(ptrs[3 * n + t])};
+  }
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N], m[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float pi = p[j], gi = g[j];
+      m[j] = rt<T>(__fadd_rn(rt<T>(__fmul_rn(b1, m[j])),
+                             rt<T>(__fmul_rn(omb1, gi))));
+      v[j] = rt<T>(__fadd_rn(rt<T>(__fmul_rn(b2, v[j])),
+                             rt<T>(__fmul_rn(omb2, rt<T>(__fmul_rn(gi, gi))))));
+      const float mh = rt<T>(__fdiv_rn(m[j], c1));
+      const float den =
+          rt<T>(__fadd_rn(rt<T>(__fsqrt_rn(rt<T>(__fdiv_rn(v[j], c2)))), eps));
+      float p2 = rt<T>(__fsub_rn(
+          pi, rt<T>(__fdiv_rn(rt<T>(__fmul_rn(lr, mh)), den))));
+      if (lrwd != 0.0f) p2 = rt<T>(__fsub_rn(p2, rt<T>(__fmul_rn(lrwd, pi))));
+      p[j] = p2;
+    }
+    st(q.p, i, p);
+    st(q.m, i, m);
+    st(q.v, i, v);
+  }
+};
+
+template <class T>
+struct Momentum2Rule {
+  static constexpr int kArrays = 3;
+  float lr, mu;
+  int nesterov;
+  struct Ptrs {
+    T* p;
+    const T* g;
+    T* v;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<T*>(ptrs[t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<T*>(ptrs[2 * n + t])};
+  }
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N], v[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[j] = rt<T>(__fadd_rn(rt<T>(__fmul_rn(mu, v[j])), g[j]));
+      const float d = nesterov
+          ? rt<T>(__fadd_rn(g[j], rt<T>(__fmul_rn(mu, v[j]))))
+          : v[j];
+      p[j] = rt<T>(__fsub_rn(p[j], rt<T>(__fmul_rn(lr, d))));
+    }
+    st(q.p, i, p);
+    st(q.v, i, v);
+  }
+};
+
+template <class T>
+struct Sgd2Rule {
+  static constexpr int kRoles = 2, kArrays = 2;
+  float lr, wd;
+  struct Ptrs {
+    T* p;
+    const T* g;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<T*>(ptrs[t]),
+            reinterpret_cast<const T*>(ptrs[n + t])};
+  }
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], g[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float gj =
+          wd != 0.0f ? rt<T>(__fadd_rn(g[j], rt<T>(__fmul_rn(wd, p[j]))))
+                     : g[j];
+      p[j] = rt<T>(__fsub_rn(p[j], rt<T>(__fmul_rn(lr, gj))));
+    }
+    st(q.p, i, p);
+  }
+};
+
+template <class T>
+struct Lamb2Phase1Rule {
+  static constexpr int kArrays = 5;
+  float b1, omb1, b2, omb2, eps, wd, c1, c2;
+  struct Ptrs {
+    const T* p;
+    const T* g;
+    T* m;
+    T* v;
+    T* r;
+  };
+  __device__ static Ptrs bind(const int64_t* ptrs, int n, int t) {
+    return {reinterpret_cast<const T*>(ptrs[t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            reinterpret_cast<T*>(ptrs[2 * n + t]),
+            reinterpret_cast<T*>(ptrs[3 * n + t]),
+            reinterpret_cast<T*>(ptrs[4 * n + t])};
+  }
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i, float& sp,
+                                        float& sr) const {
+    float p[N], g[N], m[N], v[N], r[N];
+    ld(q.p, i, p);
+    ld(q.g, i, g);
+    ld(q.m, i, m);
+    ld(q.v, i, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float gi = g[j];
+      m[j] = rt<T>(__fadd_rn(rt<T>(__fmul_rn(b1, m[j])),
+                             rt<T>(__fmul_rn(omb1, gi))));
+      v[j] = rt<T>(__fadd_rn(rt<T>(__fmul_rn(b2, v[j])),
+                             rt<T>(__fmul_rn(omb2, rt<T>(__fmul_rn(gi, gi))))));
+      const float den =
+          rt<T>(__fadd_rn(rt<T>(__fsqrt_rn(rt<T>(__fdiv_rn(v[j], c2)))), eps));
+      r[j] = rt<T>(__fadd_rn(rt<T>(__fdiv_rn(rt<T>(__fdiv_rn(m[j], c1)), den)),
+                             rt<T>(__fmul_rn(wd, p[j]))));
+      sp = __fadd_rn(sp, rt<T>(__fmul_rn(p[j], p[j])));
+      sr = __fadd_rn(sr, rt<T>(__fmul_rn(r[j], r[j])));
+    }
+    st(q.r, i, r);
+    st(q.m, i, m);
+    st(q.v, i, v);
+  }
+};
+
+template <class T>
+struct Lamb2ApplyRule {
+  static constexpr int kArrays = 2;
+  const float* sums;
+  float lr;
+  struct Ptrs {
+    T* p;
+    const T* r;
+    float s;
+  };
+  __device__ Ptrs bind(const int64_t* ptrs, int n, int t) const {
+    const float w = rt<T>(__fsqrt_rn(rt<T>(sums[2 * t])));
+    const float q = rt<T>(__fsqrt_rn(rt<T>(sums[2 * t + 1])));
+    const float trust = (w > 0.0f && q > 0.0f) ? rt<T>(__fdiv_rn(w, q)) : 1.0f;
+    return {reinterpret_cast<T*>(ptrs[t]),
+            reinterpret_cast<const T*>(ptrs[n + t]),
+            rt<T>(__fmul_rn(lr, trust))};
+  }
+  template <int N>
+  __device__ __forceinline__ void apply(const Ptrs& q, int64_t i) const {
+    float p[N], r[N];
+    ld(q.p, i, p);
+    ld(q.r, i, r);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      p[j] = rt<T>(__fsub_rn(p[j], rt<T>(__fmul_rn(q.s, r[j]))));
+    st(q.p, i, p);
   }
 };
 
@@ -1097,6 +1338,52 @@ FUSED_DYGRAPH_FORMS(f32, float)
 FUSED_DYGRAPH_FORMS(bf16, __nv_bfloat16)
 FUSED_DYGRAPH_FORMS(f16, __half)
 #undef FUSED_DYGRAPH_FORMS
+
+// The 2-byte forms without masters: the same arguments as the forms
+// above, every table role (p, g, the state, Lamb's r) in T, the scalars
+// already rounded to T; Lamb's sums stay f32 (n, 2), rounded to T by the
+// apply. See the block above Adam2Rule.
+#define FUSED_NOMASTER_FORMS(SUFFIX, T)                                       \
+  int fused_adam_nomaster_##SUFFIX(                                           \
+      const int64_t* ptrs, const int64_t* offs, int n, long long total,       \
+      float lr, float b1, float omb1, float b2, float omb2, float eps,        \
+      float c1, float c2, float lrwd, int skip, void* stream) {               \
+    return launch(ptrs, offs, n, total, skip, stream,                         \
+                  Adam2Rule<T>{lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd});   \
+  }                                                                           \
+  int fused_momentum_nomaster_##SUFFIX(const int64_t* ptrs,                   \
+                                       const int64_t* offs, int n,            \
+                                       long long total, float lr, float mu,   \
+                                       int nesterov, int skip,                \
+                                       void* stream) {                        \
+    return launch(ptrs, offs, n, total, skip, stream,                         \
+                  Momentum2Rule<T>{lr, mu, nesterov});                        \
+  }                                                                           \
+  int fused_sgd_nomaster_##SUFFIX(const int64_t* ptrs, const int64_t* offs,   \
+                                  int n, long long total, float lr, float wd, \
+                                  void* stream) {                             \
+    return launch_args(ptrs, offs, n, total, stream, Sgd2Rule<T>{lr, wd});    \
+  }                                                                           \
+  int fused_lamb_phase1_nomaster_##SUFFIX(                                    \
+      const int64_t* ptrs, const int64_t* offs, int n, long long total,       \
+      const int64_t* pieces, int n_pieces, const int64_t* tensor_first,       \
+      float* piece_sums, float* sums, float b1, float omb1, float b2,         \
+      float omb2, float eps, float wd, float c1, float c2, void* stream) {    \
+    return lamb_phase1(ptrs, offs, n, total, pieces, n_pieces, tensor_first,  \
+                       piece_sums, sums, stream,                              \
+                       Lamb2Phase1Rule<T>{b1, omb1, b2, omb2, eps, wd, c1,    \
+                                          c2});                               \
+  }                                                                           \
+  int fused_lamb_apply_nomaster_##SUFFIX(                                     \
+      const int64_t* ptrs, const int64_t* offs, int n, long long total,       \
+      const float* sums, float lr, void* stream) {                            \
+    return launch(ptrs, offs, n, total, 0, stream,                            \
+                  Lamb2ApplyRule<T>{sums, lr});                               \
+  }
+
+FUSED_NOMASTER_FORMS(bf16, __nv_bfloat16)
+FUSED_NOMASTER_FORMS(f16, __half)
+#undef FUSED_NOMASTER_FORMS
 
 int static_sgd_f32(const int64_t* ptrs, const int64_t* offs, int n,
                    long long total, void* stream) {

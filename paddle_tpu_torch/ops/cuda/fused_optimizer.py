@@ -66,6 +66,29 @@ wd*p`` from the 2-byte parameter, each operation rounded to its type
 (``wd`` rounded to it first). Bytes an element stay the f32 forms':
 Adam 28, Momentum 20, SGD 12 (14 with the decay), Lamb 40.
 
+The 2-byte forms without masters (bf16 or f16 parameters, ``masters``
+None: ``multi_precision=False``, ``amp.decorate(master_weight=False)``)
+keep the state and Lamb's ``r`` in the parameters' type. No TPU kernel
+covers them: the JAX package sends every non-f32 update to XLA
+(``paddle_tpu/ops/pallas/fused_optimizer.py:305-306``), which runs the
+optimizer's ``rule`` in the parameter's type (``paddle_tpu/optimizer/
+optimizer.py:131-134``), each operation yielding that type; the kernels
+here port that XLA code, each operation one f32 operation rounded to the
+type, in the rule's order (``csrc/fused_optimizer.cu``, the block above
+``Adam2Rule``), the scalars rounded to the type first
+(:func:`adam_scalars_2byte`, ``regularizer.in_type``). Lamb's norms are square
+roots of sums of squares rounded to the type, the sums taken in f32
+and f64 and rounded to the type (``jnp.sum`` over a 2-byte array). The
+plain versions (``_plain_*_2byte_``) compute in the type op by op, the
+scalars as 0-dim tensors of the type; XLA on the CPU rounds bf16 after
+each operation too (the CPU tests hold the plain versions to JAX bit
+for bit in bf16; in f16 XLA keeps a fused chain in f32, so f16 is held
+element by element). On the card one launch over every parameter
+(Lamb: two), counted ``fused_adam_bf16`` / ``_f16``,
+``fused_momentum_*``, ``fused_sgd_*``, ``fused_lamb_phase1_*`` and
+``fused_lamb_apply_*``; bytes an element: Adam 14, Momentum 10, SGD 6,
+Lamb 20 (14 for the function).
+
 ``skip`` (the FoundInfinite flag) leaves every tensor as it was. Unlike
 the functional JAX update, parameters and state are updated IN PLACE.
 
@@ -96,16 +119,18 @@ import ctypes
 import numpy as np
 import torch
 
+from ...regularizer import in_type
 from . import _build, counters
 
-__all__ = ["adam_scalars", "decay_in", "fused_adam_", "fused_momentum_", "fused_sgd_",
+__all__ = ["adam_scalars", "adam_scalars_2byte", "decay_in",
+           "fused_adam_", "fused_momentum_", "fused_sgd_",
            "fused_lamb_", "static_sgd_", "static_momentum_", "static_adam_",
            "static_lamb_", "static_sgd_list_", "static_momentum_list_",
            "static_adam_list_", "static_lamb_list_", "static_capacity",
            "static_param_bytes", "table_splits", "LAMB_PIECE", "lamb_pieces",
-           "lamb_kernel_norms", "CHUNK_PIECE", "CHUNK_SPREAD",
-           "chunk_piece", "chunk_segments", "chunk_pieces", "chunk_lamb_",
-           "chunk_update"]
+           "lamb_kernel_norms", "lamb_kernel_sums", "CHUNK_PIECE",
+           "CHUNK_SPREAD", "chunk_piece", "chunk_segments", "chunk_pieces",
+           "chunk_lamb_", "chunk_update"]
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -222,6 +247,124 @@ def _plain_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd,
     _plain_lamb_apply_(params, rs, _lamb_norms(params, rs), lr)
 
 
+# ---------------------------------------------------------------------------
+# The 2-byte forms without masters: every tensor (parameter, gradient,
+# state, Lamb's r) in the parameters' bf16 or f16 type, each operation
+# of JAX's rule rounded to it (see the module docstring)
+# ---------------------------------------------------------------------------
+def adam_scalars_2byte(dtype, lr, beta1, beta2, eps, step,
+                       weight_decay=0.0):
+    """Adam's nine scalars (lr, b1, 1-b1, b2, 1-b2, eps, c1, c2, lr*wd)
+    rounded to ``dtype`` as JAX's rule over a 2-byte parameter rounds
+    them: ``lr`` an array of the type, the Python floats weak, c1 and c2
+    the f32 ``1 - b**t`` cast to the type, lr*wd the rounded product of
+    the rounded lr and wd."""
+    def r(x):
+        return in_type(x, dtype)
+
+    lr32, c1, c2, _ = adam_scalars(lr, beta1, beta2, step)
+    lr_t = r(lr32)
+    lrwd = r(lr_t * r(weight_decay)) if weight_decay else 0.0
+    return (lr_t, r(beta1), r(1.0 - beta1), r(beta2), r(1.0 - beta2),
+            r(eps), r(c1), r(c2), lrwd)
+
+
+def _typed(x, like):
+    """``x`` as a 0-dim tensor of ``like``'s type and device: an operation
+    with it rounds to that type (a Python scalar would enter PyTorch's
+    f32 arithmetic unrounded, and CUDA divides by a Python scalar as a
+    reciprocal product)."""
+    return torch.tensor(float(x), dtype=like.dtype, device=like.device)
+
+
+def _plain_adam_2byte_(params, grads, m1s, m2s, sc, skip):
+    """Adam(W) in the parameters' 2-byte type, ``sc`` the nine scalars
+    of :func:`adam_scalars_2byte`; each operation rounds to the type."""
+    if skip:
+        return
+    lr, b1, omb1, b2, omb2, eps, c1, c2, lrwd = sc
+    for p, g, m, v in zip(params, grads, m1s, m2s):
+        def s(x):
+            return _typed(x, p)
+        m_new = s(b1) * m + s(omb1) * g
+        v_new = s(b2) * v + s(omb2) * (g * g)
+        den = torch.sqrt(v_new / s(c2)) + s(eps)
+        p_new = p - (s(lr) * (m_new / s(c1))) / den
+        if lrwd != 0.0:
+            p_new = p_new - s(lrwd) * p
+        p.copy_(p_new)
+        m.copy_(m_new)
+        v.copy_(v_new)
+
+
+def _plain_momentum_2byte_(params, grads, velocities, lr, mu, nesterov,
+                           skip):
+    """Momentum in the parameters' 2-byte type (``lr``, ``mu`` rounded
+    to it); each operation rounds to the type."""
+    if skip:
+        return
+    for p, g, v in zip(params, grads, velocities):
+        v_new = _typed(mu, p) * v + g
+        d = g + _typed(mu, p) * v_new if nesterov else v_new
+        p.copy_(p - _typed(lr, p) * d)
+        v.copy_(v_new)
+
+
+def _plain_sgd_2byte_(params, grads, lr, wd, skip):
+    """SGD in the parameters' 2-byte type, ``p - lr*(g + wd*p)`` (the
+    decay term left out at wd 0), each operation rounded to the type."""
+    if skip:
+        return
+    for p, g in zip(params, grads):
+        if wd != 0.0:
+            g = g + _typed(wd, p) * p
+        p.copy_(p - _typed(lr, p) * g)
+
+
+def _plain_lamb_phase1_2byte_(params, grads, m1s, m2s, rs, sc, wd):
+    """Lamb's phase 1 in the parameters' 2-byte type (m, v and r
+    written), ``sc`` as :func:`adam_scalars_2byte` (lr unused) and
+    ``wd`` rounded to the type."""
+    _, b1, omb1, b2, omb2, eps, c1, c2, _ = sc
+    for p, g, m, v, r in zip(params, grads, m1s, m2s, rs):
+        def s(x):
+            return _typed(x, p)
+        m_new = s(b1) * m + s(omb1) * g
+        v_new = s(b2) * v + s(omb2) * (g * g)
+        den = torch.sqrt(v_new / s(c2)) + s(eps)
+        r.copy_((m_new / s(c1)) / den + s(wd) * p)
+        m.copy_(m_new)
+        v.copy_(v_new)
+
+
+def _lamb_sums_2byte(params, rs):
+    """(2n,) f32: each parameter's sum of its squares rounded to its type
+    (``jnp.sum(jnp.square(p))``), then each r's, summed in f64."""
+    return torch.stack([(x * x).double().sum() for x in params + rs]).float()
+
+
+def _plain_lamb_apply_2byte_(params, rs, sums, lr):
+    """Lamb's apply in the parameters' 2-byte type from ``sums`` (as
+    :func:`_lamb_sums_2byte` gives them, or the kernel's,
+    :func:`lamb_kernel_sums`): each sum rounded to the type, its square
+    root, the trust ratio, ``lr*trust`` and the update, each rounded."""
+    n = len(params)
+    dt = params[0].dtype
+    norms = torch.sqrt(sums.to(dt))
+    w, q = norms[:n], norms[n:]
+    trust = torch.where((w > 0) & (q > 0), w / q, torch.ones_like(w))
+    scale = _typed(lr, trust) * trust
+    for i, (p, r) in enumerate(zip(params, rs)):
+        p.copy_(p - scale[i] * r)
+
+
+def _plain_lamb_2byte_(params, grads, m1s, m2s, rs, sc, wd, skip):
+    if skip:
+        return
+    _plain_lamb_phase1_2byte_(params, grads, m1s, m2s, rs, sc, wd)
+    _plain_lamb_apply_2byte_(params, rs, _lamb_sums_2byte(params, rs), sc[0])
+
+
 def _table(tensors_by_role, cache):
     """Device table of pointers ((roles, n) int64: p, g, then the rule's
     state) and the (n + 1,) element offsets, cached by the pointers
@@ -246,21 +389,24 @@ def _table(tensors_by_role, cache):
     return cache["ptrs"], cache["offs"], cache["total"]
 
 
-def _check_cuda(op, roles, low=None):
+def _check_cuda(op, roles, form):
     """Raise unless every tensor of ``roles`` ({role: [tensor, ...]}) is
-    a contiguous tensor on the first parameter's device, f32, or of the
-    2-byte type ``low`` for the parameters and gradients of a
-    master-weight form, and the tensors of each parameter share its
-    shape."""
+    a contiguous tensor on the first parameter's device of the type the
+    ``form`` (:func:`_form`) gives its role: the parameters' and
+    gradients' type, else the state's; and the tensors of each
+    parameter share its shape."""
     dev = roles["param"][0].device
+    _, _, ptype, stype = form
+    short = {**TWO_BYTE, torch.float32: "f32"}
     for role, ts in roles.items():
-        want = low if low is not None and role in ("param", "grad") \
-            else torch.float32
+        want = ptype if role in ("param", "grad") else stype
         for t in ts:
             if t.dtype != want or t.device != dev or not t.is_contiguous():
-                raise ValueError(f"{op} takes contiguous f32 tensors on "
-                                 f"{dev} (a master form's parameters and "
-                                 f"gradients {low}); a {role} is {t.dtype} "
+                raise ValueError(f"{op} takes contiguous tensors on {dev}: "
+                                 f"parameters and gradients "
+                                 f"{short[ptype]}, the rest {short[stype]} "
+                                 f"(f32, a master form, or a 2-byte form "
+                                 f"without masters); a {role} is {t.dtype} "
                                  f"on {t.device}")
     for group in zip(*roles.values()):
         if len({tuple(t.shape) for t in group}) != 1:
@@ -269,45 +415,41 @@ def _check_cuda(op, roles, low=None):
 
 
 def _form(params, masters):
-    """(entry-point suffix, counter suffix): the f32 form, or the master
-    form of the parameters' type."""
-    if masters is None:
-        return "f32", ""
-    return TWO_BYTE[params[0].dtype], "_master"
+    """(entry-point suffix, counter suffix, parameter type, state type):
+    the f32 form; the master form of the parameters' 2-byte type (f32
+    masters and state, counted ``_master``); or the 2-byte form without
+    masters (everything in the parameters' type, counted ``_bf16`` or
+    ``_f16``)."""
+    dt = params[0].dtype
+    if masters is not None:
+        if dt not in TWO_BYTE:
+            raise ValueError(f"a master-weight form takes bf16 or f16 "
+                             f"parameters, got {dt}")
+        return TWO_BYTE[dt], "_master", dt, torch.float32
+    if dt in TWO_BYTE:
+        return "nomaster_" + TWO_BYTE[dt], "_" + TWO_BYTE[dt], dt, dt
+    return "f32", "", torch.float32, torch.float32
 
 
-def _cuda_adam_(params, grads, m1s, m2s, lr, beta1, beta2, eps, c1, c2,
-                lrwd, skip, cache, masters=None):
+def _cuda_adam_(params, grads, m1s, m2s, sc, skip, cache, masters=None):
     dev = params[0].device
     roles = {"param": params, "grad": grads, "moment1": m1s, "moment2": m2s}
     if masters is not None:
         roles["master"] = masters
-    _check_cuda("fused_adam_", roles, _low(params, masters))
-    kind, tag = _form(params, masters)
+    form = _form(params, masters)
+    _check_cuda("fused_adam_", roles, form)
+    kind, tag = form[:2]
     lead = (params, grads) if masters is None else (params, grads, masters)
     ptrs, offs, total = _table(lead + (m1s, m2s), cache)
     fn = _build.entry("fused_optimizer", "fused_adam_" + kind,
                       [_P, _P, ctypes.c_int, ctypes.c_longlong]
                       + [_F] * 9 + [ctypes.c_int, _P])
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
-             float(lr), float(np.float32(beta1)),
-             float(np.float32(1.0 - beta1)), float(np.float32(beta2)),
-             float(np.float32(1.0 - beta2)), float(np.float32(eps)),
-             float(c1), float(c2), float(lrwd), int(bool(skip)),
+             *[float(x) for x in sc], int(bool(skip)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check("fused_optimizer", err, "fused_adam_" + kind)
     if not skip:   # a skipped step launches nothing
         counters.bump("fused_adam" + tag)
-
-
-def _low(params, masters):
-    """The 2-byte type of a master form's parameters (None: f32)."""
-    if masters is None:
-        return None
-    if params[0].dtype not in TWO_BYTE:
-        raise ValueError(f"a master-weight form takes bf16 or f16 "
-                         f"parameters, got {params[0].dtype}")
-    return params[0].dtype
 
 
 def _cuda_momentum_(params, grads, velocities, lr, mu, nesterov, skip,
@@ -316,8 +458,9 @@ def _cuda_momentum_(params, grads, velocities, lr, mu, nesterov, skip,
     roles = {"param": params, "grad": grads, "velocity": velocities}
     if masters is not None:
         roles["master"] = masters
-    _check_cuda("fused_momentum_", roles, _low(params, masters))
-    kind, tag = _form(params, masters)
+    form = _form(params, masters)
+    _check_cuda("fused_momentum_", roles, form)
+    kind, tag = form[:2]
     lead = (params, grads) if masters is None else (params, grads, masters)
     ptrs, offs, total = _table(lead + (velocities,), cache)
     fn = _build.entry("fused_optimizer", "fused_momentum_" + kind,
@@ -335,8 +478,9 @@ def _cuda_sgd_(params, grads, lr, wd, skip, masters=None):
     roles = {"param": params, "grad": grads}
     if masters is not None:
         roles["master"] = masters
-    _check_cuda("fused_sgd_", roles, _low(params, masters))
-    kind, tag = _form(params, masters)
+    form = _form(params, masters)
+    _check_cuda("fused_sgd_", roles, form)
+    kind, tag = form[:2]
     numels = [p.numel() for p in params]
     launches = 0
     if not skip:   # a skipped step launches nothing
@@ -392,17 +536,27 @@ def lamb_kernel_norms(cache):
     return torch.sqrt(cache["phase1"]["sums"]).t().reshape(-1)
 
 
-def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
-                c2, skip, cache, masters=None):
+def lamb_kernel_sums(cache):
+    """The sums of squares the last card step of :func:`fused_lamb_` with
+    this ``cache`` took: (2n,) f32, sum p*p of each parameter, then sum
+    r*r of each, as ``_plain_lamb_apply_2byte_`` takes them (the 2-byte
+    form rounds them to its type before the square root)."""
+    return cache["phase1"]["sums"].t().reshape(-1)
+
+
+def _cuda_lamb_(params, grads, m1s, m2s, rs, sc, wd, skip, cache,
+                masters=None):
     dev = params[0].device
     roles = {"param": params, "grad": grads, "moment1": m1s, "moment2": m2s,
              "trust_r": rs}
     if masters is not None:
         roles["master"] = masters
-    _check_cuda("fused_lamb_", roles, _low(params, masters))
+    form = _form(params, masters)
+    _check_cuda("fused_lamb_", roles, form)
     if skip:       # a skipped step launches nothing
         return
-    kind, tag = _form(params, masters)
+    kind, tag = form[:2]
+    lr, b1, omb1, b2, omb2, eps, c1, c2, _ = sc
     weights = params if masters is None else masters
     stream = torch.cuda.current_stream(dev).cuda_stream
     phase1 = cache.setdefault("phase1", {})
@@ -414,10 +568,8 @@ def _cuda_lamb_(params, grads, m1s, m2s, rs, lr, beta1, beta2, eps, wd, c1,
     err = fn(ptrs.data_ptr(), offs.data_ptr(), len(params), total,
              pieces.data_ptr(), pieces.shape[0], first.data_ptr(),
              piece_sums.data_ptr(), sums.data_ptr(),
-             float(np.float32(beta1)), float(np.float32(1.0 - beta1)),
-             float(np.float32(beta2)), float(np.float32(1.0 - beta2)),
-             float(np.float32(eps)), float(np.float32(wd)), float(c1),
-             float(c2), stream)
+             *[float(x) for x in (b1, omb1, b2, omb2, eps, wd, c1, c2)],
+             stream)
     _build.check("fused_optimizer", err, "fused_lamb_phase1_" + kind)
     counters.bump("fused_lamb_phase1" + tag)
     apply_roles = (params, rs) if masters is None else (params, rs, masters)
@@ -446,6 +598,19 @@ def _lists(op, masters, *lists):
     return lists
 
 
+def _own_2byte(params, masters):
+    """Whether a call takes the 2-byte form without masters."""
+    return masters is None and params[0].dtype in TWO_BYTE
+
+
+def _f32_adam_scalars(lr, beta1, beta2, eps, step, weight_decay):
+    """The f32 and master forms' nine Adam scalars, rounded to f32."""
+    lr32, c1, c2, lrwd = adam_scalars(lr, beta1, beta2, step, weight_decay)
+    return (lr32, np.float32(beta1), np.float32(1.0 - beta1),
+            np.float32(beta2), np.float32(1.0 - beta2), np.float32(eps), c1,
+            c2, lrwd)
+
+
 def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
                 step, weight_decay=0.0, skip=False, cache=None, masters=None):
     """One Adam(W) step over lists of parameters, gradients and moments,
@@ -453,19 +618,26 @@ def fused_adam_(params, grads, moment1, moment2, *, lr, beta1, beta2, eps,
     decoupled (AdamW) coefficient, applied to the master with the old
     master in the master form. ``cache`` (a dict the caller owns) keeps
     the kernel's pointer table between calls. ``masters``: the f32
-    masters of bf16/f16 parameters (the master-weight form)."""
+    masters of bf16/f16 parameters (the master-weight form); bf16/f16
+    parameters without masters take the 2-byte form (moments of their
+    type)."""
     params, grads, moment1, moment2, *ms = _lists(
         "fused_adam_", masters, params, grads, moment1, moment2)
     masters = ms[0] if ms else None
     if not params:
         return
-    lr32, c1, c2, lrwd = adam_scalars(lr, beta1, beta2, step, weight_decay)
+    own = _own_2byte(params, masters)
+    sc = adam_scalars_2byte(params[0].dtype, lr, beta1, beta2, eps, step,
+                            weight_decay) if own else \
+        _f32_adam_scalars(lr, beta1, beta2, eps, step, weight_decay)
     if _device_of("fused_adam_", params).type == "cuda":
-        _cuda_adam_(params, grads, moment1, moment2, lr32, beta1, beta2,
-                    eps, c1, c2, lrwd, skip, {} if cache is None else cache,
-                    masters)
+        _cuda_adam_(params, grads, moment1, moment2, sc, skip,
+                    {} if cache is None else cache, masters)
         return
-    if masters is None:
+    lr32, _, _, _, _, _, c1, c2, lrwd = sc
+    if own:
+        _plain_adam_2byte_(params, grads, moment1, moment2, sc, skip)
+    elif masters is None:
         _plain_adam_(params, grads, moment1, moment2, lr32, beta1, beta2,
                      eps, c1, c2, lrwd, skip)
     elif not skip:
@@ -479,18 +651,28 @@ def fused_momentum_(params, grads, velocities, *, lr, momentum, nesterov,
     """One Momentum step over lists of parameters, gradients and
     velocities, IN PLACE. ``cache`` (a dict the caller owns) keeps the
     kernel's pointer table between calls. ``masters``: the f32 masters
-    of bf16/f16 parameters (the master-weight form)."""
+    of bf16/f16 parameters (the master-weight form); bf16/f16
+    parameters without masters take the 2-byte form (velocities of
+    their type, lr and mu rounded to it)."""
     params, grads, velocities, *ms = _lists(
         "fused_momentum_", masters, params, grads, velocities)
     masters = ms[0] if ms else None
     if not params:
         return
-    lr32, mu32 = np.float32(lr), np.float32(momentum)
+    own = _own_2byte(params, masters)
+    if own:
+        dt = params[0].dtype
+        lr32, mu32 = in_type(lr, dt), in_type(momentum, dt)
+    else:
+        lr32, mu32 = np.float32(lr), np.float32(momentum)
     if _device_of("fused_momentum_", params).type == "cuda":
         _cuda_momentum_(params, grads, velocities, lr32, mu32, nesterov,
                         skip, {} if cache is None else cache, masters)
         return
-    if masters is None:
+    if own:
+        _plain_momentum_2byte_(params, grads, velocities, lr32, mu32,
+                               nesterov, skip)
+    elif masters is None:
         _plain_momentum_(params, grads, velocities, lr32, mu32, nesterov,
                          skip)
     elif not skip:
@@ -502,7 +684,7 @@ def fused_momentum_(params, grads, velocities, *, lr, momentum, nesterov,
 def decay_in(dtype, weight_decay) -> float:
     """``weight_decay`` rounded to ``dtype`` (``jnp.asarray(coeff,
     p.dtype)``), as a Python float."""
-    return float(torch.tensor(float(weight_decay), dtype=dtype).item())
+    return in_type(weight_decay, dtype)
 
 
 def _plain_decay_2byte(params, grads, wd):
@@ -517,19 +699,25 @@ def fused_sgd_(params, grads, *, lr, weight_decay=0.0, skip=False,
     """One SGD step ``p - lr*(g + weight_decay*p)`` over lists of
     parameters and gradients, IN PLACE. ``weight_decay`` is the coupled
     L2 coefficient (0: ``p - lr*g``). ``masters``: the f32 masters of
-    bf16/f16 parameters (the master-weight form). On the card, returns
-    what the launches covered: ``{"tensors", "elements", "launches"}``;
-    on the CPU (the plain version) or for no parameters, None."""
+    bf16/f16 parameters (the master-weight form); bf16/f16 parameters
+    without masters take the 2-byte form (lr and the decay rounded to
+    their type). On the card, returns what the launches covered:
+    ``{"tensors", "elements", "launches"}``; on the CPU (the plain
+    version) or for no parameters, None."""
     params, grads, *ms = _lists("fused_sgd_", masters, params, grads)
     masters = ms[0] if ms else None
     if not params:
         return None
-    lr32 = np.float32(lr)
-    wd32 = np.float32(weight_decay) if masters is None or not weight_decay \
-        else np.float32(decay_in(params[0].dtype, weight_decay))
+    own = _own_2byte(params, masters)
+    dt = params[0].dtype
+    lr32 = in_type(lr, dt) if own else np.float32(lr)
+    wd32 = np.float32(weight_decay) if masters is None and not own \
+        or not weight_decay else np.float32(decay_in(dt, weight_decay))
     if _device_of("fused_sgd_", params).type == "cuda":
         return _cuda_sgd_(params, grads, lr32, wd32, skip, masters)
-    if masters is None:
+    if own:
+        _plain_sgd_2byte_(params, grads, lr32, float(wd32), skip)
+    elif masters is None:
         _plain_sgd_(params, grads, lr32, wd32, skip)
     elif not skip:
         if wd32 != 0.0:
@@ -543,24 +731,38 @@ def fused_lamb_(params, grads, moment1, moment2, trust_r, *, lr, beta1,
                 beta2, eps, weight_decay, step, skip=False, cache=None,
                 masters=None):
     """One Lamb step over lists of parameters, gradients, moments and
-    trust-ratio scratch tensors (f32, shaped like the parameters, their
-    contents overwritten), IN PLACE. ``step`` is the 1-based step t;
-    ``weight_decay`` is Lamb's own decay inside ``r``. ``cache`` (a dict
-    the caller owns) keeps the kernels' pointer tables between calls.
-    ``masters``: the f32 masters of bf16/f16 parameters (the
-    master-weight form; the norms are the masters')."""
+    trust-ratio scratch tensors (shaped like the parameters, of the
+    state's type, their contents overwritten), IN PLACE. ``step`` is the
+    1-based step t; ``weight_decay`` is Lamb's own decay inside ``r``.
+    ``cache`` (a dict the caller owns) keeps the kernels' pointer tables
+    between calls. ``masters``: the f32 masters of bf16/f16 parameters
+    (the master-weight form; the norms are the masters'); bf16/f16
+    parameters without masters take the 2-byte form (moments and r of
+    their type)."""
     params, grads, moment1, moment2, trust_r, *ms = _lists(
         "fused_lamb_", masters, params, grads, moment1, moment2, trust_r)
     masters = ms[0] if ms else None
     if not params:
         return
-    lr32, c1, c2, _ = adam_scalars(lr, beta1, beta2, step)
-    rest = (moment1, moment2, trust_r, lr32, beta1, beta2, eps,
-            weight_decay, c1, c2)
+    own = _own_2byte(params, masters)
+    if own:
+        dt = params[0].dtype
+        sc = adam_scalars_2byte(dt, lr, beta1, beta2, eps, step)
+        wd = in_type(weight_decay, dt)
+    else:
+        sc = _f32_adam_scalars(lr, beta1, beta2, eps, step, 0.0)
+        wd = np.float32(weight_decay)
     if _device_of("fused_lamb_", params).type == "cuda":
-        _cuda_lamb_(params, grads, *rest, skip,
+        _cuda_lamb_(params, grads, moment1, moment2, trust_r, sc, wd, skip,
                     {} if cache is None else cache, masters)
         return
+    if own:
+        _plain_lamb_2byte_(params, grads, moment1, moment2, trust_r, sc, wd,
+                           skip)
+        return
+    lr32, _, _, _, _, _, c1, c2, _ = sc
+    rest = (moment1, moment2, trust_r, lr32, beta1, beta2, eps,
+            weight_decay, c1, c2)
     if masters is None:
         _plain_lamb_(params, grads, *rest, skip)
     elif not skip:

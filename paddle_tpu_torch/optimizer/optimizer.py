@@ -1,5 +1,5 @@
-"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``
-and ``Lamb``.
+"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Lamb``, and the eight rules without a kernel (below).
 
 Port of the dygraph path of ``paddle_tpu/optimizer/optimizer.py``
 (``apply_gradients_fn`` with ``_fused_or_rule``): the step t starts at
@@ -43,18 +43,34 @@ like it: the gradient, decayed in the parameter's type, is upcast, the
 rule runs on the master, and the parameter receives the master's cast
 (``:115-128``); AdamW's decoupled decay uses the old master. A
 low-precision parameter without a master (``multi_precision=False``,
-``decorate(master_weight=False)``) keeps state of its own type: on the
-CPU the plain versions update it; on the card ``step()`` raises, since
-the card's kernels take f32 parameters or the master forms and the
-2-byte forms without a master are not ported yet.
+``decorate(master_weight=False)``) keeps state of its own type, and the
+rule runs in that type, each operation rounded to it, as JAX's XLA route
+runs it (``:131-134``): the kernels' 2-byte forms on the card, their
+plain versions on the CPU.
 
 The whole update is one ``ops.cuda.fused_optimizer`` call
 (``fused_sgd_``, ``fused_momentum_``, ``fused_adam_`` or
 ``fused_lamb_``) over every parameter that has a gradient, one for the
-f32 parameters and one for each type of master-weight parameters: one
-kernel launch each on CUDA (Lamb: two, phase 1 with its per-tensor
-norms, then the apply), the plain version on the CPU. Parameters and
+f32 parameters, one for each type of master-weight parameters and one
+for each 2-byte type without masters: one kernel launch each on CUDA
+(Lamb: two, phase 1 with its per-tensor norms, then the apply), the
+plain version on the CPU. Parameters and
 optimizer state are updated IN PLACE (the JAX update is functional).
+
+``Adamax``, ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``,
+``Ftrl``, ``LarsMomentum`` and ``Dpsgd`` (``optimizer.py:340-535``)
+have no TPU kernel: JAX runs their ``rule`` in XLA (its fused gate knows
+only the four above, ``fused_optimizer.py:541-547``). Here each is that
+rule in PyTorch tensor operations on the parameter's device, one
+parameter at a time, in the parameter's type (a Python scalar meeting a
+tensor rounded to its type first, a divisor a 0-dim tensor of its type)
+or on its f32 master, with the same regularizers, clip, slots and
+initial values; one ``optimizer_rule.<class name>`` count per parameter
+updated (``ops.cuda.counters``), so a run shows which route it took.
+``Dpsgd``'s noise is drawn from a ``torch.Generator`` on the
+parameter's device seeded with ``framework.random.fold_in(seed, t)``,
+anew for every parameter, as JAX draws every parameter's noise from
+``fold_in(key, t)``; the bits differ from threefry's.
 
 ``state_dict()`` has the JAX keys: ``"<param name>@<slot>"`` (masters
 as ``@__master__``), ``"step"``, and ``"LR_Scheduler"`` for a
@@ -68,15 +84,20 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
+from ..framework.random import fold_in
 from ..nn.clip import ClipGradBase
+from ..ops.cuda import counters
 from ..ops.cuda.fused_optimizer import (fused_adam_, fused_lamb_,
                                         fused_momentum_, fused_sgd_)
-from ..regularizer import L2Decay
+from ..regularizer import L2Decay, in_type
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Lamb"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Lamb",
+           "Adamax", "Adagrad", "DecayedAdagrad", "Adadelta", "RMSProp",
+           "Ftrl", "LarsMomentum", "Dpsgd", "RuleOptimizer"]
 
 _LOW = (torch.bfloat16, torch.float16)
 MASTER = "__master__"
@@ -152,12 +173,6 @@ class Optimizer:
         if live:
             t = self._step_count + 1
             groups = self._groups(live)
-            for (dtype, master), ps in groups.items():
-                if dtype in _LOW and not master and ps[0].is_cuda:
-                    raise NotImplementedError(
-                        f"{dtype} parameters without f32 masters have no "
-                        f"kernel on the card yet; use multi_precision=True "
-                        f"(amp.decorate's master_weight=True)")
             for key, ps in groups.items():
                 masters = [self._slot(p)[MASTER] for p in ps] \
                     if key[1] else None
@@ -399,3 +414,255 @@ class Lamb(Optimizer):
                     beta1=self._beta1, beta2=self._beta2, eps=self._eps,
                     weight_decay=self._lamb_wd, step=t, cache=cache,
                     masters=masters)
+
+
+# ---------------------------------------------------------------------------
+# The rules JAX runs in XLA only: tensor operations, no kernel
+# ---------------------------------------------------------------------------
+def _k(x, like) -> float:
+    """A Python scalar as JAX's weak type meets ``like``: rounded to its
+    type (PyTorch then computes in f32 and rounds once)."""
+    return in_type(x, like.dtype)
+
+
+def _div(a, b):
+    """``a / b`` for a Python scalar ``b``, as a division by a 0-dim
+    tensor of ``a``'s type (CUDA would multiply by the reciprocal of a
+    Python scalar)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def _host(op, a, b, dtype) -> float:
+    """``op(a, b)`` of two Python scalars computed in ``dtype`` on the
+    host, each rounded to it first, the result rounded to it: a
+    scalar-by-scalar step of a rule (JAX's ``lr / c`` over 0-dim arrays
+    of the type)."""
+    x = torch.tensor(float(a), dtype=dtype)
+    y = torch.tensor(float(b), dtype=dtype)
+    return float(op(x, y).item())
+
+
+def _norm(x):
+    """``sqrt(sum(square(x)))`` in ``x``'s type (the squares rounded to
+    it, the sum accumulated in f32 and rounded to it)."""
+    return torch.sqrt(torch.sum(x * x))
+
+
+class RuleOptimizer(Optimizer):
+    """An optimizer whose update is its ``rule(g, p, slots, lr, t)`` in
+    tensor operations, returning ``(p2, new slots)``, run one parameter
+    at a time (the JAX package's ``rule``): on the parameter in its own
+    type, or, for a parameter with an f32 master, on the master with the
+    gradient upcast, the parameter then set to the master's cast.
+    Gradients are clipped and regularized as the kernel rules' are;
+    counted ``optimizer_rule.<class name>`` once a parameter."""
+    INIT = 0.0        # the slots' initial value
+
+    def _init_slot(self, like):
+        return {k: torch.full_like(like, self.INIT) for k in self.SLOTS}
+
+    def rule(self, g, p, slots, lr, t):
+        raise NotImplementedError
+
+    def _apply(self, params, grads, t, masters, cache):
+        grads = self._grads(params, grads)
+        lr = self.get_lr()
+        for i, (p, g) in enumerate(zip(params, grads)):
+            slots = self._slot(p)
+            state = {k: v for k, v in slots.items() if k != MASTER}
+            if masters is not None:
+                w = masters[i]
+                w2, new = self.rule(g.to(w.dtype), w, state, lr, t)
+                w.copy_(w2)
+                p.copy_(w2)
+            else:
+                p2, new = self.rule(g, p.detach(), state, lr, t)
+                p.copy_(p2)
+            for k, v in new.items():
+                slots[k].copy_(v)
+        counters.bump("optimizer_rule." + type(self).__name__, len(params))
+
+
+class Adamax(RuleOptimizer):
+    SLOTS = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def rule(self, g, p, slots, lr, t):
+        b1, b2 = self._beta1, self._beta2
+        m = _k(b1, p) * slots["moment"] + _k(1 - b1, p) * g
+        u = torch.maximum(_k(b2, p) * slots["inf_norm"], torch.abs(g))
+        c = np.float32(1) - np.power(np.float32(b1), np.float32(t),
+                                     dtype=np.float32)
+        lr_t = _host(torch.div, lr, c, p.dtype)
+        p2 = p - (lr_t * m) / (u + _k(self._eps, p))
+        return p2, {"moment": m, "inf_norm": u}
+
+
+class Adagrad(RuleOptimizer):
+    SLOTS = ("moment",)
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._eps = epsilon
+        self.INIT = initial_accumulator_value
+
+    def rule(self, g, p, slots, lr, t):
+        acc = slots["moment"] + g * g
+        p2 = p - (_k(lr, p) * g) / (torch.sqrt(acc) + _k(self._eps, p))
+        return p2, {"moment": acc}
+
+
+class DecayedAdagrad(RuleOptimizer):
+    SLOTS = ("moment",)
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._decay, self._eps = decay, epsilon
+
+    def rule(self, g, p, slots, lr, t):
+        d = self._decay
+        acc = _k(d, p) * slots["moment"] + _k(1 - d, p) * (g * g)
+        p2 = p - (_k(lr, p) * g) / (torch.sqrt(acc) + _k(self._eps, p))
+        return p2, {"moment": acc}
+
+
+class Adadelta(RuleOptimizer):
+    SLOTS = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._eps, self._rho = epsilon, rho
+
+    def rule(self, g, p, slots, lr, t):
+        rho, eps = _k(self._rho, p), _k(self._eps, p)
+        omr = _k(1 - self._rho, p)
+        eg = rho * slots["avg_squared_grad"] + omr * (g * g)
+        update = -torch.sqrt((slots["avg_squared_update"] + eps)
+                             / (eg + eps)) * g
+        eu = rho * slots["avg_squared_update"] + omr * (update * update)
+        return p + _k(lr, p) * update, {"avg_squared_grad": eg,
+                                        "avg_squared_update": eu}
+
+
+class RMSProp(RuleOptimizer):
+    SLOTS = ("mean_square", "mean_grad", "momentum")
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def rule(self, g, p, slots, lr, t):
+        rho, omr = _k(self._rho, p), _k(1 - self._rho, p)
+        ms = rho * slots["mean_square"] + omr * (g * g)
+        mg = rho * slots["mean_grad"] + omr * g if self._centered \
+            else slots["mean_grad"]
+        denom = ms - mg * mg if self._centered else ms
+        mom = _k(self._momentum, p) * slots["momentum"] + \
+            (_k(lr, p) * g) / torch.sqrt(denom + _k(self._eps, p))
+        return p - mom, {"mean_square": ms, "mean_grad": mg,
+                         "momentum": mom}
+
+
+class Ftrl(RuleOptimizer):
+    SLOTS = ("squared", "linear")
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def rule(self, g, p, slots, lr, t):
+        n, z = slots["squared"], slots["linear"]
+        n2 = n + g * g
+        lp, lr_t = _k(-self._lr_power, p), _k(lr, p)
+        pow2 = torch.pow(n2, lp)
+        sigma = _div(pow2 - torch.pow(n, lp), lr_t)
+        z2 = z + g - sigma * p
+        l1 = _k(self._l1, p)
+        p2 = torch.where(
+            torch.abs(z2) <= l1, torch.zeros_like(p),
+            -(z2 - torch.sign(z2) * l1)
+            / (_div(pow2, lr_t) + _k(2 * self._l2, p)))
+        return p2, {"squared": n2, "linear": z2}
+
+
+class LarsMomentum(RuleOptimizer):
+    """Layer-wise adaptive rate scaling over momentum (the reference's
+    ``lars_momentum_op.cc``): each parameter's ``local_lr = lr *
+    lars_coeff * |p| / (|g| + lars_weight_decay * |p| + epsilon)`` where
+    both norms are positive, else ``lr``."""
+    SLOTS = ("velocity",)
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 epsilon=1e-9, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._eps = epsilon
+
+    def rule(self, g, p, slots, lr, t):
+        w_norm, g_norm = _norm(p), _norm(g)
+        lr_t, wd = _k(lr, p), _k(self._lars_wd, p)
+        local = (_host(torch.mul, lr_t, self._lars_coeff, p.dtype)
+                 * w_norm) / (g_norm + wd * w_norm + _k(self._eps, p))
+        local_lr = torch.where((w_norm > 0) & (g_norm > 0), local,
+                               torch.full_like(local, lr_t))
+        v = _k(self._momentum, p) * slots["velocity"] + \
+            local_lr * (g + wd * p)
+        return p - v, {"velocity": v}
+
+
+class Dpsgd(RuleOptimizer):
+    """Differentially private SGD: each gradient scaled to norm at most
+    ``clip``, then Gaussian noise of deviation ``sigma * clip /
+    batch_size`` added before ``p - lr*g``."""
+
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16,
+                 sigma=1.0, parameters=None, seed=0, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, name=name,
+                         multi_precision=multi_precision)
+        self._clip, self._batch, self._sigma = clip, batch_size, sigma
+        self._seed = int(seed or 0)
+
+    def noise(self, like, t):
+        """Standard normal noise shaped and typed like ``like`` from the
+        generator of step ``t``, seeded anew for each parameter (the same
+        draws for every parameter of a step, as JAX's ``normal(
+        fold_in(key, t), shape)``)."""
+        gen = torch.Generator(device=like.device)
+        gen.manual_seed(fold_in(self._seed, t))
+        return torch.randn(like.shape, generator=gen, dtype=like.dtype,
+                           device=like.device)
+
+    def rule(self, g, p, slots, lr, t):
+        gnorm = _norm(g)
+        g = g / torch.clamp(_div(gnorm, _k(self._clip, p)), min=1.0)
+        noise = _k(self._sigma * self._clip / self._batch, p) \
+            * self.noise(g, t)
+        return p - _k(lr, p) * (g + noise), slots

@@ -1706,25 +1706,166 @@ def test_master_forms_are_bitwise_the_plain_versions(dev, dtype):
         "fused_lamb_apply_master": 1}
 
 
-def test_2byte_parameters_without_masters_raise_on_the_card(dev):
+def _2byte_lists(dev, dtype, seed, scales, positive_last=False,
+                 sizes=(1, 3, 4, 17, 1000, 4099)):
+    """Lists of 2-byte tensors of ``sizes`` (every third an offset view,
+    off the walker's 8-byte path), one list a scale, from a seed; the
+    last list's absolute values with ``positive_last``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for i, scale in enumerate(scales):
+        xs = []
+        for k, n in enumerate(sizes):
+            x = torch.randn(n + 1, generator=gen, device=dev) * scale
+            if positive_last and i == len(scales) - 1:
+                x = x.abs()
+            x = x.to(dtype)
+            xs.append(x[1:] if k % 3 == 2 else x[:n].clone())
+        out.append(xs)
+    return out
+
+
+def _same_bits(a, b):
+    """Two lists of 2-byte tensors equal as integers (NaN bits, -0.0)."""
+    return all(x.view(torch.int16).equal(y.view(torch.int16))
+               for x, y in zip(a, b))
+
+
+def _two_runs(kernel, lists):
+    """``kernel`` run on two copies of ``lists``; the copies."""
+    runs = []
+    for _ in range(2):
+        k = [[x.clone() for x in xs] for xs in lists]
+        kernel(k)
+        runs.append(k)
+    torch.cuda.synchronize()
+    return runs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("rule", ["adam", "adamw", "momentum", "nesterov",
+                                  "sgd", "sgd_l2", "lamb"])
+def test_2byte_forms_without_masters_match_their_plain_versions(dev, dtype,
+                                                                rule):
+    """K3's 2-byte forms without masters (state in the parameters' type,
+    each operation rounded to it): one launch a call (Lamb: phase 1 and
+    the apply), bit for bit the plain version (Lamb's apply given the
+    kernel's sums), two launches the same bits, a skipped call launching
+    nothing."""
+    tag = fo.TWO_BYTE[dtype]
+    g_s = 1e-3 if dtype == torch.bfloat16 else 1e-2
+    if rule in ("adam", "adamw", "lamb"):
+        lists = _2byte_lists(dev, dtype, 4, (0.02, g_s, g_s / 10, g_s * g_s),
+                             positive_last=True)
+        if rule == "lamb":      # r, which the kernels overwrite
+            lists.append([torch.zeros_like(p) for p in lists[0]])
+    elif rule in ("momentum", "nesterov"):
+        lists = _2byte_lists(dev, dtype, 5, (0.05, g_s, g_s))
+    else:
+        lists = _2byte_lists(dev, dtype, 6, (0.05, g_s))
+    gs = lists[1]
+    wd = {"adamw": 0.01, "sgd_l2": 1e-4, "lamb": 0.01}.get(rule, 0.0)
+    caches = {}
+
+    def kernel(k, skip=False):
+        c = caches.setdefault(id(k[0]), {})
+        if rule in ("adam", "adamw"):
+            fo.fused_adam_(k[0], gs, k[2], k[3], lr=1e-3, beta1=0.9,
+                           beta2=0.999, eps=1e-8, step=2, weight_decay=wd,
+                           skip=skip, cache=c)
+        elif rule == "lamb":
+            fo.fused_lamb_(k[0], gs, k[2], k[3], k[4], lr=1e-3, beta1=0.9,
+                           beta2=0.999, eps=1e-6, weight_decay=wd, step=2,
+                           skip=skip, cache=c)
+        elif rule in ("momentum", "nesterov"):
+            fo.fused_momentum_(k[0], gs, k[2], lr=0.1, momentum=0.9,
+                               nesterov=rule == "nesterov", skip=skip,
+                               cache=c)
+        else:
+            fo.fused_sgd_(k[0], gs, lr=0.1, weight_decay=wd, skip=skip)
+
+    names = {"lamb": ["fused_lamb_phase1_", "fused_lamb_apply_"],
+             "momentum": ["fused_momentum_"], "nesterov": ["fused_momentum_"],
+             "sgd": ["fused_sgd_"], "sgd_l2": ["fused_sgd_"]}.get(
+                 rule, ["fused_adam_"])
+    names = [n + tag for n in names]
+    skipped = [[x.clone() for x in xs] for xs in lists]
+    kernel(skipped, skip=True)
+    assert counters.snapshot() == {}
+    assert all(_same_bits(a, b) for a, b in zip(skipped, lists))
+    first, second = _two_runs(kernel, lists)
+    assert counters.snapshot() == {n: 2 for n in names}
+    assert all(_same_bits(a, b) for a, b in zip(first, second))
+    want = [[x.clone() for x in xs] for xs in lists]
+    if rule in ("adam", "adamw"):
+        fo._plain_adam_2byte_(want[0], gs, want[2], want[3],
+                              fo.adam_scalars_2byte(dtype, 1e-3, 0.9, 0.999,
+                                                    1e-8, 2, wd), False)
+    elif rule == "lamb":
+        sc = fo.adam_scalars_2byte(dtype, 1e-3, 0.9, 0.999, 1e-6, 2)
+        fo._plain_lamb_phase1_2byte_(want[0], gs, want[2], want[3], want[4],
+                                     sc, fo.decay_in(dtype, wd))
+        sums = fo.lamb_kernel_sums(caches[id(first[0])])
+        assert torch.allclose(sums, fo._lamb_sums_2byte(want[0], want[4]),
+                              rtol=1e-6, atol=0)
+        fo._plain_lamb_apply_2byte_(want[0], want[4], sums, sc[0])
+    elif rule in ("momentum", "nesterov"):
+        fo._plain_momentum_2byte_(want[0], gs, want[2],
+                                  fo.decay_in(dtype, 0.1),
+                                  fo.decay_in(dtype, 0.9),
+                                  rule == "nesterov", False)
+    else:
+        fo._plain_sgd_2byte_(want[0], gs, fo.decay_in(dtype, 0.1),
+                             fo.decay_in(dtype, wd) if wd else 0.0, False)
+    for i, (a, b) in enumerate(zip(first, want)):
+        assert _same_bits(a, b), (i, [int((x.view(torch.int16)
+                                          != y.view(torch.int16)).sum())
+                                      for x, y in zip(a, b)])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_2byte_parameters_without_masters_launch_once_a_group(dev, dtype):
     """``decorate(master_weight=False)`` leaves bf16/f16 parameters
-    without f32 masters; the card has no kernel for them, so the step
-    raises and launches nothing (the CPU runs the plain versions)."""
+    without f32 masters: each optimizer's step launches the 2-byte form
+    once for the group (Lamb: phase 1 and the apply), bit for bit the
+    same step run by the plain versions on the CPU (Lamb given the same
+    sums), the moments in the parameters' type."""
+    import copy
+
     from paddle_tpu_torch import amp, nn, optimizer
 
-    layer = nn.Linear(8, 4)
-    layer.to(dev)
-    opt = optimizer.Momentum(learning_rate=0.1,
-                             parameters=layer.parameters())
-    amp.decorate(layer, opt, level="O2", dtype="float16",
-                 master_weight=False)
-    for p in layer.parameters():
-        p.grad = torch.ones_like(p)
-    before = [p.detach().clone() for p in layer.parameters()]
-    with pytest.raises(NotImplementedError, match="without f32 masters"):
-        opt.step()
-    assert _same(list(layer.parameters()), before)
-    assert counters.snapshot() == {}
+    tag = "bf16" if dtype == "bfloat16" else "f16"
+    base = nn.Linear(8, 4, device="cpu")
+    for name, make in (
+            ("sgd", lambda ps: optimizer.SGD(0.1, parameters=ps,
+                                             weight_decay=1e-4)),
+            ("momentum", lambda ps: optimizer.Momentum(0.1, parameters=ps)),
+            ("adam", lambda ps: optimizer.AdamW(1e-3, parameters=ps)),
+            ("lamb_phase1", lambda ps: optimizer.Lamb(1e-3, parameters=ps))):
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            layer = copy.deepcopy(base).to(where)
+            opt = make(list(layer.parameters()))
+            amp.decorate(layer, opt, level="O2", dtype=dtype,
+                         master_weight=False)
+            gen = torch.Generator().manual_seed(1)
+            for p in layer.parameters():
+                p.grad = (torch.randn(p.shape, generator=gen)
+                          * 1e-2).to(p.dtype).to(where)
+            counters.reset()
+            opt.step()
+            runs[where.type] = ([p.detach().cpu() for p in layer.parameters()],
+                                counters.snapshot(), opt)
+        got, launched, opt = runs["cuda"]
+        want = {"fused_" + name + "_" + tag: 1}
+        if name == "lamb_phase1":
+            want["fused_lamb_apply_" + tag] = 1
+        assert launched == want, (name, launched)
+        assert all(v.dtype == got[0].dtype
+                   for s in opt._slots.values() for v in s.values())
+        if name != "lamb_phase1":    # Lamb's sums are taken in other orders
+            assert _same(got, runs["cpu"][0]), name
 
 
 def test_slice_2b_kernels_raise_on_what_they_do_not_take(dev):

@@ -368,12 +368,24 @@ def test_vision_entry_points_need_a_device_without_a_gpu():
 
 
 def test_layers_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        nn.Conv2D(3, 4, 3, padding_mode="reflect", device="cpu")
-    with pytest.raises(NotImplementedError):
-        nn.CrossEntropyLoss(label_smoothing=0.1)
-    with pytest.raises(NotImplementedError):
+    """What the layers still refuse: a bad layout, a bad padding string,
+    a channel count the weight cannot take. The padding modes, label
+    smoothing and NHWC, refused before they were ported, now compute
+    (held against JAX in ``test_torch_nn_formats.py``): a reflect-mode
+    conv pads with zeros, as the JAX layer does."""
+    torch.manual_seed(0)
+    zeros = nn.Conv2D(3, 4, 3, padding=1, device="cpu")
+    reflect = nn.Conv2D(3, 4, 3, padding=1, padding_mode="reflect",
+                        device="cpu")
+    reflect.load_state_dict(zeros.state_dict())
+    x = torch.randn(1, 3, 5, 5)
+    assert torch.equal(reflect(x), zeros(x))
+    assert float(nn.CrossEntropyLoss(label_smoothing=0.1)(
+        torch.randn(4, 5), torch.tensor([0, 1, 2, 3]))) > 0
+    with pytest.raises(ValueError, match="data_format"):
         nn.functional.conv2d(torch.zeros(1, 2, 4, 4), torch.zeros(3, 2, 1, 1),
-                             data_format="NHWC")
+                             data_format="NDHWC")
+    with pytest.raises(ValueError, match="padding"):
+        nn.functional.max_pool2d(torch.zeros(1, 2, 4, 4), 2, padding="FULL")
     with pytest.raises(ValueError, match="C_in"):
         nn.functional.conv2d(torch.zeros(1, 2, 4, 4), torch.zeros(3, 4, 1, 1))
