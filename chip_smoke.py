@@ -201,6 +201,18 @@ a decode tick is its host's launch loop.
             ``bench.py`` ``bench_bert``): 3 warm-up and 10 timed steps;
             tokens/s, step ms, MFU, the loss (finite, falling), exact
             kernel launches per step, and a profiled step by family;
+6e. api_bert  ``examples/train_bert.py`` as a user runs it, its import
+            changed (``paddle.to_tensor`` inputs, 1 + 50 steps): it must
+            print ``device: gpu:0`` and ``OK``; exactly phase 6's
+            launches a step; 3 + 10 timed steps beside phase 6's; a step
+            fed ``Tensor``s against one fed the same tensors plain under
+            torch.profiler: the same kernels, copies and fills; 6 timed
+            pairs of the two, alternating which goes first (reported);
+6f. api_bert_eager  phase 6's model at dropout 0 in the eager loop
+            (``model.loss``, ``backward``, ``step``, ``clear_grad``,
+            ``float``), 10 steps with phase 6's launches a step, its
+            first 3 losses within 1e-5 of ``TrainStep``'s from the same
+            weights;
 6c. bert_recompute  phase 6 under ``RecomputeOptimizer(AdamW)`` with the
             12 encoder layers as checkpoints: every step-1 gradient bit
             for bit a fresh phase-6 model's (same weights, seed and
@@ -400,11 +412,27 @@ a decode tick is its host's launch loop.
             (2^40 for two steps: no K3, parameters and moments unchanged
             bit for bit, the scale 2^39 after) and one step after the
             restore; the figures beside ``nmt``'s;
+29b. api_wgan  ``examples/train_wgan_gp.py`` (30 steps, a double
+            gradient through ``autograd.grad(create_graph=True)``): OK,
+            exactly 2 K3-adam a step and no other launch;
+29c. api_nmt  ``examples/translate_beam.py`` (300 steps, head width 16,
+            beam 4): OK (accuracy > 0.8), attention on the counted plain
+            route (``attention_plain``) and no K1, 300 K2a/K2b/K3-adam;
+            head width 16 on the card against the CPU within 1e-5; head
+            widths 192/256 raise naming the ROADMAP item;
+29d. ops_parity  every case of ``tests/_torch_op_cases.py`` (each op of
+            the op library) on CUDA against the CPU, forward and
+            gradient, every method of the method table and operator on a
+            CUDA ``Tensor``, the random ops' determinism under
+            ``paddle.seed``: integer/boolean/layout results bit for bit,
+            floats within the case's tolerance, every result a
+            ``Tensor`` on the card;
 30. the ``kernels`` line (launches summed over the phases that drive
-    each kernel's path: 2-4f for the decode kernels, 6, 10, 27 and 29
-    for the fused xent, 6b for its bf16 form and K3-adam's master form,
-    8b for K3-momentum's, 6, 6b and 27 for the streaming flash kernels,
-    29 for their f16 forms, 6, 27 and 29 for Adam,
+    each kernel's path: 2-4f for the decode kernels, 6, 6e, 6f, 10,
+    27, 29 and 29c for the fused xent, 6b for its bf16 form and
+    K3-adam's master form, 8b for K3-momentum's, 6, 6b, 6e, 6f and 27
+    for the streaming flash kernels, 29 for their f16 forms, 6, 6e, 6f,
+    27, 29, 29b and 29c for Adam,
     8 for Momentum, 10 for the short flash kernels and Lamb, 10b for
     their f16 forms, 11 for SGD, 13-16 for the static forms, 18 for K6,
     20 for the masked flash kernels, 23 for the external-lse K1b, 23b for
@@ -7668,6 +7696,472 @@ PHASE1_ONLY = ("fused_xent_fwd_f16", "fused_xent_bwd_f16", "fused_sgd_master",
                "fused_lamb_bf16", "fused_lamb_f16")
 
 
+# ---------------------------------------------------------------------------
+# the framework core: the repo's user scripts through the public surface,
+# and the op library on the card against the CPU
+# ---------------------------------------------------------------------------
+def example_text(name):
+    """``examples/<name>`` with only its import changed (``paddle_tpu``
+    -> ``paddle_tpu_torch``): the card is the default device."""
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name)
+    with open(path) as f:
+        src = f.read()
+    src = re.sub(r"^import paddle_tpu as paddle$",
+                 "import paddle_tpu_torch as paddle", src, flags=re.M)
+    return re.sub(r"^from paddle_tpu([ .])", r"from paddle_tpu_torch\1",
+                  src, flags=re.M)
+
+
+def run_example(torch, counters, name, env=None):
+    """Run the script's text with the launch counts set to 0 just
+    before: (its namespace, its stdout lines, wall s, the launches)."""
+    import contextlib
+    import io
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out = io.StringIO()
+    ns = {"__name__": "__main__"}
+    try:
+        counters.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            exec(compile(example_text(name), name, "exec"), ns)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.snapshot()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = out.getvalue().splitlines()
+    expect(lines and lines[-1] == "OK", f"{name}: did not print OK "
+                                        f"({lines[-3:]})")
+    return ns, lines, wall, launches
+
+
+def per_step(launches, n):
+    return {k: v / n for k, v in sorted(launches.items()) if v}
+
+
+API_TIME_PAIRS = 6
+
+
+def api_bert_profiled_pairs():
+    """In a process of its own (``spawn``): ``train_bert.py``'s step
+    through the public surface (``paddle.seed(0)``, BERT-base, AdamW,
+    ``TrainStep``, ``to_tensor`` inputs), ``WARM_STEPS`` steps, then a
+    step fed the batch as plain torch tensors and one fed it as
+    ``Tensor``s profiled in turn until a pair's windows both hold a lead
+    spin and the same kernels, copies and fills, name for name, 5 pairs
+    at most; then ``API_TIME_PAIRS`` timed pairs of ``TIMED_STEPS``
+    steps each, plain and ``Tensor`` inputs alternating which goes
+    first: (the last profiled pair's two windows, the pairs profiled,
+    what each pair profiled again recorded, each timed pair's median
+    step ms). Late in a full run the main process's torch.profiler
+    sessions drop kernels and lead spins (``lenet_profiled_pairs``); a
+    fresh process records whole windows."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.seed(0)
+    cfg = BertConfig.base()
+    model = BertForPretraining(cfg)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+
+    def loss_fn(m, *b):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.loss(*b)
+
+    step = TrainStep(model, loss_fn, opt)
+    rng = np.random.RandomState(0)
+    B, S, V = BERT_BATCH, BERT_SEQ, cfg.vocab_size
+    wrapped = (paddle.to_tensor(rng.randint(0, V, (B, S)).astype(np.int32)),
+               paddle.to_tensor(np.zeros((B, S), np.int32)),
+               paddle.to_tensor(rng.randint(0, V, (B, S)).astype(np.int32)),
+               paddle.to_tensor(rng.randint(0, 2, (B,)).astype(np.int32)))
+    plain = tuple(paddle.unwrap(t) for t in wrapped)
+    for _ in range(WARM_STEPS):
+        step(*wrapped)
+    retried = []
+    for pairs in range(1, 6):
+        a = step_device_events(torch, step, plain)
+        b = step_device_events(torch, step, wrapped)
+        if a["lead_spins"] and b["lead_spins"] and all(
+                a[k] == b[k] for k in ("kernels", "copies", "fills",
+                                       "kernel_names")):
+            break
+        names, names_b = a["kernel_names"], b["kernel_names"]
+        retried.append({
+            "counts": [[a[k], b[k]] for k in ("kernels", "copies",
+                                               "fills")],
+            "lead_spins": [a["lead_spins"], b["lead_spins"]],
+            "differ_by": {k[:60]: names.get(k, 0) - names_b.get(k, 0)
+                          for k in set(names) | set(names_b)
+                          if names.get(k, 0) != names_b.get(k, 0)}})
+    timed = []
+    for i in range(API_TIME_PAIRS):
+        order = ("plain", "tensor") if i % 2 == 0 else ("tensor", "plain")
+        row = {"first": order[0]}
+        for kind in order:
+            batch = plain if kind == "plain" else wrapped
+            ms = []
+            for _ in range(TIMED_STEPS):
+                t0 = time.perf_counter()
+                float(step(*batch))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[kind + "_ms_median"] = float(np.median(ms))
+        timed.append(row)
+    return a, b, pairs, retried, timed
+
+
+def phase_api_bert(torch, counters, bert_row):
+    """``examples/train_bert.py`` as a user runs it (BERT-base 128 x 128,
+    AMP O1 bf16, AdamW 1e-4, ``jit.TrainStep``, inputs by
+    ``paddle.to_tensor`` of int32 arrays, 1 + 50 steps, its own assertion
+    that the loss falls), with only its import changed: it must print
+    ``device: gpu:0`` and ``OK``, and launch exactly what phase 6 does a
+    step (12 K1a, 12 K1b, one K2a + K2b, one K3-adam, and nothing else);
+    then 3 + 10 timed steps of its ``TrainStep`` (median step ms beside
+    phase 6's) and, in a process of its own
+    (``api_bert_profiled_pairs``), a profiled step fed the batch as
+    ``Tensor``s against one fed the same tensors plain: the same kernels,
+    copies and fills, name for name (the public surface adds no device
+    work); and alternated timed pairs of the two, each pair's medians
+    and their ratio reported (not held to a bound)."""
+    ns, lines, wall, launches = run_example(torch, counters, "train_bert.py")
+    expect(lines[0] == "device: gpu:0", f"api_bert: {lines[0]!r}")
+    n = 51
+    bert_per = per_step(bert_row["launches"], WARM_STEPS + TIMED_STEPS)
+    got_per = per_step(launches, n)
+    expect(got_per == bert_per, f"api_bert: launches a step {got_per}, "
+                                f"phase 6's {bert_per}")
+    step = ns["step"]
+    wrapped = tuple(ns[k] for k in ("ids", "tt", "mlm", "nsp"))
+    paddle = ns["paddle"]
+    expect(all(isinstance(t, paddle.Tensor) and t.is_cuda
+               for t in wrapped), "api_bert: to_tensor did not give "
+                                  "Tensors on the card")
+    losses, step_ms, _ = train_steps(torch, counters, step, wrapped)
+    med = float(np.median(step_ms))
+    loss = step(*wrapped)
+    expect(isinstance(loss, paddle.Tensor), "api_bert: the step's loss is "
+                                            "not a Tensor")
+    del ns, step, wrapped, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.distributed import spawn
+
+    a, b, tries, retried, timed = spawn(api_bert_profiled_pairs,
+                                        timeout=600)[0]
+    ratios = [r["tensor_ms_median"] / r["plain_ms_median"] for r in timed]
+    expect(a["lead_spins"] and b["lead_spins"] and all(
+        a[k] == b[k] for k in ("kernels", "copies", "fills",
+                               "kernel_names")),
+           f"api_bert: a step fed Tensors ran other device work than one "
+           f"fed torch tensors ({tries} pairs: {retried})")
+    return {"phase": "api_bert", "config": "examples/train_bert.py: "
+            "BERT-base, batch 128 x seq 128, AMP O1 bf16, dropout 0.1, "
+            "AdamW lr 1e-4, 1 + 50 steps through the public surface",
+            "script_lines": lines, "script_wall_s": wall,
+            "launches": launches, "launches_per_step": got_per,
+            "bert_launches_per_step": bert_per,
+            "step_ms_median": med, "step_ms": step_ms,
+            "bert_step_ms_median": bert_row["step_ms_median"],
+            "losses_timed": losses,
+            "kernels_per_step": b["kernels"],
+            "bert_kernels_per_step_plain_inputs": a["kernels"],
+            "bert_phase_profiled_kernels":
+                bert_row["breakdown"].get("kernels"),
+            "copies_per_step": b["copies"], "fills_per_step": b["fills"],
+            "profile_pairs": tries, "profile_retried": retried,
+            "alternated_pairs": timed,
+            "tensor_over_plain_ratios": ratios,
+            "tensor_over_plain_median": float(np.median(ratios))}
+
+
+def phase_api_bert_eager(torch, counters):
+    """The same model written eagerly, as a dygraph user writes it:
+    ``loss = model.loss(...)`` under ``auto_cast``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``, ``float(loss)``, 10 steps at
+    dropout 0 from ``paddle.seed(0)``'s weights, with exactly phase 6's
+    launches a step; against 3 ``TrainStep`` steps of a model built from
+    the same seed on the same batch: the first 3 losses within 1e-5
+    relative (both under ``use_deterministic_algorithms``, warn only:
+    PyTorch's CUDA embedding backward adds with atomics)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    cfg = BertConfig.base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    B, S = BERT_BATCH, BERT_SEQ
+    rng = np.random.RandomState(0)
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (B, S))
+                           .astype(np.int32))
+    tt = paddle.to_tensor(np.zeros((B, S), np.int32))
+    mlm = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (B, S))
+                           .astype(np.int32))
+    nsp = paddle.to_tensor(rng.randint(0, 2, (B,)).astype(np.int32))
+
+    def build():
+        paddle.seed(0)
+        model = BertForPretraining(cfg)
+        return model, optimizer.AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters())
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model, opt = build()
+        counters.reset()
+        eager, ms = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model.loss(ids, tt, mlm, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = counters.snapshot()
+        del model, opt, loss
+        torch.cuda.empty_cache()
+        model, opt = build()
+
+        def loss_fn(m, *b):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                return m.loss(*b)
+
+        step = TrainStep(model, loss_fn, opt)
+        ts = [float(step(ids, tt, mlm, nsp)) for _ in range(3)]
+        del model, opt, step
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_bwd": L, "flash_attention_fwd": L,
+            "fused_adam": 1, "fused_xent_bwd": 1, "fused_xent_fwd": 1}
+    got = per_step(launches, 10)
+    expect(got == want, f"api_bert_eager: launches a step {got}, want "
+                        f"{want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(eager[:3], ts)]
+    expect(max(rel) <= 1e-5, f"api_bert_eager: eager losses {eager[:3]} "
+                             f"vs TrainStep {ts} (rel {rel})")
+    expect(all(np.isfinite(eager)), f"api_bert_eager: non-finite loss "
+                                    f"{eager}")
+    return {"phase": "api_bert_eager", "config": "phase 6's model at "
+            "dropout 0, eager model.loss / backward / step / clear_grad",
+            "losses": eager, "trainstep_losses": ts, "rel_diff": rel,
+            "launches": launches, "launches_per_step": got,
+            "step_ms_median": float(np.median(ms[3:])), "step_ms": ms}
+
+
+def phase_api_wgan(torch, counters):
+    """``examples/train_wgan_gp.py`` at its own size (G 4-32-2, D
+    2-32-1, batch 64, 30 steps): a double gradient on the card through
+    ``autograd.grad(create_graph=True)``; the script asserts the penalty
+    is finite and prints ``OK``; K3-adam (f32) runs twice a step and no
+    other kernel runs."""
+    ns, lines, wall, launches = run_example(torch, counters,
+                                            "train_wgan_gp.py")
+    want = {"fused_adam": 2 * 30}
+    got = {k: v for k, v in launches.items() if v}
+    expect(got == want, f"api_wgan: launches {got}, want {want}")
+    expect(np.isfinite(ns["last_gp"]), "api_wgan: gp not finite")
+    return {"phase": "api_wgan", "script_lines": lines,
+            "script_wall_s": wall, "step_ms_mean": wall / 30 * 1e3,
+            "gp_first": ns["first_gp"], "gp_last": ns["last_gp"],
+            "launches": got}
+
+
+def phase_api_nmt(torch, counters):
+    """``examples/translate_beam.py`` at its own size (``TransformerNMT``
+    d_model 64, 4 heads of width 16, 2 + 2 layers, vocab 20, 300 Adam
+    steps of batch 64, then beam 4): beam-copy accuracy above 0.8 (the
+    script asserts it); its attention runs the counted plain route
+    (``attention_plain``: head width 16, which JAX computes outside
+    Pallas too) and no K1 launch; one K2a + K2b and one K3-adam a step.
+    Then the route on the card: attention at head width 16 equals the
+    same call on the CPU within 1e-5; head widths 192 and 256 raise
+    naming the ROADMAP item."""
+    from paddle_tpu_torch.nn import functional as F
+
+    ns, lines, wall, launches = run_example(torch, counters,
+                                            "translate_beam.py")
+    got = {k: v for k, v in launches.items() if v}
+    expect(got.get("attention_plain", 0) > 0,
+           f"api_nmt: no plain attention ran ({got})")
+    expect(not any(k.startswith("flash_attention") for k in got),
+           f"api_nmt: a flash kernel ran at head width 16 ({got})")
+    for k in ("fused_xent_fwd", "fused_xent_bwd", "fused_adam"):
+        expect(got.get(k) == 300, f"api_nmt: {k} {got.get(k)}, want 300")
+    expect(ns["acc"] > 0.8, f"api_nmt: accuracy {ns['acc']}")
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 40, 4, 16, generator=gen) for _ in range(3))
+    counters.reset()
+    out = F.scaled_dot_product_attention(q.cuda(), k.cuda(), v.cuda(),
+                                         is_causal=True)
+    ref = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    err = float((out.cpu() - ref).abs().max())
+    expect(err <= 1e-5 and counters.get("attention_plain") == 2,
+           f"api_nmt: head width 16 on the card: err {err}, "
+           f"{counters.snapshot()}")
+    raised = {}
+    for d in (192, 256):
+        x = torch.randn(1, 128, 2, d, device="cuda")
+        try:
+            F.scaled_dot_product_attention(x, x, x)
+            raised[d] = None
+        except NotImplementedError as e:
+            raised[d] = str(e)
+    expect(all(m and "ROADMAP" in m for m in raised.values()),
+           f"api_nmt: head widths 192/256 did not raise: {raised}")
+    return {"phase": "api_nmt", "script_lines": lines,
+            "script_wall_s": wall, "step_ms_mean": wall / 300 * 1e3,
+            "accuracy": float(ns["acc"]), "launches": got,
+            "head16_max_abs_err_vs_cpu": err,
+            "head192_256_raise": raised}
+
+
+def phase_ops_parity(torch):
+    """Every case of ``tests/_torch_op_cases.py`` (each op of the op
+    library, the v1.8 ``paddle.tensor`` spellings) on CUDA tensors
+    against the same case on the CPU, and every method of the method
+    table and every operator on a CUDA ``Tensor``: integer, boolean,
+    layout and index results bit for bit, float results within the
+    case's tolerance (``TOL``: elementwise 1e-6, reductions, special
+    functions and linear algebra 1e-5, of the output's largest value;
+    ``CARD_TOL``: the eigendecompositions 3e-5, cuSOLVER against
+    LAPACK), the gradients the same way; every result a ``Tensor`` on
+    the card.
+    The random ops by shape, dtype, range and determinism under
+    ``paddle.seed``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import math_op_patch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import _torch_op_cases as C
+
+    on_card = []
+
+    def check(out):
+        for o in C._leaves(out):
+            if isinstance(o, torch.Tensor):
+                on_card.append(isinstance(o, paddle.Tensor) and o.is_cuda)
+
+    failures, n_cases, n_grads = [], 0, 0
+    t0 = time.perf_counter()
+    for case in C.cases():
+        try:
+            paddle.set_device("cpu")
+            want, want_g = C.run(paddle, case)
+            paddle.set_device("gpu")
+            got, got_g = C.run(paddle, case, check=check)
+            rtol = C.CARD_TOL.get(case.name)
+            C.assert_close(got, want, case.kind, case.key, rtol)
+            if want_g is not None:
+                n_grads += 1
+                C.assert_close(got_g, want_g, "elem" if case.kind == "exact"
+                               else case.kind, case.key + " grad", rtol)
+            n_cases += 1
+        except Exception as e:
+            failures.append(f"{case.key}: {type(e).__name__}: {e}"[:300])
+    methods = 0
+    by_name = {}
+    for case in C.cases():
+        by_name.setdefault(case.name, case)
+    for m in math_op_patch.METHODS:
+        case = by_name[m]
+        for dev in ("cpu", "gpu"):
+            paddle.set_device(dev)
+            rng = np.random.RandomState(0)
+            args = [C._inputs(paddle, C.make(a, rng), False)
+                    for a in case.args]
+            kwargs = {k: C._inputs(paddle, C.make(v, rng), False)
+                      for k, v in case.kwargs.items()}
+            out = getattr(args[0], m)(*args[1:], **kwargs)
+            vals = [C._np(o) for o in C._leaves(out)]
+            if dev == "cpu":
+                ref = vals
+            else:
+                check(out)
+        try:
+            C.assert_close(vals, ref, case.kind, "method " + m,
+                           C.CARD_TOL.get(m))
+            methods += 1
+        except AssertionError as e:
+            failures.append(f"method {m}: {e}"[:300])
+    ops = 0
+    for dunder, (name, _) in math_op_patch.DUNDERS.items():
+        vals = []
+        for dev in ("cpu", "gpu"):
+            paddle.set_device(dev)
+            rng = np.random.RandomState(1)
+            x = rng.standard_normal((3, 4)).astype(np.float32)
+            y = np.abs(rng.standard_normal((3, 4))).astype(np.float32) + .5
+            if name == "matmul":
+                y = y.T.copy()
+            if name.startswith("logical"):
+                x, y = x > 0, y > 1
+            out = getattr(paddle.to_tensor(x), dunder)(paddle.to_tensor(y))
+            if dev == "gpu":
+                check(out)
+            vals.append([C._np(out)])
+        kind = "red" if name == "matmul" else "elem"
+        try:
+            C.assert_close(vals[1], vals[0], kind, dunder)
+            ops += 1
+        except AssertionError as e:
+            failures.append(f"{dunder}: {e}"[:300])
+    rand = {}
+    for name, (args, kwargs) in C.RANDOM.items():
+        paddle.set_device("gpu")
+        fn = paddle.tensor if name in ("standard_normal", "shuffle") \
+            else paddle
+        draws = []
+        for s in (7, 7, 8):
+            paddle.seed(s)
+            rng = np.random.RandomState(0)
+            a = [C._inputs(paddle, C.make(v, rng), False) for v in args]
+            out = getattr(fn, name)(*a, **kwargs)
+            check(out)
+            draws.append(C._np(out))
+        ok = np.array_equal(draws[0], draws[1]) and (
+            name == "multinomial" or not np.array_equal(draws[0],
+                                                        draws[2]))
+        rand[name] = {"shape": list(draws[0].shape),
+                      "dtype": draws[0].dtype.name, "seeded": bool(ok)}
+        if not ok:
+            failures.append(f"random {name}: not determined by seed")
+    from paddle_tpu_torch._device import set_default_device
+
+    set_default_device(None)
+    expect(not failures, f"ops_parity: {len(failures)} failures: "
+                         f"{failures[:10]}")
+    expect(on_card and all(on_card), f"ops_parity: "
+           f"{on_card.count(False)} results not a Tensor on the card")
+    return {"phase": "ops_parity", "cases": n_cases,
+            "gradients": n_grads, "methods": methods, "operators": ops,
+            "random_ops": rand, "results_checked_on_card": len(on_card),
+            "seconds": time.perf_counter() - t0}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -7827,6 +8321,12 @@ def main() -> int:
         emit(o1_row)
         add(launches)
         torch.cuda.empty_cache()
+        for row in (phase_api_bert(torch, counters, o1_row),
+                    phase_api_bert_eager(torch, counters)):
+            emit(row)
+            add(row["launches"])
+            gc.collect()
+            torch.cuda.empty_cache()
         row, launches = phase_bert_recompute(torch, counters, o1_row)
         emit(row)
         add(launches)
@@ -7955,6 +8455,14 @@ def main() -> int:
         emit(row)
         add(launches)
         del row, launches, o1_row
+        torch.cuda.empty_cache()
+        for phase in (phase_api_wgan, phase_api_nmt):
+            row = phase(torch, counters)
+            emit(row)
+            add(row["launches"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit(phase_ops_parity(torch))
         torch.cuda.empty_cache()
 
         def split(k, part):

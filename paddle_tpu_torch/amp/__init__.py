@@ -47,6 +47,7 @@ import threading
 import torch
 
 from ..framework.dtype import to_torch
+from ..framework.tensor import EntryClass, entry
 from ..regularizer import in_type
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_guard",
@@ -135,7 +136,7 @@ def maybe_cast_inputs(op_name: str, tensors):
 # ---------------------------------------------------------------------------
 # dynamic loss scaling
 # ---------------------------------------------------------------------------
-class GradScaler:
+class GradScaler(EntryClass):
     """Dynamic loss scaling (the JAX ``GradScaler``, reference
     ``loss_scaler.py`` ``AmpScaler``)."""
 
@@ -248,6 +249,7 @@ def _groups(tensors):
 # ---------------------------------------------------------------------------
 # O2: low-precision models with f32 master weights
 # ---------------------------------------------------------------------------
+@entry
 def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """``paddle.amp.decorate``: at ``level="O2"`` cast the models'

@@ -25,7 +25,8 @@ import threading
 import torch
 
 __all__ = ["seed", "initial_seed", "default_generator", "fold_in", "StepRNG",
-           "rng_scope", "current_rng"]
+           "rng_scope", "current_rng", "generator_for", "next_rng_key",
+           "Generator"]
 
 _MASK64 = (1 << 64) - 1
 _state = threading.local()
@@ -33,11 +34,12 @@ _GLOBAL = {"seed": 0, "gens": {}}
 _LOCK = threading.Lock()
 
 
-def seed(n: int) -> None:
+def seed(s: int) -> None:
     """Reseed the global state (``paddle.seed``): later default
-    generators, parameter initialisation included, start from ``n``."""
+    generators, parameter initialisation and the random ops included,
+    start from ``s``."""
     with _LOCK:
-        _GLOBAL["seed"] = int(n)
+        _GLOBAL["seed"] = int(s)
         _GLOBAL["gens"] = {}
 
 
@@ -94,12 +96,20 @@ class StepRNG:
                                  generator=self._host).item())
 
 
+Generator = torch.Generator
+
+
 class rng_scope:
-    """Make ``rng`` the random state of stochastic ops inside the
+    """Make ``key_or_seed`` (a :class:`StepRNG`, or an int seeding one
+    on the default device) the random state of stochastic ops inside the
     ``with`` block (``paddle_tpu.framework.random.rng_scope``)."""
 
-    def __init__(self, rng: StepRNG):
-        self.rng = rng
+    def __init__(self, key_or_seed):
+        if isinstance(key_or_seed, int):
+            from .._device import resolve_device
+
+            key_or_seed = StepRNG(key_or_seed, resolve_device(None))
+        self.rng = key_or_seed
 
     def __enter__(self):
         stack = getattr(_state, "stack", None)
@@ -122,3 +132,25 @@ def current_rng(device) -> StepRNG:
     gen = default_generator("cpu")
     s = int(torch.randint(0, (1 << 63) - 1, (1,), generator=gen).item())
     return StepRNG(s, device)
+
+
+def generator_for(device) -> torch.Generator:
+    """The generator a random op on ``device`` draws from: the innermost
+    :class:`rng_scope`'s when it is on that device, else the device's
+    global generator (reseeded by :func:`seed`)."""
+    device = torch.device(device)
+    stack = getattr(_state, "stack", None)
+    if stack:
+        rng = stack[-1]
+        if rng.device.type == device.type and \
+                (rng.device.index or 0) == (device.index or 0):
+            return rng.generator
+    return default_generator(device)
+
+
+def next_rng_key() -> torch.Generator:
+    """The generator of the next random op on the default device (the
+    JAX package's key; PyTorch's generators are stateful)."""
+    from .._device import resolve_device
+
+    return generator_for(resolve_device(None))

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .framework.random import StepRNG, fold_in, rng_scope
+from .framework.tensor import Tensor, entry, user_callback, wrap
 from .parallel import collectives
 from .parallel.ring import sequence_parallel as _sp_scope
 
@@ -55,7 +56,9 @@ __all__ = ["TrainStep"]
 
 class TrainStep:
     """``loss_fn(model, *batch)`` returns a scalar loss; each call
-    trains one step and returns the detached loss."""
+    trains one step and returns the detached loss. A loss function
+    handed over by a user's code runs as a user's code (paddle's
+    methods on the batch's ``Tensor``s, ``framework.tensor``)."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  seed: int = 0, mesh=None, param_rules=None,
@@ -72,7 +75,7 @@ class TrainStep:
         if sequence_parallel is not None and mesh is None:
             raise ValueError("TrainStep(sequence_parallel=...) needs a mesh")
         self.model = model
-        self.loss_fn = loss_fn
+        self.loss_fn = user_callback(loss_fn)
         self.optimizer = optimizer
         self._seed = int(seed)
         self._mesh = mesh
@@ -109,6 +112,7 @@ class TrainStep:
             x = x.narrow(dim, idx * size, size)
         return x
 
+    @entry
     def __call__(self, *batch):
         model = self.model
         model.train()
@@ -118,7 +122,8 @@ class TrainStep:
         scope = contextlib.nullcontext()
         if mesh is not None:
             seed = fold_in(seed, mesh.rank)
-            batch = tuple(self._local(x) for x in batch)
+            batch = tuple(wrap(self._local(x)) if isinstance(x, Tensor)
+                          else self._local(x) for x in batch)
             if self._sequence_parallel is not None:
                 axis, impl = self._sequence_parallel
                 scope = _sp_scope(axis, impl, mesh=mesh)

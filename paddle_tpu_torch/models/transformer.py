@@ -120,7 +120,7 @@ class TransformerNMT(nn.Layer):
                         tgt_mask=tgt_mask)
                     return self.out_proj(out)[:, t]
 
-                return _bs.beam_search_decode(
+                return _bs._beam_search(
                     logits_fn, batch_size=src.shape[0], beam_size=beam_size,
                     max_len=max_len, bos_id=bos_id, eos_id=eos_id,
                     length_penalty=length_penalty, device=src.device)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.tensor import entry
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "GradientClipByValue",
            "GradientClipByNorm", "GradientClipByGlobalNorm",
@@ -102,6 +104,7 @@ GradientClipByNorm = ClipGradByNorm
 GradientClipByGlobalNorm = ClipGradByGlobalNorm
 
 
+@entry
 def clip_grad_norm_(parameters, max_norm):
     """Scale every ``.grad`` IN PLACE so that their joint norm is at most
     ``max_norm``; returns the norm before clipping as a 0-dim tensor on

@@ -49,6 +49,7 @@ import torch
 from ..amp import maybe_cast_inputs
 from ..framework.flags import get_flag
 from ..framework.random import current_rng
+from ..framework.tensor import entry
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import fused_embedding as _fe
 from ..ops.cuda import fused_xent as _fx
@@ -316,7 +317,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     mask (per-query, or a float mask that requires grad) runs
     ``flash_attention.per_query_attention``, the plain attention the JAX
     package computes for it outside Pallas, counted as
-    ``attention_per_query_plain``.
+    ``attention_per_query_plain``. A shape no kernel takes (a head
+    width other than 64 or 128 outside JAX's Pallas gate, causal masking
+    with Lq != Lk) runs ``flash_attention.plain_attention``, counted
+    ``attention_plain``, as JAX computes such shapes outside Pallas
+    (``flash_attention.attention_route``); head widths 192 and 256
+    raise (not ported).
 
     Inside an active ``parallel.sequence_parallel`` scope q, k and v are
     this rank's sequence shards and attention is ring attention over the
@@ -356,6 +362,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _fa.per_query_attention(query, key, value, arg,
                                        causal=is_causal, dropout_p=p,
                                        seed=seed)
+    if _fa.attention_route(query.shape, key.shape, is_causal) == "plain":
+        return _fa.plain_attention(query, key, value, causal=is_causal,
+                                   dropout_p=p, seed=seed, bias=bias)
     if bias is None and get_flag("flash_short_seq") \
             and _fa.short_ok(query, key):
         return _fa.flash_attention_short(query, key, value, causal=is_causal,
@@ -604,3 +613,9 @@ def flatten(x, start_axis=0, stop_axis=-1):
     start, stop = start_axis % nd, stop_axis % nd
     return x.reshape(tuple(x.shape[:start]) + (-1,)
                      + tuple(x.shape[stop + 1:]))
+
+
+# the public functions are entries of the port (``framework.tensor``)
+for _name in __all__:
+    globals()[_name] = entry(globals()[_name])
+del _name

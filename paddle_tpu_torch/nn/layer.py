@@ -35,6 +35,8 @@ import torch
 from .._device import resolve_device
 from ..framework.dtype import to_torch
 from ..framework.random import default_generator
+from ..framework.tensor import (Tensor, entry, entry_methods,
+                                is_port_class, user_entry)
 from ..utils import unique_name
 from . import initializer as I
 
@@ -72,40 +74,35 @@ class ParamAttr:
         raise TypeError(f"Cannot interpret {attr!r} as ParamAttr")
 
 
-class Parameter(torch.nn.Parameter):
-    """A ``torch.nn.Parameter`` with the JAX parameter's attributes:
-    ``name``, ``trainable`` (``requires_grad``), ``optimize_attr``
+class Parameter(Tensor, torch.nn.Parameter):
+    """A ``torch.nn.Parameter`` that is also the port's ``Tensor`` (as
+    the JAX ``Parameter`` subclasses the JAX ``Tensor``: ``p.numpy()``,
+    ``p.stop_gradient``, paddle's methods in a user's code), with the
+    JAX parameter's attributes: ``name``, ``trainable``
+    (``requires_grad``), ``persistable`` (True), ``optimize_attr``
     (``{"learning_rate": ...}``), ``regularizer`` and ``need_clip``."""
 
     def __new__(cls, data=None, requires_grad=True):
-        return super().__new__(cls, data, requires_grad)
+        if data is None:
+            data = torch.empty(0)
+        return torch.Tensor._make_subclass(cls, torch.Tensor.detach(data),
+                                           requires_grad)
 
-    # torch's Tensor has a read-only ``name``; the JAX parameter's is a
-    # plain attribute
-    @property
-    def name(self):
-        return self.__dict__.get("_param_name")
+    def __init__(self, data=None, requires_grad=True):
+        self.persistable = True
 
-    @name.setter
-    def name(self, value):
-        self.__dict__["_param_name"] = value
-
-    @property
-    def trainable(self):
-        return self.requires_grad
-
-    @trainable.setter
-    def trainable(self, value):
-        self.requires_grad_(bool(value))
+    def __repr__(self):
+        return "Parameter containing:\n" + Tensor.__repr__(self)
 
     def __deepcopy__(self, memo):
         if id(self) in memo:
             return memo[id(self)]
-        out = type(self)(self.data.clone(memory_format=torch.preserve_format),
-                         self.requires_grad)
+        out = type(self)(torch.Tensor.clone(
+            torch.Tensor.detach(self), memory_format=torch.preserve_format),
+            self.requires_grad)
         memo[id(self)] = out
         out.__dict__.update({k: v for k, v in self.__dict__.items()
-                             if k != "_param_name"})
+                             if k != "_pname"})
         out.name = self.name
         return out
 
@@ -114,6 +111,27 @@ class Layer(torch.nn.Module):
     """Module base. A layer with parameters takes ``device`` and
     ``generator`` in its constructor and hands them to
     :meth:`create_parameter`; neither is kept on the layer."""
+
+    _port_layer = True
+
+    def __init_subclass__(cls, **kwargs):
+        """A layer class of the port's own modules has its public
+        methods (``forward``, ``loss``, ``beam_search_decode``, ...)
+        made entries of the port (``framework.tensor.entry``): a user's
+        subclass that inherits them, or calls ``super().forward``, runs
+        them as the port's code."""
+        super().__init_subclass__(**kwargs)
+        cls._port_layer = is_port_class(cls)
+        if cls._port_layer:
+            entry_methods(cls)
+
+    def __call__(self, *args, **kwargs):
+        """``torch.nn.Module.__call__`` as an entry of the port for the
+        port's layers; a user's layer runs as a user's code (``Tensor``
+        inputs and semantics) even inside a port container."""
+        if self._port_layer:
+            return _port_call(self, *args, **kwargs)
+        return _user_call(self, *args, **kwargs)
 
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
@@ -201,6 +219,13 @@ class Layer(torch.nn.Module):
 
     load_dict = set_state_dict
     set_dict = set_state_dict
+
+
+_port_call = entry(torch.nn.Module.__call__)
+_user_call = user_entry(torch.nn.Module.__call__)
+entry_methods(Layer, ["to", "state_dict", "set_state_dict", "_apply",
+                      "create_parameter"])
+Layer.load_dict = Layer.set_dict = Layer.set_state_dict
 
 
 def _is_dtype_name(s: str) -> bool:

@@ -19,6 +19,8 @@ from typing import Callable
 
 import torch
 
+from ._util import device_of
+
 __all__ = ["NEG_INF", "beam_search_step", "beam_search_decode"]
 
 NEG_INF = -1e9
@@ -70,7 +72,19 @@ def beam_search_decode(logits_fn: Callable, batch_size: int,
                        beam_size: int = 4, max_len: int = 64,
                        bos_id: int = 1, eos_id: int = 2,
                        length_penalty: float = 0.6, state=None,
-                       gather_state_fn=None, device=None):
+                       gather_state_fn=None):
+    """:func:`_beam_search` on the device of ``state``'s first tensor,
+    else the default device (``set_device``): the JAX signature."""
+    return _beam_search(logits_fn, batch_size, beam_size, max_len, bos_id,
+                        eos_id, length_penalty, state, gather_state_fn,
+                        device=device_of(state))
+
+
+def _beam_search(logits_fn: Callable, batch_size: int,
+                 beam_size: int = 4, max_len: int = 64,
+                 bos_id: int = 1, eos_id: int = 2,
+                 length_penalty: float = 0.6, state=None,
+                 gather_state_fn=None, device=None):
     """The full beam-search loop.
 
     ``logits_fn(ids_buf, t, state)`` returns the next-token logits

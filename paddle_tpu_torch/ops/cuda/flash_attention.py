@@ -638,6 +638,29 @@ def flash_attention_short_bwd(q, k, v, out, lse, dout, causal=False,
     return _plain_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed)
 
 
+def attention_route(q_shape, k_shape, causal=False) -> str:
+    """``"kernel"`` or ``"plain"``: how attention of these (B, L, H, D)
+    shapes is computed, by the JAX package's own route. JAX runs the
+    Pallas kernel only where ``_pallas_ok`` (``paddle_tpu/ops/pallas/
+    flash_attention.py:759-772``) admits the shape and computes every
+    other one outside a kernel (``_xla_attention``); the port does the
+    same where the reason is the head width (D % 64 != 0 or D > 256) or
+    causal masking with Lq != Lk, which no kernel of either package
+    takes. JAX's sequence-length floor and modulus are not copied: the
+    port's kernels take every length (BERT's 128 keeps its kernel).
+    D = 192 and 256, which JAX's gate admits and the port's kernels
+    (D 64 or 128) lack, raise ``NotImplementedError``."""
+    D, Lq, Lk = q_shape[-1], q_shape[1], k_shape[1]
+    if D % 64 or D > 256 or (causal and Lq != Lk):
+        return "plain"
+    if D not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention at head width {D}: the JAX package's Pallas "
+            f"kernel takes it, the port's kernels take {_HEAD_DIMS} "
+            f"(K1 at head width 192/256, ROADMAP queue 2)")
+    return "kernel"
+
+
 def per_query_attention(q, k, v, mask, causal=False, dropout_p=0.0, seed=0):
     """Attention under a per-query mask, in plain PyTorch on q's device
     and counted ``attention_per_query_plain`` (one a call): what the JAX
@@ -652,6 +675,23 @@ def per_query_attention(q, k, v, mask, causal=False, dropout_p=0.0, seed=0):
     mask: ``nn.functional`` sends only masks of this kind here, by their
     kind, never as a fallback."""
     counters.bump("attention_per_query_plain")
+    return _plain_attention(q, k, v, mask, causal, dropout_p, seed)
+
+
+def plain_attention(q, k, v, causal=False, dropout_p=0.0, seed=0,
+                    bias=None):
+    """Attention of a shape :func:`attention_route` sends outside the
+    kernels (a head width the kernels lack, causal with Lq != Lk), with
+    the optional (B, Lk) f32 key mask ``bias``: the computation of
+    :func:`per_query_attention`, counted ``attention_plain`` (one a
+    call), on any device. The flash wrapper's signature, so
+    ``nn.functional`` calls either by the route."""
+    counters.bump("attention_plain")
+    mask = None if bias is None else bias[:, None, None, :]
+    return _plain_attention(q, k, v, mask, causal, dropout_p, seed)
+
+
+def _plain_attention(q, k, v, mask, causal, dropout_p, seed):
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))
@@ -662,7 +702,9 @@ def per_query_attention(q, k, v, mask, causal=False, dropout_p=0.0, seed=0):
         keep = torch.ones((Lq, Lk), dtype=torch.bool,
                           device=s.device).tril(Lk - Lq)
         s = torch.where(keep, s, neg)
-    if mask.dtype == torch.bool:
+    if mask is None:
+        pass
+    elif mask.dtype == torch.bool:
         s = torch.where(mask, s, neg)
     else:
         s = s + mask.to(s.dtype)

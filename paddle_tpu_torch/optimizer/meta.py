@@ -21,6 +21,7 @@ import torch.utils.checkpoint
 
 from .. import amp as amp_mod
 from ..framework import random as random_mod
+from ..framework.tensor import EntryClass, entry, user_callback
 from .optimizer import RuleOptimizer, _div, _k
 
 __all__ = ["GradientMergeOptimizer", "recompute", "RecomputeOptimizer",
@@ -28,7 +29,7 @@ __all__ = ["GradientMergeOptimizer", "recompute", "RecomputeOptimizer",
            "ModelAverage", "PipelineOptimizer"]
 
 
-class GradientMergeOptimizer:
+class GradientMergeOptimizer(EntryClass):
     """Accumulate the gradients of ``k_steps`` calls, then apply them
     once (``meta.py:17-75``): with ``avg`` the merged gradient is divided
     by ``k_steps`` once before the inner step; every gradient is cleared
@@ -130,7 +131,14 @@ def recompute(function, *args, **kwargs):
     the AMP state of the forward run (``_replay``), as JAX rewinds its
     default generator (``:153``, ``:171``): the flash kernels get the
     same Philox seeds and the dropout masks are the same bits. Tensor
-    keyword arguments raise ``ValueError``, as in JAX."""
+    keyword arguments raise ``ValueError``, as in JAX. A ``function``
+    handed over by a user's code runs as a user's code, in the forward
+    and in the replay."""
+    return _recompute(user_callback(function), *args, **kwargs)
+
+
+@entry
+def _recompute(function, *args, **kwargs):
     for k, v in kwargs.items():
         if torch.is_tensor(v):
             raise ValueError(
@@ -146,7 +154,7 @@ def recompute(function, *args, **kwargs):
         **kwargs)
 
 
-class RecomputeOptimizer:
+class RecomputeOptimizer(EntryClass):
     """``meta.py:194-…``, the dygraph path: ``_set_checkpoints`` takes
     sub-layers (or callables with a ``forward``) and wraps each one's
     ``forward`` in :func:`recompute` IN PLACE, so the next forward keeps
@@ -199,7 +207,7 @@ class RecomputeOptimizer:
         return getattr(self.inner, item)
 
 
-class LookAhead:
+class LookAhead(EntryClass):
     """Lookahead (``meta.py:280-313``): every ``k`` inner steps the slow
     weights move ``alpha`` of the way to the fast ones, and the fast
     weights take the slow ones' value. The slow weights start as the
@@ -237,7 +245,7 @@ class LookAhead:
         self.inner.clear_grad()
 
 
-class LocalSGDOptimizer:
+class LocalSGDOptimizer(EntryClass):
     """LocalSGD averages the parameters across data-parallel workers
     every ``k_steps`` steps (``meta.py:316-360``): port slice 11, with
     ``distributed/collective``."""
@@ -308,7 +316,7 @@ class DGCMomentum(RuleOptimizer):
                               "v": torch.where(mask, zero, v)}
 
 
-class EMA:
+class EMA(EntryClass):
     """Exponential moving average of parameters (``meta.py:450-484``):
     ``update`` moves each average ``1 - d`` of the way to its parameter,
     ``d = min(decay, (1 + n) / (10 + n))`` at the n-th update; ``apply``
@@ -372,7 +380,7 @@ class ModelAverage(EMA):
             self._ema[id(p)] = _div(s, self._count)
 
 
-class PipelineOptimizer:
+class PipelineOptimizer(EntryClass):
     """Pipeline-parallel training (``meta.py:503-553``): port slice 11,
     with ``parallel/pipeline.py``."""
 

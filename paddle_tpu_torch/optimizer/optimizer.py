@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from ..framework.random import fold_in
+from ..framework.tensor import EntryClass, entry_methods
 from ..nn.clip import ClipGradBase
 from ..ops.cuda import counters
 from ..ops.cuda.fused_optimizer import (fused_adam_, fused_lamb_,
@@ -103,7 +104,7 @@ _LOW = (torch.bfloat16, torch.float16)
 MASTER = "__master__"
 
 
-class Optimizer:
+class Optimizer(EntryClass):
     DECOUPLED_WD = False
     SLOTS = ()          # per-parameter state, zeros like the parameter
 
@@ -308,6 +309,9 @@ def _uniform_l2(regs):
             len({r.coeff for r in regs}) == 1:
         return regs[0].coeff
     return None
+
+
+entry_methods(Optimizer)
 
 
 class SGD(Optimizer):

@@ -181,21 +181,27 @@ def test_o1_two_steps_match_jax(dtype, rtol):
 def test_o1_fp16_attention_runs_in_f16():
     """Under ``auto_cast(dtype="float16")`` attention receives f16 q, k, v
     from the f16 projections (``sdpa`` is on neither AMP list) and gives
-    f16 out: the kernels' f16 form on the card."""
+    f16 out: the kernels' f16 form on the card at head width 64; at this
+    model's head width (8) the counted plain route, also in f16."""
     _, tm = _models()
     seen = []
-    real = tfa.flash_attention
+    reals = {n: getattr(tfa, n) for n in ("flash_attention",
+                                          "plain_attention")}
 
-    def spy(q, k, v, **kw):
-        seen.append(q.dtype)
-        return real(q, k, v, **kw)
+    def spy(real):
+        def fn(q, k, v, **kw):
+            seen.append(q.dtype)
+            return real(q, k, v, **kw)
+        return fn
 
-    tfa.flash_attention = spy
+    for n, real in reals.items():
+        setattr(tfa, n, spy(real))
     try:
         with amp.auto_cast(level="O1", dtype="float16"):
             tm.loss(*_torch(_batch()))
     finally:
-        tfa.flash_attention = real
+        for n, real in reals.items():
+            setattr(tfa, n, real)
     assert seen == [torch.float16] * 6
 
 
@@ -224,23 +230,30 @@ def test_beam_search_ids_equal_jax_and_scores_within_1e5():
 
 
 def _spy_flash(monkeypatch):
+    """Record each call of attention's two shape routes: the flash
+    kernels' wrapper and, for a head width the kernels lack (this
+    file's 8), ``plain_attention``; they take the same arguments."""
     calls = []
-    real = tfa.flash_attention
 
-    def spy(q, k, v, causal=False, dropout_p=0.0, seed=0, bias=None):
-        calls.append({"causal": causal, "bias": bias is not None,
-                      "lq": q.shape[1], "lk": k.shape[1]})
-        return real(q, k, v, causal=causal, dropout_p=dropout_p, seed=seed,
-                    bias=bias)
+    def spy(real):
+        def fn(q, k, v, causal=False, dropout_p=0.0, seed=0, bias=None):
+            calls.append({"causal": causal, "bias": bias is not None,
+                          "lq": q.shape[1], "lk": k.shape[1]})
+            return real(q, k, v, causal=causal, dropout_p=dropout_p,
+                        seed=seed, bias=bias)
+        return fn
 
-    monkeypatch.setattr(tfa, "flash_attention", spy)
+    for name in ("flash_attention", "plain_attention"):
+        monkeypatch.setattr(tfa, name, spy(getattr(tfa, name)))
     return calls
 
 
 def test_subsequent_mask_runs_the_causal_kernel(monkeypatch):
-    """The NMT's decoder self-attention mask reaches the flash wrapper as
-    ``causal=True`` with no bias (a spy on the wrapper), no attention
-    call takes the per-query plain route, and the logits equal, within
+    """The NMT's decoder self-attention mask reaches attention's shape
+    route (the flash wrapper at head width 64, ``plain_attention`` at
+    this model's 8) as ``causal=True`` with no bias (a spy on both), no
+    attention call takes the per-query plain route, and the logits
+    equal, within
     atol 1e-6, those of the same model whose masks are untagged copies
     (which run the per-query route and add the mask's -1e9)."""
     _, tm = _models()
@@ -275,8 +288,9 @@ def test_a_changed_subsequent_mask_is_a_per_query_mask():
 
 def test_decoder_memory_key_padding_rides_the_masked_kernel(monkeypatch):
     """A (B, 1, 1, S) boolean ``memory_mask`` reaches cross-attention as
-    the flash kernels' key bias; the decoder agrees with JAX's within
-    atol 1e-5."""
+    the (B, S) key bias of attention's shape route (the flash kernels at
+    head width 64, ``plain_attention`` at this test's 8); the decoder
+    agrees with JAX's within atol 1e-5."""
     paddle.seed(1)
     jdec = jnn.TransformerDecoder(
         jnn.TransformerDecoderLayer(D_MODEL, HEADS, FFN, dropout=0.0), 2)

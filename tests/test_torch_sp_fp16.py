@@ -246,10 +246,13 @@ def test_single_process_o1_fp16_losses_match_jax(sp4, monkeypatch):
     tm = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
     load_numpy_state(tm, state)
     seen = []
-    real = tfa.flash_attention
-    monkeypatch.setattr(tfa, "flash_attention",
-                        lambda q, *a, **kw: seen.append(q.dtype)
-                        or real(q, *a, **kw))
+    # attention's shape route: the flash wrapper, or plain_attention at
+    # the tiny GPT's head width (8)
+    for name in ("flash_attention", "plain_attention"):
+        monkeypatch.setattr(tfa, name, (lambda real: lambda q, *a, **kw:
+                                        seen.append(q.dtype)
+                                        or real(q, *a, **kw))(
+            getattr(tfa, name)))
     step = TrainStep(tm, ranks.o1_fp16_loss,
                      AdamW(learning_rate=LR, parameters=tm.parameters(),
                            weight_decay=0.01))
