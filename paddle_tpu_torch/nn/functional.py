@@ -317,12 +317,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     mask (per-query, or a float mask that requires grad) runs
     ``flash_attention.per_query_attention``, the plain attention the JAX
     package computes for it outside Pallas, counted as
-    ``attention_per_query_plain``. A shape no kernel takes (a head
-    width other than 64 or 128 outside JAX's Pallas gate, causal masking
-    with Lq != Lk) runs ``flash_attention.plain_attention``, counted
-    ``attention_plain``, as JAX computes such shapes outside Pallas
-    (``flash_attention.attention_route``); head widths 192 and 256
-    raise (not ported).
+    ``attention_per_query_plain``. The kernels take the head widths
+    JAX's Pallas gate admits (64, 128, 192, 256); a shape no kernel
+    takes (another head width, causal masking with Lq != Lk) runs
+    ``flash_attention.plain_attention``, counted ``attention_plain``, as
+    JAX computes such shapes outside Pallas
+    (``flash_attention.attention_route``).
 
     Inside an active ``parallel.sequence_parallel`` scope q, k and v are
     this rank's sequence shards and attention is ring attention over the

@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
 first use by ``nvcc`` for Hopper (``sm_90a``) into its own shared
-library, loaded with :mod:`ctypes`. Libraries land in ``build/cuda/``
+library, loaded with :mod:`ctypes`. The flash sources also build a
+second library each (``VARIANTS``: the same source and entry points with
+``-DFLASH_WIDE``) holding their head widths 192 and 256, so that those
+instantiations compile in parallel with the rest. Libraries land in ``build/cuda/``
 at the repository root (git-ignored), named by a hash of the source
 and the flags, so an edited source rebuilds and an unchanged one is
 reused. A file lock keeps two processes from building the same library
@@ -25,21 +28,32 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "load",
-           "build_all", "entry", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "VARIANTS", "sources",
+           "load", "build_all", "entry", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# libraries built from another library's source with extra flags:
+# name -> (source name, flags)
+VARIANTS = {"flash_attention_wide": ("flash_attention", ("-DFLASH_WIDE",)),
+            "flash_short_wide": ("flash_short", ("-DFLASH_WIDE",))}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
 def sources() -> List[str]:
-    """Kernel names: one per ``csrc/*.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    """Kernel library names: one per ``csrc/*.cu`` and one per variant."""
+    return sorted([p.stem for p in CSRC.glob("*.cu")] + list(VARIANTS))
+
+
+def _source(name: str):
+    """(the ``.cu`` file, its extra nvcc flags) of library ``name``."""
+    base, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{base}.cu", list(flags)
 
 
 def _nvcc() -> str:
@@ -55,12 +69,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     h = hashlib.sha256()
     h.update(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -74,10 +88,11 @@ def _start(name: str, ptxas_verbose: bool):
     if out.exists():
         return out, None, lock
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
+    src, flags = _source(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC)]
     if ptxas_verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd += ["-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp), lock

@@ -9,8 +9,8 @@ too: ``fused_sample.top_p_plain`` (nucleus sampling, the plain
 sort+cumsum path on any device), ``attention_per_query_plain``
 (attention under a per-query mask, ``flash_attention.
 per_query_attention``, one a call) and ``attention_plain`` (attention
-of a shape no kernel takes, a head width other than 64 or 128 or
-causal masking with Lq != Lk, ``flash_attention.plain_attention``, one
+of a shape no kernel takes, a head width other than 64, 128, 192 or
+256 or causal masking with Lq != Lk, ``flash_attention.plain_attention``, one
 a call), each reached by an explicit dispatch on what the call asks
 for.
 

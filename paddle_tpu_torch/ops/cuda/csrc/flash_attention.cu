@@ -87,6 +87,30 @@
 // The f32 forms use the f32 FMA kernels below: they are the parity route
 // held to 1e-4, which neither bf16 nor TF32 meets.
 //
+// Head widths: 64, 128, 192 and 256, the widths the JAX package's
+// _pallas_ok admits (d % 64 == 0, d <= 256). At 192 and 256 two budgets
+// of the 64 / 128 design break, and each kernel that hits one changes
+// only what it must:
+// - Registers: the dk/dv kernel's accumulators (dK and dV of 16 kv
+//   rows, 2 x D / 8 x 4 f32 a thread) would be 192 and 256, the whole
+//   register file before S, dP and the operands. So at D > 128 a block
+//   accumulates one column chunk of dK and dV (kDkvCols: 96 at D = 192,
+//   128 at D = 256, as many accumulators as at D = 128) and D /
+//   kDkvCols blocks share each kv tile (grid z), each recomputing S, dP,
+//   P and dS over the whole width: 40 % more products than one block, no
+//   exchange between blocks, each element of dK and dV still summed by
+//   one thread in one order, so two runs give the same bits. The forward
+//   and dq kernels hold 96 / 128 accumulators and keep their design, at
+//   one block a multiprocessor (their shared memory allows no more).
+// - Shared memory (the f32 FMA kernels): at D = 256 the dq kernel's and
+//   the dk/dv kernel's f32 tiles (~280 KB) pass the 227 KB a block may
+//   have, so one [64][D+1] tile takes K and V in turn (the dq kernel:
+//   K for S, V for dP, K again for dS K) or V and Q in turn (the dk/dv
+//   kernel, K resident: Q for S, V for dP, Q again for dS^T Q; kOneKV):
+//   more loads, the same arithmetic in the same order. The 2-byte tiles
+//   fit at both widths (dk/dv 221,216 bytes at D = 256).
+// ptxas's registers and spills of every instantiation are in PERF.md.
+//
 // FMA design: q, k, v, out and their gradients keep the JAX package's
 // (B, L, H, D) layout and the kernels index it directly, so no head
 // merge is ever materialised. Tiles are 64 query rows by 64 key rows;
@@ -231,7 +255,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // forward, bf16 or f16 on tensor cores (the body is flash_common.cuh's
 // fwd_mma)
 template <int D, bool MASKED, typename T>
-__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : D == 128 ? 2 : 1)
 flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ lse, Args a) {
@@ -243,17 +267,40 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward: dq (+ delta)
 // ---------------------------------------------------------------------------
+// Shared memory of the f32 backward kernels; at D = 256 a second
+// [64][D+1] operand tile does not fit (ONE_KV), so the dq kernel loads K
+// and V in turn into one tile (K again for dS K) and the dk/dv kernel
+// keeps K resident and loads V and Q in turn into one tile (Q again for
+// dS^T Q): more loads of the same values, the same arithmetic.
+template <int D>
+constexpr size_t dq_smem(bool one_kv) {
+  return sizeof(float) * (kTile * D * 2 + kTile * (D + 1) * (one_kv ? 1 : 2) +
+                          kTile * kTile + 3 * kTile);
+}
+template <int D>
+constexpr bool kOneKV = dq_smem<D>(false) > kSmemMax;
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (kTile * (D + 1) * 2 + kTile * D * (kOneKV<D> ? 1 : 2) +
+                          kTile * kPad + 3 * kTile);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return dq_smem<D>(kOneKV<D>);
+}
+
 template <typename T, int D, bool EXT>
 __global__ void __launch_bounds__(kT)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ o,
               const T* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ delta, T* __restrict__ dq, Args a) {
+  constexpr bool ONE = kOneKV<D>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [64][D], scaled
   float* dOs = Qs + kTile * D;                    // [64][D]
   float* Ks = dOs + kTile * D;                    // [64][D+1]
-  float* Vs = Ks + kTile * (D + 1);               // [64][D+1]
+  float* Vs = ONE ? Ks : Ks + kTile * (D + 1);    // [64][D+1] (ONE: K's)
   float* dSs = Vs + kTile * (D + 1);              // [64][64]
   float* lse_s = dSs + kTile * kTile;             // [64]
   float* delta_s = lse_s + kTile;                 // [64]
@@ -300,7 +347,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < nkv; ++t) {
     const int kv0 = t * kTile;
     load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
-    load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+    if (!ONE) load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
     if (a.bias) load_bias(Bs, a, b, kv0);
     __syncthreads();
     float s[4][4], dp[4][4];
@@ -309,6 +356,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
     mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+    if (ONE) {
+      __syncthreads();
+      load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+      __syncthreads();
+    }
     mm<4, 4, D>(dp, dOs, D, ty * 4, Vs, 1, D + 1, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -326,6 +378,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
+    if (ONE) {
+      load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
+      __syncthreads();
+    }
     mm<4, C, kTile>(acc, dSs, kTile, ty * 4, Ks, D + 1, 1, tx);
     __syncthreads();
   }
@@ -342,11 +398,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk,
                T* __restrict__ dv, Args a) {
+  constexpr bool ONE = kOneKV<D>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [64][D+1]
   float* Vs = Ks + kTile * (D + 1);               // [64][D+1]
-  float* Qs = Vs + kTile * (D + 1);               // [64][D], scaled
-  float* dOs = Qs + kTile * D;                    // [64][D]
+  float* Qs = ONE ? Vs : Vs + kTile * (D + 1);    // [64][D], scaled (ONE:
+                                                  // V's tile)
+  float* dOs = ONE ? Vs + kTile * (D + 1) : Qs + kTile * D;   // [64][D]
   float* Ts = dOs + kTile * D;                    // [64 kv][kPad]: P or dS
   float* lse_s = Ts + kTile * kPad;               // [64]
   float* delta_s = lse_s + kTile;                 // [64]
@@ -358,7 +416,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool drop = a.inv != 1.0f;
 
   load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, a.Lk, 1.0f);
-  load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+  if (!ONE) load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
   if (a.bias) load_bias(Bs, a, b, kv0);
   float dk_acc[4][C], dv_acc[4][C];
 #pragma unroll
@@ -383,6 +441,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
     mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+    if (ONE) {
+      __syncthreads();
+      load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, a.Lk, 1.0f);
+      __syncthreads();
+    }
     mm<4, 4, D>(dp, dOs, D, ty * 4, Vs, 1, D + 1, tx);
     // s -> P, dp -> dropped dP; T <- dropped P (transposed: [kv][q])
 #pragma unroll
@@ -414,6 +477,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j)
         Ts[(tx + 16 * j) * kPad + r] = s[i][j] * (dp[i][j] - delta_s[r]);
     }
+    if (ONE) load_tile<T, D>(Qs, D, q, a, b, h, q0, a.Lq, a.scale);
     __syncthreads();
     mm<4, C, kTile>(dk_acc, Ts, kPad, ty * 4, Qs, D, 1, tx);
     __syncthreads();
@@ -450,7 +514,7 @@ __device__ __forceinline__ void bias_frag(float (&bv)[8][2], const Args& a,
 }
 
 template <int D, bool EXT, typename T>
-__global__ void __launch_bounds__(kMmaT, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 3 : D == 128 ? 2 : 1)
 flash_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ o,
              const T* __restrict__ dout, const float* __restrict__ lse,
@@ -523,8 +587,6 @@ flash_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int kv0 = t * kTile;
-    float bv[8][2];
-    bias_frag(bv, a, b, kv0, lane);
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -532,6 +594,8 @@ flash_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
     mma_abt<D, T>(s, Qs, 16 * w, Kt, lane);     // S = Q K^T
     mma_abt<D, T>(dp, dOs, 16 * w, Vt, lane);   // dP = dO V^T
+    float bv[8][2];
+    bias_frag(bv, a, b, kv0, lane);
     grad_scores<false>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
     if constexpr (kLift<T>) {
 #pragma unroll
@@ -557,6 +621,8 @@ flash_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   store_acc<D>(dq, acc, a, b, h, row0, a.Lq, a.scale, lane);
 }
 
+// one block per (64-row kv tile, b*H + h, column chunk blockIdx.z of
+// dK and dV, kDkvCols<D> wide)
 template <int D, typename T>
 __global__ void __launch_bounds__(kMmaT)
 flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
@@ -564,6 +630,7 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dk,
               T* __restrict__ dv, Args a) {
+  constexpr int DC = kDkvCols<D>;
   extern __shared__ __align__(128) unsigned char smem_mma[];
   constexpr uint32_t TB = kTile * D * 2;
   const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
@@ -575,7 +642,7 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   float* wmax = reinterpret_cast<float*>(dLp + kTile * kTile * 2);  // [8]
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int kv0 = blockIdx.x * kTile;
+  const int kv0 = blockIdx.x * kTile, col0 = blockIdx.z * DC;
   const int nq = (a.Lq + kTile - 1) / kTile;
   const int first = a.causal ? kv0 / kTile : 0;
 
@@ -586,11 +653,14 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
     tile_async<D>(dOs, dout, a, b, h, first * kTile, a.Lq);
   }
   cp_commit();
+  // the key mask at this thread's columns: read once where the registers
+  // allow it, a q tile at a time (after S and dP) beside a column chunk's
+  // accumulators
   float bv[8][2];
-  bias_frag(bv, a, b, kv0, lane);
-  float dka[D / 8][4], dva[D / 8][4];
+  if constexpr (DC == D) bias_frag(bv, a, b, kv0, lane);
+  float dka[DC / 8][4], dva[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
   int lift = kLiftMin, plift = kLiftMin;   // f16: the block's dS and P
@@ -626,6 +696,7 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
     mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
     mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+    if constexpr (DC < D) bias_frag(bv, a, b, kv0, lane);
     grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
     if constexpr (kLift<T>) {
       // dK and dV sum over the tile's 64 q rows (every warp's): one
@@ -641,52 +712,22 @@ flash_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
     store_frag<T>(Pp, nullptr, dp, w, lane);    // dropped P, one term
     store_frag<T>(dSp, dLp, s, w, lane);        // dS, hi + lo
     __syncthreads();
-    // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t fa[4], fl[4];
-      frag_at<kTile>(fa, Ps, 16 * w, 16 * kk, lane);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t fb[4];
-        frag_bt<D>(fb, dOt, 16 * n, 16 * kk, lane);
-        mma16816<T>(dva[2 * n], fa, fb[0], fb[1]);
-        mma16816<T>(dva[2 * n + 1], fa, fb[2], fb[3]);
-      }
-      frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
-      frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t fb[4];
-        frag_bt<D>(fb, Qt, 16 * n, 16 * kk, lane);
-        mma16816<T>(dka[2 * n], fa, fb[0], fb[1]);
-        mma16816<T>(dka[2 * n + 1], fa, fb[2], fb[3]);
-        mma16816<T>(dka[2 * n], fl, fb[0], fb[1]);
-        mma16816<T>(dka[2 * n + 1], fl, fb[2], fb[3]);
-      }
-    }
+    // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q, the
+    // block's columns
+    dkv_products<D, T, DC>(dva, dka, Ps, dSs, dSl, dOt, Qt, col0, w, lane);
     __syncthreads();     // P, dS, the warps' maxima and the stage are
   }                      // rewritten next
-  store_acc<D>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk,
-               kLift<T> ? a.scale * pow2i(lift) : a.scale, lane);
-  store_acc<D>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk,
-               kLift<T> ? pow2i(plift) : 1.0f, lane);
+  store_acc<D, T, DC>(dk, dka, a, b, h, kv0 + 16 * w, a.Lk,
+                      kLift<T> ? a.scale * pow2i(lift) : a.scale, lane,
+                      col0);
+  store_acc<D, T, DC>(dv, dva, a, b, h, kv0 + 16 * w, a.Lk,
+                      kLift<T> ? pow2i(plift) : 1.0f, lane, col0);
 }
 
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) *
          (kTile * D * 2 + kTile * (D + 1) + kTile * kTile + kTile);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-         (kTile * D * 2 + kTile * (D + 1) * 2 + kTile * kTile + 3 * kTile);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad + 3 * kTile);
 }
 
 template <int D>
@@ -757,7 +798,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
       lse, delta, (T*)dq, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dim3 gk((a.Lk + kTile - 1) / kTile, a.B * a.H);
+  dim3 gk((a.Lk + kTile - 1) / kTile, a.B * a.H, D / kDkvCols<D>);
   kdkv<<<gk, kMmaT, dkv_mma_smem<D>(), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dk, (T*)dv, a);
@@ -765,8 +806,8 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
 }
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D, int dtype) {
-  return B < 1 || Lq < 1 || Lk < 1 || H < 1 || (D != 64 && D != 128) ||
-         dtype < 0 || dtype > 2;
+  return B < 1 || Lq < 1 || Lk < 1 || H < 1 || bad_width(D) || dtype < 0 ||
+         dtype > 2;
 }
 
 }  // namespace
@@ -784,15 +825,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
                            seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return D == 64 ? launch_fwd_f32<64>(q, k, v, out, lse, a, st)
-                   : launch_fwd_f32<128>(q, k, v, out, lse, a, st);
-  if (dtype == 2)
-    return D == 64 ? launch_fwd_mma<64, __half>(q, k, v, out, lse, a, st)
-                   : launch_fwd_mma<128, __half>(q, k, v, out, lse, a, st);
-  return D == 64 ? launch_fwd_mma<64, __nv_bfloat16>(q, k, v, out, lse, a, st)
-                 : launch_fwd_mma<128, __nv_bfloat16>(q, k, v, out, lse, a,
-                                                      st);
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (dtype == 0) return launch_fwd_f32<W>(q, k, v, out, lse, a, st);
+    if (dtype == 2) return launch_fwd_mma<W, __half>(q, k, v, out, lse, a, st);
+    return launch_fwd_mma<W, __nv_bfloat16>(q, k, v, out, lse, a, st);
+  });
 }
 
 int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -806,21 +844,17 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const Args a = make_args(B, Lq, Lk, H, causal, scale, thr, inv, seed_lo,
                            seed_hi, bias);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return D == 64 ? launch_bwd_f32<64>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, a, st)
-                   : launch_bwd_f32<128>(q, k, v, o, dout, lse, delta, dq,
-                                         dk, dv, a, st);
-  if (dtype == 2)
-    return D == 64 ? launch_bwd_mma<64, __half>(q, k, v, o, dout, lse, delta,
-                                                dq, dk, dv, a, st)
-                   : launch_bwd_mma<128, __half>(q, k, v, o, dout, lse, delta,
-                                                 dq, dk, dv, a, st);
-  return D == 64 ? launch_bwd_mma<64, __nv_bfloat16>(q, k, v, o, dout, lse,
-                                                     delta, dq, dk, dv, a, st)
-                 : launch_bwd_mma<128, __nv_bfloat16>(q, k, v, o, dout, lse,
-                                                      delta, dq, dk, dv, a,
-                                                      st);
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (dtype == 0)
+      return launch_bwd_f32<W>(q, k, v, o, dout, lse, delta, dq, dk, dv, a,
+                               st);
+    if (dtype == 2)
+      return launch_bwd_mma<W, __half>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, a, st);
+    return launch_bwd_mma<W, __nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
+                                            dk, dv, a, st);
+  });
 }
 
 // the external-lse backward: lse and delta (B*H, Lq) f32 from the
@@ -836,21 +870,17 @@ int flash_attention_bwd_ext(const void* q, const void* k, const void* v,
                            bias);
   cudaStream_t st = (cudaStream_t)stream;
   float* dl = const_cast<float*>(delta);  // read only when EXT
-  if (dtype == 0)
-    return D == 64 ? launch_bwd_f32<64, true>(q, k, v, nullptr, dout, lse,
-                                              dl, dq, dk, dv, a, st)
-                   : launch_bwd_f32<128, true>(q, k, v, nullptr, dout, lse,
-                                               dl, dq, dk, dv, a, st);
-  if (dtype == 2)
-    return D == 64 ? launch_bwd_mma<64, __half, true>(
-                         q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st)
-                   : launch_bwd_mma<128, __half, true>(
-                         q, k, v, nullptr, dout, lse, dl, dq, dk, dv, a, st);
-  using BF = __nv_bfloat16;
-  return D == 64 ? launch_bwd_mma<64, BF, true>(q, k, v, nullptr, dout, lse,
-                                                dl, dq, dk, dv, a, st)
-                 : launch_bwd_mma<128, BF, true>(q, k, v, nullptr, dout, lse,
-                                                 dl, dq, dk, dv, a, st);
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (dtype == 0)
+      return launch_bwd_f32<W, true>(q, k, v, nullptr, dout, lse, dl, dq, dk,
+                                     dv, a, st);
+    if (dtype == 2)
+      return launch_bwd_mma<W, __half, true>(q, k, v, nullptr, dout, lse, dl,
+                                             dq, dk, dv, a, st);
+    return launch_bwd_mma<W, __nv_bfloat16, true>(q, k, v, nullptr, dout, lse,
+                                                  dl, dq, dk, dv, a, st);
+  });
 }
 
 const char* kernel_error_string(int err) {

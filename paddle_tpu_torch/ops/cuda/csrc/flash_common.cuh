@@ -33,6 +33,7 @@ constexpr int kT = 256;      // threads a block
 constexpr int kTile = 64;    // q rows / kv rows a tile
 constexpr int kPad = 68;     // row stride of the transposed P/dS tile
 constexpr float kNegInit = -1e30f;
+constexpr size_t kSmemMax = 232448;   // a block's opt-in shared memory (H100)
 
 struct Args {
   int B, Lq, Lk, H;
@@ -166,18 +167,20 @@ struct Vec<__half> {
 };
 
 // 64 rows of one head, starting at sequence row l0, into dst[r * ld + d]
-// as f32 times ``mul``; rows at or past L load as zeros.
-template <typename T, int D>
+// as f32 times ``mul``; rows at or past L load as zeros. W columns from
+// col0 (all D by default).
+template <typename T, int D, int W = D>
 __device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
                           const Args& a, int b, int h, int l0, int L,
-                          float mul) {
+                          float mul, int col0 = 0) {
   constexpr int V = Vec<T>::N;
-  constexpr int NV = D / V;
+  constexpr int NV = W / V;
   for (int idx = threadIdx.x; idx < kTile * NV; idx += kT) {
     const int r = idx / NV, c = (idx % NV) * V;
     float v[V];
     if (l0 + r < L) {
-      const int64_t off = (((int64_t)b * L + l0 + r) * a.H + h) * D + c;
+      const int64_t off =
+          (((int64_t)b * L + l0 + r) * a.H + h) * D + col0 + c;
       Vec<T>::load(src + off, v);
     } else {
 #pragma unroll
@@ -188,18 +191,19 @@ __device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
   }
 }
 
-template <typename T, int D>
-__device__ void store_rows(T* __restrict__ dst, const float (&acc)[4][D / 16],
+// the 64-row accumulator of W columns from col0 (all D by default)
+template <typename T, int D, int W = D>
+__device__ void store_rows(T* __restrict__ dst, const float (&acc)[4][W / 16],
                            const Args& a, int b, int h, int l0, int L,
-                           float mul) {
+                           float mul, int col0 = 0) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int l = l0 + ty * 4 + i;
     if (l >= L) continue;
-    const int64_t off = (((int64_t)b * L + l) * a.H + h) * D;
+    const int64_t off = (((int64_t)b * L + l) * a.H + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
+    for (int j = 0; j < W / 16; ++j)
       dst[off + tx + 16 * j] = Vec<T>::put(acc[i][j] * mul);
   }
 }
@@ -231,6 +235,24 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// The flash libraries' head widths: 64 and 128, or 192 and 256 built
+// with FLASH_WIDE (a library of their own, compiled in parallel:
+// _build.py's VARIANTS). by_width calls f(std::integral_constant<int,
+// D>{}) for the library's D (the caller has checked it: bad_width).
+#ifdef FLASH_WIDE
+constexpr int kWidths[2] = {192, 256};
+#else
+constexpr int kWidths[2] = {64, 128};
+#endif
+
+template <typename F>
+int by_width(int D, F&& f) {
+  return D == kWidths[0] ? f(std::integral_constant<int, kWidths[0]>{})
+                         : f(std::integral_constant<int, kWidths[1]>{});
+}
+
+bool bad_width(int D) { return D != kWidths[0] && D != kWidths[1]; }
 
 Args make_args(int B, int Lq, int Lk, int H, int causal, float scale,
                unsigned thr, float inv, unsigned lo, unsigned hi,
@@ -581,24 +603,37 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// a warp's 16 x D accumulator, times mul, as T rows l0 + 16 w .. of
-// (B, L, H, D); rows at or past L are not written
+// one n-tile (8 columns from col) of a warp's 16-row accumulator, times
+// mul, as T rows row0 .. of (B, L, H, D); rows at or past L are not
+// written
 template <int D, typename T>
-__device__ __forceinline__ void store_acc(T* __restrict__ dst,
-                                          const float (&acc)[D / 8][4],
-                                          const Args& a, int b, int h,
-                                          int row0, int L, float mul,
-                                          int lane) {
+__device__ __forceinline__ void store_ntile(T* __restrict__ dst,
+                                            const float (&x)[4],
+                                            const Args& a, int b, int h,
+                                            int row0, int L, int col,
+                                            float mul, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int l = row0 + frag_row(lane, 2 * half);
     if (l >= L) continue;
     const int64_t off = (((int64_t)b * L + l) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + off + frag_col(lane, j, 0)) =
-          pack_pair<T>(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+    *reinterpret_cast<uint32_t*>(dst + off + col + 2 * (lane & 3)) =
+        pack_pair<T>(x[2 * half] * mul, x[2 * half + 1] * mul);
   }
+}
+
+// a warp's 16 x DC accumulator (columns col0 .., all D by default), times
+// mul, as T rows row0 .. of (B, L, H, D); rows at or past L are not
+// written
+template <int D, typename T, int DC = D>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst,
+                                          const float (&acc)[DC / 8][4],
+                                          const Args& a, int b, int h,
+                                          int row0, int L, float mul,
+                                          int lane, int col0 = 0) {
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+    store_ntile<D>(dst, acc[j], a, b, h, row0, L, col0 + 8 * j, mul, lane);
 }
 
 // S -> dS in place, and (WANT_P) dP -> the dropped P in place: P =
@@ -659,6 +694,53 @@ __device__ __forceinline__ void store_frag(unsigned char* tile,
       }
     }
 }
+
+// The backward's kv-row products, warp w's kv rows 16 w .. of
+// dV += P^T dO (the dropped P, one term, from the shared tile Ps) and
+// dK += dS^T Q (dS hi + lo from dSs and dSl), over columns col0 ..
+// col0 + DC of dO and Q (64-row tiles of width D): K1b's dk/dv kernel
+// and K1d's cluster kernels
+template <int D, typename T, int DC = D>
+__device__ __forceinline__ void dkv_products(float (&dva)[DC / 8][4],
+                                             float (&dka)[DC / 8][4],
+                                             uint32_t Ps, uint32_t dSs,
+                                             uint32_t dSl, uint32_t dOt,
+                                             uint32_t Qt, int col0, int w,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t fa[4], fl[4];
+    frag_at<kTile>(fa, Ps, 16 * w, 16 * kk, lane);
+#pragma unroll
+    for (int n = 0; n < DC / 16; ++n) {
+      uint32_t fb[4];
+      frag_bt<D>(fb, dOt, col0 + 16 * n, 16 * kk, lane);
+      mma16816<T>(dva[2 * n], fa, fb[0], fb[1]);
+      mma16816<T>(dva[2 * n + 1], fa, fb[2], fb[3]);
+    }
+    frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
+    frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
+#pragma unroll
+    for (int n = 0; n < DC / 16; ++n) {
+      uint32_t fb[4];
+      frag_bt<D>(fb, Qt, col0 + 16 * n, 16 * kk, lane);
+      mma16816<T>(dka[2 * n], fa, fb[0], fb[1]);
+      mma16816<T>(dka[2 * n + 1], fa, fb[2], fb[3]);
+      mma16816<T>(dka[2 * n], fl, fb[0], fb[1]);
+      mma16816<T>(dka[2 * n + 1], fl, fb[2], fb[3]);
+    }
+  }
+}
+
+// The dK/dV accumulators of one thread at head width D hold 2 D / 8 x 4
+// f32 (dK and dV of 16 kv rows, in the fragment map): 192 at D = 192 and
+// 256 at D = 256, the register file's limit before S, dP and the
+// operands. So at D > 128 a backward block accumulates one column chunk
+// of dK and dV, kDkvCols<D> wide (96 at D = 192, 128 at D = 256: 96 or
+// 128 accumulators, as at D = 128), and D / kDkvCols<D> blocks share a kv
+// tile, each recomputing S and dP over the whole width.
+template <int D>
+constexpr int kDkvCols = D <= 128 ? D : D / 2;
 
 // The f16 forms' dS lift (flash_attention.cu's header; K1b's dq and
 // dk/dv kernels, and K1d's short_bwd_mma in flash_short.cu): dS enters

@@ -1,5 +1,5 @@
 // Short-sequence flash attention for Hopper (sm_90a): 128 <= L <= 512,
-// L % 128 == 0, Lq == Lk, head_dim 64 or 128.
+// L % 128 == 0, Lq == Lk, head_dim 64, 128, 192 or 256.
 //
 // Replaces the TPU kernels in paddle_tpu/ops/pallas/flash_attention.py:
 // _flash_attention_core_short_fwd (_short_fwd_kernel: a direct, not
@@ -49,9 +49,28 @@
 // (row, kv tile) for dQ's partials and one a CTA for dK. Details above
 // the kernel.
 //
+// Backward at D = 192 and 256 (short_bwd_wide): the cluster design's dK
+// and dV accumulators pass the register file there and its f32 dQ
+// inboxes and accumulator put a CTA at 320 KB (D = 192) and 418 KB (D =
+// 256) of shared memory. Three designs were open: 32-row kv tiles in a
+// cluster of up to 16 CTAs (a non-portable size that a GPC may not hold
+// at one CTA an SM), dQ's partials exchanged in halves of D through one
+// inbox (still a dQ accumulator and an inbox in shared memory beside the
+// operand ring, and half the dK/dV columns still over the registers),
+// and dQ summed in an f32 scratch in a fixed order. The last is taken,
+// with the dk/dv kernel's column chunks (flash_attention.cu): two
+// clusters of L / 64 CTAs a head, one a column half of dK, dV and dQ,
+// each CTA with 96 or 128 accumulators; dQ's partials summed in device
+// memory (L2) in short_bwd_mma's order, one visitor a q tile a step,
+// ordered by the cluster barrier it already has, the last visitor
+// rounding to dq. Deterministic; its shared memory is the operand ring
+// alone (172 / 216 KB). Details above the kernel.
+//
 // f32 (short_fwd_kernel and short_bwd_kernel, the parity route held to
 // 1e-4, which TF32 cannot meet) uses f32 FMA from shared memory, one
-// block per (b, h) for the whole sequence:
+// block per (b, h) for the whole sequence (at D = 256 the forward takes
+// k and v in column halves, and at D = 192 and 256 the backward loads V
+// and Q in turn into one tile: kShortKC, kShortWide):
 // - Forward: the stripe's scores S = (q * scale) k^T against every
 //   kv-tile (k streamed through one [64][D+1] tile) stay in shared
 //   memory as a [64][L+4] f32 stripe (128 KB at L = 512). Then one pass
@@ -80,17 +99,31 @@ namespace {
 
 constexpr int kMaxL = 512;
 
+// The f32 forward's k / v tile holds D / kc columns: at D = 256 a whole
+// [64][D+1] tile does not fit beside the [64][L+4] score stripe, so the
+// block takes K and V in two column halves (kShortKC = 2), S summing the
+// halves in the order of one pass.
 template <int D>
-constexpr size_t short_fwd_smem(int L) {
+constexpr size_t short_fwd_smem(int L, int kc) {
   return sizeof(float) *
-         (kTile * D + kTile * (D + 1) + (size_t)kTile * (L + 4));
+         (kTile * D + kTile * (D / kc + 1) + (size_t)kTile * (L + 4));
 }
-
 template <int D>
-constexpr size_t short_bwd_smem(int L) {
-  return sizeof(float) * (kTile * (D + 1) * 2 + kTile * D * 2 +
-                          kTile * kPad * 2 + 2 * (size_t)L);
+constexpr int kShortKC = short_fwd_smem<D>(kMaxL, 1) > kSmemMax ? 2 : 1;
+
+// The f32 backward's shared memory; where K, V, Q, dO and the two P/dS
+// tiles do not fit (D = 192 and 256: kShortWide), V and Q take turns in
+// one tile (Q loaded again for dS^T Q) and dS [q][kv] and dS^T [kv][q]
+// take turns in the P tile.
+template <int D>
+constexpr size_t short_bwd_smem(int L, bool wide) {
+  return sizeof(float) *
+         (wide ? kTile * (D + 1) * 2 + kTile * D + kTile * kPad
+               : kTile * (D + 1) * 2 + kTile * D * 2 + kTile * kPad * 2) +
+         sizeof(float) * 2 * (size_t)L;
 }
+template <int D>
+constexpr bool kShortWide = short_bwd_smem<D>(kMaxL, false) > kSmemMax;
 
 // ---------------------------------------------------------------------------
 // forward, f32: one block per b*H + h
@@ -100,12 +133,13 @@ __global__ void __launch_bounds__(kT)
 short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Args a) {
+  constexpr int KC = kShortKC<D>, KW = D / KC;   // k / v column chunks
   extern __shared__ float4 smem4[];
   const int L = a.Lq, ls = L + 4;
   float* Qs = reinterpret_cast<float*>(smem4);   // [64][D], scaled
-  float* KVs = Qs + kTile * D;                    // [64][D+1]: k, then v
-  float* Ss = KVs + kTile * (D + 1);              // [64][L+4]: S, then P
-  constexpr int C = D / 16;
+  float* KVs = Qs + kTile * D;                    // [64][KW+1]: k, then v
+  float* Ss = KVs + kTile * (KW + 1);             // [64][L+4]: S, then P
+  constexpr int C = KW / 16;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const bool drop = a.inv != 1.0f;
@@ -117,14 +151,18 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // 1. the stripe's scores
     for (int t = 0; t < nkv; ++t) {
       const int kv0 = t * kTile;
-      load_tile<T, D>(KVs, D + 1, k, a, b, h, kv0, L, 1.0f);
-      __syncthreads();
       float s[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-      mm<4, 4, D>(s, Qs, D, ty * 4, KVs, 1, D + 1, tx);
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        if (kc) __syncthreads();
+        load_tile<T, D, KW>(KVs, KW + 1, k, a, b, h, kv0, L, 1.0f, kc * KW);
+        __syncthreads();
+        mm<4, 4, KW>(s, Qs + kc * KW, D, ty * 4, KVs, 1, KW + 1, tx);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
@@ -166,19 +204,26 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // 3. out = P v
-    float acc[4][C];
+    float acc[KC][4][C];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
-      for (int j = 0; j < C; ++j) acc[i][j] = 0.0f;
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[kc][i][j] = 0.0f;
     for (int t = 0; t < nkv; ++t) {
       const int kv0 = t * kTile;
-      load_tile<T, D>(KVs, D, v, a, b, h, kv0, L, 1.0f);
-      __syncthreads();
-      mm<4, C, kTile>(acc, Ss + kv0, ls, ty * 4, KVs, D, 1, tx);
-      __syncthreads();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        load_tile<T, D, KW>(KVs, KW, v, a, b, h, kv0, L, 1.0f, kc * KW);
+        __syncthreads();
+        mm<4, C, kTile>(acc[kc], Ss + kv0, ls, ty * 4, KVs, KW, 1, tx);
+        __syncthreads();
+      }
     }
-    store_rows<T, D>(out, acc, a, b, h, q0, L, 1.0f);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      store_rows<T, D, KW>(out, acc[kc], a, b, h, q0, L, 1.0f, kc * KW);
   }
 }
 
@@ -188,7 +233,7 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // key mask)
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : D == 128 ? 2 : 1)
 short_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ lse, Args a) {
@@ -208,14 +253,17 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  float* __restrict__ dq_acc, T* __restrict__ dq,
                  T* __restrict__ dk, T* __restrict__ dv, Args a) {
+  constexpr bool WIDE = kShortWide<D>;
   extern __shared__ float4 smem4[];
   const int L = a.Lq;
   float* Ks = reinterpret_cast<float*>(smem4);   // [64][D+1]
   float* Vs = Ks + kTile * (D + 1);               // [64][D+1]
-  float* Qs = Vs + kTile * (D + 1);               // [64][D], scaled
-  float* dOs = Qs + kTile * D;                    // [64][D]
+  float* Qs = WIDE ? Vs : Vs + kTile * (D + 1);   // [64][D], scaled (WIDE:
+                                                  // V's tile)
+  float* dOs = WIDE ? Vs + kTile * (D + 1) : Qs + kTile * D;   // [64][D]
   float* Ts = dOs + kTile * D;                    // [64 kv][kPad]: P or dS
-  float* dSs = Ts + kTile * kPad;                 // [64 q][kPad]: dS
+  float* dSs = WIDE ? Ts : Ts + kTile * kPad;     // [64 q][kPad]: dS (WIDE:
+                                                  // T's tile)
   float* lse_s = dSs + kTile * kPad;              // [L]
   float* delta_s = lse_s + L;                     // [L]
   constexpr int C = D / 16;
@@ -243,7 +291,7 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < nt; ++kt) {
     const int kv0 = kt * kTile;
     load_tile<T, D>(Ks, D + 1, k, a, b, h, kv0, L, 1.0f);
-    load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, L, 1.0f);
+    if (!WIDE) load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, L, 1.0f);
     float dk_acc[4][C], dv_acc[4][C];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -262,6 +310,11 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
       mm<4, 4, D>(s, Qs, D, ty * 4, Ks, 1, D + 1, tx);
+      if (WIDE) {
+        __syncthreads();
+        load_tile<T, D>(Vs, D + 1, v, a, b, h, kv0, L, 1.0f);
+        __syncthreads();
+      }
       mm<4, 4, D>(dp, dOs, D, ty * 4, Vs, 1, D + 1, tx);
       // s -> P, dp -> dropped dP; T <- dropped P (transposed: [kv][q])
 #pragma unroll
@@ -286,33 +339,49 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       mm<4, C, kTile>(dv_acc, Ts, kPad, ty * 4, dOs, D, 1, tx);
       __syncthreads();
-      // dS = P (dP - delta), into T (transposed) and dSs ([q][kv])
+      // dS = P (dP - delta), into dSs ([q][kv]) and T (transposed; WIDE:
+      // after dS K, in the same tile)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
         const float dl = delta_s[q0 + r];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float ds = s[i][j] * (dp[i][j] - dl);
-          Ts[(tx + 16 * j) * kPad + r] = ds;
-          dSs[r * kPad + tx + 16 * j] = ds;
+          s[i][j] = s[i][j] * (dp[i][j] - dl);
+          dSs[r * kPad + tx + 16 * j] = s[i][j];
+          if (!WIDE) Ts[(tx + 16 * j) * kPad + r] = s[i][j];
         }
       }
       __syncthreads();
-      mm<4, C, kTile>(dk_acc, Ts, kPad, ty * 4, Qs, D, 1, tx);
-      float dq_part[4][C];
+      // this q tile's part of dQ = dS K, 64 columns at a time, into the
+      // scratch
+      for (int c0 = 0; c0 < D; c0 += 64) {
+        float dq_part[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < C; ++j) dq_part[i][j] = 0.0f;
-      mm<4, C, kTile>(dq_part, dSs, kPad, ty * 4, Ks, D + 1, 1, tx);
+          for (int j = 0; j < 4; ++j) dq_part[i][j] = 0.0f;
+        mm<4, 4, kTile>(dq_part, dSs, kPad, ty * 4, Ks + c0, D + 1, 1, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* dst = dqh + (int64_t)(q0 + ty * 4 + i) * D + tx;
+        for (int i = 0; i < 4; ++i) {
+          float* dst = dqh + (int64_t)(q0 + ty * 4 + i) * D + c0 + tx;
 #pragma unroll
-        for (int j = 0; j < C; ++j)
-          dst[16 * j] = kt == 0 ? dq_part[i][j] : dst[16 * j] + dq_part[i][j];
+          for (int j = 0; j < 4; ++j)
+            dst[16 * j] =
+                kt == 0 ? dq_part[i][j] : dst[16 * j] + dq_part[i][j];
+        }
       }
+      if (WIDE) {
+        __syncthreads();   // dS K has read dSs
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            Ts[(tx + 16 * j) * kPad + ty * 4 + i] = s[i][j];
+        load_tile<T, D>(Qs, D, q, a, b, h, q0, L, a.scale);
+        __syncthreads();
+      }
+      mm<4, C, kTile>(dk_acc, Ts, kPad, ty * 4, Qs, D, 1, tx);
       __syncthreads();   // the next q-tile overwrites Qs, dOs, T and dSs
     }
     store_rows<T, D>(dk, dk_acc, a, b, h, kv0, L, 1.0f);
@@ -331,6 +400,30 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward, bf16 or f16 on tensor cores: one thread-block cluster per
 // b*H + h
 // ---------------------------------------------------------------------------
+// delta = rowsum(dO * O) of the q tile a CTA owns (rows r0 ..) in f32
+// into dl_s [64], two threads a row: the cluster kernels' prologue
+// (short_bwd_mma, short_bwd_wide)
+template <int D, typename T>
+__device__ __forceinline__ void owner_delta(float* dl_s,
+                                            const T* __restrict__ dout,
+                                            const T* __restrict__ o,
+                                            const Args& a, int b, int h,
+                                            int r0) {
+  const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+  const int64_t off = (((int64_t)b * a.Lq + r0 + r) * a.H + h) * D +
+                      part * (D / 2);
+  float d = 0.0f, x[8], y[8];
+#pragma unroll
+  for (int col = 0; col < D / 2; col += 8) {
+    Vec<T>::load(dout + off + col, x);
+    Vec<T>::load(o + off + col, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  if (part == 0) dl_s[r] = d;
+}
+
 // The dQ accumulator of the q tile a CTA owns, in the fragment map of its
 // warps (warp w: rows 16 w ..): registers at D = 64; at D = 128 shared
 // memory, element (j, e) of thread t at [(4 j + e) * 128 + t], since the
@@ -449,23 +542,7 @@ short_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   tile_async<D>(Qs, q, a, b, h, kv0, L);           // step 0: j = c
   tile_async<D>(dOs, dout, a, b, h, kv0, L);
   cp_commit();
-  {
-    // delta = rowsum(dO * O) of q tile c in f32 under the copies: two
-    // threads a row
-    const int r = tid >> 1, part = tid & 1;
-    const int64_t off = (((int64_t)b * L + kv0 + r) * a.H + h) * D +
-                        part * (D / 2);
-    float d = 0.0f, x[8], y[8];
-#pragma unroll
-    for (int col = 0; col < D / 2; col += 8) {
-      Vec<T>::load(dout + off + col, x);
-      Vec<T>::load(o + off + col, y);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d = fmaf(x[e], y[e], d);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (part == 0) dl_s[r] = d;
-  }
+  owner_delta<D>(dl_s, dout, o, a, b, h, kv0);     // under the copies
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
@@ -583,29 +660,7 @@ short_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
     if (act) {
       __syncthreads();                          // P and dS are in place
       // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t fa[4], fl[4];
-        frag_at<kTile>(fa, Ps, 16 * w, 16 * kk, lane);
-#pragma unroll
-        for (int nn = 0; nn < D / 16; ++nn) {
-          uint32_t fb[4];
-          frag_bt<D>(fb, dOt, 16 * nn, 16 * kk, lane);
-          mma16816<T>(dva[2 * nn], fa, fb[0], fb[1]);
-          mma16816<T>(dva[2 * nn + 1], fa, fb[2], fb[3]);
-        }
-        frag_at<kTile>(fa, dSs, 16 * w, 16 * kk, lane);
-        frag_at<kTile>(fl, dSl, 16 * w, 16 * kk, lane);
-#pragma unroll
-        for (int nn = 0; nn < D / 16; ++nn) {
-          uint32_t fb[4];
-          frag_bt<D>(fb, Qt, 16 * nn, 16 * kk, lane);
-          mma16816<T>(dka[2 * nn], fa, fb[0], fb[1]);
-          mma16816<T>(dka[2 * nn + 1], fa, fb[2], fb[3]);
-          mma16816<T>(dka[2 * nn], fl, fb[0], fb[1]);
-          mma16816<T>(dka[2 * nn + 1], fl, fb[2], fb[3]);
-        }
-      }
+      dkv_products<D, T>(dva, dka, Ps, dSs, dSl, dOt, Qt, 0, w, lane);
     }
     __syncthreads();     // P, dS, the warps' maxima and the stage are
   }                      // rewritten next
@@ -623,12 +678,226 @@ short_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                kLift<T> ? pow2i(plift) : 1.0f, lane);
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16 or f16 on tensor cores at D = 192 and 256
+// ---------------------------------------------------------------------------
+// short_bwd_mma's design does not fit these widths: its dK and dV
+// accumulators (2 D / 8 x 4 f32 a thread) pass the register file, and its
+// two f32 dQ inboxes and dQ accumulator (3 x 64 x D x 4 bytes) put the
+// CTA at 320 KB (D = 192) and 418 KB (D = 256) of shared memory. So
+// short_bwd_wide splits the columns of dK, dV and dQ into two chunks of
+// DC = D / 2 and gives each chunk its own cluster of n = L / 64 CTAs per
+// (b, h) (grid (n, B*H, 2), clusters along x: at most 8 CTAs, the
+// portable size). CTA (c, chunk g) holds K_c and V_c whole (S = Q K^T and
+// dP = dO V^T need every column) and walks the q tiles as short_bwd_mma
+// does (step s: q tile j = (c + s) mod n, one visitor a q tile a step;
+// causal: only j >= c). S, dP, the dropout bits, P and dS are
+// short_bwd_mma's, computed by both chunks' CTAs alike; each accumulates
+// dK_c and dV_c of its DC columns (96 or 128 f32 a thread, as at D = 128)
+// and sends the partial dQ_j = dS K_c of its columns to the q tile's sum.
+// That sum lives in an f32 scratch in device memory (B*H x 2 x L x DC,
+// the caller's dq_acc, laid out in the fragment map so each thread reads
+// and writes its own 16-byte words), not in shared memory: step s's
+// visitor adds its part to what step s - 1's visitor left (s = 0 writes
+// its part) and the last visitor (step n - 1; causal: step j, CTA 0)
+// rounds the sum, times the scale, to q's type into dq. One cluster
+// barrier a step, split as in short_bwd_mma (arrive after the scratch
+// store, wait before the next read), orders the visitors; the reads and
+// writes go through L2 (ld/st.global.cg), which every SM sees. So each dQ
+// element sums its n parts in one fixed order (s = 0, 1, ...: the order
+// of short_bwd_mma's inboxes): no atomics, two launches give the same
+// bits. dS K runs 32 columns at a time. 172 KB of shared memory at D =
+// 192, 216 KB at D = 256: one CTA a multiprocessor. f16 lifts dS and P as
+// short_bwd_mma does (dQ's partials by a (row, kv tile) exponent, scaled
+// back before the scratch).
+template <int D, typename T>
+constexpr size_t short_bwd_wide_smem() {
+  // k, v; 2 q, 2 dO; P, dS hi, dS lo; delta; (f16) the warps' largest
+  // |dS| and P
+  return (size_t)6 * kTile * D * 2 + (size_t)3 * kTile * kTile * 2 +
+         kTile * 4 + (kLift<T> ? 2 * kWarps * 4 : 0);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kMmaT, 1)
+short_bwd_wide(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ o,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               float* __restrict__ dq_acc, T* __restrict__ dq,
+               T* __restrict__ dk, T* __restrict__ dv, Args a) {
+  constexpr int DC = D / 2;                        // this CTA's columns
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  constexpr uint32_t TB = kTile * D * 2;           // bytes of a 2-byte tile
+  constexpr uint32_t PB = kTile * kTile * 2;       // bytes of a P/dS tile
+  const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
+                 dOs = Qs + 2 * TB, Ps = dOs + 2 * TB, dSs = Ps + PB,
+                 dSl = dSs + PB;
+  float* dl_s = reinterpret_cast<float*>(smem_mma + 6 * TB + 3 * PB);
+  float* wmax = dl_s + kTile;                     // [8], f16
+  const uint32_t dl_u = smem_u32(dl_s);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int L = a.Lq, n = L / kTile;
+  const int c = (int)cluster_rank(), kv0 = c * kTile;
+  const int col0 = blockIdx.z * DC;
+  const int nact = a.causal ? n - c : n;           // steps with work
+  // this (b, h, chunk)'s dQ sums: q tile j's at [j][DC / 8][128] float4
+  float4* sums = reinterpret_cast<float4*>(dq_acc) +
+                 ((int64_t)bh * 2 + blockIdx.z) * n * (DC / 8) * kMmaT;
+
+  tile_async<D>(Ks, k, a, b, h, kv0, L);
+  tile_async<D>(Vs, v, a, b, h, kv0, L);
+  tile_async<D>(Qs, q, a, b, h, kv0, L);           // step 0: j = c
+  tile_async<D>(dOs, dout, a, b, h, kv0, L);
+  cp_commit();
+  owner_delta<D>(dl_s, dout, o, a, b, h, kv0);     // under the copies
+  float dka[DC / 8][4], dva[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  int lift = kLiftMin;       // f16: dK's exponent (the CTA's)
+  int plift = kLiftMin;      // f16: dV's
+  int row_lift[2] = {0, 0};  // f16: this step's dQ partial's, a row
+  cluster_arrive();     // delta is written and every CTA has started
+  cluster_wait();
+
+  for (int st = 0; st < n; ++st) {
+    const int j = (c + st) % n, row0 = j * kTile + 16 * w;
+    const bool act = st < nact;
+    const uint32_t stg = (st & 1) * TB, Qt = Qs + stg, dOt = dOs + stg;
+    float s[8][4];
+    if (act) {
+      if (st + 1 < nact) {
+        const int nq = ((c + st + 1) % n) * kTile;
+        tile_async<D>(Qs + TB - stg, q, a, b, h, nq, L);
+        tile_async<D>(dOs + TB - stg, dout, a, b, h, nq, L);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      // S, dP, P and dS as in short_bwd_mma (written out here, not
+      // shared through a helper: ptxas then kept some of this kernel's
+      // registers in local memory inside its product loop at D = 256)
+      const int q0 = j * kTile;
+      float lse_r[2], dl_r[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = 16 * w + frag_row(lane, 2 * r);
+        lse_r[r] = lse[(int64_t)bh * L + q0 + rr];
+        dl_r[r] = ld_cluster(cluster_map(dl_u + 4 * rr, j));
+      }
+      float dp[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
+      mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
+      mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
+      const float bv[8][2] = {};                  // no bias
+      grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
+      if constexpr (kLift<T>) {
+        const float m0 = tile_absmax(s, 0), m1 = tile_absmax(s, 1);
+        row_lift[0] = lift_exp(m0);
+        row_lift[1] = lift_exp(m1);
+        float ms = fmaxf(m0, m1), mp = tile_absmax(dp, -1);
+        block_absmax2(ms, mp, wmax, w, lane);
+        raise_lift(lift, lift_exp(ms), dka, -1);
+        raise_lift(plift, lift_exp(mp), dva, -1);
+        scale_tile(s, lift);
+        scale_tile(dp, plift);
+      }
+      unsigned char* Pp = smem_mma + 6 * TB;
+      store_frag<T>(Pp, nullptr, dp, w, lane);            // dropped P
+      store_frag<T>(Pp + PB, Pp + 2 * PB, s, w, lane);    // dS, hi + lo
+      if constexpr (kLift<T>) {
+        // dK's scale to the dQ partial's: dS 2^-row_lift, a row
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][e] = times_pow2(s[i][e], lift - row_lift[e >> 1]);
+      }
+    }
+    if (st > 0) cluster_wait();   // step st - 1's sums are stored
+    if (act) {
+      // partial dQ_j = dS K_c over this CTA's columns, 32 at a time, added
+      // to q tile j's sum; the last visitor writes dq
+      const bool last = st == (a.causal ? j : n - 1);
+      float4* sum = sums + (int64_t)j * (DC / 8) * kMmaT + tid;
+#pragma unroll
+      for (int pc = 0; pc < DC / 32; ++pc) {
+        float part[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t fa[4], fl[4];
+          acc_to_a2<T>(fa, fl, s, kk);
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn) {
+            uint32_t fb[4];
+            frag_bt<D>(fb, Ks, col0 + 32 * pc + 16 * nn, 16 * kk, lane);
+            mma16816<T>(part[2 * nn], fa, fb[0], fb[1]);
+            mma16816<T>(part[2 * nn + 1], fa, fb[2], fb[3]);
+            mma16816<T>(part[2 * nn], fl, fb[0], fb[1]);
+            mma16816<T>(part[2 * nn + 1], fl, fb[2], fb[3]);
+          }
+        }
+        if constexpr (kLift<T>) {   // back to dS's own scale, in f32
+          const float f[2] = {pow2i(row_lift[0]), pow2i(row_lift[1])};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[i][e] *= f[e >> 1];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int jj = 4 * pc + i;
+          float4 x = make_float4(part[i][0], part[i][1], part[i][2],
+                                 part[i][3]);
+          if (st > 0) {
+            const float4 y = __ldcg(sum + jj * kMmaT);
+            x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+          }
+          if (last) {
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+            store_ntile<D>(dq, xs, a, b, h, row0, L, col0 + 8 * jj,
+                           a.scale, lane);
+          } else {
+            __stcg(sum + jj * kMmaT, x);
+          }
+        }
+      }
+    }
+    cluster_arrive();
+    if (act) {
+      __syncthreads();                          // P and dS are in place
+      // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q, this
+      // CTA's columns
+      dkv_products<D, T, DC>(dva, dka, Ps, dSs, dSl, dOt, Qt, col0, w, lane);
+    }
+    __syncthreads();     // P, dS, the warps' maxima and the stage are
+  }                      // rewritten next
+  cluster_wait();        // the last step's barrier: no CTA leaves while
+                         // a visitor may still read its delta
+  store_acc<D, T, DC>(dk, dka, a, b, h, kv0 + 16 * w, L,
+                      kLift<T> ? a.scale * pow2i(lift) : a.scale, lane,
+                      col0);
+  store_acc<D, T, DC>(dv, dva, a, b, h, kv0 + 16 * w, L,
+                      kLift<T> ? pow2i(plift) : 1.0f, lane, col0);
+}
+
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Args& a, cudaStream_t st) {
   auto kern = short_fwd_kernel<float, D>;
-  const size_t smem = short_fwd_smem<D>(a.Lq);
-  cudaError_t e = allow_smem(kern, short_fwd_smem<D>(kMaxL));
+  const size_t smem = short_fwd_smem<D>(a.Lq, kShortKC<D>);
+  cudaError_t e = allow_smem(kern, short_fwd_smem<D>(kMaxL, kShortKC<D>));
   if (e != cudaSuccess) return (int)e;
   kern<<<a.B * a.H, kT, smem, st>>>((const float*)q, (const float*)k,
                                    (const float*)v, (float*)out, lse, a);
@@ -655,8 +924,8 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                    cudaStream_t st) {
   using T = float;
   auto kern = short_bwd_kernel<T, D>;
-  const size_t smem = short_bwd_smem<D>(a.Lq);
-  cudaError_t e = allow_smem(kern, short_bwd_smem<D>(kMaxL));
+  const size_t smem = short_bwd_smem<D>(a.Lq, kShortWide<D>);
+  cudaError_t e = allow_smem(kern, short_bwd_smem<D>(kMaxL, kShortWide<D>));
   if (e != cudaSuccess) return (int)e;
   kern<<<a.B * a.H, kT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                    (const T*)o, (const T*)dout, lse, dq_acc,
@@ -664,13 +933,13 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// the launch configuration of the 2-byte backward: grid (L / 64, B*H),
-// clusters of L / 64 CTAs
-cudaLaunchConfig_t bwd_mma_config(int L, int BH, size_t smem,
+// the launch configuration of the 2-byte backward: grid (L / 64, B*H,
+// chunks), clusters of L / 64 CTAs
+cudaLaunchConfig_t bwd_mma_config(int L, int BH, int chunks, size_t smem,
                                    cudaLaunchAttribute* attr,
                                    cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L / kTile, BH);
+  cfg.gridDim = dim3(L / kTile, BH, chunks);
   cfg.blockDim = dim3(kMmaT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -683,29 +952,53 @@ cudaLaunchConfig_t bwd_mma_config(int L, int BH, size_t smem,
   return cfg;
 }
 
-// one cluster of L / 64 CTAs per b*H + h (at most 8, the portable limit)
+// The 2-byte backward's kernel, its shared memory and its column chunks
+// at head width D: short_bwd_mma (one chunk) at D <= 128, short_bwd_wide
+// (two) above
+template <int D, typename T>
+struct BwdMma {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kChunks = kWide ? 2 : 1;
+  static auto kernel() {
+    if constexpr (kWide) return short_bwd_wide<D, T>;
+    else return short_bwd_mma<D, T>;
+  }
+  static constexpr size_t smem() {
+    if constexpr (kWide) return short_bwd_wide_smem<D, T>();
+    else return short_bwd_mma_smem<D, T>();
+  }
+};
+
+// one cluster of L / 64 CTAs per b*H + h and column chunk (at most 8, the
+// portable limit); dq_acc: short_bwd_wide's dQ sums
 template <int D, typename T>
 int launch_bwd_mma(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   void* dq, void* dk, void* dv, const Args& a,
+                   float* dq_acc, void* dq, void* dk, void* dv, const Args& a,
                    cudaStream_t st) {
-  auto kern = short_bwd_mma<D, T>;
-  const size_t smem = short_bwd_mma_smem<D, T>();
+  using K = BwdMma<D, T>;
+  auto kern = K::kernel();
+  const size_t smem = K::smem();
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      bwd_mma_config(a.Lq, a.B * a.H, smem, attr, st);
-  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
-                         (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk,
-                         (T*)dv, a);
+      bwd_mma_config(a.Lq, a.B * a.H, K::kChunks, smem, attr, st);
+  if constexpr (K::kWide)
+    e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
+                           (const T*)o, (const T*)dout, lse, dq_acc, (T*)dq,
+                           (T*)dk, (T*)dv, a);
+  else
+    e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
+                           (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk,
+                           (T*)dv, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 bool bad_shape(int B, int L, int H, int D, int dtype) {
   return B < 1 || H < 1 || L < 128 || L > kMaxL || L % 128 != 0 ||
-         (D != 64 && D != 128) || dtype < 0 || dtype > 2;
+         bad_width(D) || dtype < 0 || dtype > 2;
 }
 
 }  // namespace
@@ -721,45 +1014,40 @@ int flash_short_fwd(const void* q, const void* k, const void* v, void* out,
   const Args a = make_args(B, L, L, H, causal, scale, thr, inv, seed_lo,
                            seed_hi);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return D == 64 ? launch_fwd_f32<64>(q, k, v, out, lse, a, st)
-                   : launch_fwd_f32<128>(q, k, v, out, lse, a, st);
-  if (dtype == 2)
-    return D == 64 ? launch_fwd_mma<64, __half>(q, k, v, out, lse, a, st)
-                   : launch_fwd_mma<128, __half>(q, k, v, out, lse, a, st);
-  using BF = __nv_bfloat16;
-  return D == 64 ? launch_fwd_mma<64, BF>(q, k, v, out, lse, a, st)
-                 : launch_fwd_mma<128, BF>(q, k, v, out, lse, a, st);
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (dtype == 0) return launch_fwd_f32<W>(q, k, v, out, lse, a, st);
+    if (dtype == 2) return launch_fwd_mma<W, __half>(q, k, v, out, lse, a, st);
+    return launch_fwd_mma<W, __nv_bfloat16>(q, k, v, out, lse, a, st);
+  });
 }
 
-// dq_acc: f32 scratch (B*H, L, D) of the f32 form, whose contents are
-// overwritten; the 2-byte forms take none (null)
+// dq_acc: an f32 scratch (B*H, L, D) whose contents are overwritten, for
+// the f32 form and the 2-byte forms at D > 128 (their dQ sums); null
+// otherwise
 int flash_short_bwd(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* dq_acc, void* dq, void* dk, void* dv, int B,
                     int L, int H, int D, int causal, int dtype, float scale,
                     unsigned thr, float inv, unsigned seed_lo,
                     unsigned seed_hi, void* stream) {
-  if (bad_shape(B, L, H, D, dtype) || (dtype == 0 && dq_acc == nullptr))
+  if (bad_shape(B, L, H, D, dtype) ||
+      ((dtype == 0 || D > 128) && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, L, L, H, causal, scale, thr, inv, seed_lo,
                            seed_hi);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return D == 64 ? launch_bwd_f32<64>(q, k, v, o, dout, lse, dq_acc, dq,
-                                        dk, dv, a, st)
-                   : launch_bwd_f32<128>(q, k, v, o, dout, lse, dq_acc, dq,
-                                         dk, dv, a, st);
-  if (dtype == 2)
-    return D == 64 ? launch_bwd_mma<64, __half>(q, k, v, o, dout, lse, dq, dk,
-                                                dv, a, st)
-                   : launch_bwd_mma<128, __half>(q, k, v, o, dout, lse, dq,
-                                                 dk, dv, a, st);
-  using BF = __nv_bfloat16;
-  return D == 64 ? launch_bwd_mma<64, BF>(q, k, v, o, dout, lse, dq, dk, dv,
-                                          a, st)
-                 : launch_bwd_mma<128, BF>(q, k, v, o, dout, lse, dq, dk, dv,
-                                           a, st);
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (dtype == 0)
+      return launch_bwd_f32<W>(q, k, v, o, dout, lse, dq_acc, dq, dk, dv, a,
+                               st);
+    if (dtype == 2)
+      return launch_bwd_mma<W, __half>(q, k, v, o, dout, lse, dq_acc, dq, dk,
+                                       dv, a, st);
+    return launch_bwd_mma<W, __nv_bfloat16>(q, k, v, o, dout, lse, dq_acc, dq,
+                                            dk, dv, a, st);
+  });
 }
 
 // How many clusters of the bf16 backward (the f16 one's 16 more bytes
@@ -768,26 +1056,18 @@ int flash_short_bwd(const void* q, const void* k, const void* v,
 // negative cudaError_t.
 int flash_short_bwd_max_clusters(int L, int D) {
   if (bad_shape(1, L, 1, D, 1)) return -(int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  int n = 0;
-  cudaError_t e;
-  using BF = __nv_bfloat16;
-  if (D == 64) {
-    auto kern = short_bwd_mma<64, BF>;
-    e = allow_smem(kern, short_bwd_mma_smem<64, BF>());
-    const cudaLaunchConfig_t cfg = bwd_mma_config(
-        L, 1, short_bwd_mma_smem<64, BF>(), attr, nullptr);
+  return by_width(D, [&](auto w) {
+    using K = BwdMma<decltype(w)::value, __nv_bfloat16>;
+    auto kern = K::kernel();
+    cudaLaunchAttribute attr[1];
+    int n = 0;
+    cudaError_t e = allow_smem(kern, K::smem());
+    const cudaLaunchConfig_t cfg =
+        bwd_mma_config(L, 1, K::kChunks, K::smem(), attr, nullptr);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
-  } else {
-    auto kern = short_bwd_mma<128, BF>;
-    e = allow_smem(kern, short_bwd_mma_smem<128, BF>());
-    const cudaLaunchConfig_t cfg = bwd_mma_config(
-        L, 1, short_bwd_mma_smem<128, BF>(), attr, nullptr);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
-  }
-  return e == cudaSuccess ? n : -(int)e;
+    return e == cudaSuccess ? n : -(int)e;
+  });
 }
 
 const char* kernel_error_string(int err) {

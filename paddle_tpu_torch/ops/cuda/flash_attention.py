@@ -8,8 +8,13 @@ the dq and dk/dv kernels; ``csrc/flash_attention.cu``) and the
 short-sequence kernels (``_flash_attention_core_short_fwd`` and
 ``_flash_attention_core_short_bwd``; ``csrc/flash_short.cu``), which
 give one block a whole (batch, head), take a direct softmax over the
-row and compute dq, dk and dv in one backward launch. The short forms
-take Lq == Lk, 128 <= L <= 512, L % 128 == 0 (:func:`short_ok`); they
+row and compute dq, dk and dv in one backward launch. Every kernel takes
+head widths 64, 128, 192 and 256, the widths JAX's Pallas gates admit
+(at 192 and 256 the backward kernels split the columns of dK, dV and,
+in the short form, dQ between blocks, and the f32 forms load some
+operand tiles in turn: ``csrc/flash_attention.cu``'s header). The short
+forms take Lq == Lk, 128 <= L <= 512, L % 128 == 0 (:func:`short_ok`);
+they
 compute the same function as the streaming ones, so both share one
 plain version. Layout is the JAX package's: q, k, v and out are (B, L, H, D);
 the kernels index that layout directly (no head merge). Scores use the
@@ -97,7 +102,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192, 256)
 _SHORT_MIN, _SHORT_MAX = 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG_INF = -1e30             # the JAX package's finite mask value
@@ -391,6 +396,12 @@ def _check(q, k, v, causal):
     return B, Lq, k.shape[1], H, D
 
 
+def _lib(name, D):
+    """The kernel library of ``name`` that holds head width D: 192 and
+    256 build as a library of their own (``_build.VARIANTS``)."""
+    return name + "_wide" if D > 128 else name
+
+
 def _counter(name, q):
     """The launch count of ``name``: f16 launches apart."""
     return name + "_f16" if q.dtype == torch.float16 else name
@@ -422,7 +433,7 @@ def _dropout_args(dropout_p, seed):
 def _cuda_fwd(q, k, v, causal, dropout_p, seed, bias=None):
     B, Lq, Lk, H, D = _check(q, k, v, causal)
     bias_ptr = _check_bias(bias, q, B, Lk)
-    fn = _build.entry("flash_attention", "flash_attention_fwd",
+    fn = _build.entry(_lib("flash_attention", D), "flash_attention_fwd",
                       [_P] * 6 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
@@ -431,7 +442,7 @@ def _cuda_fwd(q, k, v, causal, dropout_p, seed, bias=None):
              lse.data_ptr(), bias_ptr, B, Lq, Lk, H, D, int(bool(causal)),
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention", err, "flash_attention_fwd")
+    _build.check(_lib("flash_attention", D), err, "flash_attention_fwd")
     counters.bump(_counter("flash_attention_fwd" if bias is None
                            else "flash_attention_masked_fwd", q))
     return out, lse
@@ -455,7 +466,7 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
     B, Lq, Lk, H, D = _check(q, k, v, causal)
     _check_saved(q, out, lse, dout)
     bias_ptr = _check_bias(bias, q, B, Lk)
-    fn = _build.entry("flash_attention", "flash_attention_bwd",
+    fn = _build.entry(_lib("flash_attention", D), "flash_attention_bwd",
                       [_P] * 11 + [_I] * 7 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
@@ -467,7 +478,7 @@ def _cuda_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed, bias=None):
              B, Lq, Lk, H, D, int(bool(causal)), _DTYPES[q.dtype],
              1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention", err, "flash_attention_bwd")
+    _build.check(_lib("flash_attention", D), err, "flash_attention_bwd")
     counters.bump(_counter("flash_attention_bwd" if bias is None
                            else "flash_attention_masked_bwd", q))
     return dq, dk, dv
@@ -492,7 +503,7 @@ def _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias=None):
     B, Lq, Lk, H, D = _check(q, k, v, causal)
     _check_ext(q, dout, lse, delta)
     bias_ptr = _check_bias(bias, q, B, Lk)
-    fn = _build.entry("flash_attention", "flash_attention_bwd_ext",
+    fn = _build.entry(_lib("flash_attention", D), "flash_attention_bwd_ext",
                       [_P] * 10 + [_I] * 7 + [_F, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
@@ -501,15 +512,16 @@ def _cuda_bwd_ext(q, k, v, dout, lse, delta, causal, bias=None):
              dv.data_ptr(), bias_ptr, B, Lq, Lk, H, D, int(bool(causal)),
              _DTYPES[q.dtype], 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention", err, "flash_attention_bwd_ext")
+    _build.check(_lib("flash_attention", D), err, "flash_attention_bwd_ext")
     counters.bump(_counter("flash_attention_ext_bwd", q))
     return dq, dk, dv
 
 
 def short_ok(q, k, causal=False):
     """Whether the short-sequence kernels take this shape: Lq == Lk,
-    128 <= L <= 512, L % 128 == 0 and head_dim 64 or 128. This is the
-    JAX ``_short_ok`` rule without its ``b*h < 2**15`` bound, which
+    128 <= L <= 512, L % 128 == 0 and head_dim 64, 128, 192 or 256.
+    This is the JAX ``_short_ok`` rule without its ``b*h < 2**15``
+    bound, which
     guards the TPU's packing of a dropout seed into one int32 word; the
     port's Philox counter holds the full (b*H + h, row, column)
     coordinates, so it has no such limit. ``causal`` is taken either
@@ -538,7 +550,7 @@ def _check_short(q, k, v, causal):
 
 def _cuda_short_fwd(q, k, v, causal, dropout_p, seed):
     B, L, _, H, D = _check_short(q, k, v, causal)
-    fn = _build.entry("flash_short", "flash_short_fwd",
+    fn = _build.entry(_lib("flash_short", D), "flash_short_fwd",
                       [_P] * 5 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
     out = torch.empty_like(q)
     lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
@@ -547,7 +559,7 @@ def _cuda_short_fwd(q, k, v, causal, dropout_p, seed):
              lse.data_ptr(), B, L, H, D, int(bool(causal)),
              _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr, inv, lo, hi,
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_short", err, "flash_short_fwd")
+    _build.check(_lib("flash_short", D), err, "flash_short_fwd")
     counters.bump(_counter("flash_attention_short_fwd", q))
     return out, lse
 
@@ -555,14 +567,16 @@ def _cuda_short_fwd(q, k, v, causal, dropout_p, seed):
 def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
     B, L, _, H, D = _check_short(q, k, v, causal)
     _check_saved(q, out, lse, dout)
-    fn = _build.entry("flash_short", "flash_short_bwd",
+    fn = _build.entry(_lib("flash_short", D), "flash_short_bwd",
                       [_P] * 10 + [_I] * 6 + [_F, _U, _F, _U, _U, _P])
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    # the f32 form's dQ scratch; the 2-byte forms sum dQ in their
+    # the dQ scratch of the f32 form and of the 2-byte forms at D > 128
+    # (their dQ sums); at D <= 128 the 2-byte forms sum dQ in their
     # clusters' shared memory
     dq_acc = torch.empty((B * H, L, D), dtype=torch.float32,
-                         device=q.device) if q.dtype == torch.float32 else None
+                         device=q.device) \
+        if q.dtype == torch.float32 or D > 128 else None
     thr, inv, lo, hi = _dropout_args(dropout_p, seed)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(),
@@ -570,7 +584,7 @@ def _cuda_short_bwd(q, k, v, out, lse, dout, causal, dropout_p, seed):
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, D,
              int(bool(causal)), _DTYPES[q.dtype], 1.0 / math.sqrt(D), thr,
              inv, lo, hi, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_short", err, "flash_short_bwd")
+    _build.check(_lib("flash_short", D), err, "flash_short_bwd")
     counters.bump(_counter("flash_attention_short_bwd", q))
     return dq, dk, dv
 
@@ -644,20 +658,14 @@ def attention_route(q_shape, k_shape, causal=False) -> str:
     Pallas kernel only where ``_pallas_ok`` (``paddle_tpu/ops/pallas/
     flash_attention.py:759-772``) admits the shape and computes every
     other one outside a kernel (``_xla_attention``); the port does the
-    same where the reason is the head width (D % 64 != 0 or D > 256) or
-    causal masking with Lq != Lk, which no kernel of either package
-    takes. JAX's sequence-length floor and modulus are not copied: the
-    port's kernels take every length (BERT's 128 keeps its kernel).
-    D = 192 and 256, which JAX's gate admits and the port's kernels
-    (D 64 or 128) lack, raise ``NotImplementedError``."""
+    same where the reason is the head width (D % 64 != 0 or D > 256:
+    the kernels take 64, 128, 192 and 256) or causal masking with Lq !=
+    Lk, which no kernel of either package takes. JAX's sequence-length
+    floor and modulus are not copied: the port's kernels take every
+    length (BERT's 128 keeps its kernel)."""
     D, Lq, Lk = q_shape[-1], q_shape[1], k_shape[1]
-    if D % 64 or D > 256 or (causal and Lq != Lk):
+    if D not in _HEAD_DIMS or (causal and Lq != Lk):
         return "plain"
-    if D not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash attention at head width {D}: the JAX package's Pallas "
-            f"kernel takes it, the port's kernels take {_HEAD_DIMS} "
-            f"(K1 at head width 192/256, ROADMAP queue 2)")
     return "kernel"
 
 

@@ -137,10 +137,9 @@ SHAPES = [(b, lq, lk, h, d, causal)
 def test_attention_route_follows_jax_gate(shape, monkeypatch):
     """Where JAX's ``_pallas_ok`` refuses a shape for its head width or
     for causal Lq != Lk, the port computes it outside the kernels too
-    (``plain``); where JAX admits a head width the port's kernels lack
-    (192, 256) the route raises naming the ROADMAP item; head widths 64
-    and 128 take the kernel at every length (JAX's length floor and
-    modulus are not copied)."""
+    (``plain``); every head width JAX admits (64, 128, 192, 256) takes
+    the kernel at every length (JAX's length floor and modulus are not
+    copied), and no admitted width raises."""
     import jax.numpy as jnp
 
     monkeypatch.setattr("paddle_tpu.framework.bringup.pallas_enabled",
@@ -154,9 +153,6 @@ def test_attention_route_follows_jax_gate(shape, monkeypatch):
     if head_or_causal_refused:
         assert not jax_ok
         assert tfa.attention_route(q.shape, k.shape, causal) == "plain"
-    elif d in (192, 256):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-            tfa.attention_route(q.shape, k.shape, causal)
     else:
         assert tfa.attention_route(q.shape, k.shape, causal) == "kernel"
 

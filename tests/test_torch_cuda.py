@@ -238,7 +238,10 @@ def _qkvo(dev, seed, B, L, H, D, dtype):
     (2, 128, 12, 64, False, 0.1),
     (1, 200, 3, 64, True, 0.1),
     (1, 96, 2, 128, False, 0.0),
-], ids=["bert", "bert-dropout", "ragged-causal", "D128"])
+    (1, 200, 2, 192, True, 0.1),
+    (1, 256, 2, 256, False, 0.1),
+], ids=["bert", "bert-dropout", "ragged-causal", "D128", "D192-causal",
+        "D256"])
 def test_flash_kernels_match_plain(dev, dtype, atol, B, L, H, D, causal, p):
     q, k, v, do = _qkvo(dev, 11, B, L, H, D, dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal, p, 1234)
@@ -421,7 +424,11 @@ def test_training_kernels_raise_on_what_they_do_not_take(dev):
     (torch.float32, 1e-4, 2, 128, 12, 64, False, 0.0),
     (torch.float32, 1e-4, 1, 256, 3, 64, True, 0.1),
     (torch.bfloat16, 2e-2, 1, 384, 2, 128, False, 0.1),
-], ids=["bert512", "L128", "causal", "D128"])
+    (torch.bfloat16, 2e-2, 1, 512, 2, 192, False, 0.1),
+    (torch.float32, 1e-4, 1, 256, 2, 256, True, 0.1),
+    (torch.bfloat16, 2e-2, 1, 384, 2, 256, True, 0.0),
+], ids=["bert512", "L128", "causal", "D128", "D192", "D256-f32-causal",
+        "D256-causal"])
 def test_flash_short_kernels_match_plain_and_streaming(dev, dtype, atol, B,
                                                        L, H, D, causal, p):
     q, k, v, do = _qkvo(dev, 12, B, L, H, D, dtype)

@@ -6,12 +6,13 @@ the JAX package on the CPU.
 - K1c/K1d: the port's plain short forward and backward against
   ``_flash_attention_core_short`` with ``pl.pallas_call`` in interpret
   mode (as ``tests/test_flash_short.py`` runs it): b 2, L 128 and 256,
-  h 2, d 64, f32, causal and not, no dropout; out within 2e-5, the
-  gradients of ``sum(out**2)`` within 1e-4 (JAX's own tolerances).
+  h 2, d 64, and h 1 at d 192 and 256, f32, causal and not, no dropout;
+  out within 2e-5, the gradients of ``sum(out**2)`` within 1e-4 (JAX's
+  own tolerances).
 - The routing rule: the same verdicts as ``_short_ok`` (with
-  ``pallas_enabled`` patched True) on L 128 / 512 / 1024 and
-  cross-attention, and the flag's gate; the one intended difference is
-  the dropped ``b*h < 2**15`` bound.
+  ``pallas_enabled`` patched True) on L 128 / 512 / 1024,
+  cross-attention and head widths 64 to 320, and the flag's gate; the
+  one intended difference is the dropped ``b*h < 2**15`` bound.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are
 held against those and against the streaming kernel on the card
@@ -57,10 +58,11 @@ def _qkv(b=2, l=128, h=2, d=64, seed=0, n=3):
     return [rng.randn(b, l, h, d).astype(np.float32) for _ in range(n)]
 
 
+@pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("l", [128, 256])
-def test_short_forward_matches_the_pallas_short_kernel(causal, l):
-    q, k, v = _qkv(l=l, seed=l)
+def test_short_forward_matches_the_pallas_short_kernel(causal, l, d):
+    q, k, v = _qkv(l=l, h=2 if d == 64 else 1, d=d, seed=l)
     jout, res = jfa._flash_attention_core_short_fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, causal, 0.0)
     jlse = np.asarray(res[4])[:, 0, :]                # (B*H, L)
@@ -73,11 +75,12 @@ def test_short_forward_matches_the_pallas_short_kernel(causal, l):
     assert counters.snapshot() == {}                  # the CPU runs plain
 
 
+@pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("l", [128, 256])
-def test_short_backward_matches_the_pallas_short_kernel(causal, l):
+def test_short_backward_matches_the_pallas_short_kernel(causal, l, d):
     """Gradients of ``sum(out**2)`` through the one-launch backward."""
-    q, k, v = _qkv(l=l, seed=l + 1)
+    q, k, v = _qkv(l=l, h=2 if d == 64 else 1, d=d, seed=l + 1)
 
     def jloss(a, b, c):
         return jnp.sum(jfa._flash_attention_core_short(a, b, c, None,
@@ -120,7 +123,11 @@ def test_short_ok_gives_the_jax_verdicts(monkeypatch):
               ((2, 128, 2, 64), (2, 256, 2, 64)),      # cross-attention
               ((2, 192, 2, 64), (2, 192, 2, 64)),      # L % 128 != 0
               ((2, 64, 2, 64), (2, 64, 2, 64)),        # below 128
-              ((1, 256, 4, 128), (1, 256, 4, 128))]
+              ((1, 256, 4, 128), (1, 256, 4, 128)),
+              ((1, 512, 4, 192), (1, 512, 4, 192)),    # head widths 192,
+              ((1, 128, 3, 256), (1, 128, 3, 256)),    # 256: the kernels
+              ((1, 128, 2, 96), (1, 128, 2, 96)),      # and JAX's refusals
+              ((1, 128, 2, 320), (1, 128, 2, 320))]
     for qs, ks in shapes:
         jq, jk = jnp.zeros(qs), jnp.zeros(ks)
         for causal in (False, True):

@@ -4,8 +4,9 @@ package on the CPU, from the same numpy inputs.
 
 - The external-lse plain version against JAX ``_bwd_call`` in interpret
   mode, for one kv chunk with the lse and delta of a longer sequence
-  (B 1, L 128, H 2, D 64; causal and not, with and without a key bias);
-  f32, atol 1e-5 (the sums run in another order).
+  (B 1, L 128, H 2, D 64, and H 1 at D 192 and 256; causal and not,
+  with and without a key bias); f32, atol 1e-5 (the sums run in another
+  order).
 - The in-process ring (``ring_attention_chunks``, every rank's walk in
   one process) against ``_xla_attention``: forward and the gradients of
   a weighted sum, 2 and 4 chunks, causal, full and key-padded; atol 1e-5.
@@ -52,12 +53,13 @@ def _heads(x):
     return jnp.asarray(np.swapaxes(x, 1, 2).reshape(b * h, l, d))
 
 
+@pytest.mark.parametrize("D", [64, 192, 256])
 @pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_ext_backward_plain_matches_pallas_bwd_call(interpret_pallas,
-                                                    causal, bias):
+                                                    causal, bias, D):
     rng = np.random.RandomState(3)
-    B, L, H, D = 1, 128, 2, 64
+    B, L, H = 1, 128, 2 if D == 64 else 1
     q, k, v, do, k2, v2 = (rng.randn(B, L, H, D).astype(np.float32)
                            for _ in range(6))
     mb = np.where(rng.rand(B, L) < 0.8, 0.0, -1e30).astype(np.float32) \

@@ -7,7 +7,8 @@ kernels are held against those plain versions on the card
 
 - K1 flash attention: out and lse against ``_flash_attention_core_fwd``
   and dq/dk/dv through autograd against ``jax.vjp`` of
-  ``_flash_attention_pallas``, causal and not; f32, atol 1e-5 (the
+  ``_flash_attention_pallas``, causal and not, at head widths 64 (1 x
+  256 x 2 x 64) and 192 and 256 (1 x 256 x 1 x D); f32, atol 1e-5 (the
   sums run in another order).
 - K2 fused xent: loss, dh, dW, db against ``_fused_xent_core`` and its
   vjp, with ignored rows and N = 300 (the JAX side pads to 512 with
@@ -68,10 +69,17 @@ def _t(a, grad=False):
 # ---------------------------------------------------------------------------
 # K1: flash attention
 # ---------------------------------------------------------------------------
+def _heads_for(d):
+    """Heads of the K1 cases at head width d: 2 at 64, 1 at 192 and 256."""
+    return 2 if d == 64 else 1
+
+
+@pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_forward_matches_pallas(causal):
+def test_flash_forward_matches_pallas(causal, d):
     rng = np.random.RandomState(1)
-    q, k, v = (rng.randn(1, 256, 2, 64).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.randn(1, 256, _heads_for(d), d).astype(np.float32)
+               for _ in range(3))
     jout, res = jfa._flash_attention_core_fwd(jnp.asarray(q), jnp.asarray(k),
                                               jnp.asarray(v), causal, 128,
                                               128)
@@ -83,10 +91,11 @@ def test_flash_forward_matches_pallas(causal):
     assert counters.snapshot() == {}                  # the CPU runs plain
 
 
+@pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_backward_matches_pallas_vjp(causal):
+def test_flash_backward_matches_pallas_vjp(causal, d):
     rng = np.random.RandomState(2)
-    q, k, v, do = (rng.randn(1, 256, 2, 64).astype(np.float32)
+    q, k, v, do = (rng.randn(1, 256, _heads_for(d), d).astype(np.float32)
                    for _ in range(4))
     _, vjp = jax.vjp(lambda a, b, c: jfa._flash_attention_pallas(
         a, b, c, causal=causal), jnp.asarray(q), jnp.asarray(k),
