@@ -17,11 +17,17 @@ a decode tick is its host's launch loop.
             of the flash and fused xent libraries, from ``cuobjdump
             -sass``, and a failure unless every instantiation of the
             tensor-core kernels (``short_fwd_mma``, ``short_bwd_mma``,
-            ``short_bwd_wide``, ``flash_fwd_mma``, ``flash_dq_mma``,
-            ``flash_dkv_mma``,
+            ``flash_fwd_mma``, ``flash_dq_mma``, ``flash_dkv_mma``,
+            the head widths 192 and 256's ``flash_fwd_wg``,
+            ``short_fwd_wg`` and ``short_bwd_wg``,
             ``xent_fwd_mma``, ``xent_bwd_mma``, ``xent_fwd_ws``,
             ``xent_bwd_ws``: every K2 kernel but the f32 form's
-            elementwise split pass) has some;
+            elementwise split pass) has some; the wide libraries' wgmma
+            kernels must hold HGMMA and no local memory (``cuobjdump
+            -res-usage``: their registers and stack / local bytes are
+            printed), and none of the designs they replaced
+            (``short_bwd_wide``, the wide ``flash_fwd_mma`` /
+            ``short_fwd_mma``) may be left in those libraries;
 1. kernels  each kernel against its plain version on the card at its
             main path's shapes: paged attention over f32, bf16, f16 and
             int8 pools within atol/rtol 1e-4 (sum order), two launches
@@ -134,11 +140,16 @@ a decode tick is its host's launch loop.
             (``wide_case``: the ``wide`` rows of check_flash,
             check_flash_f16, check_flash_masked, check_flash_short,
             check_flash_short_f16 and check_flash_ring): f32, bf16 and
-            f16, causal, key-masked (entries with no live key), dropout
-            0.1, ragged Lq != Lk, the external-lse backward at the SP
-            block, the short kernels at L 128, 384 and 512 (the wide
-            backward's clusters of 2, 6 and 8, and how many the card
-            holds), each against its plain version by its check's
+            f16, causal, key-masked (entries with no live key; a batch
+            whose shorter entries end kv tiles early, so the forward
+            skips dead tiles), dropout 0.1, ragged Lq != Lk, lengths that
+            end inside the forward's 128-row q tile and inside a kv
+            tile (L 130, 200, 320, 333, 459; causal and not, bf16 and
+            f16), the external-lse backward at the SP block, the short
+            kernels at L 128, 384 and 512 (they take L % 128 == 0: the
+            wide backward's clusters of 2, 6 and 8, causal L 384 in bf16
+            and f16, and how many clusters the card holds), each against
+            its plain version by its check's
             tolerance, its launch counts moved, the 2-byte forms twice
             bit for bit, each timed beside SDPA (aten's flash backward
             for the external-lse form) and its bound. Kernel, plain and
@@ -543,42 +554,106 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
 # ---------------------------------------------------------------------------
 # phase 0: the tensor-core kernels' instructions
 # ---------------------------------------------------------------------------
-TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "short_bwd_wide",
-                       "flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma",
-                       "xent_fwd_mma", "xent_bwd_mma", "xent_fwd_ws",
-                       "xent_bwd_ws")
+TENSOR_CORE_KERNELS = ("short_fwd_mma", "short_bwd_mma", "flash_fwd_mma",
+                       "flash_dq_mma", "flash_dkv_mma", "flash_fwd_wg",
+                       "short_fwd_wg", "short_bwd_wg", "xent_fwd_mma",
+                       "xent_bwd_mma", "xent_fwd_ws", "xent_bwd_ws")
+# the wgmma kernels of the wide libraries (head widths 192 and 256), and
+# the designs they replaced, which those libraries no longer hold
+WIDE_LIBS = ("flash_attention_wide", "flash_short_wide")
+WIDE_WG_KERNELS = ("flash_fwd_wg", "short_fwd_wg", "short_bwd_wg")
+WIDE_GONE = ("short_bwd_wide", "flash_fwd_mma", "short_fwd_mma")
 
 
-def tensor_core_counts(build):
-    """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in each
-    kernel function of the flash libraries (both widths' libraries) and
-    the fused xent library, read from their SASS with the toolkit's
-    ``cuobjdump``; fails unless every instantiation of the tensor-core
-    kernels has some."""
+def sass_functions(build, libs):
+    """{library: {kernel function: (HMMA, HGMMA) instruction counts}} from
+    the SASS of each library (the toolkit's ``cuobjdump``, one process a
+    library, all at once)."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    libs = ("flash_attention", "flash_attention_wide", "flash_short",
-            "flash_short_wide", "fused_xent")
     procs = {lib: subprocess.Popen([tool, "-sass", str(build._lib_path(lib))],
                                    stdout=subprocess.PIPE,
                                    stderr=subprocess.PIPE, text=True)
-             for lib in libs}              # one cuobjdump a library, at once
-    counts = {}
+             for lib in libs}
+    out = {}
     for lib, proc in procs.items():
-        out, err = proc.communicate(timeout=300)
+        text, err = proc.communicate(timeout=300)
         expect(proc.returncode == 0, f"cuobjdump failed on {lib}: "
                                      f"{err[-500:]}")
-        fn = None
-        for line in out.splitlines():
+        fns, fn = {}, None
+        for line in text.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                counts[fn] = 0
-            elif fn is not None and (" HMMA." in line or " HGMMA." in line):
-                counts[fn] += 1
+                fns[fn] = [0, 0]
+            elif fn is not None and " HMMA." in line:
+                fns[fn][0] += 1
+            elif fn is not None and " HGMMA." in line:
+                fns[fn][1] += 1
+        out[lib] = {f: tuple(n) for f, n in fns.items()}
+    return out
+
+
+def tensor_core_counts(build):
+    """HMMA (``mma.sync``) plus HGMMA (``wgmma``) instructions in each
+    kernel function of the flash libraries (both widths' libraries) and
+    the fused xent library, read from their SASS; fails unless every
+    instantiation of the tensor-core kernels has some. Returns
+    ({function: count}, the wide libraries' rows of ``wide_wg_check``)."""
+    libs = ("flash_attention", "flash_short", "fused_xent") + WIDE_LIBS
+    sass = sass_functions(build, libs)
+    counts = {fn: sum(n) for fns in sass.values() for fn, n in fns.items()}
     for name in TENSOR_CORE_KERNELS:
         got = [n for fn, n in counts.items() if name in fn]
         expect(bool(got) and min(got) > 0,
                f"{name}: no tensor-core instruction in {got}")
-    return counts
+    return counts, wide_wg_check(build, {lib: sass[lib] for lib in WIDE_LIBS})
+
+
+def resource_usage(build, lib):
+    """{kernel function: {"REG", "STACK", "LOCAL", ...}} of a library, from
+    ``cuobjdump -res-usage``."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-res-usage", str(build._lib_path(lib))],
+                          capture_output=True, text=True, timeout=300)
+    expect(proc.returncode == 0, f"cuobjdump -res-usage failed on {lib}: "
+                                 f"{proc.stderr[-500:]}")
+    out, fn = {}, None
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function ") and line.endswith(":"):
+            fn = line[len("Function "):-1].strip()
+        elif fn is not None and line.startswith("REG:"):
+            out[fn] = {k: int(v) for k, v in (
+                t.split(":", 1) for t in line.split()
+                if ":" in t and t.split(":", 1)[1].isdigit())}
+            fn = None
+    return out
+
+
+def wide_wg_check(build, sass):
+    """The wide libraries' wgmma kernels: every instantiation of
+    ``WIDE_WG_KERNELS`` holds HGMMA and uses no local memory (STACK and
+    LOCAL 0 in ``cuobjdump -res-usage``: no spill), and none of the
+    designs they replaced (``WIDE_GONE``) is left. Returns each
+    instantiation's registers (at launch; setmaxnreg moves them at run
+    time), local bytes and HGMMA / HMMA counts."""
+    rows = {}
+    for lib, fns in sass.items():
+        gone = [fn for fn in fns if any(g in fn for g in WIDE_GONE)]
+        expect(not gone, f"{lib} still holds {gone}")
+        res = resource_usage(build, lib)
+        for fn, (hmma, hgmma) in fns.items():
+            if not any(k in fn for k in WIDE_WG_KERNELS):
+                continue
+            r = res.get(fn, {})
+            rows[fn] = {"lib": lib, "hgmma": hgmma, "hmma": hmma,
+                        "registers": r.get("REG"), "stack": r.get("STACK"),
+                        "local": r.get("LOCAL")}
+            expect(hgmma > 0, f"{fn}: no HGMMA in {lib}")
+            expect(r.get("LOCAL") == 0 and r.get("STACK") == 0,
+                   f"{fn}: local memory in {lib} ({r})")
+    for name in WIDE_WG_KERNELS:
+        expect(any(name in fn for fn in rows), f"{name}: not built")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2118,12 +2193,17 @@ def wide_rows(torch, fa, form, gen, cases, seed, timing, rule=False,
 
 # check_flash's D 192/256 cases (dO a unit gradient, q unscaled): GPT-2
 # small at 3 heads of 256 (gpt_d256's shape, its K1a/K1b kernel-line rows),
-# ragged Lq != Lk, ragged causal, dropout, f32
+# ragged Lq != Lk, ragged causal, dropout, f32; lengths that end inside
+# the wide forward's 128-row q tile (a last tile of 2 and of 64 rows: the
+# second warpgroup's rows all past Lq) and inside a 64-row kv tile,
+# causal and not
 WIDE_FLASH = (
     ("bf16_D256_causal_L1024", 8, 1024, 1024, 3, 256, "bfloat16", True, 0.0),
     ("bf16_D192", 4, 512, 512, 4, 192, "bfloat16", False, 0.1),
     ("bf16_D256_Lq_ne_Lk", 2, 200, 333, 3, 256, "bfloat16", False, 0.1),
     ("bf16_D192_ragged_causal", 2, 200, 200, 4, 192, "bfloat16", True, 0.1),
+    ("bf16_D256_causal_L320", 2, 320, 320, 3, 256, "bfloat16", True, 0.1),
+    ("bf16_D192_Lq130_Lk459", 2, 130, 459, 4, 192, "bfloat16", False, 0.0),
     ("f32_D256_causal", 2, 256, 256, 3, 256, "float32", True, 0.1),
     ("f32_D192_Lq_ne_Lk", 2, 200, 333, 4, 192, "float32", False, 0.1))
 
@@ -2228,7 +2308,11 @@ def check_flash_f16(torch, fa, counters, timing):
         ("f16_D256_peaked_scale2^15", 2, 256, 256, 3, 256, f16, False, 0.1,
          LOSS_SCALE, 8.0),
         ("f16_D192_Lq17_Lk128", 8, 17, 128, 4, 192, f16, False, 0.0,
-         LOSS_SCALE, 1.0)], seed, timing, rule=True)
+         LOSS_SCALE, 1.0),
+        ("f16_D192_causal_L200_scale2^15", 2, 200, 200, 4, 192, f16, True,
+         0.1, LOSS_SCALE, 1.0),
+        ("f16_D256_Lq130_Lk333_scale1", 2, 130, 333, 3, 256, f16, False, 0.1,
+         1.0, 1.0)], seed, timing, rule=True)
     expect(moved["flash_attention_fwd_f16"] == n_f16
            and moved["flash_attention_bwd_f16"] == n_f16
            and moved["flash_attention_masked_fwd_f16"] == 1
@@ -2814,6 +2898,8 @@ def check_flash_short(torch, fa, timing, tc_counts):
         ("bf16_D256_causal_L512", 4, 512, 512, 3, 256, "bfloat16", True, 0.1),
         ("bf16_D256_L128", 4, 128, 128, 3, 256, "bfloat16", False, 0.0),
         ("bf16_D192_L384", 2, 384, 384, 4, 192, "bfloat16", False, 0.1),
+        ("bf16_D256_causal_L384", 2, 384, 384, 3, 256, "bfloat16", True,
+         0.1),
         ("f32_D256_L512", 2, 512, 512, 3, 256, "float32", False, 0.1),
         ("f32_D192_causal_L256", 2, 256, 256, 4, 192, "float32", True,
          0.1))), seed, timing)
@@ -2827,8 +2913,8 @@ def check_flash_short(torch, fa, timing, tc_counts):
     row["short_bwd_mma_hmma"] = {"D64" if "ILi64E" in fn else "D128": n
                                  for fn, n in tc_counts.items()
                                  if "short_bwd_mma" in fn}
-    row["short_bwd_wide_hmma"] = {fn: n for fn, n in tc_counts.items()
-                                  if "short_bwd_wide" in fn}
+    row["short_bwd_wg_tensor_core"] = {fn: n for fn, n in tc_counts.items()
+                                       if "short_bwd_wg" in fn}
     # clusters of the bf16 backward the card holds at once at the main
     # shape (8 CTAs of 104 KB each, two an SM at most)
     fn = fa._build.entry("flash_short", "flash_short_bwd_max_clusters",
@@ -2841,7 +2927,7 @@ def check_flash_short(torch, fa, timing, tc_counts):
         "sms": torch.cuda.get_device_properties(0).multi_processor_count}
     wide = fa._build.entry("flash_short_wide", "flash_short_bwd_max_clusters",
                            [ctypes.c_int, ctypes.c_int])
-    for d in (192, 256):     # short_bwd_wide: 8 CTAs, one an SM
+    for d in (192, 256):     # short_bwd_wg: 8 CTAs, one an SM
         n = int(wide(512, d))
         expect(n > 0, f"flash short D {d}: cudaOccupancyMaxActiveClusters "
                       f"failed ({n})")
@@ -2925,7 +3011,11 @@ def check_flash_short_f16(torch, fa, gen, timing):
         ("f16_D256_L256_scale2^15", 4, 256, 256, 3, 256, torch.float16,
          False, 0.1, LOSS_SCALE, 1.0),
         ("f16_D192_L128_peaked_scale1", 4, 128, 128, 4, 192, torch.float16,
-         False, 0.1, 1.0, 8.0)], seed, timing, rule=True)
+         False, 0.1, 1.0, 8.0),
+        ("f16_D192_causal_L384_scale2^15", 2, 384, 384, 4, 192,
+         torch.float16, True, 0.1, LOSS_SCALE, 1.0),
+        ("f16_D256_L384_scale1", 2, 384, 384, 3, 256, torch.float16, False,
+         0.1, 1.0, 1.0)], seed, timing, rule=True)
     cases = row["cases"].values()
     row["fwd_max_abs_err"] = max(c["max_abs_err"]["out"] for c in cases)
     row["bwd_max_abs_err"] = max(max(c["max_abs_err"][g]
@@ -5396,15 +5486,28 @@ def check_flash_masked(torch, fa, timing):
     row["mask_bitwise"] = True
     # head widths 192 and 256: a padded batch in bf16 and in f32, entries
     # with no live key (the mean of V) in bf16; f16 by the 2-byte rule
+    # a padded batch in bf16 and in f32, entries with no live key (the mean
+    # of V) in bf16, and a batch at L 320 whose shorter entries end 1 to 4
+    # kv tiles early (the dead-tile skip; kv_tiles_skipped > 0)
+    dead_lens = np.array([320, 100, 190, 64])
     row["wide"] = wide_rows(
         torch, fa, "stream", gen, wide_cases(torch, (
             ("bf16_D192_L512", 8, 512, 512, 4, 192, "bfloat16", False, 0.1),
             ("f32_D256", 2, 256, 256, 3, 256, "float32", False, 0.1),
             ("bf16_D256_all_masked", 4, 256, 256, 3, 256, "bfloat16", False,
-             0.0))), seed, timing,
+             0.0),
+            ("bf16_D192_dead_tiles", 4, 320, 320, 4, 192, "bfloat16", False,
+             0.1))), seed, timing,
         masks={"bf16_D192_L512": masked_lens(8, 512, seed=3),
                "f32_D256": masked_lens(2, 256, seed=4),
-               "bf16_D256_all_masked": np.array([256, 0, 100, 0])})
+               "bf16_D256_all_masked": np.array([256, 0, 100, 0]),
+               "bf16_D192_dead_tiles": dead_lens})
+    dead_bias = fa.kv_mask_bias(len_mask(torch, dead_lens, 320), 4, 320)
+    skipped = int((fa.kv_tile_visits(4, 320, 320, False)
+                   & ~fa.kv_tile_visits(4, 320, 320, False, dead_bias)).sum())
+    expect(skipped > 0, "flash masked bf16_D192_dead_tiles: no kv tile "
+                        "skipped")
+    row["wide"]["bf16_D192_dead_tiles"]["kv_tiles_skipped"] = skipped
     row["wide"].update(wide_rows(
         torch, fa, "stream", gen, [("f16_D256_L256", 4, 256, 256, 3, 256,
                                     torch.float16, False, 0.1, LOSS_SCALE,
@@ -8559,10 +8662,11 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         logs = _build.build_all(ptxas_verbose=True)
-        tc_counts = tensor_core_counts(_build)
+        tc_counts, wide_wg = tensor_core_counts(_build)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": sorted(logs), "ptxas": logs,
-              "tensor_core_instructions": tc_counts})
+              "tensor_core_instructions": tc_counts,
+              "wide_wgmma_kernels": wide_wg})
 
         timing = not args.kernels_only
         k4a = check_attention(torch, pa, rng, False, timing)

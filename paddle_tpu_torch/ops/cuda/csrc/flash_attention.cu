@@ -99,9 +99,15 @@
 //   kDkvCols blocks share each kv tile (grid z), each recomputing S, dP,
 //   P and dS over the whole width: 40 % more products than one block, no
 //   exchange between blocks, each element of dK and dV still summed by
-//   one thread in one order, so two runs give the same bits. The forward
-//   and dq kernels hold 96 / 128 accumulators and keep their design, at
-//   one block a multiprocessor (their shared memory allows no more).
+//   one thread in one order, so two runs give the same bits. The dq
+//   kernel holds 96 / 128 accumulators and keeps its design, at one block
+//   a multiprocessor (its shared memory allows no more).
+// - The 2-byte forward at these widths is flash_fwd_wg, on wgmma
+//   warpgroups fed by TMA (flash_wide.cuh's fwd_wg, with K1c's forward):
+//   a 128-row q tile over two consumer warpgroups, each holding its 64
+//   x D accumulator in registers that setmaxnreg takes from the producer
+//   warpgroup, which keeps K and V tiles in flight. The numerics are
+//   fwd_mma's (P into P V as hi + lo).
 // - Shared memory (the f32 FMA kernels): at D = 256 the dq kernel's and
 //   the dk/dv kernel's f32 tiles (~280 KB) pass the 227 KB a block may
 //   have, so one [64][D+1] tile takes K and V in turn (the dq kernel:
@@ -159,6 +165,9 @@
 // and are not written; columns past L, and above the diagonal when
 // causal, score -inf).
 #include "flash_common.cuh"
+#ifdef FLASH_WIDE
+#include "flash_wide.cuh"
+#endif
 
 namespace {
 
@@ -252,6 +261,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(out, acc, a, b, h, q0, a.Lq, 1.0f);
 }
 
+#ifndef FLASH_WIDE
 // forward, bf16 or f16 on tensor cores (the body is flash_common.cuh's
 // fwd_mma)
 template <int D, bool MASKED, typename T>
@@ -263,6 +273,17 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   fwd_mma<D, MASKED>(q, k, v, out, lse, a,
                      a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
+#else
+// forward, bf16 or f16 at D = 192 and 256 on wgmma (the body is
+// flash_wide.cuh's fwd_wg): one block per (128-row q tile, b*H + h)
+template <int D, bool MASKED, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wg(const __grid_constant__ WideFwd<T> p) {
+  // causal: the longest q tiles start first
+  fwd_wg<D, MASKED, T, false>(
+      p, p.a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // backward: dq (+ delta)
@@ -746,6 +767,12 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
 template <int D, typename T>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Args& a, cudaStream_t st) {
+#ifdef FLASH_WIDE
+  return a.bias ? launch_fwd_wg<D, T>(flash_fwd_wg<D, true, T>, q, k, v, out,
+                                      lse, a, st)
+                : launch_fwd_wg<D, T>(flash_fwd_wg<D, false, T>, q, k, v, out,
+                                      lse, a, st);
+#else
   auto kern = a.bias ? flash_fwd_mma<D, true, T> : flash_fwd_mma<D, false, T>;
   const size_t smem = fwd_mma_smem<D>(a.Lk);
   cudaError_t e = allow_smem(kern, smem);
@@ -754,6 +781,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kMmaT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                   (T*)out, lse, a);
   return (int)cudaGetLastError();
+#endif
 }
 
 // EXT: delta comes from the caller (o may be null), else the dq kernel

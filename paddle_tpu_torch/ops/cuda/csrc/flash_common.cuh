@@ -640,16 +640,14 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst,
 // exp(S * scale + bias - lse), zero where dead; dP dropped and scaled by
 // 1/(1-p); dS = P (dP - delta) with the undropped P. Rows are the warp's
 // 16 q rows from row0.
+// grad_scores_kept takes the dropout bits ``keep`` (keep_frag's) as
+// given; grad_scores forms them.
 template <bool WANT_P>
-__device__ __forceinline__ void grad_scores(float (&s)[8][4],
-                                            float (&dp)[8][4], const Args& a,
-                                            int bh, int row0, int kv0,
-                                            const float (&bv)[8][2],
-                                            const float (&lse_r)[2],
-                                            const float (&dl_r)[2],
-                                            int lane) {
+__device__ __forceinline__ void grad_scores_kept(
+    float (&s)[8][4], float (&dp)[8][4], const Args& a, uint32_t keep,
+    int row0, int kv0, const float (&bv)[8][2], const float (&lse_r)[2],
+    const float (&dl_r)[2], int lane) {
   const bool drop = a.inv != 1.0f;
-  const uint32_t keep = drop ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -668,6 +666,19 @@ __device__ __forceinline__ void grad_scores(float (&s)[8][4],
       s[i][e] = p * (dpv - dl_r[r]);
       if (WANT_P) dp[i][e] = !drop ? p : kept ? p * a.inv : 0.0f;
     }
+}
+
+template <bool WANT_P>
+__device__ __forceinline__ void grad_scores(float (&s)[8][4],
+                                            float (&dp)[8][4], const Args& a,
+                                            int bh, int row0, int kv0,
+                                            const float (&bv)[8][2],
+                                            const float (&lse_r)[2],
+                                            const float (&dl_r)[2],
+                                            int lane) {
+  const uint32_t keep =
+      a.inv != 1.0f ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
+  grad_scores_kept<WANT_P>(s, dp, a, keep, row0, kv0, bv, lse_r, dl_r, lane);
 }
 
 // a warp's 16 x 64 accumulator tile as T into a swizzled [64][64]
@@ -841,9 +852,11 @@ __device__ __forceinline__ float times_pow2(float x, int e) {
 }
 
 // ---------------------------------------------------------------------------
-// The 2-byte forward on tensor cores: K1a's flash_fwd_mma (flash_attention.cu)
-// and K1c's short_fwd_mma (flash_short.cu), bf16 and f16, run this one body;
-// the design is in flash_attention.cu's header.
+// The 2-byte forward on tensor cores at head widths 64 and 128: K1a's
+// flash_fwd_mma (flash_attention.cu) and K1c's short_fwd_mma
+// (flash_short.cu), bf16 and f16, run this one body; the design is in
+// flash_attention.cu's header. At 192 and 256 both run fwd_wg
+// (flash_wide.cuh), which keeps this body's numerics.
 // ---------------------------------------------------------------------------
 // Shared memory: the q tile, two k, v and bias (64 values) stages, the
 // first live key and the live-tile bits (one a kv tile)
@@ -864,17 +877,18 @@ inline size_t fwd_mma_smem(int Lk) {
 // what it left. Otherwise (an entry with no live key: the mean of V; a
 // causal row whose allowed keys are all masked) every tile is visited.
 // Writes bit t of ``words`` for each live tile t and returns whether to
-// skip; reads b's Lk bias values once.
+// skip; reads b's Lk bias values once. NT: the block's threads.
+template <int NT = kMmaT>
 __device__ __forceinline__ bool scan_live_tiles(uint32_t* words, int* first,
                                                 const Args& a, int b,
                                                 int q0) {
   const int ntiles = (a.Lk + kTile - 1) / kTile, nw = (ntiles + 31) / 32;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < nw; i += kMmaT) words[i] = 0u;
+  for (int i = threadIdx.x; i < nw; i += NT) words[i] = 0u;
   if (threadIdx.x == 0) *first = a.Lk;
   __syncthreads();
   const float* row = a.bias + (int64_t)b * a.Lk;
-  for (int t = w; t < ntiles; t += kWarps) {
+  for (int t = w; t < ntiles; t += NT / 32) {
     const int c0 = t * kTile + lane, c1 = c0 + 32;
     const uint32_t b0 = __ballot_sync(~0u, c0 < a.Lk && row[c0] > kNegInit);
     const uint32_t b1 = __ballot_sync(~0u, c1 < a.Lk && row[c1] > kNegInit);

@@ -49,22 +49,14 @@
 // (row, kv tile) for dQ's partials and one a CTA for dK. Details above
 // the kernel.
 //
-// Backward at D = 192 and 256 (short_bwd_wide): the cluster design's dK
-// and dV accumulators pass the register file there and its f32 dQ
-// inboxes and accumulator put a CTA at 320 KB (D = 192) and 418 KB (D =
-// 256) of shared memory. Three designs were open: 32-row kv tiles in a
-// cluster of up to 16 CTAs (a non-portable size that a GPC may not hold
-// at one CTA an SM), dQ's partials exchanged in halves of D through one
-// inbox (still a dQ accumulator and an inbox in shared memory beside the
-// operand ring, and half the dK/dV columns still over the registers),
-// and dQ summed in an f32 scratch in a fixed order. The last is taken,
-// with the dk/dv kernel's column chunks (flash_attention.cu): two
-// clusters of L / 64 CTAs a head, one a column half of dK, dV and dQ,
-// each CTA with 96 or 128 accumulators; dQ's partials summed in device
-// memory (L2) in short_bwd_mma's order, one visitor a q tile a step,
-// ordered by the cluster barrier it already has, the last visitor
-// rounding to dq. Deterministic; its shared memory is the operand ring
-// alone (172 / 216 KB). Details above the kernel.
+// At D = 192 and 256 (the wide library, FLASH_WIDE) both 2-byte kernels
+// run on wgmma warpgroups with TMA copies: the forward is
+// flash_wide.cuh's fwd_wg (short_fwd_wg, 128-row q tiles), the backward
+// short_bwd_wg, one cluster of L / 64 CTAs a head whose CTAs keep the
+// whole D over two consumer warpgroups (dV in one, dK in the other), S and
+// dP formed once a tile pair, and dQ summed in an f32 scratch in device
+// memory in short_bwd_mma's order (the inboxes do not fit beside the
+// operand ring). Details above the kernel.
 //
 // f32 (short_fwd_kernel and short_bwd_kernel, the parity route held to
 // 1e-4, which TF32 cannot meet) uses f32 FMA from shared memory, one
@@ -94,6 +86,9 @@
 //   kernel, l sums the undropped probabilities; P v, dV and dP see the
 //   mask scaled by 1/(1-p).
 #include "flash_common.cuh"
+#ifdef FLASH_WIDE
+#include "flash_wide.cuh"
+#endif
 
 namespace {
 
@@ -232,6 +227,7 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // b*H + h), the streaming forward's body (flash_common.cuh fwd_mma, no
 // key mask)
 // ---------------------------------------------------------------------------
+#ifndef FLASH_WIDE
 template <int D, typename T>
 __global__ void __launch_bounds__(kMmaT, D == 64 ? 4 : D == 128 ? 2 : 1)
 short_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
@@ -242,6 +238,17 @@ short_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       q, k, v, out, lse, a,
       a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
+#else
+// at D = 192 and 256 the wgmma body (flash_wide.cuh's fwd_wg), one block
+// per (128-row q tile, b*H + h)
+template <int D, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+short_fwd_wg(const __grid_constant__ WideFwd<T> p) {
+  // causal: the longest q tiles start first; f16 takes P as one term
+  fwd_wg<D, false, T, kIsHalf<T>>(
+      p, p.a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // backward: dq, dk, dv in one launch, one block per b*H + h
@@ -402,7 +409,7 @@ short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O) of the q tile a CTA owns (rows r0 ..) in f32
 // into dl_s [64], two threads a row: the cluster kernels' prologue
-// (short_bwd_mma, short_bwd_wide)
+// (short_bwd_mma, short_bwd_wg)
 template <int D, typename T>
 __device__ __forceinline__ void owner_delta(float* dl_s,
                                             const T* __restrict__ dout,
@@ -678,219 +685,450 @@ short_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                kLift<T> ? pow2i(plift) : 1.0f, lane);
 }
 
+#ifdef FLASH_WIDE
 // ---------------------------------------------------------------------------
-// backward, bf16 or f16 on tensor cores at D = 192 and 256
+// backward, bf16 or f16 on wgmma at D = 192 and 256: one thread-block
+// cluster per b*H + h
 // ---------------------------------------------------------------------------
 // short_bwd_mma's design does not fit these widths: its dK and dV
-// accumulators (2 D / 8 x 4 f32 a thread) pass the register file, and its
-// two f32 dQ inboxes and dQ accumulator (3 x 64 x D x 4 bytes) put the
-// CTA at 320 KB (D = 192) and 418 KB (D = 256) of shared memory. So
-// short_bwd_wide splits the columns of dK, dV and dQ into two chunks of
-// DC = D / 2 and gives each chunk its own cluster of n = L / 64 CTAs per
-// (b, h) (grid (n, B*H, 2), clusters along x: at most 8 CTAs, the
-// portable size). CTA (c, chunk g) holds K_c and V_c whole (S = Q K^T and
-// dP = dO V^T need every column) and walks the q tiles as short_bwd_mma
-// does (step s: q tile j = (c + s) mod n, one visitor a q tile a step;
-// causal: only j >= c). S, dP, the dropout bits, P and dS are
-// short_bwd_mma's, computed by both chunks' CTAs alike; each accumulates
-// dK_c and dV_c of its DC columns (96 or 128 f32 a thread, as at D = 128)
-// and sends the partial dQ_j = dS K_c of its columns to the q tile's sum.
-// That sum lives in an f32 scratch in device memory (B*H x 2 x L x DC,
-// the caller's dq_acc, laid out in the fragment map so each thread reads
-// and writes its own 16-byte words), not in shared memory: step s's
-// visitor adds its part to what step s - 1's visitor left (s = 0 writes
-// its part) and the last visitor (step n - 1; causal: step j, CTA 0)
-// rounds the sum, times the scale, to q's type into dq. One cluster
-// barrier a step, split as in short_bwd_mma (arrive after the scratch
-// store, wait before the next read), orders the visitors; the reads and
-// writes go through L2 (ld/st.global.cg), which every SM sees. So each dQ
-// element sums its n parts in one fixed order (s = 0, 1, ...: the order
-// of short_bwd_mma's inboxes): no atomics, two launches give the same
-// bits. dS K runs 32 columns at a time. 172 KB of shared memory at D =
-// 192, 216 KB at D = 256: one CTA a multiprocessor. f16 lifts dS and P as
-// short_bwd_mma does (dQ's partials by a (row, kv tile) exponent, scaled
-// back before the scratch).
-template <int D, typename T>
-constexpr size_t short_bwd_wide_smem() {
-  // k, v; 2 q, 2 dO; P, dS hi, dS lo; delta; (f16) the warps' largest
-  // |dS| and P
-  return (size_t)6 * kTile * D * 2 + (size_t)3 * kTile * kTile * 2 +
-         kTile * 4 + (kLift<T> ? 2 * kWarps * 4 : 0);
+// accumulators (2 D / 8 x 4 f32 a thread in one 4-warp block) pass the
+// register file, and its f32 dQ inboxes and accumulator put a CTA at 320
+// KB (D = 192) and 418 KB (D = 256) of shared memory. short_bwd_wg keeps
+// its cluster (n = L / 64 CTAs a (b, h), CTA c owning kv tile c, K_c and
+// V_c resident, q tile j = (c + s) mod n at step s, causal only j >= c)
+// and splits each step's products over two consumer warpgroups of one
+// CTA, so the whole D stays in one CTA and S, dP, P and dS are formed
+// once a tile pair (5 products of 64 x 64 x D where the parent's two
+// clusters a head, one a column half, needed 7):
+//   - the copies are TMA: K_c and V_c once, Q_j and dO_j a step into a
+//     two-stage ring, issued by warpgroup 1's first warp, which refills a
+//     stage once every warp has released it (the block is two warpgroups,
+//     256 threads, so that a thread may hold 255 registers: a producer
+//     warpgroup with setmaxnreg left ptxas at 168 and spilling, as
+//     flash_wide.cuh's header says);
+//   - warpgroup 0: S = Q_j K_c^T and dP = dO_j V_c^T (wgmma m64n64k16,
+//     q rows in the accumulator's rows, so each thread's dropout words are
+//     its own: keep_frag), then P, the dropped dP and dS = P (dP - delta)
+//     in f32 (grad_scores, short_bwd_mma's arithmetic), stores the dropped
+//     P (one 2-byte term) and dS (hi + lo) into shared tiles and runs
+//     dV_c += P^T dO_j (wgmma, both operands MN-major) into its registers;
+//     each q row's lse (device memory) and delta (its owner's shared
+//     memory) are read under the products;
+//   - warpgroup 1: dK_c += dS^T Q_j (hi + lo) into its registers. A stage
+//     is released as soon as its last reader's product is done (the dQ
+//     passes read only the dS tiles and K_c).
+// dS and P pass between the two through the shared tiles, ordered by
+// named barriers (a single set of tiles: warpgroup 0 writes step s + 1's
+// once warpgroup 1 has read step s's). Only one place holds both P and dP
+// in f32, so dS is formed where both are, with short_bwd_mma's rounding.
+// dQ_j's partial dS K_c goes in passes of 64 columns from the dS tiles
+// (warpgroup 0 the first pass, warpgroup 1 the others: the two carry
+// about the same products); over f16 warpgroup 0 forms every pass from
+// its registers, with dS lifted by each row's own exponent as in
+// short_bwd_mma (the shared tiles carry the CTA's exponent, dK's).
+// The partials are summed in the caller's f32 scratch (dq_acc, (B*H, L,
+// D), each thread's 16-byte words in the fragment map) in device memory:
+// two f32 inboxes of 64 x D do not fit beside the operand ring (DSMEM
+// would need 64 KB more at D = 256). Step s's visitor of q tile j adds its
+// part to what step s - 1's visitor, CTA c + 1, left (s = 0 writes its
+// part), and the last visitor (step n - 1; causal: CTA 0) rounds the
+// sum, times the scale, to q's type into dq: each dQ element sums its n
+// parts in one fixed order, no atomics, two launches give the same bits.
+// The order is kept without cluster barriers: each warpgroup that forms
+// dQ counts in its left neighbour's shared memory (red.release.cluster,
+// one a thread and step) and waits for its own count (ld.acquire.cluster)
+// before it reads the scratch; the scratch is read before the pass's
+// product is issued, so the load runs under it. Two cluster barriers
+// remain: after every owner's delta is written and before any CTA
+// leaves. Shared memory: K, V, two Q and two dO stages, P, dS hi and lo:
+// 216 KB at D = 256, 168 KB at D = 192, one CTA an SM.
+// f16 lifts dS and P by powers of two as short_bwd_mma does: warpgroup 0
+// raises the running exponents from its four warps' largest |dS| and P
+// (one more named barrier a step) and hands dK's to warpgroup 1 with the
+// dS tiles.
+template <typename T>
+struct WideBwd {
+  CUtensorMap q, k, v, dout;   // (B, L, H, D), 64 x 64 boxes
+  const T* o;                  // out and dO for delta
+  const T* dout_p;
+  const float* lse;
+  float* dq_acc;
+  T *dq, *dk, *dv;
+  Args a;
+};
+
+template <int D>
+constexpr size_t short_bwd_wg_smem() {
+  // K, V, 2 Q, 2 dO; P, dS hi, dS lo; delta of the CTA's own q tile; the
+  // warps' largest |dS| and P (f16); 5 mbarriers; dK's exponent (f16);
+  // the dQ counts of the two warpgroups
+  return (size_t)6 * kTileBytes<D> + (size_t)3 * kBlk + kTile * 4 +
+         2 * kWarps * 4 + 5 * 8 + 4 + 2 * 4;
 }
 
+// the dQ chain: wait until this CTA's count of the warpgroup reaches want
+__device__ __forceinline__ void chain_wait(uint32_t cnt, uint32_t want) {
+  uint32_t v;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile("ld.acquire.cluster.shared::cta.u32 %0, [%1];\n"
+                 : "=r"(v) : "r"(cnt) : "memory");
+    if (v >= want) return;
+    if (t0 == 0)
+      t0 = global_ns();
+    else if (global_ns() - t0 > kHangNs)
+      __trap();
+  }
+}
+
+// the dQ chain: one count in a peer's shared memory (``cnt`` mapped into
+// the cluster window), released after this thread's scratch stores
+__device__ __forceinline__ void chain_signal(uint32_t cnt) {
+  asm volatile("red.release.cluster.shared::cluster.add.u32 [%0], %1;\n" ::"r"(
+                   cnt),
+               "r"(1u)
+               : "memory");
+}
+
+// N n-tiles from i0 of one 64-column pass (columns 64 cb ..) of q tile
+// j's dQ for this thread: ``part`` (n-tiles 8 cb .. of the fragment map)
+// plus ``prev``, what step st - 1's visitor left (dq_prev), into the
+// scratch words ``sum``; the last visitor writes dq, times the scale,
+// instead
+template <int D, int N, typename T>
+__device__ __forceinline__ void dq_put(const float (&part)[32],
+                                       const float4 (&prev)[N], int i0,
+                                       bool first, bool last, float4* sum,
+                                       T* dq, const Args& a, int b, int h,
+                                       int row0, int cb, int lane) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int i = i0 + n;
+    float4 x = make_float4(part[4 * i], part[4 * i + 1], part[4 * i + 2],
+                           part[4 * i + 3]);
+    if (!first)
+      x = make_float4(prev[n].x + x.x, prev[n].y + x.y, prev[n].z + x.z,
+                      prev[n].w + x.w);
+    if (last) {
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      store_ntile<D>(dq, xs, a, b, h, row0, a.Lq, 64 * cb + 8 * i, a.scale,
+                     lane);
+    } else {
+      __stcg(sum + (8 * cb + i) * kMmaT, x);
+    }
+  }
+}
+
+// what step st - 1's visitor left for n-tiles i0 .. i0 + N - 1 of pass
+// cb, read before it is needed (the reads wait behind this thread's
+// scratch stores, so they go in a batch)
+template <int N>
+__device__ __forceinline__ void dq_prev(float4 (&prev)[N], const float4* sum,
+                                        int cb, int i0 = 0) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    prev[n] = __ldcg(sum + (8 * cb + i0 + n) * kMmaT);
+}
+
+// the largest |dS| and P over warpgroup 0's 64 x 64 tile (block_absmax2
+// over its four warps, through a named barrier)
+__device__ __forceinline__ void wg_absmax2(float& a, float& b, float* wmax,
+                                           int w, int lane) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+  if (lane == 0) {
+    wmax[w] = a;
+    wmax[kWarps + w] = b;
+  }
+  bar_sync(3, kMmaT);
+  a = fmaxf(fmaxf(wmax[0], wmax[1]), fmaxf(wmax[2], wmax[3]));
+  b = fmaxf(fmaxf(wmax[4], wmax[5]), fmaxf(wmax[6], wmax[7]));
+}
+
+// named barriers: 1 the dS tiles are written (warpgroup 0 -> 1), 2 they
+// are read (1 -> 0), 3 warpgroup 0 alone
+constexpr int kBarDsFull = 1, kBarDsFree = 2, kBarWg0 = 3;
+
 template <int D, typename T>
-__global__ void __launch_bounds__(kMmaT, 1)
-short_bwd_wide(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ o,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ dq_acc, T* __restrict__ dq,
-               T* __restrict__ dk, T* __restrict__ dv, Args a) {
-  constexpr int DC = D / 2;                        // this CTA's columns
-  extern __shared__ __align__(128) unsigned char smem_mma[];
-  constexpr uint32_t TB = kTile * D * 2;           // bytes of a 2-byte tile
-  constexpr uint32_t PB = kTile * kTile * 2;       // bytes of a P/dS tile
-  const uint32_t Ks = smem_u32(smem_mma), Vs = Ks + TB, Qs = Vs + TB,
-                 dOs = Qs + 2 * TB, Ps = dOs + 2 * TB, dSs = Ps + PB,
-                 dSl = dSs + PB;
-  float* dl_s = reinterpret_cast<float*>(smem_mma + 6 * TB + 3 * PB);
-  float* wmax = dl_s + kTile;                     // [8], f16
-  const uint32_t dl_u = smem_u32(dl_s);
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+__global__ void __launch_bounds__(kWgThreads, 1)
+short_bwd_wg(const __grid_constant__ WideBwd<T> p) {
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  constexpr uint32_t TB = kTileBytes<D>;
+  // f16: warpgroup 0 forms every dQ pass from its registers (dS by each
+  // row's exponent); bf16: warpgroup 0 the first kW0 passes from the dS
+  // tiles, warpgroup 1 the rest
+  constexpr bool kQ0All = kLift<T>;
+  constexpr int kW0 = kLift<T> ? D / 64 : 1;
+  const Args& a = p.a;
+  const uint32_t Ks = smem_u32(smem_wg), Vs = Ks + TB, Qs = Vs + TB,
+                 dOs = Qs + 2 * TB, Ps = dOs + 2 * TB, dSh = Ps + kBlk,
+                 dSl = dSh + kBlk;
+  unsigned char* Pp = smem_wg + 6 * TB;
+  float* dl_s = reinterpret_cast<float*>(Pp + 3 * kBlk);   // [64]
+  float* wmax = dl_s + kTile;                              // [8], f16
+  const uint32_t kvbar = smem_u32(wmax + 2 * kWarps), full = kvbar + 8,
+                 empty = full + 16, dl_u = smem_u32(dl_s);
+  int* lift_s = reinterpret_cast<int*>(wmax + 2 * kWarps + 10);
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(lift_s + 1);  // [2]
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31,
+            w = (tid >> 5) & 3, t128 = tid & (kMmaT - 1);
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int L = a.Lq, n = L / kTile;
   const int c = (int)cluster_rank(), kv0 = c * kTile;
-  const int col0 = blockIdx.z * DC;
   const int nact = a.causal ? n - c : n;           // steps with work
-  // this (b, h, chunk)'s dQ sums: q tile j's at [j][DC / 8][128] float4
-  float4* sums = reinterpret_cast<float4*>(dq_acc) +
-                 ((int64_t)bh * 2 + blockIdx.z) * n * (DC / 8) * kMmaT;
 
-  tile_async<D>(Ks, k, a, b, h, kv0, L);
-  tile_async<D>(Vs, v, a, b, h, kv0, L);
-  tile_async<D>(Qs, q, a, b, h, kv0, L);           // step 0: j = c
-  tile_async<D>(dOs, dout, a, b, h, kv0, L);
-  cp_commit();
-  owner_delta<D>(dl_s, dout, o, a, b, h, kv0);     // under the copies
-  float dka[DC / 8][4], dva[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
-  int lift = kLiftMin;       // f16: dK's exponent (the CTA's)
-  int plift = kLiftMin;      // f16: dV's
-  int row_lift[2] = {0, 0};  // f16: this step's dQ partial's, a row
-  cluster_arrive();     // delta is written and every CTA has started
-  cluster_wait();
+  if (tid < kMmaT) owner_delta<D>(dl_s, p.dout_p, p.o, a, b, h, kv0);
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);    // every warp
+    }
+    cnt[0] = cnt[1] = 0u;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();     // delta and the counts are in place, every CTA has
+  cluster_wait();       // started
+  // warpgroup 1's first warp issues the copies: K_c and V_c, then q tile
+  // (c + st) mod n's Q and dO into stage st % 2
+  const bool filler = wg == 1 && w == 0;
+  auto fill = [&](int st) {
+    const int s = st & 1, q0 = ((c + st) % n) * kTile;
+    mbar_expect(full + 8 * s, 2 * TB);
+    tma_tile<D>(Qs + s * TB, &p.q, b, h, q0, full + 8 * s);
+    tma_tile<D>(dOs + s * TB, &p.dout, b, h, q0, full + 8 * s);
+  };
+  if (filler && lane == 0) {
+    mbar_expect(kvbar, 2 * TB);
+    tma_tile<D>(Ks, &p.k, b, h, kv0, kvbar);
+    tma_tile<D>(Vs, &p.v, b, h, kv0, kvbar);
+    for (int st = 0; st < 2 && st < nact; ++st) fill(st);
+  }
+  // this CTA's q tile sums: q tile j's at [j][D / 8][128] float4
+  float4* sums = reinterpret_cast<float4*>(p.dq_acc) +
+                 (int64_t)bh * n * (D / 8) * kMmaT + t128;
+  const uint32_t cnt_u = smem_u32(cnt + wg);
+  const uint32_t cnt_left = cluster_map(cnt_u, (c + n - 1) % n);
+  ws_wait(kvbar, 0);
 
-  for (int st = 0; st < n; ++st) {
-    const int j = (c + st) % n, row0 = j * kTile + 16 * w;
-    const bool act = st < nact;
-    const uint32_t stg = (st & 1) * TB, Qt = Qs + stg, dOt = dOs + stg;
-    float s[8][4];
-    if (act) {
-      if (st + 1 < nact) {
-        const int nq = ((c + st + 1) % n) * kTile;
-        tile_async<D>(Qs + TB - stg, q, a, b, h, nq, L);
-        tile_async<D>(dOs + TB - stg, dout, a, b, h, nq, L);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      // S, dP, P and dS as in short_bwd_mma (written out here, not
-      // shared through a helper: ptxas then kept some of this kernel's
-      // registers in local memory inside its product loop at D = 256)
-      const int q0 = j * kTile;
-      float lse_r[2], dl_r[2];
+  if (wg == 0) {
+    float dva[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dva[j] = 0.0f;
+    auto& dv2 = reinterpret_cast<float(&)[D / 8][4]>(dva);
+    int lift = kLiftMin;       // f16: dK's exponent (the CTA's)
+    int plift = kLiftMin;      // f16: dV's
+    const float bv[8][2] = {};                     // the short forms: no bias
+    for (int st = 0; st < nact; ++st) {
+      const int s = st & 1, j = (c + st) % n, q0 = j * kTile,
+                row0 = q0 + 16 * w;
+      const uint32_t Qt = Qs + s * TB, dOt = dOs + s * TB;
+      const bool last = a.causal ? c == 0 : st == n - 1;
+      float4* sum = sums + (int64_t)j * (D / 8) * kMmaT;
+      float lse_r[2], dl_r[2];   // the rows' lse and delta (owner j's)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rr = 16 * w + frag_row(lane, 2 * r);
-        lse_r[r] = lse[(int64_t)bh * L + q0 + rr];
+        lse_r[r] = p.lse[(int64_t)bh * L + q0 + rr];
         dl_r[r] = ld_cluster(cluster_map(dl_u + 4 * rr, j));
       }
-      float dp[8][4];
+      // the dropout bits, before the products' accumulators are live
+      const uint32_t keep =
+          a.inv != 1.0f ? keep_frag(a, bh, row0, kv0, lane) : ~0u;
+      ws_wait(full + 8 * s, (uint32_t)(st >> 1) & 1u);
+      float sc[8][4], dp[8][4];
+      float(&sf)[32] = reinterpret_cast<float(&)[32]>(sc);
+      float(&df)[32] = reinterpret_cast<float(&)[32]>(dp);
+      const WgDesc dq_ = wg_k(Qt), dk_ = wg_k(Ks), ddo = wg_k(dOt),
+                   dv_ = wg_k(Vs);
+      wg_fence();
+      wg_ss64<T, 0, 0, true>(sf, dq_.k(0), dk_.k(0));             // S
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int kk = 1; kk < D / 16; ++kk)
+        wg_ss64<T, 0, 0, false>(sf, dq_.k(kk), dk_.k(kk));
+      wg_ss64<T, 0, 0, true>(df, ddo.k(0), dv_.k(0));             // dP
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-      mma_abt<D, T>(s, Qt, 16 * w, Ks, lane);     // S = Q K^T
-      mma_abt<D, T>(dp, dOt, 16 * w, Vs, lane);   // dP = dO V^T
-      const float bv[8][2] = {};                  // no bias
-      grad_scores<true>(s, dp, a, bh, row0, kv0, bv, lse_r, dl_r, lane);
+      for (int kk = 1; kk < D / 16; ++kk)
+        wg_ss64<T, 0, 0, false>(df, ddo.k(kk), dv_.k(kk));
+      wg_commit();
+      wg_wait<0>();
+      fence_operands(sf);
+      fence_operands(df);
+      grad_scores_kept<true>(sc, dp, a, keep, row0, kv0, bv, lse_r, dl_r,
+                             lane);
+      int row_lift[2] = {0, 0};  // f16: this step's dQ partial's, a row
       if constexpr (kLift<T>) {
-        const float m0 = tile_absmax(s, 0), m1 = tile_absmax(s, 1);
+        const float m0 = tile_absmax(sc, 0), m1 = tile_absmax(sc, 1);
         row_lift[0] = lift_exp(m0);
         row_lift[1] = lift_exp(m1);
         float ms = fmaxf(m0, m1), mp = tile_absmax(dp, -1);
-        block_absmax2(ms, mp, wmax, w, lane);
-        raise_lift(lift, lift_exp(ms), dka, -1);
-        raise_lift(plift, lift_exp(mp), dva, -1);
-        scale_tile(s, lift);
+        wg_absmax2(ms, mp, wmax, w, lane);
+        lift = max(lift, lift_exp(ms));   // warpgroup 1 rescales dK by it
+        raise_lift(plift, lift_exp(mp), dv2, -1);
+        scale_tile(sc, lift);
         scale_tile(dp, plift);
       }
-      unsigned char* Pp = smem_mma + 6 * TB;
+      bar_sync(kBarDsFree, 2 * kMmaT);   // warpgroup 1 read the last tiles
       store_frag<T>(Pp, nullptr, dp, w, lane);            // dropped P
-      store_frag<T>(Pp + PB, Pp + 2 * PB, s, w, lane);    // dS, hi + lo
-      if constexpr (kLift<T>) {
-        // dK's scale to the dQ partial's: dS 2^-row_lift, a row
+      store_frag<T>(Pp + kBlk, Pp + 2 * kBlk, sc, w, lane);  // dS, hi + lo
+      if (kLift<T> && t128 == 0) *lift_s = lift;
+      fence_async_smem();
+      bar_arrive(kBarDsFull, 2 * kMmaT);
+      bar_sync(kBarWg0, kMmaT);          // the P tile is whole
+      fence_operands(dva);
+      wg_fence();
+      const WgDesc dp_ = wg_mn(Ps), ddo2 = wg_mn(dOt);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)     // dV += P^T dO
+        wg_ss_t<T, D>(dva, dp_.mn(kk), ddo2.mn(kk));
+      wg_commit();
+      if (kW0 > 0 && st > 0) chain_wait(cnt_u, (uint32_t)(kMmaT * st));
+      if constexpr (kQ0All) {
+        // dQ's partial from registers: dS 2^-row_lift, a row (dK's scale
+        // to the partial's), every pass
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            s[i][e] = times_pow2(s[i][e], lift - row_lift[e >> 1]);
+            sc[i][e] = times_pow2(sc[i][e], lift - row_lift[e >> 1]);
+        uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a2<T>(fh[kk], fl[kk], sc, kk);
+        const float f[2] = {pow2i(row_lift[0]), pow2i(row_lift[1])};
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          // the previous sums in two halves of four n-tiles: the registers
+          // this form holds beside its operands (at D = 256) allow no more
+          float part[32];
+          float4 prev[4];
+          const WgDesc dkc = wg_mn(Ks + cb * kBlk);
+          wg_fence();
+          wg_rs64<T, true>(part, fh[0], dkc.mn(0));
+          wg_rs64<T, false>(part, fl[0], dkc.mn(0));
+#pragma unroll
+          for (int kk = 1; kk < 4; ++kk) {
+            wg_rs64<T, false>(part, fh[kk], dkc.mn(kk));
+            wg_rs64<T, false>(part, fl[kk], dkc.mn(kk));
+          }
+          wg_commit();
+          if (st > 0) dq_prev(prev, sum, cb, 0);
+          wg_wait<0>();
+          fence_operands(part);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) part[i] *= f[(i & 3) >> 1];
+          dq_put<D>(part, prev, 0, st == 0, last, sum, p.dq, a, b, h, row0,
+                    cb, lane);
+          if (st > 0) dq_prev(prev, sum, cb, 4);
+          dq_put<D>(part, prev, 4, st == 0, last, sum, p.dq, a, b, h, row0,
+                    cb, lane);
+        }
+      } else {
+        float4 prev[8];
+        if (kW0 > 0 && st > 0) dq_prev(prev, sum, 0);
+        wg_wait<0>();                    // dV is done with dO_j
+        fence_operands(dva);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+        for (int cb = 0; cb < kW0; ++cb) {
+          float part[32];
+          if (cb > 0 && st > 0) dq_prev(prev, sum, cb);
+          const WgDesc dsh = wg_k(dSh), dsl = wg_k(dSl),
+                       dkc = wg_mn(Ks + cb * kBlk);
+          wg_fence();
+          wg_ss64<T, 0, 1, true>(part, dsh.k(0), dkc.mn(0));
+          wg_ss64<T, 0, 1, false>(part, dsl.k(0), dkc.mn(0));
+#pragma unroll
+          for (int kk = 1; kk < 4; ++kk) {
+            wg_ss64<T, 0, 1, false>(part, dsh.k(kk), dkc.mn(kk));
+            wg_ss64<T, 0, 1, false>(part, dsl.k(kk), dkc.mn(kk));
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_operands(part);
+          dq_put<D>(part, prev, 0, st == 0, last, sum, p.dq, a, b, h, row0,
+                    cb, lane);
+        }
       }
+      if constexpr (kQ0All) {
+        wg_wait<0>();
+        fence_operands(dva);
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      if (kW0 > 0 && !last) chain_signal(cnt_left);
     }
-    if (st > 0) cluster_wait();   // step st - 1's sums are stored
-    if (act) {
-      // partial dQ_j = dS K_c over this CTA's columns, 32 at a time, added
-      // to q tile j's sum; the last visitor writes dq
-      const bool last = st == (a.causal ? j : n - 1);
-      float4* sum = sums + (int64_t)j * (DC / 8) * kMmaT + tid;
+    store_acc<D>(p.dv, dv2, a, b, h, kv0 + 16 * w, L,
+                 kLift<T> ? pow2i(plift) : 1.0f, lane);
+  } else {
+    float dka[D / 2];
 #pragma unroll
-      for (int pc = 0; pc < DC / 32; ++pc) {
-        float part[4][4];
+    for (int j = 0; j < D / 2; ++j) dka[j] = 0.0f;
+    auto& dk2 = reinterpret_cast<float(&)[D / 8][4]>(dka);
+    int lift = kLiftMin;       // f16: dK's exponent, warpgroup 0's
+    bar_arrive(kBarDsFree, 2 * kMmaT);   // no tiles to read before step 0
+    for (int st = 0; st < nact; ++st) {
+      const int s = st & 1, j = (c + st) % n, row0 = j * kTile + 16 * w;
+      const uint32_t Qt = Qs + s * TB;
+      const bool last = a.causal ? c == 0 : st == n - 1;
+      float4* sum = sums + (int64_t)j * (D / 8) * kMmaT;
+      ws_wait(full + 8 * s, (uint32_t)(st >> 1) & 1u);
+      bar_sync(kBarDsFull, 2 * kMmaT);   // step st's P and dS are in place
+      if constexpr (kLift<T>) raise_lift(lift, *lift_s, dk2, -1);
+      fence_operands(dka);
+      wg_fence();
+      const WgDesc dsh = wg_mn(dSh), dsl = wg_mn(dSl), dq_ = wg_mn(Qt);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][e] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t fa[4], fl[4];
-          acc_to_a2<T>(fa, fl, s, kk);
-#pragma unroll
-          for (int nn = 0; nn < 2; ++nn) {
-            uint32_t fb[4];
-            frag_bt<D>(fb, Ks, col0 + 32 * pc + 16 * nn, 16 * kk, lane);
-            mma16816<T>(part[2 * nn], fa, fb[0], fb[1]);
-            mma16816<T>(part[2 * nn + 1], fa, fb[2], fb[3]);
-            mma16816<T>(part[2 * nn], fl, fb[0], fb[1]);
-            mma16816<T>(part[2 * nn + 1], fl, fb[2], fb[3]);
-          }
+      for (int kk = 0; kk < 4; ++kk) {   // dK += dS^T Q, dS hi + lo
+        wg_ss_t<T, D>(dka, dsh.mn(kk), dq_.mn(kk));
+        wg_ss_t<T, D>(dka, dsl.mn(kk), dq_.mn(kk));
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_operands(dka);
+      if (lane == 0) mbar_arrive(empty + 8 * s);   // done with Q_j
+      if (filler && st + 2 < nact) {     // every warp released the stage
+        if (lane == 0) {
+          ws_wait(empty + 8 * s, (uint32_t)(st >> 1) & 1u);
+          fill(st + 2);
         }
-        if constexpr (kLift<T>) {   // back to dS's own scale, in f32
-          const float f[2] = {pow2i(row_lift[0]), pow2i(row_lift[1])};
+        __syncwarp();
+      }
+      if constexpr (!kQ0All && kW0 < D / 64) {
+        if (st > 0) chain_wait(cnt_u, (uint32_t)(kMmaT * st));
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int cb = kW0; cb < D / 64; ++cb) {
+          float part[32];
+          float4 prev[8];
+          if (st > 0) dq_prev(prev, sum, cb);
+          const WgDesc dsk = wg_k(dSh), dsm = wg_k(dSl),
+                       dkc = wg_mn(Ks + cb * kBlk);
+          wg_fence();
+          wg_ss64<T, 0, 1, true>(part, dsk.k(0), dkc.mn(0));
+          wg_ss64<T, 0, 1, false>(part, dsm.k(0), dkc.mn(0));
 #pragma unroll
-            for (int e = 0; e < 4; ++e) part[i][e] *= f[e >> 1];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int jj = 4 * pc + i;
-          float4 x = make_float4(part[i][0], part[i][1], part[i][2],
-                                 part[i][3]);
-          if (st > 0) {
-            const float4 y = __ldcg(sum + jj * kMmaT);
-            x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+          for (int kk = 1; kk < 4; ++kk) {
+            wg_ss64<T, 0, 1, false>(part, dsk.k(kk), dkc.mn(kk));
+            wg_ss64<T, 0, 1, false>(part, dsm.k(kk), dkc.mn(kk));
           }
-          if (last) {
-            const float xs[4] = {x.x, x.y, x.z, x.w};
-            store_ntile<D>(dq, xs, a, b, h, row0, L, col0 + 8 * jj,
-                           a.scale, lane);
-          } else {
-            __stcg(sum + jj * kMmaT, x);
-          }
+          wg_commit();
+          wg_wait<0>();
+          fence_operands(part);
+          dq_put<D>(part, prev, 0, st == 0, last, sum, p.dq, a, b, h, row0,
+                    cb, lane);
         }
       }
+      if (!kQ0All && kW0 < D / 64 && !last) chain_signal(cnt_left);
+      if (st + 1 < nact) bar_arrive(kBarDsFree, 2 * kMmaT);
     }
-    cluster_arrive();
-    if (act) {
-      __syncthreads();                          // P and dS are in place
-      // warp w: kv rows 16 w .. of dV += P^T dO and dK += dS^T Q, this
-      // CTA's columns
-      dkv_products<D, T, DC>(dva, dka, Ps, dSs, dSl, dOt, Qt, col0, w, lane);
-    }
-    __syncthreads();     // P, dS, the warps' maxima and the stage are
-  }                      // rewritten next
-  cluster_wait();        // the last step's barrier: no CTA leaves while
-                         // a visitor may still read its delta
-  store_acc<D, T, DC>(dk, dka, a, b, h, kv0 + 16 * w, L,
-                      kLift<T> ? a.scale * pow2i(lift) : a.scale, lane,
-                      col0);
-  store_acc<D, T, DC>(dv, dva, a, b, h, kv0 + 16 * w, L,
-                      kLift<T> ? pow2i(plift) : 1.0f, lane, col0);
+    store_acc<D>(p.dk, dk2, a, b, h, kv0 + 16 * w, L,
+                 kLift<T> ? a.scale * pow2i(lift) : a.scale, lane);
+  }
+  cluster_arrive();     // no CTA leaves while a peer may read its delta
+  cluster_wait();
 }
+#endif  // FLASH_WIDE
 
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
@@ -907,6 +1145,9 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
 template <int D, typename T>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    float* lse, const Args& a, cudaStream_t st) {
+#ifdef FLASH_WIDE
+  return launch_fwd_wg<D, T>(short_fwd_wg<D, T>, q, k, v, out, lse, a, st);
+#else
   auto kern = short_fwd_mma<D, T>;
   const size_t smem = fwd_mma_smem<D>(a.Lk);
   cudaError_t e = allow_smem(kern, smem);
@@ -915,6 +1156,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kMmaT, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, a);
   return (int)cudaGetLastError();
+#endif
 }
 
 template <int D>
@@ -933,14 +1175,14 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// the launch configuration of the 2-byte backward: grid (L / 64, B*H,
-// chunks), clusters of L / 64 CTAs
-cudaLaunchConfig_t bwd_mma_config(int L, int BH, int chunks, size_t smem,
+// the launch configuration of the 2-byte backward: grid (L / 64, B*H),
+// clusters of L / 64 CTAs of ``threads``
+cudaLaunchConfig_t bwd_mma_config(int L, int BH, int threads, size_t smem,
                                    cudaLaunchAttribute* attr,
                                    cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L / kTile, BH, chunks);
-  cfg.blockDim = dim3(kMmaT);
+  cfg.gridDim = dim3(L / kTile, BH);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -952,25 +1194,23 @@ cudaLaunchConfig_t bwd_mma_config(int L, int BH, int chunks, size_t smem,
   return cfg;
 }
 
-// The 2-byte backward's kernel, its shared memory and its column chunks
-// at head width D: short_bwd_mma (one chunk) at D <= 128, short_bwd_wide
-// (two) above
+// The 2-byte backward's kernel, its shared memory and its threads at head
+// width D: short_bwd_mma at D <= 128, short_bwd_wg above
 template <int D, typename T>
 struct BwdMma {
-  static constexpr bool kWide = D > 128;
-  static constexpr int kChunks = kWide ? 2 : 1;
-  static auto kernel() {
-    if constexpr (kWide) return short_bwd_wide<D, T>;
-    else return short_bwd_mma<D, T>;
-  }
-  static constexpr size_t smem() {
-    if constexpr (kWide) return short_bwd_wide_smem<D, T>();
-    else return short_bwd_mma_smem<D, T>();
-  }
+#ifdef FLASH_WIDE
+  static constexpr int kThreads = kWgThreads;
+  static auto kernel() { return short_bwd_wg<D, T>; }
+  static constexpr size_t smem() { return short_bwd_wg_smem<D>(); }
+#else
+  static constexpr int kThreads = kMmaT;
+  static auto kernel() { return short_bwd_mma<D, T>; }
+  static constexpr size_t smem() { return short_bwd_mma_smem<D, T>(); }
+#endif
 };
 
-// one cluster of L / 64 CTAs per b*H + h and column chunk (at most 8, the
-// portable limit); dq_acc: short_bwd_wide's dQ sums
+// one cluster of L / 64 CTAs per b*H + h (at most 8, the portable
+// limit); dq_acc: short_bwd_wg's dQ sums
 template <int D, typename T>
 int launch_bwd_mma(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
@@ -983,15 +1223,29 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      bwd_mma_config(a.Lq, a.B * a.H, K::kChunks, smem, attr, st);
-  if constexpr (K::kWide)
-    e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
-                           (const T*)o, (const T*)dout, lse, dq_acc, (T*)dq,
-                           (T*)dk, (T*)dv, a);
-  else
-    e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
-                           (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk,
-                           (T*)dv, a);
+      bwd_mma_config(a.Lq, a.B * a.H, K::kThreads, smem, attr, st);
+#ifdef FLASH_WIDE
+  WideBwd<T> p;
+  const bool half = kIsHalf<T>;
+  if (!bhld_map(&p.q, q, a.B, a.Lq, a.H, D, half) ||
+      !bhld_map(&p.k, k, a.B, a.Lq, a.H, D, half) ||
+      !bhld_map(&p.v, v, a.B, a.Lq, a.H, D, half) ||
+      !bhld_map(&p.dout, dout, a.B, a.Lq, a.H, D, half))
+    return (int)cudaErrorInvalidValue;
+  p.o = (const T*)o;
+  p.dout_p = (const T*)dout;
+  p.lse = lse;
+  p.dq_acc = dq_acc;
+  p.dq = (T*)dq;
+  p.dk = (T*)dk;
+  p.dv = (T*)dv;
+  p.a = a;
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+#else
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v,
+                         (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk,
+                         (T*)dv, a);
+#endif
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1063,7 +1317,7 @@ int flash_short_bwd_max_clusters(int L, int D) {
     int n = 0;
     cudaError_t e = allow_smem(kern, K::smem());
     const cudaLaunchConfig_t cfg =
-        bwd_mma_config(L, 1, K::kChunks, K::smem(), attr, nullptr);
+        bwd_mma_config(L, 1, K::kThreads, K::smem(), attr, nullptr);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
     return e == cudaSuccess ? n : -(int)e;

@@ -140,6 +140,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -185,9 +186,6 @@ constexpr uint32_t kBwdColsOff = kBwdPPOff + 2 * kBwdPP;
 constexpr uint32_t kBwdRedOff = kBwdColsOff + kBwdStages * kCB;
 constexpr uint32_t kBwdBarOff = kBwdRedOff + 576;
 constexpr uint32_t kBwdSmem = kBwdBarOff + 23 * 8;
-// a wait this long on one mbarrier is a hang: trap instead of holding
-// the card
-constexpr uint64_t kHangNs = 10000000000ull;
 
 enum { kFwd = 0, kDh = 1, kDw = 2 };
 
@@ -238,96 +236,6 @@ constexpr size_t mma_smem() {      // tiles, column values, 3 mbarriers
 // the TMA boxes that write them and of the wgmma descriptors that read
 // them, K-major for S = R X^T (rows R or X, 64 columns of H a block) and
 // MN-major for P' X (rows the k of the product, 64 columns of H a block).
-
-// mbarriers: ``count`` arrivals (the f32 form: one, the thread that
-// starts the copies) plus the bytes the copies bring (expect_tx)
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one try of a phase wait; CLUSTER: acquire at cluster scope, for bytes
-// that peers' st.async completed on this CTA's barrier
-template <bool CLUSTER>
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  if constexpr (CLUSTER)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  else
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// the 2-byte kernels' phase wait: a wait past kHangNs traps (a launch
-// failure the wrapper reports) rather than hanging the card
-template <bool CLUSTER = false>
-__device__ __forceinline__ void ws_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try<CLUSTER>(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try<CLUSTER>(bar, parity))
-    if (global_ns() - t0 > kHangNs) __trap();
-}
-
-// a 64 x 64 box (columns c0 .., rows r0 ..) of a tensor map into shared
-// memory; out-of-bounds elements arrive as zeros
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        int c0, int r0, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
-      : "memory");
-}
-
-// a box of a 1-D tensor map into shared memory (zeros past its end)
-__device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap* map,
-                                        int c0, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
-      : "memory");
-}
 
 // a store into a peer's shared memory (``addr`` and ``bar`` mapped into
 // the cluster window) whose bytes complete on the peer's mbarrier
@@ -465,49 +373,6 @@ __device__ __forceinline__ void lse_merge(float& m, float& l, float mo,
   const float mn = fmaxf(m, mo);
   l = l * exp2_ftz((m - mn) * kLog2e) + lo * exp2_ftz((mo - mn) * kLog2e);
   m = mn;
-}
-
-// ---------------------------------------------------------------------------
-// wgmma (sm_90a): a warpgroup's D (64 x N, f32, N / 2 registers a thread,
-// warp k of the group holding rows 16 k .., the m16n8 C layout for each 8
-// columns) += A (64 x 16) B (16 x N), B from shared memory through a
-// descriptor (start address, leading and stride byte offsets in 16-byte
-// units, 128-byte swizzle), A from shared memory the same way or from
-// registers (the m16n8k16 A fragment of the warp's 16 rows).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's committed groups are pending
-template <int N = 0>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// pins accumulator registers in place around a run of wgmma, so that the
-// compiler moves none of them between two wgmma (which would serialize
-// them)
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory writes of the generic proxy (cp.async, st.shared) made
-// visible to wgmma's reads, before the barrier that publishes them
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 #define XENT_D8(i)                                                  \
@@ -1666,20 +1531,6 @@ int launch_mma(K kern, size_t smem, int threads, int tiles, int H,
   e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (so the
-// library needs no link against libcuda)
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static void* fn = nullptr;
-  if (fn == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-  }
-  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
 }
 
 // a (rows, H) bf16 or f16 array read in 64 x 64 boxes with the 128-byte

@@ -12,7 +12,12 @@ the JAX package on the CPU.
 - The routing rule: the same verdicts as ``_short_ok`` (with
   ``pallas_enabled`` patched True) on L 128 / 512 / 1024,
   cross-attention and head widths 64 to 320, and the flag's gate; the
-  one intended difference is the dropped ``b*h < 2**15`` bound.
+  one intended difference is the dropped ``b*h < 2**15`` bound. At head
+  widths 192 and 256 and lengths that are not multiples of 128 (200,
+  320) the short kernels refuse and the flag's dispatch runs the
+  streaming form, whose output and gradients (h 1, causal and not) are
+  held against JAX's ``_flash_attention_core`` in interpret mode with
+  one block over the whole length (2e-5 and 1e-4).
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are
 held against those and against the streaming kernel on the card
@@ -167,6 +172,45 @@ def test_sdpa_routes_by_flag_and_shape(monkeypatch, short_flag):
     F.scaled_dot_product_attention(q128, torch.zeros(1, 256, 1, 64),
                                    torch.zeros(1, 256, 1, 64))
     assert calls == ["stream", "short", "stream", "stream"]
+
+
+@pytest.mark.parametrize("d,l", [(192, 200), (256, 320)])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_wide_ragged_length_runs_the_streaming_form(monkeypatch, short_flag,
+                                                    causal, d, l):
+    """With the flag on, a wide head at a length the short kernels
+    refuse (L % 128 != 0) takes the streaming form, and that matches the
+    JAX kernel."""
+    calls = []
+    real_short, real_stream = tfa.flash_attention_short, tfa.flash_attention
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tfa, "flash_attention_short",
+                        spy("short", real_short))
+    monkeypatch.setattr(tfa, "flash_attention", spy("stream", real_stream))
+    q, k, v, do = _qkv(b=1, l=l, h=1, d=d, seed=d + l, n=4)
+    assert not tfa.short_ok(torch.tensor(q), torch.tensor(k), causal)
+    set_flags({"flash_short_seq": True})
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(tq, tk, tv, is_causal=causal)
+    out.backward(torch.tensor(do))
+    assert calls == ["stream"]
+
+    def jcore(a, b, c):
+        return jfa._flash_attention_core(a, b, c, causal, l, l)
+
+    jout, vjp = jax.vjp(jcore, jnp.asarray(q), jnp.asarray(k),
+                        jnp.asarray(v))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=2e-5, atol=2e-5)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_short_form_refuses_other_shapes():

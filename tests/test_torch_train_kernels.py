@@ -9,7 +9,10 @@ kernels are held against those plain versions on the card
   and dq/dk/dv through autograd against ``jax.vjp`` of
   ``_flash_attention_pallas``, causal and not, at head widths 64 (1 x
   256 x 2 x 64) and 192 and 256 (1 x 256 x 1 x D); f32, atol 1e-5 (the
-  sums run in another order).
+  sums run in another order). At 192 and 256 also lengths that are not
+  multiples of 128 (causal 200, Lq 130 against Lk 333), the ragged edges
+  of the card's 128-row q tiles, against the same JAX functions with one
+  block over each whole length (the Pallas grid takes whole blocks).
 - K2 fused xent: loss, dh, dW, db against ``_fused_xent_core`` and its
   vjp, with ignored rows and N = 300 (the JAX side pads to 512 with
   ignored rows, as its wrapper does); atol 1e-5. The 2-byte forms over
@@ -99,6 +102,45 @@ def test_flash_backward_matches_pallas_vjp(causal, d):
                    for _ in range(4))
     _, vjp = jax.vjp(lambda a, b, c: jfa._flash_attention_pallas(
         a, b, c, causal=causal), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    jdq, jdk, jdv = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    tfa.flash_attention(tq, tk, tv, causal=causal).backward(_t(do))
+    for got, want in ((tq.grad, jdq), (tk.grad, jdk), (tv.grad, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL, rtol=0)
+
+
+# ragged lengths at the wide head widths: (Lq, Lk) and causal
+_RAGGED = [((200, 200), True), ((130, 333), False)]
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("lens,causal", _RAGGED, ids=["causal", "full"])
+def test_flash_ragged_forward_matches_pallas(lens, causal, d):
+    lq, lk = lens
+    rng = np.random.RandomState(3)
+    q = rng.randn(1, lq, 1, d).astype(np.float32)
+    k, v = (rng.randn(1, lk, 1, d).astype(np.float32) for _ in range(2))
+    jout, res = jfa._flash_attention_core_fwd(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v), causal, lq, lk)
+    jlse = np.asarray(res[4])[:, 0, :]                # (B*H, Lq)
+    out, lse = tfa.flash_attention_fwd(_t(q), _t(k), _t(v), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=ATOL, rtol=0)
+    assert counters.snapshot() == {}                  # the CPU runs plain
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("lens,causal", _RAGGED, ids=["causal", "full"])
+def test_flash_ragged_backward_matches_pallas_vjp(lens, causal, d):
+    lq, lk = lens
+    rng = np.random.RandomState(4)
+    q, do = (rng.randn(1, lq, 1, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(1, lk, 1, d).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(lambda a, b, c: jfa._flash_attention_core(
+        a, b, c, causal, lq, lk), jnp.asarray(q), jnp.asarray(k),
         jnp.asarray(v))
     jdq, jdk, jdv = vjp(jnp.asarray(do))
     tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
